@@ -1,0 +1,124 @@
+"""Builds the port's CUDA kernels into one shared library and binds it.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into ``build/libfvt_tpu_torch-<hash>.so`` at the repository root, keyed by
+a hash of the sources and the flags, at the first call that needs a
+kernel.  The library has a plain C interface and is loaded with
+``ctypes``: every pointer and the stream pass as ``c_void_p``, every C
+entry returns the CUDA error code of its launch, and :func:`check` raises
+on a non-zero code.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / 'csrc'
+BUILD_DIR = PACKAGE_DIR.parent / 'build'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry -> argument types; every entry returns an int
+_SIGNATURES = {
+    # x w1 b1 w2 b2 wd bd out, B T Cin Cout K dil, stream
+    'fvt_tcn_block_forward': [_P] * 8 + [_I] * 6 + [_P],
+    # x0..3 w0..3 b0..3, c0..3, wo bo ln_w ln_b out, N M E H, stream
+    'fvt_fusion_forward': [_P] * 12 + [_I] * 4 + [_P] * 5 + [_I] * 4 + [_P],
+}
+
+
+def sources() -> list:
+    return sorted(CSRC_DIR.glob('*.cu'))
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``, or
+    the ``PATH``."""
+    for home in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
+        if home and os.access(os.path.join(home, 'bin', 'nvcc'), os.X_OK):
+            return os.path.join(home, 'bin', 'nvcc')
+    found = shutil.which('nvcc')
+    if found is None:
+        raise RuntimeError('nvcc not found: the CUDA kernels of fvt_tpu_torch '
+                           'are built with the CUDA toolkit')
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f'libfvt_tpu_torch-{h.hexdigest()[:16]}.so'
+
+
+def build() -> Path:
+    """Compiles the sources unless the library for their hash exists.
+    The compiler's report (registers, spills, shared memory) is kept
+    beside the library as ``<name>.log``.  Returns the library's path."""
+    path = library_path()
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [nvcc(), *NVCC_FLAGS, '-o', tmp, *map(str, sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+                               f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
+        path.with_suffix('.log').write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, path)  # atomic: a concurrent build never sees half
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The built library, loaded once per process, with every entry's
+    ``argtypes`` and ``restype`` declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.fvt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.fvt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_tensor(name: str, t, shape: tuple, device) -> None:
+    """Raises unless ``t`` is a contiguous, 16-byte aligned float32 tensor
+    of ``shape`` on ``device``: what every kernel here takes."""
+    if t.device != device:
+        raise ValueError(f'{name} is on {t.device}, expected {device}')
+    if t.dtype != torch.float32:
+        raise ValueError(f'{name} is {t.dtype}, the kernels take float32')
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name} has shape {tuple(t.shape)}, '
+                         f'expected {tuple(shape)}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name} must be contiguous')
+    if t.data_ptr() % 16:
+        raise ValueError(f'{name} must be 16-byte aligned')
+
+
+def check(err: int, what: str) -> None:
+    """Raises if a C entry returned a CUDA error."""
+    if err != 0:
+        msg = library().fvt_cuda_error_string(err).decode()
+        raise RuntimeError(f'{what}: CUDA error {err} ({msg})')

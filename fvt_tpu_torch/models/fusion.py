@@ -1,0 +1,74 @@
+"""LFAN multimodal fusion, eval mode (``fvt_tpu/models/fusion.py:22-90``).
+
+Parameters keep the upstream PyTorch names that
+``fvt_tpu.models.torch_export.lfan_to_torch`` writes under ``fusion.``:
+``layers.self_attn.qkv_proj.<m>.{weight,bias}``,
+``layers.self_attn.o_proj.{weight,bias}`` and ``layers.norm1.*``.  The
+forward runs :func:`fvt_tpu_torch.ops.fusion.fused_multimodal_fusion`.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Sequence
+
+import torch
+from torch import nn
+
+from fvt_tpu_torch.models.layers import uniform_
+from fvt_tpu_torch.ops.fusion import (fused_multimodal_fusion,
+                                      fused_multimodal_fusion_ref)
+
+
+class MultimodalMultiheadAttention(nn.Module):
+    def __init__(self, modalities: Sequence[str], input_dim: Dict[str, int],
+                 modal_dim: int):
+        super().__init__()
+        self.qkv_proj = nn.ModuleDict(
+            {m: nn.Linear(input_dim[m], 3 * modal_dim) for m in modalities})
+        em = modal_dim * len(modalities)
+        self.o_proj = nn.Linear(em, em)
+
+
+class _EncoderLayer(nn.Module):
+    def __init__(self, modalities, input_dim, modal_dim):
+        super().__init__()
+        self.self_attn = MultimodalMultiheadAttention(
+            modalities, input_dim, modal_dim)
+        self.norm1 = nn.LayerNorm(modal_dim * len(modalities), eps=1e-5)
+
+
+class MultimodalTransformerEncoder(nn.Module):
+    """One attention block over the modality slots, then LayerNorm.
+    Eval mode: the dropout between them is the identity."""
+
+    def __init__(self, modalities: Sequence[str], input_dim: Dict[str, int],
+                 modal_dim: int, num_heads: int):
+        super().__init__()
+        self.modalities = tuple(modalities)
+        self.modal_dim = modal_dim
+        self.num_heads = num_heads
+        self.layers = _EncoderLayer(self.modalities, input_dim, modal_dim)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Xavier-uniform qkv and o_proj weights with zero biases
+        (``fusion.py:46-68``); LayerNorm at ones and zeros."""
+        attn = self.layers.self_attn
+        for lin in [*attn.qkv_proj.values(), attn.o_proj]:
+            fan_out, fan_in = lin.weight.shape
+            uniform_(lin.weight, math.sqrt(6.0 / (fan_in + fan_out)),
+                     generator)
+            nn.init.zeros_(lin.bias)
+        self.layers.norm1.reset_parameters()
+
+    def forward(self, x: Dict[str, torch.Tensor], *,
+                reference: bool = False) -> torch.Tensor:
+        attn = self.layers.self_attn
+        lins = [attn.qkv_proj[m] for m in self.modalities]
+        fn = fused_multimodal_fusion_ref if reference \
+            else fused_multimodal_fusion
+        return fn([x[m] for m in self.modalities],
+                  [lin.weight.t().contiguous() for lin in lins],
+                  [lin.bias for lin in lins],
+                  attn.o_proj.weight.t().contiguous(), attn.o_proj.bias,
+                  self.layers.norm1.weight, self.layers.norm1.bias,
+                  modal_dim=self.modal_dim, num_heads=self.num_heads)

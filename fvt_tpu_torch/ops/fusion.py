@@ -1,0 +1,111 @@
+"""Fused eval-mode LFAN multimodal fusion: CUDA kernel and plain version.
+
+Counterpart of ``fvt_tpu/ops/fusion_pallas.py::fused_multimodal_fusion``:
+per frame, a packed qkv projection per modality (head-major, ``[q|k|v]``
+inside each head), softmax attention over the M modality slots per head,
+the +V residual, ``o_proj`` and a LayerNorm (eps 1e-5, no residual).
+Layouts follow the JAX package: ``x[m] (B, T, C_m)``,
+``wqkv[m] (C_m, 3E)``, ``wo (E*M, E*M)``; the output is ``(B, T, E*M)``,
+head-major then modality.
+
+:func:`fused_multimodal_fusion` runs :func:`fused_multimodal_fusion_ref`
+for tensors on the CPU; for CUDA tensors it launches the kernel of
+``csrc/fusion.cu`` or raises.  ``fused_multimodal_fusion.launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from fvt_tpu_torch.kernels import build
+
+LN_EPS = 1e-5
+MAX_MODALITIES = 4
+
+
+def fused_multimodal_fusion_ref(xs: Sequence[torch.Tensor],
+                                wqkv: Sequence[torch.Tensor],
+                                bqkv: Sequence[torch.Tensor],
+                                wo: torch.Tensor, bo: torch.Tensor,
+                                ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                                *, modal_dim: int,
+                                num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the fusion block (same math, layouts)."""
+    b, t, _ = xs[0].shape
+    m = len(xs)
+    hd = modal_dim // num_heads
+    # (B, T, M, H, 3hd) -> q, k, v each (B, T, H, M, hd)
+    qkv = torch.stack([x @ w + bias for x, w, bias in zip(xs, wqkv, bqkv)],
+                      dim=2).reshape(b, t, m, num_heads, 3 * hd)
+    q, k, v = qkv.transpose(2, 3).split(hd, dim=-1)
+    attn = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(hd), dim=-1)
+    values = (attn @ v + v).reshape(b, t, modal_dim * m)
+    o = values @ wo + bo
+    return F.layer_norm(o, (modal_dim * m,), ln_scale, ln_bias, LN_EPS)
+
+
+def fused_multimodal_fusion(xs: Sequence[torch.Tensor],
+                            wqkv: Sequence[torch.Tensor],
+                            bqkv: Sequence[torch.Tensor],
+                            wo: torch.Tensor, bo: torch.Tensor,
+                            ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                            *, modal_dim: int,
+                            num_heads: int) -> torch.Tensor:
+    """xs: M tensors (B, T, C_m) in modality order; wqkv[m] (C_m, 3E),
+    bqkv[m] (3E); wo (E*M, E*M); bo, ln_scale, ln_bias (E*M).  Returns
+    (B, T, E*M)."""
+    x0 = xs[0]
+    if x0.device.type == 'cpu':
+        return fused_multimodal_fusion_ref(
+            xs, wqkv, bqkv, wo, bo, ln_scale, ln_bias, modal_dim=modal_dim,
+            num_heads=num_heads)
+    if x0.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {x0.device}')
+    m = len(xs)
+    if not 1 <= m <= MAX_MODALITIES:
+        raise ValueError(f'{m} modalities: the kernel takes 1 to '
+                         f'{MAX_MODALITIES}')
+    if len(wqkv) != m or len(bqkv) != m:
+        raise ValueError('one qkv weight and bias per modality')
+    if modal_dim % num_heads or modal_dim % 4:
+        raise ValueError(f'modal_dim {modal_dim}: the kernel takes a '
+                         f'multiple of 4 and of num_heads {num_heads}')
+    if any(x.shape[-1] % 4 for x in xs):
+        raise ValueError(f'widths {[x.shape[-1] for x in xs]}: the kernel '
+                         f'takes multiples of 4')
+    b, t, _ = x0.shape
+    em = modal_dim * m
+    checks = [('wo', wo, (em, em)), ('bo', bo, (em,)),
+              ('ln_scale', ln_scale, (em,)), ('ln_bias', ln_bias, (em,))]
+    for i, (x, w, bias) in enumerate(zip(xs, wqkv, bqkv)):
+        c = x.shape[-1]
+        checks += [(f'xs[{i}]', x, (b, t, c)),
+                   (f'wqkv[{i}]', w, (c, 3 * modal_dim)),
+                   (f'bqkv[{i}]', bias, (3 * modal_dim,))]
+    for name, arr, shape in checks:
+        build.check_tensor(name, arr, shape, x0.device)
+    out = torch.empty((b, t, em), device=x0.device, dtype=torch.float32)
+    if b * t == 0:
+        return out
+    pad = [None] * (MAX_MODALITIES - m)
+
+    def ptrs(ts):
+        return [a.data_ptr() for a in ts] + pad
+
+    widths = [x.shape[-1] for x in xs] + [0] * len(pad)
+    err = build.library().fvt_fusion_forward(
+        *ptrs(xs), *ptrs(wqkv), *ptrs(bqkv), *widths, wo.data_ptr(),
+        bo.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+        out.data_ptr(), b * t, m, modal_dim, num_heads,
+        torch.cuda.current_stream(x0.device).cuda_stream)
+    build.check(err, f'fusion kernel (N={b * t}, M={m}, E={modal_dim}, '
+                     f'H={num_heads}, C={widths[:m]})')
+    fused_multimodal_fusion.launches += 1
+    return out
+
+
+fused_multimodal_fusion.launches = 0
