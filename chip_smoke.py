@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's LFAN serving path once on one CUDA card.
+"""Drives the PyTorch port's LFAN serving and training paths once on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,14 +8,24 @@ Phases, each of which raises on failure (exit code 1):
 
 1. build the CUDA kernels of ``fvt_tpu_torch/csrc`` with nvcc;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it: the TCN block at all 12 block shapes
-   of the tri-modal LFAN at (8, 300), the fusion block at (8, 300,
-   {128, 32, 128}); print errors and median times (CUDA events);
-3. serve three streams of 250, 700 and 1000 frames through the unchanged
-   ``fvt_tpu.streaming`` server core over a full-width tri-modal LFAN
-   (``video+vggish+bert``, random init from seed 0); check every frame's
-   logits against an offline stitch of the plain-version forward and the
-   kernels' launch counts; time full (8, 300) dispatches.
+   shapes the main paths give it: the eval TCN block at all 12 block
+   shapes of the tri-modal LFAN at (8, 300), the fusion block at (8, 300,
+   {128, 32, 128}), and the train-mode TCN block (forward output and the
+   backward's six results, against autograd of the plain version) at the
+   8 block shapes of the ``vggish+bert`` LFAN at (16, 300) with dropout
+   masks at p=0.1, plus edge shapes; print errors and median times (CUDA
+   events);
+3. serve three streams of 250, 700 and 1000 frames through the
+   ``fvt_tpu_torch.streaming`` server core over a full-width tri-modal
+   LFAN (``video+vggish+bert``, random init from seed 0); check every
+   frame's logits against an offline stitch of the plain-version forward
+   and the kernels' launch counts; time full (8, 300) dispatches;
+4. train a full-width ``vggish+bert`` LFAN for 10 steps at (16, 300)
+   through ``Trainer`` with the fused train kernels; check the losses and
+   final parameters against the same steps on the plain versions, that a
+   step repeats bit for bit, and the launch counts (8 forward and 8
+   backward launches a step, none of the eval-only fusion kernel); time
+   steps of the fused path and of the conv-by-conv path on cuDNN.
 
 Everything runs in float32 with TF32 off for matmuls and cuDNN.  The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line
@@ -23,6 +34,7 @@ code 1 and prints no result.
 """
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -40,6 +52,20 @@ SEED = 0
 RUNS = 20
 # kernel vs plain version: both fp32, summed in another order
 KERNEL_RTOL = KERNEL_ATOL = 1e-4
+# weight and bias gradients are sums over all B*T rows in another order
+# than the plain version's: max|got - want| <= WGRAD_TOL * max|want|
+WGRAD_TOL = 1e-4
+# the training path: feature-only LFAN, defaults.py:65
+TRAIN_MODALITY = ('vggish', 'bert')
+TRAIN_BATCH = 16
+TRAIN_STEPS = 10
+TCN_DROPOUT = 0.1
+# fused against plain training: per-step losses, then final parameters
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 2e-4, 1e-5
+# published fp32 peaks of one H100 SXM, for the kernels' bounds
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 # served logits vs the offline stitch of the plain-version forward
 SERVE_ATOL = 1e-3
 
@@ -86,6 +112,162 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return max_abs
 
 
+def compare_sum(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """A gradient summed over all rows: error against the tensor's
+    largest value."""
+    torch.cuda.synchronize()
+    max_abs = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    print(f'  {name}: max_abs_err={max_abs:.3e} of max|want|={scale:.3e}')
+    if not torch.isfinite(got).all() or max_abs > WGRAD_TOL * scale:
+        fail(f'{name}: kernel disagrees with its plain version '
+             f'(max|got - want| <= {WGRAD_TOL} * max|want|)')
+    return max_abs
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: operations over the fp32 peak
+    against bytes over the memory rate, whichever is larger."""
+    ops_ms, bytes_ms = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {'bound_ms': max(ops_ms, bytes_ms),
+            'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes'}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def away_from_kink(x, w1, b1, w2, b2, m1, m2, res, dilation: int,
+                   margin: float = 1e-4) -> tuple:
+    """The block's gradient jumps where a pre-activation crosses 0 (the
+    kink of leaky), so two fp32 forwards that round differently may take
+    different sides there.  Returns (m1, m2, res) changed so that no
+    decision lies within ``margin`` of it: the masks drop the elements of
+    a1 and a2 that do, and res moves by 1 where ``net + res`` does."""
+    from fvt_tpu_torch.ops import tcn as tcn_ops
+    a1 = tcn_ops._causal_conv(x, w1, b1, dilation)
+    m1 = m1 * (a1.abs() >= margin)
+    a2 = tcn_ops._causal_conv(tcn_ops._leaky(a1) * m1, w2, b2, dilation)
+    m2 = m2 * (a2.abs() >= margin)
+    z = tcn_ops._leaky(a2) * m2 + res
+    return m1, m2, res + (z.abs() < margin)
+
+
+def train_block_shapes(k: int) -> list:
+    """(name, B, T, Cin, Cout, dilation) of the 8 blocks of the
+    full-width vggish+bert LFAN at the training batch."""
+    from fvt_tpu_torch.config import model_config as MC
+    shapes = []
+    for m in TRAIN_MODALITY:
+        cin = MC.EMBEDDING_DIM[m]
+        for i, cout in enumerate(MC.TCN_CHANNELS[m]):
+            shapes.append((f'{m}.{i}', TRAIN_BATCH, WINDOW, cin, cout,
+                           2 ** i))
+            cin = cout
+    return shapes
+
+
+def check_train_kernels(device, k: int = 5) -> list:
+    """Phase 2, the train-mode block: the forward's output and the
+    backward's six results against autograd of the plain version, at the
+    8 block shapes of the training path and at edge shapes; times of the
+    forward and of the backward alone (on a retained graph)."""
+    from fvt_tpu_torch.ops import tcn as tcn_ops
+
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    names = ('x', 'w1', 'b1', 'w2', 'b2', 'res')
+    tot = {key: 0.0 for key in ('fwd_err', 'bwd_err', 'fwd_ms', 'bwd_ms',
+                                'fwd_plain', 'bwd_plain', 'fwd_flops',
+                                'fwd_bytes', 'bwd_bytes')}
+    edge = [('edge T<halo', 2, 7, 64, 64, 8, TCN_DROPOUT),
+            ('edge B=3', 3, 300, 128, 64, 1, TCN_DROPOUT),
+            ('edge p=0', 2, 90, 48, 96, 4, 0.0),
+            ('edge narrow', 1, 1, 20, 8, 2, TCN_DROPOUT)]
+    main = [s + (TCN_DROPOUT,) for s in train_block_shapes(k)]
+    for name, b, t, cin, cout, d, p in main + edge:
+        timed = not name.startswith('edge')
+
+        def randn(*shape, scale=1.0):
+            return torch.randn(*shape, device=device, generator=g) * scale
+
+        def mask():
+            keep = torch.full((b, t, cout), 1.0 - p, device=device)
+            return torch.bernoulli(keep, generator=g) / (1.0 - p)
+
+        a = {'x': randn(b, t, cin),
+             'w1': randn(k, cin, cout, scale=(k * cin) ** -0.5),
+             'b1': randn(cout, scale=0.1),
+             'w2': randn(k, cout, cout, scale=(k * cout) ** -0.5),
+             'b2': randn(cout, scale=0.1), 'res': randn(b, t, cout)}
+        m1, m2, a['res'] = away_from_kink(
+            a['x'], a['w1'], a['b1'], a['w2'], a['b2'], mask(), mask(),
+            a['res'], d)
+        cot = randn(b, t, cout)
+        for v in a.values():
+            v.requires_grad_(True)
+        args = (a['x'], a['w1'], a['b1'], a['w2'], a['b2'], m1, m2, a['res'])
+        kw = dict(kernel_size=k, dilation=d)
+        leaves = [a[n] for n in names]
+        want = tcn_ops.fused_temporal_block_train_ref(*args, **kw)
+        got = tcn_ops.fused_temporal_block_train(*args, **kw)
+        label = f'tcn_block_train {name} ({b},{t},{cin})->{cout} d={d}'
+        err = compare(label, got.detach(), want.detach())
+
+        def grads(out):
+            return torch.autograd.grad(out, leaves, cot, retain_graph=True)
+
+        want_g, got_g = grads(want), grads(got)
+        bwd_err = 0.0
+        for n, gg, wg in zip(names, got_g, want_g):
+            fn = compare if n in ('x', 'res') else compare_sum
+            bwd_err = max(bwd_err, fn(f'  tcn_block_bwd d{n}', gg, wg))
+        again = grads(got)
+        if not all(torch.equal(p1, p2) for p1, p2 in zip(got_g, again)):
+            fail(f'{label}: two runs of the backward differ in their bits')
+        if not timed:
+            continue
+        with torch.no_grad():
+            fwd = median_ms(
+                lambda: tcn_ops.fused_temporal_block_train(*args, **kw))
+            fwd_plain = median_ms(
+                lambda: tcn_ops.fused_temporal_block_train_ref(*args, **kw))
+        bwd, bwd_plain = median_ms(lambda: grads(got)), \
+            median_ms(lambda: grads(want))
+        print(f'    forward: kernel {fwd:.4f} ms, plain {fwd_plain:.4f} ms; '
+              f'backward: kernel {bwd:.4f} ms, plain {bwd_plain:.4f} ms')
+        tot['fwd_err'] = max(tot['fwd_err'], err)
+        tot['bwd_err'] = max(tot['bwd_err'], bwd_err)
+        tot['fwd_ms'] += fwd
+        tot['bwd_ms'] += bwd
+        tot['fwd_plain'] += fwd_plain
+        tot['bwd_plain'] += bwd_plain
+        # both convs forward; backward: an input-gradient and a
+        # weight-gradient product of the same size for each conv
+        tot['fwd_flops'] += 2.0 * b * t * k * (cin + cout) * cout
+        tot['fwd_bytes'] += nbytes(*args, got)
+        # x w1 w2 m1 m2 res g and the saved a1, a2 in; six results out
+        tot['bwd_bytes'] += nbytes(a['x'], a['w1'], a['w2'], m1, m2,
+                                   a['res'], cot, got, got, *got_g)
+    print(f'  tcn_block_train total over the 8 blocks: forward kernel '
+          f'{tot["fwd_ms"]:.4f} ms, plain {tot["fwd_plain"]:.4f} ms; '
+          f'backward kernel {tot["bwd_ms"]:.4f} ms, plain '
+          f'{tot["bwd_plain"]:.4f} ms')
+    source = 'fvt_tpu_torch/csrc/tcn_block_train.cu'
+    return [
+        {'name': 'tcn_block_train', 'route': 'cuda', 'source': source,
+         'replaces': 'fvt_tpu/ops/tcn_pallas.py:143',
+         'max_abs_err': tot['fwd_err'], 'ms': tot['fwd_ms'],
+         'plain_ms': tot['fwd_plain'], 'library_ms': None,
+         **bound(tot['fwd_flops'], tot['fwd_bytes'])},
+        {'name': 'tcn_block_bwd', 'route': 'cuda', 'source': source,
+         'replaces': 'fvt_tpu/ops/tcn_pallas.py:168',
+         'max_abs_err': tot['bwd_err'], 'ms': tot['bwd_ms'],
+         'plain_ms': tot['bwd_plain'], 'library_ms': None,
+         **bound(2.0 * tot['fwd_flops'], tot['bwd_bytes'])},
+    ]
+
+
 def check_kernels(model, device) -> list:
     """Phase 2: each kernel against its plain version at the serving
     path's shapes, on inputs that flow through the model's own weights."""
@@ -96,6 +278,7 @@ def check_kernels(model, device) -> list:
     g = torch.Generator(device=device).manual_seed(SEED)
     k = model.temporal[MODALITY[0]].kernel_size
     tcn_err, tcn_ms, tcn_plain_ms = 0.0, 0.0, 0.0
+    tcn_flops, tcn_bytes = 0.0, 0
     feats = {}
     with torch.inference_mode():
         for m in MODALITY:
@@ -120,6 +303,10 @@ def check_kernels(model, device) -> list:
                 print(f'    kernel {ms:.4f} ms, plain {plain:.4f} ms')
                 tcn_ms += ms
                 tcn_plain_ms += plain
+                cin, cout = x.shape[-1], want.shape[-1]
+                tcn_flops += 2.0 * WINDOW_BATCH * WINDOW * cout * (
+                    k * (cin + cout) + (cin if w['wd'] is not None else 0))
+                tcn_bytes += nbytes(*args, want)
                 x = want.contiguous()
             scale, shift = fold_batchnorm(model.bn[m])
             feats[m] = x * scale + shift
@@ -163,18 +350,29 @@ def check_kernels(model, device) -> list:
             lambda: fusion_ops.fused_multimodal_fusion_ref(*args, **kw))
         print(f'    kernel {fusion_ms:.4f} ms, plain '
               f'{fusion_plain_ms:.4f} ms')
+        # per frame: the qkv projections, M x M scores and values per
+        # head, o_proj; the softmax and LayerNorm are not counted
+        e, nm = fusion.modal_dim, len(MODALITY)
+        frames = WINDOW_BATCH * WINDOW
+        fusion_flops = 2.0 * frames * (
+            sum(feats[m].shape[-1] for m in MODALITY) * 3 * e
+            + 2 * nm * nm * e + (e * nm) ** 2)
+        fusion_bytes = nbytes(*args[0], *args[1], *args[2], *args[3:]) \
+            + frames * e * nm * 4
     print(f'  tcn_block total over the 12 blocks: kernel {tcn_ms:.4f} ms, '
           f'plain {tcn_plain_ms:.4f} ms')
     return [
         {'name': 'tcn_block', 'route': 'cuda',
          'source': 'fvt_tpu_torch/csrc/tcn_block.cu',
          'replaces': 'fvt_tpu/ops/tcn_pallas.py:35',
-         'max_abs_err': tcn_err, 'ms': tcn_ms, 'plain_ms': tcn_plain_ms},
+         'max_abs_err': tcn_err, 'ms': tcn_ms, 'plain_ms': tcn_plain_ms,
+         'library_ms': None, **bound(tcn_flops, tcn_bytes)},
         {'name': 'fusion', 'route': 'cuda',
          'source': 'fvt_tpu_torch/csrc/fusion.cu',
          'replaces': 'fvt_tpu/ops/fusion_pallas.py:25',
          'max_abs_err': fusion_err, 'ms': fusion_ms,
-         'plain_ms': fusion_plain_ms},
+         'plain_ms': fusion_plain_ms, 'library_ms': None,
+         **bound(fusion_flops, fusion_bytes)},
     ]
 
 
@@ -190,7 +388,7 @@ def serve_streams(server, streams: dict) -> tuple:
     """Feeds every stream through one StreamingRegistry in CHUNK-frame
     pieces, round-robin, then closes them.  Returns ({length: (L, C)
     logits}, dispatches)."""
-    from fvt_tpu.streaming import StreamingRegistry
+    from fvt_tpu_torch.streaming import StreamingRegistry
 
     registry = StreamingRegistry(server, dynamic_batch=True)
     sids = {n: registry.open() for n in streams}
@@ -218,7 +416,7 @@ def offline_reference(model, streams: dict, device) -> dict:
     """The offline path: window each whole stream, run the plain-version
     forward, stitch (or take the first L rows of one pad-by-repeat window
     for a stream shorter than the window)."""
-    from fvt_tpu.data import windowing as W
+    from fvt_tpu_torch.data import windowing as W
     from fvt_tpu_torch.serve import lfan_serving_forward
 
     out = {}
@@ -234,6 +432,126 @@ def offline_reference(model, streams: dict, device) -> dict:
         out[n] = (logits[0, :n] if n < WINDOW
                   else W.stitch_windows_np(logits, idx, n))
     return out
+
+
+def make_train_batches(n: int) -> list:
+    from fvt_tpu_torch.config import model_config as MC
+    rng = np.random.default_rng(SEED + 3)
+    shape = (TRAIN_BATCH, WINDOW)
+    return [{**{m: rng.standard_normal(shape + tuple(MC.FEATURE_DIMENSION[m]),
+                                       np.float32) for m in TRAIN_MODALITY},
+             'EXPR_continuous_label': rng.integers(0, 7, shape)}
+            for _ in range(n)]
+
+
+def train_lfan(device) -> dict:
+    """Phase 4.  Returns the train kernels' launch counts over the fused
+    run's TRAIN_STEPS steps."""
+    from fvt_tpu_torch.config.defaults import get_train_config
+    from fvt_tpu_torch.models.models import LFAN
+    from fvt_tpu_torch.ops.fusion import fused_multimodal_fusion
+    from fvt_tpu_torch.ops.tcn import (fused_temporal_block,
+                                       fused_temporal_block_train as block)
+    from fvt_tpu_torch.train.steps import to_device
+    from fvt_tpu_torch.train.trainer import Trainer
+
+    config = get_train_config()
+    config.update(seed=SEED, nan_guard=True)
+    batches = make_train_batches(2)
+    epochs = TRAIN_STEPS // len(batches)
+    model = LFAN(TRAIN_MODALITY, output_dim=7, tcn_dropout=TCN_DROPOUT,
+                 generator=torch.Generator().manual_seed(SEED))
+    trainers = {
+        'fused': Trainer(copy.deepcopy(model), config, device),
+        'plain': Trainer(copy.deepcopy(model), config, device,
+                         reference=True),
+        'conv-by-conv': Trainer(copy.deepcopy(model), config, device,
+                                tcn_fused=False),
+    }
+
+    # one step twice from the same state: the gradients' bits
+    fused = trainers['fused']
+    state = copy.deepcopy(fused.model.state_dict())
+    first = to_device(batches[0], device)
+    grads = []
+    for _ in range(2):
+        fused.model.load_state_dict(state)
+        fused.model.zero_grad(set_to_none=True)
+        fused.train_step.loss(first, fused.step_generator(0, 0)).backward()
+        grads.append({n: p.grad.clone()
+                      for n, p in fused.train_step.trainable.items()})
+    fused.model.load_state_dict(state)
+    fused.model.zero_grad(set_to_none=True)
+    differ = [n for n in grads[0] if not torch.equal(grads[0][n],
+                                                     grads[1][n])]
+    print(f'  step 1 twice from one state: {len(grads[0])} gradients, '
+          f'{len(differ)} differ in their bits')
+    if differ:
+        fail(f'gradients differ between two runs of one step: {differ}')
+
+    counters = (fused_temporal_block, fused_multimodal_fusion)
+    block.launches_fwd = block.launches_bwd = 0
+    eval_before = [c.launches for c in counters]
+    losses = {}
+    for name in ('fused', 'plain'):
+        losses[name] = []
+        for e in range(epochs):
+            trainers[name].train_one_epoch(batches, e)
+            losses[name] += trainers[name].step_losses
+        if name == 'fused':
+            launches = {'tcn_block_train': block.launches_fwd,
+                        'tcn_block_bwd': block.launches_bwd}
+    steps = epochs * len(batches)
+    print(f'  {steps} steps at ({TRAIN_BATCH},{WINDOW}): fused losses '
+          f'{losses["fused"][0]:.6f} .. {losses["fused"][-1]:.6f}; '
+          f'tcn_block_train launches {launches["tcn_block_train"]}, '
+          f'tcn_block_bwd launches {launches["tcn_block_bwd"]}')
+    if not all(np.isfinite(losses['fused'])):
+        fail(f'non-finite training loss: {losses["fused"]}')
+    if launches != {'tcn_block_train': 8 * steps, 'tcn_block_bwd': 8 * steps}:
+        fail(f'expected 8 forward and 8 backward launches a step over '
+             f'{steps} steps, got {launches}')
+    if [c.launches for c in counters] != eval_before:
+        fail('an eval-only kernel was launched while training')
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(losses['fused'], losses['plain']))
+    print(f'  fused vs plain: max relative loss difference {rel:.3e} '
+          f'(rtol {TRAIN_LOSS_RTOL})')
+    if rel > TRAIN_LOSS_RTOL:
+        fail(f'fused and plain training losses differ by {rel}')
+    worst = 0.0
+    plain_state = trainers['plain'].model.state_dict()
+    for n, got in fused.model.state_dict().items():
+        want = plain_state[n]
+        if not got.is_floating_point():
+            continue
+        excess = ((got - want).abs() - TRAIN_PARAM_ATOL
+                  - TRAIN_PARAM_RTOL * want.abs()).max().item()
+        worst = max(worst, (got - want).abs().max().item())
+        if excess > 0 or not torch.isfinite(got).all():
+            fail(f'{n}: fused and plain training disagree after {steps} '
+                 f'steps (rtol {TRAIN_PARAM_RTOL}, atol {TRAIN_PARAM_ATOL})')
+    print(f'  final parameters and running statistics: max abs difference '
+          f'{worst:.3e} (rtol {TRAIN_PARAM_RTOL}, atol {TRAIN_PARAM_ATOL})')
+
+    frames = TRAIN_BATCH * WINDOW
+    for name in ('fused', 'conv-by-conv', 'conv-by-conv', 'fused'):
+        tr = trainers[name]
+        for _ in range(3):
+            tr.train_step(batches[0], tr.step_generator(9, 0))
+        torch.cuda.synchronize()
+        times = []
+        for i in range(RUNS):
+            t0 = time.perf_counter()
+            tr.train_step(batches[i % 2], tr.step_generator(9, i))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        med = statistics.median(times)
+        print(f'  {name} step, {RUNS} warm runs from numpy batches: median '
+              f'{med * 1e3:.3f} ms, min {min(times) * 1e3:.3f} ms, max '
+              f'{max(times) * 1e3:.3f} ms -> {frames / med:.1f} trained '
+              f'frames/s')
+    return launches
 
 
 def main() -> int:
@@ -272,10 +590,12 @@ def main() -> int:
 
     print('phase 2: kernels vs plain versions '
           f'(rtol={KERNEL_RTOL}, atol={KERNEL_ATOL}; fp32, other '
-          f'summation order)')
+          f'summation order; weight and bias gradients '
+          f'{WGRAD_TOL} of their largest value)')
     kernels = check_kernels(model, device)
+    kernels += check_train_kernels(device)
 
-    print('phase 3: serving through fvt_tpu.streaming')
+    print('phase 3: serving through fvt_tpu_torch.streaming')
     server = ServingModel(model, WINDOW_BATCH, WINDOW, HOP, device)
     streams = make_streams()
     fused_temporal_block.launches = 0
@@ -327,6 +647,12 @@ def main() -> int:
     with torch.inference_mode():
         backbone_ms = median_ms(lambda: model.spatial.visual(crops))
     print(f'  ArcFace IR-50 alone on {frames} frames: {backbone_ms:.2f} ms')
+    del model, server, video, crops
+
+    print(f'phase 4: training {"+".join(TRAIN_MODALITY)} through Trainer')
+    train_launches = train_lfan(device)
+    for kernel in kernels[2:]:
+        kernel['launches'] = train_launches[kernel['name']]
 
     print(card)
     print(json.dumps({'kernels': kernels}))

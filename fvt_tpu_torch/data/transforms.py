@@ -3,7 +3,7 @@
 uint8 face crops ``(B, T, H, W, 3)`` -> normalised float32
 ``(B, T, 40, 40, 3)``: a 40^2 input is taken as already cropped and only
 scaled; anything else is resized to 48^2 (a no-op at 48^2) through the
-antialiased bilinear matrices of ``fvt_tpu.data.host_resize``, then
+antialiased bilinear matrices of ``fvt_tpu_torch.data.host_resize``, then
 center-cropped at ``center_crop_offset``; then ``/255`` and
 ``(x - 0.5) / 0.5``.
 """
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from fvt_tpu.data.host_resize import resize_weights
+from fvt_tpu_torch.data.host_resize import resize_weights
 
 SCALE_SIZE = 48
 CROP_SIZE = 40

@@ -1,8 +1,9 @@
 """Builds the port's CUDA kernels into one shared library and binds it.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into ``build/libfvt_tpu_torch-<hash>.so`` at the repository root, keyed by
-a hash of the sources and the flags, at the first call that needs a
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one compiler process per source and all of them at once, and linked into
+``build/libfvt_tpu_torch-<hash>.so`` at the repository root, keyed by a
+hash of the sources and the flags, at the first call that needs a
 kernel.  The library has a plain C interface and is loaded with
 ``ctypes``: every pointer and the stream pass as ``c_void_p``, every C
 entry returns the CUDA error code of its launch, and :func:`check` raises
@@ -25,7 +26,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_DIR = PACKAGE_DIR.parent / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +36,11 @@ _SIGNATURES = {
     'fvt_tcn_block_forward': [_P] * 8 + [_I] * 6 + [_P],
     # x0..3 w0..3 b0..3, c0..3, wo bo ln_w ln_b out, N M E H, stream
     'fvt_fusion_forward': [_P] * 12 + [_I] * 4 + [_P] * 5 + [_I] * 4 + [_P],
+    # x w1 b1 w2 b2 m1 m2 res a1 a2 out, B T Cin Cout K dil, stream
+    'fvt_tcn_block_train_forward': [_P] * 11 + [_I] * 6 + [_P],
+    # x w1 w2 m1 m2 res a1 a2 g, d_a2 d_a1 part1 part2, dx dw1 db1 dw2 db2
+    # dres, B T Cin Cout K dil S1 S2, stream
+    'fvt_tcn_block_train_backward': [_P] * 19 + [_I] * 8 + [_P],
 }
 
 
@@ -71,19 +77,27 @@ def build() -> Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc(), *NVCC_FLAGS, '-o', tmp, *map(str, sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                               f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
-        path.with_suffix('.log').write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, path)  # atomic: a concurrent build never sees half
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, src.stem + '.o') for src in sources()]
+        cmds = [[nvcc(), *NVCC_FLAGS, '-c', '-o', obj, str(src)]
+                for obj, src in zip(objects, sources())]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]  # waits for all
+        lib = os.path.join(tmp, path.name)
+        link = [nvcc(), '-shared', '-o', lib, *objects]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+                                   f'{" ".join(cmd)}\n{log}')
+        linked = subprocess.run(link, capture_output=True, text=True)
+        if linked.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({linked.returncode}):\n'
+                               f'{" ".join(link)}\n{linked.stdout}'
+                               f'{linked.stderr}')
+        path.with_suffix('.log').write_text(''.join(logs))
+        os.replace(lib, path)  # atomic: a concurrent build never sees half
     return path
 
 

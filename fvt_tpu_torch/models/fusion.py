@@ -1,22 +1,27 @@
-"""LFAN multimodal fusion, eval mode (``fvt_tpu/models/fusion.py:22-90``).
+"""LFAN multimodal fusion, eval and train
+(``fvt_tpu/models/fusion.py:22-90``).
 
 Parameters keep the upstream PyTorch names that
 ``fvt_tpu.models.torch_export.lfan_to_torch`` writes under ``fusion.``:
 ``layers.self_attn.qkv_proj.<m>.{weight,bias}``,
 ``layers.self_attn.o_proj.{weight,bias}`` and ``layers.norm1.*``.  The
-forward runs :func:`fvt_tpu_torch.ops.fusion.fused_multimodal_fusion`.
+eval forward runs :func:`fvt_tpu_torch.ops.fusion.fused_multimodal_fusion`;
+the train forward is plain differentiable PyTorch (attention, dropout,
+LayerNorm), since the fused kernel has no backward in ``fvt_tpu`` either.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fvt_tpu_torch.models.layers import uniform_
-from fvt_tpu_torch.ops.fusion import (fused_multimodal_fusion,
-                                      fused_multimodal_fusion_ref)
+from fvt_tpu_torch.ops.fusion import (LN_EPS, fused_multimodal_fusion,
+                                      fused_multimodal_fusion_ref,
+                                      multimodal_attention_ref)
 
 
 class MultimodalMultiheadAttention(nn.Module):
@@ -38,15 +43,16 @@ class _EncoderLayer(nn.Module):
 
 
 class MultimodalTransformerEncoder(nn.Module):
-    """One attention block over the modality slots, then LayerNorm.
-    Eval mode: the dropout between them is the identity."""
+    """One attention block over the modality slots, dropout, then
+    LayerNorm.  In eval mode the dropout is the identity."""
 
     def __init__(self, modalities: Sequence[str], input_dim: Dict[str, int],
-                 modal_dim: int, num_heads: int):
+                 modal_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.modalities = tuple(modalities)
         self.modal_dim = modal_dim
         self.num_heads = num_heads
+        self.dropout = dropout
         self.layers = _EncoderLayer(self.modalities, input_dim, modal_dim)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -60,10 +66,23 @@ class MultimodalTransformerEncoder(nn.Module):
             nn.init.zeros_(lin.bias)
         self.layers.norm1.reset_parameters()
 
-    def forward(self, x: Dict[str, torch.Tensor], *,
+    def forward(self, x: Dict[str, torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None, *,
                 reference: bool = False) -> torch.Tensor:
         attn = self.layers.self_attn
         lins = [attn.qkv_proj[m] for m in self.modalities]
+        if train:
+            norm = self.layers.norm1
+            o = multimodal_attention_ref(
+                [x[m] for m in self.modalities],
+                [lin.weight.t() for lin in lins], [lin.bias for lin in lins],
+                attn.o_proj.weight.t(), attn.o_proj.bias,
+                modal_dim=self.modal_dim, num_heads=self.num_heads)
+            # imported here: models.tcn imports nothing of this module
+            from fvt_tpu_torch.models.tcn import dropout_mask
+            o = o * dropout_mask(o.shape, self.dropout, True, o, generator)
+            return F.layer_norm(o, (o.shape[-1],), norm.weight, norm.bias,
+                                LN_EPS)
         fn = fused_multimodal_fusion_ref if reference \
             else fused_multimodal_fusion
         return fn([x[m] for m in self.modalities],

@@ -1,8 +1,11 @@
-"""Shared eval-mode building blocks of the port.
+"""Shared building blocks of the port.
 
 Counterparts of ``fvt_tpu/models/layers.py``: weight-norm materialisation
-(``materialize_weight_norm``, ``layers.py:50-56``), eval BatchNorm folded
-to a scale and shift (``serve.py:27-33``), and seeded inits that follow
+(``materialize_weight_norm``, ``layers.py:50-56``; differentiable, so the
+train path takes gradients to v and g through it), eval BatchNorm folded
+to a scale and shift (``serve.py:27-33``; the train-mode BatchNorm is
+``F.batch_norm`` on the (B*T, C) view, in ``models/models.py``), and
+seeded inits that follow
 PyTorch's defaults but draw from an explicit ``torch.Generator``.  PReLU
 is ``nn.PReLU``, whose ``x if x >= 0 else alpha * x`` is ``layers.py``'s
 ``PReLU``.

@@ -1,23 +1,32 @@
-"""LFAN, the leader-follower attention network, eval mode
+"""LFAN, the leader-follower attention network
 (``fvt_tpu/models/models.py:73-131``).
 
 The leader is ``modality[0]``.  Each modality runs a TemporalConvNet and
-an eval BatchNorm1d; the follower is the multimodal fusion over all of
-them; the output is ``concat(feats[leader], follower) @ W + b`` per
-frame, with ``tanh`` for regression only.  A ``video`` modality takes
-normalised face crops ``(B, T, 40, 40, 3)`` through the frozen ArcFace
-backbone at ``spatial.visual``.  Parameter names are those of
+a BatchNorm1d; the follower is the multimodal fusion over all of them;
+the output is ``concat(feats[leader], follower) @ W + b`` per frame, with
+``tanh`` for regression only.  A ``video`` modality takes normalised face
+crops ``(B, T, 40, 40, 3)`` through the frozen ArcFace backbone at
+``spatial.visual``.  Parameter names are those of
 ``fvt_tpu.models.torch_export.lfan_to_torch``.
+
+As in ``fvt_tpu``, the mode is the forward's ``train`` argument, not the
+module's flag: ``train=True`` runs dropout from an explicit generator,
+BatchNorm on batch statistics (updating the running ones) and the
+differentiable TCN blocks; ``train=False`` is the serving path through
+the eval kernels.  Training is ported for precomputed features only: a
+``video`` modality in train mode, which needs the frozen ArcFace in TRAIN
+mode (``models.py:36-47``), raises.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from fvt_tpu import constants
-from fvt_tpu.config import model_config as MC
+from fvt_tpu_torch import constants
+from fvt_tpu_torch.config import model_config as MC
 from fvt_tpu_torch.models.arcface import VisualBackbone
 from fvt_tpu_torch.models.fusion import MultimodalTransformerEncoder
 from fvt_tpu_torch.models.layers import fold_batchnorm, init_linear_
@@ -32,6 +41,7 @@ class LFAN(nn.Module):
                  embedding_dim: Optional[Dict[str, int]] = None,
                  encoder_dim: Optional[Dict[str, int]] = None,
                  modal_dim: int = 32, num_heads: int = 2,
+                 tcn_dropout: float = 0.1, fusion_dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.modality = tuple(modality)
@@ -47,19 +57,20 @@ class LFAN(nn.Module):
             self.spatial = nn.Module()
             self.spatial.visual = VisualBackbone()
         self.temporal = nn.ModuleDict({
-            m: TemporalConvNet(embedding_dim[m], tcn_channel[m], kernel_size)
+            m: TemporalConvNet(embedding_dim[m], tcn_channel[m], kernel_size,
+                               dropout=tcn_dropout)
             for m in self.modality})
         self.bn = nn.ModuleDict({m: nn.BatchNorm1d(encoder_dim[m])
                                  for m in self.modality})
         self.fusion = MultimodalTransformerEncoder(
             self.modality, {m: encoder_dim[m] for m in self.modality},
-            modal_dim, num_heads)
+            modal_dim, num_heads, dropout=fusion_dropout)
         leader_dim = encoder_dim[self.modality[0]]
         self.regressor = nn.Linear(leader_dim + modal_dim * len(modality),
                                    output_dim)
         self.output_dim = output_dim
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
-        self.eval()
+        self.eval()  # the flag only reaches the frozen backbone's modules
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random init drawn from ``generator`` in a fixed module order."""
@@ -71,13 +82,34 @@ class LFAN(nn.Module):
         self.fusion.reset_parameters(generator)
         init_linear_(self.regressor, generator)
 
-    def forward(self, x: Dict[str, torch.Tensor], *,
+    def _batchnorm_train(self, m: str, h: torch.Tensor) -> torch.Tensor:
+        """BatchNorm1d over the (B*T, C) view on batch statistics: biased
+        variance to normalise, the unbiased one into the running EMA at
+        momentum 0.1 (``fvt_tpu/models/layers.py:79-126``)."""
+        bn = self.bn[m]
+        b, t, c = h.shape
+        bn.num_batches_tracked += 1
+        return F.batch_norm(h.reshape(b * t, c), bn.running_mean,
+                            bn.running_var, bn.weight, bn.bias, True,
+                            bn.momentum, bn.eps).reshape(b, t, c)
+
+    def forward(self, x: Dict[str, torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None, *,
+                tcn_fused: bool = True,
                 reference: bool = False) -> torch.Tensor:
         """x: {modality: (B, T, D)} float32, video as normalised crops
         (B, T, 40, 40, 3).  Returns (B, T, output_dim) logits.
-        ``reference=True`` runs the plain versions of the kernels."""
+        ``train=True`` draws the dropout masks from ``generator`` (TCN
+        blocks in modality order, then the fusion) and updates the
+        BatchNorm running statistics; ``tcn_fused`` picks the fused train
+        kernel over the conv-by-conv blocks.  ``reference=True`` runs the
+        plain versions of the kernels."""
         x = dict(x)
         video = x.get(constants.VIDEO)
+        if train and video is not None:
+            raise NotImplementedError(
+                'training with a video modality (frozen ArcFace in TRAIN '
+                'mode) is not ported yet')
         if video is not None and video.dim() == 5:
             b, t = video.shape[:2]
             feats = self.spatial.visual(video.reshape((b * t,)
@@ -85,10 +117,14 @@ class LFAN(nn.Module):
             x[constants.VIDEO] = feats.reshape(b, t, -1)
         feats = {}
         for m in self.modality:
-            h = self.temporal[m](x[m], reference=reference)
-            scale, shift = fold_batchnorm(self.bn[m])
-            feats[m] = h * scale + shift
-        follower = self.fusion(feats, reference=reference)
+            h = self.temporal[m](x[m], train, generator, fused=tcn_fused,
+                                 reference=reference)
+            if train:
+                feats[m] = self._batchnorm_train(m, h)
+            else:
+                scale, shift = fold_batchnorm(self.bn[m])
+                feats[m] = h * scale + shift
+        follower = self.fusion(feats, train, generator, reference=reference)
         out = self.regressor(torch.cat([feats[self.modality[0]], follower],
                                        dim=-1))
         if self.task == constants.REGRESSION:

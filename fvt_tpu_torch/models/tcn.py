@@ -1,23 +1,32 @@
-"""Temporal Convolutional Network, eval mode (``fvt_tpu/models/tcn.py``).
+"""Temporal Convolutional Network, eval and train
+(``fvt_tpu/models/tcn.py``).
 
 Parameters keep the upstream PyTorch names that
 ``fvt_tpu.models.torch_export.tcn`` writes: per block
 ``conv1.weight_v (Cout, Cin, K)``, ``conv1.weight_g (Cout, 1, 1)``,
 ``conv1.bias``, the same for ``conv2``, and ``downsample.weight
 (Cout, Cin, 1)``, ``downsample.bias`` where Cin != Cout
-(``tcn.py:72-78``).  The forward runs each block through
-:func:`fvt_tpu_torch.ops.tcn.fused_temporal_block`.
+(``tcn.py:72-78``).  The eval forward runs each block through
+:func:`fvt_tpu_torch.ops.tcn.fused_temporal_block`; the train forward
+runs it through :func:`fvt_tpu_torch.ops.tcn.fused_temporal_block_train`
+with the 1x1 downsample and the dropout masks made outside the kernel
+(``tcn.py:34-63``), or layer by layer on ``F.conv1d`` with the same
+masks (``fused=False``, ``tcn.py:65-81``).
 """
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fvt_tpu_torch.models.layers import init_linear_, uniform_, weight_norm
-from fvt_tpu_torch.ops.tcn import tcn_forward
+from fvt_tpu_torch.ops.tcn import (NEG_SLOPE, _causal_conv,
+                                   fused_temporal_block_train,
+                                   fused_temporal_block_train_ref,
+                                   tcn_forward)
 
 
 class WeightNormConv1d(nn.Module):
@@ -40,12 +49,30 @@ class WeightNormConv1d(nn.Module):
                 dim=(1, 2), keepdim=True).sqrt())
 
 
+def dropout_mask(shape, p: float, train: bool, like: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """A dropout mask pre-scaled to {0, 1/(1-p)}, drawn from
+    ``generator`` (on ``like``'s device); ones at eval or ``p == 0``."""
+    if not train or p == 0.0:
+        return torch.ones(shape, device=like.device, dtype=like.dtype)
+    if generator is None:
+        raise ValueError('dropout in train mode draws from an explicit '
+                         'torch.Generator')
+    keep = torch.full(shape, 1.0 - p, device=like.device, dtype=like.dtype)
+    return torch.bernoulli(keep, generator=generator) / (1.0 - p)
+
+
 class TemporalBlock(nn.Module):
     """One block's weights; its dilation is ``2**i`` for block ``i`` of
     the stack (:func:`fvt_tpu_torch.ops.tcn.tcn_forward`)."""
 
-    def __init__(self, n_inputs: int, n_outputs: int, kernel_size: int):
+    def __init__(self, n_inputs: int, n_outputs: int, kernel_size: int,
+                 dilation: int = 1, dropout: float = 0.0):
         super().__init__()
+        self.n_outputs = n_outputs
+        self.kernel_size = kernel_size
+        self.dilation = dilation
+        self.dropout = dropout
         self.conv1 = WeightNormConv1d(n_inputs, n_outputs, kernel_size)
         self.conv2 = WeightNormConv1d(n_outputs, n_outputs, kernel_size)
         self.downsample = (nn.Conv1d(n_inputs, n_outputs, 1)
@@ -70,19 +97,46 @@ class TemporalBlock(nn.Module):
             'bd': None if ds is None else ds.bias,
         }
 
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                *, fused: bool = True, reference: bool = False
+                ) -> torch.Tensor:
+        """The differentiable block on x (B, T, Cin).  ``masks`` (m1, m2),
+        each (B, T, Cout) and pre-scaled, take the place of the draw from
+        ``generator``.  ``fused`` runs the fused train kernel
+        (``reference=True``: its plain version), else conv by conv."""
+        w = self.kernel_weights()
+        res = x if w['wd'] is None else x @ w['wd'] + w['bd']
+        shape = x.shape[:2] + (self.n_outputs,)
+        m1, m2 = masks if masks is not None else (
+            dropout_mask(shape, self.dropout, train, x, generator),
+            dropout_mask(shape, self.dropout, train, x, generator))
+        if fused:
+            fn = (fused_temporal_block_train_ref if reference
+                  else fused_temporal_block_train)
+            return fn(x, w['w1'], w['b1'], w['w2'], w['b2'], m1, m2, res,
+                      kernel_size=self.kernel_size, dilation=self.dilation)
+        net = F.leaky_relu(_causal_conv(x, w['w1'], w['b1'], self.dilation),
+                           NEG_SLOPE) * m1
+        net = F.leaky_relu(_causal_conv(net, w['w2'], w['b2'],
+                                        self.dilation), NEG_SLOPE) * m2
+        return F.leaky_relu(net + res, NEG_SLOPE)
+
 
 class TemporalConvNet(nn.Module):
     """Stack of TemporalBlocks with dilation ``2**i``; input and output
     are feature-last ``(B, T, C)``."""
 
     def __init__(self, num_inputs: int, num_channels: Sequence[int],
-                 kernel_size: int = 5):
+                 kernel_size: int = 5, dropout: float = 0.0):
         super().__init__()
         self.kernel_size = kernel_size
         blocks: List[TemporalBlock] = []
         cin = num_inputs
-        for cout in num_channels:
-            blocks.append(TemporalBlock(cin, cout, kernel_size))
+        for i, cout in enumerate(num_channels):
+            blocks.append(TemporalBlock(cin, cout, kernel_size,
+                                        dilation=2 ** i, dropout=dropout))
             cin = cout
         self.network = nn.ModuleList(blocks)
 
@@ -90,7 +144,16 @@ class TemporalConvNet(nn.Module):
         for blk in self.network:
             blk.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, *,
-                reference: bool = False) -> torch.Tensor:
-        blocks = [blk.kernel_weights() for blk in self.network]
-        return tcn_forward(x, blocks, self.kernel_size, reference=reference)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None, *,
+                fused: bool = True, reference: bool = False) -> torch.Tensor:
+        """Eval (``train=False``): the fused eval kernel block by block,
+        no gradient.  Train: the differentiable blocks, with dropout masks
+        drawn from ``generator`` in block order."""
+        if not train:
+            blocks = [blk.kernel_weights() for blk in self.network]
+            return tcn_forward(x, blocks, self.kernel_size,
+                               reference=reference)
+        for blk in self.network:
+            x = blk(x, True, generator, fused=fused, reference=reference)
+        return x

@@ -11,7 +11,8 @@ head-major then modality.
 :func:`fused_multimodal_fusion` runs :func:`fused_multimodal_fusion_ref`
 for tensors on the CPU; for CUDA tensors it launches the kernel of
 ``csrc/fusion.cu`` or raises.  ``fused_multimodal_fusion.launches``
-counts kernel launches.
+counts kernel launches.  The kernel is eval-only; training runs
+:func:`multimodal_attention_ref` under autograd.
 """
 from __future__ import annotations
 
@@ -27,14 +28,14 @@ LN_EPS = 1e-5
 MAX_MODALITIES = 4
 
 
-def fused_multimodal_fusion_ref(xs: Sequence[torch.Tensor],
-                                wqkv: Sequence[torch.Tensor],
-                                bqkv: Sequence[torch.Tensor],
-                                wo: torch.Tensor, bo: torch.Tensor,
-                                ln_scale: torch.Tensor, ln_bias: torch.Tensor,
-                                *, modal_dim: int,
-                                num_heads: int) -> torch.Tensor:
-    """Plain PyTorch version of the fusion block (same math, layouts)."""
+def multimodal_attention_ref(xs: Sequence[torch.Tensor],
+                             wqkv: Sequence[torch.Tensor],
+                             bqkv: Sequence[torch.Tensor],
+                             wo: torch.Tensor, bo: torch.Tensor, *,
+                             modal_dim: int, num_heads: int) -> torch.Tensor:
+    """The attention over the modality slots up to ``o_proj``, before the
+    LayerNorm: plain, differentiable PyTorch (the train path puts its
+    dropout between the two, ``fvt_tpu/models/fusion.py:84-90``)."""
     b, t, _ = xs[0].shape
     m = len(xs)
     hd = modal_dim // num_heads
@@ -44,8 +45,20 @@ def fused_multimodal_fusion_ref(xs: Sequence[torch.Tensor],
     q, k, v = qkv.transpose(2, 3).split(hd, dim=-1)
     attn = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(hd), dim=-1)
     values = (attn @ v + v).reshape(b, t, modal_dim * m)
-    o = values @ wo + bo
-    return F.layer_norm(o, (modal_dim * m,), ln_scale, ln_bias, LN_EPS)
+    return values @ wo + bo
+
+
+def fused_multimodal_fusion_ref(xs: Sequence[torch.Tensor],
+                                wqkv: Sequence[torch.Tensor],
+                                bqkv: Sequence[torch.Tensor],
+                                wo: torch.Tensor, bo: torch.Tensor,
+                                ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                                *, modal_dim: int,
+                                num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the fusion block (same math, layouts)."""
+    o = multimodal_attention_ref(xs, wqkv, bqkv, wo, bo,
+                                 modal_dim=modal_dim, num_heads=num_heads)
+    return F.layer_norm(o, (o.shape[-1],), ln_scale, ln_bias, LN_EPS)
 
 
 def fused_multimodal_fusion(xs: Sequence[torch.Tensor],
@@ -57,8 +70,16 @@ def fused_multimodal_fusion(xs: Sequence[torch.Tensor],
                             num_heads: int) -> torch.Tensor:
     """xs: M tensors (B, T, C_m) in modality order; wqkv[m] (C_m, 3E),
     bqkv[m] (3E); wo (E*M, E*M); bo, ln_scale, ln_bias (E*M).  Returns
-    (B, T, E*M)."""
+    (B, T, E*M).  Eval only: the kernel has no backward, as the Pallas
+    kernel has none, so inputs that require grad are refused while grad
+    mode is on."""
     x0 = xs[0]
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (*xs, *wqkv, *bqkv, wo, bo, ln_scale,
+                                      ln_bias)):
+        raise RuntimeError('fused_multimodal_fusion has no backward: call '
+                           'it under torch.no_grad(), or take the train '
+                           'path of MultimodalTransformerEncoder')
     if x0.device.type == 'cpu':
         return fused_multimodal_fusion_ref(
             xs, wqkv, bqkv, wo, bo, ln_scale, ln_bias, modal_dim=modal_dim,

@@ -1,7 +1,9 @@
-"""Fused eval-mode TCN temporal block: CUDA kernel and plain version.
+"""Fused TCN temporal block, eval and train: CUDA kernels and plain
+versions.
 
 Counterpart of ``fvt_tpu/ops/tcn_pallas.py`` (``fused_temporal_block``,
-``tcn_forward_pallas``).  One block computes
+``tcn_forward_pallas``, ``fused_temporal_block_train``).  In eval mode one
+block computes
 
     y = leaky(leaky(conv2(leaky(conv1(x)))) + res)
 
@@ -14,10 +16,20 @@ the JAX package: ``x (B, T, Cin)``, ``w1 (K, Cin, Cout)``,
 tensor on the CPU; for a CUDA tensor it launches the kernel of
 ``csrc/tcn_block.cu`` or raises.  ``fused_temporal_block.launches``
 counts kernel launches.
+
+:func:`fused_temporal_block_train` is the differentiable train-mode block
+with dropout masks and the residual stream passed in
+(``tcn_pallas.py:328-359``): for CUDA tensors a
+``torch.autograd.Function`` whose forward and backward launch the kernels
+of ``csrc/tcn_block_train.cu`` (counted in ``.launches_fwd`` and
+``.launches_bwd``), for CPU tensors
+:func:`fused_temporal_block_train_ref` under ordinary autograd.
+:func:`_block_bwd_ref` spells the backward kernels' arithmetic in plain
+PyTorch, so the CPU tests hold the formula against autograd.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -107,3 +119,194 @@ def tcn_forward(x: torch.Tensor, blocks: Sequence[dict], kernel_size: int,
         x = fn(x, blk['w1'], blk['b1'], blk['w2'], blk['b2'], blk['wd'],
                blk['bd'], kernel_size=kernel_size, dilation=2 ** i)
     return x
+
+
+# ------------------------------------------------------------ train path
+def _leaky(z: torch.Tensor) -> torch.Tensor:
+    """leaky_relu whose derivative at 0 is 1, the rule of the Pallas
+    backward (``z >= 0``, ``tcn_pallas.py:199-200``) and of the CUDA one;
+    ``F.leaky_relu``'s autograd takes the slope there."""
+    return torch.where(z >= 0, z, z * NEG_SLOPE)
+
+
+def _dleaky(z: torch.Tensor) -> torch.Tensor:
+    return torch.ones_like(z).masked_fill_(z < 0, NEG_SLOPE)
+
+
+def _causal_conv(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 dilation: int) -> torch.Tensor:
+    """v (B, T, C), w (K, C, Co), left pad (K-1)*dilation -> (B, T, Co)."""
+    pad = (w.shape[0] - 1) * dilation
+    v = F.pad(v.transpose(1, 2), (pad, 0))
+    return F.conv1d(v, w.permute(2, 1, 0), b,
+                    dilation=dilation).transpose(1, 2)
+
+
+def fused_temporal_block_train_ref(x, w1, b1, w2, b2, m1, m2, res, *,
+                                   kernel_size: int,
+                                   dilation: int) -> torch.Tensor:
+    """Plain, differentiable PyTorch version of the train-mode block:
+    ``leaky(leaky(conv2(leaky(conv1 x + b1) * m1) + b2) * m2 + res)``."""
+    if w1.shape[0] != kernel_size or w2.shape[0] != kernel_size:
+        raise ValueError(f'kernel_size {kernel_size} != weight taps '
+                         f'{w1.shape[0]}, {w2.shape[0]}')
+    h = _leaky(_causal_conv(x, w1, b1, dilation)) * m1
+    net = _leaky(_causal_conv(h, w2, b2, dilation)) * m2
+    return _leaky(net + res)
+
+
+def _shift_back(v: torch.Tensor, n: int) -> torch.Tensor:
+    """out[:, s] = v[:, s + n], zero where s + n runs past the end."""
+    if n == 0:
+        return v
+    return F.pad(v[:, n:], (0, 0, 0, min(n, v.shape[1])))
+
+
+def _shift_forward(v: torch.Tensor, n: int) -> torch.Tensor:
+    """out[:, t] = v[:, t - n], zero where t < n (the causal pad)."""
+    if n == 0:
+        return v
+    t = v.shape[1]
+    return F.pad(v[:, :max(t - n, 0)], (0, 0, min(n, t), 0))
+
+
+def _block_bwd_ref(x, w1, w2, m1, m2, res, a1, a2, g, *, dilation: int
+                   ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels' arithmetic in plain PyTorch, in the gather
+    form of ``csrc/tcn_block_train.cu``: from the forward's saved
+    pre-activations ``a1 = conv1 x + b1`` and ``a2 = conv2 h + b2`` and the
+    cotangent ``g`` of the output, returns
+    ``(dx, dw1, db1, dw2, db2, dres)``."""
+    k = w1.shape[0]
+    pad = (k - 1) * dilation
+    h = _leaky(a1) * m1
+    gz = g * _dleaky(_leaky(a2) * m2 + res)
+    d_a2 = gz * m2 * _dleaky(a2)
+    # d_h[s] = sum_k d_a2[s + pad - k*d] . w2[k]^T, zero beyond T - 1
+    d_h = sum(_shift_back(d_a2, pad - i * dilation) @ w2[i].t()
+              for i in range(k))
+    d_a1 = d_h * m1 * _dleaky(a1)
+    dx = sum(_shift_back(d_a1, pad - i * dilation) @ w1[i].t()
+             for i in range(k))
+    # dw[k] = sum_{b,t} in[t - pad + k*d]^T d_a[t], in = 0 before time 0
+    dw2 = torch.stack([torch.einsum(
+        'btc,bto->co', _shift_forward(h, pad - i * dilation), d_a2)
+        for i in range(k)])
+    dw1 = torch.stack([torch.einsum(
+        'btc,bto->co', _shift_forward(x, pad - i * dilation), d_a1)
+        for i in range(k)])
+    return dx, dw1, d_a1.sum((0, 1)), dw2, d_a2.sum((0, 1)), gz
+
+
+def _wgrad_shares(batch: int, taps: int, ca: int, cd: int,
+                  sm_count: int) -> int:
+    """Batch shares of a weight gradient: its (tap, 64 x 64) tiles alone
+    fill the card where there are two for every SM; else the batch is cut
+    so that about that many blocks run."""
+    tiles = taps * -(-ca // 64) * -(-cd // 64)
+    return max(1, min(batch, -(-2 * sm_count // tiles)))
+
+
+def _check_train_args(x, w1, b1, w2, b2, m1, m2, res, kernel_size):
+    b, t, cin = x.shape
+    cout = w1.shape[-1]
+    if cin % 4 or cout % 4:
+        raise ValueError(f'Cin {cin}, Cout {cout}: the kernels take '
+                         f'multiples of 4')
+    for name, arr, shape in [
+            ('x', x, (b, t, cin)), ('w1', w1, (kernel_size, cin, cout)),
+            ('b1', b1, (cout,)), ('w2', w2, (kernel_size, cout, cout)),
+            ('b2', b2, (cout,)), ('m1', m1, (b, t, cout)),
+            ('m2', m2, (b, t, cout)), ('res', res, (b, t, cout))]:
+        build.check_tensor(name, arr, shape, x.device)
+    return b, t, cin, cout
+
+
+class _FusedTemporalBlockTrain(torch.autograd.Function):
+    """Forward and backward through ``csrc/tcn_block_train.cu``.  The
+    forward keeps the pre-activations a1 and a2, so the backward
+    recomputes no convolution."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, m1, m2, res, kernel_size, dilation):
+        b, t, cin, cout = _check_train_args(x, w1, b1, w2, b2, m1, m2, res,
+                                            kernel_size)
+        a1 = torch.empty((b, t, cout), device=x.device, dtype=torch.float32)
+        a2 = torch.empty_like(a1)
+        out = torch.empty_like(a1)
+        ctx.kernel_size, ctx.dilation = kernel_size, dilation
+        ctx.save_for_backward(x, w1, w2, m1, m2, res, a1, a2)
+        if b * t == 0:
+            return out
+        err = build.library().fvt_tcn_block_train_forward(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), m1.data_ptr(), m2.data_ptr(), res.data_ptr(),
+            a1.data_ptr(), a2.data_ptr(), out.data_ptr(), b, t, cin, cout,
+            kernel_size, dilation,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(err, f'tcn_block_train forward (B={b}, T={t}, '
+                         f'Cin={cin}, Cout={cout}, K={kernel_size}, '
+                         f'dilation={dilation})')
+        fused_temporal_block_train.launches_fwd += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, w2, m1, m2, res, a1, a2 = ctx.saved_tensors
+        k, dil = ctx.kernel_size, ctx.dilation
+        b, t, cin = x.shape
+        cout = w1.shape[-1]
+        g = g.contiguous()
+        build.check_tensor('g', g, (b, t, cout), x.device)
+        dev = x.device
+
+        def empty(*shape):
+            return torch.empty(shape, device=dev, dtype=torch.float32)
+
+        dx, dres = empty(b, t, cin), empty(b, t, cout)
+        dw1, dw2 = empty(k, cin, cout), empty(k, cout, cout)
+        db1, db2 = empty(cout), empty(cout)
+        if b * t == 0:
+            return (dx, dw1.zero_(), db1.zero_(), dw2.zero_(), db2.zero_(),
+                    None, None, dres, None, None)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        s1 = _wgrad_shares(b, k, cin, cout, sms)
+        s2 = _wgrad_shares(b, k, cout, cout, sms)
+        d_a2, d_a1 = empty(b, t, cout), empty(b, t, cout)
+        part1 = empty(s1, k, cin, cout) if s1 > 1 else None
+        part2 = empty(s2, k, cout, cout) if s2 > 1 else None
+        err = build.library().fvt_tcn_block_train_backward(
+            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), m1.data_ptr(),
+            m2.data_ptr(), res.data_ptr(), a1.data_ptr(), a2.data_ptr(),
+            g.data_ptr(), d_a2.data_ptr(), d_a1.data_ptr(),
+            None if part1 is None else part1.data_ptr(),
+            None if part2 is None else part2.data_ptr(),
+            dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
+            db2.data_ptr(), dres.data_ptr(), b, t, cin, cout, k, dil, s1, s2,
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(err, f'tcn_block_train backward (B={b}, T={t}, '
+                         f'Cin={cin}, Cout={cout}, K={k}, dilation={dil})')
+        fused_temporal_block_train.launches_bwd += 1
+        return dx, dw1, db1, dw2, db2, None, None, dres, None, None
+
+
+def fused_temporal_block_train(x, w1, b1, w2, b2, m1, m2, res, *,
+                               kernel_size: int,
+                               dilation: int) -> torch.Tensor:
+    """Differentiable fused block: x (B, T, Cin); w1 (K, Cin, Cout); w2
+    (K, Cout, Cout); masks m1, m2 (B, T, Cout) pre-scaled to
+    {0, 1/(1-p)} (ones without dropout); res (B, T, Cout) the residual
+    stream (x itself, or its 1x1 downsample).  Gradients flow to x, the
+    weights, the biases and res, not to the masks."""
+    if x.device.type == 'cpu':
+        return fused_temporal_block_train_ref(
+            x, w1, b1, w2, b2, m1, m2, res, kernel_size=kernel_size,
+            dilation=dilation)
+    if x.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {x.device}')
+    return _FusedTemporalBlockTrain.apply(x, w1, b1, w2, b2, m1, m2, res,
+                                          kernel_size, dilation)
+
+
+fused_temporal_block_train.launches_fwd = 0
+fused_temporal_block_train.launches_bwd = 0

@@ -8,9 +8,9 @@ kernel and the regressor.
 :class:`ServingModel` wraps a model at one ``(window_batch,
 window_length)`` shape behind the interface of an ``fvt_tpu`` serving
 artifact: ``.meta`` with ``fvt_tpu/export.py``'s keys and
-``.call(inputs, length=None)`` on numpy arrays.  So the unchanged
-``fvt_tpu.streaming`` server core (``StreamingSession``,
-``StreamingRegistry``, ``WindowBatcher``) serves it.
+``.call(inputs, length=None)`` on numpy arrays.  So the server core of
+``fvt_tpu_torch.streaming`` (``StreamingSession``, ``StreamingRegistry``,
+``WindowBatcher``), a copy of ``fvt_tpu.streaming``, serves it.
 """
 from __future__ import annotations
 
@@ -19,8 +19,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from fvt_tpu import constants
-from fvt_tpu.config import model_config as MC
+from fvt_tpu_torch import constants
+from fvt_tpu_torch.config import model_config as MC
 from fvt_tpu_torch.data.transforms import CROP_SIZE, eval_video_transform
 from fvt_tpu_torch.models.models import LFAN
 

@@ -1,0 +1,124 @@
+"""Train and eval steps of the port (``fvt_tpu/train/steps.py``).
+
+:class:`TrainStep` is one optimizer step on one device: forward in train
+mode (dropout from the step's generator, BatchNorm on batch statistics
+with the running ones updated), mean cross-entropy over all B*T frames,
+backward, optimizer update.  The frozen backbone subtrees (prefix
+``spatial``) get no gradient and are kept out of the optimizer, so weight
+decay cannot move them.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fvt_tpu_torch import constants
+from fvt_tpu_torch.train import optim
+
+FROZEN_PREFIX = 'spatial'
+
+
+def cross_entropy_frames(logits: torch.Tensor,
+                         labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over all B*T frames: logits (B, T, C), labels (B, T)."""
+    b, t, c = logits.shape
+    return F.cross_entropy(logits.reshape(b * t, c),
+                           labels.reshape(b * t).long())
+
+
+def label_key(batch: Dict[str, Any]) -> str:
+    """The single ``*continuous_label`` key of a batch."""
+    keys = [k for k in batch if 'continuous_label' in k]
+    if len(keys) != 1:
+        raise ValueError(f'expected one label stream, got {keys}')
+    return keys[0]
+
+
+def split_frozen(model: nn.Module) -> Tuple[Dict[str, nn.Parameter],
+                                            Dict[str, nn.Parameter]]:
+    """(trainable, frozen) named parameters; frozen are those under the
+    ``spatial`` prefix (the backbones)."""
+    named = dict(model.named_parameters())
+    trainable = {k: v for k, v in named.items()
+                 if not k.startswith(FROZEN_PREFIX)}
+    frozen = {k: v for k, v in named.items() if k.startswith(FROZEN_PREFIX)}
+    return trainable, frozen
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; the default (None) is the card, and
+    it is an error when there is none: the CPU is taken only when the
+    caller names it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError('no CUDA device: training runs on the card '
+                               "unless the caller passes device='cpu'")
+        return torch.device('cuda', torch.cuda.current_device())
+    return torch.device(device)
+
+
+def to_device(batch: Dict[str, np.ndarray],
+              device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v).to(device, non_blocking=True)
+            for k, v in batch.items()}
+
+
+class TrainStep:
+    """One optimizer step of ``model`` on ``device``.  ``hp`` are the
+    standardized optimizer hyperparameters
+    (:func:`fvt_tpu_torch.train.optim.standardize_opt_params`);
+    ``tcn_fused`` routes the TCN blocks through the fused train kernel,
+    ``reference`` through its plain version."""
+
+    def __init__(self, model: nn.Module, hp, device=None, *,
+                 task: str = constants.CLASSIFICATION,
+                 tcn_fused: bool = True, reference: bool = False):
+        if task != constants.CLASSIFICATION:
+            raise NotImplementedError('the regression task is not ported '
+                                      'yet')
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.tcn_fused = tcn_fused
+        self.reference = reference
+        self.trainable, frozen = split_frozen(self.model)
+        for p in frozen.values():
+            p.requires_grad_(False)
+        self.optimizer = optim.build_optimizer(hp, self.trainable.values())
+        self.step = 0
+
+    def loss(self, batch: Dict[str, torch.Tensor],
+             generator: torch.Generator) -> torch.Tensor:
+        """The train-mode forward and its loss (updates the BatchNorm
+        running statistics), for tensors already on the device."""
+        labels = batch[label_key(batch)]
+        inputs = {k: v for k, v in batch.items()
+                  if 'continuous_label' not in k}
+        logits = self.model(inputs, True, generator,
+                            tcn_fused=self.tcn_fused,
+                            reference=self.reference)
+        return cross_entropy_frames(logits, labels)
+
+    def __call__(self, batch: Dict[str, Any],
+                 generator: torch.Generator) -> torch.Tensor:
+        """Takes the step; returns the loss as a 0-d tensor on the device
+        (no synchronisation)."""
+        batch = to_device(batch, self.device)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss(batch, generator)
+        loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        return loss.detach()
+
+
+def eval_step(model: nn.Module, inputs: Dict[str, Any], device=None, *,
+              reference: bool = False) -> torch.Tensor:
+    """(B, T, C) logits of the eval forward (running-stat BatchNorm, no
+    dropout, the eval kernels), without gradient."""
+    device = resolve_device(device)
+    with torch.inference_mode():
+        return model(to_device(inputs, device), reference=reference)

@@ -1,0 +1,168 @@
+"""The port's own copies of fvt_tpu's jax-free modules, held against their
+originals: constants and model/train configs equal name by name, the
+numpy resize and windowing functions equal on seeded inputs (exact), and
+the streaming server core giving the same dispatches, padded rows and
+output bits on the same multi-stream feed.
+"""
+import numpy as np
+import pytest
+
+from fvt_tpu import constants as jax_constants
+from fvt_tpu import streaming as jax_streaming
+from fvt_tpu.config import defaults as jax_defaults
+from fvt_tpu.config import model_config as jax_mc
+from fvt_tpu.data import host_resize as jax_resize
+from fvt_tpu.data import windowing as jax_windowing
+from fvt_tpu.utils import rng as jax_rng
+from fvt_tpu_torch import constants, streaming
+from fvt_tpu_torch.config import defaults
+from fvt_tpu_torch.config import model_config as mc
+from fvt_tpu_torch.data import host_resize, windowing
+from fvt_tpu_torch.utils import rng
+
+
+def _public(module) -> dict:
+    return {k: v for k, v in vars(module).items()
+            if not k.startswith('_') and k.isupper()}
+
+
+@pytest.mark.parametrize('copy,original', [(constants, jax_constants),
+                                           (mc, jax_mc)],
+                         ids=['constants', 'model_config'])
+def test_every_public_constant_is_equal(copy, original):
+    want, got = _public(original), _public(copy)
+    assert set(got) == set(want)
+    for name, value in want.items():
+        assert got[name] == value, name
+        assert type(got[name]) is type(value), name
+
+
+def test_train_defaults_are_fvt_tpu_defaults():
+    want = jax_defaults.get_config(jax_constants.MELD)
+    got = defaults.get_train_config()
+    assert got and set(got) <= set(want)
+    for key, value in got.items():
+        assert want[key] == value, key
+
+
+@pytest.mark.parametrize('n_in,n_out', [(256, 48), (64, 48), (48, 48),
+                                        (40, 48), (97, 13)])
+def test_resize_weights_equal(n_in, n_out):
+    np.testing.assert_array_equal(host_resize.resize_weights(n_in, n_out),
+                                  jax_resize.resize_weights(n_in, n_out))
+
+
+def test_resize_frames_equal():
+    video = np.random.default_rng(0).integers(
+        0, 256, (3, 64, 56, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(host_resize.resize_frames(video, 48),
+                                  jax_resize.resize_frames(video, 48))
+    np.testing.assert_array_equal(
+        host_resize.resize_frames_uint8(video, 48),
+        jax_resize.resize_frames_uint8(video, 48))
+
+
+@pytest.mark.parametrize('length,window,hop', [(1000, 300, 200),
+                                               (700, 300, 200),
+                                               (300, 300, 200),
+                                               (250, 300, 200),
+                                               (23, 8, 3), (5, 8, 3)])
+def test_windowing_functions_equal(length, window, hop):
+    rng_ = np.random.default_rng(length)
+    assert windowing.window_starts(length, window, hop) == \
+        jax_windowing.window_starts(length, window, hop)
+    x = rng_.normal(size=(length, 5)).astype(np.float32)
+    for got, want in zip(windowing.windowing(x, window, hop),
+                         jax_windowing.windowing(x, window, hop)):
+        np.testing.assert_array_equal(got, want)
+    if length >= window:
+        idx = windowing.window_index_matrix(length, window, hop)
+        np.testing.assert_array_equal(
+            idx, jax_windowing.window_index_matrix(length, window, hop))
+        outs = rng_.normal(size=idx.shape + (7,)).astype(np.float32)
+        np.testing.assert_array_equal(
+            windowing.stitch_windows_np(outs, idx, length),
+            jax_windowing.stitch_windows_np(outs, idx, length))
+    else:
+        np.testing.assert_array_equal(
+            windowing.pad_short_window_indices(length, window),
+            jax_windowing.pad_short_window_indices(length, window))
+    if length > window:
+        for quantum in (0, 100):
+            assert windowing.ladder_len(length, window, quantum) == \
+                jax_windowing.ladder_len(length, window, quantum)
+
+
+def test_numpy_streams_equal():
+    for args in [(0, '', 0), (7, 'stable_shuffle', 3), (2 ** 32 + 5, 'x', 1)]:
+        np.testing.assert_array_equal(rng.np_rng(*args).random(8),
+                                      jax_rng.np_rng(*args).random(8))
+
+
+class _StubModel:
+    """A serving model over numpy: per-frame logits that depend on the
+    frame and on its place in the window, so a wrong window or row shows."""
+    WB, T, C, D = 4, 12, 3, 5
+
+    def __init__(self):
+        self.calls = 0
+        self.meta = {
+            'model_name': 'LFAN', 'modality': 'feat', 'num_classes': self.C,
+            'needs_mask': False, 'window_length': self.T, 'hop_length': 8,
+            'shapes': {'b4xt12': {
+                'window_batch': self.WB, 'seq_len': self.T,
+                'inputs': {'feat': {'shape': [self.WB, self.T, self.D],
+                                    'dtype': 'float32'}}}}}
+        self.w = np.random.default_rng(9).normal(
+            size=(self.D, self.C)).astype(np.float32)
+
+    def call(self, inputs, length=None):
+        assert length is None
+        x = inputs['feat']
+        assert x.shape == (self.WB, self.T, self.D) and x.dtype == np.float32
+        self.calls += 1
+        pos = np.arange(self.T, dtype=np.float32)[None, :, None]
+        return (x @ self.w + 0.01 * pos).astype(np.float32)
+
+
+def _feed_streams(mod):
+    """3 streams of 40, 7 (shorter than a window) and 29 frames in ragged
+    chunks, round-robin, through one dynamic-batching registry."""
+    model = _StubModel()
+    registry = mod.StreamingRegistry(model, dynamic_batch=True)
+    rng_ = np.random.default_rng(4)
+    lengths = (40, 7, 29)
+    frames = [rng_.normal(size=(n, model.D)).astype(np.float32)
+              for n in lengths]
+    chunks = [[5, 1, 9, 13, 12], [3, 4], [11, 2, 16]]
+    sids = [registry.open() for _ in lengths]
+    parts = [[] for _ in lengths]
+    pos = [0] * len(lengths)
+    for step in range(max(map(len, chunks))):
+        for i, sid in enumerate(sids):
+            if step < len(chunks[i]):
+                n = chunks[i][step]
+                parts[i].append(registry.feed(
+                    sid, {'feat': frames[i][pos[i]:pos[i] + n]}))
+                pos[i] += n
+    for i, sid in enumerate(sids):
+        parts[i].append(registry.close(sid))
+    assert pos == list(lengths)
+    return parts, registry.batcher.dispatches, \
+        registry.batcher.rows_padded, model.calls
+
+
+def test_streaming_copy_behaves_as_the_original():
+    want, want_dispatches, want_padded, want_calls = _feed_streams(
+        jax_streaming)
+    got, dispatches, padded, calls = _feed_streams(streaming)
+    assert (dispatches, padded, calls) == (want_dispatches, want_padded,
+                                           want_calls)
+    assert dispatches >= 2
+    for got_parts, want_parts in zip(got, want):
+        assert len(got_parts) == len(want_parts)
+        for (gs, gl), (ws, wl) in zip(got_parts, want_parts):
+            assert gs == ws
+            np.testing.assert_array_equal(gl, wl)
+    for parts, n in zip(got, (40, 7, 29)):
+        assert sum(len(p[1]) for p in parts) == n

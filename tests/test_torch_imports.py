@@ -1,6 +1,7 @@
-"""The port needs neither JAX, flax nor PyYAML, and chip_smoke.py refuses
-to run without a CUDA card."""
+"""The port needs neither JAX, flax, PyYAML nor anything of fvt_tpu, and
+chip_smoke.py refuses to run without a CUDA card."""
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -11,7 +12,7 @@ NO_JAX = textwrap.dedent('''
     import importlib.abc
     import sys
 
-    BLOCKED = ('jax', 'jaxlib', 'flax', 'yaml')
+    BLOCKED = ('jax', 'jaxlib', 'flax', 'yaml', 'fvt_tpu')
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -26,10 +27,12 @@ NO_JAX = textwrap.dedent('''
 
     import fvt_tpu_torch
     import fvt_tpu_torch.kernels.build
-    from fvt_tpu.streaming import StreamingSession
+    from fvt_tpu_torch.config.defaults import get_train_config
     from fvt_tpu_torch.models.from_jax import lfan_state_from_flax
     from fvt_tpu_torch.models.models import LFAN
     from fvt_tpu_torch.serve import ServingModel
+    from fvt_tpu_torch.streaming import StreamingSession
+    from fvt_tpu_torch.train.trainer import Trainer
 
     tcn = {'vggish': [8, 8, 4, 4], 'bert': [8, 8, 4, 4]}
     model = LFAN(('vggish', 'bert'), 7, tcn_channel=tcn,
@@ -43,10 +46,24 @@ NO_JAX = textwrap.dedent('''
     rest = sess.close()[1]
     out = np.concatenate([first, rest])
     assert out.shape == (9, 7) and np.isfinite(out).all(), out.shape
+
+    batch = {'vggish': rng.normal(size=(2, 6, 128)).astype(np.float32),
+             'bert': rng.normal(size=(2, 6, 768)).astype(np.float32),
+             'EXPR_continuous_label': rng.integers(0, 7, (2, 6))}
+    loss = Trainer(model, get_train_config(), 'cpu').train_one_epoch(
+        [batch], 0)
+    assert np.isfinite(loss), loss
+
+    import chip_smoke
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
     assert not leaked, leaked
-    print('served', out.shape)
+    print('served', out.shape, 'trained')
 ''')
+
+# an import of jax, flax, yaml or fvt_tpu (not fvt_tpu_torch), at any depth
+FORBIDDEN_IMPORT = re.compile(
+    r'^\s*(?:import|from)\s+(?:jax|jaxlib|flax|yaml|fvt_tpu)(?![\w])',
+    re.MULTILINE)
 
 
 def _env():
@@ -56,12 +73,32 @@ def _env():
     return env
 
 
+def _port_sources():
+    yield os.path.join(REPO, 'chip_smoke.py')
+    for root, _, files in os.walk(os.path.join(REPO, 'fvt_tpu_torch')):
+        for name in files:
+            if name.endswith('.py'):
+                yield os.path.join(root, name)
+
+
+def test_no_port_source_imports_jax_or_fvt_tpu():
+    paths = list(_port_sources())
+    assert len(paths) > 20
+    for path in paths:
+        with open(path) as f:
+            found = FORBIDDEN_IMPORT.findall(f.read())
+        assert not found, (os.path.relpath(path, REPO), found)
+    assert FORBIDDEN_IMPORT.search('    from fvt_tpu.data import windowing')
+    assert FORBIDDEN_IMPORT.search('import jax.numpy as jnp')
+    assert not FORBIDDEN_IMPORT.search('from fvt_tpu_torch import constants')
+
+
 def test_port_imports_and_serves_without_jax_flax_yaml():
     proc = subprocess.run([sys.executable, '-c', NO_JAX], cwd=REPO,
                           env=_env(), capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert 'served (9, 7)' in proc.stdout
+    assert 'served (9, 7) trained' in proc.stdout
 
 
 def test_chip_smoke_refuses_a_machine_without_cuda():
