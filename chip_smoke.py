@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's LFAN serving and training paths once on one
-CUDA card.
+"""Drives the PyTorch port's LFAN serving and training paths and the
+ArcFace backbone's conv paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -13,8 +13,11 @@ Phases, each of which raises on failure (exit code 1):
    {128, 32, 128}), and the train-mode TCN block (forward output and the
    backward's six results, against autograd of the plain version) at the
    8 block shapes of the ``vggish+bert`` LFAN at (16, 300) with dropout
-   masks at p=0.1, plus edge shapes; print errors and median times (CUDA
-   events);
+   masks at p=0.1, plus edge shapes; the shifted-products and the Winograd
+   3x3 conv kernels against their plain versions and against ``F.conv2d``
+   at the seven conv shapes of the ArcFace body on 2400 frames, and the
+   fused BottleneckIR block against its plain version at the four stage
+   shapes, plus edge shapes; print errors and median times (CUDA events);
 3. serve three streams of 250, 700 and 1000 frames through the
    ``fvt_tpu_torch.streaming`` server core over a full-width tri-modal
    LFAN (``video+vggish+bert``, random init from seed 0); check every
@@ -25,7 +28,15 @@ Phases, each of which raises on failure (exit code 1):
    final parameters against the same steps on the plain versions, that a
    step repeats bit for bit, and the launch counts (8 forward and 8
    backward launches a step, none of the eval-only fusion kernel); time
-   steps of the fused path and of the conv-by-conv path on cuDNN.
+   steps of the fused path and of the conv-by-conv path on cuDNN;
+5. run the ArcFace IR-50 backbone alone on the 2400 frames of a full
+   dispatch through each conv path (``cudnn``, ``shifted_kernel``,
+   ``winograd_kernel``, ``fused_blocks``), check the embeddings against
+   the default path's and the launch counts (45, 45 and 21 a forward),
+   time each; then serve the three streams again through a tri-modal LFAN
+   built with ``fused_blocks=True`` and one with
+   ``conv_impl='winograd_kernel'``, check the logits against the offline
+   stitch of the plain versions and the launch counts a dispatch.
 
 Everything runs in float32 with TF32 off for matmuls and cuDNN.  The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line
@@ -43,6 +54,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 WINDOW_BATCH, WINDOW, HOP = 8, 300, 200  # defaults.py:59-60,152
 MODALITY = ('video', 'vggish', 'bert')
@@ -68,6 +80,21 @@ PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # served logits vs the offline stitch of the plain-version forward
 SERVE_ATOL = 1e-3
+# the backbone's conv kernels at N = 2400: long calls, fewer timed runs
+CONV_RUNS = 5
+# Winograd vs its plain version and vs the direct conv: the transforms
+# reorder and enlarge the partial sums (tests/test_winograd.py)
+WINOGRAD_RTOL = WINOGRAD_ATOL = 2e-4
+# a conv path's l2-normalised 512-d embeddings vs the default path's
+# (components ~0.04): fp32 through 50 conv layers summed in another order
+EMBED_ATOL = 1e-4
+# (H = W, Cin, Cout, launches a backbone forward) of the stride-1 3x3 convs
+# of the ArcFace body: 24 conv1 and the 21 conv2 of the stride-1 blocks
+CONV_SHAPES = ((40, 64, 64, 6), (40, 64, 128, 1), (20, 128, 128, 6),
+               (20, 128, 256, 1), (10, 256, 256, 26), (10, 256, 512, 1),
+               (5, 512, 512, 4))
+# (H = W, C, launches a forward) of the stride-1 identity blocks
+BLOCK_SHAPES = ((40, 64, 3), (20, 128, 3), (10, 256, 13), (5, 512, 2))
 
 
 def fail(msg: str) -> None:
@@ -81,10 +108,10 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, runs: int = RUNS) -> float:
+def median_ms(fn, runs: int = RUNS, warmup: int = 3) -> float:
     """Median time of ``fn()`` on the card over ``runs`` calls, after
-    three warm-up calls, with CUDA events around each call."""
-    for _ in range(3):
+    ``warmup`` calls, with CUDA events around each call."""
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
@@ -98,17 +125,22 @@ def median_ms(fn, runs: int = RUNS) -> float:
     return statistics.median(times)
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def compare(name: str, got: torch.Tensor, want: torch.Tensor,
+            rtol: float = KERNEL_RTOL, atol: float = KERNEL_ATOL,
+            what: str = 'its plain version') -> float:
     torch.cuda.synchronize()
-    err = (got - want).abs()
-    bound = KERNEL_ATOL + KERNEL_RTOL * want.abs()
+    # in place where it can be: the conv outputs are gigabytes
+    err = (got - want).abs_()
     max_abs = err.max().item()
+    excess = err.sub_(want.abs().mul_(rtol)).max().item() - atol
+    del err
+    finite = bool(torch.isfinite(got).all())
     print(f'  {name}: max_abs_err={max_abs:.3e} '
           f'max_rel_err={max_abs / want.abs().max().item():.3e} '
-          f'finite={bool(torch.isfinite(got).all())}')
-    if not torch.isfinite(got).all() or (err > bound).any():
-        fail(f'{name}: kernel disagrees with its plain version '
-             f'(rtol={KERNEL_RTOL}, atol={KERNEL_ATOL})')
+          f'finite={finite}')
+    if not finite or excess > 0:
+        fail(f'{name}: kernel disagrees with {what} '
+             f'(rtol={rtol}, atol={atol})')
     return max_abs
 
 
@@ -376,6 +408,286 @@ def check_kernels(model, device) -> list:
     ]
 
 
+def conv2d_library(x: torch.Tensor, kernel: torch.Tensor):
+    """``F.conv2d`` on the NHWC x and the HWIO kernel: the result (NHWC)
+    and the faster of its channels_last and NCHW times."""
+    x_cl = x.permute(0, 3, 1, 2)
+    w = kernel.permute(3, 2, 0, 1).contiguous()
+    w_cl = w.contiguous(memory_format=torch.channels_last)
+    out = F.conv2d(x_cl, w_cl, padding=1).permute(0, 2, 3, 1)
+    ms_cl = median_ms(lambda: F.conv2d(x_cl, w_cl, padding=1), CONV_RUNS)
+    x_nchw = x_cl.contiguous()
+    ms_nchw = median_ms(lambda: F.conv2d(x_nchw, w, padding=1), CONV_RUNS)
+    return out, min(ms_cl, ms_nchw), ('channels_last' if ms_cl <= ms_nchw
+                                      else 'NCHW')
+
+
+def check_conv_kernels(device) -> list:
+    """Phase 2, the ArcFace body's 3x3 convs: the shifted-products kernel
+    and the Winograd kernel against their plain versions and against
+    ``F.conv2d`` at the seven conv shapes on FRAMES frames and at edge
+    shapes.  Times are per shape; the kernels' line sums them over the
+    45 launches of one backbone forward."""
+    from fvt_tpu_torch.ops import conv as conv_ops
+    from fvt_tpu_torch.ops import winograd as winograd_ops
+
+    g = torch.Generator(device=device).manual_seed(SEED + 4)
+    frames = WINDOW_BATCH * WINDOW
+    kernels = {
+        'conv3x3': dict(fn=conv_ops.conv3x3, ref=conv_ops.conv3x3_ref,
+                        tol=KERNEL_RTOL),
+        'winograd': dict(fn=winograd_ops.conv3x3_winograd,
+                         ref=winograd_ops.conv3x3_winograd_ref,
+                         tol=WINOGRAD_RTOL)}
+    tot = {name: {key: 0.0 for key in (
+        'err', 'ms', 'plain', 'library', 'ops_ms', 'bytes_ms', 'direct_ms')}
+        for name in kernels}
+
+    def inputs(n, h, w, cin, cout):
+        x = torch.randn(n, h, w, cin, device=device, generator=g)
+        k = torch.randn(3, 3, cin, cout, device=device, generator=g)
+        return x, k * (9 * cin) ** -0.5
+
+    with torch.inference_mode():
+        for h, cin, cout, count in CONV_SHAPES:
+            x, k = inputs(frames, h, h, cin, cout)
+            cudnn, library_ms, layout = conv2d_library(x, k)
+            shape = f'({frames},{h},{h},{cin})->{cout}'
+            direct_flops = 2.0 * 9 * frames * h * h * cin * cout
+            for name, kern in kernels.items():
+                t = tot[name]
+                fn, ref, tol = kern['fn'], kern['ref'], kern['tol']
+                got = fn(x, k)
+                want = ref(x, k)
+                err = compare(f'{name} {shape}', got, want, tol, tol)
+                compare(f'{name} {shape} vs F.conv2d', got, cudnn, tol, tol,
+                        'F.conv2d')
+                del want
+                ms = median_ms(lambda: fn(x, k), CONV_RUNS)
+                plain = median_ms(lambda: ref(x, k), 3, warmup=1)
+                # Winograd's own count: 16 products a 2x2 tile
+                flops = direct_flops if name == 'conv3x3' else (
+                    2.0 * 16 * frames * ((h + 1) // 2) ** 2 * cin * cout)
+                lower = bound(flops, nbytes(x, k, got))
+                print(f'    x{count} a forward: kernel {ms:.4f} ms, plain '
+                      f'{plain:.4f} ms, F.conv2d ({layout}) '
+                      f'{library_ms:.4f} ms, bound {lower["bound_ms"]:.4f} '
+                      f'ms by {lower["bound_by"]} ({flops / 1e9:.1f} GFLOP; '
+                      f'the direct conv\'s {direct_flops / 1e9:.1f} GFLOP: '
+                      f'{direct_flops / PEAK_FLOPS * 1e3:.4f} ms)')
+                t['err'] = max(t['err'], err)
+                t['ms'] += count * ms
+                t['plain'] += count * plain
+                t['library'] += count * library_ms
+                t['ops_ms'] += count * flops / PEAK_FLOPS * 1e3
+                t['bytes_ms'] += count * nbytes(x, k, got) / PEAK_BYTES * 1e3
+                t['direct_ms'] += count * direct_flops / PEAK_FLOPS * 1e3
+                del got
+            del x, k, cudnn
+
+        # odd extents, Cin != Cout below a column tile, single pixels
+        for n, h, w, cin, cout in [(3, 7, 9, 32, 16), (1, 1, 1, 4, 4),
+                                   (1, 2, 2, 8, 4), (5, 5, 5, 64, 200),
+                                   (2, 13, 6, 20, 36)]:
+            x, k = inputs(n, h, w, cin, cout)
+            cudnn = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
+                             padding=1).permute(0, 2, 3, 1)
+            for name, kern in kernels.items():
+                shape = f'{name} edge ({n},{h},{w},{cin})->{cout}'
+                got = kern['fn'](x, k)
+                compare(shape, got, kern['ref'](x, k), kern['tol'],
+                        kern['tol'])
+                compare(f'{shape} vs F.conv2d', got, cudnn, kern['tol'],
+                        kern['tol'], 'F.conv2d')
+    out = []
+    for name, source, replaces in (
+            ('conv3x3', 'conv3x3.cu', 'conv_pallas.py:20'),
+            ('winograd', 'winograd.cu', 'winograd.py:148')):
+        t = tot[name]
+        by_ops = t['ops_ms'] >= t['bytes_ms']
+        print(f'  {name} total over the 45 convs of a forward: kernel '
+              f'{t["ms"]:.4f} ms, plain {t["plain"]:.4f} ms, F.conv2d '
+              f'{t["library"]:.4f} ms')
+        out.append({'name': name, 'route': 'cuda',
+                    'source': f'fvt_tpu_torch/csrc/{source}',
+                    'replaces': f'fvt_tpu/ops/{replaces}',
+                    'max_abs_err': t['err'], 'ms': t['ms'],
+                    'plain_ms': t['plain'], 'library_ms': t['library'],
+                    'bound_ms': max(t['ops_ms'], t['bytes_ms']),
+                    'bound_by': 'operations' if by_ops else 'bytes',
+                    'direct_conv_bound_ms': t['direct_ms']})
+    return out
+
+
+def check_bottleneck_kernel(device) -> dict:
+    """Phase 2, the fused BottleneckIR block against its plain version
+    (the eval block on cuDNN) at the four stage shapes on FRAMES frames,
+    BatchNorm affines and PReLU slopes off their init values, and at edge
+    shapes.  No single PyTorch call computes the block."""
+    from fvt_tpu_torch.ops import bottleneck as block_ops
+
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    frames = WINDOW_BATCH * WINDOW
+    tot = {key: 0.0 for key in ('err', 'ms', 'plain', 'ops_ms', 'bytes_ms')}
+
+    def inputs(n, h, w, c):
+        def randn(*shape, scale=1.0, shift=0.0):
+            return torch.randn(*shape, device=device,
+                               generator=g) * scale + shift
+
+        return (randn(n, h, w, c), randn(3, 3, c, c, scale=(9 * c) ** -0.5),
+                randn(3, 3, c, c, scale=(9 * c) ** -0.5),
+                randn(c, scale=0.2, shift=1.0), randn(c, scale=0.5),
+                randn(c, scale=0.1, shift=0.25),
+                randn(c, scale=0.2, shift=1.0), randn(c, scale=0.5))
+
+    with torch.inference_mode():
+        for h, c, count in BLOCK_SHAPES:
+            args = inputs(frames, h, h, c)
+            got = block_ops.bottleneck_ir_fused(*args)
+            want = block_ops.bottleneck_ir_fused_ref(*args)
+            tile = block_ops.choose_tile(frames, h, h, c)
+            err = compare(f'bottleneck ({frames},{h},{h},{c}) tile {tile}',
+                          got, want)
+            del want
+            ms = median_ms(lambda: block_ops.bottleneck_ir_fused(*args),
+                           CONV_RUNS)
+            plain = median_ms(
+                lambda: block_ops.bottleneck_ir_fused_ref(*args), CONV_RUNS)
+            flops = 2.0 * 2 * 9 * frames * h * h * c * c
+            lower = bound(flops, nbytes(*args, got))
+            print(f'    x{count} a forward: kernel {ms:.4f} ms, plain (eval '
+                  f'block on cuDNN) {plain:.4f} ms, bound '
+                  f'{lower["bound_ms"]:.4f} ms by {lower["bound_by"]} '
+                  f'({flops / 1e9:.1f} GFLOP)')
+            tot['err'] = max(tot['err'], err)
+            tot['ms'] += count * ms
+            tot['plain'] += count * plain
+            tot['ops_ms'] += count * flops / PEAK_FLOPS * 1e3
+            tot['bytes_ms'] += count * nbytes(*args, got) / PEAK_BYTES * 1e3
+            del args, got
+        # odd extents, a tile cut from the frame off the stage shapes,
+        # several frames a block, single pixels
+        for n, h, w, c in [(3, 7, 9, 32), (1, 1, 1, 4), (1, 2, 2, 8),
+                           (2, 12, 12, 128), (5, 10, 10, 64), (3, 23, 17, 16),
+                           (7, 5, 5, 512)]:
+            args = inputs(n, h, w, c)
+            compare(f'bottleneck edge ({n},{h},{w},{c}) tile '
+                    f'{block_ops.choose_tile(n, h, w, c)}',
+                    block_ops.bottleneck_ir_fused(*args),
+                    block_ops.bottleneck_ir_fused_ref(*args))
+    print(f'  bottleneck total over the 21 blocks of a forward: kernel '
+          f'{tot["ms"]:.4f} ms, plain {tot["plain"]:.4f} ms')
+    by_ops = tot['ops_ms'] >= tot['bytes_ms']
+    return {'name': 'bottleneck', 'route': 'cuda',
+            'source': 'fvt_tpu_torch/csrc/bottleneck.cu',
+            'replaces': 'fvt_tpu/ops/bottleneck_pallas.py:122',
+            'max_abs_err': tot['err'], 'ms': tot['ms'],
+            'plain_ms': tot['plain'], 'library_ms': None,
+            'bound_ms': max(tot['ops_ms'], tot['bytes_ms']),
+            'bound_by': 'operations' if by_ops else 'bytes'}
+
+
+def conv_counters() -> dict:
+    from fvt_tpu_torch.ops.bottleneck import bottleneck_ir_fused
+    from fvt_tpu_torch.ops.conv import conv3x3
+    from fvt_tpu_torch.ops.winograd import conv3x3_winograd
+    return {'conv3x3': conv3x3, 'winograd': conv3x3_winograd,
+            'bottleneck': bottleneck_ir_fused}
+
+
+def backbone_variants(model, crops: torch.Tensor, device) -> int:
+    """Phase 5, the backbone alone: each conv path on the same frames and
+    weights against the default path.  Returns the shifted-products
+    kernel's launches over its one checked forward."""
+    from fvt_tpu_torch.models.arcface import VisualBackbone
+
+    counters = conv_counters()
+    state = model.spatial.visual.state_dict()
+    frames = crops.shape[0]
+    variants = [('cudnn', {}, {}),
+                ('shifted_kernel', {'conv_impl': 'shifted_kernel'},
+                 {'conv3x3': 45}),
+                ('winograd_kernel', {'conv_impl': 'winograd_kernel'},
+                 {'winograd': 45}),
+                ('fused_blocks', {'fused_blocks': True}, {'bottleneck': 21})]
+    ref, shifted_launches = None, 0
+    with torch.inference_mode():
+        for name, kw, expect in variants:
+            net = VisualBackbone(**kw).eval()
+            net.load_state_dict(state)
+            net.to(device)
+            for fn in counters.values():
+                fn.launches = 0
+            out = net(crops)
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counters.items()}
+            want = {k: expect.get(k, 0) for k in counters}
+            if launches != want:
+                fail(f'backbone {name}: launches {launches}, expected '
+                     f'{want} a forward')
+            if name == 'shifted_kernel':
+                shifted_launches = launches['conv3x3']
+            if ref is None:
+                ref = out
+            err = (out - ref).abs().max().item()
+            ok = (out.shape == (frames, 512)
+                  and bool(torch.isfinite(out).all()))
+            ms = median_ms(lambda: net(crops), CONV_RUNS, warmup=1)
+            print(f'  backbone {name} on {frames} frames: {ms:.2f} ms, '
+                  f'{frames / ms * 1e3:.1f} frames/s, launches {launches}, '
+                  f'max |embedding - cudnn\'s| = {err:.3e} (atol '
+                  f'{EMBED_ATOL})')
+            if not ok or err > EMBED_ATOL:
+                fail(f'backbone {name}: embeddings {tuple(out.shape)} differ '
+                     f'from the default path\'s by {err}')
+            del net
+    return shifted_launches
+
+
+def serve_variant(model, kw: dict, kernel: str, per_dispatch: int,
+                  streams: dict, device) -> int:
+    """Phase 5, serving: a tri-modal LFAN with the conv path ``kw`` on the
+    weights of ``model`` serves ``streams``; logits against the offline
+    stitch of the plain versions, launch counts a dispatch.  Returns the
+    launches of ``kernel`` over the run."""
+    from fvt_tpu_torch.models.models import LFAN
+    from fvt_tpu_torch.ops.fusion import fused_multimodal_fusion
+    from fvt_tpu_torch.ops.tcn import fused_temporal_block
+    from fvt_tpu_torch.serve import ServingModel
+
+    variant = LFAN(MODALITY, output_dim=7, **kw)
+    variant.load_state_dict(model.state_dict(), strict=True)
+    server = ServingModel(variant, WINDOW_BATCH, WINDOW, HOP, device)
+    counters = dict(conv_counters(), tcn_block=fused_temporal_block,
+                    fusion=fused_multimodal_fusion)
+    for fn in counters.values():
+        fn.launches = 0
+    served, dispatches = serve_streams(server, streams)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = {k: 0 for k in counters}
+    want.update({kernel: per_dispatch * dispatches,
+                 'tcn_block': 12 * dispatches, 'fusion': dispatches})
+    print(f'  LFAN {kw}: {dispatches} dispatches, launches {launches}')
+    if dispatches < 1 or launches != want:
+        fail(f'LFAN {kw}: expected {want} over {dispatches} dispatches, '
+             f'got {launches}')
+    offline = offline_reference(variant, streams, device)
+    for n in STREAM_LENGTHS:
+        got = served[n]
+        if got.shape != (n, variant.output_dim) \
+                or not np.isfinite(got).all():
+            fail(f'LFAN {kw} stream {n}: got {got.shape} logits, finite='
+                 f'{np.isfinite(got).all()}')
+        err = float(np.abs(got - offline[n]).max())
+        print(f'    stream {n}: max |served - offline plain| = {err:.3e} '
+              f'(atol {SERVE_ATOL})')
+        if err > SERVE_ATOL:
+            fail(f'LFAN {kw} stream {n}: served logits differ from the '
+                 f'offline reference by {err}')
+    return launches[kernel]
+
+
 def make_streams() -> dict:
     rng = np.random.default_rng(SEED)
     return {n: {'video': rng.integers(0, 256, (n, 40, 40, 3), np.uint8),
@@ -594,6 +906,9 @@ def main() -> int:
           f'{WGRAD_TOL} of their largest value)')
     kernels = check_kernels(model, device)
     kernels += check_train_kernels(device)
+    kernels += check_conv_kernels(device)
+    kernels.append(check_bottleneck_kernel(device))
+    torch.cuda.empty_cache()
 
     print('phase 3: serving through fvt_tpu_torch.streaming')
     server = ServingModel(model, WINDOW_BATCH, WINDOW, HOP, device)
@@ -647,12 +962,23 @@ def main() -> int:
     with torch.inference_mode():
         backbone_ms = median_ms(lambda: model.spatial.visual(crops))
     print(f'  ArcFace IR-50 alone on {frames} frames: {backbone_ms:.2f} ms')
-    del model, server, video, crops
+    del server, video
 
     print(f'phase 4: training {"+".join(TRAIN_MODALITY)} through Trainer')
     train_launches = train_lfan(device)
-    for kernel in kernels[2:]:
+    for kernel in kernels[2:4]:
         kernel['launches'] = train_launches[kernel['name']]
+
+    print('phase 5: the ArcFace backbone\'s conv paths, alone and served')
+    by_name = {kernel['name']: kernel for kernel in kernels}
+    by_name['conv3x3']['launches'] = backbone_variants(model, crops, device)
+    del crops
+    by_name['bottleneck']['launches'] = serve_variant(
+        model, {'fused_blocks': True}, 'bottleneck', 21, streams, device)
+    by_name['winograd']['launches'] = serve_variant(
+        model, {'conv_impl': 'winograd_kernel'}, 'winograd', 45, streams,
+        device)
+    del model
 
     print(card)
     print(json.dumps({'kernels': kernels}))

@@ -3,7 +3,8 @@
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
 one compiler process per source and all of them at once, and linked into
 ``build/libfvt_tpu_torch-<hash>.so`` at the repository root, keyed by a
-hash of the sources and the flags, at the first call that needs a
+hash of the sources, their ``*.cuh`` headers and the flags, at the first
+call that needs a
 kernel.  The library has a plain C interface and is loaded with
 ``ctypes``: every pointer and the stream pass as ``c_void_p``, every C
 entry returns the CUDA error code of its launch, and :func:`check` raises
@@ -41,6 +42,12 @@ _SIGNATURES = {
     # x w1 w2 m1 m2 res a1 a2 g, d_a2 d_a1 part1 part2, dx dw1 db1 dw2 db2
     # dres, B T Cin Cout K dil S1 S2, stream
     'fvt_tcn_block_train_backward': [_P] * 19 + [_I] * 8 + [_P],
+    # x w y, N H W C Co, tf th tw, stream
+    'fvt_conv3x3_forward': [_P] * 3 + [_I] * 8 + [_P],
+    # x u y, N H W C Co, stream
+    'fvt_winograd_forward': [_P] * 3 + [_I] * 5 + [_P],
+    # x w1 w2 a1 b1 alpha a2 b2 y, N H W C, tf th tw rg, stream
+    'fvt_bottleneck_forward': [_P] * 9 + [_I] * 8 + [_P],
 }
 
 
@@ -63,7 +70,7 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC_DIR.glob('*.cuh')):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f'libfvt_tpu_torch-{h.hexdigest()[:16]}.so'

@@ -96,24 +96,60 @@ def _conv2d(tree: dict, prefix: str, out: dict) -> None:
                                  .transpose(3, 2, 0, 1))
 
 
+def _bottleneck(blk: dict, bst: dict, base: str, out: dict) -> None:
+    if 'shortcut_conv' in blk:
+        _conv2d(blk['shortcut_conv'], f'{base}shortcut_layer.0', out)
+        _bn(blk['shortcut_bn'], bst['shortcut_bn'],
+            f'{base}shortcut_layer.1', out)
+    _bn(blk['bn1'], bst['bn1'], f'{base}res_layer.0', out)
+    _conv2d(blk['conv1'], f'{base}res_layer.1', out)
+    out[f'{base}res_layer.2.weight'] = _t(blk['prelu']['alpha'])
+    _conv2d(blk['conv2'], f'{base}res_layer.3', out)
+    _bn(blk['bn2'], bst['bn2'], f'{base}res_layer.4', out)
+
+
+def bottleneck_state_from_flax(params: dict, stats: dict
+                               ) -> Dict[str, torch.Tensor]:
+    """state_dict of the port's ``BottleneckIR`` from one flax
+    ``BottleneckIR``'s params and batch_stats (``bn1, conv1, prelu, conv2,
+    bn2`` and, where the widths differ, ``shortcut_conv, shortcut_bn``)."""
+    out: Dict[str, torch.Tensor] = {}
+    _bottleneck(params, stats, '', out)
+    return out
+
+
+def conv3x3_kernel_from_flax(kernel) -> torch.Tensor:
+    """A flax 3x3 conv kernel as the port's conv kernels take it: HWIO
+    ``(3, 3, Cin, Cout)``, float32, contiguous (``fvt_tpu`` keeps HWIO
+    too; ``Conv3x3.weight`` is its OIHW permutation)."""
+    return _t(kernel).contiguous()
+
+
+def fused_block_args_from_flax(params: dict, stats: dict) -> tuple:
+    """``(w1, w2, a1, b1, alpha, a2, b2)`` for
+    ``ops.bottleneck.bottleneck_ir_fused`` from one flax identity
+    ``BottleneckIR``'s params and batch_stats: HWIO kernels and the two
+    eval BatchNorms folded to affines."""
+    from fvt_tpu_torch.ops.bottleneck import bn_affine
+
+    def affine(name):
+        return bn_affine(_t(params[name]['scale']), _t(params[name]['bias']),
+                         _t(stats[name]['mean']), _t(stats[name]['var']))
+
+    return (conv3x3_kernel_from_flax(params['conv1']['kernel']),
+            conv3x3_kernel_from_flax(params['conv2']['kernel']),
+            *affine('bn1'), _t(params['prelu']['alpha']), *affine('bn2'))
+
+
 def _arcface(params: dict, stats: dict, prefix: str, out: dict) -> None:
     _conv2d(params['input_conv'], f'{prefix}.input_layer.0', out)
     _bn(params['input_bn'], stats['input_bn'], f'{prefix}.input_layer.1',
         out)
     out[f'{prefix}.input_layer.2.weight'] = _t(
         params['input_prelu']['alpha'])
-    for i, (in_c, depth, _) in enumerate(get_blocks_50()):
-        blk, bst = params[f'body{i}'], stats[f'body{i}']
-        base = f'{prefix}.body.{i}'
-        if in_c != depth:
-            _conv2d(blk['shortcut_conv'], f'{base}.shortcut_layer.0', out)
-            _bn(blk['shortcut_bn'], bst['shortcut_bn'],
-                f'{base}.shortcut_layer.1', out)
-        _bn(blk['bn1'], bst['bn1'], f'{base}.res_layer.0', out)
-        _conv2d(blk['conv1'], f'{base}.res_layer.1', out)
-        out[f'{base}.res_layer.2.weight'] = _t(blk['prelu']['alpha'])
-        _conv2d(blk['conv2'], f'{base}.res_layer.3', out)
-        _bn(blk['bn2'], bst['bn2'], f'{base}.res_layer.4', out)
+    for i in range(len(get_blocks_50())):
+        _bottleneck(params[f'body{i}'], stats[f'body{i}'],
+                    f'{prefix}.body.{i}.', out)
     _bn(params['output_bn2d'], stats['output_bn2d'],
         f'{prefix}.output_layer.0', out)
     # fvt_tpu flattens NHWC (h*2560 + w*512 + c); PyTorch flattens NCHW
@@ -124,6 +160,15 @@ def _arcface(params: dict, stats: dict, prefix: str, out: dict) -> None:
         params['output_linear']['bias'])
     _bn(params['output_bn1d'], stats['output_bn1d'],
         f'{prefix}.output_layer.4', out)
+
+
+def visual_backbone_state_from_flax(params: dict, batch_stats: dict
+                                    ) -> Dict[str, torch.Tensor]:
+    """state_dict of the port's ``VisualBackbone`` from an ``fvt_tpu``
+    ``VisualBackbone``'s variables (trees rooted at ``backbone``)."""
+    out: Dict[str, torch.Tensor] = {}
+    _arcface(params['backbone'], batch_stats['backbone'], 'backbone', out)
+    return out
 
 
 def lfan_state_from_flax(params: dict, batch_stats: dict,

@@ -6,8 +6,11 @@ a BatchNorm1d; the follower is the multimodal fusion over all of them;
 the output is ``concat(feats[leader], follower) @ W + b`` per frame, with
 ``tanh`` for regression only.  A ``video`` modality takes normalised face
 crops ``(B, T, 40, 40, 3)`` through the frozen ArcFace backbone at
-``spatial.visual``.  Parameter names are those of
-``fvt_tpu.models.torch_export.lfan_to_torch``.
+``spatial.visual``, whose convolution path is the constructor's
+``conv_impl`` and ``fused_blocks`` (or a ready ``spatial_video`` module,
+as ``fvt_tpu``'s ``init_model(spatial_video=...)`` takes one; it is
+initialised from ``generator`` with the rest).  Parameter
+names are those of ``fvt_tpu.models.torch_export.lfan_to_torch``.
 
 As in ``fvt_tpu``, the mode is the forward's ``train`` argument, not the
 module's flag: ``train=True`` runs dropout from an explicit generator,
@@ -42,7 +45,9 @@ class LFAN(nn.Module):
                  encoder_dim: Optional[Dict[str, int]] = None,
                  modal_dim: int = 32, num_heads: int = 2,
                  tcn_dropout: float = 0.1, fusion_dropout: float = 0.1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 conv_impl: str = 'cudnn', fused_blocks: bool = False,
+                 spatial_video: Optional[VisualBackbone] = None):
         super().__init__()
         self.modality = tuple(modality)
         self.task = task
@@ -55,7 +60,8 @@ class LFAN(nn.Module):
                                  f' != encoder_dim {encoder_dim[m]}')
         if constants.VIDEO in self.modality:
             self.spatial = nn.Module()
-            self.spatial.visual = VisualBackbone()
+            self.spatial.visual = spatial_video or VisualBackbone(
+                conv_impl, fused_blocks)
         self.temporal = nn.ModuleDict({
             m: TemporalConvNet(embedding_dim[m], tcn_channel[m], kernel_size,
                                dropout=tcn_dropout)
@@ -112,8 +118,9 @@ class LFAN(nn.Module):
                 'mode) is not ported yet')
         if video is not None and video.dim() == 5:
             b, t = video.shape[:2]
-            feats = self.spatial.visual(video.reshape((b * t,)
-                                                      + video.shape[2:]))
+            feats = self.spatial.visual(
+                video.reshape((b * t,) + video.shape[2:]),
+                reference=reference)
             x[constants.VIDEO] = feats.reshape(b, t, -1)
         feats = {}
         for m in self.modality:

@@ -1,0 +1,266 @@
+"""Times the ArcFace IR-50 backbone's conv paths on the card.
+
+    python3 -m fvt_tpu_torch.tools.profile_backbone [--frames 2400]
+        [--iters 10] [--stages | --bottleneck [--tiles]] [--device cpu]
+
+Counterpart of ``tools/profile_backbone.py``.  Three modes, each printing
+the card's name and power limit and then one JSON line:
+
+* default: the whole frozen backbone on ``--frames`` 40x40 crops (random
+  weights from seed 0) for each path: ``cudnn`` (PyTorch's conv2d),
+  ``winograd`` (plain PyTorch Winograd), ``winograd_kernel``,
+  ``shifted_kernel`` and ``fused_blocks``; ms, frames/s, the share of the
+  fp32 peak the model's operations reach, and the largest difference of
+  the embeddings from ``cudnn``'s;
+* ``--stages``: one 3x3 stride-1 conv at the four stage shapes (40x40x64,
+  20x20x128, 10x10x256, 5x5x512) through ``F.conv2d`` (channels_last and
+  NCHW), the plain Winograd and the two kernels;
+* ``--bottleneck``: one identity BottleneckIR block at the four stage
+  shapes, the eval block on cuDNN against the fused kernel; with
+  ``--tiles`` also the fused kernel and the shifted-products kernel over
+  a set of block tiles, which is where ``ops.bottleneck.MEASURED_TILES``
+  comes from.
+
+float32 with TF32 off.  Times are medians of ``--iters`` calls between
+CUDA events after two warm-up calls.  ``tflops`` and the share of the peak
+count the direct convolution's operations for every path, Winograd's too:
+they compare times, not the multiplies a path really does.  Runs on the
+card unless ``--device cpu`` is given (host-clock times of the plain
+versions, for a rehearsal; no share of a peak is printed then).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# published fp32 peak of one H100 SXM outside the tensor cores
+PEAK_FLOPS = 67e12
+STAGES = [(40, 64), (20, 128), (10, 256), (5, 512)]
+# block tiles (tf, th, tw) of the shifted-products kernel tried by --tiles,
+# per stage extent
+CONV_TILES = {40: [(1, 8, 20), (1, 4, 40), (1, 8, 16), (1, 5, 20)],
+              20: [(2, 4, 20), (1, 8, 20), (1, 5, 20), (1, 4, 20)],
+              10: [(8, 2, 10), (3, 5, 10), (1, 10, 10), (1, 5, 10)],
+              5: [(5, 5, 5), (6, 5, 5), (4, 5, 5), (2, 5, 5)]}
+# (tf, th, tw, row groups) of the fused block
+BLOCK_TILES = {40: [(1, 10, 20, 16), (1, 8, 20, 16), (1, 8, 10, 16),
+                    (1, 8, 10, 8)],
+               20: [(1, 10, 10, 16), (1, 10, 20, 16), (1, 5, 20, 16),
+                    (1, 10, 10, 8), (1, 5, 10, 8)],
+               10: [(1, 5, 10, 16), (1, 10, 10, 16), (1, 10, 10, 8),
+                    (1, 5, 10, 8), (1, 5, 10, 4), (2, 5, 5, 8)],
+               5: [(2, 5, 5, 16), (1, 5, 5, 16), (1, 5, 5, 8), (1, 5, 5, 4),
+                   (2, 5, 5, 4)]}
+
+
+def median_ms(fn, iters: int, device: torch.device) -> float:
+    """Median time of ``fn()`` over ``iters`` calls after two warm-up
+    calls: CUDA events on the card, the host clock on the CPU."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(iters):
+        if device.type == 'cuda':
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def backbone_flops(frames: int) -> float:
+    """Multiply-adds times two of one eval forward, from the shapes."""
+    from fvt_tpu_torch.models.arcface import get_blocks_50
+    total = 2.0 * 9 * 3 * 64 * 40 * 40
+    h = 40
+    for in_c, depth, stride in get_blocks_50():
+        out_h = h // stride
+        total += 2.0 * 9 * in_c * depth * h * h          # conv1, stride 1
+        total += 2.0 * 9 * depth * depth * out_h * out_h  # conv2
+        if in_c != depth:
+            total += 2.0 * in_c * depth * out_h * out_h   # 1x1 shortcut
+        h = out_h
+    total += 2.0 * 512 * 5 * 5 * 512
+    return total * frames
+
+
+def _rate(flops: float, ms: float, device: torch.device) -> dict:
+    out = {'ms': round(ms, 4)}
+    if device.type == 'cuda':
+        out['tflops'] = round(flops / ms / 1e9, 2)
+        out['share_of_fp32_peak'] = round(flops / (ms * 1e-3) / PEAK_FLOPS, 4)
+    return out
+
+
+def bench_backbone(frames: int, iters: int, device: torch.device) -> dict:
+    from fvt_tpu_torch.models.arcface import VisualBackbone
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(frames, 40, 40, 3))
+                         .astype(np.float32)).to(device)
+    base = VisualBackbone().eval()
+    base.reset_parameters(torch.Generator().manual_seed(0))
+    flops = backbone_flops(frames)
+    variants = [('cudnn', {}), ('winograd', {'conv_impl': 'winograd'}),
+                ('winograd_kernel', {'conv_impl': 'winograd_kernel'}),
+                ('shifted_kernel', {'conv_impl': 'shifted_kernel'}),
+                ('fused_blocks', {'fused_blocks': True})]
+    results, ref = {}, None
+    with torch.inference_mode():
+        for name, kw in variants:
+            model = VisualBackbone(**kw).eval()
+            model.load_state_dict(base.state_dict())
+            model.to(device)
+            out = model(x)
+            ms = median_ms(lambda: model(x), iters, device)
+            if ref is None:
+                ref = out
+            results[name] = {
+                **_rate(flops, ms, device),
+                'frames_per_s': round(frames / ms * 1e3, 1),
+                'max_abs_err_vs_cudnn': float((out - ref).abs().max())}
+            del model
+    return {'gflops_model': round(flops / 1e9, 1), **results}
+
+
+def _stage_inputs(frames, h, c, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(frames, h, h, c, device=device, generator=g)
+    k = torch.randn(3, 3, c, c, device=device, generator=g) * (9 * c) ** -0.5
+    return x, k, g
+
+
+def bench_stages(frames: int, iters: int, device: torch.device) -> dict:
+    from fvt_tpu_torch.ops import conv as conv_ops
+    from fvt_tpu_torch.ops import winograd as winograd_ops
+
+    out = {}
+    with torch.inference_mode():
+        for h, c in STAGES:
+            x, k, _ = _stage_inputs(frames, h, c, device, 1)
+            flops = 2.0 * 9 * frames * h * h * c * c
+            u = winograd_ops.transform_weights(k)
+            x_cl = x.permute(0, 3, 1, 2)        # NCHW view, channels_last
+            x_nchw = x_cl.contiguous()
+            w_oihw = k.permute(3, 2, 0, 1).contiguous()
+            w_cl = w_oihw.contiguous(memory_format=torch.channels_last)
+            paths = [
+                ('conv2d_channels_last',
+                 lambda: F.conv2d(x_cl, w_cl, padding=1)),
+                ('conv2d_nchw', lambda: F.conv2d(x_nchw, w_oihw, padding=1)),
+                ('winograd',
+                 lambda: winograd_ops.conv3x3_winograd_ref(x, k, u)),
+                ('winograd_kernel',
+                 lambda: winograd_ops.conv3x3_winograd(x, k, u)),
+                ('shifted_kernel', lambda: conv_ops.conv3x3(x, k))]
+            out[f'{h}x{h}x{c}'] = {
+                name: _rate(flops, median_ms(fn, iters, device), device)
+                for name, fn in paths}
+            del x, k, u, x_cl, x_nchw
+    return out
+
+
+def bench_bottleneck(frames: int, iters: int, device: torch.device,
+                     tiles: bool) -> dict:
+    from fvt_tpu_torch.ops import bottleneck as block_ops
+    from fvt_tpu_torch.ops import conv as conv_ops
+
+    out = {}
+    with torch.inference_mode():
+        for h, c in STAGES:
+            x, w1, g = _stage_inputs(frames, h, c, device, 2)
+            w2 = torch.randn(3, 3, c, c, device=device,
+                             generator=g) * (9 * c) ** -0.5
+
+            def vec(scale, shift):
+                return torch.randn(c, device=device,
+                                   generator=g) * scale + shift
+
+            args = (x, w1, w2, vec(0.2, 1.0), vec(0.2, 0.0), vec(0.1, 0.25),
+                    vec(0.2, 1.0), vec(0.2, 0.0))
+            flops = 2.0 * 2 * 9 * frames * h * h * c * c
+            want = block_ops.bottleneck_ir_fused_ref(*args)
+            got = block_ops.bottleneck_ir_fused(*args)
+            row = {
+                'tile': list(block_ops.choose_tile(frames, h, h, c)),
+                'plain_cudnn': _rate(flops, median_ms(
+                    lambda: block_ops.bottleneck_ir_fused_ref(*args), iters,
+                    device), device),
+                'fused': _rate(flops, median_ms(
+                    lambda: block_ops.bottleneck_ir_fused(*args), iters,
+                    device), device),
+                'rel_err': float((got - want).abs().max()
+                                 / want.abs().max())}
+            if tiles and device.type == 'cuda':
+                fits = [t for t in BLOCK_TILES[h] if t[0] <= frames
+                        and block_ops.conv1_pixels(*t[:3], h, h)
+                        <= block_ops.MAX_SLOTS * t[3]
+                        and block_ops.smem_floats(*t, c)
+                        <= block_ops.MAX_SMEM_FLOATS]
+                row['fused_by_tile'] = {
+                    'x'.join(map(str, t)): round(median_ms(
+                        lambda: block_ops.bottleneck_ir_fused(*args, tile=t),
+                        iters, device), 4) for t in fits}
+                row['shifted_kernel_by_tile'] = {
+                    'x'.join(map(str, t)): round(median_ms(
+                        lambda: conv_ops.conv3x3(x, w1, tile=t), iters,
+                        device), 4)
+                    for t in CONV_TILES[h] if t[0] <= frames}
+            out[f'{h}x{h}x{c}'] = row
+            del x, w1, w2, args, want, got
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--frames', type=int, default=2400)
+    ap.add_argument('--iters', type=int, default=10)
+    ap.add_argument('--stages', action='store_true')
+    ap.add_argument('--bottleneck', action='store_true')
+    ap.add_argument('--tiles', action='store_true')
+    ap.add_argument('--device', default='cuda', choices=('cuda', 'cpu'))
+    args = ap.parse_args(argv)
+    if args.device == 'cuda' and not torch.cuda.is_available():
+        print('profile_backbone: no CUDA device (--device cpu rehearses the '
+              'plain versions)', file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(args.device)
+    report = {'platform': args.device, 'frames': args.frames,
+              'dtype': 'fp32', 'iters': args.iters}
+    if device.type == 'cuda':
+        card = subprocess.run(
+            ['nvidia-smi', '--query-gpu=name,power.limit',
+             '--format=csv,noheader'], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        print(card)
+        report.update(card=card, kind=torch.cuda.get_device_name(0))
+    if args.stages:
+        report['stages'] = bench_stages(args.frames, args.iters, device)
+    elif args.bottleneck:
+        report['bottleneck'] = bench_bottleneck(args.frames, args.iters,
+                                                device, args.tiles)
+    else:
+        report['backbone'] = bench_backbone(args.frames, args.iters, device)
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

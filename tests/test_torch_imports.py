@@ -1,5 +1,7 @@
-"""The port needs neither JAX, flax, PyYAML nor anything of fvt_tpu, and
-chip_smoke.py refuses to run without a CUDA card."""
+"""The port needs neither JAX, flax, PyYAML nor anything of fvt_tpu (its
+serving and training paths, every conv path of the ArcFace backbone and
+its tools run with all four blocked), and chip_smoke.py refuses to run
+without a CUDA card."""
 import os
 import re
 import subprocess
@@ -54,10 +56,29 @@ NO_JAX = textwrap.dedent('''
         [batch], 0)
     assert np.isfinite(loss), loss
 
+    from fvt_tpu_torch.models.arcface import (CONV_IMPLS, VisualBackbone,
+                                              arcface_forward_eval)
+    import fvt_tpu_torch.tools.profile_backbone
+    import fvt_tpu_torch.tools.profile_train
+
+    base = VisualBackbone().eval()
+    base.reset_parameters(torch.Generator().manual_seed(0))
+    crops = torch.from_numpy(rng.uniform(-1, 1, (1, 40, 40, 3))
+                             .astype(np.float32))
+    want = arcface_forward_eval(base, crops)
+    variants = [VisualBackbone(conv_impl=impl) for impl in CONV_IMPLS]
+    variants.append(VisualBackbone(fused_blocks=True))
+    for variant in variants:
+        variant.eval().load_state_dict(base.state_dict())
+        with torch.inference_mode():
+            got = variant(crops)
+        assert got.shape == (1, 512) and torch.isfinite(got).all()
+        assert (got - want).abs().max() < 1e-4, (got - want).abs().max()
+
     import chip_smoke
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
     assert not leaked, leaked
-    print('served', out.shape, 'trained')
+    print('served', out.shape, 'trained', len(variants), 'backbones')
 ''')
 
 # an import of jax, flax, yaml or fvt_tpu (not fvt_tpu_torch), at any depth
@@ -83,7 +104,11 @@ def _port_sources():
 
 def test_no_port_source_imports_jax_or_fvt_tpu():
     paths = list(_port_sources())
-    assert len(paths) > 20
+    assert len(paths) > 25
+    names = {os.path.relpath(p, REPO) for p in paths}
+    assert {'fvt_tpu_torch/ops/conv.py', 'fvt_tpu_torch/ops/winograd.py',
+            'fvt_tpu_torch/ops/bottleneck.py',
+            'fvt_tpu_torch/tools/profile_backbone.py'} <= names
     for path in paths:
         with open(path) as f:
             found = FORBIDDEN_IMPORT.findall(f.read())
@@ -98,7 +123,7 @@ def test_port_imports_and_serves_without_jax_flax_yaml():
                           env=_env(), capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert 'served (9, 7) trained' in proc.stdout
+    assert 'served (9, 7) trained 5 backbones' in proc.stdout
 
 
 def test_chip_smoke_refuses_a_machine_without_cuda():
