@@ -17,7 +17,11 @@ Phases, each of which raises on failure (exit code 1):
    3x3 conv kernels against their plain versions and against ``F.conv2d``
    at the seven conv shapes of the ArcFace body on 2400 frames, and the
    fused BottleneckIR block against its plain version at the four stage
-   shapes, plus edge shapes; print errors and median times (CUDA events);
+   shapes, plus edge shapes; the bfloat16 tensor-core (``wgmma``) 3x3 conv
+   kernel against its plain version and ``F.conv2d`` on bfloat16 tensors
+   at the same seven shapes and at edge shapes, and its refusal of a
+   channel count it does not take; print errors and median times (CUDA
+   events);
 3. serve three streams of 250, 700 and 1000 frames through the
    ``fvt_tpu_torch.streaming`` server core over a full-width tri-modal
    LFAN (``video+vggish+bert``, random init from seed 0); check every
@@ -36,9 +40,16 @@ Phases, each of which raises on failure (exit code 1):
    time each; then serve the three streams again through a tri-modal LFAN
    built with ``fused_blocks=True`` and one with
    ``conv_impl='winograd_kernel'``, check the logits against the offline
-   stitch of the plain versions and the launch counts a dispatch.
+   stitch of the plain versions and the launch counts a dispatch; then the
+   bfloat16 backbone (``dtype=torch.bfloat16``, ``--amp`` in ``fvt_tpu``)
+   through ``cudnn`` and ``shifted_kernel`` (45 bfloat16 launches a
+   forward, the kernel path's embeddings against the plain version's
+   within bfloat16's own distance from float32), a tri-modal LFAN with
+   ``backbone_dtype=torch.bfloat16, conv_impl='shifted_kernel'`` on the
+   three streams, and timed full dispatches of both bfloat16 paths.
 
-Everything runs in float32 with TF32 off for matmuls and cuDNN.  The last
+Everything runs in float32 with TF32 off for matmuls and cuDNN, except the
+bfloat16 backbone and its kernel, which say so.  The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line
 before it lists the kernels.  Without a CUDA card the script exits with
 code 1 and prints no result.
@@ -77,6 +88,8 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 2e-4, 1e-5
 # published fp32 peaks of one H100 SXM, for the kernels' bounds
 PEAK_FLOPS = 67e12
+# the tensor cores' dense bf16 peak, for the bfloat16 kernel's bound
+PEAK_FLOPS_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 # served logits vs the offline stitch of the plain-version forward
 SERVE_ATOL = 1e-3
@@ -88,6 +101,23 @@ WINOGRAD_RTOL = WINOGRAD_ATOL = 2e-4
 # a conv path's l2-normalised 512-d embeddings vs the default path's
 # (components ~0.04): fp32 through 50 conv layers summed in another order
 EMBED_ATOL = 1e-4
+# the bfloat16 conv kernel vs its plain version and vs F.conv2d on bfloat16
+# tensors: each sums exact products in fp32 in another order and rounds to
+# bfloat16 once, so two results differ by one unit in the last place (2^-8
+# relative, 2^-7 with the boundary's slack) where the fp32 sums straddle a
+# rounding boundary, and by an absolute 2^-9 near zero; and such flips are
+# rare, so the mean difference stays below 1e-4 of the mean magnitude (a
+# wrong tap or a dropped channel chunk breaks that by orders of magnitude)
+BF16_RTOL, BF16_ATOL, BF16_MEAN_TOL = 2.0 ** -7, 2.0 ** -9, 1e-4
+# end to end, two bfloat16 forwards of one model (the kernel path and its
+# plain version) differ by such flips amplified through 50 layers, which
+# is how bfloat16 differs from float32 too.  The yardstick is therefore
+# bfloat16's own distance from float32, measured in the same run (bf16
+# cudnn against fp32 cudnn on the same weights and inputs), and the
+# tolerance twice that: two results each within that distance of the
+# float32 one lie within twice it of each other (a wrong tap moves the
+# embeddings by their own magnitude, ten times more)
+BF16_PATHS_APART = 2.0
 # (H = W, Cin, Cout, launches a backbone forward) of the stride-1 3x3 convs
 # of the ArcFace body: 24 conv1 and the 21 conv2 of the stride-1 blocks
 CONV_SHAPES = ((40, 64, 64, 6), (40, 64, 128, 1), (20, 128, 128, 6),
@@ -144,6 +174,27 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
     return max_abs
 
 
+def compare_bf16(name: str, got: torch.Tensor, want: torch.Tensor,
+                 what: str = 'its plain version') -> float:
+    """Two bfloat16 results of one fp32 sum rounded once: elementwise
+    within BF16_RTOL and BF16_ATOL, and close in the mean."""
+    torch.cuda.synchronize()
+    got = got.to(torch.float32, copy=True)
+    want = want.to(torch.float32, copy=True)
+    finite = bool(torch.isfinite(got).all())
+    err = got.sub_(want).abs_()
+    max_abs, mean_abs = err.max().item(), err.mean().item()
+    scale = want.abs_().mean().item()
+    excess = err.sub_(want.mul_(BF16_RTOL)).max().item() - BF16_ATOL
+    print(f'  {name}: max_abs_err={max_abs:.3e} mean_abs_err={mean_abs:.3e} '
+          f'of mean|want|={scale:.3e} finite={finite}')
+    if not finite or excess > 0 or mean_abs > BF16_MEAN_TOL * scale:
+        fail(f'{name}: kernel disagrees with {what} (|got - want| <= '
+             f'{BF16_RTOL} |want| + {BF16_ATOL}, mean |got - want| <= '
+             f'{BF16_MEAN_TOL} mean |want|)')
+    return max_abs
+
+
 def compare_sum(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """A gradient summed over all rows: error against the tensor's
     largest value."""
@@ -157,10 +208,11 @@ def compare_sum(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return max_abs
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take: operations over the fp32 peak
-    against bytes over the memory rate, whichever is larger."""
-    ops_ms, bytes_ms = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS) -> dict:
+    """The least time the card could take: operations over ``peak`` (the
+    fp32 peak unless given) against bytes over the memory rate, whichever
+    is larger."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return {'bound_ms': max(ops_ms, bytes_ms),
             'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes'}
 
@@ -519,6 +571,113 @@ def check_conv_kernels(device) -> list:
     return out
 
 
+def check_conv_bf16_kernel(device) -> dict:
+    """Phase 2, the bfloat16 tensor-core 3x3 conv: the kernel against its
+    plain version (fp32 sums of the exact products, one rounding) and
+    against ``F.conv2d`` on the same bfloat16 tensors, at the seven conv
+    shapes on FRAMES frames and at edge shapes; a channel count it does
+    not take must raise.  The bound takes the tensor cores' bf16 peak and
+    2-byte elements."""
+    from fvt_tpu_torch.kernels import build
+    from fvt_tpu_torch.ops import conv as conv_ops
+
+    g = torch.Generator(device=device).manual_seed(SEED + 6)
+    frames = WINDOW_BATCH * WINDOW
+    tot = {key: 0.0 for key in ('err', 'ms', 'plain', 'library', 'bound')}
+    by = set()
+
+    def inputs(n, h, w, cin, cout):
+        x = torch.randn(n, h, w, cin, device=device, generator=g)
+        k = torch.randn(3, 3, cin, cout, device=device, generator=g)
+        return x.bfloat16(), (k * (9 * cin) ** -0.5).bfloat16()
+
+    with torch.inference_mode():
+        for h, cin, cout, count in CONV_SHAPES:
+            x, k = inputs(frames, h, h, cin, cout)
+            cudnn, library_ms, layout = conv2d_library(x, k)
+            shape = f'conv3x3_bf16 ({frames},{h},{h},{cin})->{cout}'
+            # the weights packed once, as the module keeps them
+            packed = conv_ops.pack_weights(k)
+            got = conv_ops.conv3x3(x, k, packed=packed)
+            err = compare_bf16(shape, got, conv_ops.conv3x3_ref(x, k))
+            compare_bf16(f'{shape} vs F.conv2d', got, cudnn, 'F.conv2d')
+            del cudnn
+            ms = median_ms(lambda: conv_ops.conv3x3(x, k, packed=packed),
+                           CONV_RUNS)
+            plain = median_ms(lambda: conv_ops.conv3x3_ref(x, k), 3,
+                              warmup=1)
+            flops = 2.0 * 9 * frames * h * h * cin * cout
+            lower = bound(flops, nbytes(x, k, got), PEAK_FLOPS_BF16)
+            print(f'    x{count} a forward: kernel {ms:.4f} ms '
+                  f'({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, '
+                  f'F.conv2d bf16 ({layout}) {library_ms:.4f} ms, bound '
+                  f'{lower["bound_ms"]:.4f} ms by {lower["bound_by"]} '
+                  f'({flops / 1e9:.1f} GFLOP, '
+                  f'{nbytes(x, k, got) / 1e6:.1f} MB)')
+            tot['err'] = max(tot['err'], err)
+            tot['ms'] += count * ms
+            tot['plain'] += count * plain
+            tot['library'] += count * library_ms
+            tot['bound'] += count * lower['bound_ms']
+            by.add(lower['bound_by'])
+            del x, k, got, packed
+
+        # edge shapes, the weights packed by the call: odd extents, single
+        # pixels, Cin != Cout, a ragged column tile (Co = 200), the
+        # smallest C (one k16 step), a row so wide that the ring has two
+        # slots (W = 720)
+        for n, h, w, cin, cout in [(3, 7, 9, 32, 16), (1, 1, 1, 16, 8),
+                                   (1, 2, 2, 16, 8), (5, 5, 5, 64, 200),
+                                   (2, 13, 6, 16, 40), (7, 10, 10, 256, 256),
+                                   (2, 3, 720, 16, 8)]:
+            x, k = inputs(n, h, w, cin, cout)
+            cudnn = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
+                             padding=1).permute(0, 2, 3, 1)
+            shape = f'conv3x3_bf16 edge ({n},{h},{w},{cin})->{cout}'
+            got = conv_ops.conv3x3(x, k)
+            compare_bf16(shape, got, conv_ops.conv3x3_ref(x, k))
+            compare_bf16(f'{shape} vs F.conv2d', got, cudnn, 'F.conv2d')
+
+        # C = 20 is no multiple of wgmma's k16 step: the wrapper raises and
+        # the C entry itself refuses, neither goes to another kernel
+        x, k = inputs(2, 13, 6, 20, 40)
+        before = conv_ops.conv3x3.launches
+        try:
+            conv_ops.conv3x3(x, k)
+        except ValueError as e:
+            print(f'  conv3x3_bf16 C=20 refused: {e}')
+        else:
+            fail('conv3x3 took a bfloat16 tensor with C = 20')
+        code = build.library().fvt_conv3x3_bf16_forward(
+            x.data_ptr(), k.data_ptr(), torch.empty_like(x).data_ptr(), 2, 13,
+            6, 20, 40, 64, torch.cuda.current_stream(device).cuda_stream)
+        if code == 0 or conv_ops.conv3x3.launches != before:
+            fail(f'the bfloat16 conv entry returned {code} for C = 20')
+        # a row too wide for the shared memory: the C entry refuses and
+        # the wrapper raises
+        x, k = inputs(1, 2, 1200, 16, 8)
+        try:
+            conv_ops.conv3x3(x, k)
+        except RuntimeError as e:
+            print(f'  conv3x3_bf16 W=1200 refused: {e}')
+        else:
+            fail('conv3x3 took a bfloat16 tensor with W = 1200')
+        if conv_ops.conv3x3.launches != before:
+            fail('a refused bfloat16 conv counted a launch')
+    print(f'  conv3x3_bf16 total over the 45 convs of a forward: kernel '
+          f'{tot["ms"]:.4f} ms, plain {tot["plain"]:.4f} ms, F.conv2d bf16 '
+          f'{tot["library"]:.4f} ms, bound {tot["bound"]:.4f} ms')
+    # bound_ms sums the per-shape bounds; bound_by names what bounds most
+    # of it (40x40x64 alone is bound by bytes)
+    return {'name': 'conv3x3_bf16', 'route': 'cuda',
+            'source': 'fvt_tpu_torch/csrc/conv3x3_wgmma.cu',
+            'replaces': 'fvt_tpu/ops/conv_pallas.py:20',
+            'max_abs_err': tot['err'], 'ms': tot['ms'],
+            'plain_ms': tot['plain'], 'library_ms': tot['library'],
+            'bound_ms': tot['bound'],
+            'bound_by': 'operations' if 'operations' in by else 'bytes'}
+
+
 def check_bottleneck_kernel(device) -> dict:
     """Phase 2, the fused BottleneckIR block against its plain version
     (the eval block on cuDNN) at the four stage shapes on FRAMES frames,
@@ -645,12 +804,81 @@ def backbone_variants(model, crops: torch.Tensor, device) -> int:
     return shifted_launches
 
 
+def backbone_bf16(model, crops: torch.Tensor, device) -> int:
+    """Phase 5, the bfloat16 backbone alone: ``dtype=torch.bfloat16``
+    through ``cudnn`` and ``shifted_kernel`` on the same frames and
+    weights.  The kernel path's embeddings are held against the plain
+    version's of the same bfloat16 model; the tolerance is
+    BF16_PATHS_APART times bfloat16's own distance from float32, max |bf16
+    cudnn - fp32 cudnn| on these weights and crops.  Returns the bfloat16
+    kernel's launches over its one checked forward."""
+    from fvt_tpu_torch.models.arcface import VisualBackbone
+
+    counters = conv_counters()
+    conv3x3 = counters['conv3x3']
+    state = model.spatial.visual.state_dict()
+    frames = crops.shape[0]
+    nets = {}
+    for name, kw in (('fp32 cudnn', {}),
+                     ('bf16 cudnn', {'dtype': torch.bfloat16}),
+                     ('bf16 shifted_kernel', {'dtype': torch.bfloat16,
+                                              'conv_impl': 'shifted_kernel'})):
+        nets[name] = VisualBackbone(**kw).eval()
+        nets[name].load_state_dict(state)
+        nets[name].to(device)
+    with torch.inference_mode():
+        fp32 = nets['fp32 cudnn'](crops)
+        cudnn = nets['bf16 cudnn'](crops)
+        for fn in counters.values():
+            fn.launches = 0
+        conv3x3.launches_bf16 = 0
+        got = nets['bf16 shifted_kernel'](crops)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        launches['conv3x3_bf16'] = conv3x3.launches_bf16
+        if launches != {'conv3x3': 45, 'conv3x3_bf16': 45, 'winograd': 0,
+                        'bottleneck': 0}:
+            fail(f'bf16 backbone shifted_kernel: launches {launches}, '
+                 f'expected 45 of the bfloat16 conv kernel a forward')
+        plain = nets['bf16 shifted_kernel'](crops, reference=True)
+        if conv3x3.launches != 45:
+            fail('the plain-version forward launched a kernel')
+        own = (cudnn - fp32).abs().max().item()
+        tol = BF16_PATHS_APART * own
+        err = (got - plain).abs().max().item()
+        far = (got - fp32).abs().max().item()
+        print(f'  bf16 backbone on {frames} frames: max |bf16 cudnn - fp32 '
+              f'cudnn| = {own:.3e} (bfloat16\'s own distance; the '
+              f'tolerance is {BF16_PATHS_APART} of it, {tol:.3e}); max '
+              f'|shifted_kernel - its plain version| = '
+              f'{err:.3e}; max |shifted_kernel - fp32 cudnn| = {far:.3e}; '
+              f'launches {launches}')
+        for name, out in (('cudnn', cudnn), ('shifted_kernel', got)):
+            if (out.shape != (frames, 512) or out.dtype != torch.float32
+                    or not bool(torch.isfinite(out).all())):
+                fail(f'bf16 backbone {name}: embeddings {tuple(out.shape)} '
+                     f'{out.dtype}, finite={bool(torch.isfinite(out).all())}')
+        if err > tol:
+            fail(f'bf16 backbone: the kernel path differs from its plain '
+                 f'version by {err}, more than {BF16_PATHS_APART} of '
+                 f'bfloat16\'s distance from float32 ({own})')
+        for name in ('fp32 cudnn', 'bf16 cudnn', 'bf16 shifted_kernel',
+                     'bf16 shifted_kernel', 'bf16 cudnn'):
+            net = nets[name]
+            ms = median_ms(lambda: net(crops), CONV_RUNS, warmup=1)
+            print(f'  backbone {name} on {frames} frames: {ms:.2f} ms, '
+                  f'{frames / ms * 1e3:.1f} frames/s')
+    return launches['conv3x3_bf16']
+
+
 def serve_variant(model, kw: dict, kernel: str, per_dispatch: int,
-                  streams: dict, device) -> int:
+                  streams: dict, device, atol: float = SERVE_ATOL,
+                  bf16_launches: int = 0) -> int:
     """Phase 5, serving: a tri-modal LFAN with the conv path ``kw`` on the
     weights of ``model`` serves ``streams``; logits against the offline
-    stitch of the plain versions, launch counts a dispatch.  Returns the
-    launches of ``kernel`` over the run."""
+    stitch of the plain versions within ``atol``, launch counts a dispatch
+    (``bf16_launches`` of the conv kernel's are the bfloat16 kernel's).
+    Returns the launches of ``kernel`` over the run."""
     from fvt_tpu_torch.models.models import LFAN
     from fvt_tpu_torch.ops.fusion import fused_multimodal_fusion
     from fvt_tpu_torch.ops.tcn import fused_temporal_block
@@ -663,10 +891,13 @@ def serve_variant(model, kw: dict, kernel: str, per_dispatch: int,
                     fusion=fused_multimodal_fusion)
     for fn in counters.values():
         fn.launches = 0
+    counters['conv3x3'].launches_bf16 = 0
     served, dispatches = serve_streams(server, streams)
     launches = {k: fn.launches for k, fn in counters.items()}
-    want = {k: 0 for k in counters}
+    launches['conv3x3_bf16'] = counters['conv3x3'].launches_bf16
+    want = {k: 0 for k in launches}
     want.update({kernel: per_dispatch * dispatches,
+                 'conv3x3_bf16': bf16_launches * dispatches,
                  'tcn_block': 12 * dispatches, 'fusion': dispatches})
     print(f'  LFAN {kw}: {dispatches} dispatches, launches {launches}')
     if dispatches < 1 or launches != want:
@@ -681,8 +912,8 @@ def serve_variant(model, kw: dict, kernel: str, per_dispatch: int,
                  f'{np.isfinite(got).all()}')
         err = float(np.abs(got - offline[n]).max())
         print(f'    stream {n}: max |served - offline plain| = {err:.3e} '
-              f'(atol {SERVE_ATOL})')
-        if err > SERVE_ATOL:
+              f'(atol {atol:.3e})')
+        if err > atol:
             fail(f'LFAN {kw} stream {n}: served logits differ from the '
                  f'offline reference by {err}')
     return launches[kernel]
@@ -744,6 +975,25 @@ def offline_reference(model, streams: dict, device) -> dict:
         out[n] = (logits[0, :n] if n < WINDOW
                   else W.stitch_windows_np(logits, idx, n))
     return out
+
+
+def time_dispatches(name: str, server, inputs: dict) -> None:
+    """RUNS warm full dispatches of ``server`` on numpy ``inputs``, host
+    clock (``call`` returns numpy, so each is forced to the host)."""
+    for _ in range(3):
+        server.call(inputs)
+    times = []
+    for _ in range(RUNS):
+        t0 = time.perf_counter()
+        out = server.call(inputs)
+        times.append(time.perf_counter() - t0)
+    if not np.isfinite(out).all():
+        fail(f'{name}: timed dispatch gave non-finite logits')
+    med = statistics.median(times)
+    print(f'  {name}: full ({WINDOW_BATCH},{WINDOW}) dispatch, {RUNS} warm '
+          f'runs: median {med * 1e3:.2f} ms, min {min(times) * 1e3:.2f} ms, '
+          f'max {max(times) * 1e3:.2f} ms -> '
+          f'{WINDOW_BATCH * WINDOW / med:.1f} frames/s')
 
 
 def make_train_batches(n: int) -> list:
@@ -908,6 +1158,11 @@ def main() -> int:
     kernels += check_train_kernels(device)
     kernels += check_conv_kernels(device)
     kernels.append(check_bottleneck_kernel(device))
+    print(f'phase 2, bfloat16: the tensor-core conv kernel vs its plain '
+          f'version and F.conv2d on bfloat16 tensors (|got - want| <= '
+          f'{BF16_RTOL} |want| + {BF16_ATOL}: one unit in the last place; '
+          f'mean |got - want| <= {BF16_MEAN_TOL} mean |want|)')
+    kernels.append(check_conv_bf16_kernel(device))
     torch.cuda.empty_cache()
 
     print('phase 3: serving through fvt_tpu_torch.streaming')
@@ -943,20 +1198,8 @@ def main() -> int:
                   if s['dtype'] == 'uint8'
                   else rng.standard_normal(s['shape'], np.float32))
               for k, s in server.specs.items()}
-    for _ in range(3):
-        server.call(inputs)
-    times = []
-    for _ in range(RUNS):
-        t0 = time.perf_counter()
-        out = server.call(inputs)  # returns numpy: forced to the host
-        times.append(time.perf_counter() - t0)
-    if not np.isfinite(out).all():
-        fail('timed dispatch gave non-finite logits')
+    time_dispatches('fp32 default', server, inputs)
     frames = WINDOW_BATCH * WINDOW
-    med = statistics.median(times)
-    print(f'  full ({WINDOW_BATCH},{WINDOW}) dispatch, {RUNS} warm runs: '
-          f'median {med * 1e3:.2f} ms, min {min(times) * 1e3:.2f} ms, '
-          f'max {max(times) * 1e3:.2f} ms -> {frames / med:.1f} frames/s')
     video = torch.from_numpy(inputs['video']).to(device)
     crops = eval_video_transform(video).reshape(frames, 40, 40, 3)
     with torch.inference_mode():
@@ -972,13 +1215,41 @@ def main() -> int:
     print('phase 5: the ArcFace backbone\'s conv paths, alone and served')
     by_name = {kernel['name']: kernel for kernel in kernels}
     by_name['conv3x3']['launches'] = backbone_variants(model, crops, device)
-    del crops
     by_name['bottleneck']['launches'] = serve_variant(
         model, {'fused_blocks': True}, 'bottleneck', 21, streams, device)
     by_name['winograd']['launches'] = serve_variant(
         model, {'conv_impl': 'winograd_kernel'}, 'winograd', 45, streams,
         device)
-    del model
+
+    print('phase 5, bfloat16: the backbone in bfloat16 (fvt_tpu\'s --amp), '
+          'alone and served')
+    by_name['conv3x3_bf16']['launches'] = backbone_bf16(model, crops, device)
+    del crops
+    # served logits of the kernel path against the offline stitch of the
+    # same model's plain versions.  The tolerance is derived as the
+    # embeddings': BF16_PATHS_APART times bfloat16's own distance from
+    # float32 at the logits, which is the bf16 cudnn model's offline logits
+    # against the fp32 model's (`want`)
+    from fvt_tpu_torch.models.models import LFAN
+    bf16 = {'backbone_dtype': torch.bfloat16}
+    servers = {}
+    for impl in ('cudnn', 'shifted_kernel'):
+        variant = LFAN(MODALITY, output_dim=7, conv_impl=impl, **bf16)
+        variant.load_state_dict(model.state_dict(), strict=True)
+        servers[impl] = ServingModel(variant, WINDOW_BATCH, WINDOW, HOP,
+                                     device)
+    offline = offline_reference(servers['cudnn'].model, streams, device)
+    own = max(float(np.abs(offline[n] - want[n]).max())
+              for n in STREAM_LENGTHS)
+    serve_tol = BF16_PATHS_APART * own
+    print(f'  max |bf16 cudnn offline - fp32 offline| over the streams\' '
+          f'logits = {own:.3e}; the tolerance of the bf16 serving check is '
+          f'{BF16_PATHS_APART} of it, {serve_tol:.3e}')
+    serve_variant(model, {'conv_impl': 'shifted_kernel', **bf16}, 'conv3x3',
+                  45, streams, device, atol=serve_tol, bf16_launches=45)
+    for impl in ('cudnn', 'shifted_kernel', 'shifted_kernel', 'cudnn'):
+        time_dispatches(f'bf16 backbone, {impl}', servers[impl], inputs)
+    del model, servers
 
     print(card)
     print(json.dumps({'kernels': kernels}))

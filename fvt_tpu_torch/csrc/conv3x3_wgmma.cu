@@ -1,0 +1,551 @@
+// 3x3 stride-1 pad-1 convolution, NHWC, no bias, bf16 in, fp32 sums, bf16
+// out, as an implicit GEMM on Hopper's warpgroup matrix multiply (sm_90a).
+//
+// Replaces fvt_tpu/ops/conv_pallas.py::_conv3x3_kernel (the Pallas kernel
+// behind conv3x3_pallas) for bf16 tensors, the type the JAX package hands it
+// under --amp: y[n, i, j, :] = sum over the nine taps (dy, dx) of
+// x[n, i + dy - 1, j + dx - 1, :] @ w[dy*3 + dx], x zero outside the image,
+// the nine products summed in fp32 and rounded to bf16 once at the store.
+// x (N, H, W, C), w (9, C, Co), y (N, H, W, Co).  conv3x3.cu stays the route
+// for fp32 tensors.
+//
+// What bounds it.  At the ArcFace shapes (N = 2400; 40x40x64 to 5x5x512) a
+// conv is 2*9*C*Co operations a pixel against (C + Co)*2 bytes: 576 to 4608
+// operations a byte, above the card's 295, so the tensor cores bound it
+// (0.29 ms for the 283 GFLOP of a Cin = Cout conv) except at 40x40x64, where
+// the 983 MB of x and y take as long.  Only wgmma reaches that rate.
+//
+// The design.  All frames lie in one padded line: pixel (f, i, j) has the
+// coordinate q = f*(H+1)*(W+1) + (i+1)*(W+1) + (j+1), and every q whose row
+// or column part is 0 is a zero.  One zero column serves as the right halo
+// of a row and the left halo of the next, one zero row as the bottom halo of
+// a frame and the top halo of the next, so the neighbour (dy, dx) of q is
+// q + (dy-1)*(W+1) + (dx-1) for every pixel, at the image's edges too.  A
+// tile is 256 consecutive q (any H and W, frames batched by construction, no
+// ragged tile) by BN = 64 or 128 output channels; a warpgroup holds 64 rows
+// x BN sums of it in registers per m64nBNk16 (32 or 64 registers a thread).
+// Per 16-channel slice the 256 + 2*(W+1) + 2 coordinates the tile needs are
+// staged ONCE, as [8-channel chunk][coordinate][8 bf16]: eight consecutive
+// coordinates are one 8x16-byte core matrix of wgmma's unswizzled K-major
+// layout, so the A operand of tap (dy, dx) is the same staged patch at a
+// start address (dy*(W+1) + dx)*16 bytes further: nine descriptor offsets,
+// not nine copies.  The sums at pad coordinates are computed and dropped by
+// the store: (H+1)(W+1)/(HW) of the multiplies, 1.05x at 40x40, 1.21x at
+// 10x10 and 1.44x at 5x5.
+//
+// Staging is the copy engine's (TMA), not the threads': on this card 16-byte
+// cp.async copies by 512 threads filled a slice four times slower than the
+// tensor cores emptied it.  The padded line is exactly the walk of an im2col
+// tensor map over x with the corners (-1, -1) and (0, 0): columns -1 .. W-1,
+// then rows -1 .. H-1, then frames, zeros outside the image, so a load of 128
+// consecutive coordinates by 8 channels lands as 128 core-matrix rows (no
+// padded copy of x in device memory).  The slice's weights for all nine taps
+// are ONE contiguous bulk copy: the caller packs w once into the N-major
+// core matrices the instruction's transposed-B form reads, per (column tile,
+// slice) (see fvt_conv3x3_bf16_forward).  Both are counted on the ring
+// slot's mbarrier.
+//
+// The grid is persistent: one block for every place the card has, each
+// walking the tiles from its own index in steps of the grid, so that
+// neighbours in time share an x tile and the weights (4.7 MB at C = Co = 512)
+// stay in L2.  A block is a producer warp, which alone starts copies, and
+// the consumer warpgroups, which alone multiply; between them a ring of
+// three slots, each with a `full` mbarrier (the copies count on it) and an
+// `empty` one (every consumer warp arrives after its wgmma of the slice have
+// been waited for).  The producer runs up to three slices ahead, across the
+// tiles' borders, so a tile's first slices land while the tile before is
+// still multiplied and stored: with one tile a block, the first copies and
+// the stores were in the open, a tenth of the time over a forward's 45
+// convs on an H100 (a tile has only 4 slices at 40x40x64).  The sums leave
+// through 16 staged rows of the warp's own, outside the ring, so that y is
+// written 16 bytes a thread, a row's BN channels side by side (4-byte stores
+// from the accumulator layout were a loss of their own) and no consumer
+// waits for another.  At Co <= 64 (BN = 64) a block is two warpgroups of two
+// 64-row sub-tiles each, so that two blocks share an SM and one's stores
+// hide under the other's products; at BN = 128 four warpgroups of one
+// sub-tile fill the SM.
+//
+// What is left: the products alone (no staging) run at 65-80% of the
+// tensor peak here, by shape, pad rows counted, and the pads cost 1.05-1.44x
+// of that; with the copies the kernel is about a seventh slower than the
+// products alone at the deep shapes (they share the shared memory's bandwidth: an m64n128k16
+// reads 6 KB of operands in its 64 cycles).  Next are clusters with multicast
+// weights, 256 columns an instruction (setmaxnreg for the producer),
+// 128-byte-swizzled operands, and smaller tiles for the last wave.
+//
+// Two build switches split the time for tools/profile_conv_bf16.py, and give
+// wrong sums: -DFVT_DIAG_PRODUCTS_ONLY starts no copy and waits for none,
+// -DFVT_DIAG_COPIES_ONLY runs the wgmma of the first slice only.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBM = 256;    // padded coordinates a tile owns
+constexpr int kKC = 16;     // input channels a slice (one k16 step)
+constexpr int kLoad = 128;  // coordinates one TMA load brings
+constexpr int kMaxSmem = 227 * 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Waits for the phase of the given parity to complete.  A copy that never
+// completes fails the launch (after seconds) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  unsigned spins = 0;
+  do {
+    if (++spins == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16) global -> shared by the copy engine; completion
+// is counted on the mbarrier
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// kLoad consecutive padded coordinates by 8 channels, from the coordinate
+// (w, h, n) on (the im2col walk of the tensor map: columns, then rows, then
+// frames, zeros outside the image), global -> shared as [coordinate][8 bf16]
+__device__ __forceinline__ void tma_im2col(uint32_t dst, const CUtensorMap* map,
+                                           int c, int w, int h, int n,
+                                           uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], "
+      "{%7, %8};\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c), "r"(w), "r"(h), "r"(n), "h"((uint16_t)0),
+      "h"((uint16_t)0)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor, no swizzle: start address, the byte
+// stride between core matrices along K (leading) and along M or N (stride),
+// all in units of 16 bytes.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, int k_stride,
+                                              int mn_stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((k_stride >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((mn_stride >> 4) & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 x N, fp32, in the warpgroup's registers) = d * scale_d + A (64 x 16,
+// K-major) @ B (16 x N, N-major), both bf16 in shared memory behind
+// descriptors; scale_d is 0 (d need not be initialised) or 1.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
+    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
+    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t desc_a,
+                                      uint64_t desc_b, int scale_d) {
+  if constexpr (BN == 64)
+    wgmma_m64n64k16(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_m64n128k16(d, desc_a, desc_b, scale_d);
+}
+
+struct ConvArgs {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* w;  // packed: see fvt_conv3x3_bf16_forward
+  __nv_bfloat16* y;
+  int N, H, W, C, Co;
+  int P;        // staged coordinates a tile: kBM + 2*(W+1) + 2, up to kLoad
+  long long Q;  // padded coordinates in all: N*(H+1)*(W+1)
+  int n_tiles;  // column tiles: ceil(Co / BN)
+  int tiles;    // row tiles (kBM coordinates each) times column tiles
+};
+
+// A block is WG consumer warpgroups and one producer warp, and walks the
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ...  A ring of S slots lies
+// between them, each with a `full` mbarrier (the copies of a slice have
+// landed) and an `empty` one (every consumer warp has read it).
+template <int BN, int WG, int S>
+__global__ void __launch_bounds__(128 * WG + 32, BN == 64 ? 2 : 1)
+    conv3x3_wgmma_kernel(ConvArgs a,
+                         const __grid_constant__ CUtensorMap x_map) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kMSub = kBM / (64 * WG);     // 64-row sub-tiles a warpgroup
+  constexpr int kBBytes = 9 * kKC * BN * 2;  // a slice's weights, nine taps
+  constexpr int kTapBytes = kKC * BN * 2;
+  constexpr int kPitch = BN * 2 + 16;  // a staged output row, see below
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int P = a.P, W1 = a.W + 1;
+  const int a_bytes = (kKC / 8) * P * 16;
+  const int stage_bytes = a_bytes + kBBytes;
+  const uint32_t full = smem_u32(smem), empty = full + 64;
+  unsigned char* ring = smem + 128;
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 4 * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int slices = a.C / kKC;
+  const long long frame = (long long)(a.H + 1) * W1;
+
+  if (tid >= 128 * WG) {
+    // The producer.  Per slice it waits until the slot is empty, then its
+    // first lanes each ask the copy engine for kLoad coordinates of one
+    // 8-channel chunk (the tile stages the coordinates q0 + [0, P); the sums
+    // are those of q0 + W1 + 1 + [0, kBM)) and lane 0 for the slice's
+    // weights, packed by the caller in the layout wgmma reads (one contiguous
+    // copy); all are counted on the slot's `full`.  A load that would start
+    // beyond the last frame is left out and its coordinates are zeroed: the
+    // pad row below the last frame lies there.
+#ifdef FVT_DIAG_PRODUCTS_ONLY
+    return;
+#endif
+    const int loads = P / kLoad;
+    unsigned it = 0;
+    for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+      const long long q0 = (long long)(tile / a.n_tiles) * kBM;
+      const int n_tile = tile % a.n_tiles;
+      int valid = 0;  // loads a chunk that start inside the tensor
+      while (valid < loads && q0 + (long long)valid * kLoad < a.Q) ++valid;
+      int lw = 0, lh = 0, ln = 0;  // where this lane's load starts
+      if (lane < 2 * valid) {
+        const long long q = q0 + (long long)(lane >> 1) * kLoad;
+        const long long f = q / frame;
+        const int rem = (int)(q - f * frame);
+        ln = (int)f, lh = rem / W1 - 1, lw = rem % W1 - 1;
+      }
+      for (int s = 0; s < slices; ++s, ++it) {
+        const int slot = it % S;
+        mbar_wait(empty + 8 * slot, ((it / S) & 1) ^ 1);
+        unsigned char* sa = ring + (size_t)slot * stage_bytes;
+        const uint32_t sa_u32 = smem_u32(sa), bar = full + 8 * slot;
+        if (valid < loads) {
+          const int rest = P - valid * kLoad;
+          for (int i = lane; i < 2 * rest; i += 32)
+            *reinterpret_cast<uint4*>(
+                sa + ((i / rest) * P + valid * kLoad + i % rest) * 16) =
+                make_uint4(0, 0, 0, 0);
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          __syncwarp();
+        }
+        if (lane == 0) {
+          mbar_expect_tx(bar, kBBytes + 2 * valid * kLoad * 16);
+          bulk_copy(sa_u32 + a_bytes,
+                    a.w + ((size_t)n_tile * slices + s) * (kBBytes / 2),
+                    kBBytes, bar);
+        }
+        if (lane < 2 * valid)
+          tma_im2col(sa_u32 + ((lane & 1) * P + (lane >> 1) * kLoad) * 16,
+                     &x_map, s * kKC + (lane & 1) * 8, lw, lh, ln, bar);
+      }
+    }
+    return;
+  }
+
+  // The consumers.  Warpgroup wg holds the sums of the tile's rows
+  // 64 * kMSub * wg + [0, 64 * kMSub) in registers.
+  const int wg = tid >> 7, warp = (tid >> 5) & 3;
+  // a warp's own 16 staged output rows
+  unsigned char* out = ring + (size_t)S * stage_bytes +
+                       (size_t)(wg * 4 + warp) * 16 * kPitch;
+  float acc[kMSub][BN / 2];  // first written by a tile's first wgmma
+  unsigned it = 0;
+  for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+    const long long q0 = (long long)(tile / a.n_tiles) * kBM;
+    const int n0 = (tile % a.n_tiles) * BN;
+    for (int s = 0; s < slices; ++s, ++it) {
+      const int slot = it % S;
+#ifndef FVT_DIAG_PRODUCTS_ONLY
+      mbar_wait(full + 8 * slot, (it / S) & 1);  // the slice has landed
+#endif
+      const uint32_t sa_u32 = smem_u32(ring + (size_t)slot * stage_bytes);
+      const uint64_t desc_b = make_desc(sa_u32 + a_bytes, (BN / 8) * 128, 128);
+      wgmma_fence();
+#ifdef FVT_DIAG_COPIES_ONLY
+      if (s == 0)
+#endif
+#pragma unroll
+      for (int sub = 0; sub < kMSub; ++sub) {
+        const uint64_t desc_a = make_desc(
+            sa_u32 + (wg * kMSub + sub) * 64 * 16, P * 16, 128);
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          // a tap's rows start (dy*W1 + dx) coordinates of 16 B further
+          const int shift = (tap / 3) * W1 + tap % 3;
+          wgmma<BN>(acc[sub], desc_a + shift, desc_b + tap * (kTapBytes >> 4),
+                    s > 0 || tap > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(empty + 8 * slot);  // this warp has read it
+    }
+
+    // The sums leave through the warp's 16 staged rows, so that y is written
+    // in whole 16-byte pieces, a row's BN channels side by side.  Thread
+    // (warp, lane) of a warpgroup holds rows 16*warp + lane/4 (+ 8) and
+    // columns 8*j + 2*(lane % 4) (+ 1) of a sub-tile in acc[4*j + 2*half
+    // (+ 1)]; a staged row takes BN*2 + 16 bytes, which spreads a warp's
+    // eight rows over the banks.
+#pragma unroll
+    for (int sub = 0; sub < kMSub; ++sub) {
+      // pixel index (n*H + i)*W + j of the sum this lane's row holds, -1 for
+      // a pad (lanes 0..15: one row each)
+      int pix = -1;
+      {
+        const long long q =
+            q0 + W1 + 1 + (wg * kMSub + sub) * 64 + warp * 16 + (lane & 15);
+        if (q < a.Q) {
+          const long long f = q / frame;
+          const int rem = (int)(q - f * frame);
+          const int row = rem / W1, col = rem - row * W1;
+          if (row > 0 && col > 0)
+            pix = (int)((f * a.H + row - 1) * a.W + col - 1);
+        }
+      }
+      __syncwarp();  // the rows staged before have been read
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        unsigned char* row =
+            out + ((lane >> 2) + 8 * half) * kPitch + (lane & 3) * 4;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(row + j * 16) =
+              __floats2bfloat162_rn(acc[sub][4 * j + 2 * half],
+                                    acc[sub][4 * j + 2 * half + 1]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = lane; i < 16 * (BN / 8); i += 32) {
+        const int r = i / (BN / 8), j = i % (BN / 8);
+        const int v = __shfl_sync(0xffffffffu, pix, r);
+        if (v >= 0 && n0 + 8 * j < a.Co)
+          *reinterpret_cast<uint4*>(a.y + (size_t)v * a.Co + n0 + 8 * j) =
+              *reinterpret_cast<const uint4*>(out + r * kPitch + j * 16);
+      }
+    }
+  }
+}
+
+constexpr size_t smem_bytes(int P, int BN, int WG, int S) {
+  return 128 + (size_t)S * ((kKC / 8) * P * 16 + 9 * kKC * BN * 2) +
+         (size_t)4 * WG * 16 * (BN * 2 + 16);
+}
+
+// The im2col tensor map of x (N, H, W, C): kLoad consecutive coordinates by 8
+// channels a load, walking the columns -1 .. W-1, then the rows -1 .. H-1,
+// then the frames: the padded line of the header note, zeros outside.
+cudaError_t make_x_map(const ConvArgs& a, CUtensorMap* map) {
+  using Encode = CUresult (*)(
+      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+      const cuuint64_t*, const int*, const int*, cuuint32_t, cuuint32_t,
+      const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+      CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;  // libcuda's entry, looked up once
+  if (encode == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    void* fn = lib ? dlsym(lib, "cuTensorMapEncodeIm2col") : nullptr;
+    if (fn == nullptr) return cudaErrorNotSupported;
+    encode = (Encode)fn;
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)a.C, (cuuint64_t)a.W,
+                              (cuuint64_t)a.H, (cuuint64_t)a.N};
+  const cuuint64_t strides[3] = {(cuuint64_t)a.C * 2,
+                                 (cuuint64_t)a.W * a.C * 2,
+                                 (cuuint64_t)a.H * a.W * a.C * 2};
+  const int lower[2] = {-1, -1}, upper[2] = {0, 0};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, (void*)a.x, dims, strides,
+      lower, upper, 8, kLoad, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// One block for every place the card has for one (the occupancy the
+// runtime reports times the SMs), at most one a tile.
+template <int BN, int WG, int S>
+cudaError_t launch(ConvArgs a, const CUtensorMap& x_map, cudaStream_t stream) {
+  constexpr int kThreads = 128 * WG + 32;
+  a.n_tiles = (a.Co + BN - 1) / BN;
+  const size_t bytes = smem_bytes(a.P, BN, WG, S);
+  const long long tiles = (a.Q - (a.W + 2) + kBM - 1) / kBM * a.n_tiles;
+  if (tiles > 2147483647LL) return cudaErrorInvalidValue;
+  a.tiles = (int)tiles;
+  auto kernel = conv3x3_wgmma_kernel<BN, WG, S>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0, resident = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                      kThreads, bytes);
+  if (err != cudaSuccess) return err;
+  if (resident < 1) return cudaErrorInvalidValue;
+  const long long places = (long long)sms * resident;
+  kernel<<<(unsigned)(tiles < places ? tiles : places), kThreads, bytes,
+           stream>>>(a, x_map);
+  return cudaGetLastError();
+}
+
+// The deepest ring of 3 or 2 slots that fits the shared memory.
+template <int BN, int WG>
+cudaError_t launch_ring(const ConvArgs& a, const CUtensorMap& x_map,
+                        cudaStream_t stream) {
+  // a lane of the producer warp for each load of a slice
+  if (2 * (a.P / kLoad) > 32) return cudaErrorInvalidValue;
+  if (smem_bytes(a.P, BN, WG, 3) <= (size_t)kMaxSmem)
+    return launch<BN, WG, 3>(a, x_map, stream);
+  if (smem_bytes(a.P, BN, WG, 2) <= (size_t)kMaxSmem)
+    return launch<BN, WG, 2>(a, x_map, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// y = conv3x3(x, w) on `stream`.  x (N, H, W, C) and y (N, H, W, Co) bf16,
+// contiguous and 16-byte aligned; C a multiple of 16 (one k16 step of
+// wgmma), Co a multiple of 8.  wp holds the weights w (9, C, Co) packed for
+// column tiles of bn = 64 or 128 output channels, bf16, contiguous:
+//   wp[tile][slice][tap][chunk][n8][k][n] =
+//       w[tap][16*slice + 8*chunk + k][bn*tile + 8*n8 + n]
+// with tile < ceil(Co / bn), slice < C/16, chunk < 2, n8 < bn/8, k, n < 8,
+// and 0 where the output channel is beyond Co: per (tile, slice) the
+// 9*16*bn values one ring slot takes, as wgmma reads them.  Returns
+// cudaSuccess, the error of an attribute call or the launch, or
+// cudaErrorInvalidValue for what the kernel does not take: another C, Co or
+// bn, N*H*W beyond 2^31 - 1, or a W so wide (about 500 at bn = 128, 890 at
+// bn = 64) that a ring of two staged slices leaves the 227 KB of shared
+// memory or a tile's loads outnumber the producer's lanes.
+int fvt_conv3x3_bf16_forward(const void* x, const void* wp, void* y, int N,
+                             int H, int W, int C, int Co, int bn,
+                             void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % 16 || Co % 8 ||
+      (bn != 64 && bn != 128))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)N * H * W > 2147483647LL) return (int)cudaErrorInvalidValue;
+  ConvArgs a{(const __nv_bfloat16*)x,
+             (const __nv_bfloat16*)wp,
+             (__nv_bfloat16*)y,
+             N, H, W, C, Co,
+             (kBM + 2 * (W + 1) + 2 + kLoad - 1) / kLoad * kLoad,
+             (long long)N * (H + 1) * (W + 1),
+             0, 0};
+  CUtensorMap x_map;
+  const cudaError_t err = make_x_map(a, &x_map);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  // bn = 64: two warpgroups of two sub-tiles each, so that two blocks share
+  // an SM; bn = 128: four warpgroups of one
+  return (int)(bn == 64 ? launch_ring<64, 2>(a, x_map, st)
+                        : launch_ring<128, 4>(a, x_map, st));
+}
+
+}  // extern "C"

@@ -44,6 +44,8 @@ _SIGNATURES = {
     'fvt_tcn_block_train_backward': [_P] * 19 + [_I] * 8 + [_P],
     # x w y, N H W C Co, tf th tw, stream
     'fvt_conv3x3_forward': [_P] * 3 + [_I] * 8 + [_P],
+    # x wp y (bf16), N H W C Co bn, stream
+    'fvt_conv3x3_bf16_forward': [_P] * 3 + [_I] * 6 + [_P],
     # x u y, N H W C Co, stream
     'fvt_winograd_forward': [_P] * 3 + [_I] * 5 + [_P],
     # x w1 w2 a1 b1 alpha a2 b2 y, N H W C, tf th tw rg, stream
@@ -122,13 +124,14 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check_tensor(name: str, t, shape: tuple, device) -> None:
-    """Raises unless ``t`` is a contiguous, 16-byte aligned float32 tensor
-    of ``shape`` on ``device``: what every kernel here takes."""
+def check_tensor(name: str, t, shape: tuple, device,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Raises unless ``t`` is a contiguous, 16-byte aligned tensor of
+    ``dtype`` and ``shape`` on ``device``: what every kernel here takes."""
     if t.device != device:
         raise ValueError(f'{name} is on {t.device}, expected {device}')
-    if t.dtype != torch.float32:
-        raise ValueError(f'{name} is {t.dtype}, the kernels take float32')
+    if t.dtype != dtype:
+        raise ValueError(f'{name} is {t.dtype}, the kernel takes {dtype}')
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f'{name} has shape {tuple(t.shape)}, '
                          f'expected {tuple(shape)}')

@@ -16,10 +16,30 @@ The 3x3 convolutions of the body have a selectable path
 blocks whose widths agree through the fused whole-block kernel, as
 ``arcface_forward_eval(fused_blocks=True)`` does there.  The defaults,
 ``'cudnn'`` and ``fused_blocks=False``, are PyTorch's own ``conv2d``.
+
+``dtype`` is the compute type of everything before the flatten, the
+counterpart of ``fvt_tpu``'s ``VisualBackbone(dtype=...)``:
+``torch.float32`` (default) or ``torch.bfloat16``, which is what ``--amp``
+means there (``fvt_tpu/experiment.py:166-184``).  Parameters and running
+statistics stay float32 whatever the ``dtype`` (flax keeps them so,
+``fvt_tpu/models/arcface.py:48-50``); the input is cast to ``dtype``
+first, the convolutions run on copies of their weights in ``dtype``
+(derived once and kept, as the other derived weights), BatchNorm2d, PReLU
+and the residual adds run on ``dtype`` activations, and the flatten casts
+back to float32 before ``output_layer``'s Linear and BatchNorm1d, so the
+embeddings are float32.  Under bfloat16 the ``'shifted_kernel'`` path
+launches the tensor-core kernel (``ops/conv.py``).  Where the two
+frameworks round differently: flax normalises in ``dtype`` (the
+subtraction, the product and the sum each round to bfloat16), while
+``F.batch_norm`` on a bfloat16 tensor with float32 statistics computes
+in float32 and rounds once; ``F.conv2d`` and the kernel sum in float32
+and round once, as XLA's convolution and the Pallas kernel do.  The
+Winograd paths and the fused block have no bfloat16 route yet: asking for
+one raises at construction.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +55,23 @@ from fvt_tpu_torch.ops import winograd as winograd_ops
 # 'winograd_kernel': the fused Winograd CUDA kernel.  'shifted_kernel': the
 # nine-shifted-products CUDA kernel.
 CONV_IMPLS = ('cudnn', 'winograd', 'winograd_kernel', 'shifted_kernel')
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_dtype(dtype: torch.dtype, conv_impl: str = 'cudnn',
+                fused_blocks: bool = False) -> None:
+    """Raises for a compute type the backbone does not take, or one that
+    the chosen conv path has no route for."""
+    if dtype not in DTYPES:
+        raise ValueError(f'dtype {dtype}: the backbone computes in '
+                         f'torch.float32 or torch.bfloat16')
+    if dtype == torch.bfloat16 and (fused_blocks or conv_impl in (
+            'winograd', 'winograd_kernel')):
+        raise ValueError(
+            f'dtype=torch.bfloat16 with conv_impl={conv_impl!r}, '
+            f'fused_blocks={fused_blocks}: the Winograd kernel (B6) and the '
+            f'fused block (B5) have no bfloat16 route yet (ROADMAP.md, queue '
+            f'A5); take conv_impl \'cudnn\' or \'shifted_kernel\'')
 
 
 def get_blocks_50() -> List[Tuple[int, int, int]]:
@@ -55,6 +92,33 @@ def _stamp(*tensors: torch.Tensor) -> tuple:
                  for t in tensors)
 
 
+def cast_cached(mod: nn.Module, name: str, dtype: torch.dtype
+                ) -> torch.Tensor:
+    """``getattr(mod, name)`` in ``dtype``: the tensor itself if it has
+    that type, else a copy kept on ``mod`` and made again when the tensor
+    is replaced or written in place."""
+    t = getattr(mod, name)
+    if t.dtype == dtype:
+        return t
+    cache = mod.__dict__.setdefault('_cast_cache', {})
+    stamp, hit = _stamp(t), cache.get((name, dtype))
+    if hit is None or hit[0] != stamp:
+        hit = cache[(name, dtype)] = (stamp, t.detach().to(dtype))
+    return hit[1]
+
+
+def conv2d_as(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` (no bias) with the float32 weight in x's type."""
+    return F.conv2d(x, cast_cached(conv, 'weight', x.dtype), None,
+                    conv.stride, conv.padding)
+
+
+def prelu_as(prelu: nn.PReLU, x: torch.Tensor) -> torch.Tensor:
+    """``prelu(x)`` with the float32 slopes in x's type, as ``fvt_tpu``'s
+    PReLU applies them (``layers.py:214``)."""
+    return F.prelu(x, cast_cached(prelu, 'weight', x.dtype))
+
+
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     """The NHWC view of an NCHW tensor (no copy from channels_last)."""
     return x.permute(0, 2, 3, 1).contiguous()
@@ -70,19 +134,25 @@ class Conv3x3(nn.Module):
     HWIO (and, for Winograd, its transform ``G g G^T``): both are derived
     from ``weight`` at the first call and kept; they are dropped and
     derived again when ``weight`` is replaced or written in place
-    (``load_state_dict``, ``.to()``, an optimizer step, a re-init).
+    (``load_state_dict``, ``.to()``, an optimizer step, a re-init).  So
+    are the copies in ``dtype`` that a bfloat16 module computes with
+    (OIHW for ``F.conv2d``, HWIO for the plain version, packed by
+    ``ops.conv.pack_weights`` for the kernel); ``weight`` stays float32.
     """
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
-                 impl: str = 'cudnn'):
+                 impl: str = 'cudnn', dtype: torch.dtype = torch.float32):
         super().__init__()
         if impl not in CONV_IMPLS:
             raise ValueError(f'unknown conv impl: {impl!r}')
+        check_dtype(dtype, impl)
         self.stride = stride
         self.impl = impl
+        self.dtype = dtype
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, 3, 3))
         self._derived = None
+        self._cast = None
 
     def kernel_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(HWIO kernel (3, 3, Cin, Cout), its Winograd transform (16,
@@ -96,16 +166,41 @@ class Conv3x3(nn.Module):
             self._derived = (stamp, hwio, u)
         return self._derived[1:]
 
+    def cast_weights(self) -> tuple:
+        """(``weight`` in OIHW, the HWIO kernel, the kernel packed for the
+        bfloat16 CUDA kernel or None where it does not take the widths),
+        all in ``dtype``: what a bfloat16 module computes with, cached as
+        the class docstring says."""
+        stamp = _stamp(self.weight)
+        if self._cast is None or self._cast[0] != stamp:
+            with torch.no_grad():
+                oihw = self.weight.detach().to(self.dtype)
+                hwio = oihw.permute(2, 3, 1, 0).contiguous()
+                co, c = oihw.shape[:2]
+                packed = (None if c % 16 or co % 8
+                          else conv_ops.pack_weights(hwio))
+            self._cast = (stamp, oihw, hwio, packed)
+        return self._cast[1:]
+
     def forward(self, x: torch.Tensor, reference: bool = False
                 ) -> torch.Tensor:
-        """x NCHW.  ``reference=True`` runs a kernel's plain version."""
+        """x NCHW, cast to ``dtype`` (``fvt_tpu`` ``arcface.py:75``).
+        ``reference=True`` runs a kernel's plain version."""
+        x = x.to(self.dtype)
         if self.stride != 1 or self.impl == 'cudnn':
-            return F.conv2d(x, self.weight, None, self.stride, 1)
+            weight = (self.weight if self.dtype == self.weight.dtype
+                      else self.cast_weights()[0])
+            return F.conv2d(x, weight, None, self.stride, 1)
         conv_ops.refuse_grad(f'Conv3x3(impl={self.impl!r})', x, self.weight)
         hwio, u = self.kernel_weights()
         if self.impl == 'shifted_kernel':
-            fn = conv_ops.conv3x3_ref if reference else conv_ops.conv3x3
-            y = fn(_nhwc(x), hwio)
+            packed = None
+            if self.dtype != hwio.dtype:
+                _, hwio, packed = self.cast_weights()
+            if reference:
+                y = conv_ops.conv3x3_ref(_nhwc(x), hwio)
+            else:
+                y = conv_ops.conv3x3(_nhwc(x), hwio, packed=packed)
         else:
             plain = reference or self.impl == 'winograd'
             fn = (winograd_ops.conv3x3_winograd_ref if plain
@@ -118,9 +213,12 @@ class BottleneckIR(nn.Module):
     """BN -> 3x3 conv -> PReLU -> 3x3 strided conv -> BN, + shortcut."""
 
     def __init__(self, in_channel: int, depth: int, stride: int,
-                 conv_impl: str = 'cudnn'):
+                 conv_impl: str = 'cudnn',
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        check_dtype(dtype, conv_impl)
         self.stride = stride
+        self.dtype = dtype
         # the fused whole-block kernel takes the stride-1 identity blocks
         self.fusable = in_channel == depth and stride == 1
         if in_channel == depth:
@@ -132,9 +230,9 @@ class BottleneckIR(nn.Module):
                 nn.BatchNorm2d(depth))
         self.res_layer = nn.Sequential(
             nn.BatchNorm2d(in_channel),
-            Conv3x3(in_channel, depth, 1, conv_impl),
+            Conv3x3(in_channel, depth, 1, conv_impl, dtype),
             nn.PReLU(depth),
-            Conv3x3(depth, depth, stride, conv_impl),
+            Conv3x3(depth, depth, stride, conv_impl, dtype),
             nn.BatchNorm2d(depth))
         self._fused = None
 
@@ -161,9 +259,10 @@ class BottleneckIR(nn.Module):
 
     def forward(self, x: torch.Tensor, *, fused: bool = False,
                 reference: bool = False) -> torch.Tensor:
-        """x NCHW.  ``fused`` takes the whole-block kernel where the block
-        is ``fusable``; ``reference=True`` runs the kernels' plain
-        versions."""
+        """x NCHW, in the block's ``dtype`` as ``Backbone`` hands it.
+        ``fused`` takes the whole-block kernel where the block is
+        ``fusable``; ``reference=True`` runs the kernels' plain versions."""
+        check_dtype(self.dtype, fused_blocks=fused)
         if fused and self.fusable:
             fn = (bottleneck_ops.bottleneck_ir_fused_ref if reference
                   else bottleneck_ops.bottleneck_ir_fused)
@@ -173,21 +272,25 @@ class BottleneckIR(nn.Module):
         if self.shortcut_layer is None:
             shortcut = x[:, :, ::self.stride, ::self.stride]
         else:
-            shortcut = self.shortcut_layer(x)
+            conv, bn = self.shortcut_layer
+            shortcut = bn(conv2d_as(conv, x))
         bn1, conv1, prelu, conv2, bn2 = self.res_layer
-        res = prelu(conv1(bn1(x), reference))
+        res = prelu_as(prelu, conv1(bn1(x), reference))
         return bn2(conv2(res, reference)) + shortcut
 
 
 class Backbone(nn.Module):
-    def __init__(self, drop_ratio: float = 0.4, conv_impl: str = 'cudnn'):
+    def __init__(self, drop_ratio: float = 0.4, conv_impl: str = 'cudnn',
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        check_dtype(dtype, conv_impl)
+        self.dtype = dtype
         # Cin = 3 makes a poor product: the input conv stays on conv2d
         self.input_layer = nn.Sequential(
             nn.Conv2d(3, 64, 3, 1, 1, bias=False), nn.BatchNorm2d(64),
             nn.PReLU(64))
         self.body = nn.ModuleList(
-            BottleneckIR(*blk, conv_impl=conv_impl)
+            BottleneckIR(*blk, conv_impl=conv_impl, dtype=dtype)
             for blk in get_blocks_50())
         self.output_layer = nn.Sequential(
             nn.BatchNorm2d(512), nn.Dropout(drop_ratio), nn.Flatten(),
@@ -202,25 +305,34 @@ class Backbone(nn.Module):
 
     def forward(self, x: torch.Tensor, *, fused_blocks: bool = False,
                 reference: bool = False) -> torch.Tensor:
-        """x (N, 40, 40, 3) -> (N, 512)."""
-        x = x.permute(0, 3, 1, 2)  # NHWC storage == NCHW channels_last
+        """x (N, 40, 40, 3) -> (N, 512) float32."""
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        # NHWC storage == NCHW channels_last
         x = x.contiguous(memory_format=torch.channels_last)
-        x = self.input_layer(x)
+        conv, bn, prelu = self.input_layer
+        x = prelu_as(prelu, bn(conv2d_as(conv, x)))
         for blk in self.body:
             x = blk(x, fused=fused_blocks, reference=reference)
-        x = self.output_layer(x)
+        bn2d, dropout, flatten, linear, bn1d = self.output_layer
+        x = flatten(dropout(bn2d(x))).float()  # fvt_tpu arcface.py:158-159
+        x = bn1d(linear(x))
         return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
 
 
 class VisualBackbone(nn.Module):
     """Wrapper holding ``backbone`` (upstream ``backbone.py:69-130``).
     ``conv_impl`` (one of :data:`CONV_IMPLS`) and ``fused_blocks`` pick
-    the path of the body's 3x3 convolutions in eval mode."""
+    the path of the body's 3x3 convolutions in eval mode, ``dtype`` the
+    compute type (``torch.bfloat16`` is ``--amp``; the module docstring
+    says what runs in it)."""
 
-    def __init__(self, conv_impl: str = 'cudnn', fused_blocks: bool = False):
+    def __init__(self, conv_impl: str = 'cudnn', fused_blocks: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        check_dtype(dtype, conv_impl, fused_blocks)
         self.fused_blocks = fused_blocks
-        self.backbone = Backbone(conv_impl=conv_impl)
+        self.dtype = dtype
+        self.backbone = Backbone(conv_impl=conv_impl, dtype=dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.backbone.reset_parameters(generator)
@@ -233,11 +345,18 @@ class VisualBackbone(nn.Module):
 
 def arcface_forward_eval(model: VisualBackbone, x: torch.Tensor,
                          fused_blocks: bool = False,
-                         reference: bool = False) -> torch.Tensor:
+                         reference: bool = False,
+                         dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Eval forward of ``model`` on x (N, 40, 40, 3) with the fused
     whole-block kernel switched by the call and not by the module, the
     counterpart of ``fvt_tpu``'s ``arcface_forward_eval(...,
-    fused_blocks=...)``.  The same math as ``model(x)``."""
+    fused_blocks=...)``.  The same math as ``model(x)``.  There the
+    compute type is an argument of the call, because the parameters are;
+    here it belongs to the module, so ``dtype`` only asserts it: another
+    type than ``model.dtype`` raises."""
+    if dtype is not None and dtype != model.dtype:
+        raise ValueError(f'dtype {dtype}: the model was built with '
+                         f'dtype={model.dtype}')
     with torch.inference_mode():
         return model.backbone(x, fused_blocks=fused_blocks,
                               reference=reference)

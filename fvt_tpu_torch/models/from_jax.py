@@ -14,6 +14,12 @@ Layout conversions: Dense kernel (in, out) -> Linear weight (out, in);
 weight-norm v (K, in, out) -> weight_v (out, in, K), g -> (out, 1, 1);
 HWIO conv kernels -> OIHW; the ArcFace ``output_linear`` columns from
 fvt_tpu's NHWC flatten to PyTorch's NCHW flatten.
+
+Every value is carried as float32, which is what flax keeps under
+``--amp`` too: bfloat16 there is a compute type and no parameter type,
+so a ``VisualBackbone(dtype=torch.bfloat16)`` or an
+``LFAN(backbone_dtype=torch.bfloat16)`` loads the same state_dict, and
+the bridge carries nothing new for it.
 """
 from __future__ import annotations
 

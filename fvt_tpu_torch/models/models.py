@@ -7,7 +7,10 @@ the output is ``concat(feats[leader], follower) @ W + b`` per frame, with
 ``tanh`` for regression only.  A ``video`` modality takes normalised face
 crops ``(B, T, 40, 40, 3)`` through the frozen ArcFace backbone at
 ``spatial.visual``, whose convolution path is the constructor's
-``conv_impl`` and ``fused_blocks`` (or a ready ``spatial_video`` module,
+``conv_impl`` and ``fused_blocks`` and whose compute type is
+``backbone_dtype`` (``torch.bfloat16`` is ``fvt_tpu``'s ``--amp``: the
+backbone computes in bfloat16 and returns float32 embeddings; everything
+after it stays float32, as there) (or a ready ``spatial_video`` module,
 as ``fvt_tpu``'s ``init_model(spatial_video=...)`` takes one; it is
 initialised from ``generator`` with the rest).  Parameter
 names are those of ``fvt_tpu.models.torch_export.lfan_to_torch``.
@@ -47,6 +50,7 @@ class LFAN(nn.Module):
                  tcn_dropout: float = 0.1, fusion_dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None,
                  conv_impl: str = 'cudnn', fused_blocks: bool = False,
+                 backbone_dtype: torch.dtype = torch.float32,
                  spatial_video: Optional[VisualBackbone] = None):
         super().__init__()
         self.modality = tuple(modality)
@@ -61,7 +65,7 @@ class LFAN(nn.Module):
         if constants.VIDEO in self.modality:
             self.spatial = nn.Module()
             self.spatial.visual = spatial_video or VisualBackbone(
-                conv_impl, fused_blocks)
+                conv_impl, fused_blocks, backbone_dtype)
         self.temporal = nn.ModuleDict({
             m: TemporalConvNet(embedding_dim[m], tcn_channel[m], kernel_size,
                                dropout=tcn_dropout)

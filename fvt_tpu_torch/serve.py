@@ -11,6 +11,11 @@ artifact: ``.meta`` with ``fvt_tpu/export.py``'s keys and
 ``.call(inputs, length=None)`` on numpy arrays.  So the server core of
 ``fvt_tpu_torch.streaming`` (``StreamingSession``, ``StreamingRegistry``,
 ``WindowBatcher``), a copy of ``fvt_tpu.streaming``, serves it.
+
+A model built with ``backbone_dtype=torch.bfloat16`` (``--amp`` in
+``fvt_tpu``) is served as it is: its parameters stay float32 on the device,
+only its backbone computes in bfloat16, and the specs and outputs do not
+change (uint8 crops and float32 features in, float32 logits out).
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Times the ArcFace IR-50 backbone's conv paths on the card.
 
     python3 -m fvt_tpu_torch.tools.profile_backbone [--frames 2400]
-        [--iters 10] [--stages | --bottleneck [--tiles]] [--device cpu]
+        [--iters 10] [--kernels | --stages | --bottleneck [--tiles]]
+        [--device cpu] [--dtype float32|bfloat16]
 
 Counterpart of ``tools/profile_backbone.py``.  Three modes, each printing
 the card's name and power limit and then one JSON line:
@@ -11,7 +12,10 @@ the card's name and power limit and then one JSON line:
   ``winograd`` (plain PyTorch Winograd), ``winograd_kernel``,
   ``shifted_kernel`` and ``fused_blocks``; ms, frames/s, the share of the
   fp32 peak the model's operations reach, and the largest difference of
-  the embeddings from ``cudnn``'s;
+  the embeddings from ``cudnn``'s; with ``--kernels`` also where a
+  forward's device time goes on each path (``torch.profiler`` over three
+  forwards: the sum and the largest kernels by name, ms and launches a
+  forward);
 * ``--stages``: one 3x3 stride-1 conv at the four stage shapes (40x40x64,
   20x20x128, 10x10x256, 5x5x512) through ``F.conv2d`` (channels_last and
   NCHW), the plain Winograd and the two kernels;
@@ -21,7 +25,12 @@ the card's name and power limit and then one JSON line:
   a set of block tiles, which is where ``ops.bottleneck.MEASURED_TILES``
   comes from.
 
-float32 with TF32 off.  Times are medians of ``--iters`` calls between
+float32 with TF32 off, or with ``--dtype bfloat16`` (the whole-backbone
+and ``--stages`` modes) the backbone's bfloat16 compute type, ``--amp`` in
+``fvt_tpu``: then only the paths with a bfloat16 route run (``cudnn`` and
+``shifted_kernel``, which launches the tensor-core kernel), the share is of
+the tensor cores' bf16 peak, and the embeddings are compared with the
+float32 ``cudnn`` path's.  Times are medians of ``--iters`` calls between
 CUDA events after two warm-up calls.  ``tflops`` and the share of the peak
 count the direct convolution's operations for every path, Winograd's too:
 they compare times, not the multiplies a path really does.  Runs on the
@@ -41,8 +50,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# published fp32 peak of one H100 SXM outside the tensor cores
-PEAK_FLOPS = 67e12
+# published peaks of one H100 SXM: fp32 outside the tensor cores, dense
+# bf16 on them
+PEAK_FLOPS = {'float32': 67e12, 'bfloat16': 989e12}
+DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 STAGES = [(40, 64), (20, 128), (10, 256), (5, 512)]
 # block tiles (tf, th, tw) of the shifted-products kernel tried by --tiles,
 # per stage extent
@@ -83,6 +94,24 @@ def median_ms(fn, iters: int, device: torch.device) -> float:
     return statistics.median(times)
 
 
+def device_kernels(fn, top: int = 12, forwards: int = 3) -> dict:
+    """Device time of ``fn()`` by kernel, from ``torch.profiler`` over
+    ``forwards`` calls: the sum in ms a call, and the ``top`` kernels as
+    [name, ms a call, launches a call]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(forwards):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key[:96], round(e.device_time_total / forwards / 1e3, 4),
+                    round(e.count / forwards, 2))
+                   for e in prof.key_averages() if e.device_time_total > 0),
+                  key=lambda row: -row[1])
+    return {'device_ms': round(sum(row[1] for row in rows), 4),
+            'kernels': [list(row) for row in rows[:top]]}
+
+
 def backbone_flops(frames: int) -> float:
     """Multiply-adds times two of one eval forward, from the shapes."""
     from fvt_tpu_torch.models.arcface import get_blocks_50
@@ -99,15 +128,19 @@ def backbone_flops(frames: int) -> float:
     return total * frames
 
 
-def _rate(flops: float, ms: float, device: torch.device) -> dict:
+def _rate(flops: float, ms: float, device: torch.device,
+          dtype: str = 'float32') -> dict:
     out = {'ms': round(ms, 4)}
     if device.type == 'cuda':
         out['tflops'] = round(flops / ms / 1e9, 2)
-        out['share_of_fp32_peak'] = round(flops / (ms * 1e-3) / PEAK_FLOPS, 4)
+        share = 'share_of_fp32_peak' if dtype == 'float32' \
+            else 'share_of_bf16_peak'
+        out[share] = round(flops / (ms * 1e-3) / PEAK_FLOPS[dtype], 4)
     return out
 
 
-def bench_backbone(frames: int, iters: int, device: torch.device) -> dict:
+def bench_backbone(frames: int, iters: int, device: torch.device,
+                   dtype: str = 'float32', kernels: bool = False) -> dict:
     from fvt_tpu_torch.models.arcface import VisualBackbone
 
     rng = np.random.default_rng(0)
@@ -122,6 +155,11 @@ def bench_backbone(frames: int, iters: int, device: torch.device) -> dict:
                 ('fused_blocks', {'fused_blocks': True})]
     results, ref = {}, None
     with torch.inference_mode():
+        if dtype != 'float32':
+            ref = base.to(device)(x)  # the float32 cudnn path's embeddings
+            variants = [(name, {**kw, 'dtype': DTYPES[dtype]})
+                        for name, kw in variants
+                        if name in ('cudnn', 'shifted_kernel')]
         for name, kw in variants:
             model = VisualBackbone(**kw).eval()
             model.load_state_dict(base.state_dict())
@@ -131,9 +169,11 @@ def bench_backbone(frames: int, iters: int, device: torch.device) -> dict:
             if ref is None:
                 ref = out
             results[name] = {
-                **_rate(flops, ms, device),
+                **_rate(flops, ms, device, dtype),
                 'frames_per_s': round(frames / ms * 1e3, 1),
                 'max_abs_err_vs_cudnn': float((out - ref).abs().max())}
+            if kernels and device.type == 'cuda':
+                results[name].update(device_kernels(lambda: model(x)))
             del model
     return {'gflops_model': round(flops / 1e9, 1), **results}
 
@@ -145,7 +185,8 @@ def _stage_inputs(frames, h, c, device, seed):
     return x, k, g
 
 
-def bench_stages(frames: int, iters: int, device: torch.device) -> dict:
+def bench_stages(frames: int, iters: int, device: torch.device,
+                 dtype: str = 'float32') -> dict:
     from fvt_tpu_torch.ops import conv as conv_ops
     from fvt_tpu_torch.ops import winograd as winograd_ops
 
@@ -155,6 +196,9 @@ def bench_stages(frames: int, iters: int, device: torch.device) -> dict:
             x, k, _ = _stage_inputs(frames, h, c, device, 1)
             flops = 2.0 * 9 * frames * h * h * c * c
             u = winograd_ops.transform_weights(k)
+            x, k = x.to(DTYPES[dtype]), k.to(DTYPES[dtype])
+            # the bfloat16 kernel's weights packed once, as the module does
+            packed = conv_ops.pack_weights(k) if dtype == 'bfloat16' else None
             x_cl = x.permute(0, 3, 1, 2)        # NCHW view, channels_last
             x_nchw = x_cl.contiguous()
             w_oihw = k.permute(3, 2, 0, 1).contiguous()
@@ -167,9 +211,13 @@ def bench_stages(frames: int, iters: int, device: torch.device) -> dict:
                  lambda: winograd_ops.conv3x3_winograd_ref(x, k, u)),
                 ('winograd_kernel',
                  lambda: winograd_ops.conv3x3_winograd(x, k, u)),
-                ('shifted_kernel', lambda: conv_ops.conv3x3(x, k))]
+                ('shifted_kernel',
+                 lambda: conv_ops.conv3x3(x, k, packed=packed))]
+            if dtype != 'float32':  # Winograd has no bfloat16 route
+                paths = [p for p in paths if 'winograd' not in p[0]]
             out[f'{h}x{h}x{c}'] = {
-                name: _rate(flops, median_ms(fn, iters, device), device)
+                name: _rate(flops, median_ms(fn, iters, device), device,
+                            dtype)
                 for name, fn in paths}
             del x, k, u, x_cl, x_nchw
     return out
@@ -230,11 +278,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--frames', type=int, default=2400)
     ap.add_argument('--iters', type=int, default=10)
+    ap.add_argument('--kernels', action='store_true')
     ap.add_argument('--stages', action='store_true')
     ap.add_argument('--bottleneck', action='store_true')
     ap.add_argument('--tiles', action='store_true')
     ap.add_argument('--device', default='cuda', choices=('cuda', 'cpu'))
+    ap.add_argument('--dtype', default='float32', choices=sorted(DTYPES))
     args = ap.parse_args(argv)
+    if args.bottleneck and args.dtype != 'float32':
+        ap.error('--bottleneck is float32 only: the fused block has no '
+                 'bfloat16 route')
     if args.device == 'cuda' and not torch.cuda.is_available():
         print('profile_backbone: no CUDA device (--device cpu rehearses the '
               'plain versions)', file=sys.stderr)
@@ -243,7 +296,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(args.device)
     report = {'platform': args.device, 'frames': args.frames,
-              'dtype': 'fp32', 'iters': args.iters}
+              'dtype': args.dtype, 'iters': args.iters}
     if device.type == 'cuda':
         card = subprocess.run(
             ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -252,12 +305,14 @@ def main(argv=None) -> int:
         print(card)
         report.update(card=card, kind=torch.cuda.get_device_name(0))
     if args.stages:
-        report['stages'] = bench_stages(args.frames, args.iters, device)
+        report['stages'] = bench_stages(args.frames, args.iters, device,
+                                        args.dtype)
     elif args.bottleneck:
         report['bottleneck'] = bench_bottleneck(args.frames, args.iters,
                                                 device, args.tiles)
     else:
-        report['backbone'] = bench_backbone(args.frames, args.iters, device)
+        report['backbone'] = bench_backbone(args.frames, args.iters, device,
+                                            args.dtype, args.kernels)
     print(json.dumps(report))
     return 0
 

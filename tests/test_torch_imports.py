@@ -59,6 +59,7 @@ NO_JAX = textwrap.dedent('''
     from fvt_tpu_torch.models.arcface import (CONV_IMPLS, VisualBackbone,
                                               arcface_forward_eval)
     import fvt_tpu_torch.tools.profile_backbone
+    import fvt_tpu_torch.tools.profile_conv_bf16
     import fvt_tpu_torch.tools.profile_train
 
     base = VisualBackbone().eval()
@@ -74,6 +75,12 @@ NO_JAX = textwrap.dedent('''
             got = variant(crops)
         assert got.shape == (1, 512) and torch.isfinite(got).all()
         assert (got - want).abs().max() < 1e-4, (got - want).abs().max()
+
+    amp = VisualBackbone('shifted_kernel', dtype=torch.bfloat16).eval()
+    amp.load_state_dict(base.state_dict())
+    got = arcface_forward_eval(amp, crops, dtype=torch.bfloat16)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert 0 < (got - want).abs().max() < 2e-2, (got - want).abs().max()
 
     import chip_smoke
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
@@ -107,6 +114,7 @@ def test_no_port_source_imports_jax_or_fvt_tpu():
     assert len(paths) > 25
     names = {os.path.relpath(p, REPO) for p in paths}
     assert {'fvt_tpu_torch/ops/conv.py', 'fvt_tpu_torch/ops/winograd.py',
+            'fvt_tpu_torch/models/arcface.py',
             'fvt_tpu_torch/ops/bottleneck.py',
             'fvt_tpu_torch/tools/profile_backbone.py'} <= names
     for path in paths:
