@@ -13,9 +13,12 @@ Phases, each of which raises on failure (exit code 1):
    {128, 32, 128}), and the train-mode TCN block (forward output and the
    backward's six results, against autograd of the plain version) at the
    8 block shapes of the ``vggish+bert`` LFAN at (16, 300) with dropout
-   masks at p=0.1, plus edge shapes; the shifted-products and the Winograd
-   3x3 conv kernels against their plain versions and against ``F.conv2d``
-   at the seven conv shapes of the ArcFace body on 2400 frames, and the
+   masks at p=0.1, plus edge shapes; the float32 3x3 conv kernels (the
+   split-TF32 tensor-core kernel that ``shifted_kernel`` launches, the
+   earlier CUDA-core kernel ``conv3x3_simt``, which no path launches, and
+   the Winograd kernel) against their plain versions and against
+   ``F.conv2d`` at the seven conv shapes of the ArcFace body on 2400
+   frames, plus a shape the split-TF32 kernel refuses, and the
    fused BottleneckIR block against its plain version at the four stage
    shapes, plus edge shapes; the bfloat16 tensor-core (``wgmma``) 3x3 conv
    kernel against its plain version and ``F.conv2d`` on bfloat16 tensors
@@ -36,11 +39,13 @@ Phases, each of which raises on failure (exit code 1):
 5. run the ArcFace IR-50 backbone alone on the 2400 frames of a full
    dispatch through each conv path (``cudnn``, ``shifted_kernel``,
    ``winograd_kernel``, ``fused_blocks``), check the embeddings against
-   the default path's and the launch counts (45, 45 and 21 a forward),
-   time each; then serve the three streams again through a tri-modal LFAN
-   built with ``fused_blocks=True`` and one with
-   ``conv_impl='winograd_kernel'``, check the logits against the offline
-   stitch of the plain versions and the launch counts a dispatch; then the
+   the default path's and the launch counts (45 of the split-TF32 kernel,
+   45 and 21 a forward, none of ``conv3x3_simt``), time each; then serve
+   the three streams again through a tri-modal LFAN built with
+   ``fused_blocks=True``, one with ``conv_impl='winograd_kernel'`` and one
+   with ``conv_impl='shifted_kernel'``, check the logits against the
+   offline stitch of the plain versions and the launch counts a dispatch,
+   and time full dispatches of the last against the default; then the
    bfloat16 backbone (``dtype=torch.bfloat16``, ``--amp`` in ``fvt_tpu``)
    through ``cudnn`` and ``shifted_kernel`` (45 bfloat16 launches a
    forward, the kernel path's embeddings against the plain version's
@@ -62,6 +67,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -88,8 +94,10 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 2e-4, 1e-5
 # published fp32 peaks of one H100 SXM, for the kernels' bounds
 PEAK_FLOPS = 67e12
-# the tensor cores' dense bf16 peak, for the bfloat16 kernel's bound
+# the tensor cores' dense bf16 and TF32 peaks, for the bfloat16 and the
+# split-TF32 kernels' bounds
 PEAK_FLOPS_BF16 = 989e12
+PEAK_FLOPS_TF32 = 494.7e12
 PEAK_BYTES = 3.35e12
 # served logits vs the offline stitch of the plain-version forward
 SERVE_ATOL = 1e-3
@@ -475,22 +483,32 @@ def conv2d_library(x: torch.Tensor, kernel: torch.Tensor):
 
 
 def check_conv_kernels(device) -> list:
-    """Phase 2, the ArcFace body's 3x3 convs: the shifted-products kernel
-    and the Winograd kernel against their plain versions and against
-    ``F.conv2d`` at the seven conv shapes on FRAMES frames and at edge
-    shapes.  Times are per shape; the kernels' line sums them over the
-    45 launches of one backbone forward."""
+    """Phase 2, the ArcFace body's float32 3x3 convs: the split-TF32
+    tensor-core kernel (``conv3x3``, the ``shifted_kernel`` path), the
+    earlier CUDA-core kernel (``conv3x3_simt``, timed, on no path) and the
+    Winograd kernel against their plain versions and against ``F.conv2d``
+    at the seven conv shapes on FRAMES frames and at edge shapes; a shape
+    the split-TF32 kernel does not take must raise.  Times are per shape;
+    the kernels' line sums them over the 45 launches of one backbone
+    forward.  The split-TF32 kernel's bound takes its three TF32 products
+    at the tensor cores' TF32 peak (the CUDA-core bound of the direct conv
+    is printed beside it)."""
+    from fvt_tpu_torch.kernels import build
     from fvt_tpu_torch.ops import conv as conv_ops
     from fvt_tpu_torch.ops import winograd as winograd_ops
 
     g = torch.Generator(device=device).manual_seed(SEED + 4)
     frames = WINDOW_BATCH * WINDOW
     kernels = {
-        'conv3x3': dict(fn=conv_ops.conv3x3, ref=conv_ops.conv3x3_ref,
-                        tol=KERNEL_RTOL),
-        'winograd': dict(fn=winograd_ops.conv3x3_winograd,
-                         ref=winograd_ops.conv3x3_winograd_ref,
-                         tol=WINOGRAD_RTOL)}
+        # the weights packed once, as the module keeps them
+        'conv3x3': dict(
+            fn=lambda x, k, p: conv_ops.conv3x3(x, k, packed=p),
+            ref=conv_ops.conv3x3_ref, tol=KERNEL_RTOL),
+        'conv3x3_simt': dict(fn=lambda x, k, p: conv_ops.conv3x3_simt(x, k),
+                             ref=conv_ops.conv3x3_ref, tol=KERNEL_RTOL),
+        'winograd': dict(
+            fn=lambda x, k, p: winograd_ops.conv3x3_winograd(x, k),
+            ref=winograd_ops.conv3x3_winograd_ref, tol=WINOGRAD_RTOL)}
     tot = {name: {key: 0.0 for key in (
         'err', 'ms', 'plain', 'library', 'ops_ms', 'bytes_ms', 'direct_ms')}
         for name in kernels}
@@ -503,69 +521,116 @@ def check_conv_kernels(device) -> list:
     with torch.inference_mode():
         for h, cin, cout, count in CONV_SHAPES:
             x, k = inputs(frames, h, h, cin, cout)
+            packed = conv_ops.pack_weights_tf32(k)
             cudnn, library_ms, layout = conv2d_library(x, k)
             shape = f'({frames},{h},{h},{cin})->{cout}'
             direct_flops = 2.0 * 9 * frames * h * h * cin * cout
+            plain = {}
             for name, kern in kernels.items():
                 t = tot[name]
                 fn, ref, tol = kern['fn'], kern['ref'], kern['tol']
-                got = fn(x, k)
+                got = fn(x, k, packed)
                 want = ref(x, k)
                 err = compare(f'{name} {shape}', got, want, tol, tol)
                 compare(f'{name} {shape} vs F.conv2d', got, cudnn, tol, tol,
                         'F.conv2d')
                 del want
-                ms = median_ms(lambda: fn(x, k), CONV_RUNS)
-                plain = median_ms(lambda: ref(x, k), 3, warmup=1)
-                # Winograd's own count: 16 products a 2x2 tile
-                flops = direct_flops if name == 'conv3x3' else (
-                    2.0 * 16 * frames * ((h + 1) // 2) ** 2 * cin * cout)
-                lower = bound(flops, nbytes(x, k, got))
-                print(f'    x{count} a forward: kernel {ms:.4f} ms, plain '
-                      f'{plain:.4f} ms, F.conv2d ({layout}) '
+                ms = median_ms(lambda: fn(x, k, packed), CONV_RUNS)
+                # conv3x3 and conv3x3_simt share one plain version
+                if ref not in plain:
+                    plain[ref] = median_ms(lambda: ref(x, k), 3, warmup=1)
+                if name == 'conv3x3':  # three TF32 products a multiply
+                    flops, peak = 3 * direct_flops, PEAK_FLOPS_TF32
+                elif name == 'conv3x3_simt':
+                    flops, peak = direct_flops, PEAK_FLOPS
+                else:  # Winograd's own count: 16 products a 2x2 tile
+                    flops, peak = 2.0 * 16 * frames * (
+                        (h + 1) // 2) ** 2 * cin * cout, PEAK_FLOPS
+                lower = bound(flops, nbytes(x, k, got), peak)
+                print(f'    x{count} a forward: kernel {ms:.4f} ms '
+                      f'({direct_flops / ms / 1e9:.1f} TFLOP/s of the direct '
+                      f'conv), plain {plain[ref]:.4f} ms, F.conv2d ({layout}) '
                       f'{library_ms:.4f} ms, bound {lower["bound_ms"]:.4f} '
-                      f'ms by {lower["bound_by"]} ({flops / 1e9:.1f} GFLOP; '
-                      f'the direct conv\'s {direct_flops / 1e9:.1f} GFLOP: '
-                      f'{direct_flops / PEAK_FLOPS * 1e3:.4f} ms)')
+                      f'ms by {lower["bound_by"]} ({flops / 1e9:.1f} GFLOP '
+                      f'at {peak / 1e12:.1f} TFLOP/s; the direct conv on the '
+                      f'CUDA cores: {direct_flops / PEAK_FLOPS * 1e3:.4f} ms)')
                 t['err'] = max(t['err'], err)
                 t['ms'] += count * ms
-                t['plain'] += count * plain
+                t['plain'] += count * plain[ref]
                 t['library'] += count * library_ms
-                t['ops_ms'] += count * flops / PEAK_FLOPS * 1e3
+                t['ops_ms'] += count * flops / peak * 1e3
                 t['bytes_ms'] += count * nbytes(x, k, got) / PEAK_BYTES * 1e3
                 t['direct_ms'] += count * direct_flops / PEAK_FLOPS * 1e3
                 del got
-            del x, k, cudnn
+            del x, k, cudnn, packed
 
-        # odd extents, Cin != Cout below a column tile, single pixels
-        for n, h, w, cin, cout in [(3, 7, 9, 32, 16), (1, 1, 1, 4, 4),
-                                   (1, 2, 2, 8, 4), (5, 5, 5, 64, 200),
-                                   (2, 13, 6, 20, 36)]:
+        # odd extents, Cin != Cout below a column tile, single pixels, C not
+        # a multiple of 8; for the split-TF32 kernel also rows so wide that
+        # the ring has two slots (BN = 64 at W = 400, BN = 128 at W = 150)
+        # or one (BN = 128 at W = 200; BN = 64 at W = 894, the widest)
+        edge = [(3, 7, 9, 32, 16), (1, 1, 1, 4, 4), (1, 2, 2, 8, 4),
+                (5, 5, 5, 64, 200), (2, 13, 6, 20, 36)]
+        wide = [(2, 3, 400, 16, 64), (2, 3, 150, 12, 128),
+                (2, 3, 200, 16, 128), (1, 2, 894, 8, 64)]
+        for n, h, w, cin, cout in edge + wide:
             x, k = inputs(n, h, w, cin, cout)
             cudnn = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
                              padding=1).permute(0, 2, 3, 1)
             for name, kern in kernels.items():
+                if (n, h, w, cin, cout) in wide and name != 'conv3x3':
+                    continue
                 shape = f'{name} edge ({n},{h},{w},{cin})->{cout}'
-                got = kern['fn'](x, k)
+                got = kern['fn'](x, k, None)
                 compare(shape, got, kern['ref'](x, k), kern['tol'],
                         kern['tol'])
                 compare(f'{shape} vs F.conv2d', got, cudnn, kern['tol'],
                         kern['tol'], 'F.conv2d')
+
+        # C = 6 is no multiple of 4 (a TMA chunk): the wrapper raises and the
+        # C entry itself refuses; W = 895 needs more loads a slice than the
+        # producer warp has lanes: the C entry refuses and the wrapper raises
+        before = conv_ops.conv3x3.launches
+        x, k = inputs(2, 5, 5, 6, 8)
+        try:
+            conv_ops.conv3x3(x, k)
+        except ValueError as e:
+            print(f'  conv3x3 C=6 refused: {e}')
+        else:
+            fail('conv3x3 took a float32 tensor with C = 6')
+        code = build.library().fvt_conv3x3_tf32x3_forward(
+            x.data_ptr(), k.data_ptr(), k.data_ptr(),
+            torch.empty(2, 5, 5, 8, device=device).data_ptr(), 2, 5, 5, 6, 8,
+            64, torch.cuda.current_stream(device).cuda_stream)
+        if code == 0:
+            fail('the split-TF32 conv entry took C = 6')
+        x, k = inputs(1, 2, 895, 16, 128)
+        try:
+            conv_ops.conv3x3(x, k)
+        except RuntimeError as e:
+            print(f'  conv3x3 W=895 refused: {e}')
+        else:
+            fail('conv3x3 took a float32 tensor with W = 895')
+        if conv_ops.conv3x3.launches != before:
+            fail('a refused float32 conv counted a launch')
     out = []
     for name, source, replaces in (
-            ('conv3x3', 'conv3x3.cu', 'conv_pallas.py:20'),
+            ('conv3x3', 'conv3x3_tf32x3.cu', 'conv_pallas.py:20'),
+            ('conv3x3_simt', 'conv3x3.cu', 'conv_pallas.py:20'),
             ('winograd', 'winograd.cu', 'winograd.py:148')):
         t = tot[name]
         by_ops = t['ops_ms'] >= t['bytes_ms']
+        lower = max(t['ops_ms'], t['bytes_ms'])
         print(f'  {name} total over the 45 convs of a forward: kernel '
               f'{t["ms"]:.4f} ms, plain {t["plain"]:.4f} ms, F.conv2d '
-              f'{t["library"]:.4f} ms')
+              f'{t["library"]:.4f} ms, bound {lower:.4f} ms '
+              f'({lower / t["ms"]:.1%} of it), the direct conv on the CUDA '
+              f'cores {t["direct_ms"]:.4f} ms')
         out.append({'name': name, 'route': 'cuda',
                     'source': f'fvt_tpu_torch/csrc/{source}',
                     'replaces': f'fvt_tpu/ops/{replaces}',
                     'max_abs_err': t['err'], 'ms': t['ms'],
                     'plain_ms': t['plain'], 'library_ms': t['library'],
-                    'bound_ms': max(t['ops_ms'], t['bytes_ms']),
+                    'bound_ms': lower,
                     'bound_by': 'operations' if by_ops else 'bytes',
                     'direct_conv_bound_ms': t['direct_ms']})
     return out
@@ -749,16 +814,33 @@ def check_bottleneck_kernel(device) -> dict:
 
 def conv_counters() -> dict:
     from fvt_tpu_torch.ops.bottleneck import bottleneck_ir_fused
-    from fvt_tpu_torch.ops.conv import conv3x3
+    from fvt_tpu_torch.ops.conv import conv3x3, conv3x3_simt
     from fvt_tpu_torch.ops.winograd import conv3x3_winograd
-    return {'conv3x3': conv3x3, 'winograd': conv3x3_winograd,
-            'bottleneck': bottleneck_ir_fused}
+    return {'conv3x3': conv3x3, 'conv3x3_simt': conv3x3_simt,
+            'winograd': conv3x3_winograd, 'bottleneck': bottleneck_ir_fused}
 
 
-def backbone_variants(model, crops: torch.Tensor, device) -> int:
+def read_launches(counters: dict) -> dict:
+    """The counters' launches, and those of the float32 and bfloat16 conv
+    kernels apart."""
+    launches = {k: fn.launches for k, fn in counters.items()}
+    launches['conv3x3_fp32'] = counters['conv3x3'].launches_fp32
+    launches['conv3x3_bf16'] = counters['conv3x3'].launches_bf16
+    return launches
+
+
+def zero_launches(counters: dict) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+    counters['conv3x3'].launches_fp32 = counters['conv3x3'].launches_bf16 = 0
+
+
+def backbone_variants(model, crops: torch.Tensor, device) -> dict:
     """Phase 5, the backbone alone: each conv path on the same frames and
-    weights against the default path.  Returns the shifted-products
-    kernel's launches over its one checked forward."""
+    weights against the default path; then ``shifted_kernel`` (the
+    split-TF32 kernel) and ``cudnn`` timed again, in turns.  Returns the
+    launches of each conv kernel over its path's one checked forward
+    (``conv3x3_simt``'s over all of them: none)."""
     from fvt_tpu_torch.models.arcface import VisualBackbone
 
     counters = conv_counters()
@@ -766,27 +848,26 @@ def backbone_variants(model, crops: torch.Tensor, device) -> int:
     frames = crops.shape[0]
     variants = [('cudnn', {}, {}),
                 ('shifted_kernel', {'conv_impl': 'shifted_kernel'},
-                 {'conv3x3': 45}),
+                 {'conv3x3': 45, 'conv3x3_fp32': 45}),
                 ('winograd_kernel', {'conv_impl': 'winograd_kernel'},
                  {'winograd': 45}),
                 ('fused_blocks', {'fused_blocks': True}, {'bottleneck': 21})]
-    ref, shifted_launches = None, 0
+    ref, out_launches, nets = None, {'conv3x3_simt': 0}, {}
     with torch.inference_mode():
         for name, kw, expect in variants:
             net = VisualBackbone(**kw).eval()
             net.load_state_dict(state)
             net.to(device)
-            for fn in counters.values():
-                fn.launches = 0
+            zero_launches(counters)
             out = net(crops)
             torch.cuda.synchronize()
-            launches = {k: fn.launches for k, fn in counters.items()}
-            want = {k: expect.get(k, 0) for k in counters}
+            launches = read_launches(counters)
+            want = {k: expect.get(k, 0) for k in launches}
             if launches != want:
                 fail(f'backbone {name}: launches {launches}, expected '
                      f'{want} a forward')
-            if name == 'shifted_kernel':
-                shifted_launches = launches['conv3x3']
+            for k, v in expect.items():
+                out_launches[k] = v
             if ref is None:
                 ref = out
             err = (out - ref).abs().max().item()
@@ -800,8 +881,16 @@ def backbone_variants(model, crops: torch.Tensor, device) -> int:
             if not ok or err > EMBED_ATOL:
                 fail(f'backbone {name}: embeddings {tuple(out.shape)} differ '
                      f'from the default path\'s by {err}')
+            if name in ('cudnn', 'shifted_kernel'):
+                nets[name] = net
             del net
-    return shifted_launches
+        for name in ('shifted_kernel', 'cudnn'):
+            net = nets[name]
+            ms = median_ms(lambda: net(crops), CONV_RUNS, warmup=1)
+            print(f'  backbone {name} on {frames} frames, again: {ms:.2f} ms, '
+                  f'{frames / ms * 1e3:.1f} frames/s')
+    del nets
+    return out_launches
 
 
 def backbone_bf16(model, crops: torch.Tensor, device) -> int:
@@ -829,15 +918,12 @@ def backbone_bf16(model, crops: torch.Tensor, device) -> int:
     with torch.inference_mode():
         fp32 = nets['fp32 cudnn'](crops)
         cudnn = nets['bf16 cudnn'](crops)
-        for fn in counters.values():
-            fn.launches = 0
-        conv3x3.launches_bf16 = 0
+        zero_launches(counters)
         got = nets['bf16 shifted_kernel'](crops)
         torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in counters.items()}
-        launches['conv3x3_bf16'] = conv3x3.launches_bf16
-        if launches != {'conv3x3': 45, 'conv3x3_bf16': 45, 'winograd': 0,
-                        'bottleneck': 0}:
+        launches = read_launches(counters)
+        if launches != {'conv3x3': 45, 'conv3x3_bf16': 45, 'conv3x3_fp32': 0,
+                        'conv3x3_simt': 0, 'winograd': 0, 'bottleneck': 0}:
             fail(f'bf16 backbone shifted_kernel: launches {launches}, '
                  f'expected 45 of the bfloat16 conv kernel a forward')
         plain = nets['bf16 shifted_kernel'](crops, reference=True)
@@ -873,12 +959,13 @@ def backbone_bf16(model, crops: torch.Tensor, device) -> int:
 
 def serve_variant(model, kw: dict, kernel: str, per_dispatch: int,
                   streams: dict, device, atol: float = SERVE_ATOL,
-                  bf16_launches: int = 0) -> int:
+                  by_type: Optional[dict] = None) -> tuple:
     """Phase 5, serving: a tri-modal LFAN with the conv path ``kw`` on the
     weights of ``model`` serves ``streams``; logits against the offline
     stitch of the plain versions within ``atol``, launch counts a dispatch
-    (``bf16_launches`` of the conv kernel's are the bfloat16 kernel's).
-    Returns the launches of ``kernel`` over the run."""
+    (``by_type``: those of ``conv3x3_fp32`` / ``conv3x3_bf16`` among the
+    conv kernel's).  Returns (the launches of ``kernel`` over the run, the
+    server)."""
     from fvt_tpu_torch.models.models import LFAN
     from fvt_tpu_torch.ops.fusion import fused_multimodal_fusion
     from fvt_tpu_torch.ops.tcn import fused_temporal_block
@@ -889,16 +976,13 @@ def serve_variant(model, kw: dict, kernel: str, per_dispatch: int,
     server = ServingModel(variant, WINDOW_BATCH, WINDOW, HOP, device)
     counters = dict(conv_counters(), tcn_block=fused_temporal_block,
                     fusion=fused_multimodal_fusion)
-    for fn in counters.values():
-        fn.launches = 0
-    counters['conv3x3'].launches_bf16 = 0
+    zero_launches(counters)
     served, dispatches = serve_streams(server, streams)
-    launches = {k: fn.launches for k, fn in counters.items()}
-    launches['conv3x3_bf16'] = counters['conv3x3'].launches_bf16
+    launches = read_launches(counters)
     want = {k: 0 for k in launches}
     want.update({kernel: per_dispatch * dispatches,
-                 'conv3x3_bf16': bf16_launches * dispatches,
                  'tcn_block': 12 * dispatches, 'fusion': dispatches})
+    want.update({k: n * dispatches for k, n in (by_type or {}).items()})
     print(f'  LFAN {kw}: {dispatches} dispatches, launches {launches}')
     if dispatches < 1 or launches != want:
         fail(f'LFAN {kw}: expected {want} over {dispatches} dispatches, '
@@ -916,7 +1000,7 @@ def serve_variant(model, kw: dict, kernel: str, per_dispatch: int,
         if err > atol:
             fail(f'LFAN {kw} stream {n}: served logits differ from the '
                  f'offline reference by {err}')
-    return launches[kernel]
+    return launches[kernel], server
 
 
 def make_streams() -> dict:
@@ -1214,12 +1298,24 @@ def main() -> int:
 
     print('phase 5: the ArcFace backbone\'s conv paths, alone and served')
     by_name = {kernel['name']: kernel for kernel in kernels}
-    by_name['conv3x3']['launches'] = backbone_variants(model, crops, device)
+    launches = backbone_variants(model, crops, device)
+    by_name['conv3x3']['launches'] = launches['conv3x3_fp32']
+    by_name['conv3x3_simt']['launches'] = launches['conv3x3_simt']
     by_name['bottleneck']['launches'] = serve_variant(
-        model, {'fused_blocks': True}, 'bottleneck', 21, streams, device)
+        model, {'fused_blocks': True}, 'bottleneck', 21, streams, device)[0]
     by_name['winograd']['launches'] = serve_variant(
         model, {'conv_impl': 'winograd_kernel'}, 'winograd', 45, streams,
-        device)
+        device)[0]
+    # the fp32 shifted_kernel LFAN (the split-TF32 kernel) served, then
+    # timed against the default in turns
+    _, shifted = serve_variant(
+        model, {'conv_impl': 'shifted_kernel'}, 'conv3x3', 45, streams,
+        device, by_type={'conv3x3_fp32': 45})
+    servers = {'cudnn': ServingModel(model, WINDOW_BATCH, WINDOW, HOP,
+                                     device), 'shifted_kernel': shifted}
+    for impl in ('cudnn', 'shifted_kernel', 'shifted_kernel', 'cudnn'):
+        time_dispatches(f'fp32 backbone, {impl}', servers[impl], inputs)
+    del servers, shifted
 
     print('phase 5, bfloat16: the backbone in bfloat16 (fvt_tpu\'s --amp), '
           'alone and served')
@@ -1246,7 +1342,8 @@ def main() -> int:
           f'logits = {own:.3e}; the tolerance of the bf16 serving check is '
           f'{BF16_PATHS_APART} of it, {serve_tol:.3e}')
     serve_variant(model, {'conv_impl': 'shifted_kernel', **bf16}, 'conv3x3',
-                  45, streams, device, atol=serve_tol, bf16_launches=45)
+                  45, streams, device, atol=serve_tol,
+                  by_type={'conv3x3_bf16': 45})
     for impl in ('cudnn', 'shifted_kernel', 'shifted_kernel', 'cudnn'):
         time_dispatches(f'bf16 backbone, {impl}', servers[impl], inputs)
     del model, servers

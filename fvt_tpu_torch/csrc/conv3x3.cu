@@ -17,8 +17,9 @@
 // The weights (up to 9.4 MB) stay in L2 across blocks.  The caller picks
 // the tile so that it divides the frames and 16*r pixels fill the block's
 // threads (40x40: 8x20, 20x20: two frames of 4x20, 10x10: eight frames of
-// 2x10, 5x5: five whole frames).  Tensor cores, TMA and a pipelined staging
-// are left to later work.
+// 2x10, 5x5: five whole frames).  The fp32 route is now the tensor-core
+// design of conv3x3_tf32x3.cu (TMA staging, split-TF32 wgmma); this kernel
+// stays as ops.conv.conv3x3_simt, timed beside it and on no model path.
 
 #include "conv_tile.cuh"
 

@@ -6,8 +6,8 @@
 // under --amp: y[n, i, j, :] = sum over the nine taps (dy, dx) of
 // x[n, i + dy - 1, j + dx - 1, :] @ w[dy*3 + dx], x zero outside the image,
 // the nine products summed in fp32 and rounded to bf16 once at the store.
-// x (N, H, W, C), w (9, C, Co), y (N, H, W, Co).  conv3x3.cu stays the route
-// for fp32 tensors.
+// x (N, H, W, C), w (9, C, Co), y (N, H, W, Co).  conv3x3_tf32x3.cu is the
+// route for fp32 tensors; the PTX helpers both use are in wgmma_common.cuh.
 //
 // What bounds it.  At the ArcFace shapes (N = 2400; 40x40x64 to 5x5x512) a
 // conv is 2*9*C*Co operations a pixel against (C + Co)*2 bytes: 576 to 4608
@@ -77,105 +77,13 @@
 // wrong sums: -DFVT_DIAG_PRODUCTS_ONLY starts no copy and waits for none,
 // -DFVT_DIAG_COPIES_ONLY runs the wgmma of the first slice only.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <stdint.h>
+
+#include "wgmma_common.cuh"
 
 namespace {
 
-constexpr int kBM = 256;    // padded coordinates a tile owns
-constexpr int kKC = 16;     // input channels a slice (one k16 step)
-constexpr int kLoad = 128;  // coordinates one TMA load brings
-constexpr int kMaxSmem = 227 * 1024;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Waits for the phase of the given parity to complete.  A copy that never
-// completes fails the launch (after seconds) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  unsigned spins = 0;
-  do {
-    if (++spins == (1u << 24)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// bytes (a multiple of 16) global -> shared by the copy engine; completion
-// is counted on the mbarrier
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// kLoad consecutive padded coordinates by 8 channels, from the coordinate
-// (w, h, n) on (the im2col walk of the tensor map: columns, then rows, then
-// frames, zeros outside the image), global -> shared as [coordinate][8 bf16]
-__device__ __forceinline__ void tma_im2col(uint32_t dst, const CUtensorMap* map,
-                                           int c, int w, int h, int n,
-                                           uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], "
-      "{%7, %8};\n" ::"r"(dst),
-      "l"(map), "r"(bar), "r"(c), "r"(w), "r"(h), "r"(n), "h"((uint16_t)0),
-      "h"((uint16_t)0)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor, no swizzle: start address, the byte
-// stride between core matrices along K (leading) and along M or N (stride),
-// all in units of 16 bytes.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, int k_stride,
-                                              int mn_stride) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((k_stride >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((mn_stride >> 4) & 0x3FFF) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
+constexpr int kKC = 16;  // input channels a slice (one k16 step)
 
 // d (64 x N, fp32, in the warpgroup's registers) = d * scale_d + A (64 x 16,
 // K-major) @ B (16 x N, N-major), both bf16 in shared memory behind
@@ -434,39 +342,7 @@ constexpr size_t smem_bytes(int P, int BN, int WG, int S) {
          (size_t)4 * WG * 16 * (BN * 2 + 16);
 }
 
-// The im2col tensor map of x (N, H, W, C): kLoad consecutive coordinates by 8
-// channels a load, walking the columns -1 .. W-1, then the rows -1 .. H-1,
-// then the frames: the padded line of the header note, zeros outside.
-cudaError_t make_x_map(const ConvArgs& a, CUtensorMap* map) {
-  using Encode = CUresult (*)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-      const cuuint64_t*, const int*, const int*, cuuint32_t, cuuint32_t,
-      const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-      CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;  // libcuda's entry, looked up once
-  if (encode == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    void* fn = lib ? dlsym(lib, "cuTensorMapEncodeIm2col") : nullptr;
-    if (fn == nullptr) return cudaErrorNotSupported;
-    encode = (Encode)fn;
-  }
-  const cuuint64_t dims[4] = {(cuuint64_t)a.C, (cuuint64_t)a.W,
-                              (cuuint64_t)a.H, (cuuint64_t)a.N};
-  const cuuint64_t strides[3] = {(cuuint64_t)a.C * 2,
-                                 (cuuint64_t)a.W * a.C * 2,
-                                 (cuuint64_t)a.H * a.W * a.C * 2};
-  const int lower[2] = {-1, -1}, upper[2] = {0, 0};
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, (void*)a.x, dims, strides,
-      lower, upper, 8, kLoad, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// One block for every place the card has for one (the occupancy the
-// runtime reports times the SMs), at most one a tile.
+// The persistent grid of wgmma_common.cuh, one block a tile at most.
 template <int BN, int WG, int S>
 cudaError_t launch(ConvArgs a, const CUtensorMap& x_map, cudaStream_t stream) {
   constexpr int kThreads = 128 * WG + 32;
@@ -475,21 +351,12 @@ cudaError_t launch(ConvArgs a, const CUtensorMap& x_map, cudaStream_t stream) {
   const long long tiles = (a.Q - (a.W + 2) + kBM - 1) / kBM * a.n_tiles;
   if (tiles > 2147483647LL) return cudaErrorInvalidValue;
   a.tiles = (int)tiles;
-  auto kernel = conv3x3_wgmma_kernel<BN, WG, S>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  unsigned blocks = 0;
+  const cudaError_t err = persistent_blocks(conv3x3_wgmma_kernel<BN, WG, S>,
+                                            kThreads, bytes, tiles, &blocks);
   if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, resident = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
-                                                      kThreads, bytes);
-  if (err != cudaSuccess) return err;
-  if (resident < 1) return cudaErrorInvalidValue;
-  const long long places = (long long)sms * resident;
-  kernel<<<(unsigned)(tiles < places ? tiles : places), kThreads, bytes,
-           stream>>>(a, x_map);
+  conv3x3_wgmma_kernel<BN, WG, S><<<blocks, kThreads, bytes, stream>>>(
+      a, x_map);
   return cudaGetLastError();
 }
 
@@ -539,7 +406,9 @@ int fvt_conv3x3_bf16_forward(const void* x, const void* wp, void* y, int N,
              (long long)N * (H + 1) * (W + 1),
              0, 0};
   CUtensorMap x_map;
-  const cudaError_t err = make_x_map(a, &x_map);
+  const cudaError_t err = make_x_map(x, N, H, W, C,
+                                     CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 8,
+                                     &x_map);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   // bn = 64: two warpgroups of two sub-tiles each, so that two blocks share

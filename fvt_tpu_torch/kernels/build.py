@@ -46,6 +46,8 @@ _SIGNATURES = {
     'fvt_conv3x3_forward': [_P] * 3 + [_I] * 8 + [_P],
     # x wp y (bf16), N H W C Co bn, stream
     'fvt_conv3x3_bf16_forward': [_P] * 3 + [_I] * 6 + [_P],
+    # x w_hi w_lo y (fp32), N H W C Co bn, stream
+    'fvt_conv3x3_tf32x3_forward': [_P] * 4 + [_I] * 6 + [_P],
     # x u y, N H W C Co, stream
     'fvt_winograd_forward': [_P] * 3 + [_I] * 5 + [_P],
     # x w1 w2 a1 b1 alpha a2 b2 y, N H W C, tf th tw rg, stream

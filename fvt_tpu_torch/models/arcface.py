@@ -10,6 +10,11 @@ hand-written kernels take them as NHWC views without a copy.  The flatten
 before ``output_layer.3`` is NCHW as upstream (``fvt_tpu`` flattens NHWC
 and the weight bridge permutes the Linear's columns to match).
 
+The mode is the forward's, not the module's: every BatchNorm runs on its
+running statistics through :func:`batchnorm_eval` and dropout is the
+identity, whatever ``nn.Module.training`` says, so ``.train()`` changes
+no output and moves no statistic.
+
 The 3x3 convolutions of the body have a selectable path
 (:data:`CONV_IMPLS`), the counterpart of ``fvt_tpu``'s
 ``VisualBackbone(conv_impl=...)``; ``fused_blocks`` routes the stride-1
@@ -27,8 +32,9 @@ first, the convolutions run on copies of their weights in ``dtype``
 (derived once and kept, as the other derived weights), BatchNorm2d, PReLU
 and the residual adds run on ``dtype`` activations, and the flatten casts
 back to float32 before ``output_layer``'s Linear and BatchNorm1d, so the
-embeddings are float32.  Under bfloat16 the ``'shifted_kernel'`` path
-launches the tensor-core kernel (``ops/conv.py``).  Where the two
+embeddings are float32.  The ``'shifted_kernel'`` path launches a
+tensor-core kernel in either type (``ops/conv.py``): split TF32 at float32
+accuracy, or bfloat16.  Where the two
 frameworks round differently: flax normalises in ``dtype`` (the
 subtraction, the product and the sum each round to bfloat16), while
 ``F.batch_norm`` on a bfloat16 tensor with float32 statistics computes
@@ -119,6 +125,15 @@ def prelu_as(prelu: nn.PReLU, x: torch.Tensor) -> torch.Tensor:
     return F.prelu(x, cast_cached(prelu, 'weight', x.dtype))
 
 
+def batchnorm_eval(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor
+                   ) -> torch.Tensor:
+    """``bn(x)`` in eval mode whatever ``bn.training`` says: the running
+    statistics normalise and none of them moves (the same call that
+    ``bn`` makes in eval mode, so the same bits)."""
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                        bn.bias, False, 0.0, bn.eps)
+
+
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     """The NHWC view of an NCHW tensor (no copy from channels_last)."""
     return x.permute(0, 2, 3, 1).contiguous()
@@ -135,9 +150,9 @@ class Conv3x3(nn.Module):
     from ``weight`` at the first call and kept; they are dropped and
     derived again when ``weight`` is replaced or written in place
     (``load_state_dict``, ``.to()``, an optimizer step, a re-init).  So
-    are the copies in ``dtype`` that a bfloat16 module computes with
-    (OIHW for ``F.conv2d``, HWIO for the plain version, packed by
-    ``ops.conv.pack_weights`` for the kernel); ``weight`` stays float32.
+    are the copies in ``dtype`` that the module computes with (OIHW for
+    ``F.conv2d`` in bfloat16, HWIO for the plain version, packed for the
+    ``'shifted_kernel'`` path's CUDA kernel); ``weight`` stays float32.
     """
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
@@ -168,17 +183,23 @@ class Conv3x3(nn.Module):
 
     def cast_weights(self) -> tuple:
         """(``weight`` in OIHW, the HWIO kernel, the kernel packed for the
-        bfloat16 CUDA kernel or None where it does not take the widths),
-        all in ``dtype``: what a bfloat16 module computes with, cached as
-        the class docstring says."""
+        CUDA kernel of ``dtype`` or None where it does not take the
+        widths), all in ``dtype``: what the ``'shifted_kernel'`` path
+        computes with (float32: ``ops.conv.pack_weights_tf32``'s pair;
+        bfloat16: ``ops.conv.pack_weights``), cached as the class
+        docstring says."""
         stamp = _stamp(self.weight)
         if self._cast is None or self._cast[0] != stamp:
             with torch.no_grad():
                 oihw = self.weight.detach().to(self.dtype)
                 hwio = oihw.permute(2, 3, 1, 0).contiguous()
                 co, c = oihw.shape[:2]
-                packed = (None if c % 16 or co % 8
-                          else conv_ops.pack_weights(hwio))
+                if self.dtype == torch.bfloat16:
+                    packed = (None if c % 16 or co % 8
+                              else conv_ops.pack_weights(hwio))
+                else:
+                    packed = (None if c % 4 or co % 4
+                              else conv_ops.pack_weights_tf32(hwio))
             self._cast = (stamp, oihw, hwio, packed)
         return self._cast[1:]
 
@@ -192,16 +213,14 @@ class Conv3x3(nn.Module):
                       else self.cast_weights()[0])
             return F.conv2d(x, weight, None, self.stride, 1)
         conv_ops.refuse_grad(f'Conv3x3(impl={self.impl!r})', x, self.weight)
-        hwio, u = self.kernel_weights()
         if self.impl == 'shifted_kernel':
-            packed = None
-            if self.dtype != hwio.dtype:
-                _, hwio, packed = self.cast_weights()
+            _, hwio, packed = self.cast_weights()
             if reference:
                 y = conv_ops.conv3x3_ref(_nhwc(x), hwio)
             else:
                 y = conv_ops.conv3x3(_nhwc(x), hwio, packed=packed)
         else:
+            hwio, u = self.kernel_weights()
             plain = reference or self.impl == 'winograd'
             fn = (winograd_ops.conv3x3_winograd_ref if plain
                   else winograd_ops.conv3x3_winograd)
@@ -273,10 +292,10 @@ class BottleneckIR(nn.Module):
             shortcut = x[:, :, ::self.stride, ::self.stride]
         else:
             conv, bn = self.shortcut_layer
-            shortcut = bn(conv2d_as(conv, x))
+            shortcut = batchnorm_eval(bn, conv2d_as(conv, x))
         bn1, conv1, prelu, conv2, bn2 = self.res_layer
-        res = prelu_as(prelu, conv1(bn1(x), reference))
-        return bn2(conv2(res, reference)) + shortcut
+        res = prelu_as(prelu, conv1(batchnorm_eval(bn1, x), reference))
+        return batchnorm_eval(bn2, conv2(res, reference)) + shortcut
 
 
 class Backbone(nn.Module):
@@ -305,17 +324,21 @@ class Backbone(nn.Module):
 
     def forward(self, x: torch.Tensor, *, fused_blocks: bool = False,
                 reference: bool = False) -> torch.Tensor:
-        """x (N, 40, 40, 3) -> (N, 512) float32."""
+        """x (N, 40, 40, 3) -> (N, 512) float32, the eval forward whatever
+        the modules' ``training`` flags say (running-statistic BatchNorm,
+        no dropout), as ``fvt_tpu``'s ``apply(x)`` is eval by default; the
+        TRAIN-mode backbone is not ported."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         # NHWC storage == NCHW channels_last
         x = x.contiguous(memory_format=torch.channels_last)
         conv, bn, prelu = self.input_layer
-        x = prelu_as(prelu, bn(conv2d_as(conv, x)))
+        x = prelu_as(prelu, batchnorm_eval(bn, conv2d_as(conv, x)))
         for blk in self.body:
             x = blk(x, fused=fused_blocks, reference=reference)
-        bn2d, dropout, flatten, linear, bn1d = self.output_layer
-        x = flatten(dropout(bn2d(x))).float()  # fvt_tpu arcface.py:158-159
-        x = bn1d(linear(x))
+        bn2d, _, flatten, linear, bn1d = self.output_layer
+        # eval dropout is the identity; fvt_tpu arcface.py:158-159
+        x = flatten(batchnorm_eval(bn2d, x)).float()
+        x = batchnorm_eval(bn1d, linear(x))
         return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
 
 
@@ -350,7 +373,8 @@ def arcface_forward_eval(model: VisualBackbone, x: torch.Tensor,
     """Eval forward of ``model`` on x (N, 40, 40, 3) with the fused
     whole-block kernel switched by the call and not by the module, the
     counterpart of ``fvt_tpu``'s ``arcface_forward_eval(...,
-    fused_blocks=...)``.  The same math as ``model(x)``.  There the
+    fused_blocks=...)``.  The same math as ``model(x)``, eval whatever
+    ``model.training`` says.  There the
     compute type is an argument of the call, because the parameters are;
     here it belongs to the module, so ``dtype`` only asserts it: another
     type than ``model.dtype`` raises."""

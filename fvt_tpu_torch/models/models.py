@@ -80,7 +80,8 @@ class LFAN(nn.Module):
                                    output_dim)
         self.output_dim = output_dim
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
-        self.eval()  # the flag only reaches the frozen backbone's modules
+        # no module reads the flag: the mode is the forward's ``train``
+        self.eval()
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random init drawn from ``generator`` in a fixed module order."""

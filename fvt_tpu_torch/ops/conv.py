@@ -9,12 +9,17 @@ it is handed: float32 throughout, or bfloat16 in (``--amp``), the nine
 products summed in float32, one rounding to bfloat16 at the end.
 
 :func:`conv3x3` runs :func:`conv3x3_ref` for a tensor on the CPU.  For a
-CUDA tensor it launches a kernel or raises, by ``x.dtype``: float32 goes
-to the CUDA-core kernel of ``csrc/conv3x3.cu``, bfloat16 to the tensor-core
-(``wgmma``) kernel of ``csrc/conv3x3_wgmma.cu``, and neither ever falls
-back to the other or to a library.  ``conv3x3.launches`` counts all kernel
-launches, ``conv3x3.launches_bf16`` those of the bfloat16 kernel.  Eval
-only: the kernels have no backward, as the Pallas kernel has none.
+CUDA tensor it launches a tensor-core (``wgmma``) kernel or raises, by
+``x.dtype``: float32 goes to the split-TF32 kernel of
+``csrc/conv3x3_tf32x3.cu`` (three TF32 products of the operands' hi and
+lo parts, :func:`split_tf32`, at float32 accuracy), bfloat16 to
+``csrc/conv3x3_wgmma.cu``, and neither ever falls back to another kernel
+or to a library.  ``conv3x3.launches`` counts all its launches,
+``conv3x3.launches_fp32`` and ``conv3x3.launches_bf16`` those of each
+kernel.  :func:`conv3x3_simt`, the earlier float32 kernel on the CUDA
+cores (``csrc/conv3x3.cu``), stays for measurements: no model path calls
+it.  Eval only: the kernels have no backward, as the Pallas kernel has
+none.
 """
 from __future__ import annotations
 
@@ -25,9 +30,6 @@ import torch
 import torch.nn.functional as F
 
 from fvt_tpu_torch.kernels import build
-
-ROW_GROUPS = 16                # pixels of a block are dealt to 16 row groups
-SLOTS = (4, 8, 10)             # pixels a thread may own (csrc/conv3x3.cu)
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -78,6 +80,136 @@ def pack_weights(kernel: torch.Tensor) -> torch.Tensor:
     return w.permute(4, 1, 0, 2, 5, 3, 6).contiguous()
 
 
+def split_tf32(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``t`` as two TF32 values (10 explicit mantissa bits, the low
+    13 bits zero): ``hi`` is ``t`` rounded to nearest, ties away from zero,
+    and ``lo`` is ``t - hi`` (exact in float32) rounded the same way, as
+    ``cvt.rna.tf32.f32`` rounds in the kernel.  The rounding is bit
+    arithmetic on the int32 view: add half of the dropped 13 bits' range to
+    the magnitude, clear them.  Non-finite values are their own hi (lo 0)."""
+    if t.dtype != torch.float32:
+        raise ValueError(f'split_tf32 takes float32, not {t.dtype}')
+
+    def rna(v):
+        bits = (v.view(torch.int32) + 0x1000) & ~0x1FFF
+        return torch.where(torch.isfinite(v), bits.view(torch.float32), v)
+
+    hi = rna(t)
+    lo = torch.where(torch.isfinite(t), rna(t - hi), torch.zeros_like(t))
+    return hi, lo
+
+
+def pack_weights_tf32(kernel: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The float32 HWIO kernel (3, 3, C, Co), C and Co multiples of 4, as
+    the split-TF32 kernel copies it into shared memory: the ``(hi, lo)``
+    parts of :func:`split_tf32`, each per column tile of ``bn =
+    column_tile(Co)`` output channels and 8-channel slice, the nine taps'
+    (8, bn) weights as the K-major core matrices (8 output channels x 4
+    inputs) ``wgmma`` reads.  Each part is ``(tiles, ceil(C/8), 9, 2,
+    bn/8, 8, 4)`` with ``part[t, s, tap, h, n8, n, k] = split(kernel[tap
+    // 3, tap % 3, 8*s + 4*h + k, bn*t + 8*n8 + n])``, zeros where the
+    input channel is beyond C or the output channel beyond Co.  A module
+    derives them once and keeps them; :func:`conv3x3` derives them per call
+    otherwise."""
+    c, co = kernel.shape[2:]
+    bn = column_tile(co)
+    tiles, slices = -(-co // bn), -(-c // 8)
+    w = F.pad(kernel.reshape(9, c, co), (0, tiles * bn - co,
+                                         0, slices * 8 - c))
+    w = w.reshape(9, slices, 2, 4, tiles, bn // 8, 8)
+    return split_tf32(w.permute(4, 1, 0, 2, 5, 6, 3).contiguous())
+
+
+def conv3x3_tf32x3_ref(x: torch.Tensor, kernel: torch.Tensor
+                       ) -> torch.Tensor:
+    """What the split-TF32 kernel computes, emulated on float32 tensors:
+    :func:`conv3x3_ref` of the parts ``hi*hi + hi*lo + lo*hi`` (each
+    product exact in float32, the sums in float32), ``lo*lo`` dropped."""
+    xh, xl = split_tf32(x)
+    kh, kl = split_tf32(kernel)
+    return (conv3x3_ref(xh, kl) + conv3x3_ref(xl, kh)) + conv3x3_ref(xh, kh)
+
+
+def _check_types(name: str, x: torch.Tensor, kernel: torch.Tensor) -> None:
+    refuse_grad(name, x, kernel)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'x is {x.dtype}: {name} takes float32 or bfloat16')
+    if kernel.dtype != x.dtype:
+        raise ValueError(f'x is {x.dtype} and kernel {kernel.dtype}: {name} '
+                         f'takes both in one type')
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'no kernel for device {x.device}')
+
+
+def conv3x3(x: torch.Tensor, kernel: torch.Tensor,
+            packed=None) -> torch.Tensor:
+    """x (N, H, W, C) and kernel HWIO (3, 3, C, Co), both float32 or both
+    bfloat16.  Returns (N, H, W, Co) in the same type.  ``packed`` is the
+    kernel's packed weights kept by the caller, read in place of
+    ``kernel``: ``pack_weights_tf32(kernel)`` (a pair) for float32,
+    ``pack_weights(kernel)`` for bfloat16."""
+    _check_types('conv3x3', x, kernel)
+    if x.device.type == 'cpu':
+        return conv3x3_ref(x, kernel)
+    n, h, w, c = x.shape
+    co = kernel.shape[3]
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and (c % 16 or co % 8):
+        raise ValueError(f'C {c}, Co {co}: the bfloat16 kernel takes C in '
+                         f'multiples of 16 and Co in multiples of 8')
+    if not bf16 and (c % 4 or co % 4):
+        raise ValueError(f'C {c}, Co {co}: the float32 kernel takes C and '
+                         f'Co in multiples of 4')
+    build.check_tensor('x', x, (n, h, w, c), x.device, x.dtype)
+    build.check_tensor('kernel', kernel, (3, 3, c, co), x.device, x.dtype)
+    out = torch.empty((n, h, w, co), device=x.device, dtype=x.dtype)
+    if out.numel() == 0:
+        return out
+    bn = column_tile(co)
+    tiles = -(-co // bn)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if bf16:
+        if packed is None:
+            packed = pack_weights(kernel)
+        build.check_tensor(
+            'packed', packed, (tiles, c // 16, 9, 2, bn // 8, 8, 8),
+            x.device, x.dtype)
+        err = build.library().fvt_conv3x3_bf16_forward(
+            x.data_ptr(), packed.data_ptr(), out.data_ptr(), n, h, w, c, co,
+            bn, stream)
+        build.check(err, f'conv3x3 bfloat16 kernel (N={n}, H={h}, W={w}, '
+                         f'C={c}, Co={co})')
+        conv3x3.launches += 1
+        conv3x3.launches_bf16 += 1
+        return out
+    if packed is None:
+        packed = pack_weights_tf32(kernel)
+    hi, lo = packed
+    for name, part in (('packed hi', hi), ('packed lo', lo)):
+        build.check_tensor(name, part,
+                           (tiles, -(-c // 8), 9, 2, bn // 8, 8, 4),
+                           x.device, x.dtype)
+    err = build.library().fvt_conv3x3_tf32x3_forward(
+        x.data_ptr(), hi.data_ptr(), lo.data_ptr(), out.data_ptr(), n, h, w,
+        c, co, bn, stream)
+    build.check(err, f'conv3x3 float32 split-TF32 kernel (N={n}, H={h}, '
+                     f'W={w}, C={c}, Co={co})')
+    conv3x3.launches += 1
+    conv3x3.launches_fp32 += 1
+    return out
+
+
+conv3x3.launches = 0
+conv3x3.launches_fp32 = 0
+conv3x3.launches_bf16 = 0
+
+
+# the CUDA-core kernel (csrc/conv3x3.cu), conv3x3_simt
+ROW_GROUPS = 16                # pixels of a block are dealt to 16 row groups
+SLOTS = (4, 8, 10)             # pixels a thread may own (csrc/conv3x3.cu)
+
+
 @functools.lru_cache(maxsize=None)
 def choose_tile(n: int, h: int, w: int) -> Tuple[int, int, int]:
     """(tf, th, tw): the frames by pixels a block of the kernel takes.  A
@@ -104,63 +236,36 @@ def choose_tile(n: int, h: int, w: int) -> Tuple[int, int, int]:
     return best
 
 
-def conv3x3(x: torch.Tensor, kernel: torch.Tensor,
-            tile: Optional[Tuple[int, int, int]] = None,
-            packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (N, H, W, C) and kernel HWIO (3, 3, C, Co), both float32 or both
-    bfloat16.  Returns (N, H, W, Co) in the same type.  ``tile`` overrides
-    :func:`choose_tile` of the float32 kernel (for measurements);
-    ``packed`` is ``pack_weights(kernel)`` kept by the caller, which the
-    bfloat16 kernel reads in place of ``kernel``."""
-    refuse_grad('conv3x3', x, kernel)
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f'x is {x.dtype}: conv3x3 takes float32 or bfloat16')
-    if kernel.dtype != x.dtype:
-        raise ValueError(f'x is {x.dtype} and kernel {kernel.dtype}: conv3x3 '
-                         f'takes both in one type')
+def conv3x3_simt(x: torch.Tensor, kernel: torch.Tensor,
+                 tile: Optional[Tuple[int, int, int]] = None
+                 ) -> torch.Tensor:
+    """The earlier float32 kernel, on the CUDA cores (``csrc/conv3x3.cu``),
+    kept to be timed beside :func:`conv3x3`'s: no model path calls it.
+    x (N, H, W, C) and kernel HWIO (3, 3, C, Co) float32, C and Co
+    multiples of 4; ``tile`` overrides :func:`choose_tile`.  The plain
+    version on the CPU; ``conv3x3_simt.launches`` counts its launches."""
+    _check_types('conv3x3_simt', x, kernel)
+    if x.dtype != torch.float32:
+        raise ValueError(f'x is {x.dtype}: conv3x3_simt takes float32')
     if x.device.type == 'cpu':
         return conv3x3_ref(x, kernel)
-    if x.device.type != 'cuda':
-        raise ValueError(f'no kernel for device {x.device}')
     n, h, w, c = x.shape
     co = kernel.shape[3]
-    bf16 = x.dtype == torch.bfloat16
-    if bf16 and tile is not None:
-        raise ValueError('the bfloat16 kernel takes no tile')
-    if bf16 and (c % 16 or co % 8):
-        raise ValueError(f'C {c}, Co {co}: the bfloat16 kernel takes C in '
-                         f'multiples of 16 and Co in multiples of 8')
-    if not bf16 and (c % 4 or co % 4):
+    if c % 4 or co % 4:
         raise ValueError(f'C {c}, Co {co}: the kernel takes multiples of 4')
-    build.check_tensor('x', x, (n, h, w, c), x.device, x.dtype)
-    build.check_tensor('kernel', kernel, (3, 3, c, co), x.device, x.dtype)
+    build.check_tensor('x', x, (n, h, w, c), x.device)
+    build.check_tensor('kernel', kernel, (3, 3, c, co), x.device)
     out = torch.empty((n, h, w, co), device=x.device, dtype=x.dtype)
     if out.numel() == 0:
-        return out
-    if bf16:
-        bn = column_tile(co)
-        if packed is None:
-            packed = pack_weights(kernel)
-        build.check_tensor(
-            'packed', packed, (-(-co // bn), c // 16, 9, 2, bn // 8, 8, 8),
-            x.device, x.dtype)
-        err = build.library().fvt_conv3x3_bf16_forward(
-            x.data_ptr(), packed.data_ptr(), out.data_ptr(), n, h, w, c, co,
-            bn, torch.cuda.current_stream(x.device).cuda_stream)
-        build.check(err, f'conv3x3 bfloat16 kernel (N={n}, H={h}, W={w}, '
-                         f'C={c}, Co={co})')
-        conv3x3.launches += 1
-        conv3x3.launches_bf16 += 1
         return out
     tf, th, tw = tile or choose_tile(n, h, w)
     err = build.library().fvt_conv3x3_forward(
         x.data_ptr(), kernel.data_ptr(), out.data_ptr(), n, h, w, c, co,
         tf, th, tw, torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, f'conv3x3 kernel (N={n}, H={h}, W={w}, C={c}, Co={co}, '
-                     f'tile={tf}x{th}x{tw})')
-    conv3x3.launches += 1
+    build.check(err, f'conv3x3_simt kernel (N={n}, H={h}, W={w}, C={c}, '
+                     f'Co={co}, tile={tf}x{th}x{tw})')
+    conv3x3_simt.launches += 1
     return out
 
 
-conv3x3.launches = 0
-conv3x3.launches_bf16 = 0
+conv3x3_simt.launches = 0

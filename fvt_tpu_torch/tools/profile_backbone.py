@@ -266,7 +266,7 @@ def bench_bottleneck(frames: int, iters: int, device: torch.device,
                         iters, device), 4) for t in fits}
                 row['shifted_kernel_by_tile'] = {
                     'x'.join(map(str, t)): round(median_ms(
-                        lambda: conv_ops.conv3x3(x, w1, tile=t), iters,
+                        lambda: conv_ops.conv3x3_simt(x, w1, tile=t), iters,
                         device), 4)
                     for t in CONV_TILES[h] if t[0] <= frames}
             out[f'{h}x{h}x{c}'] = row
