@@ -15,10 +15,13 @@ Phases, each of which raises on failure (exit code 1):
    8 block shapes of the ``vggish+bert`` LFAN at (16, 300) with dropout
    masks at p=0.1, plus edge shapes; the float32 3x3 conv kernels (the
    split-TF32 tensor-core kernel that ``shifted_kernel`` launches, the
-   earlier CUDA-core kernel ``conv3x3_simt``, which no path launches, and
-   the Winograd kernel) against their plain versions and against
-   ``F.conv2d`` at the seven conv shapes of the ArcFace body on 2400
-   frames, plus a shape the split-TF32 kernel refuses, and the
+   earlier CUDA-core kernel ``conv3x3_simt``, which no path launches, the
+   split-TF32 Winograd kernel that ``winograd_kernel`` launches, its three
+   launches also timed each, and the earlier CUDA-core Winograd kernel
+   ``conv3x3_winograd_simt``, on no path either) against their plain
+   versions and against ``F.conv2d`` at the seven conv shapes of the
+   ArcFace body on 2400 frames, plus shapes the split-TF32 kernels refuse,
+   and the
    fused BottleneckIR block against its plain version at the four stage
    shapes, plus edge shapes; the bfloat16 tensor-core (``wgmma``) 3x3 conv
    kernel against its plain version and ``F.conv2d`` on bfloat16 tensors
@@ -40,12 +43,13 @@ Phases, each of which raises on failure (exit code 1):
    dispatch through each conv path (``cudnn``, ``shifted_kernel``,
    ``winograd_kernel``, ``fused_blocks``), check the embeddings against
    the default path's and the launch counts (45 of the split-TF32 kernel,
-   45 and 21 a forward, none of ``conv3x3_simt``), time each; then serve
+   45 and 21 a forward, none of ``conv3x3_simt`` or
+   ``conv3x3_winograd_simt``), time each; then serve
    the three streams again through a tri-modal LFAN built with
    ``fused_blocks=True``, one with ``conv_impl='winograd_kernel'`` and one
    with ``conv_impl='shifted_kernel'``, check the logits against the
    offline stitch of the plain versions and the launch counts a dispatch,
-   and time full dispatches of the last against the default; then the
+   and time full dispatches of the last two against the default; then the
    bfloat16 backbone (``dtype=torch.bfloat16``, ``--amp`` in ``fvt_tpu``)
    through ``cudnn`` and ``shifted_kernel`` (45 bfloat16 launches a
    forward, the kernel path's embeddings against the plain version's
@@ -482,17 +486,64 @@ def conv2d_library(x: torch.Tensor, kernel: torch.Tensor):
                                       else 'NCHW')
 
 
+def derived_weights(k: torch.Tensor) -> dict:
+    """What a ``Conv3x3`` module keeps of the HWIO kernel ``k``: the
+    split-TF32 packing of B4, the Winograd transform U and its split-TF32
+    packing for B6."""
+    from fvt_tpu_torch.ops import conv as conv_ops
+    from fvt_tpu_torch.ops import winograd as winograd_ops
+
+    u = winograd_ops.transform_weights(k)
+    return {'conv3x3': conv_ops.pack_weights_tf32(k), 'u': u,
+            'winograd': winograd_ops.pack_winograd_weights_tf32(u)}
+
+
+def winograd_stage_ms(x: torch.Tensor, k: torch.Tensor, d: dict) -> dict:
+    """The three launches of the split-TF32 Winograd kernel at x's shape,
+    each timed alone on the same workspace (median of CONV_RUNS calls),
+    beside its own bound: the transforms' bytes; the products' operations
+    (three TF32 products a multiply) at the TF32 peak or V, U and M's
+    bytes, whichever is larger."""
+    from fvt_tpu_torch.ops import winograd as winograd_ops
+
+    n, h, w, c = x.shape
+    co = k.shape[3]
+    v, m = winograd_ops.workspace(x, co)
+    out = torch.empty((n, h, w, co), device=x.device)
+    flops = 3 * 2.0 * 16 * v.shape[1] * c * co
+    bounds = {
+        'input_transform': (winograd_ops.INPUT_TRANSFORM,
+                            bound(0, nbytes(x, v))),
+        'product': (winograd_ops.PRODUCT, bound(
+            flops, nbytes(v, m, *d['winograd']), PEAK_FLOPS_TF32)),
+        'output_transform': (winograd_ops.OUTPUT_TRANSFORM,
+                             bound(0, nbytes(m, out)))}
+    times = {}
+    for name, (stage, lower) in bounds.items():
+        ms = median_ms(lambda: winograd_ops.launch_tf32x3(
+            x, d['winograd'], v, m, out, stage), CONV_RUNS)
+        times[name] = (ms, lower['bound_ms'])
+    del v, m, out
+    return times
+
+
 def check_conv_kernels(device) -> list:
     """Phase 2, the ArcFace body's float32 3x3 convs: the split-TF32
     tensor-core kernel (``conv3x3``, the ``shifted_kernel`` path), the
-    earlier CUDA-core kernel (``conv3x3_simt``, timed, on no path) and the
-    Winograd kernel against their plain versions and against ``F.conv2d``
-    at the seven conv shapes on FRAMES frames and at edge shapes; a shape
-    the split-TF32 kernel does not take must raise.  Times are per shape;
-    the kernels' line sums them over the 45 launches of one backbone
-    forward.  The split-TF32 kernel's bound takes its three TF32 products
-    at the tensor cores' TF32 peak (the CUDA-core bound of the direct conv
-    is printed beside it)."""
+    earlier CUDA-core kernel (``conv3x3_simt``, timed, on no path), the
+    split-TF32 Winograd kernel (``conv3x3_winograd``, the
+    ``winograd_kernel`` path: input transform, product on the tensor
+    cores, output transform) and the earlier CUDA-core Winograd kernel
+    (``conv3x3_winograd_simt``, timed, on no path) against their plain
+    versions and against ``F.conv2d`` at the seven conv shapes on FRAMES
+    frames and at edge shapes; shapes the split-TF32 kernels do not take
+    must raise.  Times are per shape, the Winograd kernel's also per
+    launch; the kernels' line sums them over the 45 launches of one
+    backbone forward.  The split-TF32 kernels' bounds take their three
+    TF32 products at the tensor cores' TF32 peak (the CUDA-core bound of
+    the direct conv is printed beside it) and the bytes the function must
+    move (x, the kept weights, y); for the Winograd kernel the bytes of
+    its three launches, V and M included, are printed beside that."""
     from fvt_tpu_torch.kernels import build
     from fvt_tpu_torch.ops import conv as conv_ops
     from fvt_tpu_torch.ops import winograd as winograd_ops
@@ -500,18 +551,26 @@ def check_conv_kernels(device) -> list:
     g = torch.Generator(device=device).manual_seed(SEED + 4)
     frames = WINDOW_BATCH * WINDOW
     kernels = {
-        # the weights packed once, as the module keeps them
+        # the weights derived once, as the module keeps them
         'conv3x3': dict(
-            fn=lambda x, k, p: conv_ops.conv3x3(x, k, packed=p),
+            fn=lambda x, k, d: conv_ops.conv3x3(x, k, packed=d['conv3x3']),
             ref=conv_ops.conv3x3_ref, tol=KERNEL_RTOL),
-        'conv3x3_simt': dict(fn=lambda x, k, p: conv_ops.conv3x3_simt(x, k),
+        'conv3x3_simt': dict(fn=lambda x, k, d: conv_ops.conv3x3_simt(x, k),
                              ref=conv_ops.conv3x3_ref, tol=KERNEL_RTOL),
         'winograd': dict(
-            fn=lambda x, k, p: winograd_ops.conv3x3_winograd(x, k),
+            fn=lambda x, k, d: winograd_ops.conv3x3_winograd(
+                x, k, d['u'], packed=d['winograd']),
+            ref=winograd_ops.conv3x3_winograd_ref, tol=WINOGRAD_RTOL),
+        'winograd_simt': dict(
+            fn=lambda x, k, d: winograd_ops.conv3x3_winograd_simt(
+                x, k, d['u']),
             ref=winograd_ops.conv3x3_winograd_ref, tol=WINOGRAD_RTOL)}
     tot = {name: {key: 0.0 for key in (
         'err', 'ms', 'plain', 'library', 'ops_ms', 'bytes_ms', 'direct_ms')}
         for name in kernels}
+    stages = {key: [0.0, 0.0] for key in (
+        'input_transform', 'product', 'output_transform')}
+    design_bytes_ms, workspace_gb = 0.0, 0.0
 
     def inputs(n, h, w, cin, cout):
         x = torch.randn(n, h, w, cin, device=device, generator=g)
@@ -521,7 +580,7 @@ def check_conv_kernels(device) -> list:
     with torch.inference_mode():
         for h, cin, cout, count in CONV_SHAPES:
             x, k = inputs(frames, h, h, cin, cout)
-            packed = conv_ops.pack_weights_tf32(k)
+            derived = derived_weights(k)
             cudnn, library_ms, layout = conv2d_library(x, k)
             shape = f'({frames},{h},{h},{cin})->{cout}'
             direct_flops = 2.0 * 9 * frames * h * h * cin * cout
@@ -529,24 +588,34 @@ def check_conv_kernels(device) -> list:
             for name, kern in kernels.items():
                 t = tot[name]
                 fn, ref, tol = kern['fn'], kern['ref'], kern['tol']
-                got = fn(x, k, packed)
+                got = fn(x, k, derived)
                 want = ref(x, k)
                 err = compare(f'{name} {shape}', got, want, tol, tol)
                 compare(f'{name} {shape} vs F.conv2d', got, cudnn, tol, tol,
                         'F.conv2d')
                 del want
-                ms = median_ms(lambda: fn(x, k, packed), CONV_RUNS)
-                # conv3x3 and conv3x3_simt share one plain version
+                ms = median_ms(lambda: fn(x, k, derived), CONV_RUNS)
+                # each pair of kernels shares one plain version
                 if ref not in plain:
                     plain[ref] = median_ms(lambda: ref(x, k), 3, warmup=1)
+                # Winograd's own count: 16 products a 2x2 tile
+                winograd_flops = 2.0 * 16 * frames * (
+                    (h + 1) // 2) ** 2 * cin * cout
+                weights = k
                 if name == 'conv3x3':  # three TF32 products a multiply
                     flops, peak = 3 * direct_flops, PEAK_FLOPS_TF32
+                    weights = derived['conv3x3']
                 elif name == 'conv3x3_simt':
                     flops, peak = direct_flops, PEAK_FLOPS
-                else:  # Winograd's own count: 16 products a 2x2 tile
-                    flops, peak = 2.0 * 16 * frames * (
-                        (h + 1) // 2) ** 2 * cin * cout, PEAK_FLOPS
-                lower = bound(flops, nbytes(x, k, got), peak)
+                elif name == 'winograd':
+                    flops, peak = 3 * winograd_flops, PEAK_FLOPS_TF32
+                    weights = derived['winograd']
+                else:
+                    flops, peak = winograd_flops, PEAK_FLOPS
+                    weights = derived['u']
+                moved = nbytes(x, got, *(
+                    weights if isinstance(weights, tuple) else (weights,)))
+                lower = bound(flops, moved, peak)
                 print(f'    x{count} a forward: kernel {ms:.4f} ms '
                       f'({direct_flops / ms / 1e9:.1f} TFLOP/s of the direct '
                       f'conv), plain {plain[ref]:.4f} ms, F.conv2d ({layout}) '
@@ -559,17 +628,37 @@ def check_conv_kernels(device) -> list:
                 t['plain'] += count * plain[ref]
                 t['library'] += count * library_ms
                 t['ops_ms'] += count * flops / peak * 1e3
-                t['bytes_ms'] += count * nbytes(x, k, got) / PEAK_BYTES * 1e3
+                t['bytes_ms'] += count * moved / PEAK_BYTES * 1e3
                 t['direct_ms'] += count * direct_flops / PEAK_FLOPS * 1e3
                 del got
-            del x, k, cudnn, packed
+            # the Winograd kernel's three launches, each alone
+            split = winograd_stage_ms(x, k, derived)
+            p = frames * ((h + 1) // 2) ** 2
+            # V and M, written and read once each, beside x, U and y
+            design = (2 * 16 * p * (cin + cout) * 4
+                      + nbytes(x, *derived['winograd']) + 4 * frames * h * h
+                      * cout) / PEAK_BYTES * 1e3
+            work = 16 * p * (cin + cout) * 4 / 1e9
+            workspace_gb = max(workspace_gb, work)
+            design_bytes_ms += count * design
+            print('    winograd by launch: ' + ', '.join(
+                f'{key} {ms:.4f} ms (bound {b:.4f})'
+                for key, (ms, b) in split.items())
+                + f'; the three launches\' bytes at {PEAK_BYTES / 1e12} '
+                f'TB/s {design:.4f} ms; workspace V + M {work:.3f} GB')
+            for key, (ms, b) in split.items():
+                stages[key][0] += count * ms
+                stages[key][1] += count * b
+            del x, k, cudnn, derived
 
         # odd extents, Cin != Cout below a column tile, single pixels, C not
-        # a multiple of 8; for the split-TF32 kernel also rows so wide that
+        # a multiple of 8, ragged column tiles, and P over four row tiles of
+        # the Winograd product with a ragged end (828 tiles); for the
+        # split-TF32 kernel also rows so wide that
         # the ring has two slots (BN = 64 at W = 400, BN = 128 at W = 150)
         # or one (BN = 128 at W = 200; BN = 64 at W = 894, the widest)
         edge = [(3, 7, 9, 32, 16), (1, 1, 1, 4, 4), (1, 2, 2, 8, 4),
-                (5, 5, 5, 64, 200), (2, 13, 6, 20, 36)]
+                (5, 5, 5, 64, 200), (2, 13, 6, 20, 36), (3, 23, 45, 12, 132)]
         wide = [(2, 3, 400, 16, 64), (2, 3, 150, 12, 128),
                 (2, 3, 200, 16, 128), (1, 2, 894, 8, 64)]
         for n, h, w, cin, cout in edge + wide:
@@ -580,7 +669,7 @@ def check_conv_kernels(device) -> list:
                 if (n, h, w, cin, cout) in wide and name != 'conv3x3':
                     continue
                 shape = f'{name} edge ({n},{h},{w},{cin})->{cout}'
-                got = kern['fn'](x, k, None)
+                got = kern['fn'](x, k, derived_weights(k))
                 compare(shape, got, kern['ref'](x, k), kern['tol'],
                         kern['tol'])
                 compare(f'{shape} vs F.conv2d', got, cudnn, kern['tol'],
@@ -612,11 +701,40 @@ def check_conv_kernels(device) -> list:
             fail('conv3x3 took a float32 tensor with W = 895')
         if conv_ops.conv3x3.launches != before:
             fail('a refused float32 conv counted a launch')
+
+        # the Winograd kernel takes C and Co in multiples of 4 only: the
+        # wrapper raises, and the C entry itself refuses C = 6
+        before = winograd_ops.conv3x3_winograd.launches
+        for cin, cout in ((6, 8), (8, 6)):
+            x, k = inputs(2, 5, 5, cin, cout)
+            try:
+                winograd_ops.conv3x3_winograd(x, k)
+            except ValueError as e:
+                print(f'  winograd C={cin} Co={cout} refused: {e}')
+            else:
+                fail(f'conv3x3_winograd took C = {cin}, Co = {cout}')
+        x, k = inputs(2, 5, 5, 6, 8)
+        v, m = winograd_ops.workspace(x, 8)
+        code = build.library().fvt_winograd_tf32x3_forward(
+            x.data_ptr(), k.data_ptr(), k.data_ptr(), v.data_ptr(),
+            m.data_ptr(), torch.empty(2, 5, 5, 8, device=device).data_ptr(),
+            2, 5, 5, 6, 8, 64, winograd_ops.ALL_STAGES,
+            torch.cuda.current_stream(device).cuda_stream)
+        if code == 0:
+            fail('the split-TF32 Winograd entry took C = 6')
+        if winograd_ops.conv3x3_winograd.launches != before:
+            fail('a refused Winograd conv counted a launch')
+    print('  winograd (split TF32) by launch over the 45 convs: ' + ', '.join(
+        f'{key} {ms:.4f} ms (bound {b:.4f})'
+        for key, (ms, b) in stages.items())
+        + f'; the three launches\' bytes {design_bytes_ms:.4f} ms; largest '
+        f'workspace V + M {workspace_gb:.3f} GB')
     out = []
     for name, source, replaces in (
             ('conv3x3', 'conv3x3_tf32x3.cu', 'conv_pallas.py:20'),
             ('conv3x3_simt', 'conv3x3.cu', 'conv_pallas.py:20'),
-            ('winograd', 'winograd.cu', 'winograd.py:148')):
+            ('winograd', 'winograd_tf32x3.cu', 'winograd.py:148'),
+            ('winograd_simt', 'winograd.cu', 'winograd.py:148')):
         t = tot[name]
         by_ops = t['ops_ms'] >= t['bytes_ms']
         lower = max(t['ops_ms'], t['bytes_ms'])
@@ -633,6 +751,9 @@ def check_conv_kernels(device) -> list:
                     'bound_ms': lower,
                     'bound_by': 'operations' if by_ops else 'bytes',
                     'direct_conv_bound_ms': t['direct_ms']})
+    out[2]['launch_ms'] = {key: ms for key, (ms, _) in stages.items()}
+    out[2]['launches_bytes_bound_ms'] = design_bytes_ms
+    out[2]['workspace_gb'] = workspace_gb
     return out
 
 
@@ -815,9 +936,12 @@ def check_bottleneck_kernel(device) -> dict:
 def conv_counters() -> dict:
     from fvt_tpu_torch.ops.bottleneck import bottleneck_ir_fused
     from fvt_tpu_torch.ops.conv import conv3x3, conv3x3_simt
-    from fvt_tpu_torch.ops.winograd import conv3x3_winograd
+    from fvt_tpu_torch.ops.winograd import (conv3x3_winograd,
+                                            conv3x3_winograd_simt)
     return {'conv3x3': conv3x3, 'conv3x3_simt': conv3x3_simt,
-            'winograd': conv3x3_winograd, 'bottleneck': bottleneck_ir_fused}
+            'winograd': conv3x3_winograd,
+            'winograd_simt': conv3x3_winograd_simt,
+            'bottleneck': bottleneck_ir_fused}
 
 
 def read_launches(counters: dict) -> dict:
@@ -852,7 +976,8 @@ def backbone_variants(model, crops: torch.Tensor, device) -> dict:
                 ('winograd_kernel', {'conv_impl': 'winograd_kernel'},
                  {'winograd': 45}),
                 ('fused_blocks', {'fused_blocks': True}, {'bottleneck': 21})]
-    ref, out_launches, nets = None, {'conv3x3_simt': 0}, {}
+    ref, out_launches, nets = None, {'conv3x3_simt': 0,
+                                     'winograd_simt': 0}, {}
     with torch.inference_mode():
         for name, kw, expect in variants:
             net = VisualBackbone(**kw).eval()
@@ -923,7 +1048,8 @@ def backbone_bf16(model, crops: torch.Tensor, device) -> int:
         torch.cuda.synchronize()
         launches = read_launches(counters)
         if launches != {'conv3x3': 45, 'conv3x3_bf16': 45, 'conv3x3_fp32': 0,
-                        'conv3x3_simt': 0, 'winograd': 0, 'bottleneck': 0}:
+                        'conv3x3_simt': 0, 'winograd': 0, 'winograd_simt': 0,
+                        'bottleneck': 0}:
             fail(f'bf16 backbone shifted_kernel: launches {launches}, '
                  f'expected 45 of the bfloat16 conv kernel a forward')
         plain = nets['bf16 shifted_kernel'](crops, reference=True)
@@ -1301,21 +1427,24 @@ def main() -> int:
     launches = backbone_variants(model, crops, device)
     by_name['conv3x3']['launches'] = launches['conv3x3_fp32']
     by_name['conv3x3_simt']['launches'] = launches['conv3x3_simt']
+    by_name['winograd_simt']['launches'] = launches['winograd_simt']
     by_name['bottleneck']['launches'] = serve_variant(
         model, {'fused_blocks': True}, 'bottleneck', 21, streams, device)[0]
-    by_name['winograd']['launches'] = serve_variant(
+    by_name['winograd']['launches'], winograd = serve_variant(
         model, {'conv_impl': 'winograd_kernel'}, 'winograd', 45, streams,
-        device)[0]
+        device)
     # the fp32 shifted_kernel LFAN (the split-TF32 kernel) served, then
-    # timed against the default in turns
+    # both split-TF32 LFANs timed against the default in turns
     _, shifted = serve_variant(
         model, {'conv_impl': 'shifted_kernel'}, 'conv3x3', 45, streams,
         device, by_type={'conv3x3_fp32': 45})
     servers = {'cudnn': ServingModel(model, WINDOW_BATCH, WINDOW, HOP,
-                                     device), 'shifted_kernel': shifted}
-    for impl in ('cudnn', 'shifted_kernel', 'shifted_kernel', 'cudnn'):
+                                     device), 'shifted_kernel': shifted,
+               'winograd_kernel': winograd}
+    for impl in ('cudnn', 'shifted_kernel', 'winograd_kernel',
+                 'winograd_kernel', 'shifted_kernel', 'cudnn'):
         time_dispatches(f'fp32 backbone, {impl}', servers[impl], inputs)
-    del servers, shifted
+    del servers, shifted, winograd
 
     print('phase 5, bfloat16: the backbone in bfloat16 (fvt_tpu\'s --amp), '
           'alone and served')

@@ -1,8 +1,10 @@
-// PTX helpers of the two wgmma 3x3 conv kernels (conv3x3_wgmma.cu in bf16,
-// conv3x3_tf32x3.cu in fp32): mbarriers, the copy engine's bulk and im2col
-// copies, shared-memory matrix descriptors, the wgmma fences, and the im2col
-// tensor map of an NHWC activation, all for sm_90a.  Each includer gets its
-// own copies (everything lies in an anonymous namespace).
+// PTX helpers of the wgmma kernels (conv3x3_wgmma.cu in bf16,
+// conv3x3_tf32x3.cu and winograd_tf32x3.cu in fp32): mbarriers, the copy
+// engine's bulk, im2col and tiled copies, shared-memory matrix descriptors,
+// the wgmma fences, the split-TF32 rounding and the TF32 wgmma of 64 x 64
+// and 64 x 128 tiles, and the im2col tensor map of an NHWC activation, all
+// for sm_90a.  Each includer gets its own copies (everything lies in an
+// anonymous namespace).
 #pragma once
 
 #include <cuda.h>
@@ -81,6 +83,19 @@ __device__ __forceinline__ void tma_im2col(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The box of a 3-d tiled tensor map at the element (c, r, p) on
+// (innermost first; zeros where it lies outside the tensor), global ->
+// shared in the box's own order
+__device__ __forceinline__ void tma_tile3d(uint32_t dst, const CUtensorMap* map,
+                                           int c, int r, int p, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
+          "r"(dst),
+      "l"(map), "r"(bar), "r"(c), "r"(r), "r"(p)
+      : "memory");
+}
+
 // Shared-memory matrix descriptor, no swizzle: start address, the byte
 // stride between core matrices along K (leading) and along M or N (stride),
 // all in units of 16 bytes.
@@ -104,6 +119,93 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// a rounded to TF32 (10 explicit mantissa bits), to nearest, ties away
+__device__ __forceinline__ float to_tf32(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return __uint_as_float(r);
+}
+
+// d (64 x N, fp32, in the warpgroup's registers) = d * scale_d + A (64 x 8,
+// K-major) @ B (8 x N, K-major), both tf32 in shared memory behind
+// descriptors; scale_d is 0 (d need not be initialised) or 1.
+__device__ __forceinline__ void wgmma_tf32_m64n64k8(float (&d)[32],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2],
+                                           uint64_t desc_a, uint64_t desc_b,
+                                           int scale_d) {
+  if constexpr (BN == 64)
+    wgmma_tf32_m64n64k8(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_tf32_m64n128k8(d, desc_a, desc_b, scale_d);
+}
+
+// An entry of libcuda, looked up by name: the tensor-map encoders live
+// there, and the library links no -lcuda.  nullptr if there is none.
+void* libcuda_entry(const char* name) {
+  void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+  return lib ? dlsym(lib, name) : nullptr;
+}
+
 // The im2col tensor map of x (N, H, W, C), elements of `elem` bytes: kLoad
 // consecutive coordinates by `chunk` channels (16 bytes) a load, walking the
 // columns -1 .. W-1, then the rows -1 .. H-1, then the frames: the padded
@@ -116,13 +218,8 @@ cudaError_t make_x_map(const void* x, int N, int H, int W, int C,
       const cuuint64_t*, const int*, const int*, cuuint32_t, cuuint32_t,
       const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
       CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;  // libcuda's entry, looked up once
-  if (encode == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    void* fn = lib ? dlsym(lib, "cuTensorMapEncodeIm2col") : nullptr;
-    if (fn == nullptr) return cudaErrorNotSupported;
-    encode = (Encode)fn;
-  }
+  static Encode encode = (Encode)libcuda_entry("cuTensorMapEncodeIm2col");
+  if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
                               (cuuint64_t)N};
   const cuuint64_t strides[3] = {(cuuint64_t)C * elem,

@@ -58,7 +58,8 @@ from fvt_tpu_torch.ops import winograd as winograd_ops
 
 # 'cudnn': PyTorch's conv2d (default).  'winograd': the plain PyTorch
 # Winograd F(2x2, 3x3), transform-domain tensors in device memory.
-# 'winograd_kernel': the fused Winograd CUDA kernel.  'shifted_kernel': the
+# 'winograd_kernel': the Winograd CUDA kernels (input transform, split-TF32
+# product on the tensor cores, output transform).  'shifted_kernel': the
 # nine-shifted-products CUDA kernel.
 CONV_IMPLS = ('cudnn', 'winograd', 'winograd_kernel', 'shifted_kernel')
 DTYPES = (torch.float32, torch.bfloat16)
@@ -146,8 +147,9 @@ class Conv3x3(nn.Module):
     checkpoints and the weight bridge load unchanged.  As in ``fvt_tpu``
     (``arcface.py:76``), only a stride-1 convolution takes a path other
     than ``'cudnn'``.  Those paths are eval-only and take the kernel in
-    HWIO (and, for Winograd, its transform ``G g G^T``): both are derived
-    from ``weight`` at the first call and kept; they are dropped and
+    HWIO (and, for Winograd, its transform ``G g G^T``, packed for the
+    ``'winograd_kernel'`` path's CUDA kernel): all are derived from
+    ``weight`` at the first call and kept; they are dropped and
     derived again when ``weight`` is replaced or written in place
     (``load_state_dict``, ``.to()``, an optimizer step, a re-init).  So
     are the copies in ``dtype`` that the module computes with (OIHW for
@@ -169,16 +171,23 @@ class Conv3x3(nn.Module):
         self._derived = None
         self._cast = None
 
-    def kernel_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(HWIO kernel (3, 3, Cin, Cout), its Winograd transform (16,
-        Cin, Cout)), cached as the class docstring says."""
+    def kernel_weights(self) -> tuple:
+        """(HWIO kernel (3, 3, Cin, Cout), its Winograd transform U (16,
+        Cin, Cout), U packed for the ``'winograd_kernel'`` path's CUDA
+        kernel or None on another path or where the kernel does not take
+        the widths: ``ops.winograd.pack_winograd_weights_tf32``'s pair),
+        cached as the class docstring says."""
         stamp = _stamp(self.weight)
         if self._derived is None or self._derived[0] != stamp:
             with torch.no_grad():
                 hwio = self.weight.permute(2, 3, 1, 0).contiguous()
                 u = winograd_ops.transform_weights(hwio)
-                u = u.reshape(16, *hwio.shape[2:])
-            self._derived = (stamp, hwio, u)
+                c, co = hwio.shape[2:]
+                u = u.reshape(16, c, co)
+                packed = (winograd_ops.pack_winograd_weights_tf32(u)
+                          if self.impl == 'winograd_kernel'
+                          and not (c % 4 or co % 4) else None)
+            self._derived = (stamp, hwio, u, packed)
         return self._derived[1:]
 
     def cast_weights(self) -> tuple:
@@ -220,11 +229,12 @@ class Conv3x3(nn.Module):
             else:
                 y = conv_ops.conv3x3(_nhwc(x), hwio, packed=packed)
         else:
-            hwio, u = self.kernel_weights()
-            plain = reference or self.impl == 'winograd'
-            fn = (winograd_ops.conv3x3_winograd_ref if plain
-                  else winograd_ops.conv3x3_winograd)
-            y = fn(_nhwc(x), hwio, u)
+            hwio, u, packed = self.kernel_weights()
+            if reference or self.impl == 'winograd':
+                y = winograd_ops.conv3x3_winograd_ref(_nhwc(x), hwio, u)
+            else:
+                y = winograd_ops.conv3x3_winograd(_nhwc(x), hwio, u,
+                                                  packed=packed)
         return y.permute(0, 3, 1, 2)
 
 

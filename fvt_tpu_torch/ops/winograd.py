@@ -1,4 +1,4 @@
-"""Winograd F(2x2, 3x3) convolution: CUDA kernel and plain version.
+"""Winograd F(2x2, 3x3) convolution: CUDA kernels and plain versions.
 
 Counterpart of ``fvt_tpu/ops/winograd.py``.  A 3x3 stride-1 'same'
 convolution computed per 2x2 output tile as ``Y = A^T [(G g G^T) *
@@ -10,22 +10,33 @@ in the order of the sums.  Layouts follow the JAX package: activations
 NHWC, kernel HWIO ``(3, 3, C, Co)``, output ``(N, H, W, Co)``; odd H or W
 are padded to whole tiles and cropped.
 
+The computation runs in three stages, which are the three launches of the
+CUDA kernel: :func:`input_transform` writes ``V = B^T d B`` as ``(16, P,
+C)`` (P the 2x2 tiles of all frames, in (frame, tile row, tile column)
+order), one batched product ``M[p] = V[p] @ U[p]`` over the 16
+transform-domain positions ``p = 4a + b`` gives ``(16, P, Co)``, and
+:func:`output_transform` applies ``A^T M A`` and crops.
+
 :func:`conv3x3_winograd_ref` is the plain version (the port of the
-XLA-ops ``conv3x3_winograd``: the transform-domain tensors are
-materialised).  :func:`conv3x3_winograd` runs it for a tensor on the CPU;
-for a CUDA tensor it launches the kernel of ``csrc/winograd.cu``, which
-keeps the transform-domain tensors on chip, or raises.
-``conv3x3_winograd.launches`` counts kernel launches.  Eval only.
+XLA-ops ``conv3x3_winograd``).  :func:`conv3x3_winograd` runs it for a
+tensor on the CPU; for a CUDA tensor it launches the three kernels of
+``csrc/winograd_tf32x3.cu`` or raises: the product on the tensor cores
+(``wgmma``) with split-TF32 operands, ``hi*hi + hi*lo + lo*hi`` at float32
+accuracy (:func:`conv3x3_winograd_tf32x3_ref` emulates it), V and M in
+device memory.  ``conv3x3_winograd.launches`` counts its calls on the
+card, one for the three launches.  :func:`conv3x3_winograd_simt`, the
+earlier kernel on the CUDA cores (``csrc/winograd.cu``, V and M kept on
+chip), stays for measurements: no model path calls it.  Eval only.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from fvt_tpu_torch.kernels import build
-from fvt_tpu_torch.ops.conv import refuse_grad
+from fvt_tpu_torch.ops.conv import column_tile, refuse_grad, split_tf32
 
 
 def transform_weights(kernel: torch.Tensor) -> torch.Tensor:
@@ -52,52 +63,181 @@ def _at(m0, m1, m2, m3):
     return m0 + m1 + m2, m1 - m2 - m3
 
 
-def conv3x3_winograd_ref(x: torch.Tensor, kernel: torch.Tensor,
-                         u: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch version.  ``u`` is ``transform_weights(kernel)`` if
-    the caller has it already."""
+def input_transform(x: torch.Tensor) -> torch.Tensor:
+    """x (N, H, W, C) -> V = B^T d B, (16, P, C) with P = N * ceil(H/2) *
+    ceil(W/2): ``V[4a + b, p]`` for the 4x4 patch d of tile p, x zero
+    outside the image; over the rows (a) first, then the columns (b)."""
     n, h, w, c = x.shape
-    co = kernel.shape[3]
     th, tw = -(-h // 2), -(-w // 2)
     # 'same' pad, then right/bottom pad so that the extent is 2*tiles + 2
     xp = F.pad(x, (0, 0, 1, 1 + 2 * tw - w, 1, 1 + 2 * th - h))
-    if u is None:
-        u = transform_weights(kernel)
-    u = u.reshape(4, 4, c, co)
-
     # d[a][b](ty, tx) = xp[:, 2*ty + a, 2*tx + b, :]
     d = [[xp[:, a:a + 2 * th - 1:2, b:b + 2 * tw - 1:2, :]
           for b in range(4)] for a in range(4)]
-    # V = B^T d B, tap axis by tap axis
     rows = [_bt(d[0][b], d[1][b], d[2][b], d[3][b]) for b in range(4)]
     v = [_bt(rows[0][a], rows[1][a], rows[2][a], rows[3][a])
          for a in range(4)]
-    p = n * th * tw
-    m = [[v[a][b].reshape(p, c) @ u[a, b] for b in range(4)]
-         for a in range(4)]
-    # Y = A^T m A
-    ya = [_at(m[0][b], m[1][b], m[2][b], m[3][b]) for b in range(4)]
+    return torch.stack([v[a][b] for a in range(4) for b in range(4)]
+                       ).reshape(16, n * th * tw, c)
+
+
+def output_transform(m: torch.Tensor, n: int, h: int, w: int
+                     ) -> torch.Tensor:
+    """M (16, P, Co) -> Y = A^T M A, cropped to (N, H, W, Co); over the
+    rows (a) first, then the columns."""
+    th, tw = -(-h // 2), -(-w // 2)
+    co = m.shape[2]
+    ya = [_at(m[b], m[4 + b], m[8 + b], m[12 + b]) for b in range(4)]
     out = [_at(ya[0][i], ya[1][i], ya[2][i], ya[3][i]) for i in range(2)]
     y = torch.stack([torch.stack(out[0]), torch.stack(out[1])])
     y = y.reshape(2, 2, n, th, tw, co).permute(2, 3, 0, 4, 1, 5)
     return y.reshape(n, 2 * th, 2 * tw, co)[:, :h, :w, :].contiguous()
 
 
-def conv3x3_winograd(x: torch.Tensor, kernel: torch.Tensor,
-                     u: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (N, H, W, C) float32, kernel HWIO (3, 3, C, Co).  Returns
-    (N, H, W, Co).  ``u``: ``transform_weights(kernel)``, (4, 4, C, Co) or
-    (16, C, Co), when the caller keeps it (it is computed outside the
-    kernel, once per weight); computed here otherwise."""
-    refuse_grad('conv3x3_winograd', x, kernel)
-    if x.device.type == 'cpu':
-        return conv3x3_winograd_ref(x, kernel, u)
-    if x.device.type != 'cuda':
-        raise ValueError(f'no kernel for device {x.device}')
+def conv3x3_winograd_ref(x: torch.Tensor, kernel: torch.Tensor,
+                         u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version.  ``u`` is ``transform_weights(kernel)`` if
+    the caller has it already."""
     n, h, w, c = x.shape
     co = kernel.shape[3]
-    if c % 4 or co % 4:
-        raise ValueError(f'C {c}, Co {co}: the kernel takes multiples of 4')
+    if u is None:
+        u = transform_weights(kernel)
+    m = torch.bmm(input_transform(x), u.reshape(16, c, co))
+    return output_transform(m, n, h, w)
+
+
+def conv3x3_winograd_tf32x3_ref(x: torch.Tensor, kernel: torch.Tensor,
+                                u: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """What the split-TF32 kernel computes, emulated on float32 tensors:
+    V and U split by :func:`~fvt_tpu_torch.ops.conv.split_tf32`, the
+    product ``vh @ ul + vl @ uh + vh @ uh`` (each product of two TF32
+    values exact in float32, the sums in float32), ``vl @ ul`` dropped."""
+    n, h, w, c = x.shape
+    co = kernel.shape[3]
+    if u is None:
+        u = transform_weights(kernel)
+    vh, vl = split_tf32(input_transform(x))
+    uh, ul = split_tf32(u.reshape(16, c, co).contiguous())
+    m = (torch.bmm(vh, ul) + torch.bmm(vl, uh)) + torch.bmm(vh, uh)
+    return output_transform(m, n, h, w)
+
+
+def pack_winograd_weights_tf32(u: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The transformed weights U (16, C, Co) or (4, 4, C, Co), C and Co
+    multiples of 4, as the split-TF32 kernel copies them into shared
+    memory: ``pack_weights_tf32`` of ``ops.conv`` with its tap axis
+    replaced by the position axis.  The ``(hi, lo)`` parts of
+    :func:`split_tf32`, each ``(16, tiles, ceil(C/8), 2, bn/8, 8, 4)``
+    with ``bn = column_tile(Co)`` and ``part[p, t, s, h, n8, n, k] =
+    split(u[p, 8*s + 4*h + k, bn*t + 8*n8 + n])``, zeros where the input
+    channel is beyond C or the output channel beyond Co: per (position,
+    column tile, 8-channel slice) the K-major core matrices (8 output
+    channels x 4 inputs) ``wgmma`` reads.  A module derives them once and
+    keeps them; :func:`conv3x3_winograd` derives them per call otherwise."""
+    c, co = u.shape[-2:]
+    bn = column_tile(co)
+    tiles, slices = -(-co // bn), -(-c // 8)
+    w = F.pad(u.reshape(16, c, co).float(),
+              (0, tiles * bn - co, 0, slices * 8 - c))
+    w = w.reshape(16, slices, 2, 4, tiles, bn // 8, 8)
+    return split_tf32(w.permute(0, 4, 1, 2, 5, 6, 3).contiguous())
+
+
+# the stages of the CUDA entry, a bit each
+INPUT_TRANSFORM, PRODUCT, OUTPUT_TRANSFORM = 1, 2, 4
+ALL_STAGES = INPUT_TRANSFORM | PRODUCT | OUTPUT_TRANSFORM
+
+
+def _check_call(name: str, x: torch.Tensor, kernel: torch.Tensor) -> None:
+    refuse_grad(name, x, kernel)
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'no kernel for device {x.device}')
+    c, co = x.shape[3], kernel.shape[3]
+    if x.device.type == 'cuda' and (c % 4 or co % 4):
+        raise ValueError(f'C {c}, Co {co}: {name} takes multiples of 4')
+
+
+def workspace(x: torch.Tensor, co: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """V (16, P, C) and M (16, P, Co), float32 on x's device, for
+    :func:`launch_tf32x3`."""
+    n, h, w, c = x.shape
+    p = n * -(-h // 2) * -(-w // 2)
+    return (torch.empty((16, p, c), device=x.device, dtype=torch.float32),
+            torch.empty((16, p, co), device=x.device, dtype=torch.float32))
+
+
+def launch_tf32x3(x: torch.Tensor, packed: tuple, v: torch.Tensor,
+                  m: torch.Tensor, out: torch.Tensor,
+                  stages: int = ALL_STAGES) -> None:
+    """Launches the ``stages`` of the split-TF32 Winograd kernel on the
+    current stream: the input transform x -> v, the product v -> m, the
+    output transform m -> out.  Checks every tensor and raises on a CUDA
+    error; counts nothing (a measurement may launch one stage alone)."""
+    n, h, w, c = x.shape
+    co = out.shape[3]
+    bn = column_tile(co)
+    p = n * -(-h // 2) * -(-w // 2)
+    shape = (16, -(-co // bn), -(-c // 8), 2, bn // 8, 8, 4)
+    for name, t, want in (('x', x, (n, h, w, c)), ('v', v, (16, p, c)),
+                          ('m', m, (16, p, co)), ('out', out, (n, h, w, co)),
+                          ('packed hi', packed[0], shape),
+                          ('packed lo', packed[1], shape)):
+        build.check_tensor(name, t, want, x.device)
+    err = build.library().fvt_winograd_tf32x3_forward(
+        x.data_ptr(), packed[0].data_ptr(), packed[1].data_ptr(),
+        v.data_ptr(), m.data_ptr(), out.data_ptr(), n, h, w, c, co, bn,
+        stages, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f'winograd split-TF32 kernel (N={n}, H={h}, W={w}, '
+                     f'C={c}, Co={co}, stages={stages})')
+
+
+def conv3x3_winograd(x: torch.Tensor, kernel: torch.Tensor,
+                     u: Optional[torch.Tensor] = None,
+                     packed: Optional[tuple] = None) -> torch.Tensor:
+    """x (N, H, W, C) float32, kernel HWIO (3, 3, C, Co).  Returns
+    (N, H, W, Co).  ``u``: ``transform_weights(kernel)``, (4, 4, C, Co) or
+    (16, C, Co), and ``packed``: ``pack_winograd_weights_tf32(u)``, when
+    the caller keeps them (they are derived outside the kernel, once per
+    weight); derived here otherwise.  On the card the workspace V and M
+    (16 * P * (C + Co) floats, :func:`workspace`) comes from the caching
+    allocator."""
+    _check_call('conv3x3_winograd', x, kernel)
+    if x.device.type == 'cpu':
+        return conv3x3_winograd_ref(x, kernel, u)
+    n, h, w, c = x.shape
+    co = kernel.shape[3]
+    if packed is None:
+        if u is None:
+            build.check_tensor('kernel', kernel, (3, 3, c, co), x.device)
+            u = transform_weights(kernel)
+        packed = pack_winograd_weights_tf32(u)
+    out = torch.empty((n, h, w, co), device=x.device, dtype=torch.float32)
+    if out.numel() == 0:
+        return out
+    v, m = workspace(x, co)
+    launch_tf32x3(x, packed, v, m, out)
+    conv3x3_winograd.launches += 1
+    return out
+
+
+conv3x3_winograd.launches = 0
+
+
+def conv3x3_winograd_simt(x: torch.Tensor, kernel: torch.Tensor,
+                          u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The earlier Winograd kernel, on the CUDA cores
+    (``csrc/winograd.cu``), kept to be timed beside
+    :func:`conv3x3_winograd`'s: no model path calls it.  x (N, H, W, C)
+    and kernel HWIO (3, 3, C, Co) float32, C and Co multiples of 4; ``u``
+    as for :func:`conv3x3_winograd`.  The plain version on the CPU;
+    ``conv3x3_winograd_simt.launches`` counts its launches."""
+    _check_call('conv3x3_winograd_simt', x, kernel)
+    if x.device.type == 'cpu':
+        return conv3x3_winograd_ref(x, kernel, u)
+    n, h, w, c = x.shape
+    co = kernel.shape[3]
     if u is None:
         build.check_tensor('kernel', kernel, (3, 3, c, co), x.device)
         u = transform_weights(kernel)
@@ -110,10 +250,10 @@ def conv3x3_winograd(x: torch.Tensor, kernel: torch.Tensor,
     err = build.library().fvt_winograd_forward(
         x.data_ptr(), u.data_ptr(), out.data_ptr(), n, h, w, c, co,
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, f'winograd kernel (N={n}, H={h}, W={w}, C={c}, '
+    build.check(err, f'winograd SIMT kernel (N={n}, H={h}, W={w}, C={c}, '
                      f'Co={co})')
-    conv3x3_winograd.launches += 1
+    conv3x3_winograd_simt.launches += 1
     return out
 
 
-conv3x3_winograd.launches = 0
+conv3x3_winograd_simt.launches = 0

@@ -18,7 +18,9 @@ the card's name and power limit and then one JSON line:
   forward);
 * ``--stages``: one 3x3 stride-1 conv at the four stage shapes (40x40x64,
   20x20x128, 10x10x256, 5x5x512) through ``F.conv2d`` (channels_last and
-  NCHW), the plain Winograd and the two kernels;
+  NCHW), the plain Winograd, the two Winograd kernels (split TF32 on the
+  tensor cores, and the earlier one on the CUDA cores) and the
+  shifted-products kernel;
 * ``--bottleneck``: one identity BottleneckIR block at the four stage
   shapes, the eval block on cuDNN against the fused kernel; with
   ``--tiles`` also the fused kernel and the shifted-products kernel over
@@ -196,6 +198,8 @@ def bench_stages(frames: int, iters: int, device: torch.device,
             x, k, _ = _stage_inputs(frames, h, c, device, 1)
             flops = 2.0 * 9 * frames * h * h * c * c
             u = winograd_ops.transform_weights(k)
+            # the Winograd kernel's weights packed once, as the module does
+            packed_u = winograd_ops.pack_winograd_weights_tf32(u)
             x, k = x.to(DTYPES[dtype]), k.to(DTYPES[dtype])
             # the bfloat16 kernel's weights packed once, as the module does
             packed = conv_ops.pack_weights(k) if dtype == 'bfloat16' else None
@@ -210,7 +214,10 @@ def bench_stages(frames: int, iters: int, device: torch.device,
                 ('winograd',
                  lambda: winograd_ops.conv3x3_winograd_ref(x, k, u)),
                 ('winograd_kernel',
-                 lambda: winograd_ops.conv3x3_winograd(x, k, u)),
+                 lambda: winograd_ops.conv3x3_winograd(x, k, u,
+                                                       packed=packed_u)),
+                ('winograd_simt',
+                 lambda: winograd_ops.conv3x3_winograd_simt(x, k, u)),
                 ('shifted_kernel',
                  lambda: conv_ops.conv3x3(x, k, packed=packed))]
             if dtype != 'float32':  # Winograd has no bfloat16 route
@@ -219,7 +226,7 @@ def bench_stages(frames: int, iters: int, device: torch.device,
                 name: _rate(flops, median_ms(fn, iters, device), device,
                             dtype)
                 for name, fn in paths}
-            del x, k, u, x_cl, x_nchw
+            del x, k, u, packed_u, x_cl, x_nchw
     return out
 
 

@@ -2,7 +2,7 @@
 products, on the card.
 
     python3 -m fvt_tpu_torch.tools.profile_conv_bf16 [--frames 2400]
-        [--iters 20] [--dtype bfloat16|float32]
+        [--iters 20] [--dtype bfloat16|float32|winograd]
 
 Builds the kernel's source alone into ``build/``, once as it is and once
 per diagnostic switch: ``-DFVT_DIAG_PRODUCTS_ONLY`` (no copy into shared
@@ -12,10 +12,15 @@ first slice only: the TMA loads, the weight copies and the stores alone).
 ``--dtype bfloat16`` (default) takes ``csrc/conv3x3_wgmma.cu``;
 ``--dtype float32`` takes the split-TF32 kernel of
 ``csrc/conv3x3_tf32x3.cu`` and adds ``-DFVT_DIAG_NO_SPLIT`` (x is not
-split into its TF32 parts where it is staged: what the split costs).  The
+split into its TF32 parts where it is staged: what the split costs).
+``--dtype winograd`` takes the same four builds of the split-TF32 Winograd
+kernel, ``csrc/winograd_tf32x3.cu``, and a fifth, ``-DFVT_DIAG_NO_STORE``
+(M is not written: what its stores cost), and times its product launch
+alone (stage 2, V -> M, on a V the first build's input transform wrote).  The
 diagnostic builds give wrong sums; only the first is checked against the
 plain version (bfloat16: one unit in the last place; float32: rtol = atol
-= 1e-4).  Each is timed at the seven stride-1 conv shapes of the ArcFace
+= 1e-4; Winograd, all three launches: 2e-4).  Each is timed at the seven
+stride-1 conv shapes of the ArcFace
 body (median of ``--iters`` launches between CUDA events, weights packed
 once) beside ``F.conv2d`` on the same tensors (bfloat16: channels_last;
 float32 with TF32 off: the faster of channels_last and NCHW), and summed
@@ -40,12 +45,15 @@ CONV_SHAPES = ((40, 64, 64, 6), (40, 64, 128, 1), (20, 128, 128, 6),
                (5, 512, 512, 4))
 DIAG = {'kernel': (), 'products_only': ('-DFVT_DIAG_PRODUCTS_ONLY',),
         'copies_only': ('-DFVT_DIAG_COPIES_ONLY',)}
-# per type: the source, its C entry, the entry's argument types, the
-# diagnostic builds
+# per kernel: the source, its C entry, the entry's pointer and int
+# arguments before the stream, the diagnostic builds
+SPLIT_DIAG = dict(DIAG, no_split=('-DFVT_DIAG_NO_SPLIT',))
 KERNELS = {
-    'bfloat16': ('conv3x3_wgmma.cu', 'fvt_conv3x3_bf16_forward', 3, DIAG),
-    'float32': ('conv3x3_tf32x3.cu', 'fvt_conv3x3_tf32x3_forward', 4,
-                dict(DIAG, no_split=('-DFVT_DIAG_NO_SPLIT',))),
+    'bfloat16': ('conv3x3_wgmma.cu', 'fvt_conv3x3_bf16_forward', 3, 6, DIAG),
+    'float32': ('conv3x3_tf32x3.cu', 'fvt_conv3x3_tf32x3_forward', 4, 6,
+                SPLIT_DIAG),
+    'winograd': ('winograd_tf32x3.cu', 'fvt_winograd_tf32x3_forward', 6, 7,
+                 dict(SPLIT_DIAG, no_store=('-DFVT_DIAG_NO_STORE',))),
 }
 
 
@@ -53,7 +61,7 @@ def build_variants(dtype: str) -> dict:
     """{variant: C entry}, one nvcc process a variant, all at once."""
     from fvt_tpu_torch.kernels import build
 
-    source, entry, pointers, variants = KERNELS[dtype]
+    source, entry, pointers, ints, variants = KERNELS[dtype]
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = build.CSRC_DIR / source
     paths = {name: build.BUILD_DIR / f'{src.stem}-{name}.so'
@@ -72,7 +80,7 @@ def build_variants(dtype: str) -> dict:
                             if 'registers' in ln or 'spill' in ln}):
             print(f'  {name}: {line}')
         fn = getattr(ctypes.CDLL(str(paths[name])), entry)
-        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn
@@ -96,6 +104,7 @@ def median_ms(fn, iters: int) -> float:
 
 def main(argv=None) -> int:
     from fvt_tpu_torch.ops import conv as conv_ops
+    from fvt_tpu_torch.ops import winograd as winograd_ops
 
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--frames', type=int, default=2400)
@@ -113,6 +122,7 @@ def main(argv=None) -> int:
     print(card)
     fns = build_variants(args.dtype)
     bf16 = args.dtype == 'bfloat16'
+    winograd = args.dtype == 'winograd'
     device = torch.device('cuda', 0)
     g = torch.Generator(device=device).manual_seed(0)
     n = args.frames
@@ -125,22 +135,32 @@ def main(argv=None) -> int:
             if bf16:
                 x, k = x.bfloat16(), k.bfloat16()
                 weights = [conv_ops.pack_weights(k)]
+            elif winograd:  # U's parts, then the workspace V and M
+                weights = [*winograd_ops.pack_winograd_weights_tf32(
+                    winograd_ops.transform_weights(k)),
+                    *winograd_ops.workspace(x, co)]
             else:
                 weights = list(conv_ops.pack_weights_tf32(k))
             out = torch.empty(n, h, h, co, device=device, dtype=x.dtype)
             stream = torch.cuda.current_stream(device).cuda_stream
+            # Winograd: the three launches, then the product alone
+            stages = [[winograd_ops.ALL_STAGES], [winograd_ops.PRODUCT]
+                      ] if winograd else [[], []]
 
-            def launch(fn):
+            def launch(fn, stage):
                 err = fn(x.data_ptr(), *(w.data_ptr() for w in weights),
                          out.data_ptr(), n, h, h, c, co,
-                         conv_ops.column_tile(co), stream)
+                         conv_ops.column_tile(co), *stage, stream)
                 if err:
                     raise RuntimeError(f'launch returned CUDA error {err}')
 
-            launch(fns['kernel'])
-            want = conv_ops.conv3x3_ref(x, k).float()
+            launch(fns['kernel'], stages[0])
+            ref = (winograd_ops.conv3x3_winograd_ref if winograd
+                   else conv_ops.conv3x3_ref)
+            want = ref(x, k).float()
             apart = (out.float() - want).abs()
-            rtol, atol = (2.0 ** -7, 2.0 ** -9) if bf16 else (1e-4, 1e-4)
+            rtol, atol = ((2.0 ** -7, 2.0 ** -9) if bf16 else
+                          (2e-4, 2e-4) if winograd else (1e-4, 1e-4))
             if (apart > want.abs() * rtol + atol).any():
                 raise RuntimeError(f'{h}x{h}x{c}->{co}: the kernel disagrees '
                                    f'with its plain version')
@@ -148,7 +168,7 @@ def main(argv=None) -> int:
             flops = 2.0 * 9 * n * h * h * c * co
             row = {}
             for name, fn in fns.items():
-                ms = median_ms(lambda: launch(fn), args.iters)
+                ms = median_ms(lambda: launch(fn, stages[1]), args.iters)
                 row[name] = {'ms': round(ms, 4),
                              'tflops': round(flops / ms / 1e9, 1)}
                 total[name] += count * ms
@@ -166,7 +186,9 @@ def main(argv=None) -> int:
                              'tflops': round(flops / ms / 1e9, 1)}
             total['conv2d'] += count * ms
             # the share of the multiplies that lands on real pixels
-            row['real_rows'] = round(h * h / (h + 1) ** 2, 4)
+            row['real_rows'] = round(
+                h * h / (2 * ((h + 1) // 2)) ** 2 if winograd
+                else h * h / (h + 1) ** 2, 4)
             shapes[f'{h}x{h}x{c}->{co} x{count}'] = row
             del x, k, weights, out, x_cl, w_cl, w_oihw
     print(json.dumps({
