@@ -21,9 +21,13 @@ Phases, each of which raises on failure (exit code 1):
    ``conv3x3_winograd_simt``, on no path either) against their plain
    versions and against ``F.conv2d`` at the seven conv shapes of the
    ArcFace body on 2400 frames, plus shapes the split-TF32 kernels refuse,
-   and the
-   fused BottleneckIR block against its plain version at the four stage
-   shapes, plus edge shapes; the bfloat16 tensor-core (``wgmma``) 3x3 conv
+   and the fused BottleneckIR block (the split-TF32 kernel that
+   ``fused_blocks`` launches, two launches a call with bn1, PReLU, bn2 and
+   the residual fused, each also timed alone, and the earlier CUDA-core
+   kernel ``bottleneck_ir_fused_simt``, on no path) against its plain
+   version at the four stage shapes on 2400 frames, plus edge shapes (one
+   with bn1's shift at 20) and shapes it refuses; the bfloat16 tensor-core
+   (``wgmma``) 3x3 conv
    kernel against its plain version and ``F.conv2d`` on bfloat16 tensors
    at the same seven shapes and at edge shapes, and its refusal of a
    channel count it does not take; print errors and median times (CUDA
@@ -41,15 +45,17 @@ Phases, each of which raises on failure (exit code 1):
    steps of the fused path and of the conv-by-conv path on cuDNN;
 5. run the ArcFace IR-50 backbone alone on the 2400 frames of a full
    dispatch through each conv path (``cudnn``, ``shifted_kernel``,
-   ``winograd_kernel``, ``fused_blocks``), check the embeddings against
-   the default path's and the launch counts (45 of the split-TF32 kernel,
-   45 and 21 a forward, none of ``conv3x3_simt`` or
-   ``conv3x3_winograd_simt``), time each; then serve
-   the three streams again through a tri-modal LFAN built with
-   ``fused_blocks=True``, one with ``conv_impl='winograd_kernel'`` and one
-   with ``conv_impl='shifted_kernel'``, check the logits against the
-   offline stitch of the plain versions and the launch counts a dispatch,
-   and time full dispatches of the last two against the default; then the
+   ``winograd_kernel``, ``fused_blocks``, ``fused_blocks`` with
+   ``shifted_kernel``), check the embeddings against the default path's
+   and the launch counts (45 of the split-TF32 kernel, 45, 21, and 21 + 3
+   a forward, none of the SIMT kernels), time each; then serve the three
+   streams again through a tri-modal LFAN built with
+   ``fused_blocks=True``, one with ``fused_blocks=True,
+   conv_impl='shifted_kernel'``, one with ``conv_impl='winograd_kernel'``
+   and one with ``conv_impl='shifted_kernel'``, check the logits against
+   the offline stitch of the plain versions and the launch counts a
+   dispatch, and time full dispatches of the last three against the
+   default, in turns; then the
    bfloat16 backbone (``dtype=torch.bfloat16``, ``--amp`` in ``fvt_tpu``)
    through ``cudnn`` and ``shifted_kernel`` (45 bfloat16 launches a
    forward, the kernel path's embeddings against the plain version's
@@ -864,84 +870,181 @@ def check_conv_bf16_kernel(device) -> dict:
             'bound_by': 'operations' if 'operations' in by else 'bytes'}
 
 
-def check_bottleneck_kernel(device) -> dict:
-    """Phase 2, the fused BottleneckIR block against its plain version
-    (the eval block on cuDNN) at the four stage shapes on FRAMES frames,
-    BatchNorm affines and PReLU slopes off their init values, and at edge
-    shapes.  No single PyTorch call computes the block."""
+def check_bottleneck_kernel(device) -> list:
+    """Phase 2, the fused BottleneckIR block (B5): the split-TF32 kernel
+    (``bottleneck_ir_fused``, the ``fused_blocks`` path: conv1 with bn1
+    applied where x is split and PReLU in its store, into the workspace v,
+    then conv2 with bn2 and the residual in its store) and the earlier
+    CUDA-core kernel (``bottleneck_ir_fused_simt``, timed, on no path)
+    against their plain version (the eval block on cuDNN) at the four
+    stage shapes on FRAMES frames, BatchNorm affines and PReLU slopes off
+    their init values, and at edge shapes, one of them with bn1's shift
+    at 20 so that a pad which took b1 would show; C = 6 and W = 895 must
+    be refused.  Each launch of the split-TF32 kernel is timed alone too.
+    Bounds: the split-TF32 kernel's three TF32 products a multiply at the
+    TF32 peak (each launch's and the block's), the SIMT kernel's products
+    at the fp32 peak, each against the bytes it must move (the block: x,
+    the kept weights, the five vectors, y; a launch also v).  No single
+    PyTorch call computes the block."""
+    from fvt_tpu_torch.kernels import build
     from fvt_tpu_torch.ops import bottleneck as block_ops
 
     g = torch.Generator(device=device).manual_seed(SEED + 5)
     frames = WINDOW_BATCH * WINDOW
-    tot = {key: 0.0 for key in ('err', 'ms', 'plain', 'ops_ms', 'bytes_ms')}
+    kernels = {
+        'bottleneck': lambda args, packed: block_ops.bottleneck_ir_fused(
+            *args, packed=packed),
+        'bottleneck_simt': lambda args, packed:
+            block_ops.bottleneck_ir_fused_simt(*args)}
+    tot = {name: {key: 0.0 for key in ('err', 'ms', 'plain', 'ops_ms',
+                                       'bytes_ms')} for name in kernels}
+    launch_ms = {'conv1': [0.0, 0.0], 'conv2': [0.0, 0.0]}
+    workspace_gb = 0.0
 
-    def inputs(n, h, w, c):
+    def inputs(n, h, w, c, b1_shift=0.0):
         def randn(*shape, scale=1.0, shift=0.0):
             return torch.randn(*shape, device=device,
                                generator=g) * scale + shift
 
         return (randn(n, h, w, c), randn(3, 3, c, c, scale=(9 * c) ** -0.5),
                 randn(3, 3, c, c, scale=(9 * c) ** -0.5),
-                randn(c, scale=0.2, shift=1.0), randn(c, scale=0.5),
+                randn(c, scale=0.2, shift=1.0),
+                randn(c, scale=0.5, shift=b1_shift),
                 randn(c, scale=0.1, shift=0.25),
                 randn(c, scale=0.2, shift=1.0), randn(c, scale=0.5))
 
     with torch.inference_mode():
         for h, c, count in BLOCK_SHAPES:
             args = inputs(frames, h, h, c)
-            got = block_ops.bottleneck_ir_fused(*args)
+            x, vecs = args[0], args[3:]
+            # the split weights derived once, as the module keeps them
+            packed = block_ops.pack_block_weights(args[1], args[2])
             want = block_ops.bottleneck_ir_fused_ref(*args)
-            tile = block_ops.choose_tile(frames, h, h, c)
-            err = compare(f'bottleneck ({frames},{h},{h},{c}) tile {tile}',
-                          got, want)
+            shape = f'({frames},{h},{h},{c})'
+            errs = {}
+            for name, fn in kernels.items():
+                got = fn(args, packed)
+                errs[name] = compare(f'{name} {shape}', got, want)
+                del got
             del want
-            ms = median_ms(lambda: block_ops.bottleneck_ir_fused(*args),
-                           CONV_RUNS)
             plain = median_ms(
                 lambda: block_ops.bottleneck_ir_fused_ref(*args), CONV_RUNS)
-            flops = 2.0 * 2 * 9 * frames * h * h * c * c
-            lower = bound(flops, nbytes(*args, got))
-            print(f'    x{count} a forward: kernel {ms:.4f} ms, plain (eval '
-                  f'block on cuDNN) {plain:.4f} ms, bound '
-                  f'{lower["bound_ms"]:.4f} ms by {lower["bound_by"]} '
-                  f'({flops / 1e9:.1f} GFLOP)')
-            tot['err'] = max(tot['err'], err)
-            tot['ms'] += count * ms
-            tot['plain'] += count * plain
-            tot['ops_ms'] += count * flops / PEAK_FLOPS * 1e3
-            tot['bytes_ms'] += count * nbytes(*args, got) / PEAK_BYTES * 1e3
-            del args, got
+            conv_flops = 2.0 * 9 * frames * h * h * c * c
+            moved = nbytes(x, *vecs, x)  # x in, y out
+            v, out = torch.empty_like(x), torch.empty_like(x)
+            workspace_gb = max(workspace_gb, nbytes(v) / 1e9)
+            for name, fn in kernels.items():
+                t = tot[name]
+                ms = median_ms(lambda: fn(args, packed), CONV_RUNS)
+                if name == 'bottleneck':
+                    flops, peak = 3 * 2 * conv_flops, PEAK_FLOPS_TF32
+                    weights = nbytes(*packed[0], *packed[1])
+                else:
+                    flops, peak = 2 * conv_flops, PEAK_FLOPS
+                    weights = nbytes(args[1], args[2])
+                lower = bound(flops, moved + weights, peak)
+                print(f'    {name} x{count} a forward: kernel {ms:.4f} ms, '
+                      f'plain (eval block on cuDNN) {plain:.4f} ms, bound '
+                      f'{lower["bound_ms"]:.4f} ms by {lower["bound_by"]} '
+                      f'({flops / 1e9:.1f} GFLOP at {peak / 1e12:.1f} '
+                      f'TFLOP/s), {lower["bound_ms"] / ms:.1%} of it')
+                t['err'] = max(t['err'], errs[name])
+                t['ms'] += count * ms
+                t['plain'] += count * plain
+                t['ops_ms'] += count * flops / peak * 1e3
+                t['bytes_ms'] += count * (moved + weights) / PEAK_BYTES * 1e3
+            # the split-TF32 kernel's two launches, each alone on the same
+            # workspace, beside its own bound
+            per_launch = {
+                'conv1': (block_ops.CONV1, nbytes(x, *packed[0], *vecs[:3], v)),
+                'conv2': (block_ops.CONV2,
+                          nbytes(v, *packed[1], *vecs[3:], x, out))}
+            for key, (stage, launch_bytes) in per_launch.items():
+                ms = median_ms(lambda: block_ops.launch_tf32x3(
+                    x, packed, vecs, v, out, stage), CONV_RUNS)
+                lower = bound(3 * conv_flops, launch_bytes, PEAK_FLOPS_TF32)
+                print(f'    bottleneck {key} launch alone: {ms:.4f} ms, '
+                      f'bound {lower["bound_ms"]:.4f} ms by '
+                      f'{lower["bound_by"]}, {lower["bound_ms"] / ms:.1%} '
+                      f'of it')
+                launch_ms[key][0] += count * ms
+                launch_ms[key][1] += count * lower['bound_ms']
+            print(f'    workspace v {nbytes(v) / 1e9:.3f} GB')
+            del args, x, vecs, packed, v, out
+
         # odd extents, a tile cut from the frame off the stage shapes,
-        # several frames a block, single pixels
-        for n, h, w, c in [(3, 7, 9, 32), (1, 1, 1, 4), (1, 2, 2, 8),
-                           (2, 12, 12, 128), (5, 10, 10, 64), (3, 23, 17, 16),
-                           (7, 5, 5, 512)]:
+        # several frames a block, single pixels; last, C = 20 (a channel
+        # chunk beyond C) with bn1's shift at 20 on a padded line that ends
+        # inside a row tile
+        for n, h, w, c, shift in [
+                (3, 7, 9, 32, 0.0), (1, 1, 1, 4, 0.0), (1, 2, 2, 8, 0.0),
+                (2, 12, 12, 128, 0.0), (5, 10, 10, 64, 0.0),
+                (3, 23, 17, 16, 0.0), (7, 5, 5, 512, 0.0),
+                (3, 9, 11, 20, 20.0)]:
+            args = inputs(n, h, w, c, shift)
+            want = block_ops.bottleneck_ir_fused_ref(*args)
+            for name, fn in kernels.items():
+                compare(f'{name} edge ({n},{h},{w},{c}) b1 shift {shift}',
+                        fn(args, None), want)
+
+        # C = 6 is no multiple of 4: the wrapper raises and the C entry
+        # refuses; W = 895 needs more loads a slice than the producer warp
+        # has lanes: the C entry refuses and the wrapper raises
+        before = block_ops.bottleneck_ir_fused.launches
+        for (n, h, w, c), error in (((2, 5, 5, 6), ValueError),
+                                    ((1, 2, 895, 8), RuntimeError)):
             args = inputs(n, h, w, c)
-            compare(f'bottleneck edge ({n},{h},{w},{c}) tile '
-                    f'{block_ops.choose_tile(n, h, w, c)}',
-                    block_ops.bottleneck_ir_fused(*args),
-                    block_ops.bottleneck_ir_fused_ref(*args))
-    print(f'  bottleneck total over the 21 blocks of a forward: kernel '
-          f'{tot["ms"]:.4f} ms, plain {tot["plain"]:.4f} ms')
-    by_ops = tot['ops_ms'] >= tot['bytes_ms']
-    return {'name': 'bottleneck', 'route': 'cuda',
-            'source': 'fvt_tpu_torch/csrc/bottleneck.cu',
-            'replaces': 'fvt_tpu/ops/bottleneck_pallas.py:122',
-            'max_abs_err': tot['err'], 'ms': tot['ms'],
-            'plain_ms': tot['plain'], 'library_ms': None,
-            'bound_ms': max(tot['ops_ms'], tot['bytes_ms']),
-            'bound_by': 'operations' if by_ops else 'bytes'}
+            try:
+                block_ops.bottleneck_ir_fused(*args)
+            except error as e:
+                print(f'  bottleneck ({n},{h},{w},{c}) refused: {e}')
+            else:
+                fail(f'bottleneck_ir_fused took ({n},{h},{w},{c})')
+        x = args[0]
+        code = build.library().fvt_bottleneck_tf32x3_forward(
+            *([x.data_ptr()] * 12), 2, 5, 5, 6, 64, block_ops.BOTH,
+            torch.cuda.current_stream(device).cuda_stream)
+        if code == 0:
+            fail('the split-TF32 bottleneck entry took C = 6')
+        if block_ops.bottleneck_ir_fused.launches != before:
+            fail('a refused bottleneck counted a launch')
+    print('  bottleneck (split TF32) by launch over the 21 blocks: ' + ', '.join(
+        f'{key} {ms:.4f} ms (bound {b:.4f})'
+        for key, (ms, b) in launch_ms.items())
+        + f'; largest workspace v {workspace_gb:.3f} GB')
+    out = []
+    for name, source in (('bottleneck', 'conv3x3_tf32x3.cu'),
+                         ('bottleneck_simt', 'bottleneck.cu')):
+        t = tot[name]
+        lower = max(t['ops_ms'], t['bytes_ms'])
+        print(f'  {name} total over the 21 blocks of a forward: kernel '
+              f'{t["ms"]:.4f} ms, plain {t["plain"]:.4f} ms, bound '
+              f'{lower:.4f} ms ({lower / t["ms"]:.1%} of it)')
+        out.append({'name': name, 'route': 'cuda',
+                    'source': f'fvt_tpu_torch/csrc/{source}',
+                    'replaces': 'fvt_tpu/ops/bottleneck_pallas.py:122',
+                    'max_abs_err': t['err'], 'ms': t['ms'],
+                    'plain_ms': t['plain'], 'library_ms': None,
+                    'bound_ms': lower,
+                    'bound_by': ('operations' if t['ops_ms'] >= t['bytes_ms']
+                                 else 'bytes')})
+    out[0]['launch_ms'] = {key: ms for key, (ms, _) in launch_ms.items()}
+    out[0]['launch_bound_ms'] = {key: b for key, (_, b) in launch_ms.items()}
+    out[0]['workspace_gb'] = workspace_gb
+    return out
 
 
 def conv_counters() -> dict:
-    from fvt_tpu_torch.ops.bottleneck import bottleneck_ir_fused
+    from fvt_tpu_torch.ops.bottleneck import (bottleneck_ir_fused,
+                                              bottleneck_ir_fused_simt)
     from fvt_tpu_torch.ops.conv import conv3x3, conv3x3_simt
     from fvt_tpu_torch.ops.winograd import (conv3x3_winograd,
                                             conv3x3_winograd_simt)
     return {'conv3x3': conv3x3, 'conv3x3_simt': conv3x3_simt,
             'winograd': conv3x3_winograd,
             'winograd_simt': conv3x3_winograd_simt,
-            'bottleneck': bottleneck_ir_fused}
+            'bottleneck': bottleneck_ir_fused,
+            'bottleneck_simt': bottleneck_ir_fused_simt}
 
 
 def read_launches(counters: dict) -> dict:
@@ -961,10 +1064,11 @@ def zero_launches(counters: dict) -> None:
 
 def backbone_variants(model, crops: torch.Tensor, device) -> dict:
     """Phase 5, the backbone alone: each conv path on the same frames and
-    weights against the default path; then ``shifted_kernel`` (the
-    split-TF32 kernel) and ``cudnn`` timed again, in turns.  Returns the
-    launches of each conv kernel over its path's one checked forward
-    (``conv3x3_simt``'s over all of them: none)."""
+    weights against the default path; then ``fused_blocks`` on
+    ``shifted_kernel``, ``shifted_kernel`` (the split-TF32 kernels) and
+    ``cudnn`` timed again, in turns.  Returns the launches of each conv
+    kernel over its own path's one checked forward (the SIMT kernels' over
+    all of them: none)."""
     from fvt_tpu_torch.models.arcface import VisualBackbone
 
     counters = conv_counters()
@@ -975,9 +1079,14 @@ def backbone_variants(model, crops: torch.Tensor, device) -> dict:
                  {'conv3x3': 45, 'conv3x3_fp32': 45}),
                 ('winograd_kernel', {'conv_impl': 'winograd_kernel'},
                  {'winograd': 45}),
-                ('fused_blocks', {'fused_blocks': True}, {'bottleneck': 21})]
-    ref, out_launches, nets = None, {'conv3x3_simt': 0,
-                                     'winograd_simt': 0}, {}
+                ('fused_blocks', {'fused_blocks': True}, {'bottleneck': 21}),
+                # the 21 identity blocks fused, the other three stride-1
+                # convs (each stage's first conv1) on the split-TF32 conv
+                ('fused_blocks+shifted_kernel',
+                 {'fused_blocks': True, 'conv_impl': 'shifted_kernel'},
+                 {'bottleneck': 21, 'conv3x3': 3, 'conv3x3_fp32': 3})]
+    ref, out_launches, nets = None, {'conv3x3_simt': 0, 'winograd_simt': 0,
+                                     'bottleneck_simt': 0}, {}
     with torch.inference_mode():
         for name, kw, expect in variants:
             net = VisualBackbone(**kw).eval()
@@ -991,8 +1100,8 @@ def backbone_variants(model, crops: torch.Tensor, device) -> dict:
             if launches != want:
                 fail(f'backbone {name}: launches {launches}, expected '
                      f'{want} a forward')
-            for k, v in expect.items():
-                out_launches[k] = v
+            for k, v in expect.items():  # each kernel's own path first
+                out_launches.setdefault(k, v)
             if ref is None:
                 ref = out
             err = (out - ref).abs().max().item()
@@ -1006,10 +1115,12 @@ def backbone_variants(model, crops: torch.Tensor, device) -> dict:
             if not ok or err > EMBED_ATOL:
                 fail(f'backbone {name}: embeddings {tuple(out.shape)} differ '
                      f'from the default path\'s by {err}')
-            if name in ('cudnn', 'shifted_kernel'):
+            if name in ('cudnn', 'shifted_kernel',
+                        'fused_blocks+shifted_kernel'):
                 nets[name] = net
             del net
-        for name in ('shifted_kernel', 'cudnn'):
+        for name in ('fused_blocks+shifted_kernel', 'shifted_kernel',
+                     'cudnn'):
             net = nets[name]
             ms = median_ms(lambda: net(crops), CONV_RUNS, warmup=1)
             print(f'  backbone {name} on {frames} frames, again: {ms:.2f} ms, '
@@ -1049,7 +1160,7 @@ def backbone_bf16(model, crops: torch.Tensor, device) -> int:
         launches = read_launches(counters)
         if launches != {'conv3x3': 45, 'conv3x3_bf16': 45, 'conv3x3_fp32': 0,
                         'conv3x3_simt': 0, 'winograd': 0, 'winograd_simt': 0,
-                        'bottleneck': 0}:
+                        'bottleneck': 0, 'bottleneck_simt': 0}:
             fail(f'bf16 backbone shifted_kernel: launches {launches}, '
                  f'expected 45 of the bfloat16 conv kernel a forward')
         plain = nets['bf16 shifted_kernel'](crops, reference=True)
@@ -1367,7 +1478,7 @@ def main() -> int:
     kernels = check_kernels(model, device)
     kernels += check_train_kernels(device)
     kernels += check_conv_kernels(device)
-    kernels.append(check_bottleneck_kernel(device))
+    kernels += check_bottleneck_kernel(device)
     print(f'phase 2, bfloat16: the tensor-core conv kernel vs its plain '
           f'version and F.conv2d on bfloat16 tensors (|got - want| <= '
           f'{BF16_RTOL} |want| + {BF16_ATOL}: one unit in the last place; '
@@ -1428,23 +1539,29 @@ def main() -> int:
     by_name['conv3x3']['launches'] = launches['conv3x3_fp32']
     by_name['conv3x3_simt']['launches'] = launches['conv3x3_simt']
     by_name['winograd_simt']['launches'] = launches['winograd_simt']
+    by_name['bottleneck_simt']['launches'] = launches['bottleneck_simt']
     by_name['bottleneck']['launches'] = serve_variant(
         model, {'fused_blocks': True}, 'bottleneck', 21, streams, device)[0]
+    _, fused = serve_variant(
+        model, {'fused_blocks': True, 'conv_impl': 'shifted_kernel'},
+        'bottleneck', 21, streams, device,
+        by_type={'conv3x3': 3, 'conv3x3_fp32': 3})
     by_name['winograd']['launches'], winograd = serve_variant(
         model, {'conv_impl': 'winograd_kernel'}, 'winograd', 45, streams,
         device)
     # the fp32 shifted_kernel LFAN (the split-TF32 kernel) served, then
-    # both split-TF32 LFANs timed against the default in turns
+    # the three split-TF32 LFANs timed against the default in turns
     _, shifted = serve_variant(
         model, {'conv_impl': 'shifted_kernel'}, 'conv3x3', 45, streams,
         device, by_type={'conv3x3_fp32': 45})
     servers = {'cudnn': ServingModel(model, WINDOW_BATCH, WINDOW, HOP,
                                      device), 'shifted_kernel': shifted,
+               'fused_blocks+shifted_kernel': fused,
                'winograd_kernel': winograd}
-    for impl in ('cudnn', 'shifted_kernel', 'winograd_kernel',
-                 'winograd_kernel', 'shifted_kernel', 'cudnn'):
+    turns = list(servers)
+    for impl in turns + turns[::-1]:
         time_dispatches(f'fp32 backbone, {impl}', servers[impl], inputs)
-    del servers, shifted, winograd
+    del servers, shifted, fused, winograd
 
     print('phase 5, bfloat16: the backbone in bfloat16 (fvt_tpu\'s --amp), '
           'alone and served')

@@ -266,10 +266,13 @@ class BottleneckIR(nn.Module):
         self._fused = None
 
     def fused_weights(self) -> tuple:
-        """(w1, w2, a1, b1, alpha, a2, b2) for the fused block: HWIO
-        kernels and the folded eval BatchNorms.  Derived once and kept;
-        dropped and derived again when any parameter or running statistic
-        of the block is replaced or written in place."""
+        """(w1, w2, a1, b1, alpha, a2, b2, packed) for the fused block:
+        HWIO kernels, the folded eval BatchNorms and the PReLU slopes, and
+        both kernels split and packed for the CUDA kernel
+        (``ops.bottleneck.pack_block_weights``; None where it does not take
+        the width).  Derived once and kept; dropped and derived again when
+        any parameter or running statistic of the block is replaced or
+        written in place."""
         bn1, conv1, prelu, conv2, bn2 = self.res_layer
         stamp = _stamp(conv1.weight, conv2.weight, prelu.weight,
                        *(t for bn in (bn1, bn2) for t in
@@ -280,9 +283,11 @@ class BottleneckIR(nn.Module):
                 affine = [bottleneck_ops.bn_affine(
                     bn.weight, bn.bias, bn.running_mean, bn.running_var,
                     bn.eps) for bn in (bn1, bn2)]
-                derived = (conv1.kernel_weights()[0],
-                           conv2.kernel_weights()[0], *affine[0],
-                           prelu.weight.detach(), *affine[1])
+                w1, w2 = (conv.kernel_weights()[0] for conv in (conv1, conv2))
+                packed = (None if w1.shape[2] % 4
+                          else bottleneck_ops.pack_block_weights(w1, w2))
+                derived = (w1, w2, *affine[0], prelu.weight.detach(),
+                           *affine[1], packed)
             self._fused = (stamp, derived)
         return self._fused[1]
 
@@ -293,11 +298,15 @@ class BottleneckIR(nn.Module):
         ``fusable``; ``reference=True`` runs the kernels' plain versions."""
         check_dtype(self.dtype, fused_blocks=fused)
         if fused and self.fusable:
-            fn = (bottleneck_ops.bottleneck_ir_fused_ref if reference
-                  else bottleneck_ops.bottleneck_ir_fused)
             conv_ops.refuse_grad('BottleneckIR(fused)', x,
                                  *self.res_layer.parameters())
-            return fn(_nhwc(x), *self.fused_weights()).permute(0, 3, 1, 2)
+            *args, packed = self.fused_weights()
+            if reference:
+                y = bottleneck_ops.bottleneck_ir_fused_ref(_nhwc(x), *args)
+            else:
+                y = bottleneck_ops.bottleneck_ir_fused(_nhwc(x), *args,
+                                                       packed=packed)
+            return y.permute(0, 3, 1, 2)
         if self.shortcut_layer is None:
             shortcut = x[:, :, ::self.stride, ::self.stride]
         else:

@@ -1,22 +1,29 @@
-"""Fused eval-mode identity BottleneckIR block: CUDA kernel and plain
-version.
+"""Fused eval-mode identity BottleneckIR block: CUDA kernels and plain
+versions.
 
 Counterpart of ``fvt_tpu/ops/bottleneck_pallas.py::bottleneck_ir_fused``.
-One pass over ``x (N, H, W, C)`` computes the whole stride-1 block whose
-input and output widths agree,
+For ``x (N, H, W, C)`` it computes the whole stride-1 block whose input
+and output widths agree,
 
     bn1 -> conv1 (3x3) -> PReLU -> conv2 (3x3) -> bn2 -> (+ x)
 
-with both BatchNorms folded to per-channel affines (:func:`bn_affine`) and
-neither intermediate written to device memory.  conv1's input outside the
-image is 0 (bn1 comes before the zero pad) and so is conv2's.  Layouts
-follow the JAX package: NHWC activations, HWIO kernels ``(3, 3, C, C)``.
+with both BatchNorms folded to per-channel affines (:func:`bn_affine`).
+conv1's input outside the image is 0 (bn1 comes before the zero pad) and
+so is conv2's.  Layouts follow the JAX package: NHWC activations, HWIO
+kernels ``(3, 3, C, C)``.
 
 :func:`bottleneck_ir_fused` runs :func:`bottleneck_ir_fused_ref` for a
-tensor on the CPU; for a CUDA tensor it launches the kernel of
-``csrc/bottleneck.cu`` or raises (it takes every shape whose tile fits in
-shared memory, see :func:`choose_tile`; there is no other path).
-``bottleneck_ir_fused.launches`` counts kernel launches.  Eval only.
+tensor on the CPU; for a float32 CUDA tensor it launches
+``fvt_bottleneck_tf32x3_forward`` (``csrc/conv3x3_tf32x3.cu``) or raises:
+two launches of the split-TF32 ``wgmma`` conv that ``ops.conv.conv3x3``
+launches, conv1 with bn1 applied where x is split and PReLU in its store,
+into a workspace v in device memory, then conv2 with bn2 and the residual
+in its store.  :func:`bottleneck_ir_fused_tf32x3_ref` emulates what it
+computes, :func:`bn1_line` what conv1 stages.
+``bottleneck_ir_fused.launches`` counts its calls on the card, one for
+the two launches.  :func:`bottleneck_ir_fused_simt`, the earlier kernel
+on the CUDA cores (``csrc/bottleneck.cu``, one launch, v kept in shared
+memory), stays for measurements: no model path calls it.  Eval only.
 """
 from __future__ import annotations
 
@@ -27,14 +34,10 @@ import torch
 import torch.nn.functional as F
 
 from fvt_tpu_torch.kernels import build
+from fvt_tpu_torch.ops import conv as conv_ops
 from fvt_tpu_torch.ops.conv import refuse_grad
 
 BN_EPS = 1e-5
-ROW_GROUPS = (16, 8, 4)   # a block's 256 threads: rg row groups of pixels by
-                          # 256 / rg column groups of 4 output channels
-MAX_SLOTS = 16            # pixels a thread may own
-CHUNK = 8                 # input channels staged per step (csrc/bottleneck.cu)
-MAX_SMEM_FLOATS = 227 * 1024 // 4
 
 
 def bn_affine(weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
@@ -61,6 +64,153 @@ def bottleneck_ir_fused_ref(x: torch.Tensor, w1: torch.Tensor,
     u = _conv(x * a1 + b1, w1)
     v = torch.where(u > 0, u, alpha * u)
     return (_conv(v, w2) * a2 + b2 + x).contiguous()
+
+
+# the split-TF32 conv's row tile and TMA load (kBM, kLoad in
+# csrc/wgmma_common.cuh), in padded coordinates
+ROW_TILE, LOAD = 256, 128
+
+
+def bn1_line(x: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor
+             ) -> torch.Tensor:
+    """conv1's input as the split-TF32 kernel stages it, bn1 applied where
+    it splits: the padded line of ``Q = N*(H+1)*(W+1)`` coordinates (per
+    frame the rows -1 .. H-1 by the columns -1 .. W-1, so one pad row above
+    each frame's image, which is also the pad row below the frame before,
+    and one pad column left of each row, which is also the pad right of the
+    row before), run on to the last coordinate the last row tile stages,
+    by ``ceil(C/8)*8`` channels.  A value is ``a1*x + b1`` where the
+    coordinate is an image pixel and exactly 0 elsewhere, by the kernel's
+    own test: ``q < Q``, the row and the column on the line not 0, the
+    channel below C.  Returns ``(L, ceil(C/8)*8)``, L the staged extent:
+    ``(tiles - 1) * ROW_TILE + P``."""
+    n, h, w, c = x.shape
+    w1, frame = w + 1, (h + 1) * (w + 1)
+    q_all = n * frame
+    p = -(-(ROW_TILE + 2 * w1 + 2) // LOAD) * LOAD
+    tiles = -(-(q_all - (w + 2)) // ROW_TILE)
+    q = torch.arange((tiles - 1) * ROW_TILE + p, device=x.device)
+    rem = q % frame
+    row, col = rem // w1, rem % w1
+    pixel = (q < q_all) & (row != 0) & (col != 0)
+    at = ((q // frame * h + row - 1) * w + col - 1)[pixel]
+    line = x.new_zeros((q.numel(), -(-c // 8) * 8))
+    line[pixel, :c] = (x * a1 + b1).reshape(-1, c)[at]
+    return line
+
+
+def bottleneck_ir_fused_tf32x3_ref(x: torch.Tensor, w1: torch.Tensor,
+                                   w2: torch.Tensor, a1: torch.Tensor,
+                                   b1: torch.Tensor, alpha: torch.Tensor,
+                                   a2: torch.Tensor,
+                                   b2: torch.Tensor) -> torch.Tensor:
+    """What the split-TF32 kernel computes, emulated on float32 tensors:
+    conv1 on the image pixels of :func:`bn1_line` (``a1*x + b1``, zero
+    padded), both convs as ``ops.conv.conv3x3_tf32x3_ref`` (three TF32
+    products, ``lo*lo`` dropped, summed in float32), PReLU, then ``(r*a2 +
+    b2) + x``.  The kernel rounds the affines' products and sums apart, as
+    here; its sums run in another order (per 8-channel slice, then over
+    the slices)."""
+    n, h, w, c = x.shape
+    t = bn1_line(x, a1, b1)[:n * (h + 1) * (w + 1)]
+    t = t.reshape(n, h + 1, w + 1, -1)[:, 1:, 1:, :c]
+    u = conv_ops.conv3x3_tf32x3_ref(t, w1)
+    v = torch.where(u > 0, u, alpha * u)
+    return (conv_ops.conv3x3_tf32x3_ref(v, w2) * a2 + b2 + x).contiguous()
+
+
+# the column tile of the block's launches: their second accumulator fits
+# a thread's registers at 64 output channels only (csrc/conv3x3_tf32x3.cu)
+BLOCK_BN = 64
+
+
+def pack_block_weights(w1: torch.Tensor, w2: torch.Tensor) -> tuple:
+    """``((w1_hi, w1_lo), (w2_hi, w2_lo))``: both convs' kernels as the
+    split-TF32 kernel reads them at column tiles of :data:`BLOCK_BN`
+    (``ops.conv.pack_weights_tf32``).  A module derives them once and
+    keeps them; :func:`bottleneck_ir_fused` derives them per call
+    otherwise."""
+    return tuple(conv_ops.pack_weights_tf32(w, BLOCK_BN) for w in (w1, w2))
+
+
+# the launches of the CUDA entry, a bit each
+CONV1, CONV2 = 1, 2
+BOTH = CONV1 | CONV2
+
+
+def _check_call(name: str, x: torch.Tensor, *rest: torch.Tensor) -> None:
+    refuse_grad(name, x, *rest)
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'no kernel for device {x.device}')
+    if x.device.type == 'cuda' and x.shape[3] % 4:
+        raise ValueError(f'C {x.shape[3]}: {name} takes a multiple of 4')
+
+
+def launch_tf32x3(x: torch.Tensor, packed: tuple, vecs: tuple,
+                  v: torch.Tensor, out: torch.Tensor,
+                  stages: int = BOTH) -> None:
+    """Launches the ``stages`` of the split-TF32 block on the current
+    stream: conv1 x -> v (bn1, PReLU), conv2 v -> out (bn2, + x).
+    ``packed`` as :func:`pack_block_weights` returns it, ``vecs`` ``(a1,
+    b1, alpha, a2, b2)``.  Checks every tensor and raises on a CUDA error;
+    counts nothing (a measurement may launch one conv alone)."""
+    n, h, w, c = x.shape
+    bn = BLOCK_BN
+    shape = (-(-c // bn), -(-c // 8), 9, 2, bn // 8, 8, 4)
+    tensors = [('x', x, (n, h, w, c)), ('v', v, (n, h, w, c)),
+               ('out', out, (n, h, w, c))]
+    tensors += [(f'packed w{i + 1} {part}', t, shape)
+                for i, pair in enumerate(packed)
+                for part, t in zip(('hi', 'lo'), pair)]
+    tensors += [(name, t, (c,)) for name, t in zip(
+        ('a1', 'b1', 'alpha', 'a2', 'b2'), vecs)]
+    for name, t, want in tensors:
+        build.check_tensor(name, t, want, x.device)
+    err = build.library().fvt_bottleneck_tf32x3_forward(
+        x.data_ptr(), *(t.data_ptr() for pair in packed for t in pair),
+        *(t.data_ptr() for t in vecs), v.data_ptr(), out.data_ptr(), n, h,
+        w, c, bn, stages, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f'bottleneck split-TF32 kernel (N={n}, H={h}, W={w}, '
+                     f'C={c}, stages={stages})')
+
+
+def bottleneck_ir_fused(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                        a1: torch.Tensor, b1: torch.Tensor,
+                        alpha: torch.Tensor, a2: torch.Tensor,
+                        b2: torch.Tensor,
+                        packed: Optional[tuple] = None) -> torch.Tensor:
+    """x (N, H, W, C) float32; w1, w2 HWIO (3, 3, C, C); a1, b1 the
+    affine of bn1, alpha the PReLU slopes, a2, b2 the affine of bn2, all
+    (C).  Returns (N, H, W, C), a new tensor.  ``packed``:
+    ``pack_block_weights(w1, w2)`` when the caller keeps it, read in place
+    of w1 and w2; derived here otherwise.  On the card the workspace v
+    (N, H, W, C) comes from the caching allocator."""
+    _check_call('bottleneck_ir_fused', x, w1, w2, a1, b1, alpha, a2, b2)
+    if x.device.type == 'cpu':
+        return bottleneck_ir_fused_ref(x, w1, w2, a1, b1, alpha, a2, b2)
+    if packed is None:
+        c = x.shape[3]
+        for name, k in (('w1', w1), ('w2', w2)):
+            build.check_tensor(name, k, (3, 3, c, c), x.device)
+        packed = pack_block_weights(w1, w2)
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    launch_tf32x3(x, packed, (a1, b1, alpha, a2, b2), torch.empty_like(x),
+                  out)
+    bottleneck_ir_fused.launches += 1
+    return out
+
+
+bottleneck_ir_fused.launches = 0
+
+
+# the CUDA-core kernel (csrc/bottleneck.cu), bottleneck_ir_fused_simt
+ROW_GROUPS = (16, 8, 4)   # a block's 256 threads: rg row groups of pixels by
+                          # 256 / rg column groups of 4 output channels
+MAX_SLOTS = 16            # pixels a thread may own
+CHUNK = 8                 # input channels staged per step (csrc/bottleneck.cu)
+MAX_SMEM_FLOATS = 227 * 1024 // 4
 
 
 # (H, W, C) -> the tile measured fastest on an NVIDIA H100 at N = 2400
@@ -125,29 +275,28 @@ def choose_tile(n: int, h: int, w: int, c: int) -> Tuple[int, int, int, int]:
                     if best_cost is None or cost < best_cost:
                         best, best_cost = (tf, th, tw, rg), cost
     if best is None:
-        raise ValueError(f'bottleneck_ir_fused: no tile of a {h}x{w}x{c} '
+        raise ValueError(f'bottleneck_ir_fused_simt: no tile of a {h}x{w}x{c} '
                          f'frame fits the kernel\'s shared memory')
     return best
 
 
-def bottleneck_ir_fused(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-                        a1: torch.Tensor, b1: torch.Tensor,
-                        alpha: torch.Tensor, a2: torch.Tensor,
-                        b2: torch.Tensor,
-                        tile: Optional[Tuple[int, int, int, int]] = None
-                        ) -> torch.Tensor:
-    """x (N, H, W, C) float32; w1, w2 HWIO (3, 3, C, C); a1, b1 the
-    affine of bn1, alpha the PReLU slopes, a2, b2 the affine of bn2, all
-    (C).  Returns (N, H, W, C), a new tensor.  ``tile`` overrides
-    :func:`choose_tile` (for measurements)."""
-    refuse_grad('bottleneck_ir_fused', x, w1, w2, a1, b1, alpha, a2, b2)
+def bottleneck_ir_fused_simt(x: torch.Tensor, w1: torch.Tensor,
+                             w2: torch.Tensor, a1: torch.Tensor,
+                             b1: torch.Tensor, alpha: torch.Tensor,
+                             a2: torch.Tensor, b2: torch.Tensor,
+                             tile: Optional[Tuple[int, int, int, int]] = None
+                             ) -> torch.Tensor:
+    """The earlier fused kernel, on the CUDA cores (``csrc/bottleneck.cu``,
+    one launch, v kept in shared memory), kept to be timed beside
+    :func:`bottleneck_ir_fused`'s: no model path calls it.  The arguments
+    are :func:`bottleneck_ir_fused`'s; ``tile`` overrides
+    :func:`choose_tile` (for measurements).  The plain version on the CPU;
+    ``bottleneck_ir_fused_simt.launches`` counts its launches."""
+    _check_call('bottleneck_ir_fused_simt', x, w1, w2, a1, b1, alpha, a2,
+                b2)
     if x.device.type == 'cpu':
         return bottleneck_ir_fused_ref(x, w1, w2, a1, b1, alpha, a2, b2)
-    if x.device.type != 'cuda':
-        raise ValueError(f'no kernel for device {x.device}')
     n, h, w, c = x.shape
-    if c % 4:
-        raise ValueError(f'C {c}: the kernel takes a multiple of 4')
     build.check_tensor('x', x, (n, h, w, c), x.device)
     for name, arr in (('w1', w1), ('w2', w2)):
         build.check_tensor(name, arr, (3, 3, c, c), x.device)
@@ -162,10 +311,10 @@ def bottleneck_ir_fused(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
         x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
         *(arr.data_ptr() for _, arr in vecs), out.data_ptr(), n, h, w, c,
         tf, th, tw, rg, torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, f'bottleneck kernel (N={n}, H={h}, W={w}, C={c}, '
+    build.check(err, f'bottleneck SIMT kernel (N={n}, H={h}, W={w}, C={c}, '
                      f'tile={tf}x{th}x{tw}, row groups={rg})')
-    bottleneck_ir_fused.launches += 1
+    bottleneck_ir_fused_simt.launches += 1
     return out
 
 
-bottleneck_ir_fused.launches = 0
+bottleneck_ir_fused_simt.launches = 0

@@ -10,7 +10,8 @@ the card's name and power limit and then one JSON line:
 * default: the whole frozen backbone on ``--frames`` 40x40 crops (random
   weights from seed 0) for each path: ``cudnn`` (PyTorch's conv2d),
   ``winograd`` (plain PyTorch Winograd), ``winograd_kernel``,
-  ``shifted_kernel`` and ``fused_blocks``; ms, frames/s, the share of the
+  ``shifted_kernel``, ``fused_blocks`` and ``fused_blocks`` with
+  ``shifted_kernel``; ms, frames/s, the share of the
   fp32 peak the model's operations reach, and the largest difference of
   the embeddings from ``cudnn``'s; with ``--kernels`` also where a
   forward's device time goes on each path (``torch.profiler`` over three
@@ -22,10 +23,13 @@ the card's name and power limit and then one JSON line:
   tensor cores, and the earlier one on the CUDA cores) and the
   shifted-products kernel;
 * ``--bottleneck``: one identity BottleneckIR block at the four stage
-  shapes, the eval block on cuDNN against the fused kernel; with
-  ``--tiles`` also the fused kernel and the shifted-products kernel over
-  a set of block tiles, which is where ``ops.bottleneck.MEASURED_TILES``
-  comes from.
+  shapes, the eval block on cuDNN against the fused block's split-TF32
+  kernel (the ``fused_blocks`` path; on the card also each of its two
+  launches alone, and the plain split-TF32 conv at its own column tile
+  and at the block's) and the earlier CUDA-core kernel
+  (``bottleneck_ir_fused_simt``); with ``--tiles`` also the CUDA-core
+  fused kernel and the CUDA-core conv kernel over a set of block tiles,
+  which is where ``ops.bottleneck.MEASURED_TILES`` comes from.
 
 float32 with TF32 off, or with ``--dtype bfloat16`` (the whole-backbone
 and ``--stages`` modes) the backbone's bfloat16 compute type, ``--amp`` in
@@ -154,7 +158,9 @@ def bench_backbone(frames: int, iters: int, device: torch.device,
     variants = [('cudnn', {}), ('winograd', {'conv_impl': 'winograd'}),
                 ('winograd_kernel', {'conv_impl': 'winograd_kernel'}),
                 ('shifted_kernel', {'conv_impl': 'shifted_kernel'}),
-                ('fused_blocks', {'fused_blocks': True})]
+                ('fused_blocks', {'fused_blocks': True}),
+                ('fused_blocks+shifted_kernel',
+                 {'fused_blocks': True, 'conv_impl': 'shifted_kernel'})]
     results, ref = {}, None
     with torch.inference_mode():
         if dtype != 'float32':
@@ -232,6 +238,7 @@ def bench_stages(frames: int, iters: int, device: torch.device,
 
 def bench_bottleneck(frames: int, iters: int, device: torch.device,
                      tiles: bool) -> dict:
+    from fvt_tpu_torch.kernels import build
     from fvt_tpu_torch.ops import bottleneck as block_ops
     from fvt_tpu_torch.ops import conv as conv_ops
 
@@ -249,35 +256,66 @@ def bench_bottleneck(frames: int, iters: int, device: torch.device,
             args = (x, w1, w2, vec(0.2, 1.0), vec(0.2, 0.0), vec(0.1, 0.25),
                     vec(0.2, 1.0), vec(0.2, 0.0))
             flops = 2.0 * 2 * 9 * frames * h * h * c * c
+            packed = block_ops.pack_block_weights(w1, w2)
             want = block_ops.bottleneck_ir_fused_ref(*args)
-            got = block_ops.bottleneck_ir_fused(*args)
+            got = block_ops.bottleneck_ir_fused(*args, packed=packed)
             row = {
-                'tile': list(block_ops.choose_tile(frames, h, h, c)),
                 'plain_cudnn': _rate(flops, median_ms(
                     lambda: block_ops.bottleneck_ir_fused_ref(*args), iters,
                     device), device),
                 'fused': _rate(flops, median_ms(
-                    lambda: block_ops.bottleneck_ir_fused(*args), iters,
-                    device), device),
+                    lambda: block_ops.bottleneck_ir_fused(
+                        *args, packed=packed), iters, device), device),
                 'rel_err': float((got - want).abs().max()
                                  / want.abs().max())}
+            if device.type == 'cuda':
+                # the split-TF32 kernel's two launches, each alone; beside
+                # them the plain split-TF32 conv of x by w1 (no prologue or
+                # epilogue, one accumulator) at its own column tile and at
+                # the block's
+                v, y = torch.empty_like(x), torch.empty_like(x)
+                for key, stage in (('conv1', block_ops.CONV1),
+                                   ('conv2', block_ops.CONV2)):
+                    row[f'fused_{key}_ms'] = round(median_ms(
+                        lambda: block_ops.launch_tf32x3(
+                            x, packed, args[3:], v, y, stage), iters,
+                        device), 4)
+                own = conv_ops.pack_weights_tf32(w1)
+                row['conv_ms'] = round(median_ms(
+                    lambda: conv_ops.conv3x3(x, w1, packed=own), iters,
+                    device), 4)
+                stream = torch.cuda.current_stream(device).cuda_stream
+
+                def conv_block_bn():
+                    build.check(build.library().fvt_conv3x3_tf32x3_forward(
+                        x.data_ptr(), packed[0][0].data_ptr(),
+                        packed[0][1].data_ptr(), y.data_ptr(), frames, h, h,
+                        c, c, block_ops.BLOCK_BN, stream), 'conv3x3')
+
+                row[f'conv_bn{block_ops.BLOCK_BN}_ms'] = round(median_ms(
+                    conv_block_bn, iters, device), 4)
+                del v, y, own
+                row['simt_tile'] = list(block_ops.choose_tile(frames, h, h, c))
+                row['fused_simt'] = _rate(flops, median_ms(
+                    lambda: block_ops.bottleneck_ir_fused_simt(*args), iters,
+                    device), device)
             if tiles and device.type == 'cuda':
                 fits = [t for t in BLOCK_TILES[h] if t[0] <= frames
                         and block_ops.conv1_pixels(*t[:3], h, h)
                         <= block_ops.MAX_SLOTS * t[3]
                         and block_ops.smem_floats(*t, c)
                         <= block_ops.MAX_SMEM_FLOATS]
-                row['fused_by_tile'] = {
+                row['fused_simt_by_tile'] = {
                     'x'.join(map(str, t)): round(median_ms(
-                        lambda: block_ops.bottleneck_ir_fused(*args, tile=t),
-                        iters, device), 4) for t in fits}
+                        lambda: block_ops.bottleneck_ir_fused_simt(
+                            *args, tile=t), iters, device), 4) for t in fits}
                 row['shifted_kernel_by_tile'] = {
                     'x'.join(map(str, t)): round(median_ms(
                         lambda: conv_ops.conv3x3_simt(x, w1, tile=t), iters,
                         device), 4)
                     for t in CONV_TILES[h] if t[0] <= frames}
             out[f'{h}x{h}x{c}'] = row
-            del x, w1, w2, args, want, got
+            del x, w1, w2, args, want, got, packed
     return out
 
 
