@@ -8,8 +8,12 @@ Phases, each of which raises on failure (exit code 1):
 
 1. build the CUDA kernels of ``fvt_tpu_torch/csrc`` with nvcc;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main paths give it: the eval TCN block at all 12 block
-   shapes of the tri-modal LFAN at (8, 300), the fusion block at (8, 300,
+   shapes the main paths give it: the eval TCN block (the split-TF32
+   tensor-core kernel that serving launches, its launches also timed
+   each, and the earlier CUDA-core kernel ``fused_temporal_block_simt``,
+   on no path) at all 12 block shapes of the tri-modal LFAN at (8, 300),
+   plus edge shapes and the mfcc width Cin = 39, and its refusal of
+   shapes it does not take; the fusion block at (8, 300,
    {128, 32, 128}), and the train-mode TCN block (forward output and the
    backward's six results, against autograd of the plain version) at the
    8 block shapes of the ``vggish+bert`` LFAN at (16, 300) with dropout
@@ -36,7 +40,8 @@ Phases, each of which raises on failure (exit code 1):
    ``fvt_tpu_torch.streaming`` server core over a full-width tri-modal
    LFAN (``video+vggish+bert``, random init from seed 0); check every
    frame's logits against an offline stitch of the plain-version forward
-   and the kernels' launch counts; time full (8, 300) dispatches;
+   and the kernels' launch counts (12 eval TCN blocks and one fusion a
+   dispatch); time full (8, 300) dispatches;
 4. train a full-width ``vggish+bert`` LFAN for 10 steps at (16, 300)
    through ``Trainer`` with the fused train kernels; check the losses and
    final parameters against the same steps on the plain versions, that a
@@ -370,17 +375,50 @@ def check_train_kernels(device, k: int = 5) -> list:
     ]
 
 
+def tcn_block_bounds(x, w: dict, out, k: int) -> tuple:
+    """The eval TCN block's (operations, bytes) over the card's rates, in
+    ms, for (the split-TF32 kernel, the SIMT kernel).  Operations: both
+    convs and the downsample, three TF32 products a multiply at the TF32
+    peak for the first, one at the fp32 peak for the second; bytes: x,
+    the weights each reads (the kept packed parts; the plain weights), the
+    biases and the output."""
+    cin, cout = x.shape[-1], out.shape[-1]
+    flops = 2.0 * x.shape[0] * x.shape[1] * cout * (
+        k * (cin + cout) + (cin if w['wd'] is not None else 0))
+    vecs = nbytes(w['b1'], w['b2'], w['bd'], x, out)
+    packed = nbytes(*(t for pair in w['packed'] if pair is not None
+                      for t in pair))
+    plain = nbytes(w['w1'], w['w2'], w['wd'])
+    return ((3 * flops / PEAK_FLOPS_TF32 * 1e3,
+             (vecs + packed) / PEAK_BYTES * 1e3),
+            (flops / PEAK_FLOPS * 1e3, (vecs + plain) / PEAK_BYTES * 1e3))
+
+
 def check_kernels(model, device) -> list:
     """Phase 2: each kernel against its plain version at the serving
-    path's shapes, on inputs that flow through the model's own weights."""
-    from fvt_tpu_torch.models.layers import fold_batchnorm
+    path's shapes, on inputs that flow through the model's own weights.
+    The eval TCN block: the split-TF32 kernel (``fused_temporal_block``,
+    on the weights the model keeps packed) and the earlier CUDA-core
+    kernel (``fused_temporal_block_simt``, timed, on no path) at the 12
+    blocks, each launch of the first also timed alone, then at edge
+    shapes and Cin = 39; shapes it must refuse."""
+    from fvt_tpu_torch.kernels import build
     from fvt_tpu_torch.ops import fusion as fusion_ops
     from fvt_tpu_torch.ops import tcn as tcn_ops
+    from fvt_tpu_torch.models.layers import fold_batchnorm
 
     g = torch.Generator(device=device).manual_seed(SEED)
     k = model.temporal[MODALITY[0]].kernel_size
-    tcn_err, tcn_ms, tcn_plain_ms = 0.0, 0.0, 0.0
-    tcn_flops, tcn_bytes = 0.0, 0
+    kernels = {'tcn_block': lambda args, kw, w: tcn_ops.fused_temporal_block(
+                   *args, **kw, packed=w['packed']),
+               'tcn_block_simt': lambda args, kw, w:
+                   tcn_ops.fused_temporal_block_simt(*args, **kw)}
+    tot = {name: {key: 0.0 for key in ('err', 'ms', 'ops_ms', 'bytes_ms')}
+           for name in kernels}
+    tcn_plain_ms = 0.0
+    launch_ms = {'conv1': 0.0, 'downsample': 0.0, 'conv2': 0.0}
+    stages = {'conv1': tcn_ops.CONV1, 'downsample': tcn_ops.DOWNSAMPLE,
+              'conv2': tcn_ops.CONV2}
     feats = {}
     with torch.inference_mode():
         for m in MODALITY:
@@ -389,36 +427,63 @@ def check_kernels(model, device) -> list:
             x = torch.randn(WINDOW_BATCH, WINDOW, cin, device=device,
                             generator=g)
             for i, blk in enumerate(net.network):
-                w = blk.kernel_weights()
+                w = blk.eval_weights()
                 args = (x, w['w1'], w['b1'], w['w2'], w['b2'], w['wd'],
                         w['bd'])
                 kw = dict(kernel_size=k, dilation=2 ** i)
                 want = tcn_ops.fused_temporal_block_ref(*args, **kw)
-                got = tcn_ops.fused_temporal_block(*args, **kw)
-                name = (f'tcn_block {m}.{i} ({WINDOW_BATCH},{WINDOW},'
-                        f'{x.shape[-1]})->{want.shape[-1]} d={2 ** i}')
-                tcn_err = max(tcn_err, compare(name, got, want))
-                ms = median_ms(lambda: tcn_ops.fused_temporal_block(
-                    *args, **kw))
+                shape = (f'{m}.{i} ({WINDOW_BATCH},{WINDOW},'
+                         f'{x.shape[-1]})->{want.shape[-1]} d={2 ** i}')
+                errs = {name: compare(f'{name} {shape}', fn(args, kw, w),
+                                      want)
+                        for name, fn in kernels.items()}
                 plain = median_ms(lambda: tcn_ops.fused_temporal_block_ref(
                     *args, **kw))
-                print(f'    kernel {ms:.4f} ms, plain {plain:.4f} ms')
-                tcn_ms += ms
                 tcn_plain_ms += plain
-                cin, cout = x.shape[-1], want.shape[-1]
-                tcn_flops += 2.0 * WINDOW_BATCH * WINDOW * cout * (
-                    k * (cin + cout) + (cin if w['wd'] is not None else 0))
-                tcn_bytes += nbytes(*args, want)
+                bounds = dict(zip(kernels, tcn_block_bounds(x, w, want, k)))
+                for name, fn in kernels.items():
+                    t = tot[name]
+                    ms = median_ms(lambda: fn(args, kw, w))
+                    ops_ms, bytes_ms = bounds[name]
+                    lower = max(ops_ms, bytes_ms)
+                    print(f'    {name}: kernel {ms:.4f} ms, plain '
+                          f'{plain:.4f} ms, bound {lower:.4f} ms by '
+                          f'{"operations" if ops_ms >= bytes_ms else "bytes"}'
+                          f', {lower / ms:.1%} of it')
+                    t['err'] = max(t['err'], errs[name])
+                    t['ms'] += ms
+                    t['ops_ms'] += ops_ms
+                    t['bytes_ms'] += bytes_ms
+                # the split-TF32 kernel's launches, each alone on the same
+                # workspaces
+                xp = tcn_ops.pad_channels(x)
+                h, r, out = (torch.empty(want.shape, device=device)
+                             for _ in range(3))
+                alone = {}
+                for key, stage in stages.items():
+                    if key == 'downsample' and w['wd'] is None:
+                        continue
+                    alone[key] = median_ms(lambda: tcn_ops.launch_tf32x3(
+                        xp, w['packed'], w['b1'], w['b2'], w['bd'], h, r,
+                        out, stages=stage, **kw))
+                    launch_ms[key] += alone[key]
+                print('    tcn_block launches alone: ' + ', '.join(
+                    f'{key} {ms:.4f} ms' for key, ms in alone.items()))
                 x = want.contiguous()
+                del h, r, out
             scale, shift = fold_batchnorm(model.bn[m])
             feats[m] = x * scale + shift
 
         # edge cases the serving shapes do not reach: a row shorter than
-        # the halo, a tile-multiple length, widths off the model's
+        # the halo, a tile-multiple length, widths off the model's, a
+        # dilation whose halo takes 128 rows, and the mfcc width (Cin = 39,
+        # which the split-TF32 kernel takes through zero channels)
         for (b, t, cin, cout, d, ds) in [(2, 7, 64, 64, 8, False),
                                          (3, 32, 48, 128, 4, True),
                                          (1, 1, 20, 8, 1, True),
-                                         (2, 90, 256, 256, 16, False)]:
+                                         (2, 90, 256, 256, 16, False),
+                                         (WINDOW_BATCH, WINDOW, 39, 32, 1,
+                                          True)]:
             x = torch.randn(b, t, cin, device=device, generator=g)
             w1 = torch.randn(k, cin, cout, device=device, generator=g) * 0.1
             w2 = torch.randn(k, cout, cout, device=device, generator=g) * 0.1
@@ -428,9 +493,36 @@ def check_kernels(model, device) -> list:
             args = (x, w1, b1, w2, b2, wd if ds else None,
                     bd if ds else None)
             kw = dict(kernel_size=k, dilation=d)
-            compare(f'tcn_block edge ({b},{t},{cin})->{cout} d={d} ds={ds}',
-                    tcn_ops.fused_temporal_block(*args, **kw),
-                    tcn_ops.fused_temporal_block_ref(*args, **kw))
+            want = tcn_ops.fused_temporal_block_ref(*args, **kw)
+            w = {'packed': None}
+            for name, fn in kernels.items():
+                compare(f'{name} edge ({b},{t},{cin})->{cout} d={d} '
+                        f'ds={ds}', fn(args, kw, w), want)
+
+        # Cout = 12 is no multiple of 8 and d = 64 makes a box of 320
+        # rows: the wrapper raises; the C entry refuses C = 6
+        before = tcn_ops.fused_temporal_block.launches
+        for cout, d in ((12, 1), (16, 64)):
+            x = torch.randn(1, 8, 16, device=device, generator=g)
+            w1 = torch.randn(k, 16, cout, device=device, generator=g)
+            w2 = torch.randn(k, cout, cout, device=device, generator=g)
+            bias = torch.zeros(cout, device=device)
+            wd = None if cout == 16 else torch.zeros(16, cout, device=device)
+            try:
+                tcn_ops.fused_temporal_block(
+                    x, w1, bias, w2, bias, wd, None if wd is None else bias,
+                    kernel_size=k, dilation=d)
+            except ValueError as e:
+                print(f'  tcn_block Cout={cout} d={d} refused: {e}')
+            else:
+                fail(f'fused_temporal_block took Cout={cout}, d={d}')
+        code = build.library().fvt_tcn_block_tf32x3_forward(
+            *([x.data_ptr()] * 13), 1, 8, 6, 8, k, 1, tcn_ops.ALL,
+            torch.cuda.current_stream(device).cuda_stream)
+        if code == 0:
+            fail('the split-TF32 tcn_block entry took C = 6')
+        if tcn_ops.fused_temporal_block.launches != before:
+            fail('a refused tcn_block counted a launch')
 
         fusion = model.fusion
         attn = fusion.layers.self_attn
@@ -461,14 +553,26 @@ def check_kernels(model, device) -> list:
             + 2 * nm * nm * e + (e * nm) ** 2)
         fusion_bytes = nbytes(*args[0], *args[1], *args[2], *args[3:]) \
             + frames * e * nm * 4
-    print(f'  tcn_block total over the 12 blocks: kernel {tcn_ms:.4f} ms, '
-          f'plain {tcn_plain_ms:.4f} ms')
-    return [
-        {'name': 'tcn_block', 'route': 'cuda',
-         'source': 'fvt_tpu_torch/csrc/tcn_block.cu',
-         'replaces': 'fvt_tpu/ops/tcn_pallas.py:35',
-         'max_abs_err': tcn_err, 'ms': tcn_ms, 'plain_ms': tcn_plain_ms,
-         'library_ms': None, **bound(tcn_flops, tcn_bytes)},
+    out = []
+    for name, source in (('tcn_block', 'tcn_block_tf32x3.cu'),
+                         ('tcn_block_simt', 'tcn_block.cu')):
+        t = tot[name]
+        lower = max(t['ops_ms'], t['bytes_ms'])
+        print(f'  {name} total over the 12 blocks: kernel {t["ms"]:.4f} ms, '
+              f'plain {tcn_plain_ms:.4f} ms, bound {lower:.4f} ms '
+              f'({lower / t["ms"]:.1%} of it)')
+        out.append({'name': name, 'route': 'cuda',
+                    'source': f'fvt_tpu_torch/csrc/{source}',
+                    'replaces': 'fvt_tpu/ops/tcn_pallas.py:35',
+                    'max_abs_err': t['err'], 'ms': t['ms'],
+                    'plain_ms': tcn_plain_ms, 'library_ms': None,
+                    'bound_ms': lower,
+                    'bound_by': ('operations' if t['ops_ms'] >= t['bytes_ms']
+                                 else 'bytes')})
+    print('  tcn_block (split TF32) by launch over the 12 blocks: '
+          + ', '.join(f'{key} {ms:.4f} ms' for key, ms in launch_ms.items()))
+    out[0]['launch_ms'] = launch_ms
+    return out + [
         {'name': 'fusion', 'route': 'cuda',
          'source': 'fvt_tpu_torch/csrc/fusion.cu',
          'replaces': 'fvt_tpu/ops/fusion_pallas.py:25',
@@ -1205,13 +1309,15 @@ def serve_variant(model, kw: dict, kernel: str, per_dispatch: int,
     server)."""
     from fvt_tpu_torch.models.models import LFAN
     from fvt_tpu_torch.ops.fusion import fused_multimodal_fusion
-    from fvt_tpu_torch.ops.tcn import fused_temporal_block
+    from fvt_tpu_torch.ops.tcn import (fused_temporal_block,
+                                       fused_temporal_block_simt)
     from fvt_tpu_torch.serve import ServingModel
 
     variant = LFAN(MODALITY, output_dim=7, **kw)
     variant.load_state_dict(model.state_dict(), strict=True)
     server = ServingModel(variant, WINDOW_BATCH, WINDOW, HOP, device)
     counters = dict(conv_counters(), tcn_block=fused_temporal_block,
+                    tcn_block_simt=fused_temporal_block_simt,
                     fusion=fused_multimodal_fusion)
     zero_launches(counters)
     served, dispatches = serve_streams(server, streams)
@@ -1453,7 +1559,8 @@ def main() -> int:
     from fvt_tpu_torch.kernels import build
     from fvt_tpu_torch.models.models import LFAN
     from fvt_tpu_torch.ops.fusion import fused_multimodal_fusion
-    from fvt_tpu_torch.ops.tcn import fused_temporal_block
+    from fvt_tpu_torch.ops.tcn import (fused_temporal_block,
+                                       fused_temporal_block_simt)
     from fvt_tpu_torch.serve import ServingModel
 
     device = torch.device('cuda', 0)
@@ -1489,17 +1596,22 @@ def main() -> int:
     print('phase 3: serving through fvt_tpu_torch.streaming')
     server = ServingModel(model, WINDOW_BATCH, WINDOW, HOP, device)
     streams = make_streams()
-    fused_temporal_block.launches = 0
-    fused_multimodal_fusion.launches = 0
+    counters = {'tcn_block': fused_temporal_block,
+                'tcn_block_simt': fused_temporal_block_simt,
+                'fusion': fused_multimodal_fusion}
+    for fn in counters.values():
+        fn.launches = 0
     served, dispatches = serve_streams(server, streams)
-    launches = (fused_temporal_block.launches,
-                fused_multimodal_fusion.launches)
-    print(f'  {dispatches} dispatches, tcn_block launches {launches[0]}, '
-          f'fusion launches {launches[1]}')
-    if dispatches < 1 or launches != (12 * dispatches, dispatches):
-        fail(f'expected 12 tcn_block and 1 fusion launch per dispatch, got '
-             f'{launches} over {dispatches} dispatches')
-    kernels[0]['launches'], kernels[1]['launches'] = launches
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f'  {dispatches} dispatches, launches {launches}')
+    if dispatches < 1 or launches != {'tcn_block': 12 * dispatches,
+                                      'tcn_block_simt': 0,
+                                      'fusion': dispatches}:
+        fail(f'expected 12 tcn_block, no tcn_block_simt and 1 fusion launch '
+             f'per dispatch, got {launches} over {dispatches} dispatches')
+    by_name = {kernel['name']: kernel for kernel in kernels}
+    for name, n in launches.items():
+        by_name[name]['launches'] = n
 
     want = offline_reference(model, streams, device)
     for n in STREAM_LENGTHS:
@@ -1530,11 +1642,10 @@ def main() -> int:
 
     print(f'phase 4: training {"+".join(TRAIN_MODALITY)} through Trainer')
     train_launches = train_lfan(device)
-    for kernel in kernels[2:4]:
-        kernel['launches'] = train_launches[kernel['name']]
+    for name, n in train_launches.items():
+        by_name[name]['launches'] = n
 
     print('phase 5: the ArcFace backbone\'s conv paths, alone and served')
-    by_name = {kernel['name']: kernel for kernel in kernels}
     launches = backbone_variants(model, crops, device)
     by_name['conv3x3']['launches'] = launches['conv3x3_fp32']
     by_name['conv3x3_simt']['launches'] = launches['conv3x3_simt']

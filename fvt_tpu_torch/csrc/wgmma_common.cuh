@@ -1,10 +1,10 @@
 // PTX helpers of the wgmma kernels (conv3x3_wgmma.cu in bf16,
-// conv3x3_tf32x3.cu and winograd_tf32x3.cu in fp32): mbarriers, the copy
-// engine's bulk, im2col and tiled copies, shared-memory matrix descriptors,
-// the wgmma fences, the split-TF32 rounding and the TF32 wgmma of 64 x 64
-// and 64 x 128 tiles, and the im2col tensor map of an NHWC activation, all
-// for sm_90a.  Each includer gets its own copies (everything lies in an
-// anonymous namespace).
+// conv3x3_tf32x3.cu, winograd_tf32x3.cu and tcn_block_tf32x3.cu in fp32):
+// mbarriers, the copy engine's bulk, im2col and tiled copies, shared-memory
+// matrix descriptors, the wgmma fences, the split-TF32 rounding and the
+// TF32 wgmma of 64 x 64 and 64 x 128 tiles, the im2col tensor map
+// of an NHWC activation and a 3-d tiled tensor map, all for sm_90a.  Each
+// includer gets its own copies (everything lies in an anonymous namespace).
 #pragma once
 
 #include <cuda.h>
@@ -229,6 +229,32 @@ cudaError_t make_x_map(const void* x, int N, int H, int W, int C,
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   const CUresult res = encode(
       map, type, 4, (void*)x, dims, strides, lower, upper, chunk, kLoad,
+      ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The 3-d tiled tensor map of a (planes, rows, C) fp32 tensor, contiguous,
+// C a multiple of 4: boxes of box_rows rows (at most 256) by 4 channels (16
+// bytes) of one plane, zeros where a box lies outside the tensor (negative
+// coordinates included).
+cudaError_t make_tile3d_map(const float* t, int planes, int rows, int C,
+                            int box_rows, CUtensorMap* map) {
+  using Encode = CUresult (*)(
+      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+      const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+      CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+      CUtensorMapFloatOOBfill);
+  static Encode encode = (Encode)libcuda_entry("cuTensorMapEncodeTiled");
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * 4,
+                                 (cuuint64_t)rows * C * 4};
+  const cuuint32_t box[3] = {4, (cuuint32_t)box_rows, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, (void*)t, dims, strides, box,
       ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

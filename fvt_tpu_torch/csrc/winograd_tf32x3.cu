@@ -326,28 +326,6 @@ __global__ void __launch_bounds__(128 * kWG + 32, 1)
   }
 }
 
-// The tiled tensor map of V (16, P, C) fp32: boxes of kBM rows by 4
-// channels (16 bytes) of one position, zeros outside the tensor.
-cudaError_t make_v_map(const float* v, int P, int C, CUtensorMap* map) {
-  using Encode = CUresult (*)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-      const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-      CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-      CUtensorMapFloatOOBfill);
-  static Encode encode = (Encode)libcuda_entry("cuTensorMapEncodeTiled");
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)P, 16};
-  const cuuint64_t strides[2] = {(cuuint64_t)C * 4,
-                                 (cuuint64_t)P * C * 4};
-  const cuuint32_t box[3] = {4, kBM, 1};
-  const cuuint32_t ones[3] = {1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, (void*)v, dims, strides, box,
-      ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int BN>
 cudaError_t launch_product(WinogradArgs a, cudaStream_t stream) {
   constexpr int kThreads = 128 * kWG + 32;
@@ -356,7 +334,8 @@ cudaError_t launch_product(WinogradArgs a, cudaStream_t stream) {
   if (tiles > 2147483647LL) return cudaErrorInvalidValue;
   a.tiles = (int)tiles;
   CUtensorMap v_map;
-  cudaError_t err = make_v_map(a.v, a.P, a.C, &v_map);
+  // V (16, P, C): boxes of kBM rows by 4 channels of one position
+  cudaError_t err = make_tile3d_map(a.v, 16, a.P, a.C, kBM, &v_map);
   if (err != cudaSuccess) return err;
   constexpr size_t bytes = smem_bytes<BN>();
   static_assert(bytes <= kMaxSmem, "the ring fits in shared memory");

@@ -35,6 +35,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # x w1 b1 w2 b2 wd bd out, B T Cin Cout K dil, stream
     'fvt_tcn_block_forward': [_P] * 8 + [_I] * 6 + [_P],
+    # x w1_hi w1_lo b1 w2_hi w2_lo b2 wd_hi wd_lo bd h r y (fp32), B T C
+    # Cout K dil stages, stream
+    'fvt_tcn_block_tf32x3_forward': [_P] * 13 + [_I] * 7 + [_P],
     # x0..3 w0..3 b0..3, c0..3, wo bo ln_w ln_b out, N M E H, stream
     'fvt_fusion_forward': [_P] * 12 + [_I] * 4 + [_P] * 5 + [_I] * 4 + [_P],
     # x w1 b1 w2 b2 m1 m2 res a1 a2 out, B T Cin Cout K dil, stream

@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fvt_tpu_torch.models.layers import init_linear_
+from fvt_tpu_torch.models.layers import init_linear_, stamp as _stamp
 from fvt_tpu_torch.ops import bottleneck as bottleneck_ops
 from fvt_tpu_torch.ops import conv as conv_ops
 from fvt_tpu_torch.ops import winograd as winograd_ops
@@ -90,13 +90,6 @@ def get_blocks_50() -> List[Tuple[int, int, int]]:
         blocks.append((in_c, depth, stride))
         blocks.extend([(depth, depth, 1)] * (num_units - 1))
     return blocks
-
-
-def _stamp(*tensors: torch.Tensor) -> tuple:
-    """Changes when one of ``tensors`` is replaced or written in place
-    (an inference tensor keeps no version: only its replacement shows)."""
-    return tuple((t.data_ptr(), 0 if t.is_inference() else t._version)
-                 for t in tensors)
 
 
 def cast_cached(mod: nn.Module, name: str, dtype: torch.dtype

@@ -6,7 +6,9 @@ train path takes gradients to v and g through it), eval BatchNorm folded
 to a scale and shift (``serve.py:27-33``; the train-mode BatchNorm is
 ``F.batch_norm`` on the (B*T, C) view, in ``models/models.py``), and
 seeded inits that follow
-PyTorch's defaults but draw from an explicit ``torch.Generator``.  PReLU
+PyTorch's defaults but draw from an explicit ``torch.Generator``, and the
+version stamp that keeps a module's derived weights
+(:func:`stamp`).  PReLU
 is ``nn.PReLU``, whose ``x if x >= 0 else alpha * x`` is ``layers.py``'s
 ``PReLU``.
 """
@@ -36,6 +38,13 @@ def fold_batchnorm(bn: nn.modules.batchnorm._BatchNorm
     ``_bn_eval``)."""
     inv = bn.weight / torch.sqrt(bn.running_var + BN_EPS)
     return inv, bn.bias - bn.running_mean * inv
+
+
+def stamp(*tensors: torch.Tensor) -> tuple:
+    """Changes when one of ``tensors`` is replaced or written in place
+    (an inference tensor keeps no version: only its replacement shows)."""
+    return tuple((t.data_ptr(), 0 if t.is_inference() else t._version)
+                 for t in tensors)
 
 
 def uniform_(t: torch.Tensor, bound: float,

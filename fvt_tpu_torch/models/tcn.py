@@ -7,7 +7,8 @@ Parameters keep the upstream PyTorch names that
 ``conv1.bias``, the same for ``conv2``, and ``downsample.weight
 (Cout, Cin, 1)``, ``downsample.bias`` where Cin != Cout
 (``tcn.py:72-78``).  The eval forward runs each block through
-:func:`fvt_tpu_torch.ops.tcn.fused_temporal_block`; the train forward
+:func:`fvt_tpu_torch.ops.tcn.fused_temporal_block` on the weights the
+block keeps (:meth:`TemporalBlock.eval_weights`); the train forward
 runs it through :func:`fvt_tpu_torch.ops.tcn.fused_temporal_block_train`
 with the 1x1 downsample and the dropout masks made outside the kernel
 (``tcn.py:34-63``), or layer by layer on ``F.conv1d`` with the same
@@ -22,11 +23,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fvt_tpu_torch.models.layers import init_linear_, uniform_, weight_norm
+from fvt_tpu_torch.models.layers import (init_linear_, stamp, uniform_,
+                                         weight_norm)
 from fvt_tpu_torch.ops.tcn import (NEG_SLOPE, _causal_conv,
                                    fused_temporal_block_train,
                                    fused_temporal_block_train_ref,
-                                   tcn_forward)
+                                   pack_block_weights, tcn_forward)
 
 
 class WeightNormConv1d(nn.Module):
@@ -77,6 +79,7 @@ class TemporalBlock(nn.Module):
         self.conv2 = WeightNormConv1d(n_outputs, n_outputs, kernel_size)
         self.downsample = (nn.Conv1d(n_inputs, n_outputs, 1)
                            if n_inputs != n_outputs else None)
+        self._eval = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.conv1.reset_parameters(generator)
@@ -96,6 +99,21 @@ class TemporalBlock(nn.Module):
             'wd': None if ds is None else ds.weight[:, :, 0].t().contiguous(),
             'bd': None if ds is None else ds.bias,
         }
+
+    def eval_weights(self) -> dict:
+        """:meth:`kernel_weights` detached, and under ``packed`` the
+        weights split and packed for the split-TF32 eval kernel
+        (``ops.tcn.pack_block_weights``): what the eval forward computes
+        with.  Derived once and kept; dropped and derived again when a
+        parameter of the block is replaced or written in place
+        (``load_state_dict``, ``.to()``, an optimizer step)."""
+        version = stamp(*self.parameters())
+        if self._eval is None or self._eval[0] != version:
+            with torch.no_grad():
+                w = self.kernel_weights()
+                w['packed'] = pack_block_weights(w['w1'], w['w2'], w['wd'])
+            self._eval = (version, w)
+        return self._eval[1]
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -151,7 +169,8 @@ class TemporalConvNet(nn.Module):
         no gradient.  Train: the differentiable blocks, with dropout masks
         drawn from ``generator`` in block order."""
         if not train:
-            blocks = [blk.kernel_weights() for blk in self.network]
+            blocks = [blk.kernel_weights() if reference
+                      else blk.eval_weights() for blk in self.network]
             return tcn_forward(x, blocks, self.kernel_size,
                                reference=reference)
         for blk in self.network:

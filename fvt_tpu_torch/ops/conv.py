@@ -99,26 +99,34 @@ def split_tf32(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
+def pack_taps_tf32(w: torch.Tensor, bn: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 weights of ``taps`` shifted products, ``w (taps, C, Co)``,
+    as the split-TF32 kernels copy them into shared memory: the ``(hi,
+    lo)`` parts of :func:`split_tf32`, each per column tile of ``bn``
+    output channels and 8-channel slice, the taps' (8, bn) weights as the
+    K-major core matrices (8 output channels x 4 inputs) ``wgmma`` reads.
+    Each part is ``(tiles, ceil(C/8), taps, 2, bn/8, 8, 4)`` with
+    ``part[t, s, tap, h, n8, n, k] = split(w[tap, 8*s + 4*h + k, bn*t +
+    8*n8 + n])``, zeros where the input channel is beyond C or the output
+    channel beyond Co."""
+    taps, c, co = w.shape
+    tiles, slices = -(-co // bn), -(-c // 8)
+    w = F.pad(w, (0, tiles * bn - co, 0, slices * 8 - c))
+    w = w.reshape(taps, slices, 2, 4, tiles, bn // 8, 8)
+    return split_tf32(w.permute(4, 1, 0, 2, 5, 6, 3).contiguous())
+
+
 def pack_weights_tf32(kernel: torch.Tensor, bn: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The float32 HWIO kernel (3, 3, C, Co), C and Co multiples of 4, as
-    the split-TF32 kernel copies it into shared memory: the ``(hi, lo)``
-    parts of :func:`split_tf32`, each per column tile of ``bn`` output
-    channels (``column_tile(Co)`` unless given) and 8-channel slice, the
-    nine taps' (8, bn) weights as the K-major core matrices (8 output
-    channels x 4 inputs) ``wgmma`` reads.  Each part is ``(tiles,
-    ceil(C/8), 9, 2, bn/8, 8, 4)`` with ``part[t, s, tap, h, n8, n, k] =
-    split(kernel[tap // 3, tap % 3, 8*s + 4*h + k, bn*t + 8*n8 + n])``,
-    zeros where the input channel is beyond C or the output channel beyond
-    Co.  A module derives them once and keeps them; :func:`conv3x3` derives
-    them per call otherwise."""
+    the split-TF32 conv kernel reads it: :func:`pack_taps_tf32` of its
+    nine taps (tap = 3*dy + dx) at column tiles of ``bn`` output channels
+    (``column_tile(Co)`` unless given), each part ``(tiles, ceil(C/8), 9,
+    2, bn/8, 8, 4)``.  A module derives them once and keeps them;
+    :func:`conv3x3` derives them per call otherwise."""
     c, co = kernel.shape[2:]
-    bn = bn or column_tile(co)
-    tiles, slices = -(-co // bn), -(-c // 8)
-    w = F.pad(kernel.reshape(9, c, co), (0, tiles * bn - co,
-                                         0, slices * 8 - c))
-    w = w.reshape(9, slices, 2, 4, tiles, bn // 8, 8)
-    return split_tf32(w.permute(4, 1, 0, 2, 5, 6, 3).contiguous())
+    return pack_taps_tf32(kernel.reshape(9, c, co), bn or column_tile(co))
 
 
 def conv3x3_tf32x3_ref(x: torch.Tensor, kernel: torch.Tensor

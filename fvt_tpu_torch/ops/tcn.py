@@ -13,9 +13,15 @@ the JAX package: ``x (B, T, Cin)``, ``w1 (K, Cin, Cout)``,
 ``w2 (K, Cout, Cout)``, ``wd (Cin, Cout)``.
 
 :func:`fused_temporal_block` runs :func:`fused_temporal_block_ref` for a
-tensor on the CPU; for a CUDA tensor it launches the kernel of
-``csrc/tcn_block.cu`` or raises.  ``fused_temporal_block.launches``
-counts kernel launches.
+tensor on the CPU; for a float32 CUDA tensor it launches
+``fvt_tcn_block_tf32x3_forward`` (``csrc/tcn_block_tf32x3.cu``) or raises:
+the two convs (and the downsample, where there is one) each a launch of a
+split-TF32 ``wgmma`` causal conv, h and r through workspaces.
+:func:`fused_temporal_block_tf32x3_ref` emulates what it computes.
+``fused_temporal_block.launches`` counts its calls on the card, one for
+the launches of a block.  :func:`fused_temporal_block_simt`, the earlier
+one-launch kernel on the CUDA cores (``csrc/tcn_block.cu``), stays for
+measurements: no model path calls it.
 
 :func:`fused_temporal_block_train` is the differentiable train-mode block
 with dropout masks and the residual stream passed in
@@ -35,8 +41,29 @@ import torch
 import torch.nn.functional as F
 
 from fvt_tpu_torch.kernels import build
+from fvt_tpu_torch.ops.conv import pack_taps_tf32, split_tf32
 
 NEG_SLOPE = 0.01
+
+
+def _leaky(z: torch.Tensor) -> torch.Tensor:
+    """leaky_relu whose derivative at 0 is 1, the rule of the Pallas
+    backward (``z >= 0``, ``tcn_pallas.py:199-200``) and of the CUDA one;
+    ``F.leaky_relu``'s autograd takes the slope there."""
+    return torch.where(z >= 0, z, z * NEG_SLOPE)
+
+
+def _dleaky(z: torch.Tensor) -> torch.Tensor:
+    return torch.ones_like(z).masked_fill_(z < 0, NEG_SLOPE)
+
+
+def _causal_conv(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 dilation: int) -> torch.Tensor:
+    """v (B, T, C), w (K, C, Co), left pad (K-1)*dilation -> (B, T, Co)."""
+    pad = (w.shape[0] - 1) * dilation
+    v = F.pad(v.transpose(1, 2), (pad, 0))
+    return F.conv1d(v, w.permute(2, 1, 0), b,
+                    dilation=dilation).transpose(1, 2)
 
 
 def fused_temporal_block_ref(x: torch.Tensor, w1: torch.Tensor,
@@ -59,36 +86,213 @@ def fused_temporal_block_ref(x: torch.Tensor, w1: torch.Tensor,
     return F.leaky_relu(net + res, NEG_SLOPE)
 
 
-def fused_temporal_block(x: torch.Tensor, w1: torch.Tensor,
-                         b1: torch.Tensor, w2: torch.Tensor,
-                         b2: torch.Tensor,
-                         wd: Optional[torch.Tensor] = None,
-                         bd: Optional[torch.Tensor] = None, *,
-                         kernel_size: int, dilation: int) -> torch.Tensor:
-    """x (B, T, Cin); w1 (K, Cin, Cout); w2 (K, Cout, Cout); optional
-    1x1 downsample wd (Cin, Cout), bd (Cout).  Returns (B, T, Cout)."""
-    if x.device.type == 'cpu':
-        return fused_temporal_block_ref(x, w1, b1, w2, b2, wd, bd,
-                                        kernel_size=kernel_size,
-                                        dilation=dilation)
-    if x.device.type != 'cuda':
-        raise ValueError(f'no kernel for device {x.device}')
+def _split_conv(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                dilation: int) -> torch.Tensor:
+    """A causal conv (:func:`_causal_conv`) as the split-TF32 kernel sums
+    it: ``(v_hi * w_lo + v_lo * w_hi) + v_hi * w_hi`` of the parts of
+    ``ops.conv.split_tf32`` (each product exact in float32, the sums in
+    float32, ``lo*lo`` dropped), then the bias."""
+    vh, vl = split_tf32(v)
+    wh, wl = split_tf32(w)
+
+    def conv(p, q):
+        return _causal_conv(p, q, None, dilation)
+
+    return ((conv(vh, wl) + conv(vl, wh)) + conv(vh, wh)) + b
+
+
+def fused_temporal_block_tf32x3_ref(x: torch.Tensor, w1: torch.Tensor,
+                                    b1: torch.Tensor, w2: torch.Tensor,
+                                    b2: torch.Tensor,
+                                    wd: Optional[torch.Tensor] = None,
+                                    bd: Optional[torch.Tensor] = None, *,
+                                    kernel_size: int,
+                                    dilation: int) -> torch.Tensor:
+    """What the split-TF32 kernel computes, emulated on float32 tensors:
+    both convs and the downsample (one tap) as :func:`_split_conv`, h
+    split again where conv2 stages it, leaky and the residual as
+    :func:`fused_temporal_block_ref`.  The kernel's sums run in another
+    order (per 8-channel slice, then over the slices)."""
+    if w1.shape[0] != kernel_size:
+        raise ValueError(f'kernel_size {kernel_size} != weight taps '
+                         f'{w1.shape[0]}')
+    h = _leaky(_split_conv(x, w1, b1, dilation))
+    net = _leaky(_split_conv(h, w2, b2, dilation))
+    res = x if wd is None else _split_conv(x, wd[None], bd, 1)
+    return _leaky(net + res)
+
+
+# the split-TF32 kernel (csrc/tcn_block_tf32x3.cu): output frames and
+# output channels a tile, the rows one TMA box may bring (the tile and its
+# causal halo), and the taps it is built for
+ROW_TILE, COLUMN_TILE, MAX_BOX, MAX_TAPS = 64, 64, 256, 9
+# its launches, a bit each
+CONV1, DOWNSAMPLE, CONV2 = 1, 2, 4
+ALL = CONV1 | DOWNSAMPLE | CONV2
+
+
+def check_tf32x3_shape(cin: int, cout: int, kernel_size: int,
+                       dilation: int) -> None:
+    """Raises ValueError for a block the split-TF32 kernel does not take:
+    Cout not a multiple of 8 (``wgmma``'s n), K beyond ``MAX_TAPS``, or a
+    tile and its causal halo longer than one TMA box (``ROW_TILE +
+    (K-1)*dilation > MAX_BOX``).  Any Cin is taken: :func:`pad_channels`
+    pads it."""
+    pad = (kernel_size - 1) * dilation
+    if cout % 8 or not 1 <= kernel_size <= MAX_TAPS or dilation < 1 \
+            or ROW_TILE + pad > MAX_BOX:
+        raise ValueError(
+            f'the split-TF32 TCN kernel does not take Cin={cin}, '
+            f'Cout={cout}, K={kernel_size}, dilation={dilation}: Cout must '
+            f'be a multiple of 8, K at most {MAX_TAPS} and {ROW_TILE} + '
+            f'(K-1)*dilation at most {MAX_BOX}')
+
+
+def pad_channels(x: torch.Tensor) -> torch.Tensor:
+    """x (B, T, Cin) with zero channels up to a multiple of 4, what the
+    kernel's tensor map needs (16-byte rows); x itself where Cin is one.
+    The packed weights carry zero rows there (``ops.conv.pack_taps_tf32``
+    pads to whole slices of 8), so the sums are unchanged."""
+    return x if x.shape[-1] % 4 == 0 else F.pad(x, (0, -x.shape[-1] % 4))
+
+
+def pack_block_weights(w1: torch.Tensor, w2: torch.Tensor,
+                       wd: Optional[torch.Tensor] = None) -> tuple:
+    """``((w1_hi, w1_lo), (w2_hi, w2_lo), (wd_hi, wd_lo) or None)``: the
+    block's weights split and packed for the split-TF32 kernel at column
+    tiles of ``COLUMN_TILE`` (``ops.conv.pack_taps_tf32``; the downsample
+    as one tap).  A module derives them once a parameter version and keeps
+    them (``models.tcn.TemporalBlock.eval_weights``);
+    :func:`fused_temporal_block` derives them per call otherwise."""
+    return (pack_taps_tf32(w1, COLUMN_TILE), pack_taps_tf32(w2, COLUMN_TILE),
+            None if wd is None else pack_taps_tf32(wd[None], COLUMN_TILE))
+
+
+def launch_tf32x3(x: torch.Tensor, packed: tuple, b1: torch.Tensor,
+                  b2: torch.Tensor, bd: Optional[torch.Tensor],
+                  h: torch.Tensor, r: Optional[torch.Tensor],
+                  out: torch.Tensor, *, kernel_size: int, dilation: int,
+                  stages: int = ALL) -> None:
+    """Launches the ``stages`` of the split-TF32 block on the current
+    stream: conv1 x -> h, the downsample x -> r (with one), conv2 h, r or
+    x -> out.  ``x`` as :func:`pad_channels` returns it, ``packed`` as
+    :func:`pack_block_weights`.  Checks every tensor and raises on a CUDA
+    error; counts nothing (a measurement may launch one conv alone)."""
+    b, t, c = x.shape
+    cout = out.shape[-1]
+    tiles = -(-cout // COLUMN_TILE)
+    w1, w2, wd = packed
+    tensors = [('x', x, (b, t, c)), ('h', h, (b, t, cout)),
+               ('out', out, (b, t, cout)), ('b1', b1, (cout,)),
+               ('b2', b2, (cout,))]
+    for name, pair, taps, cin in (('w1', w1, kernel_size, c),
+                                  ('w2', w2, kernel_size, cout),
+                                  ('wd', wd, 1, c)):
+        if pair is not None:
+            shape = (tiles, -(-cin // 8), taps, 2, COLUMN_TILE // 8, 8, 4)
+            tensors += [(name, part, shape) for part in pair]
+    if wd is not None:
+        tensors += [('bd', bd, (cout,)), ('r', r, (b, t, cout))]
+    for name, arr, shape in tensors:
+        build.check_tensor(name, arr, shape, x.device)
+    none = (None, None)
+    err = build.library().fvt_tcn_block_tf32x3_forward(
+        x.data_ptr(), w1[0].data_ptr(), w1[1].data_ptr(), b1.data_ptr(),
+        w2[0].data_ptr(), w2[1].data_ptr(), b2.data_ptr(),
+        *(none if wd is None else (wd[0].data_ptr(), wd[1].data_ptr())),
+        None if wd is None else bd.data_ptr(), h.data_ptr(),
+        None if wd is None else r.data_ptr(), out.data_ptr(), b, t, c,
+        cout, kernel_size, dilation, stages,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:  # the message is built only for an error
+        build.check(err, f'tcn_block split-TF32 kernel (B={b}, T={t}, '
+                         f'C={c}, Cout={cout}, K={kernel_size}, '
+                         f'dilation={dilation}, stages={stages})')
+
+
+def _check_block_args(x, w1, b1, w2, b2, wd, bd, kernel_size,
+                      tensors: bool = True):
+    """Raises for a block whose arguments disagree; ``tensors`` checks
+    each tensor too (off where the launcher checks what it reads)."""
     b, t, cin = x.shape
     cout = w1.shape[-1]
     if (wd is None) != (bd is None):
         raise ValueError('wd and bd are given together or not at all')
     if wd is None and cin != cout:
         raise ValueError(f'Cin {cin} != Cout {cout} needs a downsample')
+    if tensors:
+        checks = [('x', x, (b, t, cin)),
+                  ('w1', w1, (kernel_size, cin, cout)), ('b1', b1, (cout,)),
+                  ('w2', w2, (kernel_size, cout, cout)), ('b2', b2, (cout,))]
+        if wd is not None:
+            checks += [('wd', wd, (cin, cout)), ('bd', bd, (cout,))]
+        for name, arr, shape in checks:
+            build.check_tensor(name, arr, shape, x.device)
+    return b, t, cin, cout
+
+
+def fused_temporal_block(x: torch.Tensor, w1: torch.Tensor,
+                         b1: torch.Tensor, w2: torch.Tensor,
+                         b2: torch.Tensor,
+                         wd: Optional[torch.Tensor] = None,
+                         bd: Optional[torch.Tensor] = None, *,
+                         kernel_size: int, dilation: int,
+                         packed: Optional[tuple] = None) -> torch.Tensor:
+    """x (B, T, Cin) float32; w1 (K, Cin, Cout); w2 (K, Cout, Cout);
+    optional 1x1 downsample wd (Cin, Cout), bd (Cout).  Returns (B, T,
+    Cout).  ``packed``: :func:`pack_block_weights` of the weights when the
+    caller keeps it; derived here otherwise.  On the card the workspaces
+    h and r (B, T, Cout) come from the caching allocator."""
+    if x.device.type == 'cpu':
+        return fused_temporal_block_ref(x, w1, b1, w2, b2, wd, bd,
+                                        kernel_size=kernel_size,
+                                        dilation=dilation)
+    check_tf32x3_shape(x.shape[-1], w1.shape[-1], kernel_size, dilation)
+    if x.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {x.device}')
+    # launch_tf32x3 checks every tensor the kernel reads; w1, w2 and wd
+    # only where they are packed here
+    b, t, cin, cout = _check_block_args(x, w1, b1, w2, b2, wd, bd,
+                                        kernel_size, tensors=packed is None)
+    if packed is None:
+        packed = pack_block_weights(w1, w2, wd)
+    out = torch.empty((b, t, cout), device=x.device, dtype=torch.float32)
+    if b == 0 or t == 0:
+        return out
+    launch_tf32x3(pad_channels(x), packed, b1, b2, bd, torch.empty_like(out),
+                  None if wd is None else torch.empty_like(out), out,
+                  kernel_size=kernel_size, dilation=dilation)
+    fused_temporal_block.launches += 1
+    return out
+
+
+fused_temporal_block.launches = 0
+
+
+def fused_temporal_block_simt(x: torch.Tensor, w1: torch.Tensor,
+                              b1: torch.Tensor, w2: torch.Tensor,
+                              b2: torch.Tensor,
+                              wd: Optional[torch.Tensor] = None,
+                              bd: Optional[torch.Tensor] = None, *,
+                              kernel_size: int,
+                              dilation: int) -> torch.Tensor:
+    """The earlier one-launch kernel on the CUDA cores
+    (``csrc/tcn_block.cu``), kept to be timed beside
+    :func:`fused_temporal_block`'s: no model path calls it.  The arguments
+    are :func:`fused_temporal_block`'s; Cout a power of two from 4 to 256.
+    The plain version on the CPU; ``fused_temporal_block_simt.launches``
+    counts its launches."""
+    if x.device.type == 'cpu':
+        return fused_temporal_block_ref(x, w1, b1, w2, b2, wd, bd,
+                                        kernel_size=kernel_size,
+                                        dilation=dilation)
+    if x.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {x.device}')
+    b, t, cin, cout = _check_block_args(x, w1, b1, w2, b2, wd, bd,
+                                        kernel_size)
     if cout % 4 or cout > 256 or 256 % cout:
         raise ValueError(f'Cout {cout}: the kernel takes a power of two '
                          f'from 4 to 256')
-    checks = [('x', x, (b, t, cin)), ('w1', w1, (kernel_size, cin, cout)),
-              ('b1', b1, (cout,)), ('w2', w2, (kernel_size, cout, cout)),
-              ('b2', b2, (cout,))]
-    if wd is not None:
-        checks += [('wd', wd, (cin, cout)), ('bd', bd, (cout,))]
-    for name, arr, shape in checks:
-        build.check_tensor(name, arr, shape, x.device)
     out = torch.empty((b, t, cout), device=x.device, dtype=torch.float32)
     if b == 0 or t == 0:
         return out
@@ -99,13 +303,13 @@ def fused_temporal_block(x: torch.Tensor, w1: torch.Tensor,
         None if bd is None else bd.data_ptr(), out.data_ptr(),
         b, t, cin, cout, kernel_size, dilation,
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, f'tcn_block kernel (B={b}, T={t}, Cin={cin}, '
+    build.check(err, f'tcn_block SIMT kernel (B={b}, T={t}, Cin={cin}, '
                      f'Cout={cout}, K={kernel_size}, dilation={dilation})')
-    fused_temporal_block.launches += 1
+    fused_temporal_block_simt.launches += 1
     return out
 
 
-fused_temporal_block.launches = 0
+fused_temporal_block_simt.launches = 0
 
 
 def tcn_forward(x: torch.Tensor, blocks: Sequence[dict], kernel_size: int,
@@ -113,35 +317,19 @@ def tcn_forward(x: torch.Tensor, blocks: Sequence[dict], kernel_size: int,
     """A whole TemporalConvNet in eval mode, as ``tcn_forward_pallas``:
     block ``i`` has dilation ``2**i``.  ``blocks`` holds per block the
     materialised kernel weights ``w1, b1, w2, b2`` and ``wd, bd`` (None
-    without a downsample).  ``reference=True`` runs the plain version."""
-    fn = fused_temporal_block_ref if reference else fused_temporal_block
+    without a downsample), and optionally ``packed``
+    (:func:`pack_block_weights`).  ``reference=True`` runs the plain
+    version."""
     for i, blk in enumerate(blocks):
-        x = fn(x, blk['w1'], blk['b1'], blk['w2'], blk['b2'], blk['wd'],
-               blk['bd'], kernel_size=kernel_size, dilation=2 ** i)
+        args = (x, blk['w1'], blk['b1'], blk['w2'], blk['b2'], blk['wd'],
+                blk['bd'])
+        kw = dict(kernel_size=kernel_size, dilation=2 ** i)
+        x = (fused_temporal_block_ref(*args, **kw) if reference else
+             fused_temporal_block(*args, **kw, packed=blk.get('packed')))
     return x
 
 
 # ------------------------------------------------------------ train path
-def _leaky(z: torch.Tensor) -> torch.Tensor:
-    """leaky_relu whose derivative at 0 is 1, the rule of the Pallas
-    backward (``z >= 0``, ``tcn_pallas.py:199-200``) and of the CUDA one;
-    ``F.leaky_relu``'s autograd takes the slope there."""
-    return torch.where(z >= 0, z, z * NEG_SLOPE)
-
-
-def _dleaky(z: torch.Tensor) -> torch.Tensor:
-    return torch.ones_like(z).masked_fill_(z < 0, NEG_SLOPE)
-
-
-def _causal_conv(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 dilation: int) -> torch.Tensor:
-    """v (B, T, C), w (K, C, Co), left pad (K-1)*dilation -> (B, T, Co)."""
-    pad = (w.shape[0] - 1) * dilation
-    v = F.pad(v.transpose(1, 2), (pad, 0))
-    return F.conv1d(v, w.permute(2, 1, 0), b,
-                    dilation=dilation).transpose(1, 2)
-
-
 def fused_temporal_block_train_ref(x, w1, b1, w2, b2, m1, m2, res, *,
                                    kernel_size: int,
                                    dilation: int) -> torch.Tensor:

@@ -57,11 +57,13 @@ KERNELS = {
 }
 
 
-def build_variants(dtype: str) -> dict:
-    """{variant: C entry}, one nvcc process a variant, all at once."""
+def build_variants(source: str, entry: str, pointers: int, ints: int,
+                   variants: dict) -> dict:
+    """{variant: C entry}: ``csrc/<source>`` built once a variant (its
+    nvcc flags), one nvcc process a variant, all at once, and the entry
+    bound with its pointer and int arguments before the stream."""
     from fvt_tpu_torch.kernels import build
 
-    source, entry, pointers, ints, variants = KERNELS[dtype]
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = build.CSRC_DIR / source
     paths = {name: build.BUILD_DIR / f'{src.stem}-{name}.so'
@@ -120,7 +122,7 @@ def main(argv=None) -> int:
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card)
-    fns = build_variants(args.dtype)
+    fns = build_variants(*KERNELS[args.dtype])
     bf16 = args.dtype == 'bfloat16'
     winograd = args.dtype == 'winograd'
     device = torch.device('cuda', 0)
