@@ -12,12 +12,15 @@ Phases, each of which raises on failure (exit code 1):
    tensor-core kernel that serving launches, its launches also timed
    each, and the earlier CUDA-core kernel ``fused_temporal_block_simt``,
    on no path) at all 12 block shapes of the tri-modal LFAN at (8, 300),
-   plus edge shapes and the mfcc width Cin = 39, and its refusal of
-   shapes it does not take; the fusion block at (8, 300,
-   {128, 32, 128}), and the train-mode TCN block (forward output and the
-   backward's six results, against autograd of the plain version) at the
-   8 block shapes of the ``vggish+bert`` LFAN at (16, 300) with dropout
-   masks at p=0.1, plus edge shapes; the float32 3x3 conv kernels (the
+   plus edge shapes, the mfcc width Cin = 39, long kernels whose taps the
+   kernel takes in groups (K = 11 at d = 8, K = 5 at d = 64) and its
+   refusal of shapes it does not take; the fusion block at (8, 300,
+   {128, 32, 128}) and, with weights read from global memory, at five,
+   seven and four wide modalities; the train-mode TCN block (forward
+   output and the backward's six results, against autograd of the plain
+   version) at the 8 block shapes of the ``vggish+bert`` LFAN at (16, 300)
+   with dropout masks at p=0.1, plus edge shapes and mfcc's Cin = 39;
+   the float32 3x3 conv kernels (the
    split-TF32 tensor-core kernel that ``shifted_kernel`` launches, the
    earlier CUDA-core kernel ``conv3x3_simt``, which no path launches, the
    split-TF32 Winograd kernel that ``winograd_kernel`` launches, its three
@@ -34,7 +37,10 @@ Phases, each of which raises on failure (exit code 1):
    (``wgmma``) 3x3 conv
    kernel against its plain version and ``F.conv2d`` on bfloat16 tensors
    at the same seven shapes and at edge shapes, and its refusal of a
-   channel count it does not take; print errors and median times (CUDA
+   channel count it does not take; the fused block's bfloat16 route (two
+   launches of that kernel, each also timed alone) against its plain
+   version at the four stage shapes and edge shapes, beside the unfused
+   bfloat16 block on cuDNN; print errors and median times (CUDA
    events);
 3. serve three streams of 250, 700 and 1000 frames through the
    ``fvt_tpu_torch.streaming`` server core over a full-width tri-modal
@@ -47,7 +53,9 @@ Phases, each of which raises on failure (exit code 1):
    final parameters against the same steps on the plain versions, that a
    step repeats bit for bit, and the launch counts (8 forward and 8
    backward launches a step, none of the eval-only fusion kernel); time
-   steps of the fused path and of the conv-by-conv path on cuDNN;
+   steps of the fused path and of the conv-by-conv path on cuDNN; then 4
+   fused steps of the ``mfcc+vggish`` LFAN (mfcc's 39 channels through
+   zero channels) against plain ones;
 5. run the ArcFace IR-50 backbone alone on the 2400 frames of a full
    dispatch through each conv path (``cudnn``, ``shifted_kernel``,
    ``winograd_kernel``, ``fused_blocks``, ``fused_blocks`` with
@@ -62,11 +70,14 @@ Phases, each of which raises on failure (exit code 1):
    dispatch, and time full dispatches of the last three against the
    default, in turns; then the
    bfloat16 backbone (``dtype=torch.bfloat16``, ``--amp`` in ``fvt_tpu``)
-   through ``cudnn`` and ``shifted_kernel`` (45 bfloat16 launches a
-   forward, the kernel path's embeddings against the plain version's
-   within bfloat16's own distance from float32), a tri-modal LFAN with
-   ``backbone_dtype=torch.bfloat16, conv_impl='shifted_kernel'`` on the
-   three streams, and timed full dispatches of both bfloat16 paths.
+   through ``cudnn``, ``shifted_kernel`` (45 bfloat16 launches a forward),
+   ``fused_blocks`` (21 bfloat16 block launches) and ``fused_blocks`` on
+   ``shifted_kernel`` (21 block and 3 conv launches), each kernel path's
+   embeddings against its plain
+   version's within twice bfloat16's own distance from float32, timed in
+   turns; tri-modal LFANs with ``backbone_dtype=torch.bfloat16`` on
+   ``shifted_kernel`` and on ``fused_blocks`` + ``shifted_kernel`` on the
+   three streams, and timed full dispatches of the three bfloat16 paths.
 
 Everything runs in float32 with TF32 off for matmuls and cuDNN, except the
 bfloat16 backbone and its kernel, which say so.  The last
@@ -107,6 +118,9 @@ TCN_DROPOUT = 0.1
 # fused against plain training: per-step losses, then final parameters
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 2e-4, 1e-5
+# training on the mfcc width (Cin = 39 through zero channels): a few steps
+MFCC_MODALITY = ('mfcc', 'vggish')
+MFCC_STEPS = 4
 # published fp32 peaks of one H100 SXM, for the kernels' bounds
 PEAK_FLOPS = 67e12
 # the tensor cores' dense bf16 and TF32 peaks, for the bfloat16 and the
@@ -141,6 +155,13 @@ BF16_RTOL, BF16_ATOL, BF16_MEAN_TOL = 2.0 ** -7, 2.0 ** -9, 1e-4
 # float32 one lie within twice it of each other (a wrong tap moves the
 # embeddings by their own magnitude, ten times more)
 BF16_PATHS_APART = 2.0
+# the fusion beyond the main path's three modalities: five, all seven
+# LFAN modalities with embedding sizes, and four whose weights overflow
+# the kernel's shared memory
+FUSION_MODALITIES = (('bert', 'vggish', 'mfcc', 'egemaps', 'cnn_res50'),
+                     ('video', 'bert', 'cnn_res50', 'mfcc', 'vggish',
+                      'logmel', 'egemaps'),
+                     ('video', 'bert', 'cnn_res50', 'mfcc'))
 # (H = W, Cin, Cout, launches a backbone forward) of the stride-1 3x3 convs
 # of the ArcFace body: 24 conv1 and the 21 conv2 of the stride-1 blocks
 CONV_SHAPES = ((40, 64, 64, 6), (40, 64, 128, 1), (20, 128, 128, 6),
@@ -218,6 +239,52 @@ def compare_bf16(name: str, got: torch.Tensor, want: torch.Tensor,
     return max_abs
 
 
+def compare_block_bf16(name: str, got: torch.Tensor, x: torch.Tensor,
+                       args: tuple, packed: tuple) -> float:
+    """The bfloat16 block ``got`` (the wrapper's output on ``x``) against
+    its plain version.  Each launch alone is one float32 sum rounded once,
+    so each is held to compare_bf16's gate: conv1 against
+    ``bottleneck_bf16_conv1_ref`` (v), conv2 run on that plain v against
+    ``bottleneck_bf16_conv2_ref``.  The whole block rounds twice: v flips
+    by one unit in the last place where conv1's sum straddles a rounding
+    boundary (the two sides sum in another order), and conv2 carries each
+    flip into y as one of its 9*C products.  So y is held to compare_bf16's
+    gate plus exactly those flips, ``|a2 * conv3x3(v - v_plain, w2)|``
+    computed from the kernel's own v, elementwise and in the mean; a wrong
+    tap, channel or pad breaks the stage gates by orders of magnitude."""
+    from fvt_tpu_torch.ops import bottleneck as block_ops
+    from fvt_tpu_torch.ops import conv as conv_ops
+
+    w1, w2, a1, b1, alpha, a2, b2 = args
+    vecs = (a1, b1, alpha, a2, b2)
+    v_plain = block_ops.bottleneck_bf16_conv1_ref(x, w1, a1, b1, alpha)
+    v, y2 = torch.empty_like(x), torch.empty_like(x)
+    block_ops.launch_bf16(x, packed, vecs, v, y2, block_ops.CONV1)
+    compare_bf16(f'{name} conv1 (v)', v, v_plain)
+    block_ops.launch_bf16(x, packed, vecs, v_plain, y2, block_ops.CONV2)
+    want = block_ops.bottleneck_bf16_conv2_ref(v_plain, x, w2, a2, b2)
+    compare_bf16(f'{name} conv2 on the plain v', y2, want)
+    del y2
+    flips = conv_ops.conv3x3_ref(v.float() - v_plain.float(), w2.float())
+    flips = flips.mul_(a2).abs_()
+    del v, v_plain
+    torch.cuda.synchronize()
+    err = got.float().sub_(want.float()).abs_()
+    max_abs, mean_abs = err.max().item(), err.mean().item()
+    want = want.float().abs_()
+    scale, carried = want.mean().item(), flips.mean().item()
+    excess = err.sub_(want.mul_(BF16_RTOL)).sub_(flips).max().item() \
+        - BF16_ATOL
+    finite = bool(torch.isfinite(got).all())
+    print(f'  {name}: max_abs_err={max_abs:.3e} mean_abs_err={mean_abs:.3e} '
+          f'of mean|want|={scale:.3e}, v\'s flips carried through conv2: '
+          f'max {flips.max().item():.3e} mean {carried:.3e} finite={finite}')
+    if not finite or excess > 0 or mean_abs > BF16_MEAN_TOL * scale + carried:
+        fail(f'{name}: kernel disagrees with its plain version beyond one '
+             f'unit in the last place and v\'s flips carried through conv2')
+    return max_abs
+
+
 def compare_sum(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """A gradient summed over all rows: error against the tensor's
     largest value."""
@@ -287,10 +354,14 @@ def check_train_kernels(device, k: int = 5) -> list:
     tot = {key: 0.0 for key in ('fwd_err', 'bwd_err', 'fwd_ms', 'bwd_ms',
                                 'fwd_plain', 'bwd_plain', 'fwd_flops',
                                 'fwd_bytes', 'bwd_bytes')}
+    # edge shapes, then mfcc's first block (Cin = 39, run on zero
+    # channels) at the training batch, at dilations 1 and 8
     edge = [('edge T<halo', 2, 7, 64, 64, 8, TCN_DROPOUT),
             ('edge B=3', 3, 300, 128, 64, 1, TCN_DROPOUT),
             ('edge p=0', 2, 90, 48, 96, 4, 0.0),
-            ('edge narrow', 1, 1, 20, 8, 2, TCN_DROPOUT)]
+            ('edge narrow', 1, 1, 20, 8, 2, TCN_DROPOUT),
+            ('edge mfcc.0', TRAIN_BATCH, WINDOW, 39, 32, 1, TCN_DROPOUT),
+            ('edge mfcc.0 d=8', TRAIN_BATCH, WINDOW, 39, 32, 8, TCN_DROPOUT)]
     main = [s + (TCN_DROPOUT,) for s in train_block_shapes(k)]
     for name, b, t, cin, cout, d, p in main + edge:
         timed = not name.startswith('edge')
@@ -402,6 +473,7 @@ def check_kernels(model, device) -> list:
     kernel (``fused_temporal_block_simt``, timed, on no path) at the 12
     blocks, each launch of the first also timed alone, then at edge
     shapes and Cin = 39; shapes it must refuse."""
+    from fvt_tpu_torch.config import model_config as MC
     from fvt_tpu_torch.kernels import build
     from fvt_tpu_torch.ops import fusion as fusion_ops
     from fvt_tpu_torch.ops import tcn as tcn_ops
@@ -499,23 +571,57 @@ def check_kernels(model, device) -> list:
                 compare(f'{name} edge ({b},{t},{cin})->{cout} d={d} '
                         f'ds={ds}', fn(args, kw, w), want)
 
-        # Cout = 12 is no multiple of 8 and d = 64 makes a box of 320
-        # rows: the wrapper raises; the C entry refuses C = 6
+        # long kernels (the taps in groups, csrc/tcn_block_tf32x3.cu): at
+        # full width and the serving shape, video.0's widths with K = 11 at
+        # d = 8 (two groups of six, one zero tap) and 256 -> 256 with K = 5
+        # at d = 64 (a halo of 256 rows: two boxes of three taps), weights
+        # at the model's init scale; and d = 64 on a row shorter than a
+        # tile, the shape the kernel refused before the groups
+        long_ms = {}
+        for (b, t, cin, cout, kk, d) in [
+                (WINDOW_BATCH, WINDOW, 512, 256, 11, 8),
+                (WINDOW_BATCH, WINDOW, 256, 256, 5, 64),
+                (1, 8, 16, 16, k, 64)]:
+            x = torch.randn(b, t, cin, device=device, generator=g)
+            w1 = torch.randn(kk, cin, cout, device=device,
+                             generator=g) * (kk * cin) ** -0.5
+            w2 = torch.randn(kk, cout, cout, device=device,
+                             generator=g) * (kk * cout) ** -0.5
+            b1, b2, bd = (torch.randn(cout, device=device, generator=g) * 0.1
+                          for _ in range(3))
+            wd = (torch.randn(cin, cout, device=device, generator=g)
+                  * cin ** -0.5 if cin != cout else None)
+            args = (x, w1, b1, w2, b2, wd, None if wd is None else bd)
+            kw = dict(kernel_size=kk, dilation=d)
+            packed = tcn_ops.pack_block_weights(w1, w2, wd, dilation=d)
+            want = tcn_ops.fused_temporal_block_ref(*args, **kw)
+            label = (f'tcn_block long ({b},{t},{cin})->{cout} K={kk} d={d}, '
+                     f'(G, groups) = {tcn_ops.tap_groups(kk, d)}')
+            compare(label, tcn_ops.fused_temporal_block(
+                *args, **kw, packed=packed), want)
+            if b == WINDOW_BATCH:
+                ms = median_ms(lambda: tcn_ops.fused_temporal_block(
+                    *args, **kw, packed=packed))
+                plain = median_ms(lambda: tcn_ops.fused_temporal_block_ref(
+                    *args, **kw))
+                long_ms[label.split(', ')[0]] = (ms, plain)
+                print(f'    kernel {ms:.4f} ms, plain {plain:.4f} ms')
+
+        # Cout = 12 is no multiple of 8: the wrapper raises; the C entry
+        # refuses C = 6
         before = tcn_ops.fused_temporal_block.launches
-        for cout, d in ((12, 1), (16, 64)):
-            x = torch.randn(1, 8, 16, device=device, generator=g)
-            w1 = torch.randn(k, 16, cout, device=device, generator=g)
-            w2 = torch.randn(k, cout, cout, device=device, generator=g)
-            bias = torch.zeros(cout, device=device)
-            wd = None if cout == 16 else torch.zeros(16, cout, device=device)
-            try:
-                tcn_ops.fused_temporal_block(
-                    x, w1, bias, w2, bias, wd, None if wd is None else bias,
-                    kernel_size=k, dilation=d)
-            except ValueError as e:
-                print(f'  tcn_block Cout={cout} d={d} refused: {e}')
-            else:
-                fail(f'fused_temporal_block took Cout={cout}, d={d}')
+        x = torch.randn(1, 8, 16, device=device, generator=g)
+        w1 = torch.randn(k, 16, 12, device=device, generator=g)
+        w2 = torch.randn(k, 12, 12, device=device, generator=g)
+        bias = torch.zeros(12, device=device)
+        try:
+            tcn_ops.fused_temporal_block(
+                x, w1, bias, w2, bias, torch.zeros(16, 12, device=device),
+                bias, kernel_size=k, dilation=1)
+        except ValueError as e:
+            print(f'  tcn_block Cout=12 refused: {e}')
+        else:
+            fail('fused_temporal_block took Cout=12')
         code = build.library().fvt_tcn_block_tf32x3_forward(
             *([x.data_ptr()] * 13), 1, 8, 6, 8, k, 1, tcn_ops.ALL,
             torch.cuda.current_stream(device).cuda_stream)
@@ -553,6 +659,40 @@ def check_kernels(model, device) -> list:
             + 2 * nm * nm * e + (e * nm) ** 2)
         fusion_bytes = nbytes(*args[0], *args[1], *args[2], *args[3:]) \
             + frames * e * nm * 4
+
+        # more modalities than the main path's, at their TCN output widths
+        # and the serving shape: five, all seven, and four wide ones (Wqkv
+        # alone 160 KB), whose layouts leave shared memory, so the kernel
+        # reads weights from global memory; random weights at Linear's
+        # init scale
+        fusion_wide_ms = {}
+        for mods in FUSION_MODALITIES:
+            widths = [MC.ENCODER_DIM[m] for m in mods]
+            nm = len(mods)
+
+            def randn(*shape, scale=1.0):
+                return torch.randn(*shape, device=device,
+                                   generator=g) * scale
+
+            wargs = ([randn(WINDOW_BATCH, WINDOW, c) for c in widths],
+                     [randn(c, 3 * e, scale=c ** -0.5) for c in widths],
+                     [randn(3 * e, scale=0.1) for _ in widths],
+                     randn(e * nm, e * nm, scale=(e * nm) ** -0.5),
+                     randn(e * nm, scale=0.1), 1.0 + randn(e * nm, scale=0.2),
+                     randn(e * nm, scale=0.1))
+            route = fusion_ops.fusion_route(tuple(widths), e)
+            label = (f'fusion M={nm} ({WINDOW_BATCH},{WINDOW},{widths}) '
+                     f'route {route}, {fusion_ops.smem_bytes(widths, e, 0)} '
+                     f'B of weights and tile')
+            compare(label, fusion_ops.fused_multimodal_fusion(*wargs, **kw),
+                    fusion_ops.fused_multimodal_fusion_ref(*wargs, **kw))
+            ms = median_ms(
+                lambda: fusion_ops.fused_multimodal_fusion(*wargs, **kw))
+            plain = median_ms(
+                lambda: fusion_ops.fused_multimodal_fusion_ref(*wargs, **kw))
+            fusion_wide_ms[f'M={nm} {"+".join(mods)}'] = (ms, plain)
+            print(f'    kernel {ms:.4f} ms, plain {plain:.4f} ms (M=3: '
+                  f'{fusion_ms:.4f} ms)')
     out = []
     for name, source in (('tcn_block', 'tcn_block_tf32x3.cu'),
                          ('tcn_block_simt', 'tcn_block.cu')):
@@ -572,13 +712,15 @@ def check_kernels(model, device) -> list:
     print('  tcn_block (split TF32) by launch over the 12 blocks: '
           + ', '.join(f'{key} {ms:.4f} ms' for key, ms in launch_ms.items()))
     out[0]['launch_ms'] = launch_ms
+    out[0]['long_kernels_ms'] = long_ms
     return out + [
         {'name': 'fusion', 'route': 'cuda',
          'source': 'fvt_tpu_torch/csrc/fusion.cu',
          'replaces': 'fvt_tpu/ops/fusion_pallas.py:25',
          'max_abs_err': fusion_err, 'ms': fusion_ms,
          'plain_ms': fusion_plain_ms, 'library_ms': None,
-         **bound(fusion_flops, fusion_bytes)},
+         **bound(fusion_flops, fusion_bytes),
+         'many_modalities_ms': fusion_wide_ms},
     ]
 
 
@@ -1138,6 +1280,155 @@ def check_bottleneck_kernel(device) -> list:
     return out
 
 
+def check_bottleneck_bf16_kernel(device) -> dict:
+    """Phase 2, bfloat16: the fused BottleneckIR block's bfloat16 route
+    (``bottleneck_ir_fused`` on bfloat16 tensors, the ``fused_blocks``
+    path under ``--amp``: two launches of the bfloat16 ``wgmma`` conv, bn1
+    in a pass over conv1's staged slice, PReLU in conv1's store, bn2 and
+    the residual in conv2's, v a bfloat16 workspace) against its plain
+    version (``bottleneck_ir_fused_bf16_ref``, the Pallas kernel's
+    rounding points) at the four stage shapes on FRAMES frames and at edge
+    shapes (bn1's shift at 20 in three), on the weights a bfloat16
+    ``BottleneckIR`` derives from random parameters, under
+    compare_block_bf16's gate (each launch alone within one unit in the
+    last place, the block within that plus v's flips carried through
+    conv2).  Times
+    of the kernel (each launch also alone), the plain version and the
+    unfused bfloat16 block on cuDNN (BatchNorm2d, PReLU and the add as
+    passes of their own); the bound: both convs' operations at the bf16
+    peak against x, the kept weights, the five vectors and y."""
+    from fvt_tpu_torch.kernels import build
+    from fvt_tpu_torch.models.arcface import BottleneckIR
+    from fvt_tpu_torch.ops import bottleneck as block_ops
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    frames = WINDOW_BATCH * WINDOW
+    tot = {key: 0.0 for key in ('err', 'ms', 'plain', 'cudnn', 'ops_ms',
+                                'bytes_ms', 'conv1', 'conv2')}
+
+    def block(c, b1_shift=0.0):
+        """A bfloat16 identity block on the card, every parameter and
+        running statistic off its init value."""
+        blk = BottleneckIR(c, c, 1, 'cudnn', bf16).to(device).eval()
+
+        def randn(shape, scale=1.0, shift=0.0):
+            return torch.randn(shape, device=device,
+                               generator=g) * scale + shift
+        with torch.no_grad():
+            for conv in (blk.res_layer[1], blk.res_layer[3]):
+                conv.weight.copy_(randn(conv.weight.shape, (9 * c) ** -0.5))
+            for bn, shift in ((blk.res_layer[0], b1_shift),
+                              (blk.res_layer[4], 0.0)):
+                bn.weight.copy_(randn(c, 0.2, 1.0))
+                bn.bias.copy_(randn(c, 0.5, shift))
+                bn.running_mean.copy_(randn(c, 0.1))
+                bn.running_var.copy_(0.5 + randn(c).abs())
+            blk.res_layer[2].weight.copy_(randn(c, 0.1, 0.25))
+        return blk
+
+    with torch.inference_mode():
+        for h, c, count in BLOCK_SHAPES:
+            blk = block(c)
+            *args, packed = blk.fused_weights()
+            x = torch.randn(frames, h, h, c, device=device,
+                            generator=g).to(bf16)
+            x_nchw = x.permute(0, 3, 1, 2)  # channels_last, as the backbone
+            shape = f'bottleneck_bf16 ({frames},{h},{h},{c})'
+            got = block_ops.bottleneck_ir_fused(x, *args, packed=packed)
+            err = compare_block_bf16(shape, got, x, args, packed)
+            unfused = blk(x_nchw).permute(0, 2, 3, 1)
+            own = (unfused.float() - got.float()).abs().max().item()
+            print(f'    max |fused - unfused bf16 block on cuDNN| = '
+                  f'{own:.3e} (other rounding points: bf16 BatchNorm, '
+                  f'PReLU and add passes)')
+            del got, unfused
+            ms = median_ms(lambda: block_ops.bottleneck_ir_fused(
+                x, *args, packed=packed), CONV_RUNS)
+            plain = median_ms(lambda: block_ops.bottleneck_ir_fused_bf16_ref(
+                x, *args), 3, warmup=1)
+            cudnn = median_ms(lambda: blk(x_nchw), CONV_RUNS)
+            flops = 2 * 2.0 * 9 * frames * h * h * c * c
+            moved = nbytes(x, *packed, *args[2:], x)  # x in, y out
+            lower = bound(flops, moved, PEAK_FLOPS_BF16)
+            v, out = torch.empty_like(x), torch.empty_like(x)
+            alone = {}
+            for key, stage in (('conv1', block_ops.CONV1),
+                               ('conv2', block_ops.CONV2)):
+                alone[key] = median_ms(lambda: block_ops.launch_bf16(
+                    x, packed, tuple(args[2:]), v, out, stage), CONV_RUNS)
+                tot[key] += count * alone[key]
+            print(f'    x{count} a forward: kernel {ms:.4f} ms (conv1 '
+                  f'{alone["conv1"]:.4f}, conv2 {alone["conv2"]:.4f} alone), '
+                  f'plain {plain:.4f} ms, unfused bf16 block on cuDNN '
+                  f'{cudnn:.4f} ms, bound {lower["bound_ms"]:.4f} ms by '
+                  f'{lower["bound_by"]} ({flops / 1e9:.1f} GFLOP at '
+                  f'{PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s, {moved / 1e6:.1f} '
+                  f'MB), {lower["bound_ms"] / ms:.1%} of it')
+            tot['err'] = max(tot['err'], err)
+            tot['ms'] += count * ms
+            tot['plain'] += count * plain
+            tot['cudnn'] += count * cudnn
+            tot['ops_ms'] += count * flops / PEAK_FLOPS_BF16 * 1e3
+            tot['bytes_ms'] += count * moved / PEAK_BYTES * 1e3
+            del blk, args, packed, x, x_nchw, v, out
+
+        # odd extents, single pixels, several frames a row tile, the
+        # narrowest C (one k16 step), bn = 128 at 5x5x512, and bn1's shift
+        # at 20 (a pad that took b1 would show) at both column tiles
+        for n, h, w, c, shift in [(3, 7, 9, 32, 0.0), (1, 1, 1, 16, 0.0),
+                                  (5, 10, 10, 64, 20.0),
+                                  (2, 13, 6, 16, 20.0), (7, 5, 5, 512, 0.0),
+                                  (3, 9, 11, 256, 20.0)]:
+            blk = block(c, shift)
+            *args, packed = blk.fused_weights()
+            x = torch.randn(n, h, w, c, device=device, generator=g).to(bf16)
+            compare_block_bf16(f'bottleneck_bf16 edge ({n},{h},{w},{c}) b1 '
+                               f'shift {shift}',
+                               block_ops.bottleneck_ir_fused(x, *args), x,
+                               args, packed)
+
+        # C = 20 is no multiple of 16: the wrapper raises and the C entry
+        # refuses; W = 1200 leaves the shared memory: the C entry refuses
+        # and the wrapper raises
+        before = block_ops.bottleneck_ir_fused.launches
+        for (n, h, w, c), error in (((2, 5, 5, 20), ValueError),
+                                    ((1, 2, 1200, 16), RuntimeError)):
+            blk = block(c)
+            *args, _ = blk.fused_weights()
+            x = torch.randn(n, h, w, c, device=device, generator=g).to(bf16)
+            try:
+                block_ops.bottleneck_ir_fused(x, *args)
+            except error as e:
+                print(f'  bottleneck_bf16 ({n},{h},{w},{c}) refused: {e}')
+            else:
+                fail(f'bottleneck_ir_fused took bfloat16 ({n},{h},{w},{c})')
+        x = torch.zeros(2, 5, 5, 20, device=device, dtype=bf16)
+        code = build.library().fvt_bottleneck_bf16_forward(
+            *([x.data_ptr()] * 10), 2, 5, 5, 20, 64, block_ops.BOTH,
+            torch.cuda.current_stream(device).cuda_stream)
+        if code == 0:
+            fail('the bfloat16 bottleneck entry took C = 20')
+        if block_ops.bottleneck_ir_fused.launches != before:
+            fail('a refused bfloat16 bottleneck counted a launch')
+    lower = max(tot['ops_ms'], tot['bytes_ms'])
+    print(f'  bottleneck_bf16 total over the 21 blocks of a forward: kernel '
+          f'{tot["ms"]:.4f} ms (conv1 {tot["conv1"]:.4f}, conv2 '
+          f'{tot["conv2"]:.4f} alone), plain {tot["plain"]:.4f} ms, unfused '
+          f'bf16 block on cuDNN {tot["cudnn"]:.4f} ms, bound {lower:.4f} ms '
+          f'({lower / tot["ms"]:.1%} of it)')
+    return {'name': 'bottleneck_bf16', 'route': 'cuda',
+            'source': 'fvt_tpu_torch/csrc/conv3x3_wgmma.cu',
+            'replaces': 'fvt_tpu/ops/bottleneck_pallas.py:122',
+            'max_abs_err': tot['err'], 'ms': tot['ms'],
+            'plain_ms': tot['plain'], 'library_ms': None,
+            'bound_ms': lower,
+            'bound_by': ('operations' if tot['ops_ms'] >= tot['bytes_ms']
+                         else 'bytes'),
+            'launch_ms': {'conv1': tot['conv1'], 'conv2': tot['conv2']},
+            'unfused_cudnn_block_ms': tot['cudnn']}
+
+
 def conv_counters() -> dict:
     from fvt_tpu_torch.ops.bottleneck import (bottleneck_ir_fused,
                                               bottleneck_ir_fused_simt)
@@ -1155,15 +1446,18 @@ def read_launches(counters: dict) -> dict:
     """The counters' launches, and those of the float32 and bfloat16 conv
     kernels apart."""
     launches = {k: fn.launches for k, fn in counters.items()}
-    launches['conv3x3_fp32'] = counters['conv3x3'].launches_fp32
-    launches['conv3x3_bf16'] = counters['conv3x3'].launches_bf16
+    for name in ('conv3x3', 'bottleneck'):
+        for dtype in ('fp32', 'bf16'):
+            launches[f'{name}_{dtype}'] = getattr(counters[name],
+                                                  f'launches_{dtype}')
     return launches
 
 
 def zero_launches(counters: dict) -> None:
     for fn in counters.values():
         fn.launches = 0
-    counters['conv3x3'].launches_fp32 = counters['conv3x3'].launches_bf16 = 0
+    for name in ('conv3x3', 'bottleneck'):
+        counters[name].launches_fp32 = counters[name].launches_bf16 = 0
 
 
 def backbone_variants(model, crops: torch.Tensor, device) -> dict:
@@ -1183,12 +1477,14 @@ def backbone_variants(model, crops: torch.Tensor, device) -> dict:
                  {'conv3x3': 45, 'conv3x3_fp32': 45}),
                 ('winograd_kernel', {'conv_impl': 'winograd_kernel'},
                  {'winograd': 45}),
-                ('fused_blocks', {'fused_blocks': True}, {'bottleneck': 21}),
+                ('fused_blocks', {'fused_blocks': True},
+                 {'bottleneck': 21, 'bottleneck_fp32': 21}),
                 # the 21 identity blocks fused, the other three stride-1
                 # convs (each stage's first conv1) on the split-TF32 conv
                 ('fused_blocks+shifted_kernel',
                  {'fused_blocks': True, 'conv_impl': 'shifted_kernel'},
-                 {'bottleneck': 21, 'conv3x3': 3, 'conv3x3_fp32': 3})]
+                 {'bottleneck': 21, 'bottleneck_fp32': 21, 'conv3x3': 3,
+                  'conv3x3_fp32': 3})]
     ref, out_launches, nets = None, {'conv3x3_simt': 0, 'winograd_simt': 0,
                                      'bottleneck_simt': 0}, {}
     with torch.inference_mode():
@@ -1233,69 +1529,88 @@ def backbone_variants(model, crops: torch.Tensor, device) -> dict:
     return out_launches
 
 
-def backbone_bf16(model, crops: torch.Tensor, device) -> int:
+def backbone_bf16(model, crops: torch.Tensor, device) -> dict:
     """Phase 5, the bfloat16 backbone alone: ``dtype=torch.bfloat16``
-    through ``cudnn`` and ``shifted_kernel`` on the same frames and
-    weights.  The kernel path's embeddings are held against the plain
-    version's of the same bfloat16 model; the tolerance is
-    BF16_PATHS_APART times bfloat16's own distance from float32, max |bf16
-    cudnn - fp32 cudnn| on these weights and crops.  Returns the bfloat16
-    kernel's launches over its one checked forward."""
+    through ``cudnn``, ``shifted_kernel``, ``fused_blocks`` and
+    ``fused_blocks`` on ``shifted_kernel`` on the same frames and
+    weights.  Each kernel path's
+    embeddings are held against the plain version's of the same bfloat16
+    model; the tolerance is BF16_PATHS_APART times bfloat16's own distance
+    from float32, max |bf16 cudnn - fp32 cudnn| on these weights and
+    crops.  Returns the bfloat16 conv kernel's and the bfloat16 block's
+    launches over their own path's one checked forward."""
     from fvt_tpu_torch.models.arcface import VisualBackbone
 
     counters = conv_counters()
-    conv3x3 = counters['conv3x3']
     state = model.spatial.visual.state_dict()
     frames = crops.shape[0]
+    bf16 = {'dtype': torch.bfloat16}
+    paths = {  # the kernel paths and their launches a forward
+        'bf16 shifted_kernel': ({'conv_impl': 'shifted_kernel'},
+                                {'conv3x3': 45, 'conv3x3_bf16': 45}),
+        # the 21 identity blocks fused, the rest on cuDNN
+        'bf16 fused_blocks': ({'fused_blocks': True},
+                              {'bottleneck': 21, 'bottleneck_bf16': 21}),
+        # the 21 identity blocks fused, each stage's first conv1 on the
+        # bfloat16 conv kernel
+        'bf16 fused_blocks+shifted_kernel': (
+            {'conv_impl': 'shifted_kernel', 'fused_blocks': True},
+            {'conv3x3': 3, 'conv3x3_bf16': 3, 'bottleneck': 21,
+             'bottleneck_bf16': 21})}
     nets = {}
-    for name, kw in (('fp32 cudnn', {}),
-                     ('bf16 cudnn', {'dtype': torch.bfloat16}),
-                     ('bf16 shifted_kernel', {'dtype': torch.bfloat16,
-                                              'conv_impl': 'shifted_kernel'})):
+    for name, kw in (('fp32 cudnn', {}), ('bf16 cudnn', bf16),
+                     *((name, {**bf16, **kw})
+                       for name, (kw, _) in paths.items())):
         nets[name] = VisualBackbone(**kw).eval()
         nets[name].load_state_dict(state)
         nets[name].to(device)
+    out_launches = {}
     with torch.inference_mode():
         fp32 = nets['fp32 cudnn'](crops)
         cudnn = nets['bf16 cudnn'](crops)
-        zero_launches(counters)
-        got = nets['bf16 shifted_kernel'](crops)
-        torch.cuda.synchronize()
-        launches = read_launches(counters)
-        if launches != {'conv3x3': 45, 'conv3x3_bf16': 45, 'conv3x3_fp32': 0,
-                        'conv3x3_simt': 0, 'winograd': 0, 'winograd_simt': 0,
-                        'bottleneck': 0, 'bottleneck_simt': 0}:
-            fail(f'bf16 backbone shifted_kernel: launches {launches}, '
-                 f'expected 45 of the bfloat16 conv kernel a forward')
-        plain = nets['bf16 shifted_kernel'](crops, reference=True)
-        if conv3x3.launches != 45:
-            fail('the plain-version forward launched a kernel')
         own = (cudnn - fp32).abs().max().item()
         tol = BF16_PATHS_APART * own
-        err = (got - plain).abs().max().item()
-        far = (got - fp32).abs().max().item()
         print(f'  bf16 backbone on {frames} frames: max |bf16 cudnn - fp32 '
               f'cudnn| = {own:.3e} (bfloat16\'s own distance; the '
-              f'tolerance is {BF16_PATHS_APART} of it, {tol:.3e}); max '
-              f'|shifted_kernel - its plain version| = '
-              f'{err:.3e}; max |shifted_kernel - fp32 cudnn| = {far:.3e}; '
-              f'launches {launches}')
-        for name, out in (('cudnn', cudnn), ('shifted_kernel', got)):
-            if (out.shape != (frames, 512) or out.dtype != torch.float32
-                    or not bool(torch.isfinite(out).all())):
-                fail(f'bf16 backbone {name}: embeddings {tuple(out.shape)} '
-                     f'{out.dtype}, finite={bool(torch.isfinite(out).all())}')
-        if err > tol:
-            fail(f'bf16 backbone: the kernel path differs from its plain '
-                 f'version by {err}, more than {BF16_PATHS_APART} of '
-                 f'bfloat16\'s distance from float32 ({own})')
-        for name in ('fp32 cudnn', 'bf16 cudnn', 'bf16 shifted_kernel',
-                     'bf16 shifted_kernel', 'bf16 cudnn'):
+              f'tolerance is {BF16_PATHS_APART} of it, {tol:.3e})')
+        for name, (_, expect) in paths.items():
+            zero_launches(counters)
+            got = nets[name](crops)
+            torch.cuda.synchronize()
+            launches = read_launches(counters)
+            want = {k: expect.get(k, 0) for k in launches}
+            if launches != want:
+                fail(f'{name}: launches {launches}, expected {want} a '
+                     f'forward')
+            out_launches[name] = launches
+            plain = nets[name](crops, reference=True)
+            if read_launches(counters) != want:
+                fail('the plain-version forward launched a kernel')
+            err = (got - plain).abs().max().item()
+            far = (got - fp32).abs().max().item()
+            print(f'  {name}: max |kernel path - its plain version| = '
+                  f'{err:.3e}; max |kernel path - fp32 cudnn| = {far:.3e}; '
+                  f'launches {launches}')
+            for what, out in (('cudnn', cudnn), (name, got)):
+                if (out.shape != (frames, 512) or out.dtype != torch.float32
+                        or not bool(torch.isfinite(out).all())):
+                    fail(f'bf16 backbone {what}: embeddings '
+                         f'{tuple(out.shape)} {out.dtype}, '
+                         f'finite={bool(torch.isfinite(out).all())}')
+            if err > tol:
+                fail(f'{name}: the kernel path differs from its plain '
+                     f'version by {err}, more than {BF16_PATHS_APART} of '
+                     f'bfloat16\'s distance from float32 ({own})')
+        turns = list(nets)[1:]
+        for name in ['fp32 cudnn'] + turns + turns[::-1]:
             net = nets[name]
             ms = median_ms(lambda: net(crops), CONV_RUNS, warmup=1)
             print(f'  backbone {name} on {frames} frames: {ms:.2f} ms, '
                   f'{frames / ms * 1e3:.1f} frames/s')
-    return launches['conv3x3_bf16']
+    return {'conv3x3_bf16':
+            out_launches['bf16 shifted_kernel']['conv3x3_bf16'],
+            'bottleneck_bf16': out_launches[
+                'bf16 fused_blocks+shifted_kernel']['bottleneck_bf16']}
 
 
 def serve_variant(model, kw: dict, kernel: str, per_dispatch: int,
@@ -1423,14 +1738,73 @@ def time_dispatches(name: str, server, inputs: dict) -> None:
           f'{WINDOW_BATCH * WINDOW / med:.1f} frames/s')
 
 
-def make_train_batches(n: int) -> list:
+def make_train_batches(n: int, modality=TRAIN_MODALITY) -> list:
     from fvt_tpu_torch.config import model_config as MC
     rng = np.random.default_rng(SEED + 3)
     shape = (TRAIN_BATCH, WINDOW)
     return [{**{m: rng.standard_normal(shape + tuple(MC.FEATURE_DIMENSION[m]),
-                                       np.float32) for m in TRAIN_MODALITY},
+                                       np.float32) for m in modality},
              'EXPR_continuous_label': rng.integers(0, 7, shape)}
             for _ in range(n)]
+
+
+def fused_against_plain(trainers: dict, batches: list, epochs: int) -> dict:
+    """Runs ``epochs`` over ``batches`` on the ``'fused'`` and the
+    ``'plain'`` trainer (same model, same state) and holds the fused
+    run to the plain one: the train kernels' launches (8 forward and 8
+    backward a step, no eval-only kernel), the per-step losses within
+    TRAIN_LOSS_RTOL and the final parameters and running statistics within
+    TRAIN_PARAM_RTOL / TRAIN_PARAM_ATOL.  Returns the fused run's
+    launches."""
+    from fvt_tpu_torch.ops.fusion import fused_multimodal_fusion
+    from fvt_tpu_torch.ops.tcn import (fused_temporal_block,
+                                       fused_temporal_block_train as block)
+
+    counters = (fused_temporal_block, fused_multimodal_fusion)
+    block.launches_fwd = block.launches_bwd = 0
+    eval_before = [c.launches for c in counters]
+    losses = {}
+    for name in ('fused', 'plain'):
+        losses[name] = []
+        for e in range(epochs):
+            trainers[name].train_one_epoch(batches, e)
+            losses[name] += trainers[name].step_losses
+        if name == 'fused':
+            launches = {'tcn_block_train': block.launches_fwd,
+                        'tcn_block_bwd': block.launches_bwd}
+    steps = epochs * len(batches)
+    print(f'  {steps} steps at ({TRAIN_BATCH},{WINDOW}): fused losses '
+          f'{losses["fused"][0]:.6f} .. {losses["fused"][-1]:.6f}; '
+          f'tcn_block_train launches {launches["tcn_block_train"]}, '
+          f'tcn_block_bwd launches {launches["tcn_block_bwd"]}')
+    if not all(np.isfinite(losses['fused'])):
+        fail(f'non-finite training loss: {losses["fused"]}')
+    if launches != {'tcn_block_train': 8 * steps, 'tcn_block_bwd': 8 * steps}:
+        fail(f'expected 8 forward and 8 backward launches a step over '
+             f'{steps} steps, got {launches}')
+    if [c.launches for c in counters] != eval_before:
+        fail('an eval-only kernel was launched while training')
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(losses['fused'], losses['plain']))
+    print(f'  fused vs plain: max relative loss difference {rel:.3e} '
+          f'(rtol {TRAIN_LOSS_RTOL})')
+    if rel > TRAIN_LOSS_RTOL:
+        fail(f'fused and plain training losses differ by {rel}')
+    worst = 0.0
+    plain_state = trainers['plain'].model.state_dict()
+    for n, got in trainers['fused'].model.state_dict().items():
+        want = plain_state[n]
+        if not got.is_floating_point():
+            continue
+        excess = ((got - want).abs() - TRAIN_PARAM_ATOL
+                  - TRAIN_PARAM_RTOL * want.abs()).max().item()
+        worst = max(worst, (got - want).abs().max().item())
+        if excess > 0 or not torch.isfinite(got).all():
+            fail(f'{n}: fused and plain training disagree after {steps} '
+                 f'steps (rtol {TRAIN_PARAM_RTOL}, atol {TRAIN_PARAM_ATOL})')
+    print(f'  final parameters and running statistics: max abs difference '
+          f'{worst:.3e} (rtol {TRAIN_PARAM_RTOL}, atol {TRAIN_PARAM_ATOL})')
+    return launches
 
 
 def train_lfan(device) -> dict:
@@ -1438,9 +1812,6 @@ def train_lfan(device) -> dict:
     run's TRAIN_STEPS steps."""
     from fvt_tpu_torch.config.defaults import get_train_config
     from fvt_tpu_torch.models.models import LFAN
-    from fvt_tpu_torch.ops.fusion import fused_multimodal_fusion
-    from fvt_tpu_torch.ops.tcn import (fused_temporal_block,
-                                       fused_temporal_block_train as block)
     from fvt_tpu_torch.train.steps import to_device
     from fvt_tpu_torch.train.trainer import Trainer
 
@@ -1478,50 +1849,7 @@ def train_lfan(device) -> dict:
     if differ:
         fail(f'gradients differ between two runs of one step: {differ}')
 
-    counters = (fused_temporal_block, fused_multimodal_fusion)
-    block.launches_fwd = block.launches_bwd = 0
-    eval_before = [c.launches for c in counters]
-    losses = {}
-    for name in ('fused', 'plain'):
-        losses[name] = []
-        for e in range(epochs):
-            trainers[name].train_one_epoch(batches, e)
-            losses[name] += trainers[name].step_losses
-        if name == 'fused':
-            launches = {'tcn_block_train': block.launches_fwd,
-                        'tcn_block_bwd': block.launches_bwd}
-    steps = epochs * len(batches)
-    print(f'  {steps} steps at ({TRAIN_BATCH},{WINDOW}): fused losses '
-          f'{losses["fused"][0]:.6f} .. {losses["fused"][-1]:.6f}; '
-          f'tcn_block_train launches {launches["tcn_block_train"]}, '
-          f'tcn_block_bwd launches {launches["tcn_block_bwd"]}')
-    if not all(np.isfinite(losses['fused'])):
-        fail(f'non-finite training loss: {losses["fused"]}')
-    if launches != {'tcn_block_train': 8 * steps, 'tcn_block_bwd': 8 * steps}:
-        fail(f'expected 8 forward and 8 backward launches a step over '
-             f'{steps} steps, got {launches}')
-    if [c.launches for c in counters] != eval_before:
-        fail('an eval-only kernel was launched while training')
-    rel = max(abs(a - b) / abs(b)
-              for a, b in zip(losses['fused'], losses['plain']))
-    print(f'  fused vs plain: max relative loss difference {rel:.3e} '
-          f'(rtol {TRAIN_LOSS_RTOL})')
-    if rel > TRAIN_LOSS_RTOL:
-        fail(f'fused and plain training losses differ by {rel}')
-    worst = 0.0
-    plain_state = trainers['plain'].model.state_dict()
-    for n, got in fused.model.state_dict().items():
-        want = plain_state[n]
-        if not got.is_floating_point():
-            continue
-        excess = ((got - want).abs() - TRAIN_PARAM_ATOL
-                  - TRAIN_PARAM_RTOL * want.abs()).max().item()
-        worst = max(worst, (got - want).abs().max().item())
-        if excess > 0 or not torch.isfinite(got).all():
-            fail(f'{n}: fused and plain training disagree after {steps} '
-                 f'steps (rtol {TRAIN_PARAM_RTOL}, atol {TRAIN_PARAM_ATOL})')
-    print(f'  final parameters and running statistics: max abs difference '
-          f'{worst:.3e} (rtol {TRAIN_PARAM_RTOL}, atol {TRAIN_PARAM_ATOL})')
+    launches = fused_against_plain(trainers, batches, epochs)
 
     frames = TRAIN_BATCH * WINDOW
     for name in ('fused', 'conv-by-conv', 'conv-by-conv', 'fused'):
@@ -1541,6 +1869,27 @@ def train_lfan(device) -> dict:
               f'{max(times) * 1e3:.3f} ms -> {frames / med:.1f} trained '
               f'frames/s')
     return launches
+
+
+def train_mfcc_lfan(device) -> dict:
+    """Phase 4, the mfcc width: MFCC_STEPS fused ``Trainer`` steps of the
+    full-width ``mfcc+vggish`` LFAN (mfcc's first block 39 -> 32, run on
+    zero channels) against the same steps on the plain versions, under
+    the training gate.  Returns the train kernels' launches."""
+    from fvt_tpu_torch.config.defaults import get_train_config
+    from fvt_tpu_torch.models.models import LFAN
+    from fvt_tpu_torch.train.trainer import Trainer
+
+    config = get_train_config()
+    config.update(seed=SEED, nan_guard=True)
+    batches = make_train_batches(2, MFCC_MODALITY)
+    model = LFAN(MFCC_MODALITY, output_dim=7, tcn_dropout=TCN_DROPOUT,
+                 generator=torch.Generator().manual_seed(SEED))
+    trainers = {'fused': Trainer(copy.deepcopy(model), config, device),
+                'plain': Trainer(copy.deepcopy(model), config, device,
+                                 reference=True)}
+    return fused_against_plain(trainers, batches,
+                               MFCC_STEPS // len(batches))
 
 
 def main() -> int:
@@ -1587,10 +1936,12 @@ def main() -> int:
     kernels += check_conv_kernels(device)
     kernels += check_bottleneck_kernel(device)
     print(f'phase 2, bfloat16: the tensor-core conv kernel vs its plain '
-          f'version and F.conv2d on bfloat16 tensors (|got - want| <= '
-          f'{BF16_RTOL} |want| + {BF16_ATOL}: one unit in the last place; '
-          f'mean |got - want| <= {BF16_MEAN_TOL} mean |want|)')
+          f'version and F.conv2d on bfloat16 tensors, and the fused block '
+          f'vs its plain version (|got - want| <= {BF16_RTOL} |want| + '
+          f'{BF16_ATOL}: one unit in the last place; mean |got - want| <= '
+          f'{BF16_MEAN_TOL} mean |want|)')
     kernels.append(check_conv_bf16_kernel(device))
+    kernels.append(check_bottleneck_bf16_kernel(device))
     torch.cuda.empty_cache()
 
     print('phase 3: serving through fvt_tpu_torch.streaming')
@@ -1644,6 +1995,9 @@ def main() -> int:
     train_launches = train_lfan(device)
     for name, n in train_launches.items():
         by_name[name]['launches'] = n
+    print(f'phase 4, mfcc: training {"+".join(MFCC_MODALITY)} through '
+          f'Trainer, fused against plain')
+    train_mfcc_lfan(device)
 
     print('phase 5: the ArcFace backbone\'s conv paths, alone and served')
     launches = backbone_variants(model, crops, device)
@@ -1652,11 +2006,12 @@ def main() -> int:
     by_name['winograd_simt']['launches'] = launches['winograd_simt']
     by_name['bottleneck_simt']['launches'] = launches['bottleneck_simt']
     by_name['bottleneck']['launches'] = serve_variant(
-        model, {'fused_blocks': True}, 'bottleneck', 21, streams, device)[0]
+        model, {'fused_blocks': True}, 'bottleneck', 21, streams, device,
+        by_type={'bottleneck_fp32': 21})[0]
     _, fused = serve_variant(
         model, {'fused_blocks': True, 'conv_impl': 'shifted_kernel'},
         'bottleneck', 21, streams, device,
-        by_type={'conv3x3': 3, 'conv3x3_fp32': 3})
+        by_type={'conv3x3': 3, 'conv3x3_fp32': 3, 'bottleneck_fp32': 21})
     by_name['winograd']['launches'], winograd = serve_variant(
         model, {'conv_impl': 'winograd_kernel'}, 'winograd', 45, streams,
         device)
@@ -1676,7 +2031,8 @@ def main() -> int:
 
     print('phase 5, bfloat16: the backbone in bfloat16 (fvt_tpu\'s --amp), '
           'alone and served')
-    by_name['conv3x3_bf16']['launches'] = backbone_bf16(model, crops, device)
+    launches = backbone_bf16(model, crops, device)
+    by_name['conv3x3_bf16']['launches'] = launches['conv3x3_bf16']
     del crops
     # served logits of the kernel path against the offline stitch of the
     # same model's plain versions.  The tolerance is derived as the
@@ -1701,7 +2057,16 @@ def main() -> int:
     serve_variant(model, {'conv_impl': 'shifted_kernel', **bf16}, 'conv3x3',
                   45, streams, device, atol=serve_tol,
                   by_type={'conv3x3_bf16': 45})
-    for impl in ('cudnn', 'shifted_kernel', 'shifted_kernel', 'cudnn'):
+    # the bfloat16 fused blocks served: 21 block launches and 3 conv
+    # launches a dispatch, all bfloat16
+    by_name['bottleneck_bf16']['launches'], servers['fused_blocks'] = \
+        serve_variant(model, {'conv_impl': 'shifted_kernel',
+                              'fused_blocks': True, **bf16}, 'bottleneck',
+                      21, streams, device, atol=serve_tol,
+                      by_type={'bottleneck_bf16': 21, 'conv3x3': 3,
+                               'conv3x3_bf16': 3})
+    for impl in ('cudnn', 'shifted_kernel', 'fused_blocks', 'fused_blocks',
+                 'shifted_kernel', 'cudnn'):
         time_dispatches(f'bf16 backbone, {impl}', servers[impl], inputs)
     del model, servers
 

@@ -73,6 +73,42 @@
 // weights, 256 columns an instruction (setmaxnreg for the producer),
 // 128-byte-swizzled operands, and smaller tiles for the last wave.
 //
+// The same kernel runs the fused BottleneckIR block on bf16 tensors (B5
+// under --amp; replaces fvt_tpu/ops/bottleneck_pallas.py::_block_kernel, the
+// Pallas kernel behind bottleneck_ir_fused, on bf16 arrays) as two launches,
+// fvt_bottleneck_bf16_forward, the design of the fp32 block on
+// conv3x3_tf32x3.cu: the block's elementwise work rides where values
+// already pass through a thread, chosen at compile time (the plain conv
+// takes neither and is the code it was).  The Pallas kernel's rounding
+// points are the contract:
+// - prologue kBn1.  Here the operands go from the copy engine straight to
+//   wgmma, so this is a pass of its own: after a slot's `full` barrier the
+//   consumer threads rewrite the staged x as bf16(a1[c]*x + b1[c]), the
+//   affine in fp32 and one rounding, at image pixels, and write exact 0 at
+//   every other coordinate (bn1 comes before conv1's zero pad: the image
+//   border, the pad row two frames share, past the last frame); then
+//   fence.proxy.async, so that wgmma's async proxy sees the writes, and a
+//   named barrier of the consumers only (the producer warp runs on), so
+//   that none multiplies a patch another is still writing.  A thread takes
+//   one 8-channel chunk (warpgroup parity) and the coordinates of a fixed
+//   stride in it, and tests which of its coordinates are pixels once a
+//   tile.
+// - the block's vectors (a1, b1, alpha or a2, b2; at most 6 KB) are copied
+//   into shared memory beside the ring once, when the block starts: a warp
+//   reads one chunk's values at one address, a broadcast, and no thread
+//   holds them across a slice (in registers beside the accumulators they
+//   spilled).
+// - epilogue kPrelu, in the store: conv1's fp32 sums through PReLU
+//   unrounded (alpha[n]*acc where acc <= 0), then v rounded to bf16 once.
+// - epilogue kBn2Residual, in the store: (acc*a2[n] + b2[n]) + x at the
+//   output's own index (C = Co), all in fp32, rounded to bf16 once.
+// The affines round the product and the sum apart (__fmul_rn, __fadd_rn),
+// in the plain version's order.  conv1 writes v (bf16) to device memory and
+// conv2 stages it as any conv stages x; the copy engine's zero fill is
+// conv2's pad.  The fp32 sums of a tile stay in one accumulator over the
+// slices, as in the plain conv: bf16's rounding of v and y (2^-8) is far
+// above wgmma's fp32 accumulation error.
+//
 // Two build switches split the time for tools/profile_conv_bf16.py, and give
 // wrong sums: -DFVT_DIAG_PRODUCTS_ONLY starts no copy and waits for none,
 // -DFVT_DIAG_COPIES_ONLY runs the wgmma of the first slice only.
@@ -84,6 +120,10 @@
 namespace {
 
 constexpr int kKC = 16;  // input channels a slice (one k16 step)
+
+// What a launch does besides the conv (the header note)
+enum Prologue { kNoPrologue, kBn1 };
+enum Epilogue { kStore, kPrelu, kBn2Residual };
 
 // d (64 x N, fp32, in the warpgroup's registers) = d * scale_d + A (64 x 16,
 // K-major) @ B (16 x N, N-major), both bf16 in shared memory behind
@@ -166,13 +206,56 @@ struct ConvArgs {
   long long Q;  // padded coordinates in all: N*(H+1)*(W+1)
   int n_tiles;  // column tiles: ceil(Co / BN)
   int tiles;    // row tiles (kBM coordinates each) times column tiles
+  // read only by the instantiations that use them (fp32 vectors)
+  const float* a1;     // kBn1: bn1's affine (C)
+  const float* b1;
+  const float* alpha;  // kPrelu: the slopes (Co)
+  const float* a2;     // kBn2Residual: bn2's affine (Co) and the residual,
+  const float* b2;     // shaped as y
+  const __nv_bfloat16* res;
 };
+
+// a*x + b, rounded after the product and after the sum (no FMA)
+__device__ __forceinline__ float affine(float x, float a, float b) {
+  return __fadd_rn(__fmul_rn(x, a), b);
+}
+
+// 8 bf16 of a staged 16-byte row through bn1: a1*v + b1 in fp32 with the
+// chunk's 8 values of a1 at m and of b1 at b (shared memory), rounded once
+__device__ __forceinline__ uint4 bn1_row(uint4 raw, const float* m,
+                                         const float* b) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // four channels at a time
+    const float4 mv = *reinterpret_cast<const float4*>(m + 4 * h);
+    const float4 bv = *reinterpret_cast<const float4*>(b + 4 * h);
+    const float2 v0 = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[2 * h]));
+    const float2 v1 = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[2 * h + 1]));
+    const __nv_bfloat162 o0 = __floats2bfloat162_rn(
+        affine(v0.x, mv.x, bv.x), affine(v0.y, mv.y, bv.y));
+    const __nv_bfloat162 o1 = __floats2bfloat162_rn(
+        affine(v1.x, mv.z, bv.z), affine(v1.y, mv.w, bv.w));
+    w[2 * h] = *reinterpret_cast<const uint32_t*>(&o0);
+    w[2 * h + 1] = *reinterpret_cast<const uint32_t*>(&o1);
+  }
+  return raw;
+}
+
+// The block's vectors in shared memory, in floats: kBn1 a1 and b1 (C
+// each), then kPrelu alpha or kBn2Residual a2 and b2 (Co each)
+template <Prologue kPro, Epilogue kEpi>
+__host__ __device__ constexpr int vec_floats(int C, int Co) {
+  return (kPro == kBn1 ? 2 * C : 0) +
+         (kEpi == kPrelu ? Co : kEpi == kBn2Residual ? 2 * Co : 0);
+}
 
 // A block is WG consumer warpgroups and one producer warp, and walks the
 // tiles blockIdx.x, blockIdx.x + gridDim.x, ...  A ring of S slots lies
 // between them, each with a `full` mbarrier (the copies of a slice have
 // landed) and an `empty` one (every consumer warp has read it).
-template <int BN, int WG, int S>
+template <int BN, int WG, int S, Prologue kPro, Epilogue kEpi>
 __global__ void __launch_bounds__(128 * WG + 32, BN == 64 ? 2 : 1)
     conv3x3_wgmma_kernel(ConvArgs a,
                          const __grid_constant__ CUtensorMap x_map) {
@@ -185,6 +268,9 @@ __global__ void __launch_bounds__(128 * WG + 32, BN == 64 ? 2 : 1)
   const int P = a.P, W1 = a.W + 1;
   const int a_bytes = (kKC / 8) * P * 16;
   const int stage_bytes = a_bytes + kBBytes;
+  // the vectors, past the ring and the consumers' staged output rows
+  float* vec = reinterpret_cast<float*>(
+      smem + 128 + (size_t)S * stage_bytes + (size_t)4 * WG * 16 * kPitch);
   const uint32_t full = smem_u32(smem), empty = full + 64;
   unsigned char* ring = smem + 128;
   if (tid == 0) {
@@ -193,6 +279,17 @@ __global__ void __launch_bounds__(128 * WG + 32, BN == 64 ? 2 : 1)
       mbar_init(empty + 8 * i, 4 * WG);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (vec_floats<kPro, kEpi>(1, 1) > 0) {
+    const float* src[4] = {a.a1, a.b1, kEpi == kPrelu ? a.alpha : a.a2, a.b2};
+    const int n[4] = {kPro == kBn1 ? a.C : 0, kPro == kBn1 ? a.C : 0,
+                      kEpi != kStore ? a.Co : 0,
+                      kEpi == kBn2Residual ? a.Co : 0};
+    float* dst = vec;
+    for (int v = 0; v < 4; ++v) {
+      for (int i = tid; i < n[v]; i += blockDim.x) dst[i] = src[v][i];
+      dst += n[v];
+    }
   }
   __syncthreads();
   const int slices = a.C / kKC;
@@ -259,15 +356,50 @@ __global__ void __launch_bounds__(128 * WG + 32, BN == 64 ? 2 : 1)
   unsigned char* out = ring + (size_t)S * stage_bytes +
                        (size_t)(wg * 4 + warp) * 16 * kPitch;
   float acc[kMSub][BN / 2];  // first written by a tile's first wgmma
+  // kBn1: this thread rewrites the staged coordinates first + k*kStride,
+  // k < steps_k, of the slot's chunk `chunk` (WG is even)
+  static_assert(WG % 2 == 0, "a warpgroup pair takes the two chunks");
+  constexpr int kStride = 64 * WG;
+  const int chunk = wg & 1, first = (wg >> 1) * 128 + (tid & 127);
+  const int steps_k = (P - first + kStride - 1) / kStride;  // P <= 16 kLoad
   unsigned it = 0;
   for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
     const long long q0 = (long long)(tile / a.n_tiles) * kBM;
     const int n0 = (tile % a.n_tiles) * BN;
+    // kBn1: bit k is set where this thread's coordinate q0 + first +
+    // k*kStride is an image pixel, by the store's test
+    unsigned pixel = 0;
+    if constexpr (kPro == kBn1) {
+      for (int k = 0; k < steps_k; ++k) {
+        const long long q = q0 + first + k * kStride;
+        if (q >= a.Q) break;
+        const long long f = q / frame;
+        const int rem = (int)(q - f * frame);
+        const int row = rem / W1, col = rem - row * W1;
+        if (row != 0 && col != 0) pixel |= 1u << k;
+      }
+    }
     for (int s = 0; s < slices; ++s, ++it) {
       const int slot = it % S;
 #ifndef FVT_DIAG_PRODUCTS_ONLY
       mbar_wait(full + 8 * slot, (it / S) & 1);  // the slice has landed
 #endif
+      if constexpr (kPro == kBn1) {
+        // bn1 over the slot's chunk: bf16(a1*x + b1) at this thread's
+        // pixels, 0 elsewhere
+        const float* m = vec + s * kKC + 8 * chunk;  // a1, then b1
+        uint4* rows = reinterpret_cast<uint4*>(
+            ring + (size_t)slot * stage_bytes + (size_t)chunk * P * 16);
+        for (int k = 0; k < steps_k; ++k) {
+          const int q = first + k * kStride;
+          rows[q] = (pixel >> k) & 1u ? bn1_row(rows[q], m, m + a.C)
+                                      : make_uint4(0, 0, 0, 0);
+        }
+        // seen by wgmma's async proxy, and every consumer's writes before
+        // any of them multiplies
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, %0;\n" ::"n"(128 * WG) : "memory");
+      }
       const uint32_t sa_u32 = smem_u32(ring + (size_t)slot * stage_bytes);
       const uint64_t desc_b = make_desc(sa_u32 + a_bytes, (BN / 8) * 128, 128);
       wgmma_fence();
@@ -296,7 +428,8 @@ __global__ void __launch_bounds__(128 * WG + 32, BN == 64 ? 2 : 1)
     // (warp, lane) of a warpgroup holds rows 16*warp + lane/4 (+ 8) and
     // columns 8*j + 2*(lane % 4) (+ 1) of a sub-tile in acc[4*j + 2*half
     // (+ 1)]; a staged row takes BN*2 + 16 bytes, which spreads a warp's
-    // eight rows over the banks.
+    // eight rows over the banks.  The epilogues act on the fp32 sums
+    // before they are rounded and staged.
 #pragma unroll
     for (int sub = 0; sub < kMSub; ++sub) {
       // pixel index (n*H + i)*W + j of the sum this lane's row holds, -1 for
@@ -318,11 +451,37 @@ __global__ void __launch_bounds__(128 * WG + 32, BN == 64 ? 2 : 1)
       for (int half = 0; half < 2; ++half) {
         unsigned char* row =
             out + ((lane >> 2) + 8 * half) * kPitch + (lane & 3) * 4;
+        // kBn2Residual: the pixel of this thread's row
+        int at = -1;
+        if constexpr (kEpi == kBn2Residual)
+          at = __shfl_sync(0xffffffffu, pix, (lane >> 2) + 8 * half);
 #pragma unroll
-        for (int j = 0; j < BN / 8; ++j)
+        for (int j = 0; j < BN / 8; ++j) {
+          float2 o = make_float2(acc[sub][4 * j + 2 * half],
+                                 acc[sub][4 * j + 2 * half + 1]);
+          const int n = n0 + 8 * j + 2 * (lane & 3);
+          // the epilogue's vectors in shared memory, after bn1's
+          const float* ev = vec + (kPro == kBn1 ? 2 * a.C : 0);
+          if constexpr (kEpi == kPrelu) {
+            if (n < a.Co) {
+              const float2 al = *reinterpret_cast<const float2*>(ev + n);
+              o.x = o.x > 0.f ? o.x : __fmul_rn(al.x, o.x);
+              o.y = o.y > 0.f ? o.y : __fmul_rn(al.y, o.y);
+            }
+          } else if constexpr (kEpi == kBn2Residual) {
+            if (n < a.Co && at >= 0) {
+              const float2 m = *reinterpret_cast<const float2*>(ev + n);
+              const float2 b = *reinterpret_cast<const float2*>(ev + a.Co + n);
+              const float2 r = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(
+                      a.res + (size_t)at * a.Co + n));
+              o.x = __fadd_rn(affine(o.x, m.x, b.x), r.x);
+              o.y = __fadd_rn(affine(o.y, m.y, b.y), r.y);
+            }
+          }
           *reinterpret_cast<__nv_bfloat162*>(row + j * 16) =
-              __floats2bfloat162_rn(acc[sub][4 * j + 2 * half],
-                                    acc[sub][4 * j + 2 * half + 1]);
+              __floats2bfloat162_rn(o.x, o.y);
+        }
       }
       __syncwarp();
 #pragma unroll
@@ -343,34 +502,68 @@ constexpr size_t smem_bytes(int P, int BN, int WG, int S) {
 }
 
 // The persistent grid of wgmma_common.cuh, one block a tile at most.
-template <int BN, int WG, int S>
+template <int BN, int WG, int S, Prologue kPro, Epilogue kEpi>
 cudaError_t launch(ConvArgs a, const CUtensorMap& x_map, cudaStream_t stream) {
   constexpr int kThreads = 128 * WG + 32;
   a.n_tiles = (a.Co + BN - 1) / BN;
-  const size_t bytes = smem_bytes(a.P, BN, WG, S);
+  const size_t bytes =
+      smem_bytes(a.P, BN, WG, S) + 4 * vec_floats<kPro, kEpi>(a.C, a.Co);
   const long long tiles = (a.Q - (a.W + 2) + kBM - 1) / kBM * a.n_tiles;
   if (tiles > 2147483647LL) return cudaErrorInvalidValue;
   a.tiles = (int)tiles;
   unsigned blocks = 0;
-  const cudaError_t err = persistent_blocks(conv3x3_wgmma_kernel<BN, WG, S>,
-                                            kThreads, bytes, tiles, &blocks);
+  const cudaError_t err =
+      persistent_blocks(conv3x3_wgmma_kernel<BN, WG, S, kPro, kEpi>,
+                        kThreads, bytes, tiles, &blocks);
   if (err != cudaSuccess) return err;
-  conv3x3_wgmma_kernel<BN, WG, S><<<blocks, kThreads, bytes, stream>>>(
-      a, x_map);
+  conv3x3_wgmma_kernel<BN, WG, S, kPro, kEpi>
+      <<<blocks, kThreads, bytes, stream>>>(a, x_map);
   return cudaGetLastError();
 }
 
 // The deepest ring of 3 or 2 slots that fits the shared memory.
-template <int BN, int WG>
+template <int BN, int WG, Prologue kPro = kNoPrologue, Epilogue kEpi = kStore>
 cudaError_t launch_ring(const ConvArgs& a, const CUtensorMap& x_map,
                         cudaStream_t stream) {
   // a lane of the producer warp for each load of a slice
   if (2 * (a.P / kLoad) > 32) return cudaErrorInvalidValue;
-  if (smem_bytes(a.P, BN, WG, 3) <= (size_t)kMaxSmem)
-    return launch<BN, WG, 3>(a, x_map, stream);
-  if (smem_bytes(a.P, BN, WG, 2) <= (size_t)kMaxSmem)
-    return launch<BN, WG, 2>(a, x_map, stream);
+  const size_t vec = 4 * vec_floats<kPro, kEpi>(a.C, a.Co);
+  if (smem_bytes(a.P, BN, WG, 3) + vec <= (size_t)kMaxSmem)
+    return launch<BN, WG, 3, kPro, kEpi>(a, x_map, stream);
+  if (smem_bytes(a.P, BN, WG, 2) + vec <= (size_t)kMaxSmem)
+    return launch<BN, WG, 2, kPro, kEpi>(a, x_map, stream);
   return cudaErrorInvalidValue;
+}
+
+// The arguments of a conv of x (N, H, W, C) into y (N, H, W, Co) and its
+// tensor map, or cudaErrorInvalidValue for a shape or bn no launch takes.
+cudaError_t conv_args(const void* x, const void* wp, void* y, int N, int H,
+                      int W, int C, int Co, int bn, ConvArgs* a,
+                      CUtensorMap* x_map) {
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % 16 || Co % 8 ||
+      (bn != 64 && bn != 128))
+    return cudaErrorInvalidValue;
+  if ((long long)N * H * W > 2147483647LL) return cudaErrorInvalidValue;
+  *a = ConvArgs{(const __nv_bfloat16*)x,
+                (const __nv_bfloat16*)wp,
+                (__nv_bfloat16*)y,
+                N, H, W, C, Co,
+                (kBM + 2 * (W + 1) + 2 + kLoad - 1) / kLoad * kLoad,
+                (long long)N * (H + 1) * (W + 1),
+                0, 0,
+                nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  return make_x_map(x, N, H, W, C, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 8,
+                    x_map);
+}
+
+// One launch of the conv with its prologue and epilogue: bn = 64 as two
+// warpgroups of two sub-tiles each, so that two blocks share an SM; bn =
+// 128 as four warpgroups of one.
+template <Prologue kPro, Epilogue kEpi>
+cudaError_t run(const ConvArgs& a, const CUtensorMap& x_map, int bn,
+                cudaStream_t stream) {
+  return bn == 64 ? launch_ring<64, 2, kPro, kEpi>(a, x_map, stream)
+                  : launch_ring<128, 4, kPro, kEpi>(a, x_map, stream);
 }
 
 }  // namespace
@@ -394,27 +587,54 @@ extern "C" {
 int fvt_conv3x3_bf16_forward(const void* x, const void* wp, void* y, int N,
                              int H, int W, int C, int Co, int bn,
                              void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % 16 || Co % 8 ||
-      (bn != 64 && bn != 128))
-    return (int)cudaErrorInvalidValue;
-  if ((long long)N * H * W > 2147483647LL) return (int)cudaErrorInvalidValue;
-  ConvArgs a{(const __nv_bfloat16*)x,
-             (const __nv_bfloat16*)wp,
-             (__nv_bfloat16*)y,
-             N, H, W, C, Co,
-             (kBM + 2 * (W + 1) + 2 + kLoad - 1) / kLoad * kLoad,
-             (long long)N * (H + 1) * (W + 1),
-             0, 0};
+  ConvArgs a;
   CUtensorMap x_map;
-  const cudaError_t err = make_x_map(x, N, H, W, C,
-                                     CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 8,
-                                     &x_map);
+  const cudaError_t err = conv_args(x, wp, y, N, H, W, C, Co, bn, &a, &x_map);
   if (err != cudaSuccess) return (int)err;
+  return (int)run<kNoPrologue, kStore>(a, x_map, bn, (cudaStream_t)stream);
+}
+
+// The eval-mode identity BottleneckIR block of x on bf16 tensors, on
+// `stream`, as two launches of the conv (the header note):
+//   stage 1, conv1:  v = bf16(prelu(conv3x3(bf16(a1*x + b1), w1), alpha)),
+//                    the affine's input 0 outside the image;
+//   stage 2, conv2:  y = bf16((a2*conv3x3(v, w2) + b2) + x).
+// `stages` 3 runs both; 1 or 2 one alone, for measurements.  x, the
+// workspace v and y (N, H, W, C) bf16, contiguous and 16-byte aligned, C a
+// multiple of 16; w1p and w2p the two convs' weights (9, C, C) in bf16,
+// packed as fvt_conv3x3_bf16_forward's for Co = C at column tiles of bn =
+// 64 or 128; a1, b1 (bn1's affine), alpha (PReLU's slopes), a2, b2 (bn2's
+// affine), each (C) fp32 and 16-byte aligned.  Returns cudaSuccess, the
+// first error of a launch or an attribute call, or cudaErrorInvalidValue
+// for what the conv does not take (the plain conv's shapes and bn) or a
+// `stages` outside 1..3.
+int fvt_bottleneck_bf16_forward(const void* x, const void* w1p,
+                                const void* w2p, const void* a1,
+                                const void* b1, const void* alpha,
+                                const void* a2, const void* b2, void* v,
+                                void* y, int N, int H, int W, int C, int bn,
+                                int stages, void* stream) {
+  if (stages < 1 || stages > 3) return (int)cudaErrorInvalidValue;
+  ConvArgs c1, c2;
+  CUtensorMap x_map, v_map;
+  cudaError_t err = conv_args(x, w1p, v, N, H, W, C, C, bn, &c1, &x_map);
+  if (err != cudaSuccess) return (int)err;
+  err = conv_args(v, w2p, y, N, H, W, C, C, bn, &c2, &v_map);
+  if (err != cudaSuccess) return (int)err;
+  if (2 * (c1.P / kLoad) > 32) return (int)cudaErrorInvalidValue;
+  c1.a1 = (const float*)a1;
+  c1.b1 = (const float*)b1;
+  c1.alpha = (const float*)alpha;
+  c2.a2 = (const float*)a2;
+  c2.b2 = (const float*)b2;
+  c2.res = (const __nv_bfloat16*)x;
   cudaStream_t st = (cudaStream_t)stream;
-  // bn = 64: two warpgroups of two sub-tiles each, so that two blocks share
-  // an SM; bn = 128: four warpgroups of one
-  return (int)(bn == 64 ? launch_ring<64, 2>(a, x_map, st)
-                        : launch_ring<128, 4>(a, x_map, st));
+  if (stages & 1) {
+    err = run<kBn1, kPrelu>(c1, x_map, bn, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (stages & 2) err = run<kNoPrologue, kBn2Residual>(c2, v_map, bn, st);
+  return (int)err;
 }
 
 }  // extern "C"

@@ -12,7 +12,7 @@
 //   y = LayerNorm(cat @ Wo + bo), eps 1e-5, no residual
 //
 // What bounds it on the card.  Frames are independent (the attention runs
-// over the M <= 4 modality slots, not over time), so tiles of kFrames frames
+// over the M <= 7 modality slots, not over time), so tiles of kFrames frames
 // of the flattened B*T axis need no halo.  At the main path's shapes the
 // work is ~37 k multiply-adds a frame against ~1.5 KB of input and output a
 // frame, so device memory is not the limit; what is, is reading the weights
@@ -20,6 +20,17 @@
 // not stay in L1 beside the blocks' shared memory, and every multiply-add
 // waits on L2.  So the blocks are persistent, one per SM: each copies all
 // weights into shared memory once and then walks over frame tiles.
+//
+// Where the weights and a tile's activations do not fit the 227 KB of
+// shared memory together (more than four modalities, or four wide ones:
+// video, bert and cnn_res50 at 128 with mfcc, whose Wqkv alone is 160 KB),
+// a second instantiation keeps in shared memory the activations, the
+// vectors and whichever weight matrices fit, and reads the rest (Wo, then
+// Wqkv) from global memory through the read-only path: at seven modalities
+// they are 0.4 MB, which stays in the 50 MB L2.  The caller picks the
+// route from the layout's size (ops/fusion.py::fusion_route): the first of
+// all weights staged, Wo read, both read that fits.  The main path's three
+// modalities (174 KB) take the first, the kernel it was.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -28,8 +39,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kFrames = 8;  // frames per tile
-constexpr int kMaxModal = 4;
+constexpr int kMaxModal = 7;  // the LFAN modalities with embedding sizes
 constexpr int kMaxSmem = 227 * 1024;
+// a route's weights read from global memory, a bit each (0: none)
+constexpr int kWqkvGlobal = 1, kWoGlobal = 2;
 
 struct FusionArgs {
   const float* x[kMaxModal];     // (N, C_m)
@@ -44,15 +57,16 @@ struct FusionArgs {
   int N, M, E, H;
 };
 
-// Shared-memory layout, in floats; every offset is a multiple of 4.
+// Shared-memory layout of a route, in floats; every offset is a multiple
+// of 4.  A weight matrix read from global memory takes no room.
 struct Smem {
   int wq, bq, wo, bo, lnw, lnb, xs, qkv, cat, o, total;
-  __host__ __device__ Smem(int ctot, int M, int E) {
+  __host__ __device__ Smem(int ctot, int M, int E, int route) {
     const int e3 = 3 * E, em = E * M;
     wq = 0;                       // per modality (C_m, 3E), stacked
-    bq = wq + ctot * e3;          // (M, 3E)
+    bq = wq + (route & kWqkvGlobal ? 0 : ctot * e3);  // (M, 3E)
     wo = bq + M * e3;             // (EM, EM)
-    bo = wo + em * em;
+    bo = wo + (route & kWoGlobal ? 0 : em * em);
     lnw = bo + em;
     lnb = lnw + em;
     xs = lnb + em;                // (kFrames, ctot)
@@ -70,6 +84,9 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, int n) {
   for (int i = threadIdx.x; i < n / 4; i += kThreads) d[i] = s[i];
 }
 
+// kRoute: which weight matrices are read from global memory (the header
+// note); 0 stages them all.
+template <int kRoute>
 __global__ void __launch_bounds__(kThreads) fusion_kernel(FusionArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int M = a.M, E = a.E, H = a.H;
@@ -83,7 +100,7 @@ __global__ void __launch_bounds__(kThreads) fusion_kernel(FusionArgs a) {
     off[m] = ctot;
     ctot += a.C[m];
   }
-  const Smem lay(ctot, M, E);
+  const Smem lay(ctot, M, E, kRoute);
   float* wq = smem + lay.wq;
   float* bq = smem + lay.bq;
   float* wo = smem + lay.wo;
@@ -96,10 +113,11 @@ __global__ void __launch_bounds__(kThreads) fusion_kernel(FusionArgs a) {
   float* o = smem + lay.o;
 
   for (int m = 0; m < M; ++m) {
-    copy4(wq + off[m] * e3, a.wqkv[m], a.C[m] * e3);
+    if constexpr (!(kRoute & kWqkvGlobal))
+      copy4(wq + off[m] * e3, a.wqkv[m], a.C[m] * e3);
     copy4(bq + m * e3, a.bqkv[m], e3);
   }
-  copy4(wo, a.wo, em * em);
+  if constexpr (!(kRoute & kWoGlobal)) copy4(wo, a.wo, em * em);
   copy4(bo, a.bo, em);
   copy4(lnw, a.ln_w, em);
   copy4(lnb, a.ln_b, em);
@@ -123,9 +141,14 @@ __global__ void __launch_bounds__(kThreads) fusion_kernel(FusionArgs a) {
       const int m = (i / e3) % M;
       const int f = i / (e3 * M);
       const float* xr = xs + f * ctot + off[m];
-      const float* w = wq + off[m] * e3 + j;
       float s = bq[m * e3 + j];
-      for (int c = 0; c < a.C[m]; ++c) s = fmaf(xr[c], w[c * e3], s);
+      if constexpr (kRoute & kWqkvGlobal) {
+        const float* w = a.wqkv[m] + j;
+        for (int c = 0; c < a.C[m]; ++c) s = fmaf(xr[c], __ldg(w + c * e3), s);
+      } else {
+        const float* w = wq + off[m] * e3 + j;
+        for (int c = 0; c < a.C[m]; ++c) s = fmaf(xr[c], w[c * e3], s);
+      }
       qkv[(f * M + m) * e3 + j] = s;
     }
     __syncthreads();
@@ -165,7 +188,12 @@ __global__ void __launch_bounds__(kThreads) fusion_kernel(FusionArgs a) {
       const int f = i / em;
       const float* cr = cat + f * em;
       float s = bo[j];
-      for (int c = 0; c < em; ++c) s = fmaf(cr[c], wo[c * em + j], s);
+      if constexpr (kRoute & kWoGlobal) {
+        for (int c = 0; c < em; ++c)
+          s = fmaf(cr[c], __ldg(a.wo + c * em + j), s);
+      } else {
+        for (int c = 0; c < em; ++c) s = fmaf(cr[c], wo[c * em + j], s);
+      }
       o[f * em + j] = s;
     }
     __syncthreads();
@@ -193,53 +221,69 @@ __global__ void __launch_bounds__(kThreads) fusion_kernel(FusionArgs a) {
   }
 }
 
-}  // namespace
 
-extern "C" {
-
-// Launches the fusion block on `stream` over N frames of M modalities
-// (pointers past M are ignored; every pointer 16-byte aligned).  Returns
-// cudaSuccess, the error of a device query, the attribute call or the
-// launch (cudaGetLastError), or cudaErrorInvalidValue for shapes the kernel
-// does not take (widths not multiples of 4, weights above shared memory).
-int fvt_fusion_forward(const void* x0, const void* x1, const void* x2,
-                       const void* x3, const void* w0, const void* w1,
-                       const void* w2, const void* w3, const void* b0,
-                       const void* b1, const void* b2, const void* b3,
-                       int c0, int c1, int c2, int c3, const void* wo,
-                       const void* bo, const void* ln_w, const void* ln_b,
-                       void* out, int N, int M, int E, int H, void* stream) {
-  if (N <= 0 || M <= 0 || M > kMaxModal || E <= 0 || H <= 0 || E % H)
-    return (int)cudaErrorInvalidValue;
-  FusionArgs a{{(const float*)x0, (const float*)x1, (const float*)x2,
-                (const float*)x3},
-               {(const float*)w0, (const float*)w1, (const float*)w2,
-                (const float*)w3},
-               {(const float*)b0, (const float*)b1, (const float*)b2,
-                (const float*)b3},
-               {c0, c1, c2, c3},
-               (const float*)wo, (const float*)bo, (const float*)ln_w,
-               (const float*)ln_b, (float*)out, N, M, E, H};
-  int ctot = 0;
-  for (int m = 0; m < M; ++m) {
-    if (a.C[m] <= 0 || a.C[m] % 4) return (int)cudaErrorInvalidValue;
-    ctot += a.C[m];
-  }
-  if (E % 4 || (E * M) % 4) return (int)cudaErrorInvalidValue;
-  const int bytes = Smem(ctot, M, E).total * (int)sizeof(float);
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+template <int kRoute>
+cudaError_t launch(const FusionArgs& a, int bytes, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        fusion_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int ntiles = (N + kFrames - 1) / kFrames;
-  fusion_kernel<<<ntiles < sms ? ntiles : sms, kThreads, bytes,
-                  (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+    err = cudaFuncSetAttribute(fusion_kernel<kRoute>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (a.N + kFrames - 1) / kFrames;
+  fusion_kernel<kRoute>
+      <<<ntiles < sms ? ntiles : sms, kThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the fusion block on `stream` over N frames of M modalities, M
+// from 1 to 7: ptrs (a host array) holds the M pointers to each modality's
+// x (N, C_m), then the M to its Wqkv (C_m, 3E), then the M to its bqkv
+// (3E), every one 16-byte aligned; c (a host array) the M widths C_m.  `route` names the weight matrices read
+// from global memory: 0 (all in shared memory), kWoGlobal, or kWqkvGlobal
+// | kWoGlobal.
+// Returns cudaSuccess, the error of a device query, the attribute call or
+// the launch (cudaGetLastError), or cudaErrorInvalidValue for shapes the
+// kernel does not take (widths not multiples of 4, more than 7 modalities)
+// or a route whose layout is above shared memory.
+int fvt_fusion_forward(const void* const* ptrs, const int* c, const void* wo,
+                       const void* bo, const void* ln_w, const void* ln_b,
+                       void* out, int N, int M, int E, int H, int route,
+                       void* stream) {
+  if (N <= 0 || M <= 0 || M > kMaxModal || E <= 0 || H <= 0 || E % H ||
+      E % 4 ||
+      (route != 0 && route != kWoGlobal && route != (kWqkvGlobal | kWoGlobal)))
+    return (int)cudaErrorInvalidValue;
+  FusionArgs a{};
+  int ctot = 0;
+  for (int m = 0; m < M; ++m) {
+    if (c[m] <= 0 || c[m] % 4) return (int)cudaErrorInvalidValue;
+    a.x[m] = (const float*)ptrs[m];
+    a.wqkv[m] = (const float*)ptrs[M + m];
+    a.bqkv[m] = (const float*)ptrs[2 * M + m];
+    a.C[m] = c[m];
+    ctot += c[m];
+  }
+  a.wo = (const float*)wo;
+  a.bo = (const float*)bo;
+  a.ln_w = (const float*)ln_w;
+  a.ln_b = (const float*)ln_b;
+  a.out = (float*)out;
+  a.N = N, a.M = M, a.E = E, a.H = H;
+  const long long bytes =
+      (long long)Smem(ctot, M, E, route).total * (long long)sizeof(float);
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (route == 0) return (int)launch<0>(a, (int)bytes, st);
+  if (route == kWoGlobal) return (int)launch<kWoGlobal>(a, (int)bytes, st);
+  return (int)launch<kWqkvGlobal | kWoGlobal>(a, (int)bytes, st);
 }
 
 }  // extern "C"

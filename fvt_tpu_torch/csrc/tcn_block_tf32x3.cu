@@ -47,6 +47,15 @@
 //   k*d rows (of 16 bytes) in, and a core matrix is 8 consecutive rows, so
 //   no tap needs its own copy (the nine taps of conv3x3_tf32x3.cu in one
 //   dimension).  x or h is read once a slice, not K times.
+// - a K above 9 (the instantiations) or a halo (K-1)*d that one box of 256
+//   rows cannot hold takes the taps in groups of G (tap_groups below, the
+//   plan ops/tcn.py::tap_groups makes too): a reduction step is then one
+//   (slice, group) pair, whose box starts g*G*d rows later and is
+//   kRows + (G-1)*d rows long, G at most 9 and the box at most 256 rows.
+//   The last group's taps beyond K are zero weights, packed by the caller;
+//   they read real frames, or frames at T or later that the copy engine
+//   fills with zeros.  Where one group takes all K taps (every block of
+//   the model), G = K and the launch is the one-box kernel it was.
 // - the operands are split where they land: x (or h) = hi + lo, hi =
 //   tf32(v) in place and lo = tf32(v - hi) beside it, by the consumer
 //   warpgroup after the slot's `full` barrier; the weights come split and
@@ -82,7 +91,7 @@ constexpr int kBN = 64;        // output channels a tile
 constexpr int kMaxBox = 256;   // rows one TMA box may bring
 constexpr int kThreads = 160;  // one consumer warpgroup, one producer warp
 constexpr int kMaxRing = 8;    // ring slots at most
-constexpr int kMaxTaps = 9;    // K a conv may have
+constexpr int kMaxTaps = 9;    // taps a group may have (instantiations)
 // shared memory a block may take where two share an SM
 constexpr int kHalfSmem = 113 * 1024;
 
@@ -101,8 +110,10 @@ struct ConvArgs {
   const float* res;   // kBlockOut: the residual (B, T, Co)
   float* y;           // (B, T, Co)
   int B, T, C, Co;
-  int taps, dil, pad;
-  int P;        // rows a chunk takes in a slot: kRows + pad, up to 8s
+  int taps, dil, pad;  // taps: a group's, G; pad: the causal (K-1)*dil
+  int groups;   // tap groups: a tile's steps are slices * groups
+  int span;     // rows a box brings past the tile: (G-1)*dil
+  int P;        // rows a chunk takes in a slot: kRows + span, up to 8s
   int ring;     // ring slots
   int r_tiles;  // row tiles a window: ceil(T / kRows)
   int n_tiles;  // column tiles: ceil(Co / kBN)
@@ -184,7 +195,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int a_bytes = a_part_bytes(a.P);
   constexpr int b_bytes = b_part_bytes(TAPS);
   const int stage_bytes = slot_bytes(a.P, TAPS);
-  const int box = kRows + a.pad;  // rows a load brings
+  const int box = kRows + a.span;  // rows a load brings
   const int steps = (2 * box + 127) / 128;  // a thread's float4s of a split
   static_assert(kMaxRing <= 8, "the barriers take the first 128 bytes");
   const uint32_t full = smem_u32(smem), empty = full + 64;
@@ -198,14 +209,17 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   __syncthreads();
   const int slices = (a.C + kKC - 1) / kKC;  // a tile's slices
+  const int tile_steps = slices * a.groups;  // its (slice, group) pairs
 
   // The role, as a value ptxas knows to be the same across a warp: a
   // branch on tid itself would make it see the consumer's code as
   // divergent and serialise its wgmma around every branch there.
   if (__shfl_sync(0xffffffffu, tid >> 7, 0) == 1) {
     // The producer: lane 0 waits until the slot is empty, sets the bytes
-    // to expect and starts the slice's copies, all counted on its `full`.
-    // A chunk beyond C is not loaded; the consumers zero it.
+    // to expect and starts the step's copies, all counted on its `full`:
+    // slice s's channels from frame t0 - pad + g*G*dil for group g, and
+    // the group's packed weights.  A chunk beyond C is not loaded; the
+    // consumers zero it.
 #ifdef FVT_DIAG_PRODUCTS_ONLY
     return;
 #endif
@@ -216,40 +230,46 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int row_tile = tile / a.n_tiles;
       const int b = row_tile / a.r_tiles;
       const int t0 = (row_tile % a.r_tiles) * kRows;
-      const size_t w_off = (size_t)n_tile * slices * (b_bytes / 4);
-      for (int s = 0; s < slices; ++s, ++it) {
+      // the packed weights of a step are contiguous: tile, slice, group
+      const size_t w_off = (size_t)n_tile * tile_steps * (b_bytes / 4);
+      for (int j = 0, s = 0, g = 0; j < tile_steps; ++j, ++it) {
         const int slot = it % a.ring;
         const int chunks = s * kKC + 4 < a.C ? 2 : 1;
         mbar_wait(empty + 8 * slot, ((it / a.ring) & 1) ^ 1);
         const uint32_t sa = smem_u32(ring + (size_t)slot * stage_bytes);
         const uint32_t bar = full + 8 * slot;
         mbar_expect_tx(bar, 2 * b_bytes + chunks * box * 16);
-        const size_t w_slice = w_off + (size_t)s * (b_bytes / 4);
-        bulk_copy(sa + 2 * a_bytes, a.w_hi + w_slice, b_bytes, bar);
-        bulk_copy(sa + 2 * a_bytes + b_bytes, a.w_lo + w_slice, b_bytes,
+        const size_t w_step = w_off + (size_t)j * (b_bytes / 4);
+        bulk_copy(sa + 2 * a_bytes, a.w_hi + w_step, b_bytes, bar);
+        bulk_copy(sa + 2 * a_bytes + b_bytes, a.w_lo + w_step, b_bytes,
                   bar);
         for (int ch = 0; ch < chunks; ++ch)
           tma_tile3d(sa + ch * a.P * 16, &x_map, s * kKC + 4 * ch,
-                     t0 - a.pad, b, bar);
+                     t0 - a.pad + g * TAPS * a.dil, b, bar);
+        if (++g == a.groups) g = 0, ++s;
       }
     }
     return;
   }
 
-  // The consumer warpgroup holds the tile's sums in registers.  Slice s's
+  // The consumer warpgroup holds the tile's sums in registers.  Step j's
   // products go to one of two accumulators by parity: while they run, the
-  // warpgroup splits slice s + 1 and issues its products into the other,
-  // then waits for slice s's (ptxas waits for both where the sum reads the
-  // first: C7517 in its report) and adds them to the sum.
+  // warpgroup splits step j + 1 and issues its products into the other,
+  // then waits for step j's (ptxas waits for both where the sum reads the
+  // first: C7517 in its report) and adds them to the sum.  A step is a
+  // slice (one group) or a (slice, group) pair.
   const int warp = tid >> 5;
   float acc0[kBN / 2], acc1[kBN / 2];  // first written by a slice's wgmma
   float sum[kBN / 2];                  // the tile's sum over the slices
   unsigned it = 0;  // slices the block took before the tile
+  // the slice and group of the next step issue() takes (steps come in
+  // order): counted, not divided out of j, on the path to the products
+  int next_s = 0, next_g = 0;
 
-  // Waits for the tile's slice s, splits it where it landed and issues its
+  // Waits for the tile's step j, splits it where it landed and issues its
   // 3*TAPS products into d, one commit group.
-  auto issue = [&](int s, float(&d)[kBN / 2]) {
-    const unsigned at = it + s;
+  auto issue = [&](int j, float(&d)[kBN / 2]) {
+    const unsigned at = it + j;
     const int slot = at % a.ring;
     unsigned char* sa = ring + (size_t)slot * stage_bytes;
 #ifndef FVT_DIAG_PRODUCTS_ONLY
@@ -261,7 +281,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     // takes the float4s tid + 128*k, k < steps (the same for all threads)
     const float4* hi = reinterpret_cast<const float4*>(sa);
     const uint32_t hi_u32 = smem_u32(sa), lo_u32 = hi_u32 + 2 * a.P * 16;
-    const bool second = s * kKC + 4 < a.C;
+    const bool second = next_s * kKC + 4 < a.C;
+    const bool wrap = next_g + 1 == a.groups;  // selects, not a branch
+    next_g = wrap ? 0 : next_g + 1;
+    next_s += wrap;
     for (int k = 0; k < steps; ++k) {
       const int i = tid + 128 * k;
       const bool in = i < 2 * box;
@@ -289,7 +312,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const uint64_t b_lo = b_hi + (b_bytes >> 4);
     wgmma_fence();
 #ifdef FVT_DIAG_COPIES_ONLY
-    if (s == 0)
+    if (j == 0)
 #endif
 #pragma unroll
     for (int tap = 0; tap < TAPS; ++tap) {
@@ -303,7 +326,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     wgmma_commit();
   };
-  // The tile's slice j has its products: its slot goes back to the
+  // The tile's step j has its products: its slot goes back to the
   // producer (this warp has read it) and they join the sum.
   auto retire = [&](int j, const float(&d)[kBN / 2]) {
     mbar_arrive_if(lane == 0, empty + 8 * ((it + j) % a.ring));
@@ -317,17 +340,18 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int row_tile = tile / a.n_tiles;
     const int b = row_tile / a.r_tiles;
     const int t0 = (row_tile % a.r_tiles) * kRows;
+    next_s = next_g = 0;
     issue(0, acc0);
-    for (int j = 0; j < slices; j += 2) {
-      if (j + 1 < slices) {
+    for (int j = 0; j < tile_steps; j += 2) {
+      if (j + 1 < tile_steps) {
         issue(j + 1, acc1);
         wgmma_wait<1>();
       } else {
         wgmma_wait<0>();
       }
       retire(j, acc0);
-      if (j + 1 == slices) break;
-      if (j + 2 < slices) {
+      if (j + 1 == tile_steps) break;
+      if (j + 2 < tile_steps) {
         issue(j + 2, acc0);
         wgmma_wait<1>();
       } else {
@@ -335,7 +359,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       retire(j + 1, acc1);
     }
-    it += slices;
+    it += tile_steps;
 
     // Thread (warp, lane) holds rows 16*warp + lane/4 (+ 8) and columns
     // 8*j + 2*(lane % 4) (+ 1) of the tile in sum[4*j + 2*half (+ 1)]: one
@@ -366,16 +390,28 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// The arguments of a causal conv of x (B, T, C) into y (B, T, Co) with
-// `taps` taps at dilation `dil`.
+// The taps of a conv in groups (the header note): G at most kMaxTaps and
+// kRows + (G-1)*dil at most kMaxBox, as few groups as that allows, as even
+// as they can be.  ops/tcn.py::tap_groups is the same plan.
+void tap_groups(int K, int dil, int* G, int* groups) {
+  int g_max = 1 + (kMaxBox - kRows) / dil;
+  if (g_max > kMaxTaps) g_max = kMaxTaps;
+  *groups = (K + g_max - 1) / g_max;
+  *G = (K + *groups - 1) / *groups;
+}
+
+// The arguments of a causal conv of x (B, T, C) into y (B, T, Co) with K
+// taps at dilation `dil`.
 ConvArgs conv_args(const void* x, const void* w_hi, const void* w_lo,
                    const void* bias, const void* res, void* y, int B, int T,
-                   int C, int Co, int taps, int dil) {
-  const int pad = (taps - 1) * dil;
+                   int C, int Co, int K, int dil) {
+  int G = 0, groups = 0;
+  tap_groups(K, dil, &G, &groups);
+  const int span = (G - 1) * dil;
   return ConvArgs{(const float*)x, (const float*)w_hi, (const float*)w_lo,
                   (const float*)bias, (const float*)res, (float*)y,
-                  B, T, C, Co, taps, dil, pad,
-                  (kRows + pad + 7) / 8 * 8,
+                  B, T, C, Co, G, dil, (K - 1) * dil, groups, span,
+                  (kRows + span + 7) / 8 * 8,
                   0, (T + kRows - 1) / kRows, 0, 0};
 }
 
@@ -396,7 +432,7 @@ cudaError_t run(ConvArgs a, cudaStream_t stream) {
   const size_t bytes = 128 + (size_t)a.ring * slot;
   CUtensorMap x_map;
   cudaError_t err =
-      make_tile3d_map(a.x, a.B, a.T, a.C, kRows + a.pad, &x_map);
+      make_tile3d_map(a.x, a.B, a.T, a.C, kRows + a.span, &x_map);
   if (err != cudaSuccess) return err;
   // host time that a launch of a small conv would wait on: the attribute
   // call once a device (to the most any launch takes), and the places on
@@ -423,9 +459,9 @@ cudaError_t run(ConvArgs a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// run<kEpi, a.taps>: the taps are a compile-time count, so that the wgmma
-// of a slice form one unrolled chain (a loop over a runtime count makes
-// ptxas fence between them).
+// run<kEpi, a.taps>: a group's taps are a compile-time count, so that the
+// wgmma of a step form one unrolled chain (a loop over a runtime count
+// makes ptxas fence between them).
 template <Epilogue kEpi, int TAPS = 1>
 cudaError_t run_taps(const ConvArgs& a, cudaStream_t stream) {
   if (a.taps == TAPS) return run<kEpi, TAPS>(a, stream);
@@ -453,12 +489,14 @@ extern "C" {
 //       w[tap][8*slice + 4*chunk + k][64*tile + 8*n8 + n]
 // with tile < ceil(Co / 64), slice < ceil(Cin / 8), chunk < 2, n8 < 8,
 // n < 8, k < 4, and 0 where the input channel is beyond Cin or the output
-// channel beyond Co: w1 (K, C, Co), w2 (K, Co, Co) and wd (1, C, Co).
-// wd_hi, wd_lo, bd and r are null without a downsample, when C == Co.
-// Returns cudaSuccess, the first error of a launch or an attribute call,
-// or cudaErrorInvalidValue for what the kernel does not take: another C,
-// Co or stages, a missing downsample where C != Co, K beyond 9, or a
-// halo that makes a box longer than 256 rows (64 + (K-1)*dil > 256).
+// channel beyond Co: w1 (K, C, Co), w2 (K, Co, Co) and wd (1, C, Co), the
+// convs' taps up to G * groups of tap_groups(K, dil) with zero weights
+// beyond K (one group of K taps wherever K <= 9 and 64 + (K-1)*dil <=
+// 256).  wd_hi, wd_lo, bd and r are null without a downsample, when C ==
+// Co.  Returns cudaSuccess, the first error of a launch or an attribute
+// call, or cudaErrorInvalidValue for what the kernel does not take:
+// another C, Co or stages, a missing downsample where C != Co, or a halo
+// (K-1)*dil of 2^30 or more (a TMA coordinate would overflow).
 int fvt_tcn_block_tf32x3_forward(const void* x, const void* w1_hi,
                                  const void* w1_lo, const void* b1,
                                  const void* w2_hi, const void* w2_lo,
@@ -468,12 +506,11 @@ int fvt_tcn_block_tf32x3_forward(const void* x, const void* w1_hi,
                                  int Co, int K, int dil, int stages,
                                  void* stream) {
   const bool has_ds = wd_hi != nullptr;
-  if (B <= 0 || T <= 0 || C <= 0 || Co <= 0 || K <= 0 || K > kMaxTaps ||
-      dil <= 0 ||
+  if (B <= 0 || T <= 0 || C <= 0 || Co <= 0 || K <= 0 || dil <= 0 ||
       C % 4 || Co % 8 || stages < 1 ||
       stages > 7 || (!has_ds && C != Co) ||
       (has_ds && (wd_lo == nullptr || bd == nullptr || r == nullptr)) ||
-      kRows + (long long)(K - 1) * dil > kMaxBox)
+      (long long)(K - 1) * dil >= (1LL << 30))
     return (int)cudaErrorInvalidValue;
   const ConvArgs c1 = conv_args(x, w1_hi, w1_lo, b1, nullptr, h, B, T, C,
                                 Co, K, dil);

@@ -38,8 +38,9 @@ _SIGNATURES = {
     # x w1_hi w1_lo b1 w2_hi w2_lo b2 wd_hi wd_lo bd h r y (fp32), B T C
     # Cout K dil stages, stream
     'fvt_tcn_block_tf32x3_forward': [_P] * 13 + [_I] * 7 + [_P],
-    # x0..3 w0..3 b0..3, c0..3, wo bo ln_w ln_b out, N M E H, stream
-    'fvt_fusion_forward': [_P] * 12 + [_I] * 4 + [_P] * 5 + [_I] * 4 + [_P],
+    # (x[M] w[M] b[M]) c[M] (host arrays), wo bo ln_w ln_b out, N M E H
+    # route, stream
+    'fvt_fusion_forward': [_P] * 7 + [_I] * 5 + [_P],
     # x w1 b1 w2 b2 m1 m2 res a1 a2 out, B T Cin Cout K dil, stream
     'fvt_tcn_block_train_forward': [_P] * 11 + [_I] * 6 + [_P],
     # x w1 w2 m1 m2 res a1 a2 g, d_a2 d_a1 part1 part2, dx dw1 db1 dw2 db2
@@ -60,6 +61,9 @@ _SIGNATURES = {
     # x w1_hi w1_lo w2_hi w2_lo a1 b1 alpha a2 b2 v y (fp32), N H W C bn
     # stages, stream
     'fvt_bottleneck_tf32x3_forward': [_P] * 12 + [_I] * 6 + [_P],
+    # x w1p w2p (bf16) a1 b1 alpha a2 b2 (fp32) v y (bf16), N H W C bn
+    # stages, stream
+    'fvt_bottleneck_bf16_forward': [_P] * 10 + [_I] * 6 + [_P],
 }
 
 
@@ -106,10 +110,11 @@ def build() -> Path:
         logs = [proc.communicate()[0] for proc in procs]  # waits for all
         lib = os.path.join(tmp, path.name)
         link = [nvcc(), '-shared', '-o', lib, *objects]
-        for cmd, proc, log in zip(cmds, procs, logs):
-            if proc.returncode != 0:
-                raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                                   f'{" ".join(cmd)}\n{log}')
+        failed = [f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n{log}'
+                  for cmd, proc, log in zip(cmds, procs, logs)
+                  if proc.returncode != 0]
+        if failed:  # every source's errors, not the first one's only
+            raise RuntimeError('\n'.join(failed))
         linked = subprocess.run(link, capture_output=True, text=True)
         if linked.returncode != 0:
             raise RuntimeError(f'nvcc failed ({linked.returncode}):\n'

@@ -34,14 +34,16 @@ and the residual adds run on ``dtype`` activations, and the flatten casts
 back to float32 before ``output_layer``'s Linear and BatchNorm1d, so the
 embeddings are float32.  The ``'shifted_kernel'`` path launches a
 tensor-core kernel in either type (``ops/conv.py``): split TF32 at float32
-accuracy, or bfloat16.  Where the two
+accuracy, or bfloat16, and so does ``fused_blocks`` (``ops/bottleneck.py``),
+on the same two conv kernels.  Where the two
 frameworks round differently: flax normalises in ``dtype`` (the
 subtraction, the product and the sum each round to bfloat16), while
 ``F.batch_norm`` on a bfloat16 tensor with float32 statistics computes
 in float32 and rounds once; ``F.conv2d`` and the kernel sum in float32
-and round once, as XLA's convolution and the Pallas kernel do.  The
-Winograd paths and the fused block have no bfloat16 route yet: asking for
-one raises at construction.
+and round once, as XLA's convolution and the Pallas kernel do; the fused
+block rounds where the Pallas block does (``ops.bottleneck.
+bottleneck_ir_fused_bf16_ref``).  The Winograd paths have no bfloat16
+route yet: asking for one raises at construction.
 """
 from __future__ import annotations
 
@@ -72,13 +74,13 @@ def check_dtype(dtype: torch.dtype, conv_impl: str = 'cudnn',
     if dtype not in DTYPES:
         raise ValueError(f'dtype {dtype}: the backbone computes in '
                          f'torch.float32 or torch.bfloat16')
-    if dtype == torch.bfloat16 and (fused_blocks or conv_impl in (
-            'winograd', 'winograd_kernel')):
+    if dtype == torch.bfloat16 and conv_impl in ('winograd',
+                                                 'winograd_kernel'):
         raise ValueError(
             f'dtype=torch.bfloat16 with conv_impl={conv_impl!r}, '
-            f'fused_blocks={fused_blocks}: the Winograd kernel (B6) and the '
-            f'fused block (B5) have no bfloat16 route yet (ROADMAP.md, queue '
-            f'A5); take conv_impl \'cudnn\' or \'shifted_kernel\'')
+            f'fused_blocks={fused_blocks}: the Winograd kernel (B6) has no '
+            f'bfloat16 route yet (ROADMAP.md, queue B item 3); take '
+            f'conv_impl \'cudnn\' or \'shifted_kernel\'')
 
 
 def get_blocks_50() -> List[Tuple[int, int, int]]:
@@ -260,12 +262,15 @@ class BottleneckIR(nn.Module):
 
     def fused_weights(self) -> tuple:
         """(w1, w2, a1, b1, alpha, a2, b2, packed) for the fused block:
-        HWIO kernels, the folded eval BatchNorms and the PReLU slopes, and
-        both kernels split and packed for the CUDA kernel
-        (``ops.bottleneck.pack_block_weights``; None where it does not take
-        the width).  Derived once and kept; dropped and derived again when
-        any parameter or running statistic of the block is replaced or
-        written in place."""
+        HWIO kernels in the block's ``dtype``, the folded eval BatchNorms
+        and the PReLU slopes (float32), and both kernels packed for the
+        CUDA kernel of that type (float32: split,
+        ``ops.bottleneck.pack_block_weights``; bfloat16: the convs' own
+        ``Conv3x3.cast_weights`` packing,
+        ``ops.bottleneck.pack_block_weights_bf16``; None where it does not
+        take the width).  Derived once and kept; dropped and derived again
+        when any parameter or running statistic of the block is replaced
+        or written in place."""
         bn1, conv1, prelu, conv2, bn2 = self.res_layer
         stamp = _stamp(conv1.weight, conv2.weight, prelu.weight,
                        *(t for bn in (bn1, bn2) for t in
@@ -276,9 +281,15 @@ class BottleneckIR(nn.Module):
                 affine = [bottleneck_ops.bn_affine(
                     bn.weight, bn.bias, bn.running_mean, bn.running_var,
                     bn.eps) for bn in (bn1, bn2)]
-                w1, w2 = (conv.kernel_weights()[0] for conv in (conv1, conv2))
-                packed = (None if w1.shape[2] % 4
-                          else bottleneck_ops.pack_block_weights(w1, w2))
+                if self.dtype == torch.bfloat16:
+                    (_, w1, p1), (_, w2, p2) = (conv.cast_weights()
+                                                for conv in (conv1, conv2))
+                    packed = None if p1 is None else (p1, p2)
+                else:
+                    w1, w2 = (conv.kernel_weights()[0]
+                              for conv in (conv1, conv2))
+                    packed = (None if w1.shape[2] % 4
+                              else bottleneck_ops.pack_block_weights(w1, w2))
                 derived = (w1, w2, *affine[0], prelu.weight.detach(),
                            *affine[1], packed)
             self._fused = (stamp, derived)
@@ -295,7 +306,10 @@ class BottleneckIR(nn.Module):
                                  *self.res_layer.parameters())
             *args, packed = self.fused_weights()
             if reference:
-                y = bottleneck_ops.bottleneck_ir_fused_ref(_nhwc(x), *args)
+                ref = (bottleneck_ops.bottleneck_ir_fused_bf16_ref
+                       if self.dtype == torch.bfloat16
+                       else bottleneck_ops.bottleneck_ir_fused_ref)
+                y = ref(_nhwc(x), *args)
             else:
                 y = bottleneck_ops.bottleneck_ir_fused(_nhwc(x), *args,
                                                        packed=packed)

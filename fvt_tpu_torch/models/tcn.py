@@ -111,7 +111,8 @@ class TemporalBlock(nn.Module):
         if self._eval is None or self._eval[0] != version:
             with torch.no_grad():
                 w = self.kernel_weights()
-                w['packed'] = pack_block_weights(w['w1'], w['w2'], w['wd'])
+                w['packed'] = pack_block_weights(w['w1'], w['w2'], w['wd'],
+                                                 dilation=self.dilation)
             self._eval = (version, w)
         return self._eval[1]
 

@@ -12,16 +12,23 @@ conv1's input outside the image is 0 (bn1 comes before the zero pad) and
 so is conv2's.  Layouts follow the JAX package: NHWC activations, HWIO
 kernels ``(3, 3, C, C)``.
 
-:func:`bottleneck_ir_fused` runs :func:`bottleneck_ir_fused_ref` for a
-tensor on the CPU; for a float32 CUDA tensor it launches
-``fvt_bottleneck_tf32x3_forward`` (``csrc/conv3x3_tf32x3.cu``) or raises:
-two launches of the split-TF32 ``wgmma`` conv that ``ops.conv.conv3x3``
-launches, conv1 with bn1 applied where x is split and PReLU in its store,
-into a workspace v in device memory, then conv2 with bn2 and the residual
-in its store.  :func:`bottleneck_ir_fused_tf32x3_ref` emulates what it
-computes, :func:`bn1_line` what conv1 stages.
+:func:`bottleneck_ir_fused` runs its plain version for a tensor on the
+CPU (:func:`bottleneck_ir_fused_ref`, or for bfloat16
+:func:`bottleneck_ir_fused_bf16_ref`); for a float32 CUDA tensor it
+launches ``fvt_bottleneck_tf32x3_forward`` (``csrc/conv3x3_tf32x3.cu``) or
+raises: two launches of the split-TF32 ``wgmma`` conv that
+``ops.conv.conv3x3`` launches, conv1 with bn1 applied where x is split and
+PReLU in its store, into a workspace v in device memory, then conv2 with
+bn2 and the residual in its store.  :func:`bottleneck_ir_fused_tf32x3_ref`
+emulates what it computes, :func:`bn1_line` what conv1 stages.  For a
+bfloat16 CUDA tensor (``--amp``) it launches
+``fvt_bottleneck_bf16_forward`` (``csrc/conv3x3_wgmma.cu``) or raises: the
+same two launches on the bfloat16 ``wgmma`` conv, bn1 in a pass of its
+own over conv1's staged slice, with the Pallas kernel's rounding points
+(:func:`bottleneck_ir_fused_bf16_ref`).
 ``bottleneck_ir_fused.launches`` counts its calls on the card, one for
-the two launches.  :func:`bottleneck_ir_fused_simt`, the earlier kernel
+the two launches, ``.launches_fp32`` and ``.launches_bf16`` those of each
+type.  :func:`bottleneck_ir_fused_simt`, the earlier kernel
 on the CUDA cores (``csrc/bottleneck.cu``, one launch, v kept in shared
 memory), stays for measurements: no model path calls it.  Eval only.
 """
@@ -64,6 +71,43 @@ def bottleneck_ir_fused_ref(x: torch.Tensor, w1: torch.Tensor,
     u = _conv(x * a1 + b1, w1)
     v = torch.where(u > 0, u, alpha * u)
     return (_conv(v, w2) * a2 + b2 + x).contiguous()
+
+
+def bottleneck_ir_fused_bf16_ref(x: torch.Tensor, w1: torch.Tensor,
+                                 w2: torch.Tensor, a1: torch.Tensor,
+                                 b1: torch.Tensor, alpha: torch.Tensor,
+                                 a2: torch.Tensor,
+                                 b2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version on bfloat16 x and kernels, the rounding
+    points of the Pallas kernel (``bottleneck_pallas.py:137-166``), not
+    of its no-tile fallback: conv1's input is ``a1*x + b1`` in float32,
+    rounded to bfloat16 once, and 0 outside the image; both convs sum
+    their exact products in float32 (``ops.conv.conv3x3_ref``); conv1's
+    sums go through PReLU unrounded and v is rounded once; conv2's store is
+    ``(acc*a2 + b2) + x`` in float32, rounded once.  a1, b1, alpha, a2, b2
+    float32."""
+    v = bottleneck_bf16_conv1_ref(x, w1, a1, b1, alpha)
+    return bottleneck_bf16_conv2_ref(v, x, w2, a2, b2)
+
+
+def bottleneck_bf16_conv1_ref(x: torch.Tensor, w1: torch.Tensor,
+                              a1: torch.Tensor, b1: torch.Tensor,
+                              alpha: torch.Tensor) -> torch.Tensor:
+    """The first launch of the bfloat16 block, plainly: ``v =
+    bf16(prelu(conv3x3(bf16(a1*x + b1), w1), alpha))``, the affine and
+    PReLU in float32, the conv's exact products summed in float32."""
+    t = (x.float() * a1 + b1).to(torch.bfloat16)
+    u = conv_ops.conv3x3_ref(t.float(), w1.float())
+    return torch.where(u > 0, u, alpha * u).to(torch.bfloat16)
+
+
+def bottleneck_bf16_conv2_ref(v: torch.Tensor, x: torch.Tensor,
+                              w2: torch.Tensor, a2: torch.Tensor,
+                              b2: torch.Tensor) -> torch.Tensor:
+    """The second launch of the bfloat16 block, plainly: ``y =
+    bf16((conv3x3(v, w2)*a2 + b2) + x)`` in float32, rounded once."""
+    r = conv_ops.conv3x3_ref(v.float(), w2.float())
+    return ((r * a2 + b2) + x.float()).to(torch.bfloat16)
 
 
 # the split-TF32 conv's row tile and TMA load (kBM, kLoad in
@@ -146,6 +190,42 @@ def _check_call(name: str, x: torch.Tensor, *rest: torch.Tensor) -> None:
         raise ValueError(f'C {x.shape[3]}: {name} takes a multiple of 4')
 
 
+def pack_block_weights_bf16(w1: torch.Tensor, w2: torch.Tensor) -> tuple:
+    """``(w1_packed, w2_packed)``: both bfloat16 convs' kernels as the
+    bfloat16 conv kernel reads them (``ops.conv.pack_weights``, column
+    tiles of ``ops.conv.column_tile(C)``), what ``Conv3x3`` keeps for its
+    own launches in bfloat16."""
+    return conv_ops.pack_weights(w1), conv_ops.pack_weights(w2)
+
+
+def launch_bf16(x: torch.Tensor, packed: tuple, vecs: tuple,
+                v: torch.Tensor, out: torch.Tensor,
+                stages: int = BOTH) -> None:
+    """Launches the ``stages`` of the bfloat16 block on the current
+    stream: conv1 x -> v (bn1, PReLU), conv2 v -> out (bn2, + x), x, v and
+    out bfloat16.  ``packed`` as :func:`pack_block_weights_bf16` returns
+    it, ``vecs`` ``(a1, b1, alpha, a2, b2)`` float32.  Checks every tensor
+    and raises on a CUDA error; counts nothing."""
+    n, h, w, c = x.shape
+    bn = conv_ops.column_tile(c)
+    bf16 = torch.bfloat16
+    shape = (-(-c // bn), c // 16, 9, 2, bn // 8, 8, 8)
+    tensors = [('x', x, (n, h, w, c), bf16), ('v', v, (n, h, w, c), bf16),
+               ('out', out, (n, h, w, c), bf16)]
+    tensors += [(f'packed w{i + 1}', t, shape, bf16)
+                for i, t in enumerate(packed)]
+    tensors += [(name, t, (c,), torch.float32) for name, t in zip(
+        ('a1', 'b1', 'alpha', 'a2', 'b2'), vecs)]
+    for name, t, want, dtype in tensors:
+        build.check_tensor(name, t, want, x.device, dtype)
+    err = build.library().fvt_bottleneck_bf16_forward(
+        x.data_ptr(), *(t.data_ptr() for t in packed),
+        *(t.data_ptr() for t in vecs), v.data_ptr(), out.data_ptr(), n, h,
+        w, c, bn, stages, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f'bottleneck bfloat16 kernel (N={n}, H={h}, W={w}, '
+                     f'C={c}, stages={stages})')
+
+
 def launch_tf32x3(x: torch.Tensor, packed: tuple, vecs: tuple,
                   v: torch.Tensor, out: torch.Tensor,
                   stages: int = BOTH) -> None:
@@ -179,15 +259,35 @@ def bottleneck_ir_fused(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                         alpha: torch.Tensor, a2: torch.Tensor,
                         b2: torch.Tensor,
                         packed: Optional[tuple] = None) -> torch.Tensor:
-    """x (N, H, W, C) float32; w1, w2 HWIO (3, 3, C, C); a1, b1 the
-    affine of bn1, alpha the PReLU slopes, a2, b2 the affine of bn2, all
-    (C).  Returns (N, H, W, C), a new tensor.  ``packed``:
-    ``pack_block_weights(w1, w2)`` when the caller keeps it, read in place
-    of w1 and w2; derived here otherwise.  On the card the workspace v
-    (N, H, W, C) comes from the caching allocator."""
+    """x (N, H, W, C) float32 or bfloat16; w1, w2 HWIO (3, 3, C, C) in x's
+    type; a1, b1 the affine of bn1, alpha the PReLU slopes, a2, b2 the
+    affine of bn2, all (C) float32.  Returns (N, H, W, C) in x's type, a
+    new tensor.  ``packed``: ``pack_block_weights(w1, w2)`` (float32) or
+    ``pack_block_weights_bf16(w1, w2)`` (bfloat16) when the caller keeps
+    it, read in place of w1 and w2; derived here otherwise.  On the card
+    the workspace v (N, H, W, C) comes from the caching allocator."""
     _check_call('bottleneck_ir_fused', x, w1, w2, a1, b1, alpha, a2, b2)
+    bf16 = x.dtype == torch.bfloat16
     if x.device.type == 'cpu':
-        return bottleneck_ir_fused_ref(x, w1, w2, a1, b1, alpha, a2, b2)
+        ref = bottleneck_ir_fused_bf16_ref if bf16 else bottleneck_ir_fused_ref
+        return ref(x, w1, w2, a1, b1, alpha, a2, b2)
+    if bf16:
+        c = x.shape[3]
+        if c % 16:
+            raise ValueError(f'C {c}: the bfloat16 block takes a multiple '
+                             f'of 16')
+        if packed is None:
+            for name, k in (('w1', w1), ('w2', w2)):
+                build.check_tensor(name, k, (3, 3, c, c), x.device, x.dtype)
+            packed = pack_block_weights_bf16(w1, w2)
+        out = torch.empty_like(x)
+        if out.numel() == 0:
+            return out
+        launch_bf16(x, packed, (a1, b1, alpha, a2, b2), torch.empty_like(x),
+                    out)
+        bottleneck_ir_fused.launches += 1
+        bottleneck_ir_fused.launches_bf16 += 1
+        return out
     if packed is None:
         c = x.shape[3]
         for name, k in (('w1', w1), ('w2', w2)):
@@ -199,10 +299,13 @@ def bottleneck_ir_fused(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     launch_tf32x3(x, packed, (a1, b1, alpha, a2, b2), torch.empty_like(x),
                   out)
     bottleneck_ir_fused.launches += 1
+    bottleneck_ir_fused.launches_fp32 += 1
     return out
 
 
 bottleneck_ir_fused.launches = 0
+bottleneck_ir_fused.launches_fp32 = 0
+bottleneck_ir_fused.launches_bf16 = 0
 
 
 # the CUDA-core kernel (csrc/bottleneck.cu), bottleneck_ir_fused_simt

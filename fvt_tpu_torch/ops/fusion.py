@@ -10,14 +10,19 @@ head-major then modality.
 
 :func:`fused_multimodal_fusion` runs :func:`fused_multimodal_fusion_ref`
 for tensors on the CPU; for CUDA tensors it launches the kernel of
-``csrc/fusion.cu`` or raises.  ``fused_multimodal_fusion.launches``
-counts kernel launches.  The kernel is eval-only; training runs
-:func:`multimodal_attention_ref` under autograd.
+``csrc/fusion.cu`` or raises, on the route :func:`fusion_route` picks:
+every weight in shared memory where the layout fits (the main path's
+three modalities), else Wo, or Wo and Wqkv, read from global memory.
+``fused_multimodal_fusion.launches`` counts kernel launches.  The kernel
+is eval-only; training runs :func:`multimodal_attention_ref` under
+autograd.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,7 +30,42 @@ import torch.nn.functional as F
 from fvt_tpu_torch.kernels import build
 
 LN_EPS = 1e-5
-MAX_MODALITIES = 4
+# the seven LFAN modalities with embedding sizes (kMaxModal)
+MAX_MODALITIES = 7
+# the kernel's frames a tile and shared memory (csrc/fusion.cu)
+TILE_FRAMES = 8
+MAX_SMEM = 227 * 1024
+# a route's weight matrices read from global memory, a bit each; the
+# kernel's three routes, in the order tried
+WQKV_GLOBAL, WO_GLOBAL = 1, 2
+ROUTES = (0, WO_GLOBAL, WQKV_GLOBAL | WO_GLOBAL)
+
+
+def smem_bytes(widths: Sequence[int], modal_dim: int, route: int) -> int:
+    """Shared memory of the kernel's layout (``Smem`` in
+    ``csrc/fusion.cu``) for modality widths ``widths`` on ``route``: the
+    weight matrices not read from global memory, the biases and the
+    LayerNorm's vectors, and a tile's x, qkv, attention output and
+    o_proj output."""
+    ctot, m = sum(widths), len(widths)
+    e3, em = 3 * modal_dim, modal_dim * m
+    floats = ((0 if route & WQKV_GLOBAL else ctot * e3) + m * e3
+              + (0 if route & WO_GLOBAL else em * em) + 3 * em
+              + TILE_FRAMES * (ctot + m * e3 + 2 * em))
+    return 4 * floats
+
+
+@functools.lru_cache(maxsize=None)
+def fusion_route(widths: Tuple[int, ...], modal_dim: int) -> int:
+    """The first of :data:`ROUTES` whose layout fits shared memory: 0 (all
+    weights staged, the main path's) where it can, then Wo read from
+    global memory, then both Wo and Wqkv.  Raises where none fits."""
+    for route in ROUTES:
+        if smem_bytes(widths, modal_dim, route) <= MAX_SMEM:
+            return route
+    raise ValueError(f'widths {list(widths)}, modal_dim {modal_dim}: a '
+                     f'tile\'s activations alone leave the kernel\'s shared '
+                     f'memory')
 
 
 def multimodal_attention_ref(xs: Sequence[torch.Tensor],
@@ -112,21 +152,27 @@ def fused_multimodal_fusion(xs: Sequence[torch.Tensor],
     out = torch.empty((b, t, em), device=x0.device, dtype=torch.float32)
     if b * t == 0:
         return out
-    pad = [None] * (MAX_MODALITIES - m)
-
-    def ptrs(ts):
-        return [a.data_ptr() for a in ts] + pad
-
-    widths = [x.shape[-1] for x in xs] + [0] * len(pad)
+    widths = tuple(x.shape[-1] for x in xs)
+    route = fusion_route(widths, modal_dim)
+    ptrs = (ctypes.c_void_p * (3 * m))(
+        *(a.data_ptr() for ts in (xs, wqkv, bqkv) for a in ts))
     err = build.library().fvt_fusion_forward(
-        *ptrs(xs), *ptrs(wqkv), *ptrs(bqkv), *widths, wo.data_ptr(),
-        bo.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-        out.data_ptr(), b * t, m, modal_dim, num_heads,
+        ptrs, _widths(widths), wo.data_ptr(), bo.data_ptr(),
+        ln_scale.data_ptr(), ln_bias.data_ptr(), out.data_ptr(), b * t, m,
+        modal_dim, num_heads, route,
         torch.cuda.current_stream(x0.device).cuda_stream)
-    build.check(err, f'fusion kernel (N={b * t}, M={m}, E={modal_dim}, '
-                     f'H={num_heads}, C={widths[:m]})')
+    if err:  # the message is built only for an error
+        build.check(err, f'fusion kernel (N={b * t}, M={m}, E={modal_dim}, '
+                         f'H={num_heads}, C={widths}, route={route})')
     fused_multimodal_fusion.launches += 1
     return out
 
 
 fused_multimodal_fusion.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _widths(widths: Tuple[int, ...]) -> ctypes.Array:
+    """The widths as the C entry reads them (a host int array), made once
+    a tuple: the wrapper's host time is on a dispatch's path."""
+    return (ctypes.c_int * len(widths))(*widths)

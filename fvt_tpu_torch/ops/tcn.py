@@ -89,16 +89,30 @@ def fused_temporal_block_ref(x: torch.Tensor, w1: torch.Tensor,
 def _split_conv(v: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                 dilation: int) -> torch.Tensor:
     """A causal conv (:func:`_causal_conv`) as the split-TF32 kernel sums
-    it: ``(v_hi * w_lo + v_lo * w_hi) + v_hi * w_hi`` of the parts of
+    it: per group of taps (:func:`tap_groups`, one group at the model's
+    shapes), ``(v_hi * w_lo + v_lo * w_hi) + v_hi * w_hi`` of the parts of
     ``ops.conv.split_tf32`` (each product exact in float32, the sums in
-    float32, ``lo*lo`` dropped), then the bias."""
-    vh, vl = split_tf32(v)
+    float32, ``lo*lo`` dropped), the groups added in order, then the bias.
+    A group's zero taps add exact zeros and are left out."""
+    k = w.shape[0]
+    pad = (k - 1) * dilation
+    g, groups = tap_groups(k, dilation)
+    t = v.shape[1]
+    vh, vl = (F.pad(p.transpose(1, 2), (pad, 0)) for p in split_tf32(v))
     wh, wl = split_tf32(w)
+    out = None
+    for i in range(groups):
+        # taps i*g .. of the group read from frame t - pad + i*g*dilation
+        first = i * g * dilation
 
-    def conv(p, q):
-        return _causal_conv(p, q, None, dilation)
+        def conv(p, q):
+            y = F.conv1d(p[..., first:], q[i * g:(i + 1) * g].permute(2, 1, 0),
+                         dilation=dilation)
+            return y[..., :t].transpose(1, 2)
 
-    return ((conv(vh, wl) + conv(vl, wh)) + conv(vh, wh)) + b
+        part = (conv(vh, wl) + conv(vl, wh)) + conv(vh, wh)
+        out = part if out is None else out + part
+    return out + b
 
 
 def fused_temporal_block_tf32x3_ref(x: torch.Tensor, w1: torch.Tensor,
@@ -124,28 +138,54 @@ def fused_temporal_block_tf32x3_ref(x: torch.Tensor, w1: torch.Tensor,
 
 # the split-TF32 kernel (csrc/tcn_block_tf32x3.cu): output frames and
 # output channels a tile, the rows one TMA box may bring (the tile and its
-# causal halo), and the taps it is built for
+# causal halo), and the taps of its instantiations
 ROW_TILE, COLUMN_TILE, MAX_BOX, MAX_TAPS = 64, 64, 256, 9
+# a halo beyond this makes a TMA coordinate overflow (the C entry refuses)
+MAX_HALO = 2 ** 30
 # its launches, a bit each
 CONV1, DOWNSAMPLE, CONV2 = 1, 2, 4
 ALL = CONV1 | DOWNSAMPLE | CONV2
 
 
+def tap_groups(kernel_size: int, dilation: int) -> Tuple[int, int]:
+    """``(G, groups)``: how the split-TF32 kernel takes the K taps of a
+    causal conv at ``dilation``, the plan its C entry makes too.  Each
+    reduction step stages one TMA box for one group of G taps, ``ROW_TILE
+    + (G-1)*dilation`` rows from frame ``t0 - (K-1)*dilation +
+    g*G*dilation``: G is at most ``MAX_TAPS`` (the instantiations) and
+    keeps the box within ``MAX_BOX`` rows, the groups are as few as that
+    allows and as even as they can be, and the last group's taps beyond K
+    are zero weights (:func:`pack_block_weights`).  One group, G = K,
+    wherever K <= 9 and the whole halo fits one box: every block of the
+    model."""
+    g_max = min(MAX_TAPS, 1 + (MAX_BOX - ROW_TILE) // dilation)
+    groups = -(-kernel_size // g_max)
+    return -(-kernel_size // groups), groups
+
+
 def check_tf32x3_shape(cin: int, cout: int, kernel_size: int,
                        dilation: int) -> None:
     """Raises ValueError for a block the split-TF32 kernel does not take:
-    Cout not a multiple of 8 (``wgmma``'s n), K beyond ``MAX_TAPS``, or a
-    tile and its causal halo longer than one TMA box (``ROW_TILE +
-    (K-1)*dilation > MAX_BOX``).  Any Cin is taken: :func:`pad_channels`
-    pads it."""
-    pad = (kernel_size - 1) * dilation
-    if cout % 8 or not 1 <= kernel_size <= MAX_TAPS or dilation < 1 \
-            or ROW_TILE + pad > MAX_BOX:
+    Cout not a multiple of 8 (``wgmma``'s n), or no taps, no dilation or
+    a halo ``(K-1)*dilation`` from ``MAX_HALO`` on.  Any Cin is taken
+    (:func:`pad_channels` pads it), and any K and dilation below that
+    (:func:`tap_groups`)."""
+    if cout % 8 or kernel_size < 1 or dilation < 1 \
+            or (kernel_size - 1) * dilation >= MAX_HALO:
         raise ValueError(
             f'the split-TF32 TCN kernel does not take Cin={cin}, '
             f'Cout={cout}, K={kernel_size}, dilation={dilation}: Cout must '
-            f'be a multiple of 8, K at most {MAX_TAPS} and {ROW_TILE} + '
-            f'(K-1)*dilation at most {MAX_BOX}')
+            f'be a multiple of 8, K and dilation at least 1 and '
+            f'(K-1)*dilation below {MAX_HALO}')
+
+
+def pad_taps(w: torch.Tensor, dilation: int) -> torch.Tensor:
+    """w (K, C, Co) with zero taps after its K up to ``G * groups`` of
+    :func:`tap_groups`: the taps the kernel's steps read.  w itself where
+    there are none."""
+    g, groups = tap_groups(w.shape[0], dilation)
+    extra = g * groups - w.shape[0]
+    return w if not extra else F.pad(w, (0, 0, 0, 0, 0, extra))
 
 
 def pad_channels(x: torch.Tensor) -> torch.Tensor:
@@ -157,14 +197,17 @@ def pad_channels(x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_block_weights(w1: torch.Tensor, w2: torch.Tensor,
-                       wd: Optional[torch.Tensor] = None) -> tuple:
+                       wd: Optional[torch.Tensor] = None, *,
+                       dilation: int = 1) -> tuple:
     """``((w1_hi, w1_lo), (w2_hi, w2_lo), (wd_hi, wd_lo) or None)``: the
     block's weights split and packed for the split-TF32 kernel at column
-    tiles of ``COLUMN_TILE`` (``ops.conv.pack_taps_tf32``; the downsample
-    as one tap).  A module derives them once a parameter version and keeps
+    tiles of ``COLUMN_TILE`` (``ops.conv.pack_taps_tf32``; the convs' taps
+    as :func:`pad_taps` gives them at ``dilation``, the downsample as one
+    tap).  A module derives them once a parameter version and keeps
     them (``models.tcn.TemporalBlock.eval_weights``);
     :func:`fused_temporal_block` derives them per call otherwise."""
-    return (pack_taps_tf32(w1, COLUMN_TILE), pack_taps_tf32(w2, COLUMN_TILE),
+    return (pack_taps_tf32(pad_taps(w1, dilation), COLUMN_TILE),
+            pack_taps_tf32(pad_taps(w2, dilation), COLUMN_TILE),
             None if wd is None else pack_taps_tf32(wd[None], COLUMN_TILE))
 
 
@@ -182,11 +225,12 @@ def launch_tf32x3(x: torch.Tensor, packed: tuple, b1: torch.Tensor,
     cout = out.shape[-1]
     tiles = -(-cout // COLUMN_TILE)
     w1, w2, wd = packed
+    g, groups = tap_groups(kernel_size, dilation)
     tensors = [('x', x, (b, t, c)), ('h', h, (b, t, cout)),
                ('out', out, (b, t, cout)), ('b1', b1, (cout,)),
                ('b2', b2, (cout,))]
-    for name, pair, taps, cin in (('w1', w1, kernel_size, c),
-                                  ('w2', w2, kernel_size, cout),
+    for name, pair, taps, cin in (('w1', w1, g * groups, c),
+                                  ('w2', w2, g * groups, cout),
                                   ('wd', wd, 1, c)):
         if pair is not None:
             shape = (tiles, -(-cin // 8), taps, 2, COLUMN_TILE // 8, 8, 4)
@@ -240,8 +284,8 @@ def fused_temporal_block(x: torch.Tensor, w1: torch.Tensor,
                          packed: Optional[tuple] = None) -> torch.Tensor:
     """x (B, T, Cin) float32; w1 (K, Cin, Cout); w2 (K, Cout, Cout);
     optional 1x1 downsample wd (Cin, Cout), bd (Cout).  Returns (B, T,
-    Cout).  ``packed``: :func:`pack_block_weights` of the weights when the
-    caller keeps it; derived here otherwise.  On the card the workspaces
+    Cout).  ``packed``: :func:`pack_block_weights` of the weights at
+    ``dilation`` when the caller keeps it; derived here otherwise.  On the card the workspaces
     h and r (B, T, Cout) come from the caching allocator."""
     if x.device.type == 'cpu':
         return fused_temporal_block_ref(x, w1, b1, w2, b2, wd, bd,
@@ -255,7 +299,7 @@ def fused_temporal_block(x: torch.Tensor, w1: torch.Tensor,
     b, t, cin, cout = _check_block_args(x, w1, b1, w2, b2, wd, bd,
                                         kernel_size, tensors=packed is None)
     if packed is None:
-        packed = pack_block_weights(w1, w2, wd)
+        packed = pack_block_weights(w1, w2, wd, dilation=dilation)
     out = torch.empty((b, t, cout), device=x.device, dtype=torch.float32)
     if b == 0 or t == 0:
         return out
@@ -395,12 +439,30 @@ def _wgrad_shares(batch: int, taps: int, ca: int, cd: int,
     return max(1, min(batch, -(-2 * sm_count // tiles)))
 
 
+def pad_train_inputs(x: torch.Tensor, w1: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(x, w1)`` as the train kernels take them: x with zero channels up
+    to a multiple of 4 (:func:`pad_channels`) and w1 (K, Cin, Cout) with
+    zero rows on its Cin axis to match, so the forward's sums are the
+    unpadded block's; both themselves where Cin is a multiple of 4."""
+    xp = pad_channels(x)
+    extra = xp.shape[-1] - x.shape[-1]
+    return xp, w1 if not extra else F.pad(w1, (0, 0, 0, extra))
+
+
+def slice_train_grads(cin: int, dx: torch.Tensor, dw1: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of x and w1 of the block on :func:`pad_train_inputs`'
+    tensors, cut back to the ``cin`` channels of the unpadded ones."""
+    return dx[..., :cin], dw1[:, :cin]
+
+
 def _check_train_args(x, w1, b1, w2, b2, m1, m2, res, kernel_size):
     b, t, cin = x.shape
     cout = w1.shape[-1]
     if cin % 4 or cout % 4:
         raise ValueError(f'Cin {cin}, Cout {cout}: the kernels take '
-                         f'multiples of 4')
+                         f'multiples of 4 (pad_train_inputs pads Cin)')
     for name, arr, shape in [
             ('x', x, (b, t, cin)), ('w1', w1, (kernel_size, cin, cout)),
             ('b1', b1, (cout,)), ('w2', w2, (kernel_size, cout, cout)),
@@ -413,10 +475,14 @@ def _check_train_args(x, w1, b1, w2, b2, m1, m2, res, kernel_size):
 class _FusedTemporalBlockTrain(torch.autograd.Function):
     """Forward and backward through ``csrc/tcn_block_train.cu``.  The
     forward keeps the pre-activations a1 and a2, so the backward
-    recomputes no convolution."""
+    recomputes no convolution.  A Cin that is no multiple of 4 (mfcc's 39)
+    runs on zero channels (:func:`pad_train_inputs`), and the backward
+    cuts dx and dw1 back (:func:`slice_train_grads`)."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, m1, m2, res, kernel_size, dilation):
+        ctx.cin = x.shape[-1]
+        x, w1 = pad_train_inputs(x, w1)
         b, t, cin, cout = _check_train_args(x, w1, b1, w2, b2, m1, m2, res,
                                             kernel_size)
         a1 = torch.empty((b, t, cout), device=x.device, dtype=torch.float32)
@@ -455,7 +521,8 @@ class _FusedTemporalBlockTrain(torch.autograd.Function):
         dw1, dw2 = empty(k, cin, cout), empty(k, cout, cout)
         db1, db2 = empty(cout), empty(cout)
         if b * t == 0:
-            return (dx, dw1.zero_(), db1.zero_(), dw2.zero_(), db2.zero_(),
+            dx, dw1 = slice_train_grads(ctx.cin, dx, dw1.zero_())
+            return (dx, dw1, db1.zero_(), dw2.zero_(), db2.zero_(),
                     None, None, dres, None, None)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         s1 = _wgrad_shares(b, k, cin, cout, sms)
@@ -475,13 +542,15 @@ class _FusedTemporalBlockTrain(torch.autograd.Function):
         build.check(err, f'tcn_block_train backward (B={b}, T={t}, '
                          f'Cin={cin}, Cout={cout}, K={k}, dilation={dil})')
         fused_temporal_block_train.launches_bwd += 1
+        dx, dw1 = slice_train_grads(ctx.cin, dx, dw1)
         return dx, dw1, db1, dw2, db2, None, None, dres, None, None
 
 
 def fused_temporal_block_train(x, w1, b1, w2, b2, m1, m2, res, *,
                                kernel_size: int,
                                dilation: int) -> torch.Tensor:
-    """Differentiable fused block: x (B, T, Cin); w1 (K, Cin, Cout); w2
+    """Differentiable fused block: x (B, T, Cin), any Cin; w1 (K, Cin,
+    Cout), Cout a multiple of 4 on the card; w2
     (K, Cout, Cout); masks m1, m2 (B, T, Cout) pre-scaled to
     {0, 1/(1-p)} (ones without dropout); res (B, T, Cout) the residual
     stream (x itself, or its 1x1 downsample).  Gradients flow to x, the

@@ -56,7 +56,16 @@ def arcface():
     assert module.dtype == functional.dtype == np.float32
     return {'state': visual_backbone_state_from_flax(params, stats),
             'crops': crops, 'fp32': fp32, 'module': module,
-            'functional': functional}
+            'functional': functional, 'params': params, 'stats': stats}
+
+
+@pytest.fixture(scope='module')
+def fused_bf16(arcface):
+    """``arcface_forward_eval(dtype=bfloat16, fused_blocks=True)``: the 21
+    identity blocks through the Pallas block in interpret mode."""
+    return np.asarray(flax_forward_eval(
+        arcface['params'], arcface['stats'], jnp.asarray(arcface['crops']),
+        dtype=jnp.bfloat16, fused_blocks=True))
 
 
 def _port(arcface, **kw):
@@ -93,14 +102,55 @@ def test_bf16_backbone_matches_flax_bf16(arcface, conv_impl, flax_path):
 
 
 @pytest.mark.parametrize('kw', [{'conv_impl': 'winograd'},
-                                {'conv_impl': 'winograd_kernel'},
-                                {'fused_blocks': True}])
+                                {'conv_impl': 'winograd_kernel'}])
 def test_bf16_has_no_winograd_or_fused_route_yet(kw):
     with pytest.raises(ValueError, match='ROADMAP'):
         VisualBackbone(dtype=BF16, **kw)
     with pytest.raises(ValueError, match='ROADMAP'):
         LFAN(('video', 'vggish'), 7, backbone_dtype=BF16, **kw)
     VisualBackbone(**kw)  # float32 takes every path
+    # nor with the fused blocks beside them
+    with pytest.raises(ValueError, match='ROADMAP'):
+        VisualBackbone(dtype=BF16, fused_blocks=True, **kw)
+
+
+@pytest.mark.parametrize('conv_impl', ['cudnn', 'shifted_kernel'])
+def test_bf16_fused_blocks_are_taken(conv_impl):
+    """``fused_blocks=True`` in bfloat16 (the fused block's bfloat16
+    route) is built on either conv path that bfloat16 takes, alone and
+    inside an LFAN."""
+    model = VisualBackbone(dtype=BF16, fused_blocks=True,
+                           conv_impl=conv_impl)
+    assert model.fused_blocks and model.dtype == BF16
+    lfan = LFAN(('video', 'vggish'), 7, backbone_dtype=BF16,
+                fused_blocks=True, conv_impl=conv_impl)
+    assert lfan.spatial.visual.fused_blocks
+
+
+@pytest.mark.parametrize('conv_impl', ['cudnn', 'shifted_kernel'])
+def test_bf16_fused_backbone_matches_flax_bf16(arcface, fused_bf16,
+                                              conv_impl):
+    """The port's bfloat16 backbone with ``fused_blocks=True`` (the plain
+    version of the bfloat16 block in the 21 identity blocks on the CPU)
+    against fvt_tpu's ``arcface_forward_eval(dtype=bfloat16,
+    fused_blocks=True)`` (the Pallas block in interpret mode) within twice
+    bfloat16's own distance from float32, as the unfused paths."""
+    own = np.abs(arcface['functional'] - arcface['fp32']).max()
+    model = _port(arcface, conv_impl=conv_impl, dtype=BF16,
+                  fused_blocks=True)
+    x = torch.from_numpy(arcface['crops'])
+    with torch.inference_mode():
+        got = model(x)
+    assert got.dtype == torch.float32 and got.shape == (N, 512)
+    got = got.numpy()
+    apart = np.abs(got - fused_bf16).max()
+    assert 0 < own and apart <= 2 * own, (
+        f'port bf16 fused vs JAX bf16 fused: {apart}; JAX bf16 vs JAX '
+        f'fp32: {own}')
+    assert np.abs(got - arcface['fp32']).max() > 1e-4
+    with torch.inference_mode():
+        np.testing.assert_array_equal(
+            arcface_forward_eval(model, x, fused_blocks=True).numpy(), got)
 
 
 def test_bf16_checks_at_every_level():
@@ -112,16 +162,18 @@ def test_bf16_checks_at_every_level():
         Backbone(conv_impl='winograd', dtype=BF16)
     with pytest.raises(ValueError, match='float32 or torch.bfloat16'):
         VisualBackbone(dtype=torch.float16)
+    # the fused block takes bfloat16 since it has a bfloat16 route
     blk = BottleneckIR(16, 16, 1, 'shifted_kernel', BF16).eval()
-    with pytest.raises(ValueError, match='ROADMAP'), torch.no_grad():
-        blk(torch.zeros(1, 16, 4, 4), fused=True)
+    with torch.no_grad():
+        y = blk(torch.zeros(1, 16, 4, 4, dtype=BF16), fused=True)
+    assert y.dtype == BF16 and y.shape == (1, 16, 4, 4)
     model = VisualBackbone(dtype=BF16)
     with pytest.raises(ValueError, match='built with'):
         arcface_forward_eval(model, torch.zeros(1, 40, 40, 3),
                              dtype=torch.float32)
-    with pytest.raises(ValueError, match='ROADMAP'):
-        arcface_forward_eval(model, torch.zeros(1, 40, 40, 3),
-                             fused_blocks=True)
+    out = arcface_forward_eval(model, torch.zeros(1, 40, 40, 3),
+                               fused_blocks=True)
+    assert out.shape == (1, 512) and out.dtype == torch.float32
 
 
 def test_bf16_derived_weights_follow_the_parameters(arcface):

@@ -13,6 +13,7 @@ import torch
 from fvt_tpu.models.fusion import MultimodalTransformerEncoder as FlaxMTE
 from fvt_tpu.ops.fusion_pallas import fused_multimodal_fusion
 from fvt_tpu_torch.models.from_jax import fusion_state_from_flax
+from fvt_tpu_torch.config import model_config as MC
 from fvt_tpu_torch.models.fusion import MultimodalTransformerEncoder
 from fvt_tpu_torch.ops import fusion as port_fusion
 
@@ -21,6 +22,11 @@ MODAL_DIM, HEADS = 32, 2
 CASES = [(('video', 'vggish', 'bert'), {'video': 128, 'vggish': 32,
                                         'bert': 128}),
          (('vggish', 'bert'), {'vggish': 32, 'bert': 128})]
+# more modalities than four: five, and all seven with embedding sizes, at
+# their TCN output widths (config/model_config.py ENCODER_DIM)
+MANY = [('bert', 'vggish', 'mfcc', 'egemaps', 'cnn_res50'),
+        ('video', 'bert', 'cnn_res50', 'mfcc', 'vggish', 'logmel',
+         'egemaps')]
 
 
 def _flax_params(mods, dims, rng):
@@ -41,6 +47,46 @@ def _flax_params(mods, dims, rng):
 
 @pytest.mark.parametrize('mods,dims', CASES)
 def test_fused_fusion_matches_pallas(mods, dims):
+    _check_against_pallas(mods, dims)
+
+
+@pytest.mark.parametrize('mods', MANY)
+def test_fused_fusion_of_many_modalities_matches_pallas(mods):
+    """M = 5 and M = 7, which the card runs with weights read from global
+    memory: the plain version against the Pallas kernel, as for M <= 4."""
+    _check_against_pallas(mods, {m: MC.ENCODER_DIM[m] for m in mods})
+
+
+def test_fusion_route_keeps_the_main_path_in_shared_memory():
+    """The main path's three modalities (ctot = 288, ~174 KB) stage every
+    weight in shared memory, the kernel's first route; M = 5, M = 7 and
+    the wide M = 4 (video, bert and cnn_res50 at 128 with mfcc: Wqkv alone
+    160 KB) are above the 227 KB and read Wo, or Wo and Wqkv, from global
+    memory; each route's layout fits."""
+    e = MODAL_DIM
+    main = [MC.ENCODER_DIM[m] for m in ('video', 'vggish', 'bert')]
+    assert port_fusion.fusion_route(tuple(main), e) == 0
+    assert 170 * 1024 < port_fusion.smem_bytes(main, e, 0) \
+        <= port_fusion.MAX_SMEM
+    wide = [MC.ENCODER_DIM[m] for m in ('video', 'bert', 'cnn_res50',
+                                        'mfcc')]
+    assert sum(wide) == 416 and 416 * 3 * e * 4 == 159744
+    routes = {}
+    for name, widths in (('wide', wide), *(
+            (len(mods), [MC.ENCODER_DIM[m] for m in mods])
+            for mods in MANY)):
+        assert port_fusion.smem_bytes(widths, e, 0) > port_fusion.MAX_SMEM
+        routes[name] = port_fusion.fusion_route(tuple(widths), e)
+        assert port_fusion.smem_bytes(widths, e, routes[name]) \
+            <= port_fusion.MAX_SMEM
+    assert routes == {'wide': port_fusion.WO_GLOBAL,
+                      5: port_fusion.WO_GLOBAL,
+                      7: port_fusion.WO_GLOBAL | port_fusion.WQKV_GLOBAL}
+    with pytest.raises(ValueError, match='shared memory'):
+        port_fusion.fusion_route((4096,) * 2, e)
+
+
+def _check_against_pallas(mods, dims):
     rng = np.random.default_rng(len(mods))
     params = _flax_params(mods, dims, rng)
     x = {m: rng.normal(size=(2, 24, dims[m])).astype(np.float32)

@@ -180,12 +180,12 @@ def test_channel_pad_gives_the_plain_output():
 
 
 @pytest.mark.parametrize('cin,cout,dilation', [(16, 12, 1), (8, 4, 1),
-                                               (64, 64, 49), (20, 20, 100)])
+                                               (20, 20, 100)])
 def test_refused_shapes_raise(cin, cout, dilation):
-    """Cout not a multiple of 8, or 64 + (K-1)*dilation beyond one TMA
-    box of 256 rows: the shape check raises with the shape in the message,
-    and so does the wrapper for a tensor off the CPU (a meta tensor here:
-    the check comes before the launch)."""
+    """Cout not a multiple of 8 (at dilation 100 too, whose halo the
+    kernel now takes in two boxes): the shape check raises with the shape
+    in the message, and so does the wrapper for a tensor off the CPU (a meta
+    tensor here: the check comes before the launch)."""
     with pytest.raises(ValueError, match=f'Cout={cout}'):
         tcn_ops.check_tf32x3_shape(cin, cout, K, dilation)
     a = _inputs(1, 1, 4, cin, cout, cin != cout)
@@ -195,14 +195,116 @@ def test_refused_shapes_raise(cin, cout, dilation):
                                      dilation=dilation)
 
 
+@pytest.mark.parametrize('cin,cout,dilation', [(64, 64, 49), (24, 24, 100)])
+def test_long_halo_shapes_are_taken(cin, cout, dilation):
+    """64 + (K-1)*dilation beyond one TMA box of 256 rows (refused before
+    the taps came in groups): the shape check takes it, the kernel's plan
+    has more than one box (two at 49, three at 100), and the emulation of the grouped sums meets the gate
+    against the Pallas block (T = 260 frames, beyond the halo)."""
+    tcn_ops.check_tf32x3_shape(cin, cout, K, dilation)
+    g, groups = tcn_ops.tap_groups(K, dilation)
+    assert groups == (2 if dilation == 49 else 3)
+    assert tcn_ops.ROW_TILE + (g - 1) * dilation <= 256
+    a = _inputs(dilation, 1, 260, cin, cout, cin != cout)
+    np.testing.assert_allclose(_emulated(a, dilation).numpy(),
+                               _pallas(a, dilation), rtol=GATE, atol=GATE)
+
+
 def test_largest_halo_and_taps_are_taken():
-    """64 + 4*48 = 256 rows, one whole box, and nine taps: taken; ten
-    taps, beyond the kernel's instantiations, raise."""
+    """64 + 4*48 = 256 rows, one whole box, and nine taps: one group;
+    ten taps, beyond the kernel's instantiations, two groups of five; a
+    halo of 2^30 frames, whose TMA coordinates would overflow, raises."""
     tcn_ops.check_tf32x3_shape(64, 64, K, 48)
+    assert tcn_ops.tap_groups(K, 48) == (K, 1)
     tcn_ops.check_tf32x3_shape(39, 8, K, 1)
     tcn_ops.check_tf32x3_shape(16, 16, 9, 1)
-    with pytest.raises(ValueError, match='K=10'):
-        tcn_ops.check_tf32x3_shape(16, 16, 10, 1)
+    assert tcn_ops.tap_groups(9, 1) == (9, 1)
+    tcn_ops.check_tf32x3_shape(16, 16, 10, 1)
+    assert tcn_ops.tap_groups(10, 1) == (5, 2)
+    with pytest.raises(ValueError, match='K=2'):
+        tcn_ops.check_tf32x3_shape(16, 16, 2, 2 ** 30)
+
+
+@pytest.mark.parametrize('k', [5, 9, 10, 11, 17])
+@pytest.mark.parametrize('dilation', [1, 8, 48, 64, 100])
+def test_tap_groups_cover_the_taps_in_boxes(k, dilation):
+    """The plan of the grouped kernel: G at most nine taps (the
+    instantiations), each group's box ``64 + (G-1)*dilation`` rows within
+    one TMA box of 256, every tap in exactly one group and the zero taps
+    (``pad_taps``) only after the last real one; one group, G = K, wherever
+    K <= 9 and the whole halo fits one box (the model's blocks: K = 5,
+    dilation up to 16)."""
+    g, groups = tcn_ops.tap_groups(k, dilation)
+    assert 1 <= g <= tcn_ops.MAX_TAPS
+    assert tcn_ops.ROW_TILE + (g - 1) * dilation <= tcn_ops.MAX_BOX
+    taps = [i * g + j for i in range(groups) for j in range(g)]
+    assert taps == list(range(g * groups)) and g * groups >= k
+    assert g * (groups - 1) < k  # the last group holds a real tap
+    if k <= 9 and tcn_ops.ROW_TILE + (k - 1) * dilation <= 256:
+        assert (g, groups) == (k, 1)
+    # fewer groups would need a longer box or more taps than nine
+    if groups > 1:
+        wider = -(-k // (groups - 1))
+        assert wider > tcn_ops.MAX_TAPS or \
+            tcn_ops.ROW_TILE + (wider - 1) * dilation > tcn_ops.MAX_BOX
+    w = torch.arange(1.0, k + 1).reshape(k, 1, 1)
+    padded = tcn_ops.pad_taps(w, dilation)
+    assert padded.shape[0] == g * groups
+    assert torch.equal(padded[:k], w) and not padded[k:].any()
+    assert (tcn_ops.pad_taps(w, dilation) is w) == (g * groups == k)
+
+
+@pytest.mark.parametrize('ks,dilation,t,downsample', [
+    (11, 8, 150, True), (5, 64, 300, False), (17, 16, 300, True)])
+def test_grouped_taps_meet_the_fp32_gate(ks, dilation, t, downsample):
+    """K = 11 at dilation 8 (two groups of six, one zero tap), K = 5 at
+    dilation 64 (a halo of 256 rows: two groups of three) and K = 17 at 16
+    (two of nine): the emulation, its sums grouped as the kernel's steps,
+    against fvt_tpu's Pallas block in interpret mode and the plain version
+    within rtol = atol = 1e-4, on weights at the model's init scale."""
+    rng = np.random.default_rng(ks * dilation)
+    cin, cout = 24, 16
+    a = {'x': rng.normal(size=(2, t, cin)),
+         'w1': rng.normal(size=(ks, cin, cout)) * (ks * cin) ** -0.5,
+         'b1': rng.normal(size=(cout,)) * 0.1,
+         'w2': rng.normal(size=(ks, cout, cout)) * (ks * cout) ** -0.5,
+         'b2': rng.normal(size=(cout,)) * 0.1,
+         'wd': rng.normal(size=(cin, cout)) * cin ** -0.5,
+         'bd': rng.normal(size=(cout,)) * 0.1}
+    if not downsample:
+        a['x'] = a['x'][..., :cout]
+        a['w1'] = a['w1'][:, :cout] * (cin / cout) ** 0.5
+        a['wd'] = a['bd'] = None
+    a = {k: None if v is None else v.astype(np.float32)
+         for k, v in a.items()}
+    args = _torch(a)
+    got = tcn_ops.fused_temporal_block_tf32x3_ref(
+        *args, kernel_size=ks, dilation=dilation)
+    plain = tcn_ops.fused_temporal_block_ref(*args, kernel_size=ks,
+                                             dilation=dilation)
+    want = np.asarray(jax_ops.fused_temporal_block(
+        *[None if a[n] is None else jnp.asarray(a[n]) for n in NAMES],
+        kernel_size=ks, dilation=dilation, interpret=True))
+    for ref in (want, plain.numpy()):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=GATE, atol=GATE)
+
+
+def test_pack_block_weights_pads_the_last_group():
+    """At K = 11 and dilation 8 the packed convs carry 12 taps (two groups
+    of six), the twelfth zero, and are the packing of the zero-padded
+    weights; the downsample keeps its one tap."""
+    a = _inputs(11, 1, 4, 12, 16, True)
+    rng = np.random.default_rng(0)
+    w1 = torch.from_numpy(rng.normal(size=(11, 12, 16)).astype(np.float32))
+    w2 = torch.from_numpy(rng.normal(size=(11, 16, 16)).astype(np.float32))
+    wd = _torch(a)[5]
+    p1, p2, pd = tcn_ops.pack_block_weights(w1, w2, wd, dilation=8)
+    assert p1[0].shape[2] == p2[1].shape[2] == 12 and pd[0].shape[2] == 1
+    for part in (*p1, *p2):
+        assert not part[:, :, 11].any()
+    zero = torch.zeros(1, 12, 16)
+    assert torch.equal(p1[0], conv_ops.pack_taps_tf32(
+        torch.cat([w1, zero]), tcn_ops.COLUMN_TILE)[0])
 
 
 def test_block_keeps_its_packed_weights():

@@ -55,7 +55,23 @@ def _torch_args(a, dtype=torch.float32):
     (3, 4, 2, 3, 8, 16, 0.3),
 ])
 def test_train_block_matches_pallas(ks, dil, b, t, cin, cout, dropout):
-    a = _inputs(0, ks, b, t, cin, cout, dropout)
+    _check_against_pallas(_inputs(0, ks, b, t, cin, cout, dropout), ks, dil)
+
+
+@pytest.mark.parametrize('dil', [1, 8])
+def test_train_block_matches_pallas_at_the_mfcc_width(dil):
+    """Cin = 39, which the card runs on zero channels, with the weights at
+    the model's init scale (``(K*Cin)**-0.5``): at unit weights the
+    outputs reach the hundreds and the float32 sums' order alone moves a
+    cancelled one past the 1e-5 gate."""
+    ks, cin, cout = 5, 39, 32
+    a = _inputs(5, ks, 2, 40, cin, cout, 0.3)
+    a['w1'] = a['w1'] * np.float32((ks * cin) ** -0.5)
+    a['w2'] = a['w2'] * np.float32((ks * cout) ** -0.5)
+    _check_against_pallas(a, ks, dil)
+
+
+def _check_against_pallas(a, ks, dil):
     j = {k: jnp.asarray(v) for k, v in a.items()}
 
     def jax_out(x, w1, b1, w2, b2, res):
@@ -103,6 +119,72 @@ def test_backward_formula_matches_autograd(ks, dil, t, dropout):
     for name, gg, w in zip(GRAD_NAMES, got, want):
         np.testing.assert_allclose(gg.numpy(), w.numpy(), rtol=1e-10,
                                    atol=1e-10, err_msg=name)
+
+
+@pytest.mark.parametrize('cin', [39, 23])
+def test_padded_train_block_gives_the_unpadded_one(cin):
+    """What the card runs for a Cin that is no multiple of 4: the block on
+    ``pad_train_inputs``' tensors (x with zero channels, w1 with zero rows)
+    and its x and w1 gradients cut back by ``slice_train_grads``, here
+    through the plain version, against the block on the unpadded tensors,
+    in float64: rtol = atol = 1e-10 (the same products, and exact zeros
+    beside them)."""
+    a = _inputs(3, 5, 2, 20, cin, 12, 0.3)
+    p = _torch_args(a, torch.float64)
+    kw = dict(kernel_size=5, dilation=2)
+    xp, w1p = port_tcn.pad_train_inputs(p['x'], p['w1'])
+    assert xp.shape[-1] == w1p.shape[1] == cin + (-cin) % 4
+    assert torch.equal(xp[..., :cin], p['x'])
+    assert not xp[..., cin:].any() and not w1p[:, cin:].any()
+    rest = [p[k] for k in ('b1', 'w2', 'b2', 'm1', 'm2', 'res')]
+    want = port_tcn.fused_temporal_block_train_ref(p['x'], p['w1'], *rest,
+                                                   **kw)
+    got = port_tcn.fused_temporal_block_train_ref(xp, w1p, *rest, **kw)
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                               rtol=1e-10, atol=1e-10)
+    g = p['tgt']
+    dxp, dw1p, *rest_g = torch.autograd.grad(
+        got, [xp, w1p] + [p[k] for k in GRAD_NAMES[2:]], g)
+    got_g = (*port_tcn.slice_train_grads(cin, dxp, dw1p), *rest_g)
+    want_g = torch.autograd.grad(want, [p[k] for k in GRAD_NAMES], g)
+    for name, gg, w in zip(GRAD_NAMES, got_g, want_g):
+        assert gg.shape == w.shape, name
+        np.testing.assert_allclose(gg.numpy(), w.numpy(), rtol=1e-10,
+                                   atol=1e-10, err_msg=name)
+
+
+@pytest.mark.parametrize('cin', [39, 23])
+def test_backward_formula_on_padded_inputs(cin):
+    """``_block_bwd_ref`` (the backward kernels' arithmetic) on the padded
+    x and w1, dx and dw1 cut back, against autograd of the plain forward on
+    the unpadded ones, in float64: rtol = atol = 1e-10."""
+    a = _inputs(4, 5, 2, 18, cin, 8, 0.3)
+    p = _torch_args(a, torch.float64)
+    dil = 4
+    out = port_tcn.fused_temporal_block_train_ref(
+        p['x'], p['w1'], p['b1'], p['w2'], p['b2'], p['m1'], p['m2'],
+        p['res'], kernel_size=5, dilation=dil)
+    g = p['tgt']
+    want = torch.autograd.grad(out, [p[k] for k in GRAD_NAMES], g)
+    with torch.no_grad():
+        xp, w1p = port_tcn.pad_train_inputs(p['x'], p['w1'])
+        a1 = port_tcn._causal_conv(xp, w1p, p['b1'], dil)
+        h = port_tcn._leaky(a1) * p['m1']
+        a2 = port_tcn._causal_conv(h, p['w2'], p['b2'], dil)
+        dx, dw1, *rest = port_tcn._block_bwd_ref(
+            xp, w1p, p['w2'], p['m1'], p['m2'], p['res'], a1, a2, g,
+            dilation=dil)
+        got = (*port_tcn.slice_train_grads(cin, dx, dw1), *rest)
+    for name, gg, w in zip(GRAD_NAMES, got, want):
+        assert gg.shape == w.shape, name
+        np.testing.assert_allclose(gg.numpy(), w.numpy(), rtol=1e-10,
+                                   atol=1e-10, err_msg=name)
+
+
+def test_padding_leaves_a_multiple_of_4_alone():
+    x, w1 = torch.zeros(1, 3, 16), torch.zeros(5, 16, 8)
+    xp, w1p = port_tcn.pad_train_inputs(x, w1)
+    assert xp is x and w1p is w1
 
 
 def test_plain_version_gradcheck():
