@@ -40,8 +40,14 @@ Phases, each of which raises on failure (exit code 1):
    channel count it does not take; the fused block's bfloat16 route (two
    launches of that kernel, each also timed alone) against its plain
    version at the four stage shapes and edge shapes, beside the unfused
-   bfloat16 block on cuDNN; print errors and median times (CUDA
-   events);
+   bfloat16 block on cuDNN; the Winograd kernel's bfloat16 route (the
+   input transform, then one bfloat16 ``wgmma`` product with the output
+   transform in its epilogue; V of the first launch bit-equal to its plain
+   version, the product on the plain V and the whole call within one unit
+   in the last place, each launch also timed alone) at the seven conv
+   shapes and edge shapes, beside the bfloat16 conv kernel and
+   ``F.conv2d`` bf16, and its refusal of widths it does not take; print
+   errors and median times (CUDA events);
 3. serve three streams of 250, 700 and 1000 frames through the
    ``fvt_tpu_torch.streaming`` server core over a full-width tri-modal
    LFAN (``video+vggish+bert``, random init from seed 0); check every
@@ -71,13 +77,16 @@ Phases, each of which raises on failure (exit code 1):
    default, in turns; then the
    bfloat16 backbone (``dtype=torch.bfloat16``, ``--amp`` in ``fvt_tpu``)
    through ``cudnn``, ``shifted_kernel`` (45 bfloat16 launches a forward),
-   ``fused_blocks`` (21 bfloat16 block launches) and ``fused_blocks`` on
-   ``shifted_kernel`` (21 block and 3 conv launches), each kernel path's
+   ``fused_blocks`` (21 bfloat16 block launches), ``fused_blocks`` on
+   ``shifted_kernel`` (21 block and 3 conv launches), ``winograd_kernel``
+   (45 bfloat16 Winograd calls) and ``fused_blocks`` on
+   ``winograd_kernel`` (21 block and 3 Winograd calls), each kernel path's
    embeddings against its plain
    version's within twice bfloat16's own distance from float32, timed in
    turns; tri-modal LFANs with ``backbone_dtype=torch.bfloat16`` on
-   ``shifted_kernel`` and on ``fused_blocks`` + ``shifted_kernel`` on the
-   three streams, and timed full dispatches of the three bfloat16 paths.
+   ``shifted_kernel``, on ``fused_blocks`` + ``shifted_kernel`` and on
+   ``winograd_kernel`` on the three streams, and timed full dispatches of
+   the four bfloat16 paths, in turns.
 
 Everything runs in float32 with TF32 off for matmuls and cuDNN, except the
 bfloat16 backbone and its kernel, which say so.  The last
@@ -1429,6 +1438,180 @@ def check_bottleneck_bf16_kernel(device) -> dict:
             'unfused_cudnn_block_ms': tot['cudnn']}
 
 
+def check_winograd_bf16_kernel(device) -> dict:
+    """Phase 2, bfloat16: the Winograd kernel's bfloat16 route
+    (``conv3x3_winograd`` on bfloat16 tensors, the ``winograd_kernel``
+    path under ``--amp``: the input transform, then one bfloat16 ``wgmma``
+    product with the output transform in its epilogue) at the seven conv
+    shapes on FRAMES frames and at edge shapes.  Gates: V of the first
+    launch alone bit-equal to ``input_transform`` on the bfloat16 x; the
+    second launch alone, on that plain V, and the whole call within
+    compare_bf16's gate (one unit in the last place) of the plain
+    version, ``conv3x3_winograd_bf16_ref`` (the same exact products, fp32
+    sums in another order); the distance from ``F.conv2d`` bf16 printed,
+    not gated (V's roundings make it another bfloat16 function).  Widths
+    the kernel does not take must raise.  Times per shape: the call, each
+    launch alone, the plain version, bf16 B4 (``conv3x3``) and
+    ``F.conv2d`` bf16; the bound: the products' operations at the bf16
+    peak against x, the packed U and y, with the bytes of its two launches
+    (V written and read besides) printed beside it."""
+    from fvt_tpu_torch.kernels import build
+    from fvt_tpu_torch.ops import conv as conv_ops
+    from fvt_tpu_torch.ops import winograd as winograd_ops
+
+    g = torch.Generator(device=device).manual_seed(SEED + 8)
+    frames = WINDOW_BATCH * WINDOW
+    tot = {key: 0.0 for key in (
+        'err', 'ms', 'plain', 'library', 'b4', 'ops_ms', 'bytes_ms',
+        'design_ms', 'input_transform', 'product')}
+    workspace_gb = 0.0
+
+    def inputs(n, h, w, cin, cout):
+        x = torch.randn(n, h, w, cin, device=device, generator=g)
+        k = torch.randn(3, 3, cin, cout, device=device, generator=g)
+        return x.bfloat16(), (k * (9 * cin) ** -0.5).bfloat16()
+
+    def check(shape, x, k):
+        """The gates at x's shape; returns (y, max error, U, packed U)."""
+        n, h, w, _ = x.shape
+        u = winograd_ops.transform_weights_bf16(k)
+        packed = winograd_ops.pack_winograd_weights_bf16(u)
+        v = winograd_ops.workspace_bf16(x)
+        out = torch.empty(n, h, w, k.shape[3], device=device,
+                          dtype=torch.bfloat16)
+        winograd_ops.launch_bf16(x, packed, v, out,
+                                 winograd_ops.INPUT_TRANSFORM)
+        v_plain = winograd_ops.v_chunks(winograd_ops.input_transform(x))
+        torch.cuda.synchronize()
+        flips = (v != v_plain).sum().item()
+        print(f'  {shape} V: {flips} of {v.numel()} values differ from '
+              f'input_transform\'s')
+        if flips:
+            fail(f'{shape}: the input transform is not bit-equal to its '
+                 f'plain version')
+        del v
+        winograd_ops.launch_bf16(x, packed, v_plain, out,
+                                 winograd_ops.PRODUCT)
+        p = n * ((h + 1) // 2) * ((w + 1) // 2)
+        want = winograd_ops.output_transform(torch.bmm(
+            v_plain[:, :, :p].transpose(1, 2).reshape(16, p, -1).float(),
+            u.float()), n, h, w).bfloat16()
+        del v_plain
+        compare_bf16(f'{shape} product on the plain V', out, want)
+        del out, want
+        got = winograd_ops.conv3x3_winograd(x, k, u, packed)
+        err = compare_bf16(shape, got,
+                           winograd_ops.conv3x3_winograd_bf16_ref(x, k, u))
+        return got, err, u, packed
+
+    with torch.inference_mode():
+        for h, cin, cout, count in CONV_SHAPES:
+            x, k = inputs(frames, h, h, cin, cout)
+            shape = f'winograd_bf16 ({frames},{h},{h},{cin})->{cout}'
+            got, err, u, packed = check(shape, x, k)
+            cudnn, library_ms, layout = conv2d_library(x, k)
+            apart = (got.float() - cudnn.float()).abs_()
+            print(f'    vs F.conv2d bf16 (not gated): max '
+                  f'{apart.max().item():.3e}, mean {apart.mean().item():.3e} '
+                  f'of mean|y| {cudnn.float().abs().mean().item():.3e}')
+            del cudnn, apart
+            ms = median_ms(lambda: winograd_ops.conv3x3_winograd(
+                x, k, u, packed), CONV_RUNS)
+            v = winograd_ops.workspace_bf16(x)
+            alone = {}
+            for key, stage in (('input_transform',
+                                winograd_ops.INPUT_TRANSFORM),
+                               ('product', winograd_ops.PRODUCT)):
+                alone[key] = median_ms(lambda: winograd_ops.launch_bf16(
+                    x, packed, v, got, stage), CONV_RUNS)
+                tot[key] += count * alone[key]
+            plain = median_ms(lambda: winograd_ops.conv3x3_winograd_bf16_ref(
+                x, k, u), 3, warmup=1)
+            b4_packed = conv_ops.pack_weights(k)
+            b4 = median_ms(lambda: conv_ops.conv3x3(x, k, packed=b4_packed),
+                           CONV_RUNS)
+            p = frames * ((h + 1) // 2) ** 2
+            flops = 2.0 * 16 * p * cin * cout
+            moved = nbytes(x, packed, got)
+            lower = bound(flops, moved, PEAK_FLOPS_BF16)
+            design = (moved + 2 * nbytes(v)) / PEAK_BYTES * 1e3
+            workspace_gb = max(workspace_gb, nbytes(v) / 1e9)
+            print(f'    x{count} a forward: kernel {ms:.4f} ms (input '
+                  f'transform {alone["input_transform"]:.4f}, product '
+                  f'{alone["product"]:.4f} alone), plain {plain:.4f} ms, '
+                  f'bf16 B4 {b4:.4f} ms, F.conv2d bf16 ({layout}) '
+                  f'{library_ms:.4f} ms, bound {lower["bound_ms"]:.4f} ms by '
+                  f'{lower["bound_by"]} ({flops / 1e9:.1f} GFLOP, '
+                  f'{moved / 1e6:.1f} MB), its launches\' bytes (V written '
+                  f'and read) {design:.4f} ms, V {nbytes(v) / 1e9:.3f} GB')
+            tot['err'] = max(tot['err'], err)
+            tot['ms'] += count * ms
+            tot['plain'] += count * plain
+            tot['library'] += count * library_ms
+            tot['b4'] += count * b4
+            tot['ops_ms'] += count * flops / PEAK_FLOPS_BF16 * 1e3
+            tot['bytes_ms'] += count * moved / PEAK_BYTES * 1e3
+            tot['design_ms'] += count * design
+            del x, k, got, u, packed, v, b4_packed
+
+        # odd extents (7x9; 5x5 as the last stage), single pixels, Cin !=
+        # Cout, a ragged column tile (Co = 200, 136), the smallest C (one
+        # k16 step), P over several row tiles with a ragged end (828
+        # tiles), and several tiles of wide channels
+        for n, h, w, cin, cout in [(3, 7, 9, 32, 16), (1, 1, 1, 16, 8),
+                                   (1, 2, 2, 16, 8), (5, 5, 5, 64, 200),
+                                   (2, 13, 6, 16, 40), (3, 23, 45, 48, 136),
+                                   (7, 10, 10, 256, 256)]:
+            x, k = inputs(n, h, w, cin, cout)
+            check(f'winograd_bf16 edge ({n},{h},{w},{cin})->{cout}', x, k)
+
+        # C = 20 is no multiple of wgmma's k16 step and Co = 12 none of 8:
+        # the wrapper raises, and the C entry itself refuses C = 20;
+        # neither goes to another kernel
+        before = (winograd_ops.conv3x3_winograd.launches,
+                  conv_ops.conv3x3.launches)
+        for cin, cout in ((20, 40), (16, 12)):
+            x, k = inputs(2, 5, 5, cin, cout)
+            try:
+                winograd_ops.conv3x3_winograd(x, k)
+            except ValueError as e:
+                print(f'  winograd_bf16 C={cin} Co={cout} refused: {e}')
+            else:
+                fail(f'conv3x3_winograd took bfloat16 C = {cin}, Co = '
+                     f'{cout}')
+        x = torch.zeros(2, 5, 5, 20, device=device, dtype=torch.bfloat16)
+        code = build.library().fvt_winograd_bf16_forward(
+            *([x.data_ptr()] * 4), 2, 5, 5, 20, 40,
+            winograd_ops.BF16_STAGES,
+            torch.cuda.current_stream(device).cuda_stream)
+        if code == 0:
+            fail('the bfloat16 Winograd entry took C = 20')
+        if (winograd_ops.conv3x3_winograd.launches,
+                conv_ops.conv3x3.launches) != before:
+            fail('a refused bfloat16 Winograd conv counted a launch')
+    lower = max(tot['ops_ms'], tot['bytes_ms'])
+    print(f'  winograd_bf16 total over the 45 convs of a forward: kernel '
+          f'{tot["ms"]:.4f} ms (input transform {tot["input_transform"]:.4f}'
+          f', product {tot["product"]:.4f} alone), plain {tot["plain"]:.4f} '
+          f'ms, bf16 B4 {tot["b4"]:.4f} ms, F.conv2d bf16 '
+          f'{tot["library"]:.4f} ms, bound {lower:.4f} ms '
+          f'({lower / tot["ms"]:.1%} of it; operations {tot["ops_ms"]:.4f}, '
+          f'x, U and y {tot["bytes_ms"]:.4f}), its launches\' bytes '
+          f'{tot["design_ms"]:.4f} ms; largest V {workspace_gb:.3f} GB')
+    return {'name': 'winograd_bf16', 'route': 'cuda',
+            'source': 'fvt_tpu_torch/csrc/winograd_bf16.cu',
+            'replaces': 'fvt_tpu/ops/winograd.py:148',
+            'max_abs_err': tot['err'], 'ms': tot['ms'],
+            'plain_ms': tot['plain'], 'library_ms': tot['library'],
+            'bound_ms': lower,
+            'bound_by': ('operations' if tot['ops_ms'] >= tot['bytes_ms']
+                         else 'bytes'),
+            'launch_ms': {'input_transform': tot['input_transform'],
+                          'product': tot['product']},
+            'launches_bytes_bound_ms': tot['design_ms'],
+            'workspace_gb': workspace_gb, 'conv3x3_bf16_ms': tot['b4']}
+
+
 def conv_counters() -> dict:
     from fvt_tpu_torch.ops.bottleneck import (bottleneck_ir_fused,
                                               bottleneck_ir_fused_simt)
@@ -1446,7 +1629,7 @@ def read_launches(counters: dict) -> dict:
     """The counters' launches, and those of the float32 and bfloat16 conv
     kernels apart."""
     launches = {k: fn.launches for k, fn in counters.items()}
-    for name in ('conv3x3', 'bottleneck'):
+    for name in ('conv3x3', 'winograd', 'bottleneck'):
         for dtype in ('fp32', 'bf16'):
             launches[f'{name}_{dtype}'] = getattr(counters[name],
                                                   f'launches_{dtype}')
@@ -1456,7 +1639,7 @@ def read_launches(counters: dict) -> dict:
 def zero_launches(counters: dict) -> None:
     for fn in counters.values():
         fn.launches = 0
-    for name in ('conv3x3', 'bottleneck'):
+    for name in ('conv3x3', 'winograd', 'bottleneck'):
         counters[name].launches_fp32 = counters[name].launches_bf16 = 0
 
 
@@ -1476,7 +1659,7 @@ def backbone_variants(model, crops: torch.Tensor, device) -> dict:
                 ('shifted_kernel', {'conv_impl': 'shifted_kernel'},
                  {'conv3x3': 45, 'conv3x3_fp32': 45}),
                 ('winograd_kernel', {'conv_impl': 'winograd_kernel'},
-                 {'winograd': 45}),
+                 {'winograd': 45, 'winograd_fp32': 45}),
                 ('fused_blocks', {'fused_blocks': True},
                  {'bottleneck': 21, 'bottleneck_fp32': 21}),
                 # the 21 identity blocks fused, the other three stride-1
@@ -1531,14 +1714,16 @@ def backbone_variants(model, crops: torch.Tensor, device) -> dict:
 
 def backbone_bf16(model, crops: torch.Tensor, device) -> dict:
     """Phase 5, the bfloat16 backbone alone: ``dtype=torch.bfloat16``
-    through ``cudnn``, ``shifted_kernel``, ``fused_blocks`` and
-    ``fused_blocks`` on ``shifted_kernel`` on the same frames and
+    through ``cudnn``, ``shifted_kernel``, ``fused_blocks``,
+    ``fused_blocks`` on ``shifted_kernel``, ``winograd_kernel`` and
+    ``fused_blocks`` on ``winograd_kernel`` on the same frames and
     weights.  Each kernel path's
     embeddings are held against the plain version's of the same bfloat16
     model; the tolerance is BF16_PATHS_APART times bfloat16's own distance
     from float32, max |bf16 cudnn - fp32 cudnn| on these weights and
-    crops.  Returns the bfloat16 conv kernel's and the bfloat16 block's
-    launches over their own path's one checked forward."""
+    crops.  Returns the bfloat16 conv kernel's, the bfloat16 block's and
+    the bfloat16 Winograd kernel's launches over their own path's one
+    checked forward."""
     from fvt_tpu_torch.models.arcface import VisualBackbone
 
     counters = conv_counters()
@@ -1556,6 +1741,15 @@ def backbone_bf16(model, crops: torch.Tensor, device) -> dict:
         'bf16 fused_blocks+shifted_kernel': (
             {'conv_impl': 'shifted_kernel', 'fused_blocks': True},
             {'conv3x3': 3, 'conv3x3_bf16': 3, 'bottleneck': 21,
+             'bottleneck_bf16': 21}),
+        # the 45 convs on the bfloat16 Winograd kernel
+        'bf16 winograd_kernel': ({'conv_impl': 'winograd_kernel'},
+                                 {'winograd': 45, 'winograd_bf16': 45}),
+        # the 21 identity blocks fused, each stage's first conv1 on the
+        # bfloat16 Winograd kernel
+        'bf16 fused_blocks+winograd_kernel': (
+            {'conv_impl': 'winograd_kernel', 'fused_blocks': True},
+            {'winograd': 3, 'winograd_bf16': 3, 'bottleneck': 21,
              'bottleneck_bf16': 21})}
     nets = {}
     for name, kw in (('fp32 cudnn', {}), ('bf16 cudnn', bf16),
@@ -1610,7 +1804,9 @@ def backbone_bf16(model, crops: torch.Tensor, device) -> dict:
     return {'conv3x3_bf16':
             out_launches['bf16 shifted_kernel']['conv3x3_bf16'],
             'bottleneck_bf16': out_launches[
-                'bf16 fused_blocks+shifted_kernel']['bottleneck_bf16']}
+                'bf16 fused_blocks+shifted_kernel']['bottleneck_bf16'],
+            'winograd_bf16':
+            out_launches['bf16 winograd_kernel']['winograd_bf16']}
 
 
 def serve_variant(model, kw: dict, kernel: str, per_dispatch: int,
@@ -1936,12 +2132,14 @@ def main() -> int:
     kernels += check_conv_kernels(device)
     kernels += check_bottleneck_kernel(device)
     print(f'phase 2, bfloat16: the tensor-core conv kernel vs its plain '
-          f'version and F.conv2d on bfloat16 tensors, and the fused block '
-          f'vs its plain version (|got - want| <= {BF16_RTOL} |want| + '
+          f'version and F.conv2d on bfloat16 tensors, the fused block and '
+          f'the Winograd kernel vs their plain versions (|got - want| <= '
+          f'{BF16_RTOL} |want| + '
           f'{BF16_ATOL}: one unit in the last place; mean |got - want| <= '
           f'{BF16_MEAN_TOL} mean |want|)')
     kernels.append(check_conv_bf16_kernel(device))
     kernels.append(check_bottleneck_bf16_kernel(device))
+    kernels.append(check_winograd_bf16_kernel(device))
     torch.cuda.empty_cache()
 
     print('phase 3: serving through fvt_tpu_torch.streaming')
@@ -2014,7 +2212,7 @@ def main() -> int:
         by_type={'conv3x3': 3, 'conv3x3_fp32': 3, 'bottleneck_fp32': 21})
     by_name['winograd']['launches'], winograd = serve_variant(
         model, {'conv_impl': 'winograd_kernel'}, 'winograd', 45, streams,
-        device)
+        device, by_type={'winograd_fp32': 45})
     # the fp32 shifted_kernel LFAN (the split-TF32 kernel) served, then
     # the three split-TF32 LFANs timed against the default in turns
     _, shifted = serve_variant(
@@ -2033,6 +2231,8 @@ def main() -> int:
           'alone and served')
     launches = backbone_bf16(model, crops, device)
     by_name['conv3x3_bf16']['launches'] = launches['conv3x3_bf16']
+    print(f'  bf16 winograd_kernel: {launches["winograd_bf16"]} launches of '
+          f'the bfloat16 Winograd kernel a forward')
     del crops
     # served logits of the kernel path against the offline stitch of the
     # same model's plain versions.  The tolerance is derived as the
@@ -2065,8 +2265,13 @@ def main() -> int:
                       21, streams, device, atol=serve_tol,
                       by_type={'bottleneck_bf16': 21, 'conv3x3': 3,
                                'conv3x3_bf16': 3})
-    for impl in ('cudnn', 'shifted_kernel', 'fused_blocks', 'fused_blocks',
-                 'shifted_kernel', 'cudnn'):
+    # the bfloat16 Winograd kernel served: 45 launches a dispatch
+    by_name['winograd_bf16']['launches'], servers['winograd_kernel'] = \
+        serve_variant(model, {'conv_impl': 'winograd_kernel', **bf16},
+                      'winograd', 45, streams, device, atol=serve_tol,
+                      by_type={'winograd_bf16': 45})
+    turns = ['cudnn', 'shifted_kernel', 'fused_blocks', 'winograd_kernel']
+    for impl in turns + turns[::-1]:
         time_dispatches(f'bf16 backbone, {impl}', servers[impl], inputs)
     del model, servers
 

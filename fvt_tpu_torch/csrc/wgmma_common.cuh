@@ -1,9 +1,10 @@
-// PTX helpers of the wgmma kernels (conv3x3_wgmma.cu in bf16,
-// conv3x3_tf32x3.cu, winograd_tf32x3.cu and tcn_block_tf32x3.cu in fp32):
+// PTX helpers of the wgmma kernels (conv3x3_wgmma.cu and winograd_bf16.cu in
+// bf16, conv3x3_tf32x3.cu, winograd_tf32x3.cu and tcn_block_tf32x3.cu in
+// fp32):
 // mbarriers, the copy engine's bulk, im2col and tiled copies, shared-memory
-// matrix descriptors, the wgmma fences, the split-TF32 rounding and the
-// TF32 wgmma of 64 x 64 and 64 x 128 tiles, the im2col tensor map
-// of an NHWC activation and a 3-d tiled tensor map, all for sm_90a.  Each
+// matrix descriptors, the wgmma fences, the split-TF32 rounding, the TF32
+// and bf16 wgmma of 64 x 64 and 64 x 128 tiles, the im2col tensor map of an
+// NHWC activation and a 3-d tiled tensor map, all for sm_90a.  Each
 // includer gets its own copies (everything lies in an anonymous namespace).
 #pragma once
 
@@ -199,6 +200,79 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2],
     wgmma_tf32_m64n128k8(d, desc_a, desc_b, scale_d);
 }
 
+// d (64 x N, fp32, in the warpgroup's registers) = d * scale_d + A (64 x 16,
+// K-major) @ B (16 x N, N-major), both bf16 in shared memory behind
+// descriptors; scale_d is 0 (d need not be initialised) or 1.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
+    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
+    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2],
+                                           uint64_t desc_a, uint64_t desc_b,
+                                           int scale_d) {
+  if constexpr (BN == 64)
+    wgmma_m64n64k16(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_m64n128k16(d, desc_a, desc_b, scale_d);
+}
+
 // An entry of libcuda, looked up by name: the tensor-map encoders live
 // there, and the library links no -lcuda.  nullptr if there is none.
 void* libcuda_entry(const char* name) {
@@ -234,11 +308,13 @@ cudaError_t make_x_map(const void* x, int N, int H, int W, int C,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The 3-d tiled tensor map of a (planes, rows, C) fp32 tensor, contiguous,
-// C a multiple of 4: boxes of box_rows rows (at most 256) by 4 channels (16
-// bytes) of one plane, zeros where a box lies outside the tensor (negative
+// The 3-d tiled tensor map of a (planes, rows, C) tensor of `elem`-byte
+// elements of `type`, contiguous, C*elem a multiple of 16: boxes of
+// box_rows rows by box_c channels (each at most 256; box_c*elem a multiple
+// of 16) of one plane, zeros where a box lies outside the tensor (negative
 // coordinates included).
-cudaError_t make_tile3d_map(const float* t, int planes, int rows, int C,
+cudaError_t make_tile3d_map(const void* t, CUtensorMapDataType type, int elem,
+                            int planes, int rows, int C, int box_c,
                             int box_rows, CUtensorMap* map) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -249,15 +325,22 @@ cudaError_t make_tile3d_map(const float* t, int planes, int rows, int C,
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)rows,
                               (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)C * 4,
-                                 (cuuint64_t)rows * C * 4};
-  const cuuint32_t box[3] = {4, (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * elem,
+                                 (cuuint64_t)rows * C * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)box_c, (cuuint32_t)box_rows, 1};
   const cuuint32_t ones[3] = {1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, (void*)t, dims, strides, box,
-      ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      map, type, 3, (void*)t, dims, strides, box, ones,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The same map of a fp32 tensor, C a multiple of 4: boxes of 4 channels.
+cudaError_t make_tile3d_map(const float* t, int planes, int rows, int C,
+                            int box_rows, CUtensorMap* map) {
+  return make_tile3d_map(t, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, planes, rows,
+                         C, 4, box_rows, map);
 }
 
 // The persistent grid: one block for every place the card has for one (the

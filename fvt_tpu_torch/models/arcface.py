@@ -35,15 +35,19 @@ back to float32 before ``output_layer``'s Linear and BatchNorm1d, so the
 embeddings are float32.  The ``'shifted_kernel'`` path launches a
 tensor-core kernel in either type (``ops/conv.py``): split TF32 at float32
 accuracy, or bfloat16, and so does ``fused_blocks`` (``ops/bottleneck.py``),
-on the same two conv kernels.  Where the two
+on the same two conv kernels, and ``'winograd_kernel'``
+(``ops/winograd.py``): split TF32, or a bfloat16 product with the output
+transform in its epilogue.  Where the two
 frameworks round differently: flax normalises in ``dtype`` (the
 subtraction, the product and the sum each round to bfloat16), while
 ``F.batch_norm`` on a bfloat16 tensor with float32 statistics computes
 in float32 and rounds once; ``F.conv2d`` and the kernel sum in float32
 and round once, as XLA's convolution and the Pallas kernel do; the fused
 block rounds where the Pallas block does (``ops.bottleneck.
-bottleneck_ir_fused_bf16_ref``).  The Winograd paths have no bfloat16
-route yet: asking for one raises at construction.
+bottleneck_ir_fused_bf16_ref``), and both Winograd paths where
+``fvt_tpu``'s Winograd does (``ops.winograd.conv3x3_winograd_bf16_ref``:
+U from the bfloat16 kernel, V in bfloat16 with every add rounded, float32
+products and output transform, one rounding of y).
 """
 from __future__ import annotations
 
@@ -60,27 +64,20 @@ from fvt_tpu_torch.ops import winograd as winograd_ops
 
 # 'cudnn': PyTorch's conv2d (default).  'winograd': the plain PyTorch
 # Winograd F(2x2, 3x3), transform-domain tensors in device memory.
-# 'winograd_kernel': the Winograd CUDA kernels (input transform, split-TF32
-# product on the tensor cores, output transform).  'shifted_kernel': the
-# nine-shifted-products CUDA kernel.
+# 'winograd_kernel': the Winograd CUDA kernels (float32: input transform,
+# split-TF32 product on the tensor cores, output transform; bfloat16: input
+# transform, then the product with the output transform in its epilogue).
+# 'shifted_kernel': the nine-shifted-products CUDA kernel.
 CONV_IMPLS = ('cudnn', 'winograd', 'winograd_kernel', 'shifted_kernel')
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def check_dtype(dtype: torch.dtype, conv_impl: str = 'cudnn',
-                fused_blocks: bool = False) -> None:
-    """Raises for a compute type the backbone does not take, or one that
-    the chosen conv path has no route for."""
+def check_dtype(dtype: torch.dtype) -> None:
+    """Raises for a compute type the backbone does not take; every conv
+    path, fused or not, has a route for both that it takes."""
     if dtype not in DTYPES:
         raise ValueError(f'dtype {dtype}: the backbone computes in '
                          f'torch.float32 or torch.bfloat16')
-    if dtype == torch.bfloat16 and conv_impl in ('winograd',
-                                                 'winograd_kernel'):
-        raise ValueError(
-            f'dtype=torch.bfloat16 with conv_impl={conv_impl!r}, '
-            f'fused_blocks={fused_blocks}: the Winograd kernel (B6) has no '
-            f'bfloat16 route yet (ROADMAP.md, queue B item 3); take '
-            f'conv_impl \'cudnn\' or \'shifted_kernel\'')
 
 
 def get_blocks_50() -> List[Tuple[int, int, int]]:
@@ -149,7 +146,8 @@ class Conv3x3(nn.Module):
     (``load_state_dict``, ``.to()``, an optimizer step, a re-init).  So
     are the copies in ``dtype`` that the module computes with (OIHW for
     ``F.conv2d`` in bfloat16, HWIO for the plain version, packed for the
-    ``'shifted_kernel'`` path's CUDA kernel); ``weight`` stays float32.
+    ``'shifted_kernel'`` path's CUDA kernel; in bfloat16 the Winograd U is
+    derived from the bfloat16 HWIO kernel); ``weight`` stays float32.
     """
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
@@ -157,7 +155,7 @@ class Conv3x3(nn.Module):
         super().__init__()
         if impl not in CONV_IMPLS:
             raise ValueError(f'unknown conv impl: {impl!r}')
-        check_dtype(dtype, impl)
+        check_dtype(dtype)
         self.stride = stride
         self.impl = impl
         self.dtype = dtype
@@ -170,18 +168,32 @@ class Conv3x3(nn.Module):
         """(HWIO kernel (3, 3, Cin, Cout), its Winograd transform U (16,
         Cin, Cout), U packed for the ``'winograd_kernel'`` path's CUDA
         kernel or None on another path or where the kernel does not take
-        the widths: ``ops.winograd.pack_winograd_weights_tf32``'s pair),
-        cached as the class docstring says."""
+        the widths), in ``dtype``, cached as the class docstring says.
+        float32: the kernel is ``weight``'s, U
+        ``ops.winograd.transform_weights`` of it, the packing
+        ``pack_winograd_weights_tf32``'s pair; bfloat16: the kernel is
+        :meth:`cast_weights`' (rounded to bfloat16), U
+        ``transform_weights_bf16`` of it (float32 from the bfloat16
+        kernel, rounded once), the packing
+        ``pack_winograd_weights_bf16``'s."""
         stamp = _stamp(self.weight)
         if self._derived is None or self._derived[0] != stamp:
             with torch.no_grad():
-                hwio = self.weight.permute(2, 3, 1, 0).contiguous()
-                u = winograd_ops.transform_weights(hwio)
-                c, co = hwio.shape[2:]
-                u = u.reshape(16, c, co)
-                packed = (winograd_ops.pack_winograd_weights_tf32(u)
-                          if self.impl == 'winograd_kernel'
-                          and not (c % 4 or co % 4) else None)
+                kernel = self.impl == 'winograd_kernel'
+                if self.dtype == torch.bfloat16:
+                    hwio = self.cast_weights()[1]
+                    u = winograd_ops.transform_weights_bf16(hwio)
+                    c, co = hwio.shape[2:]
+                    packed = (winograd_ops.pack_winograd_weights_bf16(u)
+                              if kernel and not (c % 16 or co % 8)
+                              else None)
+                else:
+                    hwio = self.weight.permute(2, 3, 1, 0).contiguous()
+                    c, co = hwio.shape[2:]
+                    u = winograd_ops.transform_weights(hwio).reshape(
+                        16, c, co)
+                    packed = (winograd_ops.pack_winograd_weights_tf32(u)
+                              if kernel and not (c % 4 or co % 4) else None)
             self._derived = (stamp, hwio, u, packed)
         return self._derived[1:]
 
@@ -226,7 +238,10 @@ class Conv3x3(nn.Module):
         else:
             hwio, u, packed = self.kernel_weights()
             if reference or self.impl == 'winograd':
-                y = winograd_ops.conv3x3_winograd_ref(_nhwc(x), hwio, u)
+                ref = (winograd_ops.conv3x3_winograd_bf16_ref
+                       if self.dtype == torch.bfloat16
+                       else winograd_ops.conv3x3_winograd_ref)
+                y = ref(_nhwc(x), hwio, u)
             else:
                 y = winograd_ops.conv3x3_winograd(_nhwc(x), hwio, u,
                                                   packed=packed)
@@ -240,7 +255,7 @@ class BottleneckIR(nn.Module):
                  conv_impl: str = 'cudnn',
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_dtype(dtype, conv_impl)
+        check_dtype(dtype)
         self.stride = stride
         self.dtype = dtype
         # the fused whole-block kernel takes the stride-1 identity blocks
@@ -300,7 +315,6 @@ class BottleneckIR(nn.Module):
         """x NCHW, in the block's ``dtype`` as ``Backbone`` hands it.
         ``fused`` takes the whole-block kernel where the block is
         ``fusable``; ``reference=True`` runs the kernels' plain versions."""
-        check_dtype(self.dtype, fused_blocks=fused)
         if fused and self.fusable:
             conv_ops.refuse_grad('BottleneckIR(fused)', x,
                                  *self.res_layer.parameters())
@@ -328,7 +342,7 @@ class Backbone(nn.Module):
     def __init__(self, drop_ratio: float = 0.4, conv_impl: str = 'cudnn',
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_dtype(dtype, conv_impl)
+        check_dtype(dtype)
         self.dtype = dtype
         # Cin = 3 makes a poor product: the input conv stays on conv2d
         self.input_layer = nn.Sequential(
@@ -378,7 +392,7 @@ class VisualBackbone(nn.Module):
     def __init__(self, conv_impl: str = 'cudnn', fused_blocks: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_dtype(dtype, conv_impl, fused_blocks)
+        check_dtype(dtype)
         self.fused_blocks = fused_blocks
         self.dtype = dtype
         self.backbone = Backbone(conv_impl=conv_impl, dtype=dtype)

@@ -10,23 +10,40 @@ in the order of the sums.  Layouts follow the JAX package: activations
 NHWC, kernel HWIO ``(3, 3, C, Co)``, output ``(N, H, W, Co)``; odd H or W
 are padded to whole tiles and cropped.
 
-The computation runs in three stages, which are the three launches of the
-CUDA kernel: :func:`input_transform` writes ``V = B^T d B`` as ``(16, P,
-C)`` (P the 2x2 tiles of all frames, in (frame, tile row, tile column)
-order), one batched product ``M[p] = V[p] @ U[p]`` over the 16
-transform-domain positions ``p = 4a + b`` gives ``(16, P, Co)``, and
-:func:`output_transform` applies ``A^T M A`` and crops.
+In float32 the computation runs in three stages, which are the three
+launches of the CUDA kernel: :func:`input_transform` writes ``V = B^T d
+B`` as ``(16, P, C)`` (P the 2x2 tiles of all frames, in (frame, tile
+row, tile column) order), one batched product ``M[p] = V[p] @ U[p]`` over
+the 16 transform-domain positions ``p = 4a + b`` gives ``(16, P, Co)``,
+and :func:`output_transform` applies ``A^T M A`` and crops.
 
 :func:`conv3x3_winograd_ref` is the plain version (the port of the
 XLA-ops ``conv3x3_winograd``).  :func:`conv3x3_winograd` runs it for a
-tensor on the CPU; for a CUDA tensor it launches the three kernels of
-``csrc/winograd_tf32x3.cu`` or raises: the product on the tensor cores
-(``wgmma``) with split-TF32 operands, ``hi*hi + hi*lo + lo*hi`` at float32
-accuracy (:func:`conv3x3_winograd_tf32x3_ref` emulates it), V and M in
-device memory.  ``conv3x3_winograd.launches`` counts its calls on the
-card, one for the three launches.  :func:`conv3x3_winograd_simt`, the
-earlier kernel on the CUDA cores (``csrc/winograd.cu``, V and M kept on
-chip), stays for measurements: no model path calls it.  Eval only.
+float32 tensor on the CPU; for a float32 CUDA tensor it launches the three
+kernels of ``csrc/winograd_tf32x3.cu`` or raises: the product on the
+tensor cores (``wgmma``) with split-TF32 operands, ``hi*hi + hi*lo +
+lo*hi`` at float32 accuracy (:func:`conv3x3_winograd_tf32x3_ref` emulates
+it), V and M in device memory.
+
+bfloat16 (``--amp``) has its own route, with the JAX package's rounding
+points (:func:`conv3x3_winograd_bf16_ref`, its plain version, which
+:func:`conv3x3_winograd` runs for a bfloat16 tensor on the CPU): U from
+the bfloat16 kernel in float32, rounded to bfloat16 once; V in bfloat16,
+every add and subtract rounded (the transform is not exact there); the
+products summed in float32; ``A^T M A`` in float32 and one rounding of y.
+For a bfloat16 CUDA tensor :func:`conv3x3_winograd` launches the two
+kernels of ``csrc/winograd_bf16.cu`` or raises: the input transform, then
+one bfloat16 ``wgmma`` product with the output transform in its epilogue,
+so that only V lies in device memory (bfloat16, 8 channels a chunk,
+:func:`v_chunks`) and M nowhere.  Neither type goes to the other's kernel
+or to a library.
+
+``conv3x3_winograd.launches`` counts its calls on the card (one for the
+three or two launches of a call), ``conv3x3_winograd.launches_fp32`` and
+``conv3x3_winograd.launches_bf16`` those of each type.
+:func:`conv3x3_winograd_simt`, the earlier float32 kernel on the CUDA
+cores (``csrc/winograd.cu``, V and M kept on chip), stays for
+measurements: no model path calls it.  Eval only.
 """
 from __future__ import annotations
 
@@ -123,6 +140,42 @@ def conv3x3_winograd_tf32x3_ref(x: torch.Tensor, kernel: torch.Tensor,
     return output_transform(m, n, h, w)
 
 
+def transform_weights_bf16(kernel: torch.Tensor) -> torch.Tensor:
+    """U of the bfloat16 route, (16, C, Co) bfloat16: ``G g G^T`` in
+    float32 from the HWIO kernel in bfloat16 (``kernel`` is rounded to
+    bfloat16 first if it is not), rounded to bfloat16 once, as
+    ``fvt_tpu``'s ``transform_weights(kernel.astype(bf16)).astype(bf16)``."""
+    c, co = kernel.shape[2:]
+    u = transform_weights(kernel.to(torch.bfloat16))
+    return u.to(torch.bfloat16).reshape(16, c, co)
+
+
+def conv3x3_winograd_bf16_ref(x: torch.Tensor, kernel: torch.Tensor,
+                              u: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Plain version of the bfloat16 route.  x (N, H, W, C) and the HWIO
+    kernel bfloat16; ``u`` is ``transform_weights_bf16(kernel)``, (16, C,
+    Co) or (4, 4, C, Co) bfloat16, if the caller has it.  The rounding
+    points of ``fvt_tpu``'s ``conv3x3_winograd`` and ``_winograd_kernel``
+    on bfloat16 arrays:
+
+    1. U is ``G g G^T`` in float32 from the bfloat16 kernel, rounded to
+       bfloat16 once;
+    2. V = ``B^T d B`` is computed in bfloat16 (:func:`input_transform` on
+       the bfloat16 x), over the rows first and then the columns, each add
+       and subtract rounded to bfloat16;
+    3. the products are bfloat16 x bfloat16, exact, summed in float32: V
+       and U go to ``bmm`` as float32 (a bfloat16 ``bmm`` would round M);
+    4. M and ``A^T M A`` stay float32; y is rounded to bfloat16 once."""
+    n, h, w, c = x.shape
+    co = kernel.shape[3]
+    if u is None:
+        u = transform_weights_bf16(kernel)
+    v = input_transform(x.to(torch.bfloat16))
+    m = torch.bmm(v.float(), u.reshape(16, c, co).float())
+    return output_transform(m, n, h, w).to(torch.bfloat16)
+
+
 def pack_winograd_weights_tf32(u: torch.Tensor
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The transformed weights U (16, C, Co) or (4, 4, C, Co), C and Co
@@ -145,18 +198,58 @@ def pack_winograd_weights_tf32(u: torch.Tensor
     return split_tf32(w.permute(0, 4, 1, 2, 5, 6, 3).contiguous())
 
 
-# the stages of the CUDA entry, a bit each
+# output channels a tile of the bfloat16 Winograd product takes
+BF16_BN = 64
+
+
+def pack_winograd_weights_bf16(u: torch.Tensor) -> torch.Tensor:
+    """U (16, C, Co) or (4, 4, C, Co) bfloat16, C a multiple of 16, in the
+    layout the bfloat16 kernel copies into shared memory, one bulk copy a
+    (position, column tile, 16-channel slice): ``(16, tiles, C/16, 2, 8,
+    8, 8)`` with ``tiles = ceil(Co / 64)`` and ``packed[p, t, s, h, n8, k,
+    n] = u[p, 16*s + 8*h + k, 64*t + 8*n8 + n]``, zeros where the output
+    channel is beyond Co: the N-major 8x8 blocks ``wgmma`` reads (as
+    ``ops.conv.pack_weights`` with one tap).  A module derives it once and
+    keeps it; :func:`conv3x3_winograd` derives it per call otherwise."""
+    c, co = u.shape[-2:]
+    if c % 16:
+        raise ValueError(f'C {c}: the bfloat16 Winograd kernel takes C in '
+                         f'multiples of 16')
+    tiles = -(-co // BF16_BN)
+    w = F.pad(u.reshape(16, c, co).to(torch.bfloat16),
+              (0, tiles * BF16_BN - co))
+    w = w.reshape(16, c // 16, 2, 8, tiles, BF16_BN // 8, 8)
+    return w.permute(0, 4, 1, 2, 5, 3, 6).contiguous()
+
+
+# the stages of the CUDA entries, a bit each; the bfloat16 product has the
+# output transform in its epilogue (BF16_STAGES: both of its launches)
 INPUT_TRANSFORM, PRODUCT, OUTPUT_TRANSFORM = 1, 2, 4
 ALL_STAGES = INPUT_TRANSFORM | PRODUCT | OUTPUT_TRANSFORM
+BF16_STAGES = INPUT_TRANSFORM | PRODUCT
 
 
-def _check_call(name: str, x: torch.Tensor, kernel: torch.Tensor) -> None:
+def check_widths(name: str, dtype: torch.dtype, c: int, co: int) -> None:
+    """Raises for widths the CUDA kernel of ``dtype`` does not take:
+    float32 C and Co multiples of 4, bfloat16 C a multiple of 16 (one k16
+    step of ``wgmma``) and Co of 8."""
+    if dtype == torch.bfloat16 and (c % 16 or co % 8):
+        raise ValueError(f'C {c}, Co {co}: {name} takes C in multiples of 16 '
+                         f'and Co in multiples of 8 on bfloat16 tensors')
+    if dtype != torch.bfloat16 and (c % 4 or co % 4):
+        raise ValueError(f'C {c}, Co {co}: {name} takes multiples of 4')
+
+
+def _check_call(name: str, x: torch.Tensor, kernel: torch.Tensor,
+                dtypes: tuple = (torch.float32, torch.bfloat16)) -> None:
     refuse_grad(name, x, kernel)
+    if x.dtype not in dtypes or kernel.dtype != x.dtype:
+        raise ValueError(f'x is {x.dtype} and kernel {kernel.dtype}: {name} '
+                         f'takes both in one of {dtypes}')
     if x.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'no kernel for device {x.device}')
-    c, co = x.shape[3], kernel.shape[3]
-    if x.device.type == 'cuda' and (c % 4 or co % 4):
-        raise ValueError(f'C {c}, Co {co}: {name} takes multiples of 4')
+    if x.device.type == 'cuda':
+        check_widths(name, x.dtype, x.shape[3], kernel.shape[3])
 
 
 def workspace(x: torch.Tensor, co: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -193,36 +286,96 @@ def launch_tf32x3(x: torch.Tensor, packed: tuple, v: torch.Tensor,
                      f'C={c}, Co={co}, stages={stages})')
 
 
+def v_chunks(v: torch.Tensor) -> torch.Tensor:
+    """V (16, P, C) as the bfloat16 kernel keeps it, 8 channels a chunk:
+    ``(16, C/8, P8, 8)`` with P8 = P rounded up to a multiple of 8,
+    ``out[pos, j, p, k] = v[pos, p, 8*j + k]`` and zeros in rows P ..
+    P8-1, so that the product's copy of a chunk's rows is one contiguous
+    piece, read in 128-byte rows of 8 of V's."""
+    _, p, c = v.shape
+    v = F.pad(v, (0, 0, 0, -p % 8))
+    return v.reshape(16, -1, c // 8, 8).transpose(1, 2).contiguous()
+
+
+def workspace_bf16(x: torch.Tensor) -> torch.Tensor:
+    """V, bfloat16 on x's device, in the bfloat16 kernel's layout
+    (:func:`v_chunks`: (16, C/8, P8, 8)), for :func:`launch_bf16`: the
+    bfloat16 route's only workspace."""
+    n, h, w, c = x.shape
+    p = n * -(-h // 2) * -(-w // 2)
+    return torch.empty((16, c // 8, p + -p % 8, 8), device=x.device,
+                       dtype=torch.bfloat16)
+
+
+def launch_bf16(x: torch.Tensor, packed: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor, stages: int = BF16_STAGES) -> None:
+    """Launches the ``stages`` of the bfloat16 Winograd kernel on the
+    current stream: the input transform x -> v (``INPUT_TRANSFORM``; v in
+    :func:`v_chunks`' layout), the product v -> out with the output
+    transform in its epilogue (``PRODUCT``).  Checks every tensor and
+    raises on a CUDA error; counts nothing (a measurement may launch one
+    stage alone)."""
+    n, h, w, c = x.shape
+    co = out.shape[3]
+    p = n * -(-h // 2) * -(-w // 2)
+    shape = (16, -(-co // BF16_BN), c // 16, 2, BF16_BN // 8, 8, 8)
+    for name, t, want in (('x', x, (n, h, w, c)),
+                          ('v', v, (16, c // 8, p + -p % 8, 8)),
+                          ('out', out, (n, h, w, co)),
+                          ('packed', packed, shape)):
+        build.check_tensor(name, t, want, x.device, torch.bfloat16)
+    err = build.library().fvt_winograd_bf16_forward(
+        x.data_ptr(), packed.data_ptr(), v.data_ptr(), out.data_ptr(), n, h,
+        w, c, co, stages, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f'winograd bfloat16 kernel (N={n}, H={h}, W={w}, '
+                     f'C={c}, Co={co}, stages={stages})')
+
+
 def conv3x3_winograd(x: torch.Tensor, kernel: torch.Tensor,
                      u: Optional[torch.Tensor] = None,
-                     packed: Optional[tuple] = None) -> torch.Tensor:
-    """x (N, H, W, C) float32, kernel HWIO (3, 3, C, Co).  Returns
-    (N, H, W, Co).  ``u``: ``transform_weights(kernel)``, (4, 4, C, Co) or
-    (16, C, Co), and ``packed``: ``pack_winograd_weights_tf32(u)``, when
-    the caller keeps them (they are derived outside the kernel, once per
-    weight); derived here otherwise.  On the card the workspace V and M
-    (16 * P * (C + Co) floats, :func:`workspace`) comes from the caching
-    allocator."""
+                     packed=None) -> torch.Tensor:
+    """x (N, H, W, C) and kernel HWIO (3, 3, C, Co), both float32 or both
+    bfloat16.  Returns (N, H, W, Co) in the same type.  ``u``: the
+    transformed weights, (4, 4, C, Co) or (16, C, Co) (float32:
+    ``transform_weights(kernel)``; bfloat16: ``transform_weights_bf16(
+    kernel)``), and ``packed``: ``pack_winograd_weights_tf32(u)`` (a pair)
+    or ``pack_winograd_weights_bf16(u)``, when the caller keeps them (they
+    are derived outside the kernel, once per weight); derived here
+    otherwise.  On the card the workspace (float32: V and M, 16 * P * (C +
+    Co) floats, :func:`workspace`; bfloat16: V alone,
+    :func:`workspace_bf16`) comes from the caching allocator."""
     _check_call('conv3x3_winograd', x, kernel)
+    bf16 = x.dtype == torch.bfloat16
     if x.device.type == 'cpu':
-        return conv3x3_winograd_ref(x, kernel, u)
+        return (conv3x3_winograd_bf16_ref if bf16
+                else conv3x3_winograd_ref)(x, kernel, u)
     n, h, w, c = x.shape
     co = kernel.shape[3]
     if packed is None:
         if u is None:
-            build.check_tensor('kernel', kernel, (3, 3, c, co), x.device)
-            u = transform_weights(kernel)
-        packed = pack_winograd_weights_tf32(u)
-    out = torch.empty((n, h, w, co), device=x.device, dtype=torch.float32)
+            build.check_tensor('kernel', kernel, (3, 3, c, co), x.device,
+                               x.dtype)
+            u = (transform_weights_bf16 if bf16 else transform_weights)(
+                kernel)
+        packed = (pack_winograd_weights_bf16 if bf16
+                  else pack_winograd_weights_tf32)(u)
+    out = torch.empty((n, h, w, co), device=x.device, dtype=x.dtype)
     if out.numel() == 0:
         return out
-    v, m = workspace(x, co)
-    launch_tf32x3(x, packed, v, m, out)
+    if bf16:
+        launch_bf16(x, packed, workspace_bf16(x), out)
+        conv3x3_winograd.launches_bf16 += 1
+    else:
+        v, m = workspace(x, co)
+        launch_tf32x3(x, packed, v, m, out)
+        conv3x3_winograd.launches_fp32 += 1
     conv3x3_winograd.launches += 1
     return out
 
 
 conv3x3_winograd.launches = 0
+conv3x3_winograd.launches_fp32 = 0
+conv3x3_winograd.launches_bf16 = 0
 
 
 def conv3x3_winograd_simt(x: torch.Tensor, kernel: torch.Tensor,
@@ -233,7 +386,7 @@ def conv3x3_winograd_simt(x: torch.Tensor, kernel: torch.Tensor,
     and kernel HWIO (3, 3, C, Co) float32, C and Co multiples of 4; ``u``
     as for :func:`conv3x3_winograd`.  The plain version on the CPU;
     ``conv3x3_winograd_simt.launches`` counts its launches."""
-    _check_call('conv3x3_winograd_simt', x, kernel)
+    _check_call('conv3x3_winograd_simt', x, kernel, (torch.float32,))
     if x.device.type == 'cpu':
         return conv3x3_winograd_ref(x, kernel, u)
     n, h, w, c = x.shape

@@ -11,7 +11,7 @@ the card's name and power limit and then one JSON line:
   weights from seed 0) for each path: ``cudnn`` (PyTorch's conv2d),
   ``winograd`` (plain PyTorch Winograd), ``winograd_kernel``,
   ``shifted_kernel``, ``fused_blocks`` and ``fused_blocks`` with
-  ``shifted_kernel``; ms, frames/s, the share of the
+  ``shifted_kernel`` or ``winograd_kernel``; ms, frames/s, the share of the
   fp32 peak the model's operations reach, and the largest difference of
   the embeddings from ``cudnn``'s; with ``--kernels`` also where a
   forward's device time goes on each path (``torch.profiler`` over three
@@ -33,11 +33,13 @@ the card's name and power limit and then one JSON line:
 
 float32 with TF32 off, or with ``--dtype bfloat16`` (the whole-backbone
 and ``--stages`` modes) the backbone's bfloat16 compute type, ``--amp`` in
-``fvt_tpu``: then only the paths with a bfloat16 route run (``cudnn`` and
-``shifted_kernel``, which launches the tensor-core kernel), the share is of
-the tensor cores' bf16 peak, and the embeddings are compared with the
-float32 ``cudnn`` path's.  Times are medians of ``--iters`` calls between
-CUDA events after two warm-up calls.  ``tflops`` and the share of the peak
+``fvt_tpu``: then the paths with a bfloat16 route run (``cudnn``,
+``winograd``, ``winograd_kernel``, which launches the bfloat16 Winograd
+kernel, ``shifted_kernel``, which launches the bfloat16 conv kernel,
+``fused_blocks`` on either kernel path; ``winograd_simt`` is float32
+only), the share is of the tensor cores' bf16 peak, and the embeddings are
+compared with the float32 ``cudnn`` path's.  Times are medians of
+``--iters`` calls between CUDA events after two warm-up calls.  ``tflops`` and the share of the peak
 count the direct convolution's operations for every path, Winograd's too:
 they compare times, not the multiplies a path really does.  Runs on the
 card unless ``--device cpu`` is given (host-clock times of the plain
@@ -160,14 +162,15 @@ def bench_backbone(frames: int, iters: int, device: torch.device,
                 ('shifted_kernel', {'conv_impl': 'shifted_kernel'}),
                 ('fused_blocks', {'fused_blocks': True}),
                 ('fused_blocks+shifted_kernel',
-                 {'fused_blocks': True, 'conv_impl': 'shifted_kernel'})]
+                 {'fused_blocks': True, 'conv_impl': 'shifted_kernel'}),
+                ('fused_blocks+winograd_kernel',
+                 {'fused_blocks': True, 'conv_impl': 'winograd_kernel'})]
     results, ref = {}, None
     with torch.inference_mode():
         if dtype != 'float32':
             ref = base.to(device)(x)  # the float32 cudnn path's embeddings
             variants = [(name, {**kw, 'dtype': DTYPES[dtype]})
-                        for name, kw in variants
-                        if name in ('cudnn', 'shifted_kernel')]
+                        for name, kw in variants]
         for name, kw in variants:
             model = VisualBackbone(**kw).eval()
             model.load_state_dict(base.state_dict())
@@ -203,12 +206,20 @@ def bench_stages(frames: int, iters: int, device: torch.device,
         for h, c in STAGES:
             x, k, _ = _stage_inputs(frames, h, c, device, 1)
             flops = 2.0 * 9 * frames * h * h * c * c
-            u = winograd_ops.transform_weights(k)
-            # the Winograd kernel's weights packed once, as the module does
-            packed_u = winograd_ops.pack_winograd_weights_tf32(u)
             x, k = x.to(DTYPES[dtype]), k.to(DTYPES[dtype])
-            # the bfloat16 kernel's weights packed once, as the module does
-            packed = conv_ops.pack_weights(k) if dtype == 'bfloat16' else None
+            # each kernel's weights derived and packed once, as the module
+            # does
+            if dtype == 'bfloat16':
+                u = winograd_ops.transform_weights_bf16(k)
+                packed_u = winograd_ops.pack_winograd_weights_bf16(u)
+                packed = conv_ops.pack_weights(k)
+            else:
+                u = winograd_ops.transform_weights(k)
+                packed_u = winograd_ops.pack_winograd_weights_tf32(u)
+                packed = None
+            winograd_ref = (winograd_ops.conv3x3_winograd_bf16_ref
+                            if dtype == 'bfloat16'
+                            else winograd_ops.conv3x3_winograd_ref)
             x_cl = x.permute(0, 3, 1, 2)        # NCHW view, channels_last
             x_nchw = x_cl.contiguous()
             w_oihw = k.permute(3, 2, 0, 1).contiguous()
@@ -217,8 +228,7 @@ def bench_stages(frames: int, iters: int, device: torch.device,
                 ('conv2d_channels_last',
                  lambda: F.conv2d(x_cl, w_cl, padding=1)),
                 ('conv2d_nchw', lambda: F.conv2d(x_nchw, w_oihw, padding=1)),
-                ('winograd',
-                 lambda: winograd_ops.conv3x3_winograd_ref(x, k, u)),
+                ('winograd', lambda: winograd_ref(x, k, u)),
                 ('winograd_kernel',
                  lambda: winograd_ops.conv3x3_winograd(x, k, u,
                                                        packed=packed_u)),
@@ -226,8 +236,8 @@ def bench_stages(frames: int, iters: int, device: torch.device,
                  lambda: winograd_ops.conv3x3_winograd_simt(x, k, u)),
                 ('shifted_kernel',
                  lambda: conv_ops.conv3x3(x, k, packed=packed))]
-            if dtype != 'float32':  # Winograd has no bfloat16 route
-                paths = [p for p in paths if 'winograd' not in p[0]]
+            if dtype != 'float32':  # the SIMT Winograd is float32 only
+                paths = [p for p in paths if p[0] != 'winograd_simt']
             out[f'{h}x{h}x{c}'] = {
                 name: _rate(flops, median_ms(fn, iters, device), device,
                             dtype)

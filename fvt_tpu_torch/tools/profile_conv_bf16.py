@@ -2,7 +2,7 @@
 products, on the card.
 
     python3 -m fvt_tpu_torch.tools.profile_conv_bf16 [--frames 2400]
-        [--iters 20] [--dtype bfloat16|float32|winograd]
+        [--iters 20] [--dtype bfloat16|float32|winograd|winograd_bf16]
 
 Builds the kernel's source alone into ``build/``, once as it is and once
 per diagnostic switch: ``-DFVT_DIAG_PRODUCTS_ONLY`` (no copy into shared
@@ -16,15 +16,19 @@ split into its TF32 parts where it is staged: what the split costs).
 ``--dtype winograd`` takes the same four builds of the split-TF32 Winograd
 kernel, ``csrc/winograd_tf32x3.cu``, and a fifth, ``-DFVT_DIAG_NO_STORE``
 (M is not written: what its stores cost), and times its product launch
-alone (stage 2, V -> M, on a V the first build's input transform wrote).  The
-diagnostic builds give wrong sums; only the first is checked against the
-plain version (bfloat16: one unit in the last place; float32: rtol = atol
-= 1e-4; Winograd, all three launches: 2e-4).  Each is timed at the seven
-stride-1 conv shapes of the ArcFace
-body (median of ``--iters`` launches between CUDA events, weights packed
-once) beside ``F.conv2d`` on the same tensors (bfloat16: channels_last;
-float32 with TF32 off: the faster of channels_last and NCHW), and summed
-over the 45 convs of a backbone forward.  Prints the card's name and
+alone (stage 2, V -> M, on a V the first build's input transform wrote).
+``--dtype winograd_bf16`` takes the bfloat16 Winograd kernel,
+``csrc/winograd_bf16.cu``, in the three builds and ``-DFVT_DIAG_NO_STORE``
+(y is not written), and times its product launch alone (stage 2, V -> y
+with the output transform in its epilogue, on a V the first build's input
+transform wrote).  The diagnostic builds give wrong sums; only the first
+is checked against the plain version (bfloat16, both kernels: one unit in
+the last place; float32: rtol = atol = 1e-4; Winograd, all three
+launches: 2e-4).  Each is timed at the seven stride-1 conv shapes of the
+ArcFace body (median of ``--iters`` launches between CUDA events,
+weights packed once) beside ``F.conv2d`` on the same tensors (bfloat16:
+channels_last; float32 with TF32 off: the faster of channels_last and
+NCHW), and summed over the 45 convs of a backbone forward.  Prints the card's name and
 power limit, the compiler's register report, then one JSON line.
 """
 from __future__ import annotations
@@ -54,6 +58,8 @@ KERNELS = {
                 SPLIT_DIAG),
     'winograd': ('winograd_tf32x3.cu', 'fvt_winograd_tf32x3_forward', 6, 7,
                  dict(SPLIT_DIAG, no_store=('-DFVT_DIAG_NO_STORE',))),
+    'winograd_bf16': ('winograd_bf16.cu', 'fvt_winograd_bf16_forward', 4, 6,
+                      dict(DIAG, no_store=('-DFVT_DIAG_NO_STORE',))),
 }
 
 
@@ -123,8 +129,8 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     print(card)
     fns = build_variants(*KERNELS[args.dtype])
-    bf16 = args.dtype == 'bfloat16'
-    winograd = args.dtype == 'winograd'
+    bf16 = args.dtype in ('bfloat16', 'winograd_bf16')
+    winograd = args.dtype in ('winograd', 'winograd_bf16')
     device = torch.device('cuda', 0)
     g = torch.Generator(device=device).manual_seed(0)
     n = args.frames
@@ -136,7 +142,12 @@ def main(argv=None) -> int:
                  * (9 * c) ** -0.5)
             if bf16:
                 x, k = x.bfloat16(), k.bfloat16()
+            if args.dtype == 'bfloat16':
                 weights = [conv_ops.pack_weights(k)]
+            elif args.dtype == 'winograd_bf16':  # packed U, workspace V
+                weights = [winograd_ops.pack_winograd_weights_bf16(
+                    winograd_ops.transform_weights_bf16(k)),
+                    winograd_ops.workspace_bf16(x)]
             elif winograd:  # U's parts, then the workspace V and M
                 weights = [*winograd_ops.pack_winograd_weights_tf32(
                     winograd_ops.transform_weights(k)),
@@ -145,19 +156,25 @@ def main(argv=None) -> int:
                 weights = list(conv_ops.pack_weights_tf32(k))
             out = torch.empty(n, h, h, co, device=device, dtype=x.dtype)
             stream = torch.cuda.current_stream(device).cuda_stream
-            # Winograd: the three launches, then the product alone
-            stages = [[winograd_ops.ALL_STAGES], [winograd_ops.PRODUCT]
-                      ] if winograd else [[], []]
+            # Winograd: all its launches, then the product alone; the
+            # bfloat16 Winograd entry takes no column tile
+            stages = [[winograd_ops.BF16_STAGES if bf16
+                       else winograd_ops.ALL_STAGES],
+                      [winograd_ops.PRODUCT]] if winograd else [[], []]
+            bn = [] if args.dtype == 'winograd_bf16' else [
+                conv_ops.column_tile(co)]
 
             def launch(fn, stage):
                 err = fn(x.data_ptr(), *(w.data_ptr() for w in weights),
-                         out.data_ptr(), n, h, h, c, co,
-                         conv_ops.column_tile(co), *stage, stream)
+                         out.data_ptr(), n, h, h, c, co, *bn, *stage,
+                         stream)
                 if err:
                     raise RuntimeError(f'launch returned CUDA error {err}')
 
             launch(fns['kernel'], stages[0])
-            ref = (winograd_ops.conv3x3_winograd_ref if winograd
+            ref = (winograd_ops.conv3x3_winograd_bf16_ref
+                   if args.dtype == 'winograd_bf16'
+                   else winograd_ops.conv3x3_winograd_ref if winograd
                    else conv_ops.conv3x3_ref)
             want = ref(x, k).float()
             apart = (out.float() - want).abs()

@@ -27,6 +27,7 @@ from fvt_tpu_torch.models.arcface import (Backbone, BottleneckIR, Conv3x3,
 from fvt_tpu_torch.models.from_jax import visual_backbone_state_from_flax
 from fvt_tpu_torch.models.models import LFAN
 from fvt_tpu_torch.ops.conv import conv3x3, pack_weights
+from fvt_tpu_torch.ops.winograd import check_widths
 from fvt_tpu_torch.serve import ServingModel, lfan_serving_forward
 from fvt_tpu_torch.streaming import StreamingSession
 from test_torch_arcface_variants import _perturb
@@ -104,14 +105,22 @@ def test_bf16_backbone_matches_flax_bf16(arcface, conv_impl, flax_path):
 @pytest.mark.parametrize('kw', [{'conv_impl': 'winograd'},
                                 {'conv_impl': 'winograd_kernel'}])
 def test_bf16_has_no_winograd_or_fused_route_yet(kw):
-    with pytest.raises(ValueError, match='ROADMAP'):
-        VisualBackbone(dtype=BF16, **kw)
-    with pytest.raises(ValueError, match='ROADMAP'):
-        LFAN(('video', 'vggish'), 7, backbone_dtype=BF16, **kw)
+    """The bfloat16 Winograd routes are taken (the test keeps the name it
+    had while bfloat16 raised for them): alone, with the fused blocks
+    beside them and inside an LFAN, each 3x3 conv of the body on the
+    chosen path in bfloat16; float32 takes every path too."""
+    model = VisualBackbone(dtype=BF16, **kw)
+    convs = [m for m in model.modules() if isinstance(m, Conv3x3)]
+    assert len(convs) == 48 and model.dtype == BF16
+    assert all(c.impl == kw['conv_impl'] and c.dtype == BF16 for c in convs)
+    lfan = LFAN(('video', 'vggish'), 7, backbone_dtype=BF16, **kw)
+    assert lfan.spatial.visual.dtype == BF16
     VisualBackbone(**kw)  # float32 takes every path
-    # nor with the fused blocks beside them
-    with pytest.raises(ValueError, match='ROADMAP'):
-        VisualBackbone(dtype=BF16, fused_blocks=True, **kw)
+    fused = VisualBackbone(dtype=BF16, fused_blocks=True, **kw)
+    assert fused.fused_blocks and fused.dtype == BF16
+    lfan = LFAN(('video', 'vggish'), 7, backbone_dtype=BF16,
+                fused_blocks=True, **kw)
+    assert lfan.spatial.visual.fused_blocks
 
 
 @pytest.mark.parametrize('conv_impl', ['cudnn', 'shifted_kernel'])
@@ -154,12 +163,20 @@ def test_bf16_fused_backbone_matches_flax_bf16(arcface, fused_bf16,
 
 
 def test_bf16_checks_at_every_level():
-    with pytest.raises(ValueError, match='ROADMAP'):
-        Conv3x3(16, 16, impl='winograd', dtype=BF16)
-    with pytest.raises(ValueError, match='ROADMAP'):
-        BottleneckIR(16, 16, 1, 'winograd_kernel', BF16)
-    with pytest.raises(ValueError, match='ROADMAP'):
-        Backbone(conv_impl='winograd', dtype=BF16)
+    """Every level takes bfloat16 on every path and refuses another type;
+    the bfloat16 Winograd kernel refuses widths it does not take (the
+    shape check of a CUDA tensor, ``ops.winograd.check_widths``)."""
+    Conv3x3(16, 16, impl='winograd', dtype=BF16)
+    BottleneckIR(16, 16, 1, 'winograd_kernel', BF16)
+    Backbone(conv_impl='winograd', dtype=BF16)
+    for level in (lambda: Conv3x3(16, 16, impl='winograd_kernel',
+                                  dtype=torch.float16),
+                  lambda: BottleneckIR(16, 16, 1, 'winograd', torch.float16),
+                  lambda: Backbone(dtype=torch.float64)):
+        with pytest.raises(ValueError, match='float32 or torch.bfloat16'):
+            level()
+    with pytest.raises(ValueError, match='multiples of 16'):
+        check_widths('conv3x3_winograd', BF16, 20, 40)
     with pytest.raises(ValueError, match='float32 or torch.bfloat16'):
         VisualBackbone(dtype=torch.float16)
     # the fused block takes bfloat16 since it has a bfloat16 route
@@ -209,7 +226,8 @@ def test_bf16_derived_weights_follow_the_parameters(arcface):
     np.testing.assert_array_equal(second.numpy(), want.numpy())
 
 
-@pytest.mark.parametrize('conv_impl', ['cudnn', 'shifted_kernel'])
+@pytest.mark.parametrize('conv_impl', ['cudnn', 'shifted_kernel',
+                                       'winograd_kernel'])
 def test_lfan_serving_with_a_bf16_backbone(conv_impl):
     """The tri-modal LFAN with ``backbone_dtype=bfloat16`` through
     ``ServingModel`` and the streaming session, against the float32 model
