@@ -18,7 +18,10 @@ Phases, each of which raises on failure (exit code 1):
    {128, 32, 128}) and, with weights read from global memory, at five,
    seven and four wide modalities; the train-mode TCN block (forward
    output and the backward's six results, against autograd of the plain
-   version) at the 8 block shapes of the ``vggish+bert`` LFAN at (16, 300)
+   version, the backward bit for bit twice; the split-TF32 kernels that
+   training launches, each of their launches also timed alone, and the
+   earlier CUDA-core ones ``fused_temporal_block_train_simt``, on no
+   path) at the 8 block shapes of the ``vggish+bert`` LFAN at (16, 300)
    with dropout masks at p=0.1, plus edge shapes and mfcc's Cin = 39;
    the float32 3x3 conv kernels (the
    split-TF32 tensor-core kernel that ``shifted_kernel`` launches, the
@@ -58,7 +61,8 @@ Phases, each of which raises on failure (exit code 1):
    through ``Trainer`` with the fused train kernels; check the losses and
    final parameters against the same steps on the plain versions, that a
    step repeats bit for bit, and the launch counts (8 forward and 8
-   backward launches a step, none of the eval-only fusion kernel); time
+   backward calls a step of the split-TF32 train entries, printed by C
+   entry, none of the SIMT ones, none of the eval-only kernels); time
    steps of the fused path and of the conv-by-conv path on cuDNN; then 4
    fused steps of the ``mfcc+vggish`` LFAN (mfcc's 39 channels through
    zero channels) against plain ones;
@@ -353,16 +357,32 @@ def train_block_shapes(k: int) -> list:
 
 def check_train_kernels(device, k: int = 5) -> list:
     """Phase 2, the train-mode block: the forward's output and the
-    backward's six results against autograd of the plain version, at the
-    8 block shapes of the training path and at edge shapes; times of the
-    forward and of the backward alone (on a retained graph)."""
+    backward's six results against autograd of the plain version, for the
+    split-TF32 kernels (``fused_temporal_block_train``, the training
+    path's) and the earlier CUDA-core ones
+    (``fused_temporal_block_train_simt``, on no path), at the 8 block
+    shapes of the training path and at edge shapes; the backward bit for
+    bit twice; times of the forward and of the backward alone (on a
+    retained graph), and of each launch of the split-TF32 C entries alone
+    at the 8 blocks."""
     from fvt_tpu_torch.ops import tcn as tcn_ops
 
     g = torch.Generator(device=device).manual_seed(SEED + 2)
     names = ('x', 'w1', 'b1', 'w2', 'b2', 'res')
-    tot = {key: 0.0 for key in ('fwd_err', 'bwd_err', 'fwd_ms', 'bwd_ms',
-                                'fwd_plain', 'bwd_plain', 'fwd_flops',
-                                'fwd_bytes', 'bwd_bytes')}
+    routes = {'tcn_block_train': tcn_ops.fused_temporal_block_train,
+              'tcn_block_train_simt':
+                  tcn_ops.fused_temporal_block_train_simt}
+    tot = {r: {key: 0.0 for key in ('fwd_err', 'bwd_err', 'fwd_ms',
+                                    'bwd_ms')} for r in routes}
+    plain = {'fwd': 0.0, 'bwd': 0.0, 'fwd_flops': 0.0, 'fwd_bytes': 0.0,
+             'bwd_bytes': 0.0}
+    fwd_stages = {'pack': tcn_ops.PACK, 'conv1': tcn_ops.TRAIN_CONV1,
+                  'conv2': tcn_ops.TRAIN_CONV2}
+    bwd_stages = {'out_grad': tcn_ops.OUT_GRAD, 'pack_t': tcn_ops.PACK_T,
+                  'd_a1': tcn_ops.D_A1, 'dx': tcn_ops.DX,
+                  'dw2': tcn_ops.DW2, 'dw1': tcn_ops.DW1,
+                  'db': tcn_ops.BIAS_GRADS}
+    launch_ms = {key: 0.0 for key in (*fwd_stages, *bwd_stages)}
     # edge shapes, then mfcc's first block (Cin = 39, run on zero
     # channels) at the training batch, at dilations 1 and 8
     edge = [('edge T<halo', 2, 7, 64, 64, 8, TCN_DROPOUT),
@@ -396,63 +416,127 @@ def check_train_kernels(device, k: int = 5) -> list:
         args = (a['x'], a['w1'], a['b1'], a['w2'], a['b2'], m1, m2, a['res'])
         kw = dict(kernel_size=k, dilation=d)
         leaves = [a[n] for n in names]
-        want = tcn_ops.fused_temporal_block_train_ref(*args, **kw)
-        got = tcn_ops.fused_temporal_block_train(*args, **kw)
-        label = f'tcn_block_train {name} ({b},{t},{cin})->{cout} d={d}'
-        err = compare(label, got.detach(), want.detach())
 
         def grads(out):
             return torch.autograd.grad(out, leaves, cot, retain_graph=True)
 
-        want_g, got_g = grads(want), grads(got)
-        bwd_err = 0.0
-        for n, gg, wg in zip(names, got_g, want_g):
-            fn = compare if n in ('x', 'res') else compare_sum
-            bwd_err = max(bwd_err, fn(f'  tcn_block_bwd d{n}', gg, wg))
-        again = grads(got)
-        if not all(torch.equal(p1, p2) for p1, p2 in zip(got_g, again)):
-            fail(f'{label}: two runs of the backward differ in their bits')
+        want = tcn_ops.fused_temporal_block_train_ref(*args, **kw)
+        want_g = grads(want)
+        for route, fn in routes.items():
+            got = fn(*args, **kw)
+            label = f'{route} {name} ({b},{t},{cin})->{cout} d={d}'
+            err = compare(label, got.detach(), want.detach())
+            got_g = grads(got)
+            bwd_err = 0.0
+            for n, gg, wg in zip(names, got_g, want_g):
+                check = compare if n in ('x', 'res') else compare_sum
+                bwd_err = max(bwd_err, check(f'  d{n}', gg, wg))
+            again = grads(got)
+            if not all(torch.equal(p1, p2) for p1, p2 in zip(got_g, again)):
+                fail(f'{label}: two runs of the backward differ in their '
+                     f'bits')
+            if not timed:
+                continue
+            with torch.no_grad():
+                fwd = median_ms(lambda: fn(*args, **kw))
+            bwd = median_ms(lambda: grads(got))
+            print(f'    forward {fwd:.4f} ms, backward {bwd:.4f} ms')
+            r = tot[route]
+            r['fwd_err'] = max(r['fwd_err'], err)
+            r['bwd_err'] = max(r['bwd_err'], bwd_err)
+            r['fwd_ms'] += fwd
+            r['bwd_ms'] += bwd
         if not timed:
             continue
         with torch.no_grad():
-            fwd = median_ms(
-                lambda: tcn_ops.fused_temporal_block_train(*args, **kw))
             fwd_plain = median_ms(
                 lambda: tcn_ops.fused_temporal_block_train_ref(*args, **kw))
-        bwd, bwd_plain = median_ms(lambda: grads(got)), \
-            median_ms(lambda: grads(want))
-        print(f'    forward: kernel {fwd:.4f} ms, plain {fwd_plain:.4f} ms; '
-              f'backward: kernel {bwd:.4f} ms, plain {bwd_plain:.4f} ms')
-        tot['fwd_err'] = max(tot['fwd_err'], err)
-        tot['bwd_err'] = max(tot['bwd_err'], bwd_err)
-        tot['fwd_ms'] += fwd
-        tot['bwd_ms'] += bwd
-        tot['fwd_plain'] += fwd_plain
-        tot['bwd_plain'] += bwd_plain
+        bwd_plain = median_ms(lambda: grads(want))
+        print(f'    plain: forward {fwd_plain:.4f} ms, backward '
+              f'{bwd_plain:.4f} ms')
+        plain['fwd'] += fwd_plain
+        plain['bwd'] += bwd_plain
         # both convs forward; backward: an input-gradient and a
         # weight-gradient product of the same size for each conv
-        tot['fwd_flops'] += 2.0 * b * t * k * (cin + cout) * cout
-        tot['fwd_bytes'] += nbytes(*args, got)
+        plain['fwd_flops'] += 2.0 * b * t * k * (cin + cout) * cout
+        # x w1 b1 w2 b2 m1 m2 res in; out and the saved a1, a2 out
+        plain['fwd_bytes'] += nbytes(*args, want, want, want)
         # x w1 w2 m1 m2 res g and the saved a1, a2 in; six results out
-        tot['bwd_bytes'] += nbytes(a['x'], a['w1'], a['w2'], m1, m2,
-                                   a['res'], cot, got, got, *got_g)
-    print(f'  tcn_block_train total over the 8 blocks: forward kernel '
-          f'{tot["fwd_ms"]:.4f} ms, plain {tot["fwd_plain"]:.4f} ms; '
-          f'backward kernel {tot["bwd_ms"]:.4f} ms, plain '
-          f'{tot["bwd_plain"]:.4f} ms')
-    source = 'fvt_tpu_torch/csrc/tcn_block_train.cu'
-    return [
-        {'name': 'tcn_block_train', 'route': 'cuda', 'source': source,
-         'replaces': 'fvt_tpu/ops/tcn_pallas.py:143',
-         'max_abs_err': tot['fwd_err'], 'ms': tot['fwd_ms'],
-         'plain_ms': tot['fwd_plain'], 'library_ms': None,
-         **bound(tot['fwd_flops'], tot['fwd_bytes'])},
-        {'name': 'tcn_block_bwd', 'route': 'cuda', 'source': source,
-         'replaces': 'fvt_tpu/ops/tcn_pallas.py:168',
-         'max_abs_err': tot['bwd_err'], 'ms': tot['bwd_ms'],
-         'plain_ms': tot['bwd_plain'], 'library_ms': None,
-         **bound(2.0 * tot['fwd_flops'], tot['bwd_bytes'])},
-    ]
+        plain['bwd_bytes'] += nbytes(a['x'], a['w1'], a['w2'], m1, m2,
+                                     a['res'], cot, want, want, *want_g)
+        for key, ms in train_launch_ms(args, kw, cot, fwd_stages,
+                                       bwd_stages).items():
+            launch_ms[key] += ms
+    for route in routes:
+        r = tot[route]
+        print(f'  {route} total over the 8 blocks: forward {r["fwd_ms"]:.4f}'
+              f' ms, backward {r["bwd_ms"]:.4f} ms; plain forward '
+              f'{plain["fwd"]:.4f} ms, backward {plain["bwd"]:.4f} ms')
+    print('  tcn_block_train (split TF32) by launch over the 8 blocks: '
+          + ', '.join(f'{key} {ms:.4f} ms' for key, ms in launch_ms.items()))
+    rows = []
+    for route, source, peak, products in (
+            ('tcn_block_train', 'tcn_block_train_tf32x3.cu', PEAK_FLOPS_TF32,
+             3), ('tcn_block_train_simt', 'tcn_block_train.cu', PEAK_FLOPS,
+                  1)):
+        r = tot[route]
+        suffix = route[len('tcn_block_train'):]
+        common = {'route': 'cuda', 'source': f'fvt_tpu_torch/csrc/{source}',
+                  'library_ms': None}
+        rows += [
+            {'name': route, **common,
+             'replaces': 'fvt_tpu/ops/tcn_pallas.py:143',
+             'max_abs_err': r['fwd_err'], 'ms': r['fwd_ms'],
+             'plain_ms': plain['fwd'],
+             **bound(products * plain['fwd_flops'], plain['fwd_bytes'],
+                     peak)},
+            {'name': f'tcn_block_bwd{suffix}', **common,
+             'replaces': 'fvt_tpu/ops/tcn_pallas.py:168',
+             'max_abs_err': r['bwd_err'], 'ms': r['bwd_ms'],
+             'plain_ms': plain['bwd'],
+             **bound(products * 2.0 * plain['fwd_flops'],
+                     plain['bwd_bytes'], peak)}]
+    rows[0]['launch_ms'] = {n: launch_ms[n] for n in fwd_stages}
+    rows[1]['launch_ms'] = {n: launch_ms[n] for n in bwd_stages}
+    return rows
+
+
+def train_launch_ms(args: tuple, kw: dict, cot, fwd_stages: dict,
+                    bwd_stages: dict) -> dict:
+    """Each launch of the split-TF32 train C entries alone, on one block's
+    inputs and scratch (``ops.tcn.launch_train_tf32x3_forward`` and
+    ``_backward`` with one stage bit), in ms."""
+    from fvt_tpu_torch.ops import tcn as tcn_ops
+
+    with torch.no_grad():
+        x, w1, b1, w2, b2, m1, m2, res = (v.detach() for v in args)
+        x, w1 = tcn_ops.pad_train_inputs(x, w1)
+        b, t, cin = x.shape
+        cout = w1.shape[-1]
+        k, d = kw['kernel_size'], kw['dilation']
+        saved = torch.empty(3, b, t, cout, device=x.device)
+        out = torch.empty(b, t, cout, device=x.device)
+        scratch = torch.empty(tcn_ops.train_scratch(b, t, cin, cout, k, d)[1],
+                              device=x.device)
+        fwd = (x, w1, b1, w2, b2, m1, m2, res, scratch, saved, out)
+        tcn_ops.launch_train_tf32x3_forward(*fwd, **kw)
+        ms = {key: median_ms(lambda: tcn_ops.launch_train_tf32x3_forward(
+            *fwd, **kw, stages=stage)) for key, stage in fwd_stages.items()}
+        shares = tcn_ops.train_shares(x, cout, k)
+        scratch = torch.empty(tcn_ops.train_scratch(
+            b, t, cin, cout, k, d, backward=True, shares=shares)[1],
+            device=x.device)
+        grads = (torch.empty_like(x), torch.empty_like(w1),
+                 torch.empty(cout, device=x.device), torch.empty_like(w2),
+                 torch.empty(cout, device=x.device), torch.empty_like(out))
+        bwd = ((x, w1, w2, m1, m2, res), saved, cot, scratch, grads)
+        bkw = dict(kw, shares=shares)
+        tcn_ops.launch_train_tf32x3_backward(*bwd, **bkw)
+        ms.update({key: median_ms(
+            lambda: tcn_ops.launch_train_tf32x3_backward(
+                *bwd, **bkw, stages=stage))
+            for key, stage in bwd_stages.items()})
+    return ms
 
 
 def tcn_block_bounds(x, w: dict, out, k: int) -> tuple:
@@ -1948,16 +2032,20 @@ def fused_against_plain(trainers: dict, batches: list, epochs: int) -> dict:
     """Runs ``epochs`` over ``batches`` on the ``'fused'`` and the
     ``'plain'`` trainer (same model, same state) and holds the fused
     run to the plain one: the train kernels' launches (8 forward and 8
-    backward a step, no eval-only kernel), the per-step losses within
+    backward calls a step of the split-TF32 entries, none of the SIMT
+    ones, no eval-only kernel), the per-step losses within
     TRAIN_LOSS_RTOL and the final parameters and running statistics within
     TRAIN_PARAM_RTOL / TRAIN_PARAM_ATOL.  Returns the fused run's
     launches."""
     from fvt_tpu_torch.ops.fusion import fused_multimodal_fusion
     from fvt_tpu_torch.ops.tcn import (fused_temporal_block,
-                                       fused_temporal_block_train as block)
+                                       fused_temporal_block_train as block,
+                                       fused_temporal_block_train_simt as
+                                       simt)
 
     counters = (fused_temporal_block, fused_multimodal_fusion)
-    block.launches_fwd = block.launches_bwd = 0
+    for fn in (block, simt):
+        fn.launches_fwd = fn.launches_bwd = 0
     eval_before = [c.launches for c in counters]
     losses = {}
     for name in ('fused', 'plain'):
@@ -1967,17 +2055,25 @@ def fused_against_plain(trainers: dict, batches: list, epochs: int) -> dict:
             losses[name] += trainers[name].step_losses
         if name == 'fused':
             launches = {'tcn_block_train': block.launches_fwd,
-                        'tcn_block_bwd': block.launches_bwd}
+                        'tcn_block_bwd': block.launches_bwd,
+                        'tcn_block_train_simt': simt.launches_fwd,
+                        'tcn_block_bwd_simt': simt.launches_bwd}
     steps = epochs * len(batches)
     print(f'  {steps} steps at ({TRAIN_BATCH},{WINDOW}): fused losses '
-          f'{losses["fused"][0]:.6f} .. {losses["fused"][-1]:.6f}; '
-          f'tcn_block_train launches {launches["tcn_block_train"]}, '
-          f'tcn_block_bwd launches {launches["tcn_block_bwd"]}')
+          f'{losses["fused"][0]:.6f} .. {losses["fused"][-1]:.6f}')
+    print(f'  C entry calls a step: fvt_tcn_block_train_tf32x3_forward '
+          f'{launches["tcn_block_train"] / steps:g} (3 launches each), '
+          f'fvt_tcn_block_train_tf32x3_backward '
+          f'{launches["tcn_block_bwd"] / steps:g}; the SIMT entries '
+          f'fvt_tcn_block_train_forward {simt.launches_fwd / steps:g}, '
+          f'fvt_tcn_block_train_backward {simt.launches_bwd / steps:g}')
     if not all(np.isfinite(losses['fused'])):
         fail(f'non-finite training loss: {losses["fused"]}')
-    if launches != {'tcn_block_train': 8 * steps, 'tcn_block_bwd': 8 * steps}:
-        fail(f'expected 8 forward and 8 backward launches a step over '
-             f'{steps} steps, got {launches}')
+    if launches != {'tcn_block_train': 8 * steps, 'tcn_block_bwd': 8 * steps,
+                    'tcn_block_train_simt': 0, 'tcn_block_bwd_simt': 0}:
+        fail(f'expected 8 forward and 8 backward calls of the split-TF32 '
+             f'entries a step and none of the SIMT ones over {steps} '
+             f'steps, got {launches}')
     if [c.launches for c in counters] != eval_before:
         fail('an eval-only kernel was launched while training')
     rel = max(abs(a - b) / abs(b)

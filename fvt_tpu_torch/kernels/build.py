@@ -46,6 +46,13 @@ _SIGNATURES = {
     # x w1 w2 m1 m2 res a1 a2 g, d_a2 d_a1 part1 part2, dx dw1 db1 dw2 db2
     # dres, B T Cin Cout K dil S1 S2, stream
     'fvt_tcn_block_train_backward': [_P] * 19 + [_I] * 8 + [_P],
+    # x w1 b1 w2 b2 m1 m2 res, w1_hi w1_lo w2_hi w2_lo, a1 h a2 out, B T
+    # Cin Cout K dil stages, stream
+    'fvt_tcn_block_train_tf32x3_forward': [_P] * 16 + [_I] * 7 + [_P],
+    # x w1 w2 m1 m2 res a1 h a2 g, d_a2 d_a1 w1t_hi w1t_lo w2t_hi w2t_lo
+    # part1 part2, dx dw1 db1 dw2 db2 dres, B T Cin Cout K dil S1 S2
+    # stages, stream
+    'fvt_tcn_block_train_tf32x3_backward': [_P] * 24 + [_I] * 9 + [_P],
     # x w y, N H W C Co, tf th tw, stream
     'fvt_conv3x3_forward': [_P] * 3 + [_I] * 8 + [_P],
     # x wp y (bf16), N H W C Co bn, stream
