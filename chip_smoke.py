@@ -14,9 +14,15 @@ Phases, each of which raises on failure (exit code 1):
    on no path) at all 12 block shapes of the tri-modal LFAN at (8, 300),
    plus edge shapes, the mfcc width Cin = 39, long kernels whose taps the
    kernel takes in groups (K = 11 at d = 8, K = 5 at d = 64) and its
-   refusal of shapes it does not take; the fusion block at (8, 300,
-   {128, 32, 128}) and, with weights read from global memory, at five,
-   seven and four wide modalities; the train-mode TCN block (forward
+   refusal of shapes it does not take; the fusion block (the split-TF32
+   tensor-core kernel that serving launches, one launch for 1 to 7
+   modalities, and the earlier CUDA-core kernel
+   ``fused_multimodal_fusion_simt``, on no path, both also timed on the
+   device alone) at (8, 300, {128, 32, 128}), at five, seven and four wide
+   modalities, at a head padded to 16 dims (E = 36, H = 3) and two slices a
+   head (E = 64, H = 2) and at E*M = 320, and its refusal of E*M above
+   576; the train-mode
+   TCN block (forward
    output and the backward's six results, against autograd of the plain
    version, the backward bit for bit twice; the split-TF32 kernels that
    training launches, each of their launches also timed alone, and the
@@ -55,8 +61,9 @@ Phases, each of which raises on failure (exit code 1):
    ``fvt_tpu_torch.streaming`` server core over a full-width tri-modal
    LFAN (``video+vggish+bert``, random init from seed 0); check every
    frame's logits against an offline stitch of the plain-version forward
-   and the kernels' launch counts (12 eval TCN blocks and one fusion a
-   dispatch); time full (8, 300) dispatches;
+   and the kernels' launch counts (12 eval TCN blocks and one split-TF32
+   fusion a dispatch, no CUDA-core kernel); time full (8, 300)
+   dispatches;
 4. train a full-width ``vggish+bert`` LFAN for 10 steps at (16, 300)
    through ``Trainer`` with the fused train kernels; check the losses and
    final parameters against the same steps on the plain versions, that a
@@ -101,6 +108,7 @@ code 1 and prints no result.
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import statistics
 import subprocess
@@ -565,10 +573,9 @@ def check_kernels(model, device) -> list:
     on the weights the model keeps packed) and the earlier CUDA-core
     kernel (``fused_temporal_block_simt``, timed, on no path) at the 12
     blocks, each launch of the first also timed alone, then at edge
-    shapes and Cin = 39; shapes it must refuse."""
-    from fvt_tpu_torch.config import model_config as MC
+    shapes and Cin = 39; shapes it must refuse.  Then the fusion on the
+    TCNs' outputs (:func:`check_fusion_kernels`)."""
     from fvt_tpu_torch.kernels import build
-    from fvt_tpu_torch.ops import fusion as fusion_ops
     from fvt_tpu_torch.ops import tcn as tcn_ops
     from fvt_tpu_torch.models.layers import fold_batchnorm
 
@@ -723,69 +730,7 @@ def check_kernels(model, device) -> list:
         if tcn_ops.fused_temporal_block.launches != before:
             fail('a refused tcn_block counted a launch')
 
-        fusion = model.fusion
-        attn = fusion.layers.self_attn
-        lins = [attn.qkv_proj[m] for m in MODALITY]
-        args = ([feats[m] for m in MODALITY],
-                [lin.weight.t().contiguous() for lin in lins],
-                [lin.bias for lin in lins],
-                attn.o_proj.weight.t().contiguous(), attn.o_proj.bias,
-                fusion.layers.norm1.weight, fusion.layers.norm1.bias)
-        kw = dict(modal_dim=fusion.modal_dim, num_heads=fusion.num_heads)
-        fusion_err = compare(
-            f'fusion ({WINDOW_BATCH},{WINDOW},'
-            f'{[feats[m].shape[-1] for m in MODALITY]})',
-            fusion_ops.fused_multimodal_fusion(*args, **kw),
-            fusion_ops.fused_multimodal_fusion_ref(*args, **kw))
-        fusion_ms = median_ms(
-            lambda: fusion_ops.fused_multimodal_fusion(*args, **kw))
-        fusion_plain_ms = median_ms(
-            lambda: fusion_ops.fused_multimodal_fusion_ref(*args, **kw))
-        print(f'    kernel {fusion_ms:.4f} ms, plain '
-              f'{fusion_plain_ms:.4f} ms')
-        # per frame: the qkv projections, M x M scores and values per
-        # head, o_proj; the softmax and LayerNorm are not counted
-        e, nm = fusion.modal_dim, len(MODALITY)
-        frames = WINDOW_BATCH * WINDOW
-        fusion_flops = 2.0 * frames * (
-            sum(feats[m].shape[-1] for m in MODALITY) * 3 * e
-            + 2 * nm * nm * e + (e * nm) ** 2)
-        fusion_bytes = nbytes(*args[0], *args[1], *args[2], *args[3:]) \
-            + frames * e * nm * 4
-
-        # more modalities than the main path's, at their TCN output widths
-        # and the serving shape: five, all seven, and four wide ones (Wqkv
-        # alone 160 KB), whose layouts leave shared memory, so the kernel
-        # reads weights from global memory; random weights at Linear's
-        # init scale
-        fusion_wide_ms = {}
-        for mods in FUSION_MODALITIES:
-            widths = [MC.ENCODER_DIM[m] for m in mods]
-            nm = len(mods)
-
-            def randn(*shape, scale=1.0):
-                return torch.randn(*shape, device=device,
-                                   generator=g) * scale
-
-            wargs = ([randn(WINDOW_BATCH, WINDOW, c) for c in widths],
-                     [randn(c, 3 * e, scale=c ** -0.5) for c in widths],
-                     [randn(3 * e, scale=0.1) for _ in widths],
-                     randn(e * nm, e * nm, scale=(e * nm) ** -0.5),
-                     randn(e * nm, scale=0.1), 1.0 + randn(e * nm, scale=0.2),
-                     randn(e * nm, scale=0.1))
-            route = fusion_ops.fusion_route(tuple(widths), e)
-            label = (f'fusion M={nm} ({WINDOW_BATCH},{WINDOW},{widths}) '
-                     f'route {route}, {fusion_ops.smem_bytes(widths, e, 0)} '
-                     f'B of weights and tile')
-            compare(label, fusion_ops.fused_multimodal_fusion(*wargs, **kw),
-                    fusion_ops.fused_multimodal_fusion_ref(*wargs, **kw))
-            ms = median_ms(
-                lambda: fusion_ops.fused_multimodal_fusion(*wargs, **kw))
-            plain = median_ms(
-                lambda: fusion_ops.fused_multimodal_fusion_ref(*wargs, **kw))
-            fusion_wide_ms[f'M={nm} {"+".join(mods)}'] = (ms, plain)
-            print(f'    kernel {ms:.4f} ms, plain {plain:.4f} ms (M=3: '
-                  f'{fusion_ms:.4f} ms)')
+        fusion_out = check_fusion_kernels(model.fusion, feats, device, g)
     out = []
     for name, source in (('tcn_block', 'tcn_block_tf32x3.cu'),
                          ('tcn_block_simt', 'tcn_block.cu')):
@@ -806,15 +751,166 @@ def check_kernels(model, device) -> list:
           + ', '.join(f'{key} {ms:.4f} ms' for key, ms in launch_ms.items()))
     out[0]['launch_ms'] = launch_ms
     out[0]['long_kernels_ms'] = long_ms
-    return out + [
-        {'name': 'fusion', 'route': 'cuda',
-         'source': 'fvt_tpu_torch/csrc/fusion.cu',
-         'replaces': 'fvt_tpu/ops/fusion_pallas.py:25',
-         'max_abs_err': fusion_err, 'ms': fusion_ms,
-         'plain_ms': fusion_plain_ms, 'library_ms': None,
-         **bound(fusion_flops, fusion_bytes),
-         'many_modalities_ms': fusion_wide_ms},
-    ]
+    return out + fusion_out
+
+
+def fusion_bounds(args: tuple, modal_dim: int) -> tuple:
+    """The fusion's (operations, bytes) over the card's rates, in ms, for
+    (the split-TF32 kernel, the SIMT kernel).  Operations: the qkv
+    projections and o_proj, three TF32 products a multiply at the TF32
+    peak for the first, one at the fp32 peak for the second, and the
+    M x M scores and values per head at the fp32 peak for both (the
+    softmax and LayerNorm are not counted); bytes, the same for both: what
+    the function must move, x, the plain weights and vectors read once
+    and y written once (not the split kernel's packed, padded parts)."""
+    xs, wqkv, bqkv, wo, bo, ln_s, ln_b = args
+    m = len(xs)
+    frames = xs[0].shape[0] * xs[0].shape[1]
+    em = modal_dim * m
+    products = 2.0 * frames * (sum(x.shape[-1] for x in xs) * 3 * modal_dim
+                               + em * em)
+    attention = 2.0 * frames * 2 * m * m * modal_dim
+    bytes_ms = (nbytes(*xs, *wqkv, *bqkv, wo, bo, ln_s, ln_b)
+                + frames * em * 4) / PEAK_BYTES * 1e3
+    return (((3 * products / PEAK_FLOPS_TF32 + attention / PEAK_FLOPS) * 1e3,
+             bytes_ms),
+            ((products + attention) / PEAK_FLOPS * 1e3, bytes_ms))
+
+
+def check_fusion_kernels(fusion, feats: dict, device, g) -> list:
+    """Phase 2, the fusion (B2): the split-TF32 kernel that serving
+    launches (``fused_multimodal_fusion`` on the weights the module keeps
+    packed) and the earlier CUDA-core kernel (``fused_multimodal_fusion_
+    simt``, timed, on no path) against the plain version at the main
+    path's (8, 300, {128, 32, 128}), then at five, seven and four wide
+    modalities, at a head size padded to a slice (E = 36, H = 3), at two
+    slices a head (E = 64, H = 2) and at the wide E*M that take cat
+    through the workspace: 320 (E = 64 at five modalities), 576 (E = 96,
+    H = 3 at six), 640 (E = 128 at five) and 1280 (E = 256, H = 4 at
+    five; the split-TF32 kernel alone: the SIMT one does not take it),
+    random weights at Linear's init scale: each call's median time with
+    its wrapper, its device time (``torch.profiler``) and its bound; the
+    C entry must refuse a wide E*M without a workspace.  Returns the two
+    kernels' entries of the kernels line."""
+    from fvt_tpu_torch.config import model_config as MC
+    from fvt_tpu_torch.kernels import build
+    from fvt_tpu_torch.ops import fusion as fusion_ops
+    from fvt_tpu_torch.tools.timing import device_ms
+
+    names = {'fusion': ('fusion_tf32x3_kernel',),
+             'fusion_simt': ('fusion_kernel',)}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=device, generator=g) * scale
+
+    def random_args(widths, e):
+        em = e * len(widths)
+        return ([randn(WINDOW_BATCH, WINDOW, c) for c in widths],
+                [randn(c, 3 * e, scale=c ** -0.5) for c in widths],
+                [randn(3 * e, scale=0.1) for _ in widths],
+                randn(em, em, scale=em ** -0.5), randn(em, scale=0.1),
+                1.0 + randn(em, scale=0.2), randn(em, scale=0.1))
+
+    # the module's parameters, laid out as the SIMT kernel reads them (the
+    # split-TF32 kernel reads the packed weights the module keeps)
+    attn = fusion.layers.self_attn
+    lins = [attn.qkv_proj[m] for m in MODALITY]
+    e, h = fusion.modal_dim, fusion.num_heads
+    cases = [('M=3 ' + '+'.join(MODALITY),
+              ([feats[m] for m in MODALITY],
+               [lin.weight.t().contiguous() for lin in lins],
+               [lin.bias for lin in lins],
+               attn.o_proj.weight.t().contiguous(), attn.o_proj.bias,
+               fusion.layers.norm1.weight, fusion.layers.norm1.bias), e, h,
+              fusion.eval_weights())]
+    for mods in FUSION_MODALITIES:
+        cases.append((f'M={len(mods)} {"+".join(mods)}',
+                      random_args([MC.ENCODER_DIM[m] for m in mods], e), e,
+                      h, None))
+    main_widths = [MC.ENCODER_DIM[m] for m in MODALITY]
+    for ce, ch in ((36, 3), (64, 2)):
+        cases.append((f'M=3 E={ce} H={ch}', random_args(main_widths, ce), ce,
+                      ch, None))
+    five = [MC.ENCODER_DIM[m] for m in FUSION_MODALITIES[0]]
+    six = [MC.ENCODER_DIM[m] for m in FUSION_MODALITIES[1][:6]]
+    for label, widths, ce, ch in (('M=5 E=64 H=2', five, 64, 2),
+                                  ('M=6 E=96 H=3', six, 96, 3),
+                                  ('M=5 E=128 H=2', five, 128, 2),
+                                  ('M=5 E=256 H=4', five, 256, 4)):
+        cases.append((label, random_args(widths, ce), ce, ch, None))
+    tot = {name: {'err': 0.0} for name in names}
+    rows = {}
+    with torch.inference_mode():
+        for label, args, ce, ch, packed in cases:
+            kw = dict(modal_dim=ce, num_heads=ch)
+            if packed is None:
+                packed = fusion_ops.pack_fusion_weights(*args[1:4], **kw)
+            calls = {'fusion': lambda: fusion_ops.fused_multimodal_fusion(
+                         *args, **kw, packed=packed),
+                     'fusion_simt': lambda:
+                         fusion_ops.fused_multimodal_fusion_simt(*args, **kw)}
+            widths = [x.shape[-1] for x in args[0]]
+            try:
+                fusion_ops.fusion_route(tuple(widths), ce)
+            except ValueError:  # beyond the SIMT kernel's shared memory
+                del calls['fusion_simt']
+            want = fusion_ops.fused_multimodal_fusion_ref(*args, **kw)
+            row = {'plain_ms': median_ms(
+                lambda: fusion_ops.fused_multimodal_fusion_ref(*args, **kw))}
+            bounds = dict(zip(names, fusion_bounds(args, ce)))
+            for name, call in calls.items():
+                err = compare(f'{name} {label} ({WINDOW_BATCH},{WINDOW},'
+                              f'{widths})', call(), want)
+                ops_ms, bytes_ms = bounds[name]
+                row[name] = {'max_abs_err': err, 'ms': median_ms(call),
+                             'device_ms': device_ms(call, names[name]),
+                             'bound_ms': max(ops_ms, bytes_ms),
+                             'bound_by': ('operations' if ops_ms >= bytes_ms
+                                          else 'bytes')}
+                tot[name]['err'] = max(tot[name]['err'], err)
+            rows[label] = row
+            print('    ' + ', '.join(
+                f'{name} {row[name]["ms"]:.4f} ms (device '
+                + ('not measured' if row[name]['device_ms'] is None else
+                   f'{row[name]["device_ms"]:.4f}, '
+                   f'{row[name]["bound_ms"] / row[name]["device_ms"]:.1%} '
+                   f'of the bound')
+                + f'; bound {row[name]["bound_ms"]:.5f} by '
+                f'{row[name]["bound_by"]})' for name in calls)
+                + f', plain {row["plain_ms"]:.4f} ms')
+
+        # a wide E*M without a workspace: the C entry refuses, no launch
+        before = fusion_ops.fused_multimodal_fusion.launches
+        args = random_args([32] * 5, 128)
+        ptrs = (ctypes.c_void_p * 20)(*([args[0][0].data_ptr()] * 20))
+        widths = (ctypes.c_int * 5)(*([32] * 5))
+        code = build.library().fvt_fusion_tf32x3_forward(
+            ptrs, widths, *([args[3].data_ptr()] * 6), None, 0, 16, 5, 128,
+            2, torch.cuda.current_stream(device).cuda_stream)
+        if code == 0:
+            fail('the split-TF32 fusion entry took E*M = 640 without a '
+                 'workspace')
+        print(f'  fusion E*M=640 without a workspace refused: code {code}')
+        if fusion_ops.fused_multimodal_fusion.launches != before:
+            fail('a refused fusion counted a launch')
+    main = rows[cases[0][0]]
+    out = []
+    for name, source in (('fusion', 'fusion_tf32x3.cu'),
+                         ('fusion_simt', 'fusion.cu')):
+        out.append({'name': name, 'route': 'cuda',
+                    'source': f'fvt_tpu_torch/csrc/{source}',
+                    'replaces': 'fvt_tpu/ops/fusion_pallas.py:25',
+                    'max_abs_err': tot[name]['err'], 'ms': main[name]['ms'],
+                    'plain_ms': main['plain_ms'], 'library_ms': None,
+                    'bound_ms': main[name]['bound_ms'],
+                    'bound_by': main[name]['bound_by'],
+                    'device_ms': main[name]['device_ms'],
+                    'cases': {label: {'ms': row[name]['ms'],
+                                      'device_ms': row[name]['device_ms'],
+                                      'bound_ms': row[name]['bound_ms'],
+                                      'plain_ms': row['plain_ms']}
+                              for label, row in rows.items() if name in row}})
+    return out
 
 
 def conv2d_library(x: torch.Tensor, kernel: torch.Tensor):
@@ -1903,7 +1999,8 @@ def serve_variant(model, kw: dict, kernel: str, per_dispatch: int,
     conv kernel's).  Returns (the launches of ``kernel`` over the run, the
     server)."""
     from fvt_tpu_torch.models.models import LFAN
-    from fvt_tpu_torch.ops.fusion import fused_multimodal_fusion
+    from fvt_tpu_torch.ops.fusion import (fused_multimodal_fusion,
+                                          fused_multimodal_fusion_simt)
     from fvt_tpu_torch.ops.tcn import (fused_temporal_block,
                                        fused_temporal_block_simt)
     from fvt_tpu_torch.serve import ServingModel
@@ -1913,7 +2010,8 @@ def serve_variant(model, kw: dict, kernel: str, per_dispatch: int,
     server = ServingModel(variant, WINDOW_BATCH, WINDOW, HOP, device)
     counters = dict(conv_counters(), tcn_block=fused_temporal_block,
                     tcn_block_simt=fused_temporal_block_simt,
-                    fusion=fused_multimodal_fusion)
+                    fusion=fused_multimodal_fusion,
+                    fusion_simt=fused_multimodal_fusion_simt)
     zero_launches(counters)
     served, dispatches = serve_streams(server, streams)
     launches = read_launches(counters)
@@ -2037,13 +2135,15 @@ def fused_against_plain(trainers: dict, batches: list, epochs: int) -> dict:
     TRAIN_LOSS_RTOL and the final parameters and running statistics within
     TRAIN_PARAM_RTOL / TRAIN_PARAM_ATOL.  Returns the fused run's
     launches."""
-    from fvt_tpu_torch.ops.fusion import fused_multimodal_fusion
+    from fvt_tpu_torch.ops.fusion import (fused_multimodal_fusion,
+                                          fused_multimodal_fusion_simt)
     from fvt_tpu_torch.ops.tcn import (fused_temporal_block,
                                        fused_temporal_block_train as block,
                                        fused_temporal_block_train_simt as
                                        simt)
 
-    counters = (fused_temporal_block, fused_multimodal_fusion)
+    counters = (fused_temporal_block, fused_multimodal_fusion,
+                fused_multimodal_fusion_simt)
     for fn in (block, simt):
         fn.launches_fwd = fn.launches_bwd = 0
     eval_before = [c.launches for c in counters]
@@ -2199,7 +2299,8 @@ def main() -> int:
     from fvt_tpu_torch.data.transforms import eval_video_transform
     from fvt_tpu_torch.kernels import build
     from fvt_tpu_torch.models.models import LFAN
-    from fvt_tpu_torch.ops.fusion import fused_multimodal_fusion
+    from fvt_tpu_torch.ops.fusion import (fused_multimodal_fusion,
+                                          fused_multimodal_fusion_simt)
     from fvt_tpu_torch.ops.tcn import (fused_temporal_block,
                                        fused_temporal_block_simt)
     from fvt_tpu_torch.serve import ServingModel
@@ -2243,7 +2344,8 @@ def main() -> int:
     streams = make_streams()
     counters = {'tcn_block': fused_temporal_block,
                 'tcn_block_simt': fused_temporal_block_simt,
-                'fusion': fused_multimodal_fusion}
+                'fusion': fused_multimodal_fusion,
+                'fusion_simt': fused_multimodal_fusion_simt}
     for fn in counters.values():
         fn.launches = 0
     served, dispatches = serve_streams(server, streams)
@@ -2251,8 +2353,9 @@ def main() -> int:
     print(f'  {dispatches} dispatches, launches {launches}')
     if dispatches < 1 or launches != {'tcn_block': 12 * dispatches,
                                       'tcn_block_simt': 0,
-                                      'fusion': dispatches}:
-        fail(f'expected 12 tcn_block, no tcn_block_simt and 1 fusion launch '
+                                      'fusion': dispatches,
+                                      'fusion_simt': 0}:
+        fail(f'expected 12 tcn_block, 1 split-TF32 fusion and no SIMT launch '
              f'per dispatch, got {launches} over {dispatches} dispatches')
     by_name = {kernel['name']: kernel for kernel in kernels}
     for name, n in launches.items():

@@ -129,56 +129,6 @@ __host__ __device__ inline int slot_bytes(int P, int taps) {
   return 2 * a_part_bytes(P) + 2 * b_part_bytes(taps);
 }
 
-// The consumer runs these while a slice's wgmma are in flight, so they hold
-// no branch that ptxas could take for a divergent one (it would wait for
-// the wgmma there): the spin loop lies inside the asm, the arrive and the
-// stores are predicated.  Measured in turns, 9% less device time over the
-// 12 serving blocks than mbar_wait, `if (lane == 0)` and a loop over
-// tid + 128*k < 2*box (tools/profile_tcn.py's numbers in PERF.md).
-
-// mbar_wait as one asm loop; traps after 2^24 polls as mbar_wait does
-__device__ __forceinline__ void mbar_wait_uniform(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      ".reg .u32 n;\n"
-      "mov.u32 n, 0;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "add.u32 n, n, 1;\n"
-      "setp.lt.u32 p, n, 16777216;\n"
-      "@p bra WAIT;\n"
-      "trap;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_if(bool p, uint32_t bar) {
-  asm volatile(
-      "{\n"
-      ".reg .pred q;\n"
-      "setp.ne.b32 q, %0, 0;\n"
-      "@q mbarrier.arrive.shared::cta.b64 _, [%1];\n"
-      "}\n" ::"r"((int)p),
-      "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void st_shared_if(bool p, uint32_t addr,
-                                             float4 v) {
-  asm volatile(
-      "{\n"
-      ".reg .pred q;\n"
-      "setp.ne.b32 q, %0, 0;\n"
-      "@q st.shared.v4.f32 [%1], {%2, %3, %4, %5};\n"
-      "}\n" ::"r"((int)p),
-      "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
-      : "memory");
-}
-
 template <Epilogue kEpi, int TAPS>
 __global__ void __launch_bounds__(kThreads, 2)
     causal_conv_kernel(ConvArgs a,

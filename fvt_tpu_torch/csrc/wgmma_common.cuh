@@ -1,7 +1,8 @@
 // PTX helpers of the wgmma kernels (conv3x3_wgmma.cu and winograd_bf16.cu in
-// bf16, conv3x3_tf32x3.cu, winograd_tf32x3.cu and tcn_block_tf32x3.cu in
-// fp32):
-// mbarriers, the copy engine's bulk, im2col and tiled copies, shared-memory
+// bf16, conv3x3_tf32x3.cu, winograd_tf32x3.cu, tcn_block_tf32x3.cu,
+// tcn_block_train_tf32x3.cu and fusion_tf32x3.cu in fp32):
+// mbarriers (and a wait and an arrive without branches), the copy
+// engine's bulk, im2col and tiled copies, shared-memory
 // matrix descriptors, the wgmma fences, the split-TF32 rounding, the TF32
 // and bf16 wgmma of 64 x 64 and 64 x 128 tiles, the im2col tensor map of an
 // NHWC activation and a 3-d tiled tensor map, all for sm_90a.  Each
@@ -94,6 +95,57 @@ __device__ __forceinline__ void tma_tile3d(uint32_t dst, const CUtensorMap* map,
       ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
           "r"(dst),
       "l"(map), "r"(bar), "r"(c), "r"(r), "r"(p)
+      : "memory");
+}
+
+// A consumer runs these while wgmma are in flight, so they hold no branch
+// that ptxas could take for a divergent one (it would wait for the wgmma
+// there): the spin loop lies inside the asm, the arrive and the stores are
+// predicated.  Measured in turns, 9% less device time over the 12 serving
+// blocks of tcn_conv_tf32x3.cuh than mbar_wait, `if (lane == 0)` and a
+// loop over tid + 128*k < 2*box (tools/profile_tcn.py's numbers in
+// PERF.md).
+
+// mbar_wait as one asm loop; traps after 2^24 polls as mbar_wait does
+__device__ __forceinline__ void mbar_wait_uniform(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u32 n;\n"
+      "mov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.lt.u32 p, n, 16777216;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_if(bool p, uint32_t bar) {
+  asm volatile(
+      "{\n"
+      ".reg .pred q;\n"
+      "setp.ne.b32 q, %0, 0;\n"
+      "@q mbarrier.arrive.shared::cta.b64 _, [%1];\n"
+      "}\n" ::"r"((int)p),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_shared_if(bool p, uint32_t addr,
+                                             float4 v) {
+  asm volatile(
+      "{\n"
+      ".reg .pred q;\n"
+      "setp.ne.b32 q, %0, 0;\n"
+      "@q st.shared.v4.f32 [%1], {%2, %3, %4, %5};\n"
+      "}\n" ::"r"((int)p),
+      "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
       : "memory");
 }
 

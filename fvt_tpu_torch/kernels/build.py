@@ -41,6 +41,9 @@ _SIGNATURES = {
     # (x[M] w[M] b[M]) c[M] (host arrays), wo bo ln_w ln_b out, N M E H
     # route, stream
     'fvt_fusion_forward': [_P] * 7 + [_I] * 5 + [_P],
+    # (x[M] w_hi[M] w_lo[M] b[M]) c[M] (host arrays), wo_hi wo_lo bo ln_w
+    # ln_b out ws, ws_blocks N M E H, stream
+    'fvt_fusion_tf32x3_forward': [_P] * 9 + [_I] * 5 + [_P],
     # x w1 b1 w2 b2 m1 m2 res a1 a2 out, B T Cin Cout K dil, stream
     'fvt_tcn_block_train_forward': [_P] * 11 + [_I] * 6 + [_P],
     # x w1 w2 m1 m2 res a1 a2 g, d_a2 d_a1 part1 part2, dx dw1 db1 dw2 db2

@@ -85,7 +85,8 @@ def build_variants(source: str, entry: str, pointers: int, ints: int,
         if proc.returncode != 0:
             raise RuntimeError(f'nvcc failed for {name}:\n{log}')
         for line in sorted({ln.strip() for ln in log.splitlines()
-                            if 'registers' in ln or 'spill' in ln}):
+                            if 'registers' in ln or 'spill' in ln
+                            or 'Performance Loss' in ln}):
             print(f'  {name}: {line}')
         fn = getattr(ctypes.CDLL(str(paths[name])), entry)
         fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints

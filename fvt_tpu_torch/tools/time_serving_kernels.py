@@ -15,11 +15,17 @@ vggish 128 and bert 768 channels in; the model's random init from seed
 modal_dim 32, 2 heads): each call's median time with its wrapper (CUDA
 events around the call, ``--runs`` calls after 5 warm ones) and the
 device time of the kernels alone (``torch.profiler`` over 20 passes).
+The fusion is timed as a dispatch calls it, through the model's
+``fusion`` module in eval mode (with the weight copies a checkout's
+module makes a call), and its device time is that of the fusion kernel,
+found by name: ``fusion_kernel`` (the CUDA-core kernel, which
+checkouts before the split-TF32 one launch) or ``fusion_tf32x3_kernel``.
 Prints one JSON line.  Needs a CUDA card; float32 with TF32 off.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -30,11 +36,16 @@ import torch
 import fvt_tpu_torch
 from fvt_tpu_torch.kernels import build
 from fvt_tpu_torch.models.models import LFAN
-from fvt_tpu_torch.ops import fusion as fusion_ops
 from fvt_tpu_torch.ops import tcn as tcn_ops
 
 WINDOW_BATCH, WINDOW = 8, 300
 MODALITY = ('video', 'vggish', 'bert')
+# tools/timing.py from beside this file: the package imported may be an
+# older checkout's, without it
+_spec = importlib.util.spec_from_file_location(
+    'fvt_timing', os.path.join(os.path.dirname(__file__), 'timing.py'))
+timing = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(timing)
 
 
 def median_ms(fn, runs: int) -> float:
@@ -50,24 +61,6 @@ def median_ms(fn, runs: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def device_ms(fn, kernel: str, passes: int = 20) -> float:
-    """Device time a pass of the kernels whose name holds ``kernel``."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(passes):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        if kernel in e.key:
-            t = getattr(e, 'device_time_total', None)
-            total += e.cuda_time_total if t is None else t
-    return total / passes / 1e3
 
 
 def main() -> None:
@@ -102,21 +95,15 @@ def main() -> None:
                 block_ms.append(median_ms(call, runs))
                 x = call()
             feats.append(x)
-        attn = model.fusion.layers.self_attn
-        lins = [attn.qkv_proj[m] for m in MODALITY]
-        fargs = (feats, [lin.weight.t().contiguous() for lin in lins],
-                 [lin.bias for lin in lins],
-                 attn.o_proj.weight.t().contiguous(), attn.o_proj.bias,
-                 model.fusion.layers.norm1.weight,
-                 model.fusion.layers.norm1.bias)
-        fkw = dict(modal_dim=model.fusion.modal_dim,
-                   num_heads=model.fusion.num_heads)
+        feats = dict(zip(MODALITY, feats))
 
         def fusion():
-            return fusion_ops.fused_multimodal_fusion(*fargs, **fkw)
+            return model.fusion(feats)
         fusion_ms = median_ms(fusion, runs)
-        tcn_device = device_ms(lambda: [c() for c in calls], 'causal_conv')
-        fusion_device = device_ms(fusion, 'fusion_kernel')
+        tcn_device = timing.device_ms(lambda: [c() for c in calls],
+                                      ('causal_conv',))
+        fusion_device = timing.device_ms(fusion, ('fusion_kernel',
+                                                  'fusion_tf32x3_kernel'))
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
