@@ -97,7 +97,20 @@ Phases, each of which raises on failure (exit code 1):
    turns; tri-modal LFANs with ``backbone_dtype=torch.bfloat16`` on
    ``shifted_kernel``, on ``fused_blocks`` + ``shifted_kernel`` and on
    ``winograd_kernel`` on the three streams, and timed full dispatches of
-   the four bfloat16 paths, in turns.
+   the four bfloat16 paths, in turns;
+6. challenge inference from the on-disk store: a synthetic
+   C-EXPR-DB-CHALLENGE store of 12 videos (60 to 2400 frames, 7490 in
+   all; 48^2 uint8 crops, vggish, bert, labels) and a run directory
+   (``config.yml`` of the port's flat writer; a seed-0 full-width
+   tri-modal LFAN as ``best-models/FRAMES_AVG_LOGITS/model.pt``) through
+   ``fvt_tpu_torch.inference_challenge.main`` on the card: the native
+   gather loaded, every video's logits in ``prediction.pkl`` within 1e-3
+   of an offline stitch of the plain-version forward, its keys in the
+   fold's order, 12 eval TCN blocks and one fusion a forward and no other
+   kernel, and B1 and B2 at every (B, T) the run launched them at (and at
+   T = 100, 200 and B = 1, which a window of 300 never gives) against
+   their plain versions at the phase-2 gate; the CLI's wall, served
+   frames/s, the pass's timing by phase and the peak device memory.
 
 Everything runs in float32 with TF32 off for matmuls and cuDNN, except the
 bfloat16 backbone and its kernel, which say so.  The last
@@ -190,6 +203,13 @@ CONV_SHAPES = ((40, 64, 64, 6), (40, 64, 128, 1), (20, 128, 128, 6),
                (5, 512, 512, 4))
 # (H = W, C, launches a forward) of the stride-1 identity blocks
 BLOCK_SHAPES = ((40, 64, 3), (20, 128, 3), (10, 256, 13), (5, 512, 2))
+# phase 6: the challenge store's video lengths (7490 frames), bucket
+# quantum; its logits against the offline plain stitch within SERVE_ATOL
+CHALLENGE_LENGTHS = (60, 90, 150, 240, 299, 300, 301, 450, 700, 1000, 1500,
+                     2400)
+CHALLENGE_QUANTUM = 100
+# (B, T) at which phase 6 also holds B1 and B2, beyond those the run gives
+CHALLENGE_EXTRA_SHAPES = ((32, 100), (3, 200), (1, 300))
 
 
 def fail(msg: str) -> None:
@@ -2284,6 +2304,258 @@ def train_mfcc_lfan(device) -> dict:
                                MFCC_STEPS // len(batches))
 
 
+class ShapeRecorder:
+    """Records, while installed, the (B, T) of every TemporalConvNet call
+    (four B1 launches each) and every fusion call (one B2 launch) of any
+    model, through a global forward pre-hook: the CLI builds its model
+    itself."""
+
+    def __enter__(self):
+        from fvt_tpu_torch.models.fusion import MultimodalTransformerEncoder
+        from fvt_tpu_torch.models.tcn import TemporalConvNet
+        self.tcn, self.fusion = [], []
+
+        def hook(module, args):
+            if isinstance(module, TemporalConvNet):
+                self.tcn.append(tuple(args[0].shape[:2]))
+            elif isinstance(module, MultimodalTransformerEncoder):
+                self.fusion.append(tuple(next(iter(args[0].values()))
+                                         .shape[:2]))
+
+        self.handle = torch.nn.modules.module \
+            .register_module_forward_pre_hook(hook)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+
+def challenge_reference(model, store: dict, mean_std: dict, device) -> dict:
+    """Phase 6's offline path: each video of the store read with numpy,
+    its features normalised with the fold's mean/std and its frames
+    center-cropped to 40^2, padded by repeat to the window or windowed,
+    the plain-version forward over WINDOW_BATCH windows at a time, the
+    windows stitched."""
+    import os
+    from fvt_tpu_torch.data import windowing as W
+    from fvt_tpu_torch.data.transforms import CROP_SIZE, center_crop_offset
+    from fvt_tpu_torch.serve import lfan_serving_forward
+
+    feat = os.path.join(store['dataset_path'], 'features', 'compacted_48')
+    off = center_crop_offset(48, CROP_SIZE)
+    out = {}
+    for split in sorted(os.listdir(feat)):
+        for vid in sorted(os.listdir(os.path.join(feat, split)),
+                          key=lambda v: int(v[3:])):
+            tdir = os.path.join(feat, split, vid)
+            arrays = {m: np.load(os.path.join(tdir, f'{m}.npy'))
+                      for m in MODALITY}
+            for m in ('vggish', 'bert'):
+                st = mean_std[m]
+                arrays[m] = ((arrays[m] - st['mean'].astype(np.float32))
+                             / st['std'].astype(np.float32))
+            arrays['video'] = arrays['video'][:, off:off + CROP_SIZE,
+                                              off:off + CROP_SIZE]
+            n = len(arrays['bert'])
+            idx = (W.pad_short_window_indices(n, WINDOW)[None] if n < WINDOW
+                   else W.window_index_matrix(n, WINDOW, HOP))
+            logits = []
+            for s in range(0, len(idx), WINDOW_BATCH):
+                rows = idx[s:s + WINDOW_BATCH]
+                batch = {k: torch.from_numpy(np.ascontiguousarray(a[rows]))
+                         .to(device) for k, a in arrays.items()}
+                logits.append(lfan_serving_forward(
+                    model, batch, reference=True).cpu().numpy())
+            logits = np.concatenate(logits)
+            out[f'{split}/{vid}'] = (logits[0] if n < WINDOW else
+                                     W.stitch_windows_np(logits, idx, n))
+    return out
+
+
+def check_at_shapes(model, shapes, device) -> None:
+    """B1 at each of the model's 12 blocks and B2 at each (B, T) of
+    ``shapes``, on random inputs, against their plain versions at the
+    phase-2 gate."""
+    from fvt_tpu_torch.ops import tcn as tcn_ops
+
+    g = torch.Generator(device=device).manual_seed(SEED + 6)
+    with torch.inference_mode():
+        for b, t in shapes:
+            errs = []
+            feats = {}
+            for m in MODALITY:
+                net = model.temporal[m]
+                x = torch.randn(b, t, net.network[0].conv1.weight_v.shape[1],
+                                device=device, generator=g)
+                for i, blk in enumerate(net.network):
+                    w = blk.eval_weights()
+                    args = (x, w['w1'], w['b1'], w['w2'], w['b2'], w['wd'],
+                            w['bd'])
+                    kw = dict(kernel_size=net.kernel_size, dilation=2 ** i)
+                    want = tcn_ops.fused_temporal_block_ref(*args, **kw)
+                    errs.append(compare(
+                        f'tcn_block {m}.{i} ({b},{t},{x.shape[-1]})->'
+                        f'{want.shape[-1]}', tcn_ops.fused_temporal_block(
+                            *args, **kw, packed=w['packed']), want))
+                    x = want.contiguous()
+                feats[m] = x
+            errs.append(compare(f'fusion ({b},{t})',
+                                model.fusion(feats),
+                                model.fusion(feats, reference=True)))
+            print(f'  B1 and B2 at ({b},{t}): max_abs_err {max(errs):.3e}')
+
+
+def full_bucket_memory(trainer, videos: int, device) -> None:
+    """The peak device memory of one forward of the CLI's model over a
+    full bucket (``eval_video_batch`` videos of WINDOW frames), the most a
+    store of short videos hands one forward; a store of 12 videos has no
+    such bucket.  Prints whether it fits."""
+    from fvt_tpu_torch.config import model_config as MC
+
+    rng = np.random.default_rng(SEED + 7)
+    shape = (videos, WINDOW)
+    inputs = {'video': rng.integers(0, 256, shape + (40, 40, 3), np.uint8)}
+    for m in MODALITY[1:]:
+        inputs[m] = rng.standard_normal(
+            shape + tuple(MC.FEATURE_DIMENSION[m]), np.float32)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        out = trainer.forward(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    except torch.cuda.OutOfMemoryError:
+        print(f'  a full bucket ({videos}, {WINDOW}) does NOT fit on the '
+              f'card: out of memory after '
+              f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+        return
+    if not bool(torch.isfinite(out).all()):
+        fail('a full bucket gave non-finite logits')
+    print(f'  a full bucket ({videos}, {WINDOW}), {videos * WINDOW} frames, '
+          f'one forward: {ms:.1f} ms (host clock, first call at this '
+          f'shape), peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+    del out, batch
+
+
+def challenge_inference(device) -> dict:
+    """Phase 6.  Returns the launches of B1 and B2 over the CLI's run."""
+    import os
+    import pickle
+    import tempfile
+    from fvt_tpu_torch import inference_challenge
+    from fvt_tpu_torch.config import flat_yaml
+    from fvt_tpu_torch.config.defaults import get_config, to_namespace
+    from fvt_tpu_torch.data import native_store
+    from fvt_tpu_torch.models.registry import init_model
+    from fvt_tpu_torch.ops.fusion import (fused_multimodal_fusion,
+                                          fused_multimodal_fusion_simt)
+    from fvt_tpu_torch.ops.tcn import (fused_temporal_block,
+                                       fused_temporal_block_simt)
+    from fvt_tpu_torch.tools.synth_store import make_cexpr_store
+
+    frames = sum(CHALLENGE_LENGTHS)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        store = make_cexpr_store(os.path.join(root, 'store'),
+                                 CHALLENGE_LENGTHS, seed=SEED)
+        run = os.path.join(root, 'run')
+        best = os.path.join(run, 'best-models', 'FRAMES_AVG_LOGITS')
+        os.makedirs(best)
+        cfg = get_config('MELD')
+        cfg.update(modality='video+vggish+bert+EXPR_continuous_label',
+                   model_name='LFAN', window_length=WINDOW, hop_length=HOP,
+                   eval_bucket_quantum=CHALLENGE_QUANTUM,
+                   eval_window_batch=WINDOW_BATCH, outd=run, seed=SEED)
+        flat_yaml.dump(cfg, os.path.join(run, 'config.yml'))
+        model = init_model(to_namespace(cfg))  # from seed 0
+        torch.save(model.state_dict(), os.path.join(best, 'model.pt'))
+        print(f'  store of {len(CHALLENGE_LENGTHS)} videos, {frames} frames, '
+              f'and run directory written in {time.perf_counter() - t0:.2f} s')
+
+        counters = {'tcn_block': fused_temporal_block,
+                    'tcn_block_simt': fused_temporal_block_simt,
+                    'fusion': fused_multimodal_fusion,
+                    'fusion_simt': fused_multimodal_fusion_simt,
+                    **conv_counters()}
+        outd = os.path.join(root, 'out')
+        argv = ['--mode', 'EVALUATION', '--fd_exp', run, '--target_ds_name',
+                'C-EXPR-DB-CHALLENGE', '--dataset_path',
+                store['dataset_path'], '--folds_dir', store['folds_dir'],
+                '--outd', outd]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(counters)
+        with ShapeRecorder() as rec:
+            t0 = time.perf_counter()
+            exp = inference_challenge.main(argv)
+            wall = time.perf_counter() - t0
+        launches = read_launches(counters)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        timing = exp.trainer.last_inference_timing
+        forwards = len(rec.fusion)
+        print(f'  CLI wall {wall:.3f} s for {frames} frames: '
+              f'{frames / wall:.1f} served frames/s; peak device memory '
+              f'{peak:.2f} GiB; {forwards} forwards')
+        print(f'  last_inference_timing {json.dumps(timing)}')
+        print(f'  native gather loaded: {native_store.available()} '
+              f'({os.path.basename(native_store.library_path())})')
+        if not native_store.available():
+            fail('the native feature-store gather did not build or load')
+        if not timing['loader_s'] >= 0 or timing['h2d_bytes'] <= 0:
+            fail(f'inference timing not reported: {timing}')
+        want = {k: 0 for k in launches}
+        want.update(tcn_block=12 * forwards, fusion=forwards)
+        print(f'  launches {launches}')
+        if forwards < 1 or launches != want or \
+                len(rec.tcn) != len(MODALITY) * forwards:
+            fail(f'expected 12 tcn_block and 1 fusion launches a forward '
+                 f'and no other kernel over {forwards} forwards, got '
+                 f'{launches}')
+        shapes = sorted(set(rec.fusion), key=lambda bt: (bt[1], bt[0]))
+        if sorted(set(rec.tcn)) != sorted(shapes):
+            fail(f'B1 and B2 ran at other shapes: {rec.tcn} vs {shapes}')
+        print(f'  (B, T) launched: {shapes}')
+
+        with open(os.path.join(outd, 'pred-C-EXPR-DB-CHALLENGE',
+                               'prediction.pkl'), 'rb') as f:
+            pred = pickle.load(f)
+        with open(os.path.join(store['folds_dir'], 'split-0',
+                               'test.txt')) as f:
+            work = [line.split(',')[0] for line in f.read().splitlines()
+                    if line]
+        if list(pred) != work:
+            fail(f'prediction.pkl keys {list(pred)} are not the fold\'s '
+                 f'order {work}')
+        with open(os.path.join(store['dataset_path'],
+                               'mean_std_info_fold-0.pkl'), 'rb') as f:
+            mean_std = pickle.load(f)
+        model = model.to(device).eval()
+        offline = challenge_reference(model, store, mean_std, device)
+        worst = 0.0
+        for vid, n in zip(work, CHALLENGE_LENGTHS):
+            got = pred[vid]['logits']
+            if got.shape != (max(n, WINDOW), 7) or not np.isfinite(got).all():
+                fail(f'{vid}: logits {got.shape}, finite='
+                     f'{np.isfinite(got).all()}')
+            err = float(np.abs(got - offline[vid]).max())
+            worst = max(worst, err)
+            print(f'    {vid} ({n} frames): max |CLI - offline plain| = '
+                  f'{err:.3e}')
+            if err > SERVE_ATOL:
+                fail(f'{vid}: logits differ from the offline plain stitch '
+                     f'by {err} (atol {SERVE_ATOL})')
+        print(f'  every video within {worst:.3e} of the offline plain stitch '
+              f'(atol {SERVE_ATOL})')
+        check_at_shapes(model, shapes + list(CHALLENGE_EXTRA_SHAPES), device)
+        full_bucket_memory(exp.trainer, int(cfg['eval_video_batch']), device)
+        del exp, model
+    torch.cuda.empty_cache()
+    return {'tcn_block': launches['tcn_block'], 'fusion': launches['fusion']}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on a GPU',
@@ -2473,6 +2745,12 @@ def main() -> int:
     for impl in turns + turns[::-1]:
         time_dispatches(f'bf16 backbone, {impl}', servers[impl], inputs)
     del model, servers
+    torch.cuda.empty_cache()
+
+    print('phase 6: challenge inference from the on-disk store through '
+          'fvt_tpu_torch.inference_challenge')
+    for name, n in challenge_inference(device).items():
+        by_name[name]['launches_challenge'] = n
 
     print(card)
     print(json.dumps({'kernels': kernels}))

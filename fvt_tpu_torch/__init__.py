@@ -1,16 +1,23 @@
 """fvt_tpu_torch: the PyTorch / CUDA port of fvt_tpu for an NVIDIA H100.
 
-Two paths run so far.  Serving (``fvt_tpu_torch.serve`` behind
-``fvt_tpu_torch.streaming``): the tri-modal LFAN in eval mode through the
-fused TCN temporal block (``ops/tcn.py``, ``csrc/tcn_block.cu``) and the
-fused multimodal fusion block (``ops/fusion.py``, ``csrc/fusion.cu``).
-Training (``fvt_tpu_torch.train``): the LFAN on precomputed features
-through the fused train-mode TCN block, forward and backward
-(``ops/tcn.py``, ``csrc/tcn_block_train.cu``).  Every kernel is
-hand-written CUDA C++ for Hopper and has a plain PyTorch version beside
-it, which its wrapper runs for tensors on the CPU.  The package imports
-neither JAX nor anything of ``fvt_tpu``: it keeps its own copies of the
-modules it shares with it.
+Three paths run so far.  Challenge inference
+(``python -m fvt_tpu_torch.inference_challenge``): a finished run's
+``config.yml`` and best model (``model.msgpack`` of ``fvt_tpu`` or an
+upstream ``model.pt``) over an on-disk feature store, through the
+threaded loaders (``data/``), ``Trainer.inference`` and the metrics, to
+``prediction.pkl`` and the perf artifacts.  Serving
+(``fvt_tpu_torch.serve`` behind ``fvt_tpu_torch.streaming``).  Both run
+the tri-modal LFAN in eval mode through the fused TCN temporal block
+(``ops/tcn.py``, ``csrc/tcn_block_tf32x3.cu``) and the fused multimodal
+fusion block (``ops/fusion.py``, ``csrc/fusion_tf32x3.cu``).  Training
+(``fvt_tpu_torch.train``): the LFAN on precomputed features through the
+fused train-mode TCN block, forward and backward (``ops/tcn.py``,
+``csrc/tcn_block_train_tf32x3.cu``).  Every kernel is hand-written CUDA
+C++ for Hopper and has a plain PyTorch version beside it, which its
+wrapper runs for tensors on the CPU.  The package imports neither JAX,
+flax, PyYAML, msgpack nor anything of ``fvt_tpu``: it keeps its own
+copies of the modules it shares with it, and reads YAML and flax's
+msgpack with its own readers.
 """
 
-__version__ = '0.2.0'
+__version__ = '0.3.0'

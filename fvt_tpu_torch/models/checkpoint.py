@@ -1,0 +1,176 @@
+"""Loading a best model of a finished run into the port's LFAN.
+
+``fvt_tpu`` saves ``best-models/<case>/model.msgpack`` with flax's
+``serialization.to_bytes`` over ``{'params', 'batch_stats'}``: a msgpack
+map of str keys whose leaves are numpy arrays packed as msgpack ExtType 1
+(``(shape, dtype name, C-order bytes)``, flax's ``_ndarray_to_bytes``) or
+numpy scalars as ExtType 3 (the same payload, 0-d).  The machine the port
+runs on has neither flax nor the ``msgpack`` package, so
+:func:`msgpack_restore` reads that format in plain Python and gives what
+``flax.serialization.msgpack_restore`` gives.  Arrays above 1 GB, which
+flax writes in chunks (``__msgpack_chunked_array__``), raise: no model of
+the repo has one.
+
+:func:`load_best_model` takes that file through
+``from_jax.lfan_state_from_flax``, or an upstream ``model.pt`` through
+``torch.load`` with ``from_jax.is_dead_key``'s keys dropped, and loads the
+state_dict with ``strict=True`` (the counterpart of ``fvt_tpu``'s
+``Trainer.load_best_model`` and ``Experiment._load_torch_ckpt``).
+"""
+from __future__ import annotations
+
+import struct
+from typing import Any, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from fvt_tpu_torch.models.from_jax import is_dead_key, lfan_state_from_flax
+
+EXT_NDARRAY, EXT_COMPLEX, EXT_NPSCALAR = 1, 2, 3
+CHUNKED = '__msgpack_chunked_array__'
+
+
+class MsgpackError(ValueError):
+    pass
+
+
+class _Reader:
+    """A msgpack decoder over ``data``; ``raw`` keeps str as bytes (flax
+    decodes an array's payload so)."""
+
+    def __init__(self, data: bytes, raw: bool = False):
+        self.data = memoryview(data)
+        self.pos = 0
+        self.raw = raw
+
+    def take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.data):
+            raise MsgpackError(f'truncated at byte {self.pos}')
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str) -> int:
+        return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def str(self, n: int):
+        b = bytes(self.take(n))
+        return b if self.raw else b.decode('utf-8')
+
+    def ext(self, code: int, n: int) -> Any:
+        payload = bytes(self.take(n))
+        if code == EXT_NDARRAY:
+            return _ndarray(payload)
+        if code == EXT_NPSCALAR:
+            return _ndarray(payload)[()]
+        if code == EXT_COMPLEX:
+            real, imag = _Reader(payload).value()
+            return complex(real, imag)
+        raise MsgpackError(f'msgpack ExtType {code} is not a flax type')
+
+    def value(self) -> Any:
+        b = self.take(1)[0]
+        if b <= 0x7f:
+            return b
+        if b >= 0xe0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8f:
+            return self.map(b & 0x0f)
+        if 0x90 <= b <= 0x9f:
+            return self.array(b & 0x0f)
+        if 0xa0 <= b <= 0xbf:
+            return self.str(b & 0x1f)
+        simple = {0xc0: None, 0xc2: False, 0xc3: True}
+        if b in simple:
+            return simple[b]
+        sized = {0xc4: ('bin', '>B'), 0xc5: ('bin', '>H'), 0xc6: ('bin', '>I'),
+                 0xd9: ('str', '>B'), 0xda: ('str', '>H'), 0xdb: ('str', '>I'),
+                 0xdc: ('array', '>H'), 0xdd: ('array', '>I'),
+                 0xde: ('map', '>H'), 0xdf: ('map', '>I')}
+        if b in sized:
+            kind, fmt = sized[b]
+            n = self.unpack(fmt)
+            if kind == 'bin':
+                return bytes(self.take(n))
+            return getattr(self, kind)(n)
+        numbers = {0xca: '>f', 0xcb: '>d', 0xcc: '>B', 0xcd: '>H', 0xce: '>I',
+                   0xcf: '>Q', 0xd0: '>b', 0xd1: '>h', 0xd2: '>i', 0xd3: '>q'}
+        if b in numbers:
+            return self.unpack(numbers[b])
+        fixext = {0xd4: 1, 0xd5: 2, 0xd6: 4, 0xd7: 8, 0xd8: 16}
+        if b in fixext:
+            code = self.unpack('>b')
+            return self.ext(code, fixext[b])
+        if b in (0xc7, 0xc8, 0xc9):
+            n = self.unpack({0xc7: '>B', 0xc8: '>H', 0xc9: '>I'}[b])
+            return self.ext(self.unpack('>b'), n)
+        raise MsgpackError(f'byte 0x{b:02x} at {self.pos - 1} is no msgpack '
+                           f'type')
+
+    def array(self, n: int) -> list:
+        return [self.value() for _ in range(n)]
+
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            k = self.value()
+            out[k] = self.value()
+        return out
+
+
+def _ndarray(payload: bytes) -> np.ndarray:
+    """flax's ``_ndarray_from_bytes``: ``(shape, dtype name, bytes)``."""
+    reader = _Reader(payload, raw=True)
+    shape, name, buffer = reader.value()
+    name = name.decode() if isinstance(name, bytes) else name
+    if name == 'bfloat16':  # widened exactly: bf16 is fp32's top half
+        bits = np.frombuffer(buffer, dtype=np.uint16).astype(np.uint32)
+        return (bits << 16).view(np.float32).reshape(shape)
+    return np.frombuffer(buffer, dtype=np.dtype(name)).reshape(shape,
+                                                               order='C')
+
+
+def _refuse_chunks(tree: Any, path: str = '') -> None:
+    if isinstance(tree, dict):
+        if CHUNKED in tree:
+            raise MsgpackError(f'{path or "the root"}: a chunked array '
+                               f'(above 1 GB) is not read')
+        for k, v in tree.items():
+            _refuse_chunks(v, f'{path}/{k}')
+
+
+def msgpack_restore(data: bytes) -> Any:
+    """The tree ``flax.serialization.msgpack_restore(data)`` gives: nested
+    dicts of numpy arrays (read-only views of ``data``) and scalars."""
+    reader = _Reader(data)
+    tree = reader.value()
+    if reader.pos != len(reader.data):
+        raise MsgpackError(f'{len(reader.data) - reader.pos} bytes after the '
+                           f'object')
+    _refuse_chunks(tree)
+    return tree
+
+
+def read_flax_variables(path: str) -> Tuple[dict, dict]:
+    """(params, batch_stats) of a ``model.msgpack``."""
+    with open(path, 'rb') as f:
+        tree = msgpack_restore(f.read())
+    if not isinstance(tree, dict) or 'params' not in tree:
+        raise MsgpackError(f'{path}: no params tree')
+    return tree['params'], tree.get('batch_stats', {})
+
+
+def load_best_model(model: nn.Module, path: str,
+                    modality: Sequence[str]) -> None:
+    """Loads ``path`` (``model.msgpack`` of ``fvt_tpu``, or an upstream
+    ``model.pt``) into the port's LFAN ``model`` with ``strict=True``.
+    ``modality``: the model's modality order, leader first."""
+    if path.endswith('.msgpack'):
+        params, stats = read_flax_variables(path)
+        state = lfan_state_from_flax(params, stats, modality)
+    else:
+        sd = torch.load(path, map_location='cpu')
+        state = {k: v for k, v in sd.items() if not is_dead_key(k)}
+    model.load_state_dict(state, strict=True)

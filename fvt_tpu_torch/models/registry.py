@@ -1,0 +1,54 @@
+"""Model factory of the port (``fvt_tpu/models/registry.py``,
+``experiment.py:166-188``): the model a run's config names.
+
+LFAN is ported; CAN, JMT and MT are not yet (queue A3), nor the VGGish
+encoder of ``logmel`` (A3), nor int8 serving (``--serve_quant``, A5).
+``--amp`` builds the ArcFace backbone in bfloat16, as ``fvt_tpu`` does;
+the convolutions run on cuDNN, as ``fvt_tpu``'s CLI runs XLA's.
+``--pallas_serving`` is accepted and changes nothing: the port's eval
+runs the fused TCN and fusion kernels on the card in any case.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from fvt_tpu_torch import constants
+from fvt_tpu_torch.config import model_config as MC
+from fvt_tpu_torch.models.models import LFAN
+
+
+def split_modality(modality_str: str) -> list:
+    """'video+vggish+bert+EXPR_continuous_label' -> the model's modality
+    list (the label stream removed)."""
+    return [m for m in modality_str.split('+')
+            if 'continuous_label' not in m]
+
+
+def init_model(args, generator: Optional[torch.Generator] = None) -> LFAN:
+    """The model of ``args`` (a config namespace), its weights drawn from
+    ``generator`` (seeded from ``args.seed`` by default), on the CPU."""
+    name = args.model_name
+    if name != constants.LFAN:
+        raise NotImplementedError(f'{name} is not ported yet (queue A3): '
+                                  f'the port builds LFAN')
+    quant = getattr(args, 'serve_quant', 'none')
+    if quant != 'none':
+        raise NotImplementedError(f'--serve_quant {quant} is not ported '
+                                  f'yet (queue A5)')
+    modality = tuple(split_modality(args.modality))
+    if 'logmel' in modality:
+        raise NotImplementedError('the VGGish encoder of logmel is not '
+                                  'ported yet (queue A3)')
+    num_classes = args.num_classes
+    if args.dataset_name == constants.C_EXPR_DB and args.use_other_class:
+        num_classes += 1
+    dtype = torch.bfloat16 if getattr(args, 'amp', False) else torch.float32
+    if generator is None:
+        generator = torch.Generator().manual_seed(int(args.seed))
+    return LFAN(modality, output_dim=num_classes, task=args.task,
+                kernel_size=args.tcn_kernel_size,
+                tcn_channel=MC.TCN_CHANNELS, modal_dim=args.modal_dim,
+                num_heads=args.num_heads, generator=generator,
+                backbone_dtype=dtype)

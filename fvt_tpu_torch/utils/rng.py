@@ -44,3 +44,20 @@ def np_rng(seed: int, name: str = '', index: int = 0) -> np.random.Generator:
                                  _stable_hash(name) % MAX_SEED,
                                  index % MAX_SEED])
     return np.random.default_rng(ss)
+
+
+def epoch_seed(default_seed: int, counter: int) -> int:
+    """The observable per-epoch derived seed (``fvt_tpu``'s
+    ``epoch_seed``; upstream trainer.py:293-297)."""
+    return int((default_seed + counter) % MAX_SEED)
+
+
+def stable_shuffle(items: list, seed: int, rounds: int = 100) -> list:
+    """Deterministic multi-round shuffle of the train window list
+    (``fvt_tpu``'s ``stable_shuffle``, bit for bit): same list in, same
+    order out for a given seed, no global RNG touched."""
+    out = list(items)
+    rng = np_rng(seed, 'stable_shuffle')
+    for _ in range(rounds):
+        rng.shuffle(out)
+    return out

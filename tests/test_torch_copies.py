@@ -166,3 +166,134 @@ def test_streaming_copy_behaves_as_the_original():
             np.testing.assert_array_equal(gl, wl)
     for parts, n in zip(got, (40, 7, 29)):
         assert sum(len(p[1]) for p in parts) == n
+
+
+# ------------------------------------------------ copies of this slice
+def test_rng_shuffles_equal():
+    items = list(range(40))
+    for seed in (0, 3, 2 ** 32 + 1):
+        assert rng.stable_shuffle(items, seed, rounds=7) == \
+            jax_rng.stable_shuffle(items, seed, rounds=7)
+        assert rng.epoch_seed(seed, 5) == jax_rng.epoch_seed(seed, 5)
+
+
+def test_io_copy_reads_and_writes_as_the_original(tmp_path):
+    from fvt_tpu.utils import io as jax_io
+    from fvt_tpu_torch.utils import io
+
+    obj = {'a': np.arange(4), 'b': [1, 'x']}
+    io.save_pickle(obj, str(tmp_path / 'x' / 'o.pkl'))
+    got = jax_io.load_pickle(str(tmp_path / 'x' / 'o.pkl'))
+    np.testing.assert_array_equal(got['a'], obj['a'])
+    assert got['b'] == obj['b']
+    np.save(tmp_path / 'feat.npy', np.arange(6.0).reshape(3, 2))
+    for mmap in (True, False):
+        np.testing.assert_array_equal(
+            io.load_npy(str(tmp_path), 'feat', mmap),
+            jax_io.load_npy(str(tmp_path), 'feat', mmap))
+    assert io.npy_exists(str(tmp_path), 'feat') and \
+        not io.npy_exists(str(tmp_path), 'none')
+
+
+def test_tables_copy_draws_as_the_original():
+    from fvt_tpu.utils import tables as jax_tables
+    from fvt_tpu_torch.utils import tables
+
+    r = np.random.default_rng(1)
+    names = {i: f'class {i}' for i in range(4)}
+    mtx, vec = r.random((4, 4)), r.random(5)
+    assert tables.print_confusion_mtx(mtx, names) == \
+        jax_tables.print_confusion_mtx(mtx, names)
+    assert tables.print_vector(vec, names) == \
+        jax_tables.print_vector(vec, names)
+    rows = [['a', 1.5, None], ['-', 2, 'x']]
+    assert tables.draw_table(['h', 'f', 't'], rows, ['t', 'f', 't'], 3) == \
+        jax_tables.draw_table(['h', 'f', 't'], rows, ['t', 'f', 't'], 3)
+
+
+def test_logger_copy_logs_as_the_original(tmp_path):
+    import json
+    from fvt_tpu.utils import logger as jax_logger
+    from fvt_tpu_torch.utils import logger
+
+    def defined(mod):
+        return {k for k, v in vars(mod).items() if not k.startswith('_')
+                and getattr(v, '__module__', None) == mod.__name__}
+
+    assert defined(jax_logger) - defined(logger) == {'enable_jit_cache'}
+    assert defined(logger) <= defined(jax_logger)
+    records = []
+    for mod, d in ((logger, tmp_path / 'port'), (jax_logger, tmp_path / 'j')):
+        mod.init_logger(str(d), verbose=False)
+        mod.log(mod.fmsg('start'))
+        mod.get_logger().metrics({'f1': 0.5}, step=3)
+        mod.init_logger(None, verbose=False)
+        with open(d / 'log.json') as f:
+            recs = [json.loads(line) for line in f]
+        with open(d / 'log.txt') as f:
+            lines = [line.split('] ', 1)[1] for line in f
+                     if line.startswith('[')]
+        for rec in recs:
+            del rec['t'], rec['elapsed']
+        records.append((recs, lines))
+    assert records[0] == records[1]
+
+
+def test_version_copy_checks_as_the_original():
+    from fvt_tpu.preprocess import version as jax_version
+    from fvt_tpu_torch.preprocess import version
+
+    assert (version.EXTRACTOR_VERSION, version.CHANGELOG,
+            version.STAMP_KEY) == (jax_version.EXTRACTOR_VERSION,
+                                   jax_version.CHANGELOG,
+                                   jax_version.STAMP_KEY)
+    for info in ({}, version.stamp({}), {version.STAMP_KEY: 1}):
+        assert version.check(dict(info), 'x.pkl') == \
+            jax_version.check(dict(info), 'x.pkl')
+
+
+def test_metrics_copy_computes_as_the_original():
+    from fvt_tpu.train import metrics as jax_metrics
+    from fvt_tpu_torch.train import metrics
+
+    r = np.random.default_rng(2)
+    x = r.normal(size=(20, 8)).astype(np.float32) * 40
+    np.testing.assert_array_equal(metrics.softmax(x),
+                                  jax_metrics.softmax(x))
+    t, p = r.integers(0, 6, 50).tolist(), r.integers(0, 7, 50).tolist()
+    for kind in (constants.W_F1, constants.MACRO_F1):
+        got, want = (metrics.compute_f1_score(t, p, kind),
+                     jax_metrics.compute_f1_score(t, p, kind))
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
+    assert metrics.compute_class_acc(t, p) == \
+        jax_metrics.compute_class_acc(t, p)
+    np.testing.assert_array_equal(metrics.compute_confusion_matrix(t, p),
+                                  jax_metrics.compute_confusion_matrix(t, p))
+    with pytest.raises(NotImplementedError, match='A3'):
+        metrics.compute_regression_perf({})
+
+
+def test_fvt_store_cpp_is_the_original_but_its_header_comment():
+    """The copy differs from native/fvt_store.cpp in two lines of its
+    header comment only (the disk contract's source and how it is built):
+    2 lines out, 3 in, all comments above the first #include."""
+    import difflib
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, 'native', 'fvt_store.cpp')) as f:
+        original = f.read().splitlines()
+    with open(os.path.join(repo, 'fvt_tpu_torch', 'native',
+                           'fvt_store.cpp')) as f:
+        copy = f.read().splitlines()
+    head = original.index('#include <cstdint>')
+    assert copy[copy.index('#include <cstdint>'):] == original[head:]
+    removed = [ln[2:] for ln in difflib.ndiff(original, copy)
+               if ln.startswith('- ')]
+    added = [ln[2:] for ln in difflib.ndiff(original, copy)
+             if ln.startswith('+ ')]
+    assert (len(removed), len(added)) == (2, 3)
+    assert all(ln.startswith('//') for ln in removed + added)
+    assert added[0] == ('// (the disk contract of the upstream '
+                        'base/dataset.py:603-619).  The')

@@ -1,7 +1,8 @@
-"""The port needs neither JAX, flax, PyYAML nor anything of fvt_tpu (its
-serving and training paths, every conv path of the ArcFace backbone and
-its tools run with all four blocked), and chip_smoke.py refuses to run
-without a CUDA card."""
+"""The port needs neither JAX, flax, PyYAML, msgpack nor anything of
+fvt_tpu (its serving and training paths, every conv path of the ArcFace
+backbone, its tools and the challenge inference CLI on a store of its own
+synthetic writer run with all five blocked), and chip_smoke.py refuses to
+run without a CUDA card."""
 import os
 import re
 import subprocess
@@ -14,7 +15,7 @@ NO_JAX = textwrap.dedent('''
     import importlib.abc
     import sys
 
-    BLOCKED = ('jax', 'jaxlib', 'flax', 'yaml', 'fvt_tpu')
+    BLOCKED = ('jax', 'jaxlib', 'flax', 'yaml', 'msgpack', 'fvt_tpu')
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -82,15 +83,44 @@ NO_JAX = textwrap.dedent('''
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     assert 0 < (got - want).abs().max() < 2e-2, (got - want).abs().max()
 
+    import os
+    import tempfile
+    from fvt_tpu_torch.config import flat_yaml
+    from fvt_tpu_torch.config.defaults import get_config, to_namespace
+    from fvt_tpu_torch.inference_challenge import main
+    from fvt_tpu_torch.models.registry import init_model
+    from fvt_tpu_torch.tools.synth_store import make_cexpr_store
+
+    with tempfile.TemporaryDirectory() as root:
+        store = make_cexpr_store(os.path.join(root, 'store'), [5, 13])
+        run = os.path.join(root, 'run')
+        os.makedirs(os.path.join(run, 'best-models', 'case'))
+        cfg = get_config('MELD')
+        cfg.update(modality='vggish+bert+EXPR_continuous_label',
+                   window_length=8, hop_length=4, eval_bucket_quantum=8,
+                   verbose=False)
+        flat_yaml.dump(cfg, os.path.join(run, 'config.yml'))
+        torch.save(init_model(to_namespace(cfg)).state_dict(),
+                   os.path.join(run, 'best-models', 'case', 'model.pt'))
+        exp = main(['--mode', 'EVALUATION', '--fd_exp', run,
+                    '--dataset_path', store['dataset_path'],
+                    '--folds_dir', store['folds_dir']], device='cpu')
+        assert exp.trainer.last_inference_timing['h2d_bytes'] > 0
+        assert os.path.isfile(os.path.join(
+            run, 'eval-C-EXPR-DB-CHALLENGE', 'pred-C-EXPR-DB-CHALLENGE',
+            'prediction.pkl'))
+
     import chip_smoke
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
     assert not leaked, leaked
     print('served', out.shape, 'trained', len(variants), 'backbones')
 ''')
 
-# an import of jax, flax, yaml or fvt_tpu (not fvt_tpu_torch), at any depth
+# an import of jax, flax, yaml, msgpack or fvt_tpu (not fvt_tpu_torch), at
+# any depth
 FORBIDDEN_IMPORT = re.compile(
-    r'^\s*(?:import|from)\s+(?:jax|jaxlib|flax|yaml|fvt_tpu)(?![\w])',
+    r'^\s*(?:import|from)\s+(?:jax|jaxlib|flax|yaml|msgpack|fvt_tpu)'
+    r'(?![\w])',
     re.MULTILINE)
 
 
@@ -116,13 +146,18 @@ def test_no_port_source_imports_jax_or_fvt_tpu():
     assert {'fvt_tpu_torch/ops/conv.py', 'fvt_tpu_torch/ops/winograd.py',
             'fvt_tpu_torch/models/arcface.py',
             'fvt_tpu_torch/ops/bottleneck.py',
-            'fvt_tpu_torch/tools/profile_backbone.py'} <= names
+            'fvt_tpu_torch/tools/profile_backbone.py',
+            'fvt_tpu_torch/inference_challenge.py',
+            'fvt_tpu_torch/config/flat_yaml.py',
+            'fvt_tpu_torch/models/checkpoint.py',
+            'fvt_tpu_torch/data/loader.py'} <= names
     for path in paths:
         with open(path) as f:
             found = FORBIDDEN_IMPORT.findall(f.read())
         assert not found, (os.path.relpath(path, REPO), found)
     assert FORBIDDEN_IMPORT.search('    from fvt_tpu.data import windowing')
     assert FORBIDDEN_IMPORT.search('import jax.numpy as jnp')
+    assert FORBIDDEN_IMPORT.search('import msgpack')
     assert not FORBIDDEN_IMPORT.search('from fvt_tpu_torch import constants')
 
 
