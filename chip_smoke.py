@@ -110,7 +110,24 @@ Phases, each of which raises on failure (exit code 1):
    kernel, and B1 and B2 at every (B, T) the run launched them at (and at
    T = 100, 200 and B = 1, which a window of 300 never gives) against
    their plain versions at the phase-2 gate; the CLI's wall, served
-   frames/s, the pass's timing by phase and the peak device memory.
+   frames/s, the pass's timing by phase and the peak device memory;
+7. the training run: ``fvt_tpu_torch.main`` on the card over a synthetic
+   C-EXPR-DB store of 40 train and 10 val videos of 300 to 1800 frames
+   (``tools/synth_store.py``; the videos labelled Other are left out, as
+   without ``--use_other_class``), the full-width ``vggish+bert`` LFAN,
+   window 300, hop 200, batch 16, default SGD, MYSTEP and dropouts, 3
+   epochs with a checkpoint each, then ``passed.txt`` removed and the run
+   resumed to 4 epochs: the run directory's files, the resumed run's log
+   (the restore, no epoch 0, epoch 3 trained), 8 B3a and 8 B3b calls a
+   step and 8 B1 and 1 B2 launches a validation or test forward and no
+   other kernel, B1 and B2 at every (B, T) the eval passes launched and
+   B3a/B3b at the ragged last batch against their plain versions at the
+   phase-2 gate, and ``best-models/None/model.msgpack`` read back through
+   ``inference_challenge`` (``load_best_model`` into a fresh LFAN,
+   ``Trainer.inference`` on the val split) within 1e-4 of the run's test
+   pass; each epoch's wall (and by phase), trained frames/s, each
+   validation pass's wall, each checkpoint save and best-model write, the
+   set-up walls, the peak device memory.
 
 Everything runs in float32 with TF32 off for matmuls and cuDNN, except the
 bfloat16 backbone and its kernel, which say so.  The last
@@ -210,6 +227,14 @@ CHALLENGE_LENGTHS = (60, 90, 150, 240, 299, 300, 301, 450, 700, 1000, 1500,
 CHALLENGE_QUANTUM = 100
 # (B, T) at which phase 6 also holds B1 and B2, beyond those the run gives
 CHALLENGE_EXTRA_SHAPES = ((32, 100), (3, 200), (1, 300))
+# phase 7: a C-EXPR-DB training store of 40 train and 10 val videos of
+# 300 to 1800 frames (drawn from the seed), trained for RUN_EPOCHS with a
+# checkpoint each epoch, then resumed to RESUMED_EPOCHS
+TRAIN_STORE_VIDEOS, VAL_STORE_VIDEOS = 40, 10
+TRAIN_STORE_LENGTHS = (300, 1800)
+RUN_EPOCHS, RESUMED_EPOCHS = 3, 4
+# a best model read back against the run's test pass
+READBACK_ATOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -2306,21 +2331,26 @@ def train_mfcc_lfan(device) -> dict:
 
 class ShapeRecorder:
     """Records, while installed, the (B, T) of every TemporalConvNet call
-    (four B1 launches each) and every fusion call (one B2 launch) of any
-    model, through a global forward pre-hook: the CLI builds its model
-    itself."""
+    (four B1 launches each at eval) and every fusion call (one B2 launch
+    at eval) of any model, through a global forward pre-hook: the CLIs
+    build their models themselves.  Eval calls go to ``tcn`` and
+    ``fusion``, train-mode calls (``train=True``, B3a and B3b in each
+    block) to ``tcn_train`` and ``fusion_train``."""
 
     def __enter__(self):
         from fvt_tpu_torch.models.fusion import MultimodalTransformerEncoder
         from fvt_tpu_torch.models.tcn import TemporalConvNet
         self.tcn, self.fusion = [], []
+        self.tcn_train, self.fusion_train = [], []
 
         def hook(module, args):
+            train = len(args) > 1 and bool(args[1])
             if isinstance(module, TemporalConvNet):
-                self.tcn.append(tuple(args[0].shape[:2]))
+                (self.tcn_train if train else self.tcn).append(
+                    tuple(args[0].shape[:2]))
             elif isinstance(module, MultimodalTransformerEncoder):
-                self.fusion.append(tuple(next(iter(args[0].values()))
-                                         .shape[:2]))
+                (self.fusion_train if train else self.fusion).append(
+                    tuple(next(iter(args[0].values())).shape[:2]))
 
         self.handle = torch.nn.modules.module \
             .register_module_forward_pre_hook(hook)
@@ -2372,10 +2402,10 @@ def challenge_reference(model, store: dict, mean_std: dict, device) -> dict:
     return out
 
 
-def check_at_shapes(model, shapes, device) -> None:
-    """B1 at each of the model's 12 blocks and B2 at each (B, T) of
-    ``shapes``, on random inputs, against their plain versions at the
-    phase-2 gate."""
+def check_at_shapes(model, shapes, device, modality=MODALITY) -> None:
+    """B1 at each of the model's blocks (12 for the tri-modal LFAN) and B2
+    at each (B, T) of ``shapes``, on random inputs, against their plain
+    versions at the phase-2 gate."""
     from fvt_tpu_torch.ops import tcn as tcn_ops
 
     g = torch.Generator(device=device).manual_seed(SEED + 6)
@@ -2383,7 +2413,7 @@ def check_at_shapes(model, shapes, device) -> None:
         for b, t in shapes:
             errs = []
             feats = {}
-            for m in MODALITY:
+            for m in modality:
                 net = model.temporal[m]
                 x = torch.randn(b, t, net.network[0].conv1.weight_v.shape[1],
                                 device=device, generator=g)
@@ -2554,6 +2584,304 @@ def challenge_inference(device) -> dict:
         del exp, model
     torch.cuda.empty_cache()
     return {'tcn_block': launches['tcn_block'], 'fusion': launches['fusion']}
+
+
+def check_train_at_shape(b: int, t: int, device, k: int = 5) -> float:
+    """B3a and B3b (``fused_temporal_block_train``) at the 8 blocks of the
+    ``vggish+bert`` LFAN at (b, t): the forward's output and the six
+    gradients against autograd of the plain version at the phase-2 gate.
+    Returns the largest error."""
+    from fvt_tpu_torch.ops import tcn as tcn_ops
+
+    g = torch.Generator(device=device).manual_seed(SEED + 9)
+    worst = 0.0
+    for name, _, _, cin, cout, d in train_block_shapes(k):
+        def randn(*shape, scale=1.0):
+            return torch.randn(*shape, device=device, generator=g) * scale
+
+        def mask():
+            keep = torch.full((b, t, cout), 1.0 - TCN_DROPOUT, device=device)
+            return torch.bernoulli(keep, generator=g) / (1.0 - TCN_DROPOUT)
+
+        a = {'x': randn(b, t, cin),
+             'w1': randn(k, cin, cout, scale=(k * cin) ** -0.5),
+             'b1': randn(cout, scale=0.1),
+             'w2': randn(k, cout, cout, scale=(k * cout) ** -0.5),
+             'b2': randn(cout, scale=0.1), 'res': randn(b, t, cout)}
+        m1, m2, a['res'] = away_from_kink(
+            a['x'], a['w1'], a['b1'], a['w2'], a['b2'], mask(), mask(),
+            a['res'], d)
+        cot = randn(b, t, cout)
+        for v in a.values():
+            v.requires_grad_(True)
+        args = (a['x'], a['w1'], a['b1'], a['w2'], a['b2'], m1, m2, a['res'])
+        kw = dict(kernel_size=k, dilation=d)
+        leaves = list(a.values())
+        want = tcn_ops.fused_temporal_block_train_ref(*args, **kw)
+        want_g = torch.autograd.grad(want, leaves, cot)
+        got = tcn_ops.fused_temporal_block_train(*args, **kw)
+        worst = max(worst, compare(
+            f'tcn_block_train {name} ({b},{t},{cin})->{cout} d={d}',
+            got.detach(), want.detach()))
+        for n, gg, wg in zip(a, torch.autograd.grad(got, leaves, cot),
+                             want_g):
+            check = compare if n in ('x', 'res') else compare_sum
+            worst = max(worst, check(f'  d{n}', gg, wg))
+    return worst
+
+
+class MethodTimer:
+    """Records, while installed, the wall of each call of the given
+    methods (``{label: (owner, attribute name, attribute read after the
+    call or None)}``): the run loop's epochs, validation passes,
+    checkpoint saves and best-model writes, from inside the CLI.  Each
+    ends on the host with its results, so the host clock holds the
+    device's time too.  ``calls[label]`` lists (start, wall, the attribute
+    read from the call's first argument)."""
+
+    def __init__(self, methods: dict):
+        self.methods = methods
+        self.calls = {label: [] for label in methods}
+
+    def __enter__(self):
+        self.saved = []
+        for label, (owner, attr, after) in self.methods.items():
+            fn = getattr(owner, attr)
+            self.saved.append((owner, attr, fn))
+
+            def timed(*a, _fn=fn, _label=label, _after=after, **kw):
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                wall = time.perf_counter() - t0
+                self.calls[_label].append(
+                    (t0, wall, getattr(a[0], _after) if _after else None))
+                return out
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self.saved:
+            setattr(owner, attr, fn)
+
+
+def training_run(device) -> dict:
+    """Phase 7.  Returns the launches of B1, B2, B3a and B3b over the
+    CLI's two runs."""
+    import os
+    import pickle
+    import tempfile
+    from fvt_tpu_torch import inference_challenge
+    from fvt_tpu_torch import main as train_cli
+    from fvt_tpu_torch.ops.fusion import (fused_multimodal_fusion,
+                                          fused_multimodal_fusion_simt)
+    from fvt_tpu_torch.ops.tcn import (fused_temporal_block,
+                                       fused_temporal_block_simt,
+                                       fused_temporal_block_train as block,
+                                       fused_temporal_block_train_simt as
+                                       simt)
+    from fvt_tpu_torch.tools.synth_store import make_cexpr_store
+    from fvt_tpu_torch.train import checkpoint, trainer
+
+    rng = np.random.default_rng(SEED + 8)
+    lo, hi = TRAIN_STORE_LENGTHS
+    lengths = [int(n) for n in rng.integers(lo, hi + 1, TRAIN_STORE_VIDEOS)]
+    val_lengths = [int(n) for n in rng.integers(lo, hi + 1,
+                                                VAL_STORE_VIDEOS)]
+    modality = '+'.join(TRAIN_MODALITY)
+    counters = {'tcn_block': fused_temporal_block,
+                'tcn_block_simt': fused_temporal_block_simt,
+                'fusion': fused_multimodal_fusion,
+                'fusion_simt': fused_multimodal_fusion_simt,
+                **conv_counters()}
+
+    def zero():
+        zero_launches(counters)
+        for fn in (block, simt):
+            fn.launches_fwd = fn.launches_bwd = 0
+
+    def read():
+        out = read_launches(counters)
+        out.update(tcn_block_train=block.launches_fwd,
+                   tcn_block_bwd=block.launches_bwd,
+                   tcn_block_train_simt=simt.launches_fwd,
+                   tcn_block_bwd_simt=simt.launches_bwd)
+        return out
+
+    timer_methods = {
+        'epoch': (trainer.Trainer, 'train_one_epoch', 'last_epoch_timing'),
+        'inference': (trainer.Trainer, 'inference', None),
+        'save': (checkpoint.Checkpointer, 'save', None),
+        'restore': (checkpoint.Checkpointer, 'restore', None),
+        'best_model': (trainer, 'save_best_model', None)}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        store = make_cexpr_store(os.path.join(root, 'store'), lengths,
+                                 ds='C-EXPR-DB', val_lengths=val_lengths,
+                                 seed=SEED)
+        print(f'  C-EXPR-DB store: {len(lengths)} train videos '
+              f'({sum(lengths)} frames), {len(val_lengths)} val videos '
+              f'({sum(val_lengths)} frames), written in '
+              f'{time.perf_counter() - t0:.2f} s')
+        outd = os.path.join(root, 'run')
+        argv = ['--dataset_name', 'C-EXPR-DB',
+                '--dataset_path', store['dataset_path'],
+                '--folds_dir', store['folds_dir'],
+                '--modality', f'{modality}+EXPR_continuous_label',
+                '--model_name', 'LFAN', '--window_length', str(WINDOW),
+                '--hop_length', str(HOP), '--train_batch_size',
+                str(TRAIN_BATCH), '--seed', str(SEED),
+                '--checkpoint_every', '1', '--outd', outd]
+
+        runs = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        for name, extra in (('first', ['--num_epochs', str(RUN_EPOCHS)]),
+                            ('resumed', ['--num_epochs', str(RESUMED_EPOCHS),
+                                         '--resume', 'true'])):
+            with ShapeRecorder() as rec, MethodTimer(timer_methods) as tm:
+                t0 = time.perf_counter()
+                exp = train_cli.main(argv + extra, device=device)
+                runs[name] = dict(wall=time.perf_counter() - t0, t0=t0,
+                                  rec=rec, calls=tm.calls,
+                                  trainer=exp.trainer)
+            if name == 'first':
+                files = sorted(os.path.relpath(os.path.join(d, f), outd)
+                               for d, _, fs in os.walk(outd) for f in fs)
+                os.remove(os.path.join(outd, 'passed.txt'))
+        launches = read()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        want_files = sorted(
+            ['config.yml', 'log.json', 'log.txt', 'passed.txt',
+             'test-None-perf.txt', 'test-None-perf.pkl',
+             'pred-per-frame-test-None-perf.pkl',
+             'best-models/None/model.msgpack', 'best-models/None/config.yml']
+            + [f'checkpoints/{kind}_{e}.{ext}'
+               for e in (RUN_EPOCHS - 2, RUN_EPOCHS - 1)
+               for kind, ext in (('state', 'pt'), ('meta', 'pkl'))])
+        print(f'  run directory after {RUN_EPOCHS} epochs: {files}')
+        if files != want_files:
+            fail(f'the run directory holds {files}, not {want_files}')
+        with open(os.path.join(outd, 'log.txt')) as f:
+            log = f.read()
+        resumed_log = log[log.rindex('Starting experiment'):]
+        for line, present in (
+                (f'restored checkpoint from epoch {RUN_EPOCHS - 1}', True),
+                (f'Train epoch (0/{RESUMED_EPOCHS})', False),
+                (f'Train epoch ({RESUMED_EPOCHS - 1}/{RESUMED_EPOCHS})',
+                 True)):
+            if (line in resumed_log) != present:
+                fail(f'the resumed run\'s log {"lacks" if present else "has"}'
+                     f' {line!r}')
+        losses = runs['resumed']['trainer'].loss_tracker
+        print(f'  the resumed run restored epoch {RUN_EPOCHS - 1} and trained '
+              f'epoch {RESUMED_EPOCHS - 1}; epoch losses {losses}')
+        if len(losses) != RESUMED_EPOCHS or not np.all(np.isfinite(losses)):
+            fail(f'expected {RESUMED_EPOCHS} finite epoch losses, got '
+                 f'{losses}')
+
+        # launches: 8 B3a and 8 B3b calls a step; 8 B1 and 1 B2 a forward
+        steps = frames = forwards = 0
+        train_shapes, eval_shapes = set(), set()
+        for run in runs.values():
+            rec = run['rec']
+            steps += len(rec.fusion_train)
+            frames += sum(b * t for b, t in rec.fusion_train)
+            forwards += len(rec.fusion)
+            train_shapes |= set(rec.fusion_train)
+            eval_shapes |= set(rec.fusion)
+            if sorted(set(rec.tcn)) != sorted(set(rec.fusion)) or \
+                    len(rec.tcn) != len(TRAIN_MODALITY) * len(rec.fusion) or \
+                    len(rec.tcn_train) != len(TRAIN_MODALITY) * len(
+                        rec.fusion_train):
+                fail('the TCN and the fusion ran at other shapes or counts')
+        want = {k: 0 for k in launches}
+        want.update(tcn_block=8 * forwards, fusion=forwards,
+                    tcn_block_train=8 * steps, tcn_block_bwd=8 * steps)
+        print(f'  {steps} training steps, {forwards} eval forwards; '
+              f'launches {launches}')
+        if steps < 1 or forwards < 1 or launches != want:
+            fail(f'expected 8 B3a and 8 B3b calls a step, 8 B1 and 1 B2 '
+                 f'launches a forward and no other kernel, got {launches}')
+        trained = runs['resumed']['trainer'].train_step.step
+        if trained != steps:
+            fail(f'the resumed trainer counts {trained} steps, the run '
+                 f'took {steps}')
+
+        # times, from inside the CLI
+        for name, run in runs.items():
+            calls = run['calls']
+            epochs = [w for _, w, _ in calls['epoch']]
+            ntrain = len(run['rec'].fusion_train)
+            nframes = sum(b * t for b, t in run['rec'].fusion_train)
+            print(f'  {name} run: CLI wall {run["wall"]:.3f} s; epochs '
+                  + ', '.join(f'{w:.3f}' for w in epochs) + f' s; {ntrain} '
+                  f'steps, {nframes} frames: '
+                  f'{nframes / max(sum(epochs), 1e-9):.1f} trained frames/s '
+                  f'over the epochs; validation and test passes '
+                  + ', '.join(f'{w:.3f}' for _, w, _ in calls['inference'])
+                  + ' s; checkpoint saves '
+                  + ', '.join(f'{w:.3f}' for _, w, _ in calls['save'])
+                  + ' s; best-model writes '
+                  + ', '.join(f'{w * 1e3:.1f}' for _, w, _ in
+                              calls['best_model']) + ' ms')
+            print('    epochs by phase (s): ' + '; '.join(
+                ', '.join(f'{k} {v:.3f}' for k, v in t.items())
+                for _, _, t in calls['epoch']))
+        first = runs['first']
+        print(f'  first run: set-up wall '
+              f'{first["calls"]["inference"][0][0] - first["t0"]:.3f} s (CLI '
+              f'start to its first validation pass)')
+        resumed = runs['resumed']
+        first_epoch = resumed['calls']['epoch'][0][0]
+        print(f'  resume: set-up wall {first_epoch - resumed["t0"]:.3f} s '
+              f'(CLI start to its first epoch, in the same process), of it '
+              f'the restore {resumed["calls"]["restore"][0][1]:.3f} s; peak '
+              f'device memory {peak:.2f} GiB')
+        print(f'  (B, T) trained: {sorted(train_shapes)}; (B, T) of the '
+              f'eval forwards: {sorted(eval_shapes)}')
+
+        # each kernel at the shapes the run gave it
+        model = runs['resumed']['trainer'].model
+        check_at_shapes(model, sorted(eval_shapes,
+                                      key=lambda bt: (bt[1], bt[0])),
+                        device, modality=TRAIN_MODALITY)
+        ragged = [bt for bt in train_shapes if bt != (TRAIN_BATCH, WINDOW)]
+        if not ragged:
+            fail('the run gave no ragged last batch to check B3 at')
+        for b, t in ragged:
+            err = check_train_at_shape(b, t, device)
+            print(f'  B3a and B3b at the ragged batch ({b},{t}): max error '
+                  f'{err:.3e}')
+
+        # the best model read back through the challenge CLI: load_best_model
+        # into a fresh LFAN, Trainer.inference on the val split
+        evald = os.path.join(root, 'eval')
+        inference_challenge.main(
+            ['--mode', 'EVALUATION', '--fd_exp', outd, '--target_ds_name',
+             'C-EXPR-DB', '--eval_set', 'test', '--case_best_model', 'None',
+             '--dataset_path', store['dataset_path'], '--folds_dir',
+             store['folds_dir'], '--outd', evald], device=device)
+        with open(os.path.join(evald, 'pred-per-frame-eval-test.pkl'),
+                  'rb') as f:
+            got = pickle.load(f)
+        with open(os.path.join(outd, 'pred-per-frame-test-None-perf.pkl'),
+                  'rb') as f:
+            want_pred = pickle.load(f)
+        if list(got) != list(want_pred):
+            fail('the read-back pass covers other videos')
+        err = max(float(np.abs(got[v]['logits'] - want_pred[v]['logits'])
+                        .max()) for v in want_pred)
+        print(f'  best model read back from model.msgpack: logits within '
+              f'{err:.3e} of the run\'s test pass (atol {READBACK_ATOL})')
+        if err > READBACK_ATOL:
+            fail(f'the read-back best model\'s logits differ by {err}')
+        del runs, model, exp
+    torch.cuda.empty_cache()
+    return {'tcn_block': launches['tcn_block'], 'fusion': launches['fusion'],
+            'tcn_block_train': launches['tcn_block_train'],
+            'tcn_block_bwd': launches['tcn_block_bwd']}
 
 
 def main() -> int:
@@ -2751,6 +3079,12 @@ def main() -> int:
           'fvt_tpu_torch.inference_challenge')
     for name, n in challenge_inference(device).items():
         by_name[name]['launches_challenge'] = n
+
+    print(f'phase 7: training {"+".join(TRAIN_MODALITY)} through '
+          f'fvt_tpu_torch.main on a C-EXPR-DB store, {RUN_EPOCHS} epochs '
+          f'with checkpoints, then resumed to {RESUMED_EPOCHS}')
+    for name, n in training_run(device).items():
+        by_name[name]['launches_train_run'] = n
 
     print(card)
     print(json.dumps({'kernels': kernels}))

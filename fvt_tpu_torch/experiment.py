@@ -1,13 +1,14 @@
-"""Experiment orchestration of the port: prepare -> run_eval
+"""Experiment orchestration of the port: prepare -> run / run_eval
 (``fvt_tpu/experiment.py``).
 
 Loads the per-split ``dataset_info_{ds}_{split}.pkl`` (with C-EXPR-DB's
 test := valid and the challenge's train == valid == test), builds the
 DataArranger, computes or reads the fold's mean/std, the model, the
-loaders and the Trainer, loads a best model and runs the eval pass.  The
-training run (``run``: the loop with validation and best models) is not
-ported yet.  Everything runs on the card unless ``device='cpu'`` is
-passed.
+loaders and the Trainer; then trains (``run``: the run loop, from an
+upstream ``model.pt`` with ``--pretrained_torch_ckpt``, with checkpoints
+every ``--checkpoint_every`` epochs and ``--resume``) or loads a best
+model and runs the eval pass (``run_eval``).  Everything runs on the card
+unless ``device='cpu'`` is passed.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from fvt_tpu_torch.data.loader import EvalLoader, TrainLoader
 from fvt_tpu_torch.models.checkpoint import load_best_model
 from fvt_tpu_torch.models.registry import init_model, split_modality
 from fvt_tpu_torch.preprocess.version import check
+from fvt_tpu_torch.train.checkpoint import Checkpointer
 from fvt_tpu_torch.train.steps import resolve_device
 from fvt_tpu_torch.train.trainer import Trainer
 from fvt_tpu_torch.utils.io import load_pickle, save_pickle
@@ -44,7 +46,7 @@ class Experiment:
         self.dataset_info: Optional[dict] = None
         self.data_arranger: Optional[DataArranger] = None
         self.mean_std_dict: Optional[dict] = None
-        self.trainer: Optional[Trainer] = None  # of the last run_eval
+        self.trainer: Optional[Trainer] = None  # of the last run(_eval)
 
     # ---------------------------------------------------------------- setup
     def load_dataset_info(self) -> dict:
@@ -164,18 +166,47 @@ class Experiment:
         return loaders
 
     def init_trainer(self) -> Trainer:
-        return Trainer(init_model(self.args), vars(self.args), self.device)
+        return Trainer(init_model(self.args), vars(self.args), self.device,
+                       int_to_cl=self.data_arranger.int_to_cl)
 
     # ------------------------------------------------------------------ run
+    def run(self) -> Trainer:
+        """TRAINING: the run loop over the fold's train, val and test
+        splits (upstream experiment.py:208-227)."""
+        assert self.args.task == constants.CLASSIFICATION, self.args.task
+        loaders = self.init_loaders()
+        trainer = self.init_trainer()
+        if getattr(self.args, 'pretrained_torch_ckpt', None):
+            self.load_weights(trainer, self.args.pretrained_torch_ckpt)
+
+        checkpointer = None
+        every = getattr(self.args, 'checkpoint_every', 0)
+        if every or getattr(self.args, 'resume', False):
+            checkpointer = Checkpointer(self.args.outd, every=every or 1)
+            checkpointer.allow_restore = bool(self.args.resume)
+
+        self.trainer = trainer
+        trainer.optimize(loaders[constants.TRAINSET],
+                         loaders[constants.VALIDSET],
+                         loaders[constants.TESTSET],
+                         checkpointer=checkpointer)
+        return trainer
+
+    def load_weights(self, trainer: Trainer, path: str) -> None:
+        """``fvt_tpu``'s ``model.msgpack`` or an upstream ``model.pt`` (its
+        dead keys dropped, as ``--pretrained_torch_ckpt`` takes it) into
+        the live model."""
+        load_best_model(trainer.model, path,
+                        split_modality(self.args.modality))
+        log(f"Loaded weights from {path}")
+
     def run_eval(self, path_model: str):
         """EVALUATION: load a saved best model and run the eval pass over
         ``--eval_set`` (upstream experiment.py:222-269)."""
         loaders = self.init_loaders()
         trainer = self.init_trainer()
         assert os.path.isfile(path_model), path_model
-        load_best_model(trainer.model, path_model,
-                        split_modality(self.args.modality))
-        log(f"Loaded weights from {path_model}")
+        self.load_weights(trainer, path_model)
 
         # on the challenge dataset every split is the whole store; on the
         # others the flag picks the split

@@ -1,4 +1,5 @@
-"""Loading a best model of a finished run into the port's LFAN.
+"""Best models of a run in ``fvt_tpu``'s format: read into the port's
+LFAN, and written from it.
 
 ``fvt_tpu`` saves ``best-models/<case>/model.msgpack`` with flax's
 ``serialization.to_bytes`` over ``{'params', 'batch_stats'}``: a msgpack
@@ -16,17 +17,31 @@ the repo has one.
 ``torch.load`` with ``from_jax.is_dead_key``'s keys dropped, and loads the
 state_dict with ``strict=True`` (the counterpart of ``fvt_tpu``'s
 ``Trainer.load_best_model`` and ``Experiment._load_torch_ckpt``).
+
+:func:`msgpack_dumps` is the writer of that format, the inverse of
+:func:`msgpack_restore`: what ``msgpack.packb(tree, default=flax's ext
+packer, strict_types=True)`` gives, byte for byte (every ndarray as
+ExtType 1 over the msgpack of ``(shape, dtype name, C-order bytes)``,
+numpy scalars as ExtType 3, each int and length in its smallest msgpack
+form, Python floats as float64).  Dicts are packed in their own order;
+nothing is chunked, as flax chunks only arrays above 1 GB.
+:func:`save_best_model` writes ``{'params', 'batch_stats'}`` from
+``to_jax.lfan_flax_from_state``, whose trees are keyed in sorted order
+as ``fvt_tpu``'s ``jax.tree.map`` leaves them: the bytes of
+``flax.serialization.to_bytes`` in ``fvt_tpu``'s ``Trainer.optimize``.
 """
 from __future__ import annotations
 
+import os
 import struct
-from typing import Any, Sequence, Tuple
+from typing import Any, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from fvt_tpu_torch.models.from_jax import is_dead_key, lfan_state_from_flax
+from fvt_tpu_torch.models.to_jax import lfan_flax_from_state
 
 EXT_NDARRAY, EXT_COMPLEX, EXT_NPSCALAR = 1, 2, 3
 CHUNKED = '__msgpack_chunked_array__'
@@ -174,3 +189,112 @@ def load_best_model(model: nn.Module, path: str,
         sd = torch.load(path, map_location='cpu')
         state = {k: v for k, v in sd.items() if not is_dead_key(k)}
     model.load_state_dict(state, strict=True)
+
+
+def _head(out: bytearray, n: int, fix: int, fix_max: int,
+          wide: Sequence[Tuple[int, str]]) -> None:
+    """A length or count ``n``: in the fix byte up to ``fix_max``, else
+    after the first code of ``wide`` whose format holds it."""
+    if fix_max and n <= fix_max:
+        out.append(fix | n)
+        return
+    for code, fmt in wide:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise MsgpackError(f'{n} is too long for msgpack')
+
+
+def _int(out: bytearray, v: int) -> None:
+    if 0 <= v <= 0x7f or -32 <= v < 0:
+        out += struct.pack('>b' if v < 0 else '>B', v)
+        return
+    kinds = (((0xcc, '>B'), (0xcd, '>H'), (0xce, '>I'), (0xcf, '>Q'))
+             if v >= 0 else
+             ((0xd0, '>b'), (0xd1, '>h'), (0xd2, '>i'), (0xd3, '>q')))
+    for code, fmt in kinds:
+        try:
+            packed = struct.pack(fmt, v)
+        except struct.error:
+            continue
+        out.append(code)
+        out += packed
+        return
+    raise MsgpackError(f'{v} does not fit msgpack\'s 64-bit ints')
+
+
+def _ext(out: bytearray, code: int, payload: bytes) -> None:
+    fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    if len(payload) in fixext:
+        out.append(fixext[len(payload)])
+    else:
+        _head(out, len(payload), 0, 0, ((0xc7, '>B'), (0xc8, '>H'),
+                                         (0xc9, '>I')))
+    out += struct.pack('>b', code)
+    out += payload
+
+
+def _ndarray_bytes(a: np.ndarray) -> bytes:
+    """flax's ``_ndarray_to_bytes``."""
+    if a.dtype.hasobject or a.dtype.isalignedstruct:
+        raise MsgpackError('object and structured dtypes are not written')
+    return msgpack_dumps([list(a.shape), a.dtype.name, a.tobytes('C')])
+
+
+def _pack(v: Any, out: bytearray) -> None:
+    if isinstance(v, np.ndarray):
+        _ext(out, EXT_NDARRAY, _ndarray_bytes(v))
+    elif isinstance(v, np.generic):
+        _ext(out, EXT_NPSCALAR, _ndarray_bytes(np.asarray(v)))
+    elif v is None:
+        out.append(0xc0)
+    elif v is True or v is False:
+        out.append(0xc3 if v else 0xc2)
+    elif type(v) is int:
+        _int(out, v)
+    elif type(v) is float:
+        out.append(0xcb)
+        out += struct.pack('>d', v)
+    elif type(v) is str:
+        b = v.encode('utf-8')
+        _head(out, len(b), 0xa0, 31, ((0xd9, '>B'), (0xda, '>H'),
+                                       (0xdb, '>I')))
+        out += b
+    elif type(v) is bytes:
+        _head(out, len(v), 0, 0, ((0xc4, '>B'), (0xc5, '>H'), (0xc6, '>I')))
+        out += v
+    elif type(v) is list:
+        _head(out, len(v), 0x90, 15, ((0xdc, '>H'), (0xdd, '>I')))
+        for item in v:
+            _pack(item, out)
+    elif type(v) is dict:
+        _head(out, len(v), 0x80, 15, ((0xde, '>H'), (0xdf, '>I')))
+        for k, item in v.items():
+            _pack(k, out)
+            _pack(item, out)
+    else:
+        raise MsgpackError(f'{type(v).__name__} is not written')
+
+
+def msgpack_dumps(tree: Any) -> bytes:
+    """``tree`` (dicts, lists, str, bytes, int, float, bool, None, numpy
+    arrays and scalars) in flax's msgpack."""
+    out = bytearray()
+    _pack(tree, out)
+    return bytes(out)
+
+
+def save_best_model(model: Union[nn.Module, Mapping[str, torch.Tensor]],
+                    path: str, modality: Sequence[str]) -> None:
+    """Writes ``model`` (the port's LFAN, or its state_dict) as
+    ``fvt_tpu``'s ``model.msgpack`` at ``path``, which
+    ``fvt_tpu``'s ``Trainer.load_best_model`` and :func:`load_best_model`
+    read.  ``modality``: the model's modality order, leader first."""
+    state = model.state_dict() if isinstance(model, nn.Module) else model
+    params, stats = lfan_flax_from_state(state, modality)
+    blob = msgpack_dumps({'params': params, 'batch_stats': stats})
+    tmp = f'{path}.tmp'
+    with open(tmp, 'wb') as f:
+        f.write(blob)
+    os.replace(tmp, path)

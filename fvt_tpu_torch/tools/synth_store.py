@@ -1,7 +1,9 @@
 """A synthetic on-disk feature store in the disk contract the loaders read,
 written without ``fvt_tpu`` or PyYAML: the port's counterpart of
 ``tests/synth_store.py``'s ``make_cexpr_store``, for a C-EXPR-DB or
-challenge store of chosen video lengths.
+challenge store of chosen video lengths: a challenge store to run
+``inference_challenge`` on, or a C-EXPR-DB training store (train and val
+splits; test is val) to run ``fvt_tpu_torch.main`` on.
 
 Writes ``features/compacted_48/<split>/vid<i>/{video,vggish,bert,
 EXPR_continuous_label}.npy`` (video as 48^2 uint8 face crops, the size a
@@ -10,6 +12,8 @@ with the extractor version stamp, and ``folds/<ds>/split-0/`` with the
 split lists and ``class_id.yaml``.  Every array is drawn from ``seed``.
 
     python -m fvt_tpu_torch.tools.synth_store <root> 60 90 150 ...
+    python -m fvt_tpu_torch.tools.synth_store <root> 300 900 1800 \
+        --ds C-EXPR-DB --val_lengths 400 1200
 """
 from __future__ import annotations
 
@@ -94,10 +98,20 @@ def make_cexpr_store(root: str, lengths: Sequence[int],
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('root')
-    p.add_argument('lengths', type=int, nargs='+')
+    p.add_argument('lengths', type=int, nargs='+',
+                   help='train split video lengths (the challenge store\'s '
+                        'only split)')
+    p.add_argument('--ds', default=constants.C_EXPR_DB_CHALLENGE,
+                   choices=(constants.C_EXPR_DB,
+                            constants.C_EXPR_DB_CHALLENGE))
+    p.add_argument('--val_lengths', type=int, nargs='*', default=(),
+                   help='C-EXPR-DB\'s val split video lengths')
     p.add_argument('--seed', type=int, default=0)
     args = p.parse_args(argv)
-    print(make_cexpr_store(args.root, args.lengths, seed=args.seed))
+    if (args.ds == constants.C_EXPR_DB) != bool(args.val_lengths):
+        p.error('--val_lengths goes with --ds C-EXPR-DB, and it needs them')
+    print(make_cexpr_store(args.root, args.lengths, ds=args.ds,
+                           val_lengths=args.val_lengths, seed=args.seed))
 
 
 if __name__ == '__main__':

@@ -1,35 +1,65 @@
-"""The training and evaluation runtime of the port, a part of
-``fvt_tpu/train/trainer.py``: epochs of optimizer steps over window
-batches, the per-epoch learning-rate schedule and the finite-loss guard;
-and ``inference``, the eval pass over a store's videos that validation,
-test and challenge inference run (``trainer.py:412-704``).  The run loop
-with validation and best models (``optimize``) and checkpoints are not
-ported yet.
+"""The training and evaluation runtime of the port
+(``fvt_tpu/train/trainer.py``): epochs of optimizer steps over window
+batches with the per-epoch learning-rate schedule and the finite-loss
+guard (``train_one_epoch``); ``inference``, the eval pass over a store's
+videos that validation, test and challenge inference run
+(``trainer.py:412-704``); and the run loop (``optimize``): validation
+before the first epoch and after each, the best model of each selection
+criterion, early stopping, checkpoints, the test pass of each best model
+and the run directory's artifacts
+(``test-<case>-perf.{txt,pkl}``, ``pred-per-frame-test-<case>-perf.pkl``,
+``best-models/<case>/{model.msgpack,config.yml}``, ``config.yml``,
+``passed.txt``), as ``fvt_tpu`` writes them.
+
+One device only: ``fvt_tpu``'s data-parallel and multi-host epochs and
+its ``profile_epochs`` trace are not ported (queue A5).
 """
 from __future__ import annotations
 
+import datetime as dt
 import math
 import os
 import pickle as pkl
 import time
 from collections import deque
 from os.path import join
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from fvt_tpu_torch import constants
+from fvt_tpu_torch.config.parse import save_config
 from fvt_tpu_torch.data import windowing as W
 from fvt_tpu_torch.data.transforms import (CROP_SIZE, SCALE_SIZE,
                                            center_crop_offset)
+from fvt_tpu_torch.models.checkpoint import save_best_model
+from fvt_tpu_torch.models.registry import split_modality
 from fvt_tpu_torch.serve import lfan_serving_forward
 from fvt_tpu_torch.train import metrics as M
 from fvt_tpu_torch.train import optim
-from fvt_tpu_torch.train.steps import TrainStep
+from fvt_tpu_torch.train.steps import FROZEN_PREFIX, TrainStep
 from fvt_tpu_torch.utils import rng
-from fvt_tpu_torch.utils.logger import log
+from fvt_tpu_torch.utils.logger import fmsg, log
+
+
+class EarlyStopper:
+    """Early stopping with the upstream legacy semantics: once past
+    ``min_epochs``, a countdown from ``budget`` that resets to ``budget``
+    on a validation improvement and decrements otherwise; reaching 0
+    stops.  ``budget`` <= 0 disables it."""
+
+    def __init__(self, budget: int, min_epochs: int):
+        self.budget = int(budget or 0)
+        self.min_epochs = min_epochs
+        self.counter = self.budget
+
+    def should_stop(self, epoch: int, improved: bool) -> bool:
+        if self.budget <= 0 or (epoch + 1) <= self.min_epochs:
+            return False
+        self.counter = self.budget if improved else self.counter - 1
+        return self.counter <= 0
 
 
 class Trainer:
@@ -37,13 +67,17 @@ class Trainer:
     keys of ``fvt_tpu/config/defaults.py`` (training reads ``seed``,
     ``num_epochs``, ``min_num_epochs``, ``nan_guard`` and the ``opt__*``
     family; ``inference`` the eval keys, ``dataset_name``, ``outd`` and
-    ``use_other_class``).  Runs on the card unless ``device='cpu'`` is
-    passed."""
+    ``use_other_class``; ``optimize`` also ``modality``,
+    ``early_stopping`` and ``save_plot``, and writes ``tend`` into it).
+    ``int_to_cl`` names the classes in the test reports.  Runs on the
+    card unless ``device='cpu'`` is passed."""
 
     def __init__(self, model: nn.Module, config: Dict[str, Any],
                  device=None, *, tcn_fused: bool = True,
-                 reference: bool = False):
+                 reference: bool = False,
+                 int_to_cl: Optional[Dict[int, str]] = None):
         self.config = config
+        self.int_to_cl = int_to_cl
         self.model_name = config.get('model_name', constants.LFAN)
         self.reference = reference
         self.hp = optim.standardize_opt_params(config)
@@ -55,8 +89,25 @@ class Trainer:
         self.device = self.train_step.device
         self.scheduler = optim.build_scheduler(
             self.hp, config['num_epochs'], config['min_num_epochs'])
+        lr = getattr(self.hp, 'lr', optim.TORCH_DEFAULT_LR)
+        if (not getattr(self.hp, 'honor_lr', False)
+                and not isinstance(self.scheduler, optim.MyWarmupSchedule)
+                and abs(lr - optim.TORCH_DEFAULT_LR) > 1e-12):
+            # keyed on the built scheduler: MYWARMUP carries opt__lr
+            log(fmsg(
+                f"NOTE: opt__lr={lr} is IGNORED — reproducing the upstream "
+                f"optimizer wiring (its SGD/Adam are built without lr; "
+                f"effective lr = {optim.TORCH_DEFAULT_LR}). Pass "
+                f"--opt__honor_lr true to actually train at opt__lr."))
         self.step_losses: list = []  # of the last epoch, one a step
+        self.last_epoch_timing: Optional[dict] = None
         self.last_inference_timing: Optional[dict] = None
+        # of the last optimize: the validation and test trackers, the
+        # epoch losses, the early stopper
+        self.valid_tracker: Optional[dict] = None
+        self.test_tracker: Optional[dict] = None
+        self.loss_tracker: list = []
+        self.stopper: Optional[EarlyStopper] = None
 
     @property
     def optimizer(self) -> torch.optim.Optimizer:
@@ -69,15 +120,35 @@ class Trainer:
         return rng.generator(self.config['seed'], f'epoch{epoch}', step,
                              self.device)
 
-    def train_one_epoch(self, batches: Iterable[Dict[str, np.ndarray]],
-                        epoch: int) -> float:
-        """One pass over ``batches`` of numpy windows ``{modality:
-        (B, T, D) float32, '*continuous_label': (B, T) int}``; then the
-        scheduler's lr for the next epoch.  Returns the mean loss.  The
-        losses stay on the device until the epoch ends."""
-        losses = [self.train_step(batch, self.step_generator(epoch, i))
-                  for i, batch in enumerate(batches)]
+    def train_one_epoch(self, loader, epoch: int) -> float:
+        """One pass over ``loader``: a ``TrainLoader``, whose
+        ``epoch(epoch)`` gives the batches, or any iterable of numpy
+        windows ``{modality: (B, T, D) float32, '*continuous_label': (B,
+        T) int}``; then the scheduler's lr for the next epoch.  Returns the
+        mean loss and logs it.  The losses stay on the device until the
+        epoch ends.  ``last_epoch_timing`` holds the epoch's wall time by
+        phase: loader_s (waiting for the next batch), step_s (the steps'
+        uploads and queued kernels), sync_s (waiting for the losses)."""
+        t0 = dt.datetime.now()
+        _pc = time.perf_counter
+        tm = {'loader_s': 0.0, 'step_s': 0.0, 'sync_s': 0.0}
+        self.last_epoch_timing = tm
+        batches = iter(loader.epoch(epoch) if hasattr(loader, 'epoch')
+                       else loader)
+        losses = []
+        while True:
+            t = _pc()
+            batch = next(batches, None)
+            tm['loader_s'] += _pc() - t
+            if batch is None:
+                break
+            t = _pc()
+            losses.append(self.train_step(
+                batch, self.step_generator(epoch, len(losses))))
+            tm['step_s'] += _pc() - t
+        t = _pc()
         self.step_losses = losses = [float(l) for l in losses]
+        tm['sync_s'] = _pc() - t
         if self.config.get('nan_guard', False):
             for i, l in enumerate(losses):
                 if not math.isfinite(l):
@@ -86,7 +157,11 @@ class Trainer:
                         f'(lr={optim.get_lr(self.optimizer):.3e})')
         if self.scheduler is not None:
             optim.set_lr(self.optimizer, self.scheduler.lr(epoch + 1))
-        return sum(losses) / max(len(losses), 1)
+        epoch_loss = sum(losses) / max(len(losses), 1)
+        log(fmsg(f"Train epoch ({epoch}/{self.config['num_epochs']}) "
+                 f"loss: {epoch_loss:.6f} "
+                 f"runtime: {dt.datetime.now() - t0}"))
+        return epoch_loss
 
     # ------------------------------------------------------------ inference
     def forward(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -308,3 +383,150 @@ class Trainer:
                 f"{join(out_inf, 'prediction.pkl')}")
 
         return perf, per_video
+
+    # ------------------------------------------------------------- run loop
+    def best_copy(self) -> Dict[str, torch.Tensor]:
+        """A host copy of the trainable parameters and the buffers (the
+        BatchNorm statistics): the frozen backbone never changes and is
+        not copied.  Cloned, since ``state_dict`` hands out the live
+        tensors that the optimizer updates in place."""
+        return {k: v.detach().to('cpu', copy=True)
+                for k, v in self.model.state_dict().items()
+                if not k.startswith(FROZEN_PREFIX)}
+
+    def load_copy(self, copy: Dict[str, torch.Tensor]) -> None:
+        """Writes a :meth:`best_copy` back into the live model."""
+        live = self.model.state_dict()
+        with torch.no_grad():
+            for k, v in copy.items():
+                live[k].copy_(v)
+
+    def optimize(self, train_loader, valid_loader, test_loader,
+                 checkpointer=None) -> tuple:
+        """The training run (``fvt_tpu``'s ``Trainer.optimize``): returns
+        the validation and test trackers, by selection criterion."""
+        cfg = self.config
+        log(fmsg(f"Starting training on {self.device}"))
+        t_start = time.time()
+
+        start_epoch = 0
+        valid_tracker = restored = None
+        if checkpointer is not None and checkpointer.allow_restore:
+            restored = checkpointer.restore(self, scheduler=self.scheduler)
+        if restored is not None:
+            last_epoch, valid_tracker, best, loss_tracker = restored
+            start_epoch = last_epoch + 1
+        if self.scheduler is not None:
+            # epoch 0 trains at the schedule's lr(0), as a torch scheduler
+            # sets it at construction; a resumed run at lr(start)
+            optim.set_lr(self.optimizer, self.scheduler.lr(start_epoch))
+        if valid_tracker is None:
+            current_perf, _ = self.inference(valid_loader)
+            valid_tracker = M.build_trackers(cfg['dataset_name'],
+                                             cfg['use_other_class'])
+            best, loss_tracker = {}, []
+            for item, tracker in valid_tracker.items():
+                tracker.append(current_perf)
+                best[item] = self.best_copy()
+                log(f"{constants.VALIDSET}: {tracker.current_status_str}")
+                log(f"{constants.VALIDSET}: {tracker.best_status_str}")
+        test_tracker = M.build_trackers(cfg['dataset_name'],
+                                        cfg['use_other_class'])
+
+        if isinstance(self.scheduler, optim.MyWarmupSchedule) and \
+                self.scheduler.mode == 'min' and \
+                cfg.get('task') == constants.CLASSIFICATION:
+            log("WARNING: MYWARMUP plateau metric is the validation master "
+                "(W-F1: higher is better) but opt__mode is MIN — set "
+                "--opt__mode max to count plateaus correctly")
+
+        self.stopper = stopper = EarlyStopper(cfg.get('early_stopping', 0),
+                                              cfg['min_num_epochs'])
+        if restored is not None and \
+                checkpointer.restored_stopper_counter is not None:
+            stopper.counter = int(checkpointer.restored_stopper_counter)
+
+        for epoch in range(start_epoch, cfg['num_epochs']):
+            epoch_loss = self.train_one_epoch(train_loader, epoch)
+            loss_tracker.append(epoch_loss)
+
+            current_perf, _ = self.inference(valid_loader)
+            improved = False
+            for item, tracker in valid_tracker.items():
+                # a tie refreshes the best copy (`>=`); the early-stop
+                # countdown resets only on a strict improvement
+                prev_best = tracker.best_value
+                tracker.append(current_perf)
+                if tracker.is_last_best:
+                    best[item] = self.best_copy()
+                    if prev_best is None or tracker.best_value > prev_best:
+                        improved = True
+                log(f"{constants.VALIDSET}: {tracker.current_status_str}")
+                log(f"{constants.VALIDSET}: {tracker.best_status_str}")
+
+            # MYWARMUP's plateau decay reads the validation master metric
+            if isinstance(self.scheduler, optim.MyWarmupSchedule):
+                try:
+                    metric = next(iter(valid_tracker.values())) \
+                        ._master_value(current_perf)
+                except (KeyError, StopIteration):
+                    metric = epoch_loss
+                self.scheduler.step(epoch, metric)
+                optim.set_lr(self.optimizer, self.scheduler.lr(epoch + 1))
+
+            # the countdown moves before the checkpoint, which saves the
+            # post-epoch counter a resumed run continues from
+            stop = stopper.should_stop(epoch, improved)
+            if checkpointer is not None and checkpointer.should_save(epoch):
+                checkpointer.save(epoch, self, valid_tracker, best,
+                                  loss_tracker, scheduler=self.scheduler,
+                                  stopper_counter=stopper.counter)
+            if stop:
+                log(fmsg(f"Early stopping at epoch {epoch}: no validation "
+                         f"improvement in {stopper.budget} epochs"))
+                break
+
+        # each best model: the test pass, its artifacts and the model
+        log(fmsg(f"{constants.TESTSET} performance:"))
+        live = self.best_copy()
+        outd = cfg['outd']
+        modality = split_modality(cfg['modality'])
+        for item, copy in best.items():
+            self.load_copy(copy)
+            current_perf, per_video = self.inference(test_loader)
+            test_tracker[item].append(current_perf)
+            log(f"{constants.TESTSET}: "
+                f"{test_tracker[item].current_status_str}")
+            with open(join(outd, f"{constants.TESTSET}-{item}-perf.txt"),
+                      'w') as f:
+                f.write(test_tracker[item].report(current_perf,
+                                                  self.int_to_cl))
+            for name, obj in ((f"{constants.TESTSET}-{item}-perf.pkl",
+                               current_perf),
+                              (f"pred-per-frame-{constants.TESTSET}-{item}"
+                               f"-perf.pkl", per_video)):
+                with open(join(outd, name), 'wb') as f:
+                    pkl.dump(obj, f, protocol=pkl.HIGHEST_PROTOCOL)
+            best_dir = join(outd, 'best-models', f"{item}")
+            os.makedirs(best_dir, exist_ok=True)
+            save_best_model(self.model, join(best_dir, 'model.msgpack'),
+                            modality)
+            save_config(cfg, join(best_dir, 'config.yml'))
+        self.load_copy(live)
+
+        if cfg.get('save_plot', False):
+            for item, tracker in valid_tracker.items():
+                tracker.plot(join(outd, f'tracker-{item}.png'), loss_tracker)
+
+        self.valid_tracker, self.test_tracker = valid_tracker, test_tracker
+        self.loss_tracker = loss_tracker
+        cfg['tend'] = dt.datetime.now()
+        save_config(cfg, join(outd, 'config.yml'))
+        self.bye(t_start)
+        return valid_tracker, test_tracker
+
+    def bye(self, t_start: float) -> None:
+        log(fmsg(f"Total time: {time.time() - t_start:.1f}s"))
+        with open(join(self.config['outd'], 'passed.txt'), 'w') as f:
+            f.write('Passed.')
+        log(fmsg('bye.'))

@@ -1,8 +1,9 @@
-"""The port needs neither JAX, flax, PyYAML, msgpack nor anything of
-fvt_tpu (its serving and training paths, every conv path of the ArcFace
-backbone, its tools and the challenge inference CLI on a store of its own
-synthetic writer run with all five blocked), and chip_smoke.py refuses to
-run without a CUDA card."""
+"""The port needs neither JAX, flax, PyYAML, msgpack, orbax nor anything
+of fvt_tpu (its serving and training paths, every conv path of the
+ArcFace backbone, its tools, the training CLI with checkpoints and resume
+and the challenge inference CLI on stores of its own synthetic writer run
+with all six blocked), and chip_smoke.py refuses to run without a CUDA
+card."""
 import os
 import re
 import subprocess
@@ -15,7 +16,8 @@ NO_JAX = textwrap.dedent('''
     import importlib.abc
     import sys
 
-    BLOCKED = ('jax', 'jaxlib', 'flax', 'yaml', 'msgpack', 'fvt_tpu')
+    BLOCKED = ('jax', 'jaxlib', 'flax', 'yaml', 'msgpack', 'orbax',
+               'fvt_tpu')
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -27,6 +29,10 @@ NO_JAX = textwrap.dedent('''
 
     import numpy as np
     import torch
+
+    # the suite's workers share the cores: torch's spinning intra-op
+    # threads would make this process many times slower there
+    torch.set_num_threads(1)
 
     import fvt_tpu_torch
     import fvt_tpu_torch.kernels.build
@@ -110,16 +116,38 @@ NO_JAX = textwrap.dedent('''
             run, 'eval-C-EXPR-DB-CHALLENGE', 'pred-C-EXPR-DB-CHALLENGE',
             'prediction.pkl'))
 
+        import fvt_tpu_torch.main
+        import fvt_tpu_torch.train.checkpoint
+
+        store = make_cexpr_store(os.path.join(root, 'train_store'), [9, 14],
+                                 ds='C-EXPR-DB', val_lengths=[6, 11])
+        argv = ['--dataset_name', 'C-EXPR-DB', '--dataset_path',
+                store['dataset_path'], '--folds_dir', store['folds_dir'],
+                '--modality', 'vggish+bert+EXPR_continuous_label',
+                '--num_epochs', '2', '--train_batch_size', '2',
+                '--num_workers', '1', '--window_length', '8',
+                '--hop_length', '4', '--eval_bucket_quantum', '8',
+                '--checkpoint_every', '1', '--verbose', 'false',
+                '--outd', os.path.join(root, 'trained')]
+        fvt_tpu_torch.main.main(argv, device='cpu')
+        os.remove(os.path.join(root, 'trained', 'passed.txt'))
+        exp = fvt_tpu_torch.main.main(
+            argv[:-1] + [os.path.join(root, 'trained'), '--num_epochs', '3',
+                         '--resume', 'true'], device='cpu')
+        assert len(exp.trainer.loss_tracker) == 3
+        assert os.path.isfile(os.path.join(
+            root, 'trained', 'best-models', 'None', 'model.msgpack'))
+
     import chip_smoke
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
     assert not leaked, leaked
     print('served', out.shape, 'trained', len(variants), 'backbones')
 ''')
 
-# an import of jax, flax, yaml, msgpack or fvt_tpu (not fvt_tpu_torch), at
-# any depth
+# an import of jax, flax, yaml, msgpack, orbax or fvt_tpu (not
+# fvt_tpu_torch), at any depth
 FORBIDDEN_IMPORT = re.compile(
-    r'^\s*(?:import|from)\s+(?:jax|jaxlib|flax|yaml|msgpack|fvt_tpu)'
+    r'^\s*(?:import|from)\s+(?:jax|jaxlib|flax|yaml|msgpack|orbax|fvt_tpu)'
     r'(?![\w])',
     re.MULTILINE)
 
@@ -150,6 +178,9 @@ def test_no_port_source_imports_jax_or_fvt_tpu():
             'fvt_tpu_torch/inference_challenge.py',
             'fvt_tpu_torch/config/flat_yaml.py',
             'fvt_tpu_torch/models/checkpoint.py',
+            'fvt_tpu_torch/models/to_jax.py',
+            'fvt_tpu_torch/train/checkpoint.py',
+            'fvt_tpu_torch/main.py',
             'fvt_tpu_torch/data/loader.py'} <= names
     for path in paths:
         with open(path) as f:
@@ -158,6 +189,7 @@ def test_no_port_source_imports_jax_or_fvt_tpu():
     assert FORBIDDEN_IMPORT.search('    from fvt_tpu.data import windowing')
     assert FORBIDDEN_IMPORT.search('import jax.numpy as jnp')
     assert FORBIDDEN_IMPORT.search('import msgpack')
+    assert FORBIDDEN_IMPORT.search('import orbax.checkpoint as ocp')
     assert not FORBIDDEN_IMPORT.search('from fvt_tpu_torch import constants')
 
 
