@@ -127,10 +127,33 @@ Phases, each of which raises on failure (exit code 1):
    ``Trainer.inference`` on the val split) within 1e-4 of the run's test
    pass; each epoch's wall (and by phase), trained frames/s, each
    validation pass's wall, each checkpoint save and best-model write, the
-   set-up walls, the peak device memory.
+   set-up walls, the peak device memory;
+8. tri-modal training, the paper's default run: ``fvt_tpu_torch.main``
+   on the full-width ``video+vggish+bert`` LFAN (the ArcFace IR-50 frozen
+   in train mode: BatchNorm on batch statistics with the running ones
+   updated, its dropout live) over a synthetic C-EXPR-DB store of 12
+   train and 3 val videos of 250 to 450 frames at 256^2, read through the
+   native host resize to 48^2 (the train transform's random crop and
+   flip on the card), window 300, batch 16: 1 epoch with a checkpoint,
+   resumed to 2, then 2 epochs under ``--amp`` (the backbone in
+   bfloat16): 12 B3a and 12 B3b calls a step and 12 B1 and 1 B2 launches
+   a validation or test forward and no other kernel, B1 and B2 at every
+   (B, T) the eval passes launched and B3a/B3b at the video's four block
+   shapes at every trained (B, T) and at (16, 300) against their plain
+   versions at the phase-2 gate, every running statistic of the backbone
+   moved, each run's best model (with ``fvt_tpu``'s ArcFace subtree) read
+   back through ``inference_challenge`` within 1e-4 of its test pass; the
+   train-mode backbone in float32 and bfloat16, embeddings and running
+   statistics, against a composition of PyTorch's own train-mode calls
+   on the same crops and dropout mask; epoch wall by phase, step_s,
+   trained frames/s, validation passes, peak device memory a run; the
+   step timed with ``tcn_fused`` on and off and with ``frozen_eval`` on
+   and off in turns (float32 and ``--amp``), and the train-mode
+   backbone's share of the step.
 
 Everything runs in float32 with TF32 off for matmuls and cuDNN, except the
-bfloat16 backbone and its kernel, which say so.  The last
+bfloat16 backbone and its kernel and phase 8's ``--amp`` run, which say
+so.  The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line
 before it lists the kernels.  Without a CUDA card the script exits with
 code 1 and prints no result.
@@ -235,6 +258,22 @@ TRAIN_STORE_LENGTHS = (300, 1800)
 RUN_EPOCHS, RESUMED_EPOCHS = 3, 4
 # a best model read back against the run's test pass
 READBACK_ATOL = 1e-4
+# phase 8: tri-modal training (the paper's default run) on a C-EXPR-DB
+# store of 12 train and 3 val videos of 250 to 450 frames with 256^2 face
+# crops (the disk contract, resized on the host), 2 epochs in float32
+# with one resume and 2 under --amp; the step timed with tcn_fused and
+# frozen_eval on and off in turns over AB_PAIRS pairs (AB_PAIRS_BF16
+# under --amp, whose steps are shorter)
+TRI_STORE_VIDEOS, TRI_VAL_VIDEOS = 12, 3
+TRI_STORE_LENGTHS = (250, 450)
+TRI_VIDEO_HW = 256
+TRI_EPOCHS = 2
+AB_PAIRS, AB_PAIRS_BF16 = 5, 10
+# the train-mode backbone vs its composition of PyTorch's own train-mode
+# calls (F.batch_norm computes the variance by another algorithm): the
+# embeddings within EMBED_ATOL; each running statistic within
+# STATS_RTOL of its value plus STATS_ATOL
+STATS_RTOL, STATS_ATOL = 1e-4, 1e-5
 
 
 def fail(msg: str) -> None:
@@ -394,12 +433,12 @@ def away_from_kink(x, w1, b1, w2, b2, m1, m2, res, dilation: int,
     return m1, m2, res + (z.abs() < margin)
 
 
-def train_block_shapes(k: int) -> list:
-    """(name, B, T, Cin, Cout, dilation) of the 8 blocks of the
-    full-width vggish+bert LFAN at the training batch."""
+def train_block_shapes(k: int, modality=TRAIN_MODALITY) -> list:
+    """(name, B, T, Cin, Cout, dilation) of the blocks of the full-width
+    LFAN on ``modality`` (8 for vggish+bert) at the training batch."""
     from fvt_tpu_torch.config import model_config as MC
     shapes = []
-    for m in TRAIN_MODALITY:
+    for m in modality:
         cin = MC.EMBEDDING_DIM[m]
         for i, cout in enumerate(MC.TCN_CHANNELS[m]):
             shapes.append((f'{m}.{i}', TRAIN_BATCH, WINDOW, cin, cout,
@@ -2586,16 +2625,17 @@ def challenge_inference(device) -> dict:
     return {'tcn_block': launches['tcn_block'], 'fusion': launches['fusion']}
 
 
-def check_train_at_shape(b: int, t: int, device, k: int = 5) -> float:
-    """B3a and B3b (``fused_temporal_block_train``) at the 8 blocks of the
-    ``vggish+bert`` LFAN at (b, t): the forward's output and the six
-    gradients against autograd of the plain version at the phase-2 gate.
-    Returns the largest error."""
+def check_train_at_shape(b: int, t: int, device, k: int = 5,
+                         modality=TRAIN_MODALITY) -> float:
+    """B3a and B3b (``fused_temporal_block_train``) at the blocks of the
+    LFAN on ``modality`` (8 for ``vggish+bert``) at (b, t): the forward's
+    output and the six gradients against autograd of the plain version at
+    the phase-2 gate.  Returns the largest error."""
     from fvt_tpu_torch.ops import tcn as tcn_ops
 
     g = torch.Generator(device=device).manual_seed(SEED + 9)
     worst = 0.0
-    for name, _, _, cin, cout, d in train_block_shapes(k):
+    for name, _, _, cin, cout, d in train_block_shapes(k, modality):
         def randn(*shape, scale=1.0):
             return torch.randn(*shape, device=device, generator=g) * scale
 
@@ -2884,6 +2924,393 @@ def training_run(device) -> dict:
             'tcn_block_bwd': launches['tcn_block_bwd']}
 
 
+def plain_backbone_train(backbone, crops: torch.Tensor,
+                         keep: torch.Tensor, p: float) -> torch.Tensor:
+    """Phase 8's plain composition of the train-mode backbone from
+    PyTorch's own calls on ``backbone``'s weights: ``F.conv2d``,
+    ``F.batch_norm(training=True)`` (updating the module's running
+    statistics in place), ``F.prelu``, the dropout as ``where(keep, x / (1
+    - p), 0)`` with the given mask, ``F.linear`` and the l2 normalisation;
+    in the backbone's compute type up to the flatten, float32 after."""
+    d = backbone.dtype
+
+    def bn(mod, v):
+        return F.batch_norm(v, mod.running_mean, mod.running_var,
+                            mod.weight, mod.bias, True, mod.momentum,
+                            mod.eps)
+
+    def conv(mod, v, stride, pad):
+        return F.conv2d(v, mod.weight.to(d), None, stride, pad)
+
+    x = crops.to(d).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    c, b, pr = backbone.input_layer
+    x = F.prelu(bn(b, conv(c, x, 1, 1)), pr.weight.to(d))
+    for blk in backbone.body:
+        if blk.shortcut_layer is None:
+            short = x[:, :, ::blk.stride, ::blk.stride]
+        else:
+            c, b = blk.shortcut_layer
+            short = bn(b, conv(c, x, blk.stride, 0))
+        b1, c1, pr, c2, b2 = blk.res_layer
+        r = F.prelu(conv(c1, bn(b1, x), 1, 1), pr.weight.to(d))
+        x = bn(b2, conv(c2, r, blk.stride, 1)) + short
+    b2d, _, _, lin, b1d = backbone.output_layer
+    x = torch.where(keep, bn(b2d, x) / (1.0 - p), 0)
+    x = bn(b1d, F.linear(x.flatten(1).float(), lin.weight, lin.bias))
+    return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+
+
+def check_backbone_train(state: dict, device) -> None:
+    """Phase 8: the train-mode backbone (``VisualBackbone(train=True)``,
+    float32 and bfloat16) on one training batch's crops (TRAIN_BATCH x
+    WINDOW frames through the train transform) against
+    :func:`plain_backbone_train` on the same crops and the same dropout
+    mask: the embeddings and every running statistic after the step.
+    bfloat16 is held within BF16_PATHS_APART of its own distance from
+    float32 (each path's bfloat16 result against its float32 one, the
+    larger): the two round at other places (flax's points in the port,
+    one rounding in ``F.batch_norm``)."""
+    from fvt_tpu_torch.data.transforms import (draw_crop_flip,
+                                               train_video_transform)
+    from fvt_tpu_torch.models.arcface import VisualBackbone, dropout_mask
+
+    g = torch.Generator(device=device).manual_seed(SEED + 11)
+    video = torch.randint(0, 256, (TRAIN_BATCH, WINDOW, 48, 48, 3),
+                          dtype=torch.uint8, device=device, generator=g)
+    crops = train_video_transform(video, *draw_crop_flip(TRAIN_BATCH, g))
+    crops = crops.reshape(-1, 40, 40, 3)
+    del video
+    n = crops.shape[0]
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        port = VisualBackbone(dtype=dtype).to(device)
+        port.load_state_dict(state, strict=True)
+        plain = copy.deepcopy(port)
+        p = port.backbone.output_layer[1].p
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        got = port(crops, train=True,
+                   generator=torch.Generator(device=device).manual_seed(5))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        keep = dropout_mask(torch.empty((n, 512, 5, 5), device=device), p,
+                            torch.Generator(device=device).manual_seed(5))
+        with torch.no_grad():
+            want = plain_backbone_train(plain.backbone, crops, keep, p)
+        stats = {k: (v, plain.state_dict()[k])
+                 for k, v in port.state_dict().items() if 'running_' in k}
+        results[dtype] = dict(got=got, want=want, stats=stats)
+        print(f'  train-mode backbone, {dtype}: {n} frames in {wall:.3f} s '
+              f'(host clock, first call), {peak:.2f} GiB of device memory '
+              f'above its input; {len(stats)} running statistics moved')
+        del port, plain
+    f32, b16 = results[torch.float32], results[torch.bfloat16]
+    emb = float((f32['got'] - f32['want']).abs().max())
+    excess = max(float(((a - b).abs() - STATS_RTOL * b.abs()).max())
+                 for a, b in f32['stats'].values())
+    print(f'  fp32 vs the plain composition: embeddings {emb:.3e} (atol '
+          f'{EMBED_ATOL}); running statistics within {STATS_RTOL} of their '
+          f'value plus {excess:.3e} (atol {STATS_ATOL})')
+    if emb > EMBED_ATOL or excess > STATS_ATOL:
+        fail('the float32 train-mode backbone disagrees with its plain '
+             'composition')
+    # each bf16 result's distance from its float32 twin, the larger: two
+    # results each within it of float32 lie within twice it of each other
+    own = max(float((b16[k] - f32[k]).abs().max()) for k in ('got', 'want'))
+    own_stats = max(float((b16['stats'][k][i] - f32['stats'][k][i]).abs()
+                          .max()) for k in f32['stats'] for i in (0, 1))
+    emb = float((b16['got'] - b16['want']).abs().max())
+    stats = max(float((a - b).abs().max()) for a, b in b16['stats'].values())
+    print(f'  bf16 vs the plain composition: embeddings {emb:.3e}, running '
+          f'statistics {stats:.3e}; bf16\'s own distance from fp32 '
+          f'{own:.3e} and {own_stats:.3e} (gate {BF16_PATHS_APART}x)')
+    if emb > BF16_PATHS_APART * own or stats > BF16_PATHS_APART * own_stats:
+        fail('the bfloat16 train-mode backbone disagrees with its plain '
+             'composition')
+
+
+def time_train_ab(trainer, device, pairs: int, label: str) -> None:
+    """Phase 8's A/B of a tri-modal step at (TRAIN_BATCH, WINDOW): the
+    trainer's step timed with CUDA events with ``tcn_fused`` on and off,
+    then with ``frozen_eval`` on and off, in turns over ``pairs`` pairs
+    (the order flipped every pair); and the train-mode backbone alone on
+    the step's frames, its share of the default step."""
+    from fvt_tpu_torch.config import model_config as MC
+    from fvt_tpu_torch.data.transforms import (draw_crop_flip,
+                                               train_video_transform)
+    from fvt_tpu_torch.train.steps import to_device
+
+    rng = np.random.default_rng(SEED + 12)
+    shape = (TRAIN_BATCH, WINDOW)
+    batch = {'video': rng.integers(0, 256, shape + (48, 48, 3), np.uint8),
+             'EXPR_continuous_label': rng.integers(0, 7, shape)}
+    for m in MODALITY[1:]:
+        batch[m] = rng.standard_normal(
+            shape + tuple(MC.FEATURE_DIMENSION[m]), np.float32)
+    batch = to_device(batch, device)
+    step, model = trainer.train_step, trainer.model
+    calls = iter(range(10 ** 6))
+
+    def timed():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(batch, trainer.step_generator(99, next(calls)))
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    switches = {'tcn_fused': lambda on: setattr(step, 'tcn_fused', on),
+                'frozen_eval': lambda on: setattr(model, 'frozen_eval', on)}
+    defaults = {'tcn_fused': step.tcn_fused, 'frozen_eval': model.frozen_eval}
+    medians = {}
+    for name, switch in switches.items():
+        times = {True: [], False: []}
+        for on in (True, False):
+            switch(on)
+            timed()
+        for i in range(pairs):
+            for on in ((True, False) if i % 2 == 0 else (False, True)):
+                switch(on)
+                times[on].append(timed())
+        switch(defaults[name])
+        med = {on: statistics.median(t) for on, t in times.items()}
+        medians[name] = med
+        print(f'  {label} step, {name} on / off, {pairs} pairs in turns: '
+              f'median {med[True]:.2f} / {med[False]:.2f} ms (min '
+              f'{min(times[True]):.2f} / {min(times[False]):.2f}) -> '
+              f'{TRAIN_BATCH * WINDOW / med[True] * 1e3:.1f} / '
+              f'{TRAIN_BATCH * WINDOW / med[False] * 1e3:.1f} trained '
+              f'frames/s')
+    crops = train_video_transform(
+        batch['video'], *draw_crop_flip(
+            TRAIN_BATCH, torch.Generator(device=device).manual_seed(1)))
+    crops = crops.reshape(-1, 40, 40, 3)
+    g = torch.Generator(device=device).manual_seed(2)
+    bb = median_ms(lambda: model.spatial.visual(crops, train=True,
+                                                generator=g), runs=5,
+                   warmup=1)
+    default = medians['tcn_fused'][defaults['tcn_fused']]
+    print(f'  {label}: the train-mode backbone alone on {crops.shape[0]} '
+          f'frames {bb:.2f} ms (median of 5, CUDA events), '
+          f'{100 * bb / default:.1f}% of the default step')
+
+
+def tri_modal_training(device) -> dict:
+    """Phase 8.  Returns the launches of B1, B2, B3a and B3b over the
+    CLI's three runs."""
+    import os
+    import pickle
+    import tempfile
+    from fvt_tpu_torch import inference_challenge
+    from fvt_tpu_torch import main as train_cli
+    from fvt_tpu_torch.data import native_store
+    from fvt_tpu_torch.models.checkpoint import read_flax_variables
+    from fvt_tpu_torch.ops.fusion import (fused_multimodal_fusion,
+                                          fused_multimodal_fusion_simt)
+    from fvt_tpu_torch.ops.tcn import (fused_temporal_block,
+                                       fused_temporal_block_simt,
+                                       fused_temporal_block_train as block,
+                                       fused_temporal_block_train_simt as
+                                       simt)
+    from fvt_tpu_torch.tools.synth_store import make_cexpr_store
+    from fvt_tpu_torch.train import trainer
+
+    rng = np.random.default_rng(SEED + 10)
+    lo, hi = TRI_STORE_LENGTHS
+    lengths = [int(n) for n in rng.integers(lo, hi + 1, TRI_STORE_VIDEOS)]
+    val_lengths = [int(n) for n in rng.integers(lo, hi + 1, TRI_VAL_VIDEOS)]
+    counters = {'tcn_block': fused_temporal_block,
+                'tcn_block_simt': fused_temporal_block_simt,
+                'fusion': fused_multimodal_fusion,
+                'fusion_simt': fused_multimodal_fusion_simt,
+                **conv_counters()}
+    resized = []
+    gather_resize = native_store.gather_resize_rows
+
+    def counted_resize(*a, **kw):
+        out = gather_resize(*a, **kw)
+        resized.append(None if out is None else out.shape[1:3])
+        return out
+
+    def zero():
+        zero_launches(counters)
+        for fn in (block, simt):
+            fn.launches_fwd = fn.launches_bwd = 0
+
+    def read():
+        out = read_launches(counters)
+        out.update(tcn_block_train=block.launches_fwd,
+                   tcn_block_bwd=block.launches_bwd,
+                   tcn_block_train_simt=simt.launches_fwd,
+                   tcn_block_bwd_simt=simt.launches_bwd)
+        return out
+
+    timer_methods = {
+        'epoch': (trainer.Trainer, 'train_one_epoch', 'last_epoch_timing'),
+        'inference': (trainer.Trainer, 'inference', None),
+        'best_model': (trainer, 'save_best_model', None)}
+    total = {k: 0 for k in ('tcn_block', 'fusion', 'tcn_block_train',
+                            'tcn_block_bwd')}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        store = make_cexpr_store(os.path.join(root, 'store'), lengths,
+                                 ds='C-EXPR-DB', val_lengths=val_lengths,
+                                 seed=SEED, video_hw=TRI_VIDEO_HW)
+        print(f'  C-EXPR-DB store at {TRI_VIDEO_HW}^2: {len(lengths)} train '
+              f'videos ({sum(lengths)} frames), {len(val_lengths)} val '
+              f'videos ({sum(val_lengths)} frames), written in '
+              f'{time.perf_counter() - t0:.2f} s')
+        base = ['--dataset_name', 'C-EXPR-DB',
+                '--dataset_path', store['dataset_path'],
+                '--folds_dir', store['folds_dir'],
+                '--modality', f'{"+".join(MODALITY)}+EXPR_continuous_label',
+                '--model_name', 'LFAN', '--window_length', str(WINDOW),
+                '--hop_length', str(HOP), '--train_batch_size',
+                str(TRAIN_BATCH), '--seed', str(SEED)]
+        fp32_dir = os.path.join(root, 'fp32')
+        amp_dir = os.path.join(root, 'amp')
+        runs = (
+            ('fp32', fp32_dir, ['--num_epochs', str(TRI_EPOCHS - 1),
+                                '--checkpoint_every', '1']),
+            ('fp32 resumed', fp32_dir, ['--num_epochs', str(TRI_EPOCHS),
+                                        '--checkpoint_every', '1',
+                                        '--resume', 'true']),
+            ('amp', amp_dir, ['--num_epochs', str(TRI_EPOCHS),
+                              '--amp', 'true']))
+        trainers, train_shapes = {}, set()
+        native_store.gather_resize_rows = counted_resize
+        try:
+            for name, outd, extra in runs:
+                zero()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                with ShapeRecorder() as rec, \
+                        MethodTimer(timer_methods) as tm:
+                    t0 = time.perf_counter()
+                    exp = train_cli.main(base + extra + ['--outd', outd],
+                                         device=device)
+                    wall = time.perf_counter() - t0
+                launches = read()
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                if name == 'fp32':
+                    os.remove(os.path.join(outd, 'passed.txt'))
+                else:
+                    trainers[name] = exp.trainer
+                steps, forwards = len(rec.fusion_train), len(rec.fusion)
+                want = {k: 0 for k in launches}
+                want.update(tcn_block=12 * forwards, fusion=forwards,
+                            tcn_block_train=12 * steps,
+                            tcn_block_bwd=12 * steps)
+                print(f'  {name} run: {steps} training steps, {forwards} '
+                      f'eval forwards; launches {launches}')
+                if steps < 1 or forwards < 1 or launches != want:
+                    fail(f'{name}: expected 12 B3a and 12 B3b calls a '
+                         f'step, 12 B1 and 1 B2 launches a forward and no '
+                         f'other kernel, got {launches}')
+                for k in total:
+                    total[k] += launches[k]
+                frames = sum(b * t for b, t in rec.fusion_train)
+                epochs = tm.calls['epoch']
+                ep_wall = sum(w for _, w, _ in epochs)
+                print(f'    CLI wall {wall:.3f} s; epochs '
+                      + ', '.join(f'{w:.3f}' for _, w, _ in epochs)
+                      + f' s; {frames} frames trained: '
+                      f'{frames / max(ep_wall, 1e-9):.1f} trained frames/s '
+                      f'over the epochs; step_s a step '
+                      f'{sum(t["step_s"] for _, _, t in epochs) / steps:.3f}'
+                      f' s; validation and test passes '
+                      + ', '.join(f'{w:.3f}' for _, w, _ in
+                                  tm.calls['inference'])
+                      + ' s; best-model writes '
+                      + ', '.join(f'{w:.3f}' for _, w, _ in
+                                  tm.calls['best_model'])
+                      + f' s; peak device memory {peak:.2f} GiB')
+                print('    epochs by phase (s): ' + '; '.join(
+                    ', '.join(f'{k} {v:.3f}' for k, v in t.items())
+                    for _, _, t in epochs))
+                print(f'    (B, T) trained: {sorted(set(rec.fusion_train))};'
+                      f' eval: {sorted(set(rec.fusion))}')
+                check_at_shapes(exp.trainer.model,
+                                sorted(set(rec.fusion),
+                                       key=lambda bt: (bt[1], bt[0])),
+                                device)
+                train_shapes |= set(rec.fusion_train)
+        finally:
+            native_store.gather_resize_rows = gather_resize
+        # B3 at the video's four blocks: every trained (B, T), and the full
+        # batch, which a store this small may not give
+        for b, t in sorted(train_shapes | {(TRAIN_BATCH, WINDOW)}):
+            err = check_train_at_shape(b, t, device, modality=('video',))
+            print(f'  B3a and B3b at the video blocks ({b},{t}): max error '
+                  f'{err:.3e}')
+        sizes = sorted(set(resized))
+        print(f'  the native host resize ran {len(resized)} times, to '
+              f'{sizes}')
+        # training's frames at 48^2; the eval passes' at 40^2, the center
+        # crop folded into the resize
+        if not resized or sizes != [(40, 40), (48, 48)]:
+            fail(f'the 256^2 store was not read through the native resize '
+                 f'to 48^2 and 40^2: {sizes}')
+        with open(os.path.join(fp32_dir, 'log.txt')) as f:
+            log = f.read()
+        if f'restored checkpoint from epoch {TRI_EPOCHS - 2}' not in log:
+            fail('the resumed float32 run did not restore its checkpoint')
+
+        # the backbone's statistics moved; the best model carries fvt_tpu's
+        # ArcFace subtree; read back through the challenge CLI
+        live = trainers['fp32 resumed'].model
+        moved = [k for k, v in live.state_dict().items()
+                 if k.startswith('spatial.') and 'running_' in k
+                 and not torch.equal(v, torch.full_like(
+                     v, 0.0 if k.endswith('mean') else 1.0))]
+        print(f'  {len(moved)} of the backbone\'s 108 running statistics '
+              f'moved in training')
+        if len(moved) != 108:
+            fail('training left running statistics of the backbone unmoved')
+        for name, outd in (('fp32', fp32_dir), ('amp', amp_dir)):
+            params, _ = read_flax_variables(
+                os.path.join(outd, 'best-models', 'None', 'model.msgpack'))
+            if 'backbone' not in params.get('spatial_video', {}):
+                fail(f'{name}: the best model lacks the ArcFace subtree')
+            evald = os.path.join(root, f'eval_{name}')
+            inference_challenge.main(
+                ['--mode', 'EVALUATION', '--fd_exp', outd, '--target_ds_name',
+                 'C-EXPR-DB', '--eval_set', 'test', '--case_best_model',
+                 'None', '--dataset_path', store['dataset_path'],
+                 '--folds_dir', store['folds_dir'], '--outd', evald],
+                device=device)
+            with open(os.path.join(evald, 'pred-per-frame-eval-test.pkl'),
+                      'rb') as f:
+                got = pickle.load(f)
+            with open(os.path.join(outd, 'pred-per-frame-test-None-perf.pkl'),
+                      'rb') as f:
+                want_pred = pickle.load(f)
+            if list(got) != list(want_pred):
+                fail(f'{name}: the read-back pass covers other videos')
+            err = max(float(np.abs(got[v]['logits'] - want_pred[v]['logits'])
+                            .max()) for v in want_pred)
+            print(f'  {name} best model read back from model.msgpack: logits '
+                  f'within {err:.3e} of the run\'s test pass (atol '
+                  f'{READBACK_ATOL})')
+            if err > READBACK_ATOL:
+                fail(f'{name}: the read-back logits differ by {err}')
+
+        check_backbone_train(
+            {k[len('spatial.visual.'):]: v
+             for k, v in live.state_dict().items()
+             if k.startswith('spatial.visual.')}, device)
+        time_train_ab(trainers['fp32 resumed'], device, AB_PAIRS, 'fp32')
+        time_train_ab(trainers['amp'], device, AB_PAIRS_BF16, 'bf16 (--amp)')
+        del trainers, live, exp
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on a GPU',
@@ -3085,6 +3512,12 @@ def main() -> int:
           f'with checkpoints, then resumed to {RESUMED_EPOCHS}')
     for name, n in training_run(device).items():
         by_name[name]['launches_train_run'] = n
+
+    print(f'phase 8: training {"+".join(MODALITY)} (the paper\'s default '
+          f'LFAN) through fvt_tpu_torch.main from a {TRI_VIDEO_HW}^2 store, '
+          f'fp32 with a resume and --amp')
+    for name, n in tri_modal_training(device).items():
+        by_name[name]['launches_tri_modal'] = n
 
     print(card)
     print(json.dumps({'kernels': kernels}))

@@ -1,4 +1,5 @@
-"""ArcFace IR-ResNet-50, eval mode (``fvt_tpu/models/arcface.py:23-253``).
+"""ArcFace IR-ResNet-50, eval and train mode
+(``fvt_tpu/models/arcface.py:23-253``).
 
 Input ``(N, 40, 40, 3)`` normalised face crops, output l2-normalised
 512-d embeddings.  The modules and their names are those of the upstream
@@ -10,10 +11,24 @@ hand-written kernels take them as NHWC views without a copy.  The flatten
 before ``output_layer.3`` is NCHW as upstream (``fvt_tpu`` flattens NHWC
 and the weight bridge permutes the Linear's columns to match).
 
-The mode is the forward's, not the module's: every BatchNorm runs on its
+The mode is the forward's ``train`` argument, not the module's:
+``nn.Module.training`` is read nowhere, so ``.train()`` changes no output
+and moves no statistic.  Eval (the default): every BatchNorm runs on its
 running statistics through :func:`batchnorm_eval` and dropout is the
-identity, whatever ``nn.Module.training`` says, so ``.train()`` changes
-no output and moves no statistic.
+identity.  Train, the frozen backbone of ``fvt_tpu``'s training step
+(``fvt_tpu/models/models.py:28-67``: the encoders train with the model,
+their parameters get no gradient): every BatchNorm runs on the batch's
+statistics and updates the running ones (:func:`batchnorm_train`), and
+Dropout(0.4) acts on ``output_layer.0``'s output before the flatten, its
+mask drawn from the caller's generator (:func:`dropout_train`).  The whole
+train forward runs under ``torch.no_grad``: the input is data and no
+parameter trains, so nothing is differentiated through it and the
+kernel paths' ``refuse_grad`` does not fire.  The convolutions take the
+paths they take in eval; ``fused_blocks`` raises in train mode, since
+the fused block folds the running statistics into its affines.  The
+dropout mask lies in the port's NCHW layout, so it is not ``fvt_tpu``'s
+NHWC mask element by element even from equal bits (and the bits are
+PyTorch's, not JAX's).
 
 The 3x3 convolutions of the body have a selectable path
 (:data:`CONV_IMPLS`), the counterpart of ``fvt_tpu``'s
@@ -127,6 +142,68 @@ def batchnorm_eval(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor
                         bn.bias, False, 0.0, bn.eps)
 
 
+def batchnorm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor
+                    ) -> torch.Tensor:
+    """``bn`` in train mode on x (N, C, ...) in its compute type, as
+    ``fvt_tpu``'s ``TorchEMABatchNorm`` does it (``layers.py:160-182``):
+    the batch mean and the biased variance in float32 as ``mean(x^2) -
+    mean(x)^2`` over every axis but C; the running mean and the unbiased
+    running variance (``n / (n - 1)``) updated at torch momentum
+    ``bn.momentum`` (0.1, flax's 0.9); then ``(x - mean) * (rsqrt(var +
+    eps) * weight) + bias`` in x's type, with mean, variance, eps, weight
+    and bias cast to it first, so that in bfloat16 every step rounds
+    where flax's does.  ``F.batch_norm(training=True)`` is not used: it
+    computes the variance by another algorithm and, on bfloat16, in
+    float32 with one rounding."""
+    red = [0] + list(range(2, x.dim()))
+    n = x.numel() // x.shape[1]
+    xf = x.float()
+    mean = xf.mean(red)
+    var = xf.square().mean(red) - mean.square()
+    del xf
+    m = bn.momentum
+    with torch.no_grad():
+        bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1.0 - m) * bn.running_var
+                             + m * (var * (n / max(n - 1, 1))))
+        bn.num_batches_tracked += 1
+    d = x.dtype
+    # a tensor in x's type, not a Python float: PyTorch would add a
+    # scalar in float32 before rounding, flax adds eps in bfloat16
+    eps = torch.tensor(bn.eps, dtype=d, device=x.device)
+    # rsqrt in float32, rounded once: XLA's bfloat16 rsqrt is that, and
+    # PyTorch's on the CPU misses the nearest bfloat16 by a unit
+    inv = torch.rsqrt((var.to(d) + eps).float()).to(d) * bn.weight.to(d)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    return (x - mean.to(d).view(shape)) * inv.view(shape) \
+        + bn.bias.to(d).view(shape)
+
+
+def dropout_mask(x: torch.Tensor, p: float,
+                 generator: torch.Generator) -> torch.Tensor:
+    """The keep mask (bool, x's shape) of a dropout at rate ``p`` on x,
+    drawn from ``generator`` (on x's device)."""
+    if generator is None:
+        raise ValueError('dropout in train mode draws from an explicit '
+                         'torch.Generator')
+    return torch.rand(x.shape, generator=generator,
+                      device=x.device) < 1.0 - p
+
+
+def dropout_train(x: torch.Tensor, p: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """flax's ``nn.Dropout(p)`` in train mode on x: ``where(keep, x /
+    (1 - p), 0)`` with the mask of :func:`dropout_mask`, the identity at
+    ``p == 0`` (no draw).  ``1 - p`` is cast to x's type first, as JAX
+    casts the Python float."""
+    if p == 0.0:
+        return x
+    keep = dropout_mask(x, p, generator)
+    scale = torch.tensor(1.0 - p, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+
+
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     """The NHWC view of an NCHW tensor (no copy from channels_last)."""
     return x.permute(0, 2, 3, 1).contiguous()
@@ -138,7 +215,8 @@ class Conv3x3(nn.Module):
     The parameter is ``weight`` in OIHW, as ``nn.Conv2d``'s, so upstream
     checkpoints and the weight bridge load unchanged.  As in ``fvt_tpu``
     (``arcface.py:76``), only a stride-1 convolution takes a path other
-    than ``'cudnn'``.  Those paths are eval-only and take the kernel in
+    than ``'cudnn'``.  Those paths take no gradient (the train-mode
+    backbone runs without autograd) and take the kernel in
     HWIO (and, for Winograd, its transform ``G g G^T``, packed for the
     ``'winograd_kernel'`` path's CUDA kernel): all are derived from
     ``weight`` at the first call and kept; they are dropped and
@@ -311,10 +389,17 @@ class BottleneckIR(nn.Module):
         return self._fused[1]
 
     def forward(self, x: torch.Tensor, *, fused: bool = False,
-                reference: bool = False) -> torch.Tensor:
+                reference: bool = False, train: bool = False
+                ) -> torch.Tensor:
         """x NCHW, in the block's ``dtype`` as ``Backbone`` hands it.
         ``fused`` takes the whole-block kernel where the block is
-        ``fusable``; ``reference=True`` runs the kernels' plain versions."""
+        ``fusable``; ``reference=True`` runs the kernels' plain versions;
+        ``train=True`` runs bn1, bn2 and the shortcut's BatchNorm on the
+        batch's statistics (:func:`batchnorm_train`)."""
+        if fused and train:
+            raise ValueError('the fused block folds the running '
+                             'statistics: it runs in eval mode only')
+        bn_fn = batchnorm_train if train else batchnorm_eval
         if fused and self.fusable:
             conv_ops.refuse_grad('BottleneckIR(fused)', x,
                                  *self.res_layer.parameters())
@@ -332,10 +417,10 @@ class BottleneckIR(nn.Module):
             shortcut = x[:, :, ::self.stride, ::self.stride]
         else:
             conv, bn = self.shortcut_layer
-            shortcut = batchnorm_eval(bn, conv2d_as(conv, x))
+            shortcut = bn_fn(bn, conv2d_as(conv, x))
         bn1, conv1, prelu, conv2, bn2 = self.res_layer
-        res = prelu_as(prelu, conv1(batchnorm_eval(bn1, x), reference))
-        return batchnorm_eval(bn2, conv2(res, reference)) + shortcut
+        res = prelu_as(prelu, conv1(bn_fn(bn1, x), reference))
+        return bn_fn(bn2, conv2(res, reference)) + shortcut
 
 
 class Backbone(nn.Module):
@@ -363,29 +448,56 @@ class Backbone(nn.Module):
                 init_linear_(mod, generator)
 
     def forward(self, x: torch.Tensor, *, fused_blocks: bool = False,
-                reference: bool = False) -> torch.Tensor:
-        """x (N, 40, 40, 3) -> (N, 512) float32, the eval forward whatever
-        the modules' ``training`` flags say (running-statistic BatchNorm,
-        no dropout), as ``fvt_tpu``'s ``apply(x)`` is eval by default; the
-        TRAIN-mode backbone is not ported."""
+                reference: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """x (N, 40, 40, 3) -> (N, 512) float32.  Eval by default
+        (running-statistic BatchNorm, no dropout) whatever the modules'
+        ``training`` flags say, as ``fvt_tpu``'s ``apply(x)`` is.
+        ``train=True``: every BatchNorm on the batch's statistics, the
+        running ones updated, and the dropout's mask drawn from
+        ``generator``, all under ``torch.no_grad`` (module docstring)."""
+        if not train:
+            return self._forward(x, fused_blocks, reference, False, None)
+        with torch.no_grad():
+            return self._forward(x, fused_blocks, reference, True,
+                                 generator)
+
+    def _forward(self, x, fused_blocks, reference, train, generator):
+        x = self.stem(x, train)
+        for blk in self.body:
+            x = blk(x, fused=fused_blocks, reference=reference, train=train)
+        return self.head(x, train, generator)
+
+    def stem(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """``input_layer`` on x (N, 40, 40, 3): conv, BatchNorm (on the
+        batch's statistics if ``train``), PReLU; NCHW in channels_last
+        memory (NHWC storage), in ``dtype``."""
+        bn_fn = batchnorm_train if train else batchnorm_eval
         x = x.to(self.dtype).permute(0, 3, 1, 2)
-        # NHWC storage == NCHW channels_last
         x = x.contiguous(memory_format=torch.channels_last)
         conv, bn, prelu = self.input_layer
-        x = prelu_as(prelu, batchnorm_eval(bn, conv2d_as(conv, x)))
-        for blk in self.body:
-            x = blk(x, fused=fused_blocks, reference=reference)
-        bn2d, _, flatten, linear, bn1d = self.output_layer
-        # eval dropout is the identity; fvt_tpu arcface.py:158-159
-        x = flatten(batchnorm_eval(bn2d, x)).float()
-        x = batchnorm_eval(bn1d, linear(x))
+        return prelu_as(prelu, bn_fn(bn, conv2d_as(conv, x)))
+
+    def head(self, x: torch.Tensor, train: bool = False,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``output_layer`` on the body's (N, 512, 5, 5): BatchNorm2d, in
+        train mode the dropout (``fvt_tpu`` ``arcface.py:158-159``; eval's
+        is the identity), the NCHW flatten cast to float32, Linear,
+        BatchNorm1d, then the l2 normalisation: (N, 512) float32."""
+        bn_fn = batchnorm_train if train else batchnorm_eval
+        bn2d, dropout, flatten, linear, bn1d = self.output_layer
+        x = bn_fn(bn2d, x)
+        if train:
+            x = dropout_train(x, dropout.p, generator)
+        x = bn_fn(bn1d, linear(flatten(x).float()))
         return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
 
 
 class VisualBackbone(nn.Module):
     """Wrapper holding ``backbone`` (upstream ``backbone.py:69-130``).
-    ``conv_impl`` (one of :data:`CONV_IMPLS`) and ``fused_blocks`` pick
-    the path of the body's 3x3 convolutions in eval mode, ``dtype`` the
+    ``conv_impl`` (one of :data:`CONV_IMPLS`) and ``fused_blocks`` (eval
+    mode only) pick the path of the body's 3x3 convolutions, ``dtype`` the
     compute type (``torch.bfloat16`` is ``--amp``; the module docstring
     says what runs in it)."""
 
@@ -400,10 +512,14 @@ class VisualBackbone(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.backbone.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, reference: bool = False
+    def forward(self, x: torch.Tensor, reference: bool = False,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
+        """``Backbone.forward`` with this module's ``fused_blocks``."""
         return self.backbone(x, fused_blocks=self.fused_blocks,
-                             reference=reference)
+                             reference=reference, train=train,
+                             generator=generator)
 
 
 def arcface_forward_eval(model: VisualBackbone, x: torch.Tensor,

@@ -19,9 +19,18 @@ As in ``fvt_tpu``, the mode is the forward's ``train`` argument, not the
 module's flag: ``train=True`` runs dropout from an explicit generator,
 BatchNorm on batch statistics (updating the running ones) and the
 differentiable TCN blocks; ``train=False`` is the serving path through
-the eval kernels.  Training is ported for precomputed features only: a
-``video`` modality in train mode, which needs the frozen ArcFace in TRAIN
-mode (``models.py:36-47``), raises.
+the eval kernels.  Train mode propagates into the frozen ArcFace, as in
+``fvt_tpu`` (``models.py:28-67``): its BatchNorms run on the batch's
+statistics and update their running ones and its Dropout(0.4) is live,
+though its parameters get no gradient (it runs under ``torch.no_grad``;
+its input is data).  ``frozen_eval`` (``--frozen_eval_backbones``) runs
+the backbone's eval path during training instead: running statistics, no
+dropout, every eval route.
+
+The order of the draws from a train step's generator: the video's crop
+offsets and flips (``TrainStep``, before the forward), then the
+backbone's dropout, then the TCN blocks in modality order (each block's
+two masks), then the fusion.
 """
 from __future__ import annotations
 
@@ -51,9 +60,11 @@ class LFAN(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  conv_impl: str = 'cudnn', fused_blocks: bool = False,
                  backbone_dtype: torch.dtype = torch.float32,
-                 spatial_video: Optional[VisualBackbone] = None):
+                 spatial_video: Optional[VisualBackbone] = None,
+                 frozen_eval: bool = False):
         super().__init__()
         self.modality = tuple(modality)
+        self.frozen_eval = frozen_eval
         self.task = task
         tcn_channel = tcn_channel or MC.TCN_CHANNELS
         embedding_dim = embedding_dim or MC.EMBEDDING_DIM
@@ -110,22 +121,24 @@ class LFAN(nn.Module):
                 reference: bool = False) -> torch.Tensor:
         """x: {modality: (B, T, D)} float32, video as normalised crops
         (B, T, 40, 40, 3).  Returns (B, T, output_dim) logits.
-        ``train=True`` draws the dropout masks from ``generator`` (TCN
-        blocks in modality order, then the fusion) and updates the
-        BatchNorm running statistics; ``tcn_fused`` picks the fused train
-        kernel over the conv-by-conv blocks.  ``reference=True`` runs the
-        plain versions of the kernels."""
+        ``train=True`` draws the dropout masks from ``generator`` (the
+        backbone's, the TCN blocks' in modality order, then the fusion's)
+        and updates the BatchNorm running statistics, the backbone's
+        unless ``frozen_eval``; ``tcn_fused`` picks the fused train kernel
+        over the conv-by-conv blocks.  ``reference=True`` runs the plain
+        versions of the kernels."""
         x = dict(x)
         video = x.get(constants.VIDEO)
-        if train and video is not None:
-            raise NotImplementedError(
-                'training with a video modality (frozen ArcFace in TRAIN '
-                'mode) is not ported yet')
         if video is not None and video.dim() == 5:
             b, t = video.shape[:2]
-            feats = self.spatial.visual(
-                video.reshape((b * t,) + video.shape[2:]),
-                reference=reference)
+            frames = video.reshape((b * t,) + video.shape[2:])
+            if train:
+                with torch.no_grad():
+                    feats = self.spatial.visual(
+                        frames, reference=reference,
+                        train=not self.frozen_eval, generator=generator)
+            else:
+                feats = self.spatial.visual(frames, reference=reference)
             x[constants.VIDEO] = feats.reshape(b, t, -1)
         feats = {}
         for m in self.modality:

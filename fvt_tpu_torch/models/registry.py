@@ -5,6 +5,11 @@ LFAN is ported; CAN, JMT and MT are not yet (queue A3), nor the VGGish
 encoder of ``logmel`` (A3), nor int8 serving (``--serve_quant``, A5).
 ``--amp`` builds the ArcFace backbone in bfloat16, as ``fvt_tpu`` does;
 the convolutions run on cuDNN, as ``fvt_tpu``'s CLI runs XLA's.
+``--frozen_eval_backbones`` runs the frozen backbone in eval mode during
+training (``LFAN(frozen_eval=True)``).  ``--pallas_train`` is accepted and
+changes nothing: the port trains through its fused TCN train kernel on
+every modality (``Trainer(tcn_fused=True)``), where ``fvt_tpu`` turns its
+Pallas train kernel off for backbone modalities on a TPU measurement.
 ``--pallas_serving`` is accepted and changes nothing: the port's eval
 runs the fused TCN and fusion kernels on the card in any case.
 """
@@ -51,4 +56,5 @@ def init_model(args, generator: Optional[torch.Generator] = None) -> LFAN:
                 kernel_size=args.tcn_kernel_size,
                 tcn_channel=MC.TCN_CHANNELS, modal_dim=args.modal_dim,
                 num_heads=args.num_heads, generator=generator,
-                backbone_dtype=dtype)
+                backbone_dtype=dtype,
+                frozen_eval=getattr(args, 'frozen_eval_backbones', False))

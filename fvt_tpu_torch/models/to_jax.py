@@ -7,10 +7,13 @@
 ``weight_g`` (out, 1, 1) -> g (out,); the downsample's (out, in, 1) ->
 ``proj/dense/kernel`` (in, out); BatchNorm1d -> ``scale``/``bias`` and
 ``batch_stats`` ``mean``/``var`` (``num_batches_tracked`` has no flax
-counterpart and is dropped).  Every dict is keyed in sorted order, as
-``jax.tree.map`` leaves it, so the trees serialise to the bytes
-``fvt_tpu`` writes.  The feature modalities are covered; the frozen
-ArcFace of a ``video`` model is not (tri-modal training, queue A2b).
+counterpart and is dropped).  The frozen ArcFace of a ``video`` model goes
+to ``spatial_video/backbone`` (:func:`arcface_flax_from_state`, the
+inverse of ``from_jax._arcface``): conv kernels OIHW -> HWIO, PReLU
+slopes to ``alpha``, ``output_linear`` from PyTorch's NCHW flatten back
+to ``fvt_tpu``'s NHWC one, and its 54 BatchNorms' parameters and
+statistics.  Every dict is keyed in sorted order, as ``jax.tree.map``
+leaves it, so the trees serialise to the bytes ``fvt_tpu`` writes.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from fvt_tpu_torch.models.arcface import get_blocks_50
 
 _NO_FLAX = 'num_batches_tracked'
 
@@ -41,18 +46,76 @@ def _put(tree: dict, path: Sequence[str], value: np.ndarray) -> None:
     tree[path[-1]] = value
 
 
+def arcface_flax_from_state(state: Mapping[str, torch.Tensor],
+                            prefix: str) -> Tuple[dict, dict]:
+    """(params, batch_stats) of ``fvt_tpu``'s ``ArcFaceBackbone`` from the
+    keys ``<prefix>.*`` of ``state`` (the port's ``Backbone``).  Raises on a
+    key under ``prefix`` it does not map."""
+    params: Dict[str, dict] = {}
+    stats: Dict[str, dict] = {}
+    seen = set()
+
+    def take(key):
+        seen.add(f'{prefix}.{key}')
+        return _np(state[f'{prefix}.{key}'])
+
+    def conv(key, path):
+        # OIHW -> HWIO
+        _put(params, path + ('kernel',), np.ascontiguousarray(
+            take(f'{key}.weight').transpose(2, 3, 1, 0)))
+
+    def bn(key, path):
+        _put(params, path + ('scale',), take(f'{key}.weight'))
+        _put(params, path + ('bias',), take(f'{key}.bias'))
+        _put(stats, path + ('mean',), take(f'{key}.running_mean'))
+        _put(stats, path + ('var',), take(f'{key}.running_var'))
+        seen.add(f'{prefix}.{key}.{_NO_FLAX}')
+
+    conv('input_layer.0', ('input_conv',))
+    bn('input_layer.1', ('input_bn',))
+    _put(params, ('input_prelu', 'alpha'), take('input_layer.2.weight'))
+    for i, (in_c, depth, _) in enumerate(get_blocks_50()):
+        base, blk = f'body.{i}', (f'body{i}',)
+        if in_c != depth:
+            conv(f'{base}.shortcut_layer.0', blk + ('shortcut_conv',))
+            bn(f'{base}.shortcut_layer.1', blk + ('shortcut_bn',))
+        bn(f'{base}.res_layer.0', blk + ('bn1',))
+        conv(f'{base}.res_layer.1', blk + ('conv1',))
+        _put(params, blk + ('prelu', 'alpha'),
+             take(f'{base}.res_layer.2.weight'))
+        conv(f'{base}.res_layer.3', blk + ('conv2',))
+        bn(f'{base}.res_layer.4', blk + ('bn2',))
+    bn('output_layer.0', ('output_bn2d',))
+    # PyTorch flattens NCHW (c*25 + h*5 + w); fvt_tpu NHWC (h*2560 + w*512
+    # + c): the Linear's columns permuted, then (out, in) -> (in, out)
+    w = take('output_layer.3.weight')
+    w = w.reshape(512, 512, 5, 5).transpose(0, 2, 3, 1).reshape(512, -1)
+    _put(params, ('output_linear', 'kernel'), np.ascontiguousarray(w.T))
+    _put(params, ('output_linear', 'bias'), take('output_layer.3.bias'))
+    bn('output_layer.4', ('output_bn1d',))
+    left = [k for k in state if k.startswith(prefix + '.') and k not in seen]
+    if left:
+        raise KeyError(f'{left[:3]}: no counterpart in fvt_tpu\'s '
+                       f'ArcFaceBackbone tree')
+    return _sorted(params), _sorted(stats)
+
+
 def lfan_flax_from_state(state: Mapping[str, torch.Tensor],
                          modality: Sequence[str]) -> Tuple[dict, dict]:
     """(params, batch_stats) of ``fvt_tpu``'s LFAN from the port's LFAN
     state_dict ``state``; ``modality`` is the model's modality order
-    (leader first).  Raises on a key it does not map, so nothing of the
-    model is left out silently."""
-    if any(k.startswith('spatial.') for k in state):
-        raise NotImplementedError(
-            'writing a video model\'s frozen ArcFace to fvt_tpu\'s tree is '
-            'not ported yet: it comes with tri-modal training (queue A2b)')
+    (leader first).  A ``video`` model's ``spatial.visual.backbone.*``
+    goes to ``spatial_video/backbone``.  Raises on a key it does not map,
+    so nothing of the model is left out silently."""
     params: Dict[str, dict] = {}
     stats: Dict[str, dict] = {}
+    visual = 'spatial.visual.backbone'
+    if any(k.startswith(visual + '.') for k in state):
+        p, st = arcface_flax_from_state(state, visual)
+        params['spatial_video'] = {'backbone': p}
+        stats['spatial_video'] = {'backbone': st}
+        state = {k: v for k, v in state.items()
+                 if not k.startswith(visual + '.')}
     mods = '|'.join(re.escape(m) for m in modality)
     rules = (
         (rf'temporal\.({mods})\.network\.(\d+)\.(conv[12])\.weight_v',

@@ -7,13 +7,15 @@ splits; test is val) to run ``fvt_tpu_torch.main`` on.
 
 Writes ``features/compacted_48/<split>/vid<i>/{video,vggish,bert,
 EXPR_continuous_label}.npy`` (video as 48^2 uint8 face crops, the size a
-recompacted store keeps), ``features/dataset_info_<ds>_<split>.pkl``
-with the extractor version stamp, and ``folds/<ds>/split-0/`` with the
-split lists and ``class_id.yaml``.  Every array is drawn from ``seed``.
+recompacted store keeps, or with ``--video_hw 256`` at the disk
+contract's 256^2, which the loaders resize on the host),
+``features/dataset_info_<ds>_<split>.pkl`` with the extractor version
+stamp, and ``folds/<ds>/split-0/`` with the split lists and
+``class_id.yaml``.  Every array is drawn from ``seed``.
 
     python -m fvt_tpu_torch.tools.synth_store <root> 60 90 150 ...
     python -m fvt_tpu_torch.tools.synth_store <root> 300 900 1800 \
-        --ds C-EXPR-DB --val_lengths 400 1200
+        --ds C-EXPR-DB --val_lengths 400 1200 [--video_hw 256]
 """
 from __future__ import annotations
 
@@ -107,11 +109,15 @@ def main(argv=None) -> None:
     p.add_argument('--val_lengths', type=int, nargs='*', default=(),
                    help='C-EXPR-DB\'s val split video lengths')
     p.add_argument('--seed', type=int, default=0)
+    p.add_argument('--video_hw', type=int, default=48, choices=(48, 256),
+                   help='the face crops\' side: 48 (a recompacted store) '
+                        'or 256 (the disk contract, resized on the host)')
     args = p.parse_args(argv)
     if (args.ds == constants.C_EXPR_DB) != bool(args.val_lengths):
         p.error('--val_lengths goes with --ds C-EXPR-DB, and it needs them')
     print(make_cexpr_store(args.root, args.lengths, ds=args.ds,
-                           val_lengths=args.val_lengths, seed=args.seed))
+                           val_lengths=args.val_lengths, seed=args.seed,
+                           video_hw=args.video_hw))
 
 
 if __name__ == '__main__':

@@ -1,11 +1,12 @@
 """Train and eval steps of the port (``fvt_tpu/train/steps.py``).
 
-:class:`TrainStep` is one optimizer step on one device: forward in train
+:class:`TrainStep` is one optimizer step on one device: the train-time
+input transform on the device (:func:`train_inputs`), forward in train
 mode (dropout from the step's generator, BatchNorm on batch statistics
-with the running ones updated), mean cross-entropy over all B*T frames,
-backward, optimizer update.  The frozen backbone subtrees (prefix
-``spatial``) get no gradient and are kept out of the optimizer, so weight
-decay cannot move them.
+with the running ones updated, the frozen backbone's too), mean
+cross-entropy over all B*T frames, backward, optimizer update.  The
+frozen backbone subtrees (prefix ``spatial``) get no gradient and are
+kept out of the optimizer, so weight decay cannot move them.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from fvt_tpu_torch import constants
+from fvt_tpu_torch.data.transforms import (draw_crop_flip,
+                                           train_video_transform)
 from fvt_tpu_torch.train import optim
 
 FROZEN_PREFIX = 'spatial'
@@ -67,6 +70,23 @@ def to_device(batch: Dict[str, np.ndarray],
             for k, v in batch.items()}
 
 
+def train_inputs(inputs: Dict[str, torch.Tensor],
+                 generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """``fvt_tpu``'s ``_device_transform(train=True)`` (``steps.py:24-43``):
+    a raw uint8 (or int8) video gets the train group transform, its crop
+    offsets and flips drawn from ``generator`` first; bfloat16 feature
+    streams are widened to float32; the rest passes as it is."""
+    out = dict(inputs)
+    video = out.get(constants.VIDEO)
+    if video is not None and video.dtype in (torch.uint8, torch.int8):
+        out[constants.VIDEO] = train_video_transform(
+            video, *draw_crop_flip(video.shape[0], generator))
+    for k, v in out.items():
+        if k != constants.VIDEO and v.dtype == torch.bfloat16:
+            out[k] = v.float()
+    return out
+
+
 class TrainStep:
     """One optimizer step of ``model`` on ``device``.  ``hp`` are the
     standardized optimizer hyperparameters
@@ -95,8 +115,8 @@ class TrainStep:
         """The train-mode forward and its loss (updates the BatchNorm
         running statistics), for tensors already on the device."""
         labels = batch[label_key(batch)]
-        inputs = {k: v for k, v in batch.items()
-                  if 'continuous_label' not in k}
+        inputs = train_inputs({k: v for k, v in batch.items()
+                               if 'continuous_label' not in k}, generator)
         logits = self.model(inputs, True, generator,
                             tcn_fused=self.tcn_fused,
                             reference=self.reference)

@@ -386,13 +386,16 @@ class Trainer:
 
     # ------------------------------------------------------------- run loop
     def best_copy(self) -> Dict[str, torch.Tensor]:
-        """A host copy of the trainable parameters and the buffers (the
-        BatchNorm statistics): the frozen backbone never changes and is
-        not copied.  Cloned, since ``state_dict`` hands out the live
+        """A host copy of the trainable parameters and of every buffer
+        (the BatchNorm statistics, the frozen backbone's too, which a
+        train-mode step moves): the frozen parameters never change and
+        are not copied.  Cloned, since ``state_dict`` hands out the live
         tensors that the optimizer updates in place."""
+        frozen = {k for k, _ in self.model.named_parameters()
+                  if k.startswith(FROZEN_PREFIX)}
         return {k: v.detach().to('cpu', copy=True)
                 for k, v in self.model.state_dict().items()
-                if not k.startswith(FROZEN_PREFIX)}
+                if k not in frozen}
 
     def load_copy(self, copy: Dict[str, torch.Tensor]) -> None:
         """Writes a :meth:`best_copy` back into the live model."""

@@ -36,6 +36,17 @@ N = 2
 BF16 = torch.bfloat16
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the machine's
+    cores, and torch's spinning threads made this file's runs tens of
+    times slower there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope='module')
 def arcface():
     rng = np.random.default_rng(0)

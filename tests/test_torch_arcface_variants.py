@@ -33,6 +33,17 @@ N = 2
 RTOL, ATOL = 2e-4, 2e-5
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the machine's
+    cores, and torch's spinning threads made this file's runs tens of
+    times slower there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _perturb(tree, rng, stats: bool):
     def move(path, leaf):
         name = path[-1].key

@@ -37,6 +37,17 @@ from test_torch_bottleneck import _block, _flax_eval
 GATE = 1e-4
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the machine's
+    cores, and torch's spinning threads made this file's runs tens of
+    times slower there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize('hw,c,n', [(12, 64, 6), (8, 128, 4), (5, 128, 3),
                                     (1, 8, 2), (5, 512, 2)])
 def test_tf32x3_ref_meets_the_fp32_gate(hw, c, n):

@@ -13,6 +13,9 @@
   holds ``fvt_tpu``'s: MYWARMUP's plateau state and the stopper's counter
   survive, a step without its sidecar falls back to the older one, two
   steps are kept.
+* A tri-modal model's checkpoint and best copy carry the frozen
+  backbone's BatchNorm statistics, which a train step moves, bit for bit;
+  the writer refuses a backbone key too many or missing.
 * ``EarlyStopper`` against ``fvt_tpu``'s on a table of sequences.
 """
 import os
@@ -27,6 +30,8 @@ from synth_store import make_meld_store
 
 MODS = ('vggish', 'bert')
 TCN = {'vggish': [8, 8, 4, 4], 'bert': [8, 8, 4, 4]}
+VIDEO_MODS = ('video',) + MODS
+VIDEO_TCN = {**TCN, 'video': [8, 8, 4, 4]}
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -88,10 +93,18 @@ def test_writer_refuses_what_fvt_tpus_tree_lacks(tmp_path):
     state['regressor.extra'] = torch.zeros(1)
     with pytest.raises(KeyError, match='regressor.extra'):
         save_best_model(state, str(tmp_path / 'a.msgpack'), MODS)
-    state = {**model.state_dict(),
-             'spatial.visual.backbone.input_layer.0.weight': torch.zeros(1)}
-    with pytest.raises(NotImplementedError, match='A2b'):
-        save_best_model(state, str(tmp_path / 'b.msgpack'), MODS)
+    # a video model's backbone goes to spatial_video/backbone, every key
+    # of it: one too many or one missing raises, naming it
+    video = LFAN(VIDEO_MODS, 7, tcn_channel=VIDEO_TCN,
+                 encoder_dim={m: 4 for m in VIDEO_MODS})
+    state = {**video.state_dict(),
+             'spatial.visual.backbone.extra': torch.zeros(1)}
+    with pytest.raises(KeyError, match='backbone.extra'):
+        save_best_model(state, str(tmp_path / 'b.msgpack'), VIDEO_MODS)
+    state = dict(video.state_dict())
+    del state['spatial.visual.backbone.output_layer.4.running_var']
+    with pytest.raises(KeyError, match='output_layer.4.running_var'):
+        save_best_model(state, str(tmp_path / 'c.msgpack'), VIDEO_MODS)
 
 
 # ------------------------------------------------------------------ resume
@@ -238,6 +251,57 @@ def test_mywarmup_state_and_stopper_counter_survive_a_resume(tmp_path):
         torch.equal(other.optimizer.state_dict()['state'][i]
                     ['momentum_buffer'], s['momentum_buffer'])
         for i, s in mom.items())
+
+
+def test_checkpoint_restores_the_backbones_batchnorm_buffers(tmp_path):
+    """A tri-modal step moves the frozen backbone's 54 BatchNorms'
+    running statistics; a checkpoint carries them, and the best copy
+    holds them, bit for bit."""
+    from fvt_tpu_torch.config.defaults import get_config
+    from fvt_tpu_torch.models.models import LFAN
+    from fvt_tpu_torch.train.checkpoint import Checkpointer
+    from fvt_tpu_torch.train.metrics import build_trackers
+    from fvt_tpu_torch.train.trainer import Trainer
+
+    def trainer(seed, outd):
+        model = LFAN(VIDEO_MODS, 7, tcn_channel=VIDEO_TCN,
+                     encoder_dim={m: 4 for m in VIDEO_MODS},
+                     generator=torch.Generator().manual_seed(seed))
+        return Trainer(model, {**get_config('MELD'), 'outd': str(outd)},
+                       'cpu')
+
+    def buffers(t):
+        return {k: v.clone() for k, v in t.model.named_buffers()
+                if k.startswith('spatial.')}
+
+    rng = np.random.default_rng(1)
+    live = trainer(0, tmp_path)
+    start = buffers(live)
+    assert len(start) == 3 * 54
+    live.train_one_epoch([{
+        'video': rng.integers(0, 256, (1, 4, 48, 48, 3), dtype=np.uint8),
+        'vggish': rng.normal(size=(1, 4, 128)).astype(np.float32),
+        'bert': rng.normal(size=(1, 4, 768)).astype(np.float32),
+        'EXPR_continuous_label': rng.integers(0, 7, (1, 4))}], 0)
+    moved = buffers(live)
+    for k, v in moved.items():
+        assert not torch.equal(v, start[k]), k
+    trackers = build_trackers('MELD', use_other_class=False)
+    best = {k: live.best_copy() for k in trackers}
+    for copy in best.values():
+        assert all(torch.equal(copy[k], v) for k, v in moved.items())
+        assert not any(k in copy for k, _ in
+                       live.model.named_parameters() if
+                       k.startswith('spatial.'))
+    Checkpointer(str(tmp_path)).save(0, live, trackers, best, [1.0])
+
+    other = trainer(1, tmp_path / 'other')
+    _, _, got_best, _ = Checkpointer(str(tmp_path)).restore(other)
+    for k, v in buffers(other).items():
+        assert torch.equal(v, moved[k]), k
+    for k in best:
+        for n, t in best[k].items():
+            assert torch.equal(got_best[k][n], t), n
 
 
 def test_restore_falls_back_when_a_sidecar_is_missing(tmp_path):

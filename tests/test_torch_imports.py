@@ -1,6 +1,7 @@
 """The port needs neither JAX, flax, PyYAML, msgpack, orbax nor anything
-of fvt_tpu (its serving and training paths, every conv path of the
-ArcFace backbone, its tools, the training CLI with checkpoints and resume
+of fvt_tpu (its serving and training paths, a video model's train step
+and its ArcFace in fvt_tpu's tree, every conv path of the ArcFace
+backbone, its tools, the training CLI with checkpoints and resume
 and the challenge inference CLI on stores of its own synthetic writer run
 with all six blocked), and chip_smoke.py refuses to run without a CUDA
 card."""
@@ -62,6 +63,26 @@ NO_JAX = textwrap.dedent('''
     loss = Trainer(model, get_train_config(), 'cpu').train_one_epoch(
         [batch], 0)
     assert np.isfinite(loss), loss
+
+    # a video model trains (the train transform, the backbone in train
+    # mode) and its ArcFace goes to fvt_tpu's tree
+    from fvt_tpu_torch.models.to_jax import lfan_flax_from_state
+    video_mods = ('video', 'vggish')
+    video_model = LFAN(video_mods, 7, tcn_channel={m: [8, 8, 4, 4]
+                                                   for m in video_mods},
+                       encoder_dim={m: 4 for m in video_mods},
+                       generator=torch.Generator().manual_seed(0))
+    video_batch = {
+        'video': rng.integers(0, 256, (1, 2, 48, 48, 3), dtype=np.uint8),
+        'vggish': rng.normal(size=(1, 2, 128)).astype(np.float32),
+        'EXPR_continuous_label': rng.integers(0, 7, (1, 2))}
+    loss = Trainer(video_model, get_train_config(), 'cpu').train_one_epoch(
+        [video_batch], 0)
+    assert np.isfinite(loss), loss
+    params, stats = lfan_flax_from_state(video_model.state_dict(),
+                                         video_mods)
+    assert 'backbone' in params['spatial_video'], list(params)
+    assert 'backbone' in stats['spatial_video'], list(stats)
 
     from fvt_tpu_torch.models.arcface import (CONV_IMPLS, VisualBackbone,
                                               arcface_forward_eval)
@@ -181,7 +202,9 @@ def test_no_port_source_imports_jax_or_fvt_tpu():
             'fvt_tpu_torch/models/to_jax.py',
             'fvt_tpu_torch/train/checkpoint.py',
             'fvt_tpu_torch/main.py',
-            'fvt_tpu_torch/data/loader.py'} <= names
+            'fvt_tpu_torch/data/loader.py',
+            'fvt_tpu_torch/data/transforms.py',
+            'fvt_tpu_torch/train/steps.py'} <= names
     for path in paths:
         with open(path) as f:
             found = FORBIDDEN_IMPORT.findall(f.read())

@@ -268,6 +268,66 @@ def test_challenge_cli_reads_the_ports_best_model(runs, tmp_path):
                                    atol=1e-5, rtol=0)
 
 
+def test_tri_modal_main_writes_the_run_and_reads_its_best_model(tmp_path):
+    """``video+vggish+bert`` through the CLI on the CPU: the full-width
+    model (the IR-50 in train mode, the TCN widths of ``TCN_CHANNELS``)
+    for one epoch over a C-EXPR-DB store of the port's writer (48^2 uint8
+    crops, window 4): the run directory ``fvt_tpu.main`` writes, a best
+    model that carries ``fvt_tpu``'s ArcFace subtree with the statistics
+    the epoch moved, and the port's inference_challenge reading it back
+    to the test pass's logits (atol 1e-5)."""
+    from fvt_tpu_torch.inference_challenge import main as challenge
+    from fvt_tpu_torch.main import main
+    from fvt_tpu_torch.models.checkpoint import read_flax_variables
+    from fvt_tpu_torch.models.from_jax import visual_backbone_state_from_flax
+    from fvt_tpu_torch.tools.synth_store import make_cexpr_store
+
+    store = make_cexpr_store(str(tmp_path / 'store'), [6, 7, 5],
+                             ds='C-EXPR-DB', val_lengths=[3, 4], seed=2)
+    outd = str(tmp_path / 'run')
+    exp = main(['--dataset_name', 'C-EXPR-DB',
+                '--dataset_path', store['dataset_path'],
+                '--folds_dir', store['folds_dir'],
+                '--modality', 'video+vggish+bert+EXPR_continuous_label',
+                '--num_epochs', '1', '--train_batch_size', '2',
+                '--num_workers', '1', '--window_length', '4',
+                '--hop_length', '2', '--eval_bucket_quantum', '4',
+                '--outd', outd], device='cpu')
+    assert _files(outd) == sorted(
+        ['config.yml', 'log.json', 'log.txt', 'passed.txt',
+         'test-None-perf.txt', 'test-None-perf.pkl',
+         'pred-per-frame-test-None-perf.pkl',
+         'best-models/None/model.msgpack', 'best-models/None/config.yml'])
+    assert len(exp.trainer.loss_tracker) == 1
+    assert np.isfinite(exp.trainer.loss_tracker).all()
+
+    params, stats = read_flax_variables(
+        join(outd, 'best-models', 'None', 'model.msgpack'))
+    assert set(params) >= {'spatial_video', 'temporal_video', 'regressor'}
+    backbone = visual_backbone_state_from_flax(params['spatial_video'],
+                                               stats['spatial_video'])
+    live = exp.trainer.model.state_dict()
+    for k, v in backbone.items():
+        if 'num_batches_tracked' not in k:
+            assert torch.equal(v, live[f'spatial.visual.{k}']), k
+    init = exp.trainer.model.spatial.visual.backbone.input_layer[1]
+    assert int(init.num_batches_tracked) == exp.trainer.train_step.step > 0
+
+    evald = str(tmp_path / 'eval')
+    challenge(['--mode', 'EVALUATION', '--fd_exp', outd,
+               '--target_ds_name', 'C-EXPR-DB', '--eval_set', 'test',
+               '--case_best_model', 'None',
+               '--dataset_path', store['dataset_path'],
+               '--folds_dir', store['folds_dir'], '--outd', evald],
+              device='cpu')
+    got = _load(join(evald, 'pred-per-frame-eval-test.pkl'))
+    want = _load(join(outd, 'pred-per-frame-test-None-perf.pkl'))
+    assert list(got) == list(want)
+    for vid in want:
+        np.testing.assert_allclose(got[vid]['logits'], want[vid]['logits'],
+                                   atol=1e-5, rtol=0)
+
+
 def test_main_needs_a_card_unless_the_cpu_is_named(tmp_path):
     from fvt_tpu_torch.main import main
 

@@ -203,7 +203,26 @@ def test_fusion_kernel_wrapper_refuses_tensors_that_need_grad():
 
 
 def test_training_a_video_modality_is_refused_for_now():
+    """Refused until tri-modal training was ported; now a precomputed
+    video stream passes to the model as it is, and a video model's raw
+    crops go through the frozen backbone in train mode: its running
+    statistics move, its parameters get no gradient, the head's do."""
     model = LFAN(('vggish',), 7, tcn_channel=TCN, encoder_dim=ENC)
     x = {'vggish': torch.zeros(1, 4, 128), 'video': torch.zeros(1, 4, 512)}
-    with pytest.raises(NotImplementedError, match='video'):
-        model(x, True, torch.Generator().manual_seed(0))
+    out = model(x, True, torch.Generator().manual_seed(0))
+    assert out.shape == (1, 4, 7)
+
+    mods = ('video', 'vggish')
+    model = LFAN(mods, 7, tcn_channel={m: TCN['vggish'] for m in mods},
+                 encoder_dim={m: ENC['vggish'] for m in mods})
+    bn = model.spatial.visual.backbone.input_layer[1]
+    before = bn.running_mean.clone()
+    x = {'vggish': torch.randn(1, 2, 128),
+         'video': torch.rand(1, 2, 40, 40, 3) * 2 - 1}
+    model(x, True, torch.Generator().manual_seed(0)).sum().backward()
+    assert not torch.equal(bn.running_mean, before)
+    assert int(bn.num_batches_tracked) == 1
+    assert all(p.grad is None
+               for p in model.spatial.parameters())
+    assert all(p.grad is not None
+               for p in model.regressor.parameters())

@@ -43,6 +43,17 @@ DEEP = (2, 5, 5, 512, 512)
 SHAPES = WINOGRAD_SHAPES + [DEEP]
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+    """One intra-op thread: the suite runs six workers on the machine's
+    cores, and torch's spinning threads made this file's runs tens of
+    times slower there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(shape, seed):
     n, h, w, ci, co = shape
     rng = np.random.default_rng(seed)
