@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's LFAN serving and training paths and the
-ArcFace backbone's conv paths once on one CUDA card.
+"""Drives the PyTorch port's LFAN serving and training paths, the
+ArcFace backbone's conv paths, and the training and serving of CAN, JMT
+and MT once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -149,11 +150,30 @@ Phases, each of which raises on failure (exit code 1):
    trained frames/s, validation passes, peak device memory a run; the
    step timed with ``tcn_fused`` on and off and with ``frozen_eval`` on
    and off in turns (float32 and ``--amp``), and the train-mode
-   backbone's share of the step.
+   backbone's share of the step;
+9. the other fusion families: ``fvt_tpu_torch.main`` trains CAN on
+   ``video+vggish+bert`` and JMT, MT and JMT under ``--amp`` on
+   ``video+vggish`` (full published widths: five-level video TCN with
+   dilation 16, vggish 128->128,128,64,64) for 2 epochs on phase 8's
+   store, then ``fvt_tpu_torch.inference_challenge`` serves each best
+   model over phase 6's challenge store (whole videos in buckets, CAN up
+   to ``eval_video_batch`` a forward, JMT and MT one a forward with the
+   valid frames' mask): 13 (CAN) or 9 B3a and B3b calls a step and 13 or
+   9 B1 launches a forward and no other kernel, each best model read back
+   and written again to the same bytes, every video's served logits
+   within 1e-4 (relative to their largest magnitude) of the offline
+   plain-version composition on the loader's padded input, no eval
+   backbone call above ``eval_window_batch * window_length`` frames, B1
+   at every (B, T) of the eval passes (up to T = 2400) and B3a/B3b at
+   every trained (B, T) and (16, 300) at all the model's blocks against
+   their plain versions; CLI and epoch walls, step_s, frames/s, peak
+   memory; a step at (16, 300) by CUDA events and JMT's and MT's fusion
+   alone, its share; CAN's eval over a full bucket of 32 whole videos of
+   1000 frames (the backbone in chunks), its peak memory.
 
 Everything runs in float32 with TF32 off for matmuls and cuDNN, except the
-bfloat16 backbone and its kernel and phase 8's ``--amp`` run, which say
-so.  The last
+bfloat16 backbone and its kernel and phases 8 and 9's ``--amp`` runs,
+which say so.  The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line
 before it lists the kernels.  Without a CUDA card the script exits with
 code 1 and prints no result.
@@ -269,6 +289,19 @@ TRI_STORE_LENGTHS = (250, 450)
 TRI_VIDEO_HW = 256
 TRI_EPOCHS = 2
 AB_PAIRS, AB_PAIRS_BF16 = 5, 10
+# phase 9: CAN, JMT and MT (and JMT under --amp) trained through main on
+# phase 8's store for FAMILY_EPOCHS, then served through
+# inference_challenge on phase 6's store; the served logits against the
+# offline plain composition within FAMILY_RTOL of their largest magnitude;
+# a step timed at (TRAIN_BATCH, WINDOW) over FAMILY_STEP_RUNS; CAN's eval
+# once more on a full bucket of whole videos of FAMILY_BUCKET_LENGTH
+FAMILY_RUNS = (('CAN', MODALITY, False), ('JMT', ('video', 'vggish'), False),
+               ('MT', ('video', 'vggish'), False),
+               ('JMT', ('video', 'vggish'), True))
+FAMILY_EPOCHS = 2
+FAMILY_RTOL = 1e-4
+FAMILY_STEP_RUNS = 5
+FAMILY_BUCKET_LENGTH = 1000
 # the train-mode backbone vs its composition of PyTorch's own train-mode
 # calls (F.batch_norm computes the variance by another algorithm): the
 # embeddings within EMBED_ATOL; each running statistic within
@@ -1907,6 +1940,40 @@ def zero_launches(counters: dict) -> None:
         counters[name].launches_fp32 = counters[name].launches_bf16 = 0
 
 
+def run_counters() -> tuple:
+    """(zero, read) over the counters of every kernel a CLI run can
+    launch: B1, B2, the conv kernels, B3a/B3b (``launches_fwd`` and
+    ``launches_bwd``) and their SIMT twins.  ``read()`` returns
+    :func:`read_launches` with the train kernels' counts added."""
+    from fvt_tpu_torch.ops.fusion import (fused_multimodal_fusion,
+                                          fused_multimodal_fusion_simt)
+    from fvt_tpu_torch.ops.tcn import (fused_temporal_block,
+                                       fused_temporal_block_simt,
+                                       fused_temporal_block_train as block,
+                                       fused_temporal_block_train_simt as
+                                       simt)
+    counters = {'tcn_block': fused_temporal_block,
+                'tcn_block_simt': fused_temporal_block_simt,
+                'fusion': fused_multimodal_fusion,
+                'fusion_simt': fused_multimodal_fusion_simt,
+                **conv_counters()}
+
+    def zero():
+        zero_launches(counters)
+        for fn in (block, simt):
+            fn.launches_fwd = fn.launches_bwd = 0
+
+    def read():
+        out = read_launches(counters)
+        out.update(tcn_block_train=block.launches_fwd,
+                   tcn_block_bwd=block.launches_bwd,
+                   tcn_block_train_simt=simt.launches_fwd,
+                   tcn_block_bwd_simt=simt.launches_bwd)
+        return out
+
+    return zero, read
+
+
 def backbone_variants(model, crops: torch.Tensor, device) -> dict:
     """Phase 5, the backbone alone: each conv path on the same frames and
     weights against the default path; then ``fused_blocks`` on
@@ -2374,22 +2441,32 @@ class ShapeRecorder:
     at eval) of any model, through a global forward pre-hook: the CLIs
     build their models themselves.  Eval calls go to ``tcn`` and
     ``fusion``, train-mode calls (``train=True``, B3a and B3b in each
-    block) to ``tcn_train`` and ``fusion_train``."""
+    block) to ``tcn_train`` and ``fusion_train``.  The forwards of a whole
+    model of any family go to ``model`` and ``model_train`` the same way,
+    and the frames of each call of the ArcFace backbone to ``backbone``."""
 
     def __enter__(self):
+        from fvt_tpu_torch.models.arcface import VisualBackbone
         from fvt_tpu_torch.models.fusion import MultimodalTransformerEncoder
+        from fvt_tpu_torch.models.models import FusionModel
         from fvt_tpu_torch.models.tcn import TemporalConvNet
         self.tcn, self.fusion = [], []
         self.tcn_train, self.fusion_train = [], []
+        self.model, self.model_train, self.backbone = [], [], []
 
         def hook(module, args):
-            train = len(args) > 1 and bool(args[1])
+            train = len(args) > 1 and args[1] is True
             if isinstance(module, TemporalConvNet):
                 (self.tcn_train if train else self.tcn).append(
                     tuple(args[0].shape[:2]))
             elif isinstance(module, MultimodalTransformerEncoder):
                 (self.fusion_train if train else self.fusion).append(
                     tuple(next(iter(args[0].values())).shape[:2]))
+            elif isinstance(module, FusionModel):
+                (self.model_train if train else self.model).append(
+                    tuple(next(iter(args[0].values())).shape[:2]))
+            elif isinstance(module, VisualBackbone):
+                self.backbone.append(args[0].shape[0])
 
         self.handle = torch.nn.modules.module \
             .register_module_forward_pre_hook(hook)
@@ -2399,52 +2476,62 @@ class ShapeRecorder:
         self.handle.remove()
 
 
-def challenge_reference(model, store: dict, mean_std: dict, device) -> dict:
-    """Phase 6's offline path: each video of the store read with numpy,
-    its features normalised with the fold's mean/std and its frames
-    center-cropped to 40^2, padded by repeat to the window or windowed,
-    the plain-version forward over WINDOW_BATCH windows at a time, the
-    windows stitched."""
+def challenge_videos(store: dict, mean_std: dict, modality):
+    """Each video of the challenge store read with numpy, as the offline
+    references take it: yields (``split/vid``, {modality: array}) with
+    the features normalised with the fold's mean/std and the frames
+    center-cropped to 40^2."""
     import os
-    from fvt_tpu_torch.data import windowing as W
     from fvt_tpu_torch.data.transforms import CROP_SIZE, center_crop_offset
-    from fvt_tpu_torch.serve import lfan_serving_forward
 
     feat = os.path.join(store['dataset_path'], 'features', 'compacted_48')
     off = center_crop_offset(48, CROP_SIZE)
-    out = {}
     for split in sorted(os.listdir(feat)):
         for vid in sorted(os.listdir(os.path.join(feat, split)),
                           key=lambda v: int(v[3:])):
             tdir = os.path.join(feat, split, vid)
             arrays = {m: np.load(os.path.join(tdir, f'{m}.npy'))
-                      for m in MODALITY}
-            for m in ('vggish', 'bert'):
+                      for m in modality}
+            for m in modality:
+                if m == 'video':
+                    continue
                 st = mean_std[m]
                 arrays[m] = ((arrays[m] - st['mean'].astype(np.float32))
                              / st['std'].astype(np.float32))
             arrays['video'] = arrays['video'][:, off:off + CROP_SIZE,
                                               off:off + CROP_SIZE]
-            n = len(arrays['bert'])
-            idx = (W.pad_short_window_indices(n, WINDOW)[None] if n < WINDOW
-                   else W.window_index_matrix(n, WINDOW, HOP))
-            logits = []
-            for s in range(0, len(idx), WINDOW_BATCH):
-                rows = idx[s:s + WINDOW_BATCH]
-                batch = {k: torch.from_numpy(np.ascontiguousarray(a[rows]))
-                         .to(device) for k, a in arrays.items()}
-                logits.append(lfan_serving_forward(
-                    model, batch, reference=True).cpu().numpy())
-            logits = np.concatenate(logits)
-            out[f'{split}/{vid}'] = (logits[0] if n < WINDOW else
-                                     W.stitch_windows_np(logits, idx, n))
+            yield f'{split}/{vid}', arrays
+
+
+def challenge_reference(model, store: dict, mean_std: dict, device) -> dict:
+    """Phase 6's offline path: each video of :func:`challenge_videos`
+    padded by repeat to the window or windowed, the plain-version forward
+    over WINDOW_BATCH windows at a time, the windows stitched."""
+    from fvt_tpu_torch.data import windowing as W
+    from fvt_tpu_torch.serve import lfan_serving_forward
+
+    out = {}
+    for key, arrays in challenge_videos(store, mean_std, MODALITY):
+        n = len(arrays['bert'])
+        idx = (W.pad_short_window_indices(n, WINDOW)[None] if n < WINDOW
+               else W.window_index_matrix(n, WINDOW, HOP))
+        logits = []
+        for s in range(0, len(idx), WINDOW_BATCH):
+            rows = idx[s:s + WINDOW_BATCH]
+            batch = {k: torch.from_numpy(np.ascontiguousarray(a[rows]))
+                     .to(device) for k, a in arrays.items()}
+            logits.append(lfan_serving_forward(
+                model, batch, reference=True).cpu().numpy())
+        logits = np.concatenate(logits)
+        out[key] = (logits[0] if n < WINDOW else
+                    W.stitch_windows_np(logits, idx, n))
     return out
 
 
 def check_at_shapes(model, shapes, device, modality=MODALITY) -> None:
-    """B1 at each of the model's blocks (12 for the tri-modal LFAN) and B2
-    at each (B, T) of ``shapes``, on random inputs, against their plain
-    versions at the phase-2 gate."""
+    """B1 at each of the model's blocks of ``modality`` (12 for the
+    tri-modal LFAN) and, for an LFAN, B2 at each (B, T) of ``shapes``, on
+    random inputs, against their plain versions at the phase-2 gate."""
     from fvt_tpu_torch.ops import tcn as tcn_ops
 
     g = torch.Generator(device=device).manual_seed(SEED + 6)
@@ -2460,53 +2547,83 @@ def check_at_shapes(model, shapes, device, modality=MODALITY) -> None:
                     w = blk.eval_weights()
                     args = (x, w['w1'], w['b1'], w['w2'], w['b2'], w['wd'],
                             w['bd'])
-                    kw = dict(kernel_size=net.kernel_size, dilation=2 ** i)
+                    kw = dict(kernel_size=net.kernel_size,
+                              dilation=blk.dilation)
                     want = tcn_ops.fused_temporal_block_ref(*args, **kw)
                     errs.append(compare(
                         f'tcn_block {m}.{i} ({b},{t},{x.shape[-1]})->'
-                        f'{want.shape[-1]}', tcn_ops.fused_temporal_block(
+                        f'{want.shape[-1]} d={blk.dilation}',
+                        tcn_ops.fused_temporal_block(
                             *args, **kw, packed=w['packed']), want))
                     x = want.contiguous()
                 feats[m] = x
+            if not hasattr(model, 'fusion'):
+                print(f'  B1 at ({b},{t}): max_abs_err {max(errs):.3e}')
+                continue
             errs.append(compare(f'fusion ({b},{t})',
                                 model.fusion(feats),
                                 model.fusion(feats, reference=True)))
             print(f'  B1 and B2 at ({b},{t}): max_abs_err {max(errs):.3e}')
 
 
-def full_bucket_memory(trainer, videos: int, device) -> None:
-    """The peak device memory of one forward of the CLI's model over a
-    full bucket (``eval_video_batch`` videos of WINDOW frames), the most a
-    store of short videos hands one forward; a store of 12 videos has no
-    such bucket.  Prints whether it fits."""
+def full_bucket(trainer, videos: int, device, length: int = WINDOW,
+                modality=MODALITY, rtol: float = FAMILY_RTOL) -> tuple:
+    """One forward of the CLI's model over a full bucket
+    (``eval_video_batch`` videos of ``length`` frames), the most a store
+    of videos that long hands one forward; a store of 12 videos has no
+    such bucket.  Prints its time and peak device memory.  Fails if it
+    does not fit on the card, if the eval backbone took it in fewer than
+    two calls or any call above ``eval_frames`` frames, or if its logits
+    differ from the same forward on the plain versions by more than
+    ``rtol`` of their largest magnitude.  Returns the bucket's (B, T)."""
     from fvt_tpu_torch.config import model_config as MC
 
     rng = np.random.default_rng(SEED + 7)
-    shape = (videos, WINDOW)
+    shape = (videos, length)
     inputs = {'video': rng.integers(0, 256, shape + (40, 40, 3), np.uint8)}
-    for m in MODALITY[1:]:
+    for m in modality[1:]:
         inputs[m] = rng.standard_normal(
             shape + tuple(MC.FEATURE_DIMENSION[m]), np.float32)
     batch = {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
+    chunk = trainer.model.eval_frames
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     try:
-        t0 = time.perf_counter()
-        out = trainer.forward(batch)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
+        with ShapeRecorder() as rec:
+            t0 = time.perf_counter()
+            out = trainer.forward(batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
     except torch.cuda.OutOfMemoryError:
-        print(f'  a full bucket ({videos}, {WINDOW}) does NOT fit on the '
-              f'card: out of memory after '
-              f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
-        return
-    if not bool(torch.isfinite(out).all()):
-        fail('a full bucket gave non-finite logits')
-    print(f'  a full bucket ({videos}, {WINDOW}), {videos * WINDOW} frames, '
-          f'one forward: {ms:.1f} ms (host clock, first call at this '
-          f'shape), peak device memory '
-          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
-    del out, batch
+        fail(f'a full bucket {shape} does not fit on the card: out of '
+             f'memory after {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}'
+             f' GiB')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'  a full bucket {shape}, {videos * length} frames, one forward: '
+          f'{ms:.1f} ms (host clock, first call at this shape), peak device '
+          f'memory {peak:.2f} GiB; the backbone\'s calls {rec.backbone} '
+          f'(chunk {chunk})')
+    if len(rec.backbone) < 2 or max(rec.backbone) > chunk \
+            or sum(rec.backbone) != videos * length:
+        fail(f'a full bucket {shape} went through the eval backbone in '
+             f'calls of {rec.backbone} frames, not in chunks of at most '
+             f'{chunk}')
+    trainer.reference = True
+    try:
+        want = trainer.forward(batch)
+    finally:
+        trainer.reference = False
+    if out.shape != want.shape or not bool(torch.isfinite(out).all()):
+        fail(f'a full bucket gave logits {tuple(out.shape)}, want '
+             f'{tuple(want.shape)}, finite={bool(torch.isfinite(out).all())}')
+    err = float((out - want).abs().max() / want.abs().max().clamp_min(1e-30))
+    print(f'  its logits within {err:.3e} of the same forward on the plain '
+          f'versions, relative to their largest magnitude (gate {rtol})')
+    if err > rtol:
+        fail(f'a full bucket {shape}: logits differ from the plain versions '
+             f'by {err} relative')
+    del out, want, batch
+    return shape
 
 
 def challenge_inference(device) -> dict:
@@ -2618,24 +2735,38 @@ def challenge_inference(device) -> dict:
                      f'by {err} (atol {SERVE_ATOL})')
         print(f'  every video within {worst:.3e} of the offline plain stitch '
               f'(atol {SERVE_ATOL})')
-        check_at_shapes(model, shapes + list(CHALLENGE_EXTRA_SHAPES), device)
-        full_bucket_memory(exp.trainer, int(cfg['eval_video_batch']), device)
+        bucket = full_bucket(exp.trainer, int(cfg['eval_video_batch']),
+                             device)
+        check_at_shapes(model, sorted(set(shapes) | {bucket}
+                                      | set(CHALLENGE_EXTRA_SHAPES),
+                                      key=lambda bt: (bt[1], bt[0])), device)
         del exp, model
     torch.cuda.empty_cache()
     return {'tcn_block': launches['tcn_block'], 'fusion': launches['fusion']}
 
 
+def model_blocks(model, modality) -> list:
+    """(name, B, T, Cin, Cout, dilation) of the TCN blocks of ``model`` on
+    ``modality``, at the training batch."""
+    return [(f'{m}.{i}', TRAIN_BATCH, WINDOW, blk.conv1.weight_v.shape[1],
+             blk.n_outputs, blk.dilation)
+            for m in modality
+            for i, blk in enumerate(model.temporal[m].network)]
+
+
 def check_train_at_shape(b: int, t: int, device, k: int = 5,
-                         modality=TRAIN_MODALITY) -> float:
+                         modality=TRAIN_MODALITY, blocks=None) -> float:
     """B3a and B3b (``fused_temporal_block_train``) at the blocks of the
-    LFAN on ``modality`` (8 for ``vggish+bert``) at (b, t): the forward's
-    output and the six gradients against autograd of the plain version at
-    the phase-2 gate.  Returns the largest error."""
+    LFAN on ``modality`` (8 for ``vggish+bert``), or at ``blocks`` (as
+    :func:`model_blocks` gives them), at (b, t): the forward's output and
+    the six gradients against autograd of the plain version at the
+    phase-2 gate.  Returns the largest error."""
     from fvt_tpu_torch.ops import tcn as tcn_ops
 
     g = torch.Generator(device=device).manual_seed(SEED + 9)
     worst = 0.0
-    for name, _, _, cin, cout, d in train_block_shapes(k, modality):
+    for name, _, _, cin, cout, d in (blocks
+                                     or train_block_shapes(k, modality)):
         def randn(*shape, scale=1.0):
             return torch.randn(*shape, device=device, generator=g) * scale
 
@@ -2712,13 +2843,6 @@ def training_run(device) -> dict:
     import tempfile
     from fvt_tpu_torch import inference_challenge
     from fvt_tpu_torch import main as train_cli
-    from fvt_tpu_torch.ops.fusion import (fused_multimodal_fusion,
-                                          fused_multimodal_fusion_simt)
-    from fvt_tpu_torch.ops.tcn import (fused_temporal_block,
-                                       fused_temporal_block_simt,
-                                       fused_temporal_block_train as block,
-                                       fused_temporal_block_train_simt as
-                                       simt)
     from fvt_tpu_torch.tools.synth_store import make_cexpr_store
     from fvt_tpu_torch.train import checkpoint, trainer
 
@@ -2728,25 +2852,8 @@ def training_run(device) -> dict:
     val_lengths = [int(n) for n in rng.integers(lo, hi + 1,
                                                 VAL_STORE_VIDEOS)]
     modality = '+'.join(TRAIN_MODALITY)
-    counters = {'tcn_block': fused_temporal_block,
-                'tcn_block_simt': fused_temporal_block_simt,
-                'fusion': fused_multimodal_fusion,
-                'fusion_simt': fused_multimodal_fusion_simt,
-                **conv_counters()}
 
-    def zero():
-        zero_launches(counters)
-        for fn in (block, simt):
-            fn.launches_fwd = fn.launches_bwd = 0
-
-    def read():
-        out = read_launches(counters)
-        out.update(tcn_block_train=block.launches_fwd,
-                   tcn_block_bwd=block.launches_bwd,
-                   tcn_block_train_simt=simt.launches_fwd,
-                   tcn_block_bwd_simt=simt.launches_bwd)
-        return out
-
+    zero, read = run_counters()
     timer_methods = {
         'epoch': (trainer.Trainer, 'train_one_epoch', 'last_epoch_timing'),
         'inference': (trainer.Trainer, 'inference', None),
@@ -3100,6 +3207,26 @@ def time_train_ab(trainer, device, pairs: int, label: str) -> None:
           f'{100 * bb / default:.1f}% of the default step')
 
 
+def make_tri_store(path: str) -> dict:
+    """Phases 8 and 9's C-EXPR-DB store at TRI_VIDEO_HW^2 (video lengths
+    drawn from the seed); returns ``make_cexpr_store``'s paths."""
+    from fvt_tpu_torch.tools.synth_store import make_cexpr_store
+
+    rng = np.random.default_rng(SEED + 10)
+    lo, hi = TRI_STORE_LENGTHS
+    lengths = [int(n) for n in rng.integers(lo, hi + 1, TRI_STORE_VIDEOS)]
+    val_lengths = [int(n) for n in rng.integers(lo, hi + 1, TRI_VAL_VIDEOS)]
+    t0 = time.perf_counter()
+    store = make_cexpr_store(path, lengths, ds='C-EXPR-DB',
+                             val_lengths=val_lengths, seed=SEED,
+                             video_hw=TRI_VIDEO_HW)
+    print(f'  C-EXPR-DB store at {TRI_VIDEO_HW}^2: {len(lengths)} train '
+          f'videos ({sum(lengths)} frames), {len(val_lengths)} val '
+          f'videos ({sum(val_lengths)} frames), written in '
+          f'{time.perf_counter() - t0:.2f} s')
+    return store
+
+
 def tri_modal_training(device) -> dict:
     """Phase 8.  Returns the launches of B1, B2, B3a and B3b over the
     CLI's three runs."""
@@ -3110,25 +3237,8 @@ def tri_modal_training(device) -> dict:
     from fvt_tpu_torch import main as train_cli
     from fvt_tpu_torch.data import native_store
     from fvt_tpu_torch.models.checkpoint import read_flax_variables
-    from fvt_tpu_torch.ops.fusion import (fused_multimodal_fusion,
-                                          fused_multimodal_fusion_simt)
-    from fvt_tpu_torch.ops.tcn import (fused_temporal_block,
-                                       fused_temporal_block_simt,
-                                       fused_temporal_block_train as block,
-                                       fused_temporal_block_train_simt as
-                                       simt)
-    from fvt_tpu_torch.tools.synth_store import make_cexpr_store
     from fvt_tpu_torch.train import trainer
 
-    rng = np.random.default_rng(SEED + 10)
-    lo, hi = TRI_STORE_LENGTHS
-    lengths = [int(n) for n in rng.integers(lo, hi + 1, TRI_STORE_VIDEOS)]
-    val_lengths = [int(n) for n in rng.integers(lo, hi + 1, TRI_VAL_VIDEOS)]
-    counters = {'tcn_block': fused_temporal_block,
-                'tcn_block_simt': fused_temporal_block_simt,
-                'fusion': fused_multimodal_fusion,
-                'fusion_simt': fused_multimodal_fusion_simt,
-                **conv_counters()}
     resized = []
     gather_resize = native_store.gather_resize_rows
 
@@ -3137,19 +3247,7 @@ def tri_modal_training(device) -> dict:
         resized.append(None if out is None else out.shape[1:3])
         return out
 
-    def zero():
-        zero_launches(counters)
-        for fn in (block, simt):
-            fn.launches_fwd = fn.launches_bwd = 0
-
-    def read():
-        out = read_launches(counters)
-        out.update(tcn_block_train=block.launches_fwd,
-                   tcn_block_bwd=block.launches_bwd,
-                   tcn_block_train_simt=simt.launches_fwd,
-                   tcn_block_bwd_simt=simt.launches_bwd)
-        return out
-
+    zero, read = run_counters()
     timer_methods = {
         'epoch': (trainer.Trainer, 'train_one_epoch', 'last_epoch_timing'),
         'inference': (trainer.Trainer, 'inference', None),
@@ -3157,14 +3255,7 @@ def tri_modal_training(device) -> dict:
     total = {k: 0 for k in ('tcn_block', 'fusion', 'tcn_block_train',
                             'tcn_block_bwd')}
     with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        store = make_cexpr_store(os.path.join(root, 'store'), lengths,
-                                 ds='C-EXPR-DB', val_lengths=val_lengths,
-                                 seed=SEED, video_hw=TRI_VIDEO_HW)
-        print(f'  C-EXPR-DB store at {TRI_VIDEO_HW}^2: {len(lengths)} train '
-              f'videos ({sum(lengths)} frames), {len(val_lengths)} val '
-              f'videos ({sum(val_lengths)} frames), written in '
-              f'{time.perf_counter() - t0:.2f} s')
+        store = make_tri_store(os.path.join(root, 'store'))
         base = ['--dataset_name', 'C-EXPR-DB',
                 '--dataset_path', store['dataset_path'],
                 '--folds_dir', store['folds_dir'],
@@ -3308,6 +3399,274 @@ def tri_modal_training(device) -> dict:
         time_train_ab(trainers['amp'], device, AB_PAIRS_BF16, 'bf16 (--amp)')
         del trainers, live, exp
     torch.cuda.empty_cache()
+    return total
+
+
+def family_reference(model, store: dict, mean_std: dict, modality,
+                     quantum: int, device) -> dict:
+    """Phase 9's offline composition: each video of
+    :func:`challenge_videos` padded by repeat to the window and with zeros
+    to its bucket, as the loader hands it over, then the plain-version
+    forward of ``model`` on it alone (with the valid frames' mask where
+    the model takes one) and the valid frames kept."""
+    from fvt_tpu_torch.data import windowing as W
+    from fvt_tpu_torch.serve import serving_forward, valid_frames
+
+    out = {}
+    for key, arrays in challenge_videos(store, mean_std, modality):
+        n = len(arrays['video'])
+        rows = (W.pad_short_window_indices(n, WINDOW) if n < WINDOW
+                else np.arange(n))
+        true_len = len(rows)
+        bucket = -(-true_len // quantum) * quantum
+        batch = {}
+        for k, a in arrays.items():
+            a = a[rows]
+            a = np.concatenate([a, np.zeros((bucket - true_len,)
+                                            + a.shape[1:], a.dtype)])
+            batch[k] = torch.from_numpy(a[None]).to(device)
+        mask = (valid_frames([true_len], bucket, device)
+                if model.needs_time_mask else None)
+        logits = serving_forward(model, batch, time_mask=mask,
+                                 reference=True)
+        out[key] = logits[0, :true_len].cpu().numpy()
+    return out
+
+
+def time_family_step(trainer, modality, device, label: str) -> None:
+    """Phase 9: the trainer's step at (TRAIN_BATCH, WINDOW) on a random
+    batch, CUDA events, median of FAMILY_STEP_RUNS after a warm-up; for
+    JMT and MT also the fusion's forward and backward alone on the
+    step's (B, T), its share of the step."""
+    from fvt_tpu_torch.config import model_config as MC
+    from fvt_tpu_torch.train.steps import to_device
+
+    rng = np.random.default_rng(SEED + 13)
+    shape = (TRAIN_BATCH, WINDOW)
+    batch = {'video': rng.integers(0, 256, shape + (48, 48, 3), np.uint8),
+             'EXPR_continuous_label': rng.integers(0, 7, shape)}
+    for m in modality[1:]:
+        batch[m] = rng.standard_normal(
+            shape + tuple(MC.FEATURE_DIMENSION[m]), np.float32)
+    batch = to_device(batch, device)
+    calls = iter(range(10 ** 6))
+
+    def step():
+        trainer.train_step(batch, trainer.step_generator(98, next(calls)))
+
+    ms = median_ms(step, runs=FAMILY_STEP_RUNS, warmup=1)
+    print(f'  {label}: a step at {shape} {ms:.2f} ms (median of '
+          f'{FAMILY_STEP_RUNS}, CUDA events): '
+          f'{TRAIN_BATCH * WINDOW / ms * 1e3:.1f} trained frames/s')
+    fuse = trainer.model.fuse
+    if not hasattr(fuse, 'joint'):
+        return
+    g = torch.Generator(device=device).manual_seed(SEED + 14)
+    visual = torch.randn(shape + (128,), device=device, generator=g,
+                         requires_grad=True)
+    audio = torch.randn(shape + (fuse.augment_audio_feats_dim.in_features,),
+                        device=device, generator=g, requires_grad=True)
+
+    def fusion():
+        fuse(visual, audio).sum().backward()
+
+    fms = median_ms(fusion, runs=FAMILY_STEP_RUNS, warmup=1)
+    fuse.zero_grad(set_to_none=True)
+    print(f'  {label}: the fusion alone (attention over {TRAIN_BATCH} x '
+          f'{WINDOW} frames, forward and backward) {fms:.2f} ms, '
+          f'{100 * fms / ms:.1f}% of the step')
+
+
+def fusion_families(device) -> dict:
+    """Phase 9.  Returns the launches of B1, B2, B3a and B3b over the
+    training and challenge CLIs of the four runs."""
+    import os
+    import pickle
+    import tempfile
+    from fvt_tpu_torch import inference_challenge
+    from fvt_tpu_torch import main as train_cli
+    from fvt_tpu_torch.config.defaults import to_namespace
+    from fvt_tpu_torch.config.flat_yaml import load as load_yaml
+    from fvt_tpu_torch.models.checkpoint import (load_best_model,
+                                                 save_best_model)
+    from fvt_tpu_torch.models.registry import init_model
+    from fvt_tpu_torch.tools.synth_store import make_cexpr_store
+    from fvt_tpu_torch.train import trainer
+
+
+    zero, read = run_counters()
+    timer_methods = {
+        'epoch': (trainer.Trainer, 'train_one_epoch', 'last_epoch_timing'),
+        'inference': (trainer.Trainer, 'inference', None)}
+    total = {k: 0 for k in ('tcn_block', 'fusion', 'tcn_block_train',
+                            'tcn_block_bwd')}
+    with tempfile.TemporaryDirectory() as root:
+        store = make_tri_store(os.path.join(root, 'store'))
+        t0 = time.perf_counter()
+        chal = make_cexpr_store(os.path.join(root, 'challenge'),
+                                CHALLENGE_LENGTHS, seed=SEED)
+        print(f'  challenge store of {len(CHALLENGE_LENGTHS)} videos, '
+              f'{sum(CHALLENGE_LENGTHS)} frames, written in '
+              f'{time.perf_counter() - t0:.2f} s')
+        for name, modality, amp in FAMILY_RUNS:
+            label = name + (' --amp' if amp else '')
+            outd = os.path.join(root, label.replace(' --', '_'))
+            argv = ['--dataset_name', 'C-EXPR-DB',
+                    '--dataset_path', store['dataset_path'],
+                    '--folds_dir', store['folds_dir'],
+                    '--modality',
+                    f'{"+".join(modality)}+EXPR_continuous_label',
+                    '--model_name', name, '--window_length', str(WINDOW),
+                    '--hop_length', str(HOP), '--train_batch_size',
+                    str(TRAIN_BATCH), '--seed', str(SEED), '--num_epochs',
+                    str(FAMILY_EPOCHS), '--amp', str(amp).lower(),
+                    '--outd', outd]
+            print(f'  {label} on {"+".join(modality)}:')
+            zero()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with ShapeRecorder() as rec, MethodTimer(timer_methods) as tm:
+                t0 = time.perf_counter()
+                exp = train_cli.main(argv, device=device)
+                wall = time.perf_counter() - t0
+            launches = read()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            model = exp.trainer.model
+            fused = modality if name == 'CAN' else ('video', 'vggish')
+            n_eval = sum(len(model.temporal[m].network) for m in fused)
+            n_train = sum(len(model.temporal[m].network) for m in modality)
+            steps, forwards = len(rec.model_train), len(rec.model)
+            want = {k: 0 for k in launches}
+            want.update(tcn_block=n_eval * forwards,
+                        tcn_block_train=n_train * steps,
+                        tcn_block_bwd=n_train * steps)
+            print(f'    training CLI: {steps} steps, {forwards} eval '
+                  f'forwards; launches {launches}')
+            if steps < 1 or forwards < 1 or launches != want:
+                fail(f'{label}: expected {n_train} B3a and {n_train} B3b '
+                     f'calls a step, {n_eval} B1 launches a forward and no '
+                     f'other kernel, got {launches}')
+            for k in total:
+                total[k] += launches[k]
+            frames = sum(b * t for b, t in rec.model_train)
+            epochs = tm.calls['epoch']
+            ep_wall = sum(w for _, w, _ in epochs)
+            print(f'    CLI wall {wall:.3f} s; epochs '
+                  + ', '.join(f'{w:.3f}' for _, w, _ in epochs)
+                  + f' s; {frames} frames trained: '
+                  f'{frames / max(ep_wall, 1e-9):.1f} trained frames/s over '
+                  f'the epochs; step_s a step '
+                  f'{sum(t["step_s"] for _, _, t in epochs) / steps:.3f} s; '
+                  f'validation and test passes '
+                  + ', '.join(f'{w:.3f}' for _, w, _ in tm.calls['inference'])
+                  + f' s; peak device memory {peak:.2f} GiB')
+            print('    epochs by phase (s): ' + '; '.join(
+                ', '.join(f'{k} {v:.3f}' for k, v in t.items())
+                for _, _, t in epochs))
+            train_shapes = set(rec.model_train)
+            eval_shapes = set(rec.model)
+
+            # the best model read back exactly: loaded into a fresh model
+            # of the run's config and written again, the same bytes
+            best = os.path.join(outd, 'best-models', 'None', 'model.msgpack')
+            args = to_namespace(load_yaml(os.path.join(outd, 'config.yml')))
+            fresh = init_model(args)
+            load_best_model(fresh, best, modality)
+            again = os.path.join(root, 'again.msgpack')
+            save_best_model(fresh, again, modality)
+            with open(best, 'rb') as f, open(again, 'rb') as g:
+                same = f.read() == g.read()
+            print(f'    best model read back: written again '
+                  f'{"byte-equal" if same else "DIFFERENT"}')
+            if not same:
+                fail(f'{label}: the best model did not read back exactly')
+
+            # served through the challenge CLI from that best model
+            evald = os.path.join(root, f'eval_{label}')
+            zero()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with ShapeRecorder() as crec, MethodTimer(timer_methods) as ctm:
+                t0 = time.perf_counter()
+                cexp = inference_challenge.main(
+                    ['--mode', 'EVALUATION', '--fd_exp', outd,
+                     '--case_best_model', 'None', '--target_ds_name',
+                     'C-EXPR-DB-CHALLENGE', '--dataset_path',
+                     chal['dataset_path'], '--folds_dir', chal['folds_dir'],
+                     '--outd', evald], device=device)
+                cwall = time.perf_counter() - t0
+            launches = read()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            forwards = len(crec.model)
+            want = {k: 0 for k in launches}
+            want.update(tcn_block=n_eval * forwards)
+            chunk = cexp.trainer.model.eval_frames
+            print(f'    challenge CLI: {forwards} forwards at '
+                  f'{sorted(set(crec.model))}; launches {launches}; the '
+                  f'backbone\'s calls at most {max(crec.backbone)} frames '
+                  f'(chunk {chunk})')
+            if forwards < 1 or launches != want:
+                fail(f'{label}: expected {n_eval} B1 launches a forward and '
+                     f'no other kernel in the challenge pass, got '
+                     f'{launches}')
+            if max(crec.backbone) > chunk:
+                fail(f'{label}: the eval backbone took {max(crec.backbone)} '
+                     f'frames at once, above {chunk}')
+            total['tcn_block'] += launches['tcn_block']
+            pass_wall = ctm.calls['inference'][0][1]
+            frames = sum(CHALLENGE_LENGTHS)
+            print(f'    CLI wall {cwall:.3f} s, the pass {pass_wall:.3f} s: '
+                  f'{frames / pass_wall:.1f} served frames/s; peak device '
+                  f'memory {peak:.2f} GiB; last_inference_timing '
+                  f'{json.dumps(cexp.trainer.last_inference_timing)}')
+            eval_shapes |= set(crec.model)
+            with open(os.path.join(evald, 'pred-C-EXPR-DB-CHALLENGE',
+                                   'prediction.pkl'), 'rb') as f:
+                pred = pickle.load(f)
+            with open(os.path.join(chal['dataset_path'],
+                                   'mean_std_info_fold-0.pkl'), 'rb') as f:
+                mean_std = pickle.load(f)
+            fresh = fresh.to(device)
+            offline = family_reference(fresh, chal, mean_std, modality,
+                                       int(args.eval_bucket_quantum), device)
+            if list(pred) != list(offline):
+                fail(f'{label}: prediction.pkl covers {list(pred)}, the '
+                     f'store {list(offline)}')
+            worst = 0.0
+            for vid, want_v in offline.items():
+                got = pred[vid]['logits']
+                if got.shape != want_v.shape or not np.isfinite(got).all():
+                    fail(f'{label} {vid}: logits {got.shape}, want '
+                         f'{want_v.shape}, finite={np.isfinite(got).all()}')
+                err = float(np.abs(got - want_v).max()
+                            / max(np.abs(want_v).max(), 1e-30))
+                worst = max(worst, err)
+            print(f'    every video\'s logits within {worst:.3e} of the '
+                  f'offline plain composition, relative to their largest '
+                  f'magnitude (gate {FAMILY_RTOL})')
+            if worst > FAMILY_RTOL:
+                fail(f'{label}: served logits differ from the offline plain '
+                     f'composition by {worst} relative')
+
+            if name == 'CAN':
+                eval_shapes.add(full_bucket(
+                    cexp.trainer, int(args.eval_video_batch), device,
+                    FAMILY_BUCKET_LENGTH, modality))
+
+            # the kernels at every shape the run gave them
+            print(f'    (B, T) trained: {sorted(train_shapes)}; eval: '
+                  f'{sorted(eval_shapes, key=lambda bt: (bt[1], bt[0]))}')
+            check_at_shapes(model, sorted(eval_shapes,
+                                          key=lambda bt: (bt[1], bt[0])),
+                            device, modality=fused)
+            blocks = model_blocks(model, modality)
+            for b, t in sorted(train_shapes | {(TRAIN_BATCH, WINDOW)}):
+                err = check_train_at_shape(b, t, device, blocks=blocks)
+                print(f'    B3a and B3b at the {len(blocks)} blocks at '
+                      f'({b},{t}): max error {err:.3e}')
+            time_family_step(exp.trainer, modality, device, label)
+            del exp, cexp, model, fresh
+            torch.cuda.empty_cache()
     return total
 
 
@@ -3518,6 +3877,12 @@ def main() -> int:
           f'fp32 with a resume and --amp')
     for name, n in tri_modal_training(device).items():
         by_name[name]['launches_tri_modal'] = n
+
+    print(f'phase 9: CAN, JMT and MT trained through fvt_tpu_torch.main '
+          f'({FAMILY_EPOCHS} epochs on phase 8\'s store) and served through '
+          f'fvt_tpu_torch.inference_challenge (phase 6\'s store)')
+    for name, n in fusion_families(device).items():
+        by_name[name]['launches_families'] = n
 
     print(card)
     print(json.dumps({'kernels': kernels}))

@@ -1,18 +1,19 @@
 """fvt_tpu_torch: the PyTorch / CUDA port of fvt_tpu for an NVIDIA H100.
 
-Three paths run so far.  Challenge inference
+Three paths run.  Challenge inference
 (``python -m fvt_tpu_torch.inference_challenge``): a finished run's
 ``config.yml`` and best model (``model.msgpack`` of ``fvt_tpu`` or an
 upstream ``model.pt``) over an on-disk feature store, through the
 threaded loaders (``data/``), ``Trainer.inference`` and the metrics, to
 ``prediction.pkl`` and the perf artifacts.  Serving
 (``fvt_tpu_torch.serve`` behind ``fvt_tpu_torch.streaming``).  Both run
-the tri-modal LFAN in eval mode through the fused TCN temporal block
-(``ops/tcn.py``, ``csrc/tcn_block_tf32x3.cu``) and the fused multimodal
-fusion block (``ops/fusion.py``, ``csrc/fusion_tf32x3.cu``).  Training
-(``fvt_tpu_torch.train``): the LFAN on precomputed features through the
-fused train-mode TCN block, forward and backward (``ops/tcn.py``,
-``csrc/tcn_block_train_tf32x3.cu``).  Every kernel is hand-written CUDA
+the model in eval mode through the fused TCN temporal block
+(``ops/tcn.py``, ``csrc/tcn_block_tf32x3.cu``) and, for LFAN, the fused
+multimodal fusion block (``ops/fusion.py``, ``csrc/fusion_tf32x3.cu``).
+Training (``python -m fvt_tpu_torch.main``, ``fvt_tpu_torch.train``):
+LFAN, CAN, JMT or MT, on features or on video through the frozen
+ArcFace, through the fused train-mode TCN block, forward and backward
+(``ops/tcn.py``, ``csrc/tcn_block_train_tf32x3.cu``).  Every kernel is hand-written CUDA
 C++ for Hopper and has a plain PyTorch version beside it, which its
 wrapper runs for tensors on the CPU.  The package imports neither JAX,
 flax, PyYAML, msgpack nor anything of ``fvt_tpu``: it keeps its own

@@ -194,8 +194,8 @@ class Experiment:
 
     def load_weights(self, trainer: Trainer, path: str) -> None:
         """``fvt_tpu``'s ``model.msgpack`` or an upstream ``model.pt`` (its
-        dead keys dropped, as ``--pretrained_torch_ckpt`` takes it) into
-        the live model."""
+        family's dead keys dropped, as ``--pretrained_torch_ckpt`` takes
+        it) into the live model."""
         load_best_model(trainer.model, path,
                         split_modality(self.args.modality))
         log(f"Loaded weights from {path}")

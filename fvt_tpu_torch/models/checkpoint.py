@@ -1,5 +1,5 @@
 """Best models of a run in ``fvt_tpu``'s format: read into the port's
-LFAN, and written from it.
+LFAN, CAN, JMT or MT, and written from it.
 
 ``fvt_tpu`` saves ``best-models/<case>/model.msgpack`` with flax's
 ``serialization.to_bytes`` over ``{'params', 'batch_stats'}``: a msgpack
@@ -13,9 +13,10 @@ flax writes in chunks (``__msgpack_chunked_array__``), raise: no model of
 the repo has one.
 
 :func:`load_best_model` takes that file through
-``from_jax.lfan_state_from_flax``, or an upstream ``model.pt`` through
-``torch.load`` with ``from_jax.is_dead_key``'s keys dropped, and loads the
-state_dict with ``strict=True`` (the counterpart of ``fvt_tpu``'s
+``from_jax.state_from_flax``, or an upstream ``model.pt`` through
+``torch.load`` with the dead keys of the model's family dropped
+(``from_jax.is_dead_key``), and loads the state_dict with
+``strict=True`` (the counterpart of ``fvt_tpu``'s
 ``Trainer.load_best_model`` and ``Experiment._load_torch_ckpt``).
 
 :func:`msgpack_dumps` is the writer of that format, the inverse of
@@ -26,7 +27,7 @@ numpy scalars as ExtType 3, each int and length in its smallest msgpack
 form, Python floats as float64).  Dicts are packed in their own order;
 nothing is chunked, as flax chunks only arrays above 1 GB.
 :func:`save_best_model` writes ``{'params', 'batch_stats'}`` from
-``to_jax.lfan_flax_from_state``, whose trees are keyed in sorted order
+``to_jax.flax_from_state``, whose trees are keyed in sorted order
 as ``fvt_tpu``'s ``jax.tree.map`` leaves them: the bytes of
 ``flax.serialization.to_bytes`` in ``fvt_tpu``'s ``Trainer.optimize``.
 """
@@ -40,8 +41,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from fvt_tpu_torch.models.from_jax import is_dead_key, lfan_state_from_flax
-from fvt_tpu_torch.models.to_jax import lfan_flax_from_state
+from fvt_tpu_torch import constants
+from fvt_tpu_torch.models.from_jax import is_dead_key, state_from_flax
+from fvt_tpu_torch.models.to_jax import flax_from_state
 
 EXT_NDARRAY, EXT_COMPLEX, EXT_NPSCALAR = 1, 2, 3
 CHUNKED = '__msgpack_chunked_array__'
@@ -180,14 +182,15 @@ def read_flax_variables(path: str) -> Tuple[dict, dict]:
 def load_best_model(model: nn.Module, path: str,
                     modality: Sequence[str]) -> None:
     """Loads ``path`` (``model.msgpack`` of ``fvt_tpu``, or an upstream
-    ``model.pt``) into the port's LFAN ``model`` with ``strict=True``.
-    ``modality``: the model's modality order, leader first."""
+    ``model.pt``) into the port's ``model`` (LFAN, CAN, JMT or MT) with
+    ``strict=True``.  ``modality``: the model's modality order, leader
+    first."""
     if path.endswith('.msgpack'):
-        params, stats = read_flax_variables(path)
-        state = lfan_state_from_flax(params, stats, modality)
+        state = state_from_flax(*read_flax_variables(path), modality)
     else:
+        name = getattr(model, 'model_name', constants.LFAN)
         sd = torch.load(path, map_location='cpu')
-        state = {k: v for k, v in sd.items() if not is_dead_key(k)}
+        state = {k: v for k, v in sd.items() if not is_dead_key(k, name)}
     model.load_state_dict(state, strict=True)
 
 
@@ -287,12 +290,12 @@ def msgpack_dumps(tree: Any) -> bytes:
 
 def save_best_model(model: Union[nn.Module, Mapping[str, torch.Tensor]],
                     path: str, modality: Sequence[str]) -> None:
-    """Writes ``model`` (the port's LFAN, or its state_dict) as
-    ``fvt_tpu``'s ``model.msgpack`` at ``path``, which
+    """Writes ``model`` (the port's LFAN, CAN, JMT or MT, or its
+    state_dict) as ``fvt_tpu``'s ``model.msgpack`` at ``path``, which
     ``fvt_tpu``'s ``Trainer.load_best_model`` and :func:`load_best_model`
     read.  ``modality``: the model's modality order, leader first."""
     state = model.state_dict() if isinstance(model, nn.Module) else model
-    params, stats = lfan_flax_from_state(state, modality)
+    params, stats = flax_from_state(state, modality)
     blob = msgpack_dumps({'params': params, 'batch_stats': stats})
     tmp = f'{path}.tmp'
     with open(tmp, 'wb') as f:

@@ -1,53 +1,188 @@
-"""Weight bridge: ``fvt_tpu`` flax trees -> a state_dict of the port's LFAN.
+"""Weight bridge: ``fvt_tpu`` flax trees -> a state_dict of the port's
+LFAN, CAN, JMT or MT.
 
-:func:`lfan_state_from_flax` takes the flax ``params`` and
-``batch_stats`` trees as nested dicts of numpy arrays and returns the
-state_dict that :class:`fvt_tpu_torch.models.models.LFAN` loads with
-``strict=True``.  Keys and values are those of
-``fvt_tpu.models.torch_export.lfan_to_torch`` (legacy weight-norm
-naming), less the dead keys that exporter makes up for the upstream
-model: the TCN ``net.0`` / ``net.4`` duplicates and
-``spatial.visual.logits``.  So a reference ``model.pt`` loads as it is
-once those keys are dropped (:data:`DEAD_KEY_PATTERNS`).
+:func:`state_from_flax` takes the flax ``params`` and ``batch_stats``
+trees as nested dicts of numpy arrays and returns the state_dict that the
+port's model loads with ``strict=True``.  Keys and values are those of
+``fvt_tpu.models.torch_export`` (``lfan_to_torch``, ``can_to_torch``,
+``jmt_to_torch``; legacy weight-norm naming), less the dead keys those
+exporters make up for the upstream models: the TCN ``net.0`` / ``net.4``
+duplicates, ``spatial.visual.logits``, CAN's ``conv_c`` and MT's
+``fuse.reduce_feats_dim`` (JMT's is live).  So a reference ``model.pt``
+loads as it is once its family's dead keys are dropped
+(:func:`is_dead_key`).
 
-Layout conversions: Dense kernel (in, out) -> Linear weight (out, in);
-weight-norm v (K, in, out) -> weight_v (out, in, K), g -> (out, 1, 1);
-HWIO conv kernels -> OIHW; the ArcFace ``output_linear`` columns from
+:data:`LAYOUT` pairs each module of the port with its flax subtree and
+its kind, which fixes the leaves and their layout conversions: Dense
+kernel (in, out) -> Linear weight (out, in); weight-norm v (K, in, out)
+-> weight_v (out, in, K), g -> (out, 1, 1); the 1x1 downsample's kernel
+(in, out) -> (out, in, 1); ``nn.MultiheadAttention``'s ``in_proj_weight``
+(3E, E) from ``in_proj_kernel`` (E, 3E); BatchNorm ``scale``/``bias`` and
+``mean``/``var``; LayerNorm ``scale``/``bias``.  ``models/to_jax.py``
+reads the same table the other way.  The ArcFace of a ``video`` model:
+HWIO conv kernels -> OIHW, the ``output_linear`` columns from
 fvt_tpu's NHWC flatten to PyTorch's NCHW flatten.
 
 Every value is carried as float32, which is what flax keeps under
 ``--amp`` too: bfloat16 there is a compute type and no parameter type,
-so a ``VisualBackbone(dtype=torch.bfloat16)`` or an
-``LFAN(backbone_dtype=torch.bfloat16)`` loads the same state_dict, and
-the bridge carries nothing new for it.
+so a model with ``backbone_dtype=torch.bfloat16`` loads the same
+state_dict, and the bridge carries nothing new for it.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from fvt_tpu_torch import constants
 from fvt_tpu_torch.models.arcface import get_blocks_50
 
+# keys of the upstream models that no forward reads: of every family, and
+# of one family only (JMT reads its reduce_feats_dim, MT does not)
 DEAD_KEY_PATTERNS = (r'^temporal\.[^.]+\.network\.\d+\.net\.[04]\.',
                      r'^spatial\.visual\.logits\.')
+FAMILY_DEAD_KEY_PATTERNS = {constants.CAN: (r'^conv_c\.',),
+                            constants.MT: (r'^fuse\.reduce_feats_dim\.',)}
 
 
-def is_dead_key(key: str) -> bool:
-    """True for a key of the upstream model that no forward reads."""
-    return any(re.match(p, key) for p in DEAD_KEY_PATTERNS)
+def is_dead_key(key: str, model_name: str = constants.LFAN) -> bool:
+    """True for a key of the upstream ``model_name`` that no forward
+    reads."""
+    return any(re.match(p, key) for p in DEAD_KEY_PATTERNS
+               + FAMILY_DEAD_KEY_PATTERNS.get(model_name, ()))
+
+
+# (port module, fvt_tpu subtree, kind); {m} is a modality, {i} an index
+LAYOUT = (
+    ('temporal.{m}.network.{i}.{c}', 'temporal_{m}/block{i}/{c}', 'wn'),
+    ('temporal.{m}.network.{i}.downsample',
+     'temporal_{m}/block{i}/downsample/proj', 'linear1x1'),
+    ('bn.{m}', 'bn_{m}/bn', 'bn'),
+    # LFAN
+    ('fusion.layers.self_attn.qkv_proj.{m}', 'fusion/self_attn/qkv_{m}',
+     'linear'),
+    ('fusion.layers.self_attn.o_proj', 'fusion/self_attn/o_proj', 'linear'),
+    ('fusion.layers.norm1', 'fusion/norm1', 'layernorm'),
+    ('regressor', 'regressor', 'linear'),
+    # CAN
+    ('fuse.attn.{i}', 'fuse/attn_{i}', 'linear'),
+    ('fuse.weights', 'fuse/weights', 'linear'),
+    # JMT and MT
+    ('fuse.augment_audio_feats_dim', 'fuse/augment_audio', 'linear'),
+    ('fuse.reduce_feats_dim', 'fuse/reduce_feats', 'linear'),
+    ('fuse.{e}.layers.{i}.attention', 'fuse/{e}/layer{i}/attention', 'mha'),
+    ('fuse.{e}.layers.{i}.attention.out_proj',
+     'fuse/{e}/layer{i}/attention/out_proj', 'linear'),
+    ('fuse.{e}.layers.{i}.feed_forward.0', 'fuse/{e}/layer{i}/ff1',
+     'linear'),
+    ('fuse.{e}.layers.{i}.feed_forward.2', 'fuse/{e}/layer{i}/ff2',
+     'linear'),
+    ('fuse.{e}.layers.{i}.{n}', 'fuse/{e}/layer{i}/{n}', 'layernorm'),
+    ('fuse.{a}', 'fuse/{a}', 'mha'),
+    ('fuse.{a}.out_proj', 'fuse/{a}/out_proj', 'linear'),
+    # CAN, JMT and MT
+    ('{f}', '{f}', 'linear'),
+    ('bn1', 'bn1/bn', 'bn'),
+)
+_FIELDS = {'m': r'[A-Za-z0-9_]+', 'i': r'\d+', 'c': r'conv[12]',
+           'e': r'[a-z]+_encoder', 'n': r'layer_norm[12]',
+           'a': r'CA_[a-z]+|final_self_attention', 'f': r'fc[12]'}
+
+
+def _t_(a: np.ndarray) -> np.ndarray:
+    return a.T
+
+
+# a kind's leaves: (port leaf, flax collection, flax leaf path, layout
+# conversion to flax, to the port)
+_LEAVES = {
+    'linear': (('weight', 'params', ('dense', 'kernel'), _t_, _t_),
+               ('bias', 'params', ('dense', 'bias'), None, None)),
+    'linear1x1': (('weight', 'params', ('dense', 'kernel'),
+                   lambda w: w[:, :, 0].T, lambda k: k.T[:, :, None]),
+                  ('bias', 'params', ('dense', 'bias'), None, None)),
+    'wn': (('weight_v', 'params', ('v',), lambda v: v.transpose(2, 1, 0),
+            lambda v: v.transpose(2, 1, 0)),
+           ('weight_g', 'params', ('g',), lambda g: g.reshape(-1),
+            lambda g: g.reshape(-1, 1, 1)),
+           ('bias', 'params', ('bias',), None, None)),
+    'bn': (('weight', 'params', ('scale',), None, None),
+           ('bias', 'params', ('bias',), None, None),
+           ('running_mean', 'batch_stats', ('mean',), None, None),
+           ('running_var', 'batch_stats', ('var',), None, None)),
+    'layernorm': (('weight', 'params', ('scale',), None, None),
+                  ('bias', 'params', ('bias',), None, None)),
+    'mha': (('in_proj_weight', 'params', ('in_proj_kernel',), _t_, _t_),
+            ('in_proj_bias', 'params', ('in_proj_bias',), None, None)),
+}
+# BatchNorm's step count, which flax keeps nowhere
+NO_FLAX = 'num_batches_tracked'
+
+
+def _pattern(template: str) -> str:
+    return ''.join(re.escape(part) if k % 2 == 0
+                   else f'(?P<{part}>{_FIELDS[part]})'
+                   for k, part in enumerate(re.split(r'\{(\w)\}',
+                                                     template)))
+
+
+def _rules(side: int) -> Iterator[tuple]:
+    """(compiled module pattern of ``side`` (0 the port's, 1 fvt_tpu's),
+    the other side's template, leaves) of every LAYOUT entry."""
+    for entry in LAYOUT:
+        yield (re.compile(_pattern(entry[side])), entry[1 - side],
+               _LEAVES[entry[2]])
+
+
+_PORT_RULES = tuple(_rules(0))
+_FLAX_RULES = tuple(_rules(1))
+
+
+def flax_place(key: str) -> Tuple[str, Tuple[str, ...], Callable]:
+    """(collection, flax path, conversion or None) of a port key that
+    LAYOUT maps, else KeyError."""
+    module, _, leaf = key.rpartition('.')
+    for pattern, template, leaves in _PORT_RULES:
+        m = pattern.fullmatch(module)
+        if m is None:
+            continue
+        for name, collection, path, to_flax, _ in leaves:
+            if name == leaf:
+                return (collection,
+                        tuple(template.format(**m.groupdict()).split('/'))
+                        + path, to_flax)
+    raise KeyError(f'{key}: no counterpart in fvt_tpu\'s tree')
+
+
+def _port_place(collection: str, path: Tuple[str, ...]
+                ) -> Tuple[str, Callable]:
+    """(port key, conversion or None) of a flax leaf, else KeyError."""
+    joined = '/'.join(path)
+    for pattern, template, leaves in _FLAX_RULES:
+        for name, coll, leaf_path, _, to_port in leaves:
+            n = len(leaf_path)
+            if coll != collection or tuple(path[-n:]) != leaf_path:
+                continue
+            m = pattern.fullmatch('/'.join(path[:-n]))
+            if m is not None:
+                return (f'{template.format(**m.groupdict())}.{name}',
+                        to_port)
+    raise KeyError(f'{collection}/{joined}: no counterpart in the port')
+
+
+def _leaves(tree: dict, path: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
 
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
-
-
-def _linear(tree: dict, prefix: str, out: dict) -> None:
-    d = tree['dense']
-    out[f'{prefix}.weight'] = _t(np.asarray(d['kernel']).T)
-    out[f'{prefix}.bias'] = _t(d['bias'])
 
 
 def _bn(params: dict, stats: dict, prefix: str, out: dict) -> None:
@@ -58,43 +193,24 @@ def _bn(params: dict, stats: dict, prefix: str, out: dict) -> None:
     out[f'{prefix}.num_batches_tracked'] = torch.tensor(0, dtype=torch.int64)
 
 
-def _wn_conv1d(tree: dict, prefix: str, out: dict) -> None:
-    out[f'{prefix}.weight_v'] = _t(np.asarray(tree['v']).transpose(2, 1, 0))
-    out[f'{prefix}.weight_g'] = _t(np.asarray(tree['g']).reshape(-1, 1, 1))
-    out[f'{prefix}.bias'] = _t(tree['bias'])
-
-
 def tcn_state_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
     """state_dict of the port's TemporalConvNet from a flax
     TemporalConvNet param tree (``block<i>`` subtrees)."""
-    out: Dict[str, torch.Tensor] = {}
-    i = 0
-    while f'block{i}' in tree:
-        blk = tree[f'block{i}']
-        base = f'network.{i}'
-        _wn_conv1d(blk['conv1'], f'{base}.conv1', out)
-        _wn_conv1d(blk['conv2'], f'{base}.conv2', out)
-        if 'downsample' in blk:
-            d = blk['downsample']['proj']['dense']
-            out[f'{base}.downsample.weight'] = _t(
-                np.asarray(d['kernel']).T[:, :, None])
-            out[f'{base}.downsample.bias'] = _t(d['bias'])
-        i += 1
-    return out
+    return {k[len('temporal.m.'):]: v for k, v in
+            state_from_flax({'temporal_m': tree}, {}).items()}
 
 
 def fusion_state_from_flax(tree: dict, modality: Sequence[str]
                            ) -> Dict[str, torch.Tensor]:
-    """state_dict of the port's MultimodalTransformerEncoder from a flax
-    one's param tree."""
-    out: Dict[str, torch.Tensor] = {}
-    attn = tree['self_attn']
-    for m in modality:
-        _linear(attn[f'qkv_{m}'], f'layers.self_attn.qkv_proj.{m}', out)
-    _linear(attn['o_proj'], 'layers.self_attn.o_proj', out)
-    out['layers.norm1.weight'] = _t(tree['norm1']['scale'])
-    out['layers.norm1.bias'] = _t(tree['norm1']['bias'])
-    return out
+    """state_dict of the port's MultimodalTransformerEncoder over
+    ``modality`` from a flax one's param tree."""
+    found = {k[len('qkv_'):] for k in tree['self_attn']
+             if k.startswith('qkv_')}
+    if found != set(modality):
+        raise ValueError(f'the tree projects {sorted(found)}, not '
+                         f'{sorted(modality)}')
+    return {k[len('fusion.'):]: v for k, v in
+            state_from_flax({'fusion': tree}, {}).items()}
 
 
 def _conv2d(tree: dict, prefix: str, out: dict) -> None:
@@ -177,24 +293,36 @@ def visual_backbone_state_from_flax(params: dict, batch_stats: dict
     return out
 
 
-def lfan_state_from_flax(params: dict, batch_stats: dict,
-                         modality: Sequence[str]) -> Dict[str, torch.Tensor]:
-    """state_dict of the port's LFAN from an ``fvt_tpu`` LFAN's variables.
-    ``modality`` is the model's modality order (leader first)."""
+def state_from_flax(params: dict, batch_stats: dict,
+                    modality: Optional[Sequence[str]] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """state_dict of the port's model from an ``fvt_tpu`` LFAN's, CAN's,
+    JMT's or MT's variables.  A ``video`` model's
+    ``spatial_video/backbone`` goes to ``spatial.visual.backbone.*``.
+    Raises on a leaf it does not map, and where ``modality`` is given, on
+    TCNs of other modalities."""
     if 'spatial_audio' in params:
         raise NotImplementedError('the VGGish (logmel) encoder is not '
                                   'ported yet')
+    found = {k[len('temporal_'):] for k in params
+             if k.startswith('temporal_')}
+    if modality is not None and found != set(modality):
+        raise ValueError(f'the tree has the TCNs of {sorted(found)}, not of '
+                         f'{sorted(modality)}')
     out: Dict[str, torch.Tensor] = {}
-    for m in modality:
-        for k, v in tcn_state_from_flax(params[f'temporal_{m}']).items():
-            out[f'temporal.{m}.{k}'] = v
-        _bn(params[f'bn_{m}']['bn'], batch_stats[f'bn_{m}']['bn'],
-            f'bn.{m}', out)
-    for k, v in fusion_state_from_flax(params['fusion'], modality).items():
-        out[f'fusion.{k}'] = v
-    _linear(params['regressor'], 'regressor', out)
+    for collection, tree in (('params', params),
+                             ('batch_stats', batch_stats)):
+        for path, value in _leaves({k: v for k, v in tree.items()
+                                    if k != 'spatial_video'}):
+            key, to_port = _port_place(collection, path)
+            value = np.asarray(value)
+            out[key] = _t(to_port(value) if to_port else value)
+            if key.endswith('.running_mean'):
+                out[key.replace('running_mean', NO_FLAX)] = torch.tensor(
+                    0, dtype=torch.int64)
     if 'spatial_video' in params:
         _arcface(params['spatial_video']['backbone'],
                  batch_stats['spatial_video']['backbone'],
                  'spatial.visual.backbone', out)
     return out
+

@@ -1,5 +1,9 @@
-"""LFAN multimodal fusion, eval and train
-(``fvt_tpu/models/fusion.py:22-90``).
+"""The fusion blocks of the four families (``fvt_tpu/models/fusion.py``):
+LFAN's multimodal attention (``:22-90``), CAN's gating
+(:class:`AttentionFusion`, ``:93-106``) and JMT's and MT's transformer
+fusion (:class:`JointFusion`, ``:109-210``).
+
+LFAN's multimodal attention, eval and train:
 
 Parameters keep the upstream PyTorch names that
 ``fvt_tpu.models.torch_export.lfan_to_torch`` writes under ``fusion.``:
@@ -20,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fvt_tpu_torch.models.layers import stamp, uniform_
+from fvt_tpu_torch.models.layers import (MultiheadAttention, init_linear_,
+                                         stamp, uniform_)
 from fvt_tpu_torch.ops.fusion import (LN_EPS, fused_multimodal_fusion,
                                       fused_multimodal_fusion_ref,
                                       multimodal_attention_ref,
@@ -115,3 +120,144 @@ class MultimodalTransformerEncoder(nn.Module):
         packed = None if xs[0].device.type == 'cpu' else self.eval_weights()
         return fused_multimodal_fusion(*args, norm.weight, norm.bias, **kw,
                                        packed=packed)
+
+
+class AttentionFusion(nn.Module):
+    """CAN's gating: each modality projected to ``num_out_feats``, the
+    projections concatenated, a softmax over the concatenation's features
+    from one more Linear, the product.  ``attn.<i>`` and ``weights`` are
+    the upstream names."""
+
+    def __init__(self, input_dims: Sequence[int], num_out_feats: int = 128):
+        super().__init__()
+        self.attn = nn.ModuleList(nn.Linear(d, num_out_feats)
+                                  for d in input_dims)
+        n = num_out_feats * len(self.attn)
+        self.weights = nn.Linear(n, n)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for lin in (*self.attn, self.weights):
+            init_linear_(lin, generator)
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        cat = torch.cat([lin(x) for lin, x in zip(self.attn, xs)], dim=-1)
+        return torch.softmax(self.weights(cat), dim=-1) * cat
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-norm: ``LN(x + attention(x))``, then ``LN(x + ff(x))`` with a
+    ReLU feed-forward; no dropout (``fusion.py:109-124``)."""
+
+    def __init__(self, dim: int, num_heads: int, hidden_dim: int):
+        super().__init__()
+        self.attention = MultiheadAttention(dim, num_heads)
+        self.feed_forward = nn.Sequential(nn.Linear(dim, hidden_dim),
+                                          nn.ReLU(),
+                                          nn.Linear(hidden_dim, dim))
+        self.layer_norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.layer_norm2 = nn.LayerNorm(dim, eps=1e-5)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.attention.reset_parameters(generator)
+        init_linear_(self.feed_forward[0], generator)
+        init_linear_(self.feed_forward[2], generator)
+        self.layer_norm1.reset_parameters()
+        self.layer_norm2.reset_parameters()
+
+    def forward(self, x: torch.Tensor,
+                key_valid_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        x = self.layer_norm1(x + self.attention(x, x, x, key_valid_mask))
+        return self.layer_norm2(x + self.feed_forward(x))
+
+
+class TransformerEncoderBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, hidden_dim: int,
+                 num_layers: int):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(dim, num_heads, hidden_dim)
+            for _ in range(num_layers))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for layer in self.layers:
+            layer.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor,
+                key_valid_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x, key_valid_mask)
+        return x
+
+
+class JointFusion(nn.Module):
+    """JMT's fusion (``joint=True``) or MT's (``joint=False``),
+    ``fusion.py:140-210``: the audio stream widened to 128; visual, audio
+    and (JMT) joint encoders; 2 or 6 cross-attentions; the final encoder
+    and self-attention over the cross-attentions stacked as the batch and
+    the flattened (B*T) timeline as the sequence, the last slot taken.
+    Rows mix when B > 1 and no mask is given, as in ``fvt_tpu`` (which
+    trains so at B = 16); its eval runs one video a forward.
+
+    ``time_mask`` (B, T) marks the valid frames: every attention's keys,
+    the final ones over the flattened mask."""
+
+    DIM = 128
+    CROSS = (('CA_va', 'v', 'a'), ('CA_av', 'a', 'v'))
+    JOINT_CROSS = (('CA_jrv', 'jr', 'v'), ('CA_vjr', 'v', 'jr'),
+                   ('CA_jra', 'jr', 'a'), ('CA_ajr', 'a', 'jr'))
+
+    def __init__(self, audio_dim: int, joint: bool = True):
+        super().__init__()
+        d = self.DIM
+        self.joint = joint
+
+        def block():
+            return TransformerEncoderBlock(d, 1, d, 1)
+
+        self.augment_audio_feats_dim = nn.Linear(audio_dim, d)
+        self.visual_encoder = block()
+        self.audio_encoder = block()
+        self.cross = self.CROSS + (self.JOINT_CROSS if joint else ())
+        if joint:
+            self.reduce_feats_dim = nn.Linear(2 * d, d)
+            self.jr_encoder = block()
+        for name, _, _ in self.cross:
+            setattr(self, name, MultiheadAttention(d, 1))
+        self.final_encoder = block()
+        self.final_self_attention = MultiheadAttention(d, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init_linear_(self.augment_audio_feats_dim, generator)
+        self.visual_encoder.reset_parameters(generator)
+        self.audio_encoder.reset_parameters(generator)
+        if self.joint:
+            init_linear_(self.reduce_feats_dim, generator)
+            self.jr_encoder.reset_parameters(generator)
+        for name, _, _ in self.cross:
+            getattr(self, name).reset_parameters(generator)
+        self.final_encoder.reset_parameters(generator)
+        self.final_self_attention.reset_parameters(generator)
+
+    def forward(self, visual: torch.Tensor, audio: torch.Tensor,
+                time_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """visual (B, T, 128), audio (B, T, audio_dim) -> (B, T, 128)."""
+        b, t, d = visual.shape
+        if d != self.DIM:
+            raise ValueError(f'the visual stream is {d}-d, not {self.DIM}')
+        audio = self.augment_audio_feats_dim(audio)
+        enc = {'v': self.visual_encoder(visual, time_mask),
+               'a': self.audio_encoder(audio, time_mask)}
+        if self.joint:
+            jr = self.reduce_feats_dim(torch.cat([visual, audio], dim=-1))
+            enc['jr'] = self.jr_encoder(jr, time_mask)
+        stack = [getattr(self, name)(enc[q], enc[kv], enc[kv], time_mask)
+                 for name, q, kv in self.cross]
+        n = len(stack)
+        s = torch.stack(stack).reshape(n, b * t, d)
+        flat_mask = (None if time_mask is None
+                     else time_mask.reshape(1, b * t).expand(n, -1))
+        s = self.final_encoder(s, flat_mask)
+        s = self.final_self_attention(s, s, s, flat_mask)
+        return s.reshape(n, b, t, d)[-1]

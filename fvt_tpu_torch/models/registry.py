@@ -1,17 +1,22 @@
 """Model factory of the port (``fvt_tpu/models/registry.py``,
-``experiment.py:166-188``): the model a run's config names.
+``experiment.py:166-188``): the model a run's config names, LFAN, CAN,
+JMT or MT.
 
-LFAN is ported; CAN, JMT and MT are not yet (queue A3), nor the VGGish
-encoder of ``logmel`` (A3), nor int8 serving (``--serve_quant``, A5).
-``--amp`` builds the ArcFace backbone in bfloat16, as ``fvt_tpu`` does;
-the convolutions run on cuDNN, as ``fvt_tpu``'s CLI runs XLA's.
-``--frozen_eval_backbones`` runs the frozen backbone in eval mode during
-training (``LFAN(frozen_eval=True)``).  ``--pallas_train`` is accepted and
-changes nothing: the port trains through its fused TCN train kernel on
-every modality (``Trainer(tcn_fused=True)``), where ``fvt_tpu`` turns its
-Pallas train kernel off for backbone modalities on a TPU measurement.
-``--pallas_serving`` is accepted and changes nothing: the port's eval
-runs the fused TCN and fusion kernels on the card in any case.
+Not ported yet: the VGGish encoder of ``logmel`` (A3) and int8 serving
+(``--serve_quant``, A5).  ``--amp`` builds the ArcFace backbone in
+bfloat16, as ``fvt_tpu`` does; the convolutions run on cuDNN, as
+``fvt_tpu``'s CLI runs XLA's.  ``--frozen_eval_backbones`` runs the
+frozen backbone in eval mode during training (``frozen_eval=True``).  An
+eval forward runs the backbone over ``eval_window_batch *
+window_length`` frames at a time, the most an LFAN window batch gives it,
+so a bucket of whole videos (CAN, JMT, MT) fits the card too.
+``--pallas_train`` is accepted and changes nothing: the port trains
+through its fused TCN train kernel on every modality
+(``Trainer(tcn_fused=True)``), where ``fvt_tpu`` turns its Pallas train
+kernel off for backbone modalities on a TPU measurement and runs CAN, JMT
+and MT on its plain TCN.  ``--pallas_serving`` is accepted and changes
+nothing: the port's eval runs the fused TCN kernel, and LFAN's fusion
+kernel, on the card in any case.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import torch
 
 from fvt_tpu_torch import constants
 from fvt_tpu_torch.config import model_config as MC
-from fvt_tpu_torch.models.models import LFAN
+from fvt_tpu_torch.models.models import CAN, JMT, LFAN, FusionModel
 
 
 def split_modality(modality_str: str) -> list:
@@ -31,13 +36,13 @@ def split_modality(modality_str: str) -> list:
             if 'continuous_label' not in m]
 
 
-def init_model(args, generator: Optional[torch.Generator] = None) -> LFAN:
+def init_model(args, generator: Optional[torch.Generator] = None
+               ) -> FusionModel:
     """The model of ``args`` (a config namespace), its weights drawn from
     ``generator`` (seeded from ``args.seed`` by default), on the CPU."""
     name = args.model_name
-    if name != constants.LFAN:
-        raise NotImplementedError(f'{name} is not ported yet (queue A3): '
-                                  f'the port builds LFAN')
+    if name not in constants.FUSION_METHODS:
+        raise NotImplementedError(name)
     quant = getattr(args, 'serve_quant', 'none')
     if quant != 'none':
         raise NotImplementedError(f'--serve_quant {quant} is not ported '
@@ -49,12 +54,19 @@ def init_model(args, generator: Optional[torch.Generator] = None) -> LFAN:
     num_classes = args.num_classes
     if args.dataset_name == constants.C_EXPR_DB and args.use_other_class:
         num_classes += 1
-    dtype = torch.bfloat16 if getattr(args, 'amp', False) else torch.float32
     if generator is None:
         generator = torch.Generator().manual_seed(int(args.seed))
-    return LFAN(modality, output_dim=num_classes, task=args.task,
-                kernel_size=args.tcn_kernel_size,
-                tcn_channel=MC.TCN_CHANNELS, modal_dim=args.modal_dim,
-                num_heads=args.num_heads, generator=generator,
-                backbone_dtype=dtype,
-                frozen_eval=getattr(args, 'frozen_eval_backbones', False))
+    kw = dict(output_dim=num_classes, task=args.task, generator=generator,
+              backbone_dtype=(torch.bfloat16 if getattr(args, 'amp', False)
+                              else torch.float32),
+              frozen_eval=getattr(args, 'frozen_eval_backbones', False),
+              eval_frames=(int(getattr(args, 'eval_window_batch', 8) or 8)
+                           * int(args.window_length)))
+    if name == constants.LFAN:
+        return LFAN(modality, kernel_size=args.tcn_kernel_size,
+                    tcn_channel=MC.TCN_CHANNELS, modal_dim=args.modal_dim,
+                    num_heads=args.num_heads, **kw)
+    if name == constants.CAN:
+        return CAN(modality, tcn_settings=MC.TCN_SETTINGS, **kw)
+    return JMT(modality, model_name=name, tcn_settings=MC.TCN_SETTINGS,
+               **kw)

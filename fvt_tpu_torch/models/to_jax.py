@@ -1,31 +1,31 @@
-"""Weight bridge, the other way: a state_dict of the port's LFAN ->
-``fvt_tpu``'s flax ``params`` and ``batch_stats`` trees.
+"""Weight bridge, the other way: a state_dict of the port's LFAN, CAN,
+JMT or MT -> ``fvt_tpu``'s flax ``params`` and ``batch_stats`` trees.
 
-:func:`lfan_flax_from_state` is the inverse of
-``from_jax.lfan_state_from_flax``: Linear weight (out, in) -> Dense kernel
-(in, out); weight-norm ``weight_v`` (out, in, K) -> v (K, in, out) and
-``weight_g`` (out, 1, 1) -> g (out,); the downsample's (out, in, 1) ->
-``proj/dense/kernel`` (in, out); BatchNorm1d -> ``scale``/``bias`` and
-``batch_stats`` ``mean``/``var`` (``num_batches_tracked`` has no flax
-counterpart and is dropped).  The frozen ArcFace of a ``video`` model goes
-to ``spatial_video/backbone`` (:func:`arcface_flax_from_state`, the
-inverse of ``from_jax._arcface``): conv kernels OIHW -> HWIO, PReLU
-slopes to ``alpha``, ``output_linear`` from PyTorch's NCHW flatten back
-to ``fvt_tpu``'s NHWC one, and its 54 BatchNorms' parameters and
-statistics.  Every dict is keyed in sorted order, as ``jax.tree.map``
-leaves it, so the trees serialise to the bytes ``fvt_tpu`` writes.
+:func:`flax_from_state` is the inverse of ``from_jax.state_from_flax``:
+each key goes where ``from_jax.LAYOUT`` puts it, with its layout
+conversion (Linear weight (out, in) -> Dense kernel (in, out);
+weight-norm ``weight_v`` (out, in, K) -> v (K, in, out) and ``weight_g``
+(out, 1, 1) -> g (out,); the downsample's (out, in, 1) ->
+``proj/dense/kernel`` (in, out); ``in_proj_weight`` -> ``in_proj_kernel``;
+BatchNorm1d -> ``scale``/``bias`` and ``batch_stats`` ``mean``/``var``;
+``num_batches_tracked`` has no flax counterpart and is dropped).  The
+frozen ArcFace of a ``video`` model goes to ``spatial_video/backbone``
+(:func:`arcface_flax_from_state`, the inverse of ``from_jax._arcface``):
+conv kernels OIHW -> HWIO, PReLU slopes to ``alpha``, ``output_linear``
+from PyTorch's NCHW flatten back to ``fvt_tpu``'s NHWC one, and its 54
+BatchNorms' parameters and statistics.  Every dict is keyed in sorted
+order, as ``jax.tree.map`` leaves it, so the trees serialise to the bytes
+``fvt_tpu`` writes.
 """
 from __future__ import annotations
 
-import re
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from fvt_tpu_torch.models.arcface import get_blocks_50
-
-_NO_FLAX = 'num_batches_tracked'
+from fvt_tpu_torch.models.from_jax import NO_FLAX, flax_place
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -69,7 +69,7 @@ def arcface_flax_from_state(state: Mapping[str, torch.Tensor],
         _put(params, path + ('bias',), take(f'{key}.bias'))
         _put(stats, path + ('mean',), take(f'{key}.running_mean'))
         _put(stats, path + ('var',), take(f'{key}.running_var'))
-        seen.add(f'{prefix}.{key}.{_NO_FLAX}')
+        seen.add(f'{prefix}.{key}.{NO_FLAX}')
 
     conv('input_layer.0', ('input_conv',))
     bn('input_layer.1', ('input_bn',))
@@ -100,75 +100,30 @@ def arcface_flax_from_state(state: Mapping[str, torch.Tensor],
     return _sorted(params), _sorted(stats)
 
 
-def lfan_flax_from_state(state: Mapping[str, torch.Tensor],
-                         modality: Sequence[str]) -> Tuple[dict, dict]:
-    """(params, batch_stats) of ``fvt_tpu``'s LFAN from the port's LFAN
-    state_dict ``state``; ``modality`` is the model's modality order
-    (leader first).  A ``video`` model's ``spatial.visual.backbone.*``
-    goes to ``spatial_video/backbone``.  Raises on a key it does not map,
-    so nothing of the model is left out silently."""
-    params: Dict[str, dict] = {}
-    stats: Dict[str, dict] = {}
+def flax_from_state(state: Mapping[str, torch.Tensor],
+                    modality: Optional[Sequence[str]] = None
+                    ) -> Tuple[dict, dict]:
+    """(params, batch_stats) of ``fvt_tpu``'s model from the port's LFAN,
+    CAN, JMT or MT state_dict ``state``.  A ``video`` model's
+    ``spatial.visual.backbone.*`` goes to ``spatial_video/backbone``.
+    Raises on a key it does not map, so nothing of the model is left out
+    silently, and where ``modality`` is given, on a TCN of another
+    modality."""
+    trees: Dict[str, dict] = {'params': {}, 'batch_stats': {}}
     visual = 'spatial.visual.backbone'
     if any(k.startswith(visual + '.') for k in state):
         p, st = arcface_flax_from_state(state, visual)
-        params['spatial_video'] = {'backbone': p}
-        stats['spatial_video'] = {'backbone': st}
-        state = {k: v for k, v in state.items()
-                 if not k.startswith(visual + '.')}
-    mods = '|'.join(re.escape(m) for m in modality)
-    rules = (
-        (rf'temporal\.({mods})\.network\.(\d+)\.(conv[12])\.weight_v',
-         lambda m, v: (('temporal_' + m[1], f'block{m[2]}', m[3], 'v'),
-                       v.transpose(2, 1, 0))),
-        (rf'temporal\.({mods})\.network\.(\d+)\.(conv[12])\.weight_g',
-         lambda m, v: (('temporal_' + m[1], f'block{m[2]}', m[3], 'g'),
-                       v.reshape(-1))),
-        (rf'temporal\.({mods})\.network\.(\d+)\.(conv[12])\.bias',
-         lambda m, v: (('temporal_' + m[1], f'block{m[2]}', m[3], 'bias'),
-                       v)),
-        (rf'temporal\.({mods})\.network\.(\d+)\.downsample\.weight',
-         lambda m, v: (('temporal_' + m[1], f'block{m[2]}', 'downsample',
-                        'proj', 'dense', 'kernel'), v[:, :, 0].T)),
-        (rf'temporal\.({mods})\.network\.(\d+)\.downsample\.bias',
-         lambda m, v: (('temporal_' + m[1], f'block{m[2]}', 'downsample',
-                        'proj', 'dense', 'bias'), v)),
-        (rf'bn\.({mods})\.weight',
-         lambda m, v: (('bn_' + m[1], 'bn', 'scale'), v)),
-        (rf'bn\.({mods})\.bias',
-         lambda m, v: (('bn_' + m[1], 'bn', 'bias'), v)),
-        (rf'fusion\.layers\.self_attn\.qkv_proj\.({mods})\.weight',
-         lambda m, v: (('fusion', 'self_attn', 'qkv_' + m[1], 'dense',
-                        'kernel'), v.T)),
-        (rf'fusion\.layers\.self_attn\.qkv_proj\.({mods})\.bias',
-         lambda m, v: (('fusion', 'self_attn', 'qkv_' + m[1], 'dense',
-                        'bias'), v)),
-        (r'fusion\.layers\.self_attn\.o_proj\.(weight|bias)',
-         lambda m, v: (('fusion', 'self_attn', 'o_proj', 'dense',
-                        'kernel' if m[1] == 'weight' else 'bias'),
-                       v.T if m[1] == 'weight' else v)),
-        (r'fusion\.layers\.norm1\.(weight|bias)',
-         lambda m, v: (('fusion', 'norm1',
-                        'scale' if m[1] == 'weight' else 'bias'), v)),
-        (r'regressor\.(weight|bias)',
-         lambda m, v: (('regressor', 'dense',
-                        'kernel' if m[1] == 'weight' else 'bias'),
-                       v.T if m[1] == 'weight' else v)),
-    )
-    stat_rule = re.compile(rf'bn\.({mods})\.running_(mean|var)')
+        trees['params']['spatial_video'] = {'backbone': p}
+        trees['batch_stats']['spatial_video'] = {'backbone': st}
     for key, tensor in state.items():
-        if key.endswith(_NO_FLAX):
+        if key.startswith(visual + '.') or key.endswith(NO_FLAX):
             continue
-        m = stat_rule.fullmatch(key)
-        if m:
-            _put(stats, ('bn_' + m[1], 'bn', m[2]), _np(tensor))
-            continue
-        for pattern, rule in rules:
-            m = re.fullmatch(pattern, key)
-            if m:
-                path, value = rule(m, _np(tensor))
-                _put(params, path, np.ascontiguousarray(value))
-                break
-        else:
-            raise KeyError(f'{key}: no counterpart in fvt_tpu\'s LFAN tree')
-    return _sorted(params), _sorted(stats)
+        collection, path, to_flax = flax_place(key)
+        if modality is not None and path[0].startswith('temporal_') \
+                and path[0][len('temporal_'):] not in modality:
+            raise KeyError(f'{key}: a TCN of none of {list(modality)}')
+        value = _np(tensor)
+        _put(trees[collection], path, np.ascontiguousarray(
+            to_flax(value) if to_flax else value))
+    return _sorted(trees['params']), _sorted(trees['batch_stats'])
+

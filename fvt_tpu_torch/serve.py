@@ -1,9 +1,13 @@
-"""LFAN serving path of the port (counterpart of ``fvt_tpu/serve.py``).
+"""The eval forward of the port (counterpart of ``fvt_tpu/serve.py`` and
+of ``make_eval_step``, ``fvt_tpu/train/steps.py:167-196``).
 
-:func:`lfan_serving_forward` is the eval step: the eval video transform,
-the frozen ArcFace backbone, one TemporalConvNet per modality through
-the fused TCN-block kernel, the folded eval BatchNorm, the fused fusion
-kernel and the regressor.
+:func:`serving_forward` is the eval step of every family: the eval video
+transform, the frozen ArcFace backbone, one TemporalConvNet per modality
+through the fused TCN-block kernel, the folded eval BatchNorm, then the
+family's fusion and head (LFAN's fusion through the fused fusion
+kernel); JMT and MT take the valid frames' ``time_mask``.
+:func:`lfan_serving_forward` is the LFAN's, which :class:`ServingModel`
+serves.
 
 :class:`ServingModel` wraps a model at one ``(window_batch,
 window_length)`` shape behind the interface of an ``fvt_tpu`` serving
@@ -27,20 +31,35 @@ import torch
 from fvt_tpu_torch import constants
 from fvt_tpu_torch.config import model_config as MC
 from fvt_tpu_torch.data.transforms import CROP_SIZE, eval_video_transform
-from fvt_tpu_torch.models.models import LFAN
+from fvt_tpu_torch.models.models import LFAN, FusionModel
 
 
-def lfan_serving_forward(model: LFAN, batch: Dict[str, torch.Tensor], *,
-                         reference: bool = False) -> torch.Tensor:
+def valid_frames(lengths, t: int, device) -> torch.Tensor:
+    """(B, t) bool, True on the first ``lengths[b]`` frames of row b."""
+    lengths = torch.as_tensor(lengths, device=device).reshape(-1, 1)
+    return torch.arange(t, device=device)[None, :] < lengths
+
+
+def serving_forward(model: FusionModel, batch: Dict[str, torch.Tensor], *,
+                    time_mask: Optional[torch.Tensor] = None,
+                    reference: bool = False) -> torch.Tensor:
     """batch: {modality: (B, T, ...)} on the model's device, video as
-    uint8 crops.  Returns (B, T, C) float32 logits.  ``reference=True``
-    runs the plain versions of the kernels (for checks and tests)."""
+    uint8 crops.  Returns (B, T, C) float32 logits.  ``time_mask`` (B, T)
+    goes to a JMT or MT.  ``reference=True`` runs the plain versions of
+    the kernels (for checks and tests)."""
     x = dict(batch)
     video = x.get(constants.VIDEO)
     if video is not None and video.dtype == torch.uint8:
         x[constants.VIDEO] = eval_video_transform(video)
+    kw = {} if time_mask is None else {'time_mask': time_mask}
     with torch.inference_mode():
-        return model(x, reference=reference)
+        return model(x, reference=reference, **kw)
+
+
+def lfan_serving_forward(model: LFAN, batch: Dict[str, torch.Tensor], *,
+                         reference: bool = False) -> torch.Tensor:
+    """:func:`serving_forward` of an LFAN, which takes no mask."""
+    return serving_forward(model, batch, reference=reference)
 
 
 class ServingModel:

@@ -6,7 +6,12 @@ mode (dropout from the step's generator, BatchNorm on batch statistics
 with the running ones updated, the frozen backbone's too), mean
 cross-entropy over all B*T frames, backward, optimizer update.  The
 frozen backbone subtrees (prefix ``spatial``) get no gradient and are
-kept out of the optimizer, so weight decay cannot move them.
+kept out of the optimizer, so weight decay cannot move them.  A trainable
+parameter that the loss does not reach (the TCN and BatchNorm of a
+modality that JMT and MT do not fuse) takes a zero gradient, so weight
+decay and momentum move it as ``fvt_tpu``'s optax chain does
+(``add_decayed_weights`` before the trace or Adam); ``torch.optim`` would
+skip it.
 """
 from __future__ import annotations
 
@@ -130,6 +135,9 @@ class TrainStep:
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.loss(batch, generator)
         loss.backward()
+        for p in self.trainable.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         self.optimizer.step()
         self.step += 1
         return loss.detach()

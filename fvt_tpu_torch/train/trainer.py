@@ -23,7 +23,7 @@ import pickle as pkl
 import time
 from collections import deque
 from os.path import join
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,7 +36,7 @@ from fvt_tpu_torch.data.transforms import (CROP_SIZE, SCALE_SIZE,
                                            center_crop_offset)
 from fvt_tpu_torch.models.checkpoint import save_best_model
 from fvt_tpu_torch.models.registry import split_modality
-from fvt_tpu_torch.serve import lfan_serving_forward
+from fvt_tpu_torch.serve import serving_forward, valid_frames
 from fvt_tpu_torch.train import metrics as M
 from fvt_tpu_torch.train import optim
 from fvt_tpu_torch.train.steps import FROZEN_PREFIX, TrainStep
@@ -63,7 +63,9 @@ class EarlyStopper:
 
 
 class Trainer:
-    """Trains and evaluates ``model`` under ``config``, a dict with the
+    """Trains and evaluates ``model`` (the port's LFAN, CAN, JMT or MT;
+    its family picks the eval pass's batching and mask) under ``config``,
+    a dict with the
     keys of ``fvt_tpu/config/defaults.py`` (training reads ``seed``,
     ``num_epochs``, ``min_num_epochs``, ``nan_guard`` and the ``opt__*``
     family; ``inference`` the eval keys, ``dataset_name``, ``outd`` and
@@ -78,7 +80,7 @@ class Trainer:
                  int_to_cl: Optional[Dict[int, str]] = None):
         self.config = config
         self.int_to_cl = int_to_cl
-        self.model_name = config.get('model_name', constants.LFAN)
+        self.model_name = model.model_name  # the family's, not config's
         self.reference = reference
         self.hp = optim.standardize_opt_params(config)
         self.train_step = TrainStep(
@@ -164,12 +166,21 @@ class Trainer:
         return epoch_loss
 
     # ------------------------------------------------------------ inference
-    def forward(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                lengths: Optional[Sequence[int]] = None) -> torch.Tensor:
         """(B, T, C) logits of the eval forward on device tensors (uint8
-        video, float32 or bfloat16 features)."""
+        video, float32 or bfloat16 features).  A JMT or MT attends over
+        the first ``lengths[b]`` frames of row b (all T by default), as
+        ``fvt_tpu``'s ``make_eval_step(needs_time_mask=True)``."""
         x = {k: v.float() if v.dtype == torch.bfloat16 else v
              for k, v in inputs.items()}
-        return lfan_serving_forward(self.model, x, reference=self.reference)
+        mask = None
+        if self.model.needs_time_mask:
+            b, t = next(iter(x.values())).shape[:2]
+            mask = valid_frames([t] * b if lengths is None else lengths, t,
+                                self.device)
+        return serving_forward(self.model, x, time_mask=mask,
+                               reference=self.reference)
 
     def inference(self, loader) -> tuple:
         """The eval pass over ``loader`` (an ``EvalLoader``): returns
@@ -199,7 +210,7 @@ class Trainer:
         win_threshold = (cfg['window_length']
                          if self.model_name == constants.LFAN else None)
         batch_videos = cfg.get('eval_video_batch', 8)
-        if self.model_name in (constants.JMT, constants.MT):
+        if self.model.needs_time_mask:
             batch_videos = 1  # their final attention spans the batch
         window, hop = cfg['window_length'], cfg['hop_length']
         wb = int(cfg.get('eval_window_batch', 8) or 8)
@@ -350,7 +361,8 @@ class Trainer:
                 dispatch_window_batches()
             else:
                 t0 = _pc()
-                out = self.forward({k: upload(v) for k, v in batch.items()})
+                out = self.forward({k: upload(v) for k, v in batch.items()},
+                                   true_lens)
                 pending.append(('bucket', out, labels, trials, true_lens))
                 tm['dispatch_s'] += _pc() - t0
             while len(pending) > 2:

@@ -20,7 +20,7 @@ import torch
 from fvt_tpu.models.arcface import VisualBackbone as FlaxVisualBackbone
 from fvt_tpu.models.models import LFAN as FlaxLFAN
 from fvt_tpu_torch.models.arcface import VisualBackbone, arcface_forward_eval
-from fvt_tpu_torch.models.from_jax import lfan_state_from_flax
+from fvt_tpu_torch.models.from_jax import state_from_flax
 from fvt_tpu_torch.models.models import LFAN
 from test_torch_lfan_serving import _perturb
 
@@ -57,7 +57,7 @@ def flax_models():
     logits = np.asarray(jax.jit(lambda v, x: model.apply(v, x, train=False))(
         {'params': params, 'batch_stats': stats},
         {k: jnp.asarray(v) for k, v in batch.items()}))
-    return {'state': lfan_state_from_flax(params, stats, MODS),
+    return {'state': state_from_flax(params, stats, MODS),
             'crops': crops, 'embeddings': embeddings, 'batch': batch,
             'logits': logits}
 

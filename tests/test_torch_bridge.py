@@ -1,6 +1,6 @@
 """Weight bridge and server tests of the port, on narrow feature-only LFANs.
 
-* ``from_jax.lfan_state_from_flax`` agrees with
+* ``from_jax.state_from_flax`` agrees with
   ``fvt_tpu.models.torch_export.lfan_to_torch`` on every key the port has,
   and lacks only the dead keys; the port's LFAN loaded from it matches the
   flax LFAN in eval mode (fp32, rtol 2e-4 / atol 2e-5).  The ArcFace keys
@@ -20,7 +20,7 @@ from fvt_tpu.data import windowing as W
 from fvt_tpu.models.models import LFAN as FlaxLFAN
 from fvt_tpu.models.torch_export import lfan_to_torch
 from fvt_tpu.streaming import StreamingRegistry, StreamingSession
-from fvt_tpu_torch.models.from_jax import is_dead_key, lfan_state_from_flax
+from fvt_tpu_torch.models.from_jax import is_dead_key, state_from_flax
 from fvt_tpu_torch.models.models import LFAN
 from fvt_tpu_torch.serve import ServingModel, lfan_serving_forward
 
@@ -62,7 +62,7 @@ def narrow():
 def test_bridge_agrees_with_torch_export(narrow):
     _, params, stats = narrow
     want = lfan_to_torch(params, stats, MODS, TCN, DIMS)
-    got = lfan_state_from_flax(params, stats, MODS)
+    got = state_from_flax(params, stats, MODS)
     missing = set(want) - set(got)
     assert missing and all(is_dead_key(k) for k in missing)
     assert {k.rsplit('.', 2)[0].rsplit('.', 1)[-1] for k in missing} \
@@ -82,7 +82,7 @@ def test_bridged_lfan_matches_flax(narrow):
                        train=False)
     port = LFAN(MODS, 7, tcn_channel=TCN, encoder_dim=ENC,
                 embedding_dim=DIMS)
-    port.load_state_dict(lfan_state_from_flax(params, stats, MODS),
+    port.load_state_dict(state_from_flax(params, stats, MODS),
                          strict=True)
     got = lfan_serving_forward(port, {m: torch.from_numpy(v)
                                       for m, v in x.items()})

@@ -1,6 +1,6 @@
 """Best models in fvt_tpu's msgpack format, and checkpoint / resume.
 
-* The port's writer, fed ``lfan_state_from_flax`` of a random flax LFAN's
+* The port's writer, fed ``state_from_flax`` of a random flax LFAN's
   variables, gives the bytes of ``flax.serialization.to_bytes`` over the
   trees as ``fvt_tpu``'s ``Trainer.optimize`` saves them, and
   ``load_best_model`` reads them back bit for bit.
@@ -53,7 +53,7 @@ def test_writer_gives_flax_to_bytes_and_reads_back(tmp_path):
     from test_torch_config_store import flax_variables
     from fvt_tpu_torch.models.checkpoint import (load_best_model,
                                                  save_best_model)
-    from fvt_tpu_torch.models.from_jax import lfan_state_from_flax
+    from fvt_tpu_torch.models.from_jax import state_from_flax
     from fvt_tpu_torch.models.models import LFAN
 
     tcn = {'vggish': [16, 16, 8, 8], 'bert': [24, 24, 16, 16]}
@@ -68,7 +68,7 @@ def test_writer_gives_flax_to_bytes_and_reads_back(tmp_path):
         {'params': jax.tree.map(np.asarray, params),
          'batch_stats': jax.tree.map(np.asarray, stats)})
 
-    state = lfan_state_from_flax(params, stats, MODS)
+    state = state_from_flax(params, stats, MODS)
     path = str(tmp_path / 'model.msgpack')
     save_best_model(state, path, MODS)
     with open(path, 'rb') as f:

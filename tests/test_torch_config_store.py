@@ -172,7 +172,7 @@ def test_msgpack_reader_is_flax_bit_for_bit(flax_lfan, tmp_path):
     from flax import serialization
     from fvt_tpu_torch.models.checkpoint import (load_best_model,
                                                  msgpack_restore)
-    from fvt_tpu_torch.models.from_jax import lfan_state_from_flax
+    from fvt_tpu_torch.models.from_jax import state_from_flax
     from fvt_tpu_torch.models.models import LFAN
 
     params, stats, tcn = flax_lfan
@@ -192,7 +192,7 @@ def test_msgpack_reader_is_flax_bit_for_bit(flax_lfan, tmp_path):
     model = LFAN(('vggish', 'bert'), 7, tcn_channel=tcn,
                  encoder_dim={m: c[-1] for m, c in tcn.items()})
     load_best_model(model, path, ('vggish', 'bert'))
-    want = lfan_state_from_flax(params, stats, ('vggish', 'bert'))
+    want = state_from_flax(params, stats, ('vggish', 'bert'))
     for k, v in model.state_dict().items():
         assert torch.equal(v, want[k]), k
 

@@ -1,6 +1,7 @@
 """The port needs neither JAX, flax, PyYAML, msgpack, orbax nor anything
 of fvt_tpu (its serving and training paths, a video model's train step
-and its ArcFace in fvt_tpu's tree, every conv path of the ArcFace
+and its ArcFace in fvt_tpu's tree, a CAN's and an MT's train step and
+their trees, every conv path of the ArcFace
 backbone, its tools, the training CLI with checkpoints and resume
 and the challenge inference CLI on stores of its own synthetic writer run
 with all six blocked), and chip_smoke.py refuses to run without a CUDA
@@ -38,7 +39,7 @@ NO_JAX = textwrap.dedent('''
     import fvt_tpu_torch
     import fvt_tpu_torch.kernels.build
     from fvt_tpu_torch.config.defaults import get_train_config
-    from fvt_tpu_torch.models.from_jax import lfan_state_from_flax
+    from fvt_tpu_torch.models.from_jax import state_from_flax
     from fvt_tpu_torch.models.models import LFAN
     from fvt_tpu_torch.serve import ServingModel
     from fvt_tpu_torch.streaming import StreamingSession
@@ -66,7 +67,7 @@ NO_JAX = textwrap.dedent('''
 
     # a video model trains (the train transform, the backbone in train
     # mode) and its ArcFace goes to fvt_tpu's tree
-    from fvt_tpu_torch.models.to_jax import lfan_flax_from_state
+    from fvt_tpu_torch.models.to_jax import flax_from_state
     video_mods = ('video', 'vggish')
     video_model = LFAN(video_mods, 7, tcn_channel={m: [8, 8, 4, 4]
                                                    for m in video_mods},
@@ -79,10 +80,32 @@ NO_JAX = textwrap.dedent('''
     loss = Trainer(video_model, get_train_config(), 'cpu').train_one_epoch(
         [video_batch], 0)
     assert np.isfinite(loss), loss
-    params, stats = lfan_flax_from_state(video_model.state_dict(),
-                                         video_mods)
+    params, stats = flax_from_state(video_model.state_dict(), video_mods)
     assert 'backbone' in params['spatial_video'], list(params)
     assert 'backbone' in stats['spatial_video'], list(stats)
+
+    # CAN, JMT and MT: built, trained a step and written in fvt_tpu's tree
+    from fvt_tpu_torch.models.models import CAN, JMT
+    narrow = {m: {'input_dim': d, 'channel': [8, c], 'kernel_size': 3}
+              for m, d, c in (('video', 512, 128), ('vggish', 128, 8),
+                              ('bert', 768, 8))}
+    family_batch = {
+        'video': rng.normal(size=(2, 6, 512)).astype(np.float32),
+        'vggish': rng.normal(size=(2, 6, 128)).astype(np.float32),
+        'bert': rng.normal(size=(2, 6, 768)).astype(np.float32),
+        'EXPR_continuous_label': rng.integers(0, 7, (2, 6))}
+    for family in (CAN(('vggish', 'bert'), 7, tcn_settings=narrow),
+                   JMT(('video', 'vggish'), 7, model_name='MT',
+                       tcn_settings=narrow)):
+        batch = {k: v for k, v in family_batch.items()
+                 if k in family.modality or 'label' in k}
+        loss = Trainer(family, get_train_config(), 'cpu').train_one_epoch(
+            [batch], 0)
+        assert np.isfinite(loss), loss
+        params, _ = flax_from_state({k: v for k, v in
+                                     family.state_dict().items()
+                                     if not k.startswith('spatial.')})
+        assert 'fuse' in params, list(params)
 
     from fvt_tpu_torch.models.arcface import (CONV_IMPLS, VisualBackbone,
                                               arcface_forward_eval)
@@ -204,7 +227,11 @@ def test_no_port_source_imports_jax_or_fvt_tpu():
             'fvt_tpu_torch/main.py',
             'fvt_tpu_torch/data/loader.py',
             'fvt_tpu_torch/data/transforms.py',
-            'fvt_tpu_torch/train/steps.py'} <= names
+            'fvt_tpu_torch/train/steps.py',
+            'fvt_tpu_torch/models/models.py',
+            'fvt_tpu_torch/models/fusion.py',
+            'fvt_tpu_torch/models/layers.py',
+            'fvt_tpu_torch/serve.py'} <= names
     for path in paths:
         with open(path) as f:
             found = FORBIDDEN_IMPORT.findall(f.read())

@@ -21,7 +21,7 @@ import torch
 from fvt_tpu.models.arcface import VisualBackbone as FlaxVisualBackbone
 from fvt_tpu.models.models import LFAN as FlaxLFAN
 from fvt_tpu.serve import build_lfan_serving_fn
-from fvt_tpu_torch.models.from_jax import is_dead_key, lfan_state_from_flax
+from fvt_tpu_torch.models.from_jax import is_dead_key, state_from_flax
 from fvt_tpu_torch.models.models import LFAN
 from fvt_tpu_torch.serve import lfan_serving_forward
 
@@ -73,7 +73,7 @@ def tri_modal():
     model = FlaxLFAN(modality=MODS, output_dim=7, tcn_channel=TCN,
                      encoder_dim=ENC, spatial_video=FlaxVisualBackbone())
     port = LFAN(MODS, 7, tcn_channel=TCN, encoder_dim=ENC)
-    port.load_state_dict(lfan_state_from_flax(params, stats, MODS),
+    port.load_state_dict(state_from_flax(params, stats, MODS),
                          strict=True)
     batch = {
         'video': rng.integers(0, 256, (B, T, 40, 40, 3), dtype=np.uint8),
@@ -125,7 +125,7 @@ def test_bridge_spatial_keys_match_torch_export(tri_modal):
     want = {k: v for k, v in lfan_to_torch(
         tri_modal['params'], tri_modal['stats'], MODS, TCN,
         MC.EMBEDDING_DIM).items() if k.startswith('spatial.')}
-    got = {k: v for k, v in lfan_state_from_flax(
+    got = {k: v for k, v in state_from_flax(
         tri_modal['params'], tri_modal['stats'], MODS).items()
         if k.startswith('spatial.')}
     assert set(want) - set(got) == {'spatial.visual.logits.weight',

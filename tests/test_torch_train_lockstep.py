@@ -2,7 +2,7 @@
 
 A narrow ``vggish+bert`` LFAN at dropout 0 takes 3 optimizer steps in
 both frameworks from the same weights (carried over with
-``lfan_state_from_flax``) on the same numpy batches.  The JAX side runs
+``state_from_flax``) on the same numpy batches.  The JAX side runs
 ``make_train_step`` with ``tcn_fused=True`` (the Pallas train kernels in
 interpret mode); the port runs on the CPU, where the fused wrapper takes
 its plain version.  Tolerances: per-step loss rtol 1e-5; parameters after
@@ -31,8 +31,8 @@ from fvt_tpu.models.models import LFAN as FlaxLFAN
 from fvt_tpu.train import optim as jax_optim
 from fvt_tpu.train.steps import create_train_state, make_train_step
 from fvt_tpu_torch.config.defaults import get_train_config
-from fvt_tpu_torch.models.from_jax import lfan_state_from_flax
-from fvt_tpu_torch.models.models import LFAN
+from fvt_tpu_torch.models.from_jax import state_from_flax
+from fvt_tpu_torch.models.models import LFAN, batchnorm_frames
 from fvt_tpu_torch.train import optim
 from fvt_tpu_torch.train.steps import TrainStep, eval_step
 from fvt_tpu_torch.train.trainer import Trainer
@@ -91,14 +91,14 @@ def test_three_steps_in_lockstep(fused, optimizer_name):
         optimizer_name)
     model = LFAN(MODS, 7, tcn_channel=TCN, encoder_dim=ENC, tcn_dropout=0.0,
                  fusion_dropout=0.0)
-    model.load_state_dict(lfan_state_from_flax(params, stats, MODS),
+    model.load_state_dict(state_from_flax(params, stats, MODS),
                           strict=True)
     step = TrainStep(model, _port_hp(optimizer_name), 'cpu', tcn_fused=fused)
     gen = torch.Generator().manual_seed(0)
     losses = [float(step(batch, gen)) for batch in _batches()]
     np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
 
-    want = lfan_state_from_flax(end_params, end_stats, MODS)
+    want = state_from_flax(end_params, end_stats, MODS)
     got = model.state_dict()
     assert set(got) == set(want)
     moved = 0
@@ -128,7 +128,7 @@ def test_batchnorm_train_is_batchnorm1d_on_the_frame_view():
         1.0, 2.0, size=(B, T, 4)).astype(np.float32))
     twin = torch.nn.BatchNorm1d(4).train()
     want = twin(h.reshape(B * T, 4)).reshape(B, T, 4)
-    got = model._batchnorm_train('bert', h)
+    got = batchnorm_frames(model.bn['bert'], h, True)
     np.testing.assert_array_equal(got.detach().numpy(),
                                   want.detach().numpy())
     for name in ('running_mean', 'running_var', 'num_batches_tracked'):

@@ -41,9 +41,9 @@ from fvt_tpu.train.steps import TrainState, split_frozen, train_step_body
 from fvt_tpu_torch.config.defaults import get_train_config
 from fvt_tpu_torch.models.checkpoint import (load_best_model, msgpack_dumps,
                                              save_best_model)
-from fvt_tpu_torch.models.from_jax import lfan_state_from_flax
+from fvt_tpu_torch.models.from_jax import state_from_flax
 from fvt_tpu_torch.models.models import LFAN
-from fvt_tpu_torch.models.to_jax import lfan_flax_from_state
+from fvt_tpu_torch.models.to_jax import flax_from_state
 from fvt_tpu_torch.train import optim
 from fvt_tpu_torch.train import steps as port_steps
 from fvt_tpu_torch.train.steps import TrainStep, to_device
@@ -133,7 +133,7 @@ def test_tri_modal_train_step_matches_fvt_tpu(frozen_eval, monkeypatch):
     model = LFAN(MODS, 7, tcn_channel=TCN, encoder_dim=ENC, tcn_dropout=0.0,
                  fusion_dropout=0.0, frozen_eval=frozen_eval)
     model.spatial.visual.backbone.output_layer[1].p = 0.0
-    model.load_state_dict(lfan_state_from_flax(params, stats, MODS),
+    model.load_state_dict(state_from_flax(params, stats, MODS),
                           strict=True)
     before = _port_stats(model, 'spatial.')
     offsets = _offsets(_flax_crop_key(), B)
@@ -146,7 +146,7 @@ def test_tri_modal_train_step_matches_fvt_tpu(frozen_eval, monkeypatch):
     loss.backward()
     np.testing.assert_allclose(loss.item(), want_loss, rtol=1e-5)
 
-    want = lfan_state_from_flax(want_grads, stats, MODS)
+    want = state_from_flax(want_grads, stats, MODS)
     checked = 0
     for name, p in model.named_parameters():
         if name.startswith('spatial.'):
@@ -158,7 +158,7 @@ def test_tri_modal_train_step_matches_fvt_tpu(frozen_eval, monkeypatch):
         checked += 1
     assert checked == len(step.trainable)
 
-    new = lfan_state_from_flax(params, want_stats, MODS)
+    new = state_from_flax(params, want_stats, MODS)
     got = _port_stats(model)
     assert len(before) == 2 * 54
     for k, v in got.items():
@@ -171,8 +171,8 @@ def test_tri_modal_train_step_matches_fvt_tpu(frozen_eval, monkeypatch):
 # -------------------------------------------------------------- (iv)
 def test_arcface_subtree_to_jax_bytes_and_round_trip(tmp_path):
     params, stats = _variables()
-    state = lfan_state_from_flax(params, stats, MODS)
-    back_params, back_stats = lfan_flax_from_state(state, MODS)
+    state = state_from_flax(params, stats, MODS)
+    back_params, back_stats = flax_from_state(state, MODS)
     for want, got in ((_tree(params), back_params),
                       (_tree(stats), back_stats)):
         assert jax.tree.structure(got) == jax.tree.structure(want)
