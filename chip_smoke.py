@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port's LFAN serving and training paths, the
-ArcFace backbone's conv paths, and the training and serving of CAN, JMT
-and MT once on one CUDA card.
+ArcFace backbone's conv paths, the training and serving of CAN, JMT and
+MT, the ``logmel`` modality and the regression task once on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -169,10 +170,39 @@ Phases, each of which raises on failure (exit code 1):
    their plain versions; CLI and epoch walls, step_s, frames/s, peak
    memory; a step at (16, 300) by CUDA events and JMT's and MT's fusion
    alone, its share; CAN's eval over a full bucket of 32 whole videos of
-   1000 frames (the backbone in chunks), its peak memory.
+   1000 frames (the backbone in chunks), its peak memory;
+10. the ``logmel`` modality, raw (96, 64) log-mel patches through the
+   frozen VGGish in the model: ``fvt_tpu_torch.main`` on a ``logmel+bert``
+   C-EXPR-DB store (phase 8's sizes, ``logmel.npy`` in float16) trains the
+   LFAN in float32 (one epoch, then resumed to two) and under ``--amp``
+   (the VGGish in bfloat16) and CAN in float32, 2 epochs; each best model
+   (its VGGish in ``fvt_tpu``'s ``spatial_audio`` tree) written again to
+   the same bytes, then served through ``fvt_tpu_torch.inference_challenge``
+   over phase 6's store with ``logmel.npy``: 8 (LFAN) or 9 (CAN) B3a and
+   B3b calls a step, 8 B1 and 1 B2 (LFAN) or 9 B1 launches a forward and
+   no other kernel, every video's logits within 1e-4 (relative to their
+   largest magnitude) of the offline plain composition, no eval VGGish call
+   above ``eval_window_batch * window_length`` patches, CAN's eval over 32
+   whole videos of 1000 frames (32 000 patches in chunks), B1 and B2 at
+   every (B, T) of the eval passes and B3a/B3b at every trained (B, T) and
+   (16, 300) at all the model's blocks (CAN's ``logmel`` d = 16 block at
+   64 channels) against their plain versions; CLI and epoch walls, peak
+   memory, a step at (16, 300) and the VGGish alone on its 4800 patches
+   and on one 2400-patch eval chunk, its share and TFLOP/s;
+11. the regression task: ``RegressionTrainer.fit`` of a full-width
+   ``vggish+bert`` LFAN with ``task=REGRESSION`` (tanh head, CCC loss) on
+   synthetic valence trials (8 train, 3 valid, 3 test of 700 to 1500
+   frames from the seed), (16, 300) windows at hop 200, 3 epochs with a
+   ``ParamControl`` release of the TCNs at epoch 1 (frozen before, trained
+   after), then ``test`` and ``predict``: 8 B3a and B3b calls a step, 8 B1
+   and 1 B2 launches a forward, the CSV, pickles, best model, checkpoint
+   and per-trial txts (plots where matplotlib imports); the same fit
+   stopped after epoch 1 and resumed from its checkpoint ends bit for bit
+   like it; B1, B2 and B3 at the fit's shapes against their plain
+   versions; the epoch walls and a step's time.
 
 Everything runs in float32 with TF32 off for matmuls and cuDNN, except the
-bfloat16 backbone and its kernel and phases 8 and 9's ``--amp`` runs,
+bfloat16 backbone and its kernel and phases 8, 9 and 10's ``--amp`` runs,
 which say so.  The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line
 before it lists the kernels.  Without a CUDA card the script exits with
@@ -307,6 +337,28 @@ FAMILY_BUCKET_LENGTH = 1000
 # embeddings within EMBED_ATOL; each running statistic within
 # STATS_RTOL of its value plus STATS_ATOL
 STATS_RTOL, STATS_ATOL = 1e-4, 1e-5
+# phase 10: the logmel modality, raw (96, 64) log-mel patches through the
+# frozen VGGish in the model: a C-EXPR-DB store with logmel.npy of phase
+# 8's sizes (48^2 video, unused); LFAN in float32 (one epoch with a
+# checkpoint, then resumed to LOGMEL_EPOCHS), LFAN under --amp and CAN in
+# float32 for LOGMEL_EPOCHS, each best model served through
+# inference_challenge on a challenge store of CHALLENGE_LENGTHS with
+# logmel.npy; the served logits against the offline plain composition
+# within FAMILY_RTOL of their largest magnitude; a step at (TRAIN_BATCH,
+# WINDOW) and the VGGish alone timed over FAMILY_STEP_RUNS
+LOGMEL_MODALITY = ('logmel', 'bert')
+LOGMEL_EPOCHS = 2
+# phase 11: the regression task: RegressionTrainer.fit of a full-width
+# vggish+bert LFAN (task REGRESSION) on synthetic valence trials (REG_TRIALS
+# train, valid and test trials of REG_TRIAL_LENGTHS frames, drawn from the
+# seed), (TRAIN_BATCH, WINDOW) windows at HOP, eval batches of
+# WINDOW_BATCH windows, REG_EPOCHS epochs with a ParamControl release of
+# the TCNs at epoch REG_MILESTONE; the same fit stopped after epoch
+# REG_MILESTONE and resumed from its checkpoint ends bit for bit like it
+REG_TRIALS = (8, 3, 3)
+REG_TRIAL_LENGTHS = (700, 1500)
+REG_EPOCHS = 3
+REG_MILESTONE = 1
 
 
 def fail(msg: str) -> None:
@@ -2443,16 +2495,19 @@ class ShapeRecorder:
     ``fusion``, train-mode calls (``train=True``, B3a and B3b in each
     block) to ``tcn_train`` and ``fusion_train``.  The forwards of a whole
     model of any family go to ``model`` and ``model_train`` the same way,
-    and the frames of each call of the ArcFace backbone to ``backbone``."""
+    the frames of each call of the ArcFace backbone to ``backbone`` and the
+    patches of each call of the VGGish to ``audio``."""
 
     def __enter__(self):
         from fvt_tpu_torch.models.arcface import VisualBackbone
         from fvt_tpu_torch.models.fusion import MultimodalTransformerEncoder
         from fvt_tpu_torch.models.models import FusionModel
         from fvt_tpu_torch.models.tcn import TemporalConvNet
+        from fvt_tpu_torch.models.vggish import VGGish
         self.tcn, self.fusion = [], []
         self.tcn_train, self.fusion_train = [], []
         self.model, self.model_train, self.backbone = [], [], []
+        self.audio = []
 
         def hook(module, args):
             train = len(args) > 1 and args[1] is True
@@ -2467,6 +2522,8 @@ class ShapeRecorder:
                     tuple(next(iter(args[0].values())).shape[:2]))
             elif isinstance(module, VisualBackbone):
                 self.backbone.append(args[0].shape[0])
+            elif isinstance(module, VGGish):
+                self.audio.append(args[0].shape[0])
 
         self.handle = torch.nn.modules.module \
             .register_module_forward_pre_hook(hook)
@@ -2479,8 +2536,8 @@ class ShapeRecorder:
 def challenge_videos(store: dict, mean_std: dict, modality):
     """Each video of the challenge store read with numpy, as the offline
     references take it: yields (``split/vid``, {modality: array}) with
-    the features normalised with the fold's mean/std and the frames
-    center-cropped to 40^2."""
+    the features as float32, those of the fold's mean/std (vggish, bert)
+    normalised with it, and the frames center-cropped to 40^2."""
     import os
     from fvt_tpu_torch.data.transforms import CROP_SIZE, center_crop_offset
 
@@ -2494,24 +2551,28 @@ def challenge_videos(store: dict, mean_std: dict, modality):
                       for m in modality}
             for m in modality:
                 if m == 'video':
+                    arrays[m] = arrays[m][:, off:off + CROP_SIZE,
+                                          off:off + CROP_SIZE]
                     continue
-                st = mean_std[m]
-                arrays[m] = ((arrays[m] - st['mean'].astype(np.float32))
-                             / st['std'].astype(np.float32))
-            arrays['video'] = arrays['video'][:, off:off + CROP_SIZE,
-                                              off:off + CROP_SIZE]
+                arrays[m] = arrays[m].astype(np.float32)
+                if m in mean_std:
+                    st = mean_std[m]
+                    arrays[m] = ((arrays[m] - st['mean'].astype(np.float32))
+                                 / st['std'].astype(np.float32))
             yield f'{split}/{vid}', arrays
 
 
-def challenge_reference(model, store: dict, mean_std: dict, device) -> dict:
-    """Phase 6's offline path: each video of :func:`challenge_videos`
-    padded by repeat to the window or windowed, the plain-version forward
-    over WINDOW_BATCH windows at a time, the windows stitched."""
+def challenge_reference(model, store: dict, mean_std: dict, device,
+                        modality=MODALITY) -> dict:
+    """Phase 6's offline path (and phase 10's, on ``modality``): each
+    video of :func:`challenge_videos` padded by repeat to the window or
+    windowed, the plain-version forward over WINDOW_BATCH windows at a
+    time, the windows stitched."""
     from fvt_tpu_torch.data import windowing as W
     from fvt_tpu_torch.serve import lfan_serving_forward
 
     out = {}
-    for key, arrays in challenge_videos(store, mean_std, MODALITY):
+    for key, arrays in challenge_videos(store, mean_std, modality):
         n = len(arrays['bert'])
         idx = (W.pad_short_window_indices(n, WINDOW)[None] if n < WINDOW
                else W.window_index_matrix(n, WINDOW, HOP))
@@ -2575,15 +2636,18 @@ def full_bucket(trainer, videos: int, device, length: int = WINDOW,
     does not fit on the card, if the eval backbone took it in fewer than
     two calls or any call above ``eval_frames`` frames, or if its logits
     differ from the same forward on the plain versions by more than
-    ``rtol`` of their largest magnitude.  Returns the bucket's (B, T)."""
+    ``rtol`` of their largest magnitude.  The backbone is the ArcFace of
+    a ``video`` model or the VGGish of a ``logmel`` one.  Returns the
+    bucket's (B, T)."""
     from fvt_tpu_torch.config import model_config as MC
 
     rng = np.random.default_rng(SEED + 7)
     shape = (videos, length)
-    inputs = {'video': rng.integers(0, 256, shape + (40, 40, 3), np.uint8)}
-    for m in modality[1:]:
-        inputs[m] = rng.standard_normal(
-            shape + tuple(MC.FEATURE_DIMENSION[m]), np.float32)
+    inputs = {}
+    for m in modality:
+        inputs[m] = (rng.integers(0, 256, shape + (40, 40, 3), np.uint8)
+                     if m == 'video' else rng.standard_normal(
+                         shape + tuple(MC.FEATURE_DIMENSION[m]), np.float32))
     batch = {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
     chunk = trainer.model.eval_frames
     torch.cuda.synchronize()
@@ -2599,15 +2663,15 @@ def full_bucket(trainer, videos: int, device, length: int = WINDOW,
              f'memory after {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}'
              f' GiB')
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    calls = rec.backbone + rec.audio
     print(f'  a full bucket {shape}, {videos * length} frames, one forward: '
           f'{ms:.1f} ms (host clock, first call at this shape), peak device '
-          f'memory {peak:.2f} GiB; the backbone\'s calls {rec.backbone} '
+          f'memory {peak:.2f} GiB; the backbone\'s calls {calls} '
           f'(chunk {chunk})')
-    if len(rec.backbone) < 2 or max(rec.backbone) > chunk \
-            or sum(rec.backbone) != videos * length:
+    if len(calls) < 2 or max(calls) > chunk \
+            or sum(calls) != videos * length:
         fail(f'a full bucket {shape} went through the eval backbone in '
-             f'calls of {rec.backbone} frames, not in chunks of at most '
-             f'{chunk}')
+             f'calls of {calls} frames, not in chunks of at most {chunk}')
     trainer.reference = True
     try:
         want = trainer.forward(batch)
@@ -3414,7 +3478,7 @@ def family_reference(model, store: dict, mean_std: dict, modality,
 
     out = {}
     for key, arrays in challenge_videos(store, mean_std, modality):
-        n = len(arrays['video'])
+        n = len(arrays[modality[0]])
         rows = (W.pad_short_window_indices(n, WINDOW) if n < WINDOW
                 else np.arange(n))
         true_len = len(rows)
@@ -3670,6 +3734,555 @@ def fusion_families(device) -> dict:
     return total
 
 
+def vggish_flops(patches: int) -> float:
+    """The VGGish's operations on ``patches`` log-mel patches: two a
+    multiply-add of its six convolutions and three Linear layers."""
+    from fvt_tpu_torch.models.vggish import EMBEDDING_DIM, PATCH, VGG_CFG
+
+    macs, (h, w), cin = 0, PATCH, 1
+    for v in VGG_CFG:
+        if v == 'M':
+            h, w = h // 2, w // 2
+        else:
+            macs += h * w * cin * v * 9
+            cin = v
+    macs += h * w * cin * 4096 + 4096 * 4096 + 4096 * EMBEDDING_DIM
+    return 2.0 * macs * patches
+
+
+def time_logmel_step(trainer, device, label: str) -> None:
+    """Phase 10: the trainer's step at (TRAIN_BATCH, WINDOW) on a random
+    ``logmel+bert`` batch and its peak device memory; the VGGish alone on
+    the step's TRAIN_BATCH * WINDOW patches (its train call, under
+    ``no_grad``) and on one eval chunk of WINDOW_BATCH * WINDOW patches;
+    CUDA events, medians of FAMILY_STEP_RUNS after a warm-up."""
+    from fvt_tpu_torch.config import model_config as MC
+    from fvt_tpu_torch.train.steps import to_device
+
+    rng = np.random.default_rng(SEED + 15)
+    shape = (TRAIN_BATCH, WINDOW)
+    batch = to_device({
+        'logmel': rng.standard_normal(shape + (96, 64), np.float32),
+        'bert': rng.standard_normal(
+            shape + tuple(MC.FEATURE_DIMENSION['bert']), np.float32),
+        'EXPR_continuous_label': rng.integers(0, 7, shape)}, device)
+    calls = iter(range(10 ** 6))
+
+    def step():
+        trainer.train_step(batch, trainer.step_generator(97, next(calls)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_ms(step, runs=FAMILY_STEP_RUNS, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vggish = trainer.model.spatial.audio.backbone
+    patches = batch['logmel'].reshape(-1, 96, 64)
+    chunk = patches[:WINDOW_BATCH * WINDOW]
+    with torch.no_grad():
+        train_ms = median_ms(lambda: vggish(patches),
+                             runs=FAMILY_STEP_RUNS, warmup=1)
+    with torch.inference_mode():
+        eval_ms = median_ms(lambda: vggish(chunk), runs=FAMILY_STEP_RUNS,
+                            warmup=1)
+    peak_flops = (PEAK_FLOPS_BF16 if vggish.dtype == torch.bfloat16
+                  else PEAK_FLOPS)
+    flops = vggish_flops(len(chunk))
+    print(f'  {label}: a step at {shape} {ms:.2f} ms (median of '
+          f'{FAMILY_STEP_RUNS}, CUDA events), peak device memory '
+          f'{peak:.2f} GiB; the VGGish ({vggish.dtype}) on its '
+          f'{len(patches)} patches {train_ms:.2f} ms, '
+          f'{100 * train_ms / ms:.1f}% of the step; on an eval chunk of '
+          f'{len(chunk)} patches {eval_ms:.2f} ms, '
+          f'{flops / eval_ms / 1e9:.1f} TFLOP/s ({flops / 1e12:.2f} TFLOP; '
+          f'bound {flops / peak_flops * 1e3:.2f} ms at '
+          f'{peak_flops / 1e12:.0f} TFLOP/s)')
+
+
+def make_logmel_store(path: str) -> dict:
+    """Phase 10's C-EXPR-DB store with logmel.npy (phase 8's video
+    lengths, drawn from the seed); returns ``make_cexpr_store``'s
+    paths."""
+    from fvt_tpu_torch.tools.synth_store import make_cexpr_store
+
+    rng = np.random.default_rng(SEED + 10)
+    lo, hi = TRI_STORE_LENGTHS
+    lengths = [int(n) for n in rng.integers(lo, hi + 1, TRI_STORE_VIDEOS)]
+    val_lengths = [int(n) for n in rng.integers(lo, hi + 1, TRI_VAL_VIDEOS)]
+    t0 = time.perf_counter()
+    store = make_cexpr_store(path, lengths, ds='C-EXPR-DB',
+                             val_lengths=val_lengths, seed=SEED, logmel=True)
+    print(f'  C-EXPR-DB store with logmel: {len(lengths)} train videos '
+          f'({sum(lengths)} frames), {len(val_lengths)} val videos '
+          f'({sum(val_lengths)} frames), written in '
+          f'{time.perf_counter() - t0:.2f} s')
+    return store
+
+
+def logmel_training(device) -> dict:
+    """Phase 10.  Returns the launches of B1, B2, B3a and B3b over the
+    training and challenge CLIs of its runs."""
+    import os
+    import pickle
+    import tempfile
+    from fvt_tpu_torch import inference_challenge
+    from fvt_tpu_torch import main as train_cli
+    from fvt_tpu_torch.config.defaults import to_namespace
+    from fvt_tpu_torch.config.flat_yaml import load as load_yaml
+    from fvt_tpu_torch.models.checkpoint import (load_best_model,
+                                                 read_flax_variables,
+                                                 save_best_model)
+    from fvt_tpu_torch.models.registry import init_model
+    from fvt_tpu_torch.tools.synth_store import make_cexpr_store
+    from fvt_tpu_torch.train import trainer
+
+    zero, read = run_counters()
+    timer_methods = {
+        'epoch': (trainer.Trainer, 'train_one_epoch', 'last_epoch_timing'),
+        'inference': (trainer.Trainer, 'inference', None),
+        'best_model': (trainer, 'save_best_model', None)}
+    total = {k: 0 for k in ('tcn_block', 'fusion', 'tcn_block_train',
+                            'tcn_block_bwd')}
+    modality = LOGMEL_MODALITY
+    with tempfile.TemporaryDirectory() as root:
+        store = make_logmel_store(os.path.join(root, 'store'))
+        t0 = time.perf_counter()
+        chal = make_cexpr_store(os.path.join(root, 'challenge'),
+                                CHALLENGE_LENGTHS, seed=SEED, logmel=True)
+        print(f'  challenge store with logmel: {len(CHALLENGE_LENGTHS)} '
+              f'videos, {sum(CHALLENGE_LENGTHS)} frames, written in '
+              f'{time.perf_counter() - t0:.2f} s')
+        base = ['--dataset_name', 'C-EXPR-DB',
+                '--dataset_path', store['dataset_path'],
+                '--folds_dir', store['folds_dir'],
+                '--modality', f'{"+".join(modality)}+EXPR_continuous_label',
+                '--window_length', str(WINDOW), '--hop_length', str(HOP),
+                '--train_batch_size', str(TRAIN_BATCH), '--seed', str(SEED)]
+        lfan_dir = os.path.join(root, 'lfan')
+        runs = (
+            ('LFAN', 'LFAN fp32', lfan_dir,
+             ['--num_epochs', str(LOGMEL_EPOCHS - 1),
+              '--checkpoint_every', '1']),
+            ('LFAN', 'LFAN fp32 resumed', lfan_dir,
+             ['--num_epochs', str(LOGMEL_EPOCHS), '--checkpoint_every', '1',
+              '--resume', 'true']),
+            ('LFAN', 'LFAN --amp', os.path.join(root, 'lfan_amp'),
+             ['--num_epochs', str(LOGMEL_EPOCHS), '--amp', 'true']),
+            ('CAN', 'CAN fp32', os.path.join(root, 'can'),
+             ['--num_epochs', str(LOGMEL_EPOCHS)]))
+        for name, label, outd, extra in runs:
+            print(f'  {label} on {"+".join(modality)}:')
+            zero()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with ShapeRecorder() as rec, MethodTimer(timer_methods) as tm:
+                t0 = time.perf_counter()
+                exp = train_cli.main(base + ['--model_name', name] + extra
+                                     + ['--outd', outd], device=device)
+                wall = time.perf_counter() - t0
+            launches = read()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            model = exp.trainer.model
+            n_blocks = sum(len(model.temporal[m].network) for m in modality)
+            steps, forwards = len(rec.model_train), len(rec.model)
+            want = {k: 0 for k in launches}
+            want.update(tcn_block=n_blocks * forwards,
+                        tcn_block_train=n_blocks * steps,
+                        tcn_block_bwd=n_blocks * steps,
+                        fusion=forwards if name == 'LFAN' else 0)
+            print(f'    training CLI: {steps} steps, {forwards} eval '
+                  f'forwards; launches {launches}; the VGGish\'s calls '
+                  f'{sorted(set(rec.audio))} patches')
+            if steps < 1 or forwards < 1 or launches != want:
+                fail(f'{label}: expected {n_blocks} B3a and {n_blocks} B3b '
+                     f'calls a step, {n_blocks} B1 launches a forward '
+                     f'{"and one B2 " if name == "LFAN" else ""}and no '
+                     f'other kernel, got {launches}')
+            if len(rec.audio) < steps + forwards:
+                fail(f'{label}: {len(rec.audio)} VGGish calls for {steps} '
+                     f'steps and {forwards} forwards')
+            for k in total:
+                total[k] += launches[k]
+            frames = sum(b * t for b, t in rec.model_train)
+            epochs = tm.calls['epoch']
+            ep_wall = sum(w for _, w, _ in epochs)
+            print(f'    CLI wall {wall:.3f} s; epochs '
+                  + ', '.join(f'{w:.3f}' for _, w, _ in epochs)
+                  + f' s; {frames} frames trained: '
+                  f'{frames / max(ep_wall, 1e-9):.1f} trained frames/s over '
+                  f'the epochs; step_s a step '
+                  f'{sum(t["step_s"] for _, _, t in epochs) / steps:.3f} s; '
+                  f'validation and test passes '
+                  + ', '.join(f'{w:.3f}' for _, w, _ in tm.calls['inference'])
+                  + ' s; best-model writes '
+                  + ', '.join(f'{w:.3f}' for _, w, _ in
+                              tm.calls['best_model'])
+                  + f' s; peak device memory {peak:.2f} GiB')
+            print('    epochs by phase (s): ' + '; '.join(
+                ', '.join(f'{k} {v:.3f}' for k, v in t.items())
+                for _, _, t in epochs))
+            train_shapes, eval_shapes = set(rec.model_train), set(rec.model)
+            if label == 'LFAN fp32':
+                os.remove(os.path.join(outd, 'passed.txt'))
+                continue
+            if label == 'LFAN fp32 resumed':
+                with open(os.path.join(outd, 'log.txt')) as f:
+                    if f'restored checkpoint from epoch {LOGMEL_EPOCHS - 2}' \
+                            not in f.read():
+                        fail('the resumed LFAN did not restore its '
+                             'checkpoint')
+
+            # the best model carries the VGGish in fvt_tpu's tree and reads
+            # back exactly: loaded into a fresh model, written again
+            best = os.path.join(outd, 'best-models', 'None', 'model.msgpack')
+            params, _ = read_flax_variables(best)
+            if sorted(params.get('spatial_audio', {})) != sorted(
+                    [f'conv{i}' for i in range(6)] + ['fc0', 'fc1', 'fc2']):
+                fail(f'{label}: the best model lacks the VGGish subtree')
+            args = to_namespace(load_yaml(os.path.join(outd, 'config.yml')))
+            fresh = init_model(args)
+            load_best_model(fresh, best, modality)
+            again = os.path.join(root, 'again.msgpack')
+            save_best_model(fresh, again, modality)
+            with open(best, 'rb') as f, open(again, 'rb') as g:
+                same = f.read() == g.read()
+            print(f'    best model ({os.path.getsize(best) / 2 ** 20:.1f} '
+                  f'MiB) read back: written again '
+                  f'{"byte-equal" if same else "DIFFERENT"}')
+            if not same:
+                fail(f'{label}: the best model did not read back exactly')
+            del params
+
+            # served through the challenge CLI from that best model
+            evald = os.path.join(root, f'eval_{label.replace(" ", "_")}')
+            zero()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with ShapeRecorder() as crec, MethodTimer(timer_methods) as ctm:
+                t0 = time.perf_counter()
+                cexp = inference_challenge.main(
+                    ['--mode', 'EVALUATION', '--fd_exp', outd,
+                     '--case_best_model', 'None', '--target_ds_name',
+                     'C-EXPR-DB-CHALLENGE', '--dataset_path',
+                     chal['dataset_path'], '--folds_dir', chal['folds_dir'],
+                     '--outd', evald], device=device)
+                cwall = time.perf_counter() - t0
+            launches = read()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            forwards = len(crec.model)
+            want = {k: 0 for k in launches}
+            want.update(tcn_block=n_blocks * forwards,
+                        fusion=forwards if name == 'LFAN' else 0)
+            chunk = cexp.trainer.model.eval_frames
+            print(f'    challenge CLI: {forwards} forwards at '
+                  f'{sorted(set(crec.model))}; launches {launches}; the '
+                  f'VGGish\'s calls at most {max(crec.audio)} patches '
+                  f'(chunk {chunk})')
+            if forwards < 1 or launches != want:
+                fail(f'{label}: expected {n_blocks} B1 launches a forward '
+                     f'{"and one B2 " if name == "LFAN" else ""}and no other'
+                     f' kernel in the challenge pass, got {launches}')
+            if max(crec.audio) > chunk:
+                fail(f'{label}: the eval VGGish took {max(crec.audio)} '
+                     f'patches at once, above {chunk}')
+            total['tcn_block'] += launches['tcn_block']
+            total['fusion'] += launches['fusion']
+            pass_wall = ctm.calls['inference'][0][1]
+            frames = sum(CHALLENGE_LENGTHS)
+            print(f'    CLI wall {cwall:.3f} s, the pass {pass_wall:.3f} s: '
+                  f'{frames / pass_wall:.1f} served frames/s; peak device '
+                  f'memory {peak:.2f} GiB; last_inference_timing '
+                  f'{json.dumps(cexp.trainer.last_inference_timing)}')
+            eval_shapes |= set(crec.model)
+            with open(os.path.join(evald, 'pred-C-EXPR-DB-CHALLENGE',
+                                   'prediction.pkl'), 'rb') as f:
+                pred = pickle.load(f)
+            with open(os.path.join(chal['dataset_path'],
+                                   'mean_std_info_fold-0.pkl'), 'rb') as f:
+                mean_std = pickle.load(f)
+            fresh = fresh.to(device)
+            if name == 'LFAN':
+                offline = challenge_reference(fresh, chal, mean_std, device,
+                                              modality)
+            else:
+                offline = family_reference(fresh, chal, mean_std, modality,
+                                           int(args.eval_bucket_quantum),
+                                           device)
+            if list(pred) != list(offline):
+                fail(f'{label}: prediction.pkl covers {list(pred)}, the '
+                     f'store {list(offline)}')
+            worst = 0.0
+            for vid, want_v in offline.items():
+                got = pred[vid]['logits']
+                if got.shape != want_v.shape or not np.isfinite(got).all():
+                    fail(f'{label} {vid}: logits {got.shape}, want '
+                         f'{want_v.shape}, finite={np.isfinite(got).all()}')
+                worst = max(worst, float(np.abs(got - want_v).max()
+                                         / max(np.abs(want_v).max(), 1e-30)))
+            print(f'    every video\'s logits within {worst:.3e} of the '
+                  f'offline plain composition, relative to their largest '
+                  f'magnitude (gate {FAMILY_RTOL})')
+            if worst > FAMILY_RTOL:
+                fail(f'{label}: served logits differ from the offline plain '
+                     f'composition by {worst} relative')
+            if name == 'CAN':
+                eval_shapes.add(full_bucket(
+                    cexp.trainer, int(args.eval_video_batch), device,
+                    FAMILY_BUCKET_LENGTH, modality))
+
+            # the kernels at every shape the runs gave them
+            print(f'    (B, T) trained: {sorted(train_shapes)}; eval: '
+                  f'{sorted(eval_shapes, key=lambda bt: (bt[1], bt[0]))}')
+            check_at_shapes(model, sorted(eval_shapes,
+                                          key=lambda bt: (bt[1], bt[0])),
+                            device, modality=modality)
+            blocks = model_blocks(model, modality)
+            for b, t in sorted(train_shapes | {(TRAIN_BATCH, WINDOW)}):
+                err = check_train_at_shape(b, t, device, blocks=blocks)
+                print(f'    B3a and B3b at the {len(blocks)} blocks at '
+                      f'({b},{t}): max error {err:.3e}')
+            time_logmel_step(exp.trainer, device, label)
+            del exp, cexp, model, fresh
+            torch.cuda.empty_cache()
+    return total
+
+
+def regression_trials(n: int, seed: int) -> dict:
+    """Phase 11's synthetic valence trials: {name: (vggish (L, 128),
+    bert (L, 768), label (L,))}, lengths in REG_TRIAL_LENGTHS, the label
+    a smooth function of the vggish stream in (-1, 1)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = REG_TRIAL_LENGTHS
+    trials = {}
+    for i in range(n):
+        length = int(rng.integers(lo, hi + 1))
+        vggish = rng.standard_normal((length, 128), np.float32)
+        bert = rng.standard_normal((length, 768), np.float32)
+        trials[f's{seed}t{i}'] = (vggish, bert, np.tanh(
+            4 * vggish[:, :16].mean(1)).astype(np.float32))
+    return trials
+
+
+def regression_loader(trials: dict, batch: int):
+    """The regression trainer's batches: (X, trials, lengths, indices) of
+    ``batch`` windows of WINDOW frames at HOP, each trial's last window
+    ending on its last frame, so every frame is covered."""
+    rows = []
+    for name, (vggish, bert, label) in trials.items():
+        n = len(label)
+        starts = list(range(0, n - WINDOW + 1, HOP))
+        if starts[-1] != n - WINDOW:
+            starts.append(n - WINDOW)
+        rows += [(name, n, np.arange(s, s + WINDOW)) for s in starts]
+    for i in range(0, len(rows), batch):
+        chunk = rows[i:i + batch]
+        yield ({'vggish': np.stack([trials[r[0]][0][r[2]] for r in chunk]),
+                'bert': np.stack([trials[r[0]][1][r[2]] for r in chunk]),
+                'VA_continuous_label': np.stack([trials[r[0]][2][r[2]]
+                                                 for r in chunk])},
+               [r[0] for r in chunk], [r[1] for r in chunk],
+               np.stack([r[2] for r in chunk]))
+
+
+def regression_training(device) -> dict:
+    """Phase 11.  Returns the launches of B1, B2, B3a and B3b over the
+    uninterrupted fit, its test pass and its predict pass."""
+    import csv
+    import importlib.util
+    import os
+    import tempfile
+    from types import SimpleNamespace
+    from fvt_tpu_torch.config.defaults import get_config
+    from fvt_tpu_torch.models.models import LFAN
+    from fvt_tpu_torch.train.param_control import ParamControl
+    from fvt_tpu_torch.train.regression_trainer import RegressionTrainer
+
+    train, valid, test = (regression_trials(n, SEED + 20 + i)
+                          for i, n in enumerate(REG_TRIALS))
+    plots = importlib.util.find_spec('matplotlib') is not None
+    print(f'  trials: {len(train)} train '
+          f'({sum(len(v[2]) for v in train.values())} frames), '
+          f'{len(valid)} valid, {len(test)} test; matplotlib '
+          f'{"present: plots on" if plots else "absent: no plots"}')
+    zero, read = run_counters()
+
+    def make(outd, epochs):
+        cfg = dict(get_config('MELD'))
+        cfg.update(num_epochs=epochs, min_num_epochs=1, early_stopping=0,
+                   seed=SEED, outd=outd, milestone=(REG_MILESTONE,),
+                   save_plot=plots, load_best_at_each_epoch=False)
+        model = LFAN(TRAIN_MODALITY, 1, task='REGRESSION',
+                     generator=torch.Generator().manual_seed(SEED))
+        control = ParamControl([[r'temporal']], release_count=1,
+                               base_patterns=[r'fusion', r'regressor',
+                                              r'bn_'])
+        tr = RegressionTrainer(model, SimpleNamespace(**cfg),
+                               param_control=control, device=device)
+        tr.init_state(next(regression_loader(train, TRAIN_BATCH))[0])
+        return tr
+
+    def fit(tr, probe=None):
+        walls = []
+
+        def train_fn(epoch):
+            if probe is not None:
+                probe(epoch)
+            return regression_loader(train, TRAIN_BATCH)
+
+        loop = tr.loop
+
+        def timed(loader, epoch, train_mode):
+            t0 = time.perf_counter()
+            out = loop(loader, epoch, train_mode)
+            walls.append((epoch, train_mode, time.perf_counter() - t0))
+            return out
+
+        tr.loop = timed
+        try:
+            best = tr.fit(train_fn,
+                          lambda: regression_loader(valid, WINDOW_BATCH))
+        finally:
+            del tr.loop
+        return best, walls
+
+    with tempfile.TemporaryDirectory() as root:
+        a = make(os.path.join(root, 'a'), REG_EPOCHS)
+        temporal = {k: v.detach().clone()
+                    for k, v in a.model.named_parameters()
+                    if k.startswith('temporal.')}
+        unmoved = {}
+
+        def probe(epoch):
+            # at REG_MILESTONE the release has just fired, after epochs
+            # with the TCNs frozen; one epoch later they have trained
+            if epoch in (REG_MILESTONE, REG_MILESTONE + 1):
+                unmoved[epoch] = all(
+                    torch.equal(v, temporal[k])
+                    for k, v in a.model.named_parameters() if k in temporal)
+
+        zero()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with ShapeRecorder() as rec:
+            t0 = time.perf_counter()
+            best, walls = fit(a, probe)
+            wall = time.perf_counter() - t0
+            fit_launches = read()
+            t0 = time.perf_counter()
+            test_loss, test_perf, _ = a.test(
+                lambda: regression_loader(test, WINDOW_BATCH))
+            written = a.predict(lambda: regression_loader(test, WINDOW_BATCH),
+                                'test')
+            test_wall = time.perf_counter() - t0
+        launches = read()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps, forwards = len(rec.fusion_train), len(rec.fusion)
+        n_blocks = sum(len(a.model.temporal[m].network)
+                       for m in TRAIN_MODALITY)
+        want = {k: 0 for k in launches}
+        want.update(tcn_block=n_blocks * forwards, fusion=forwards,
+                    tcn_block_train=n_blocks * steps,
+                    tcn_block_bwd=n_blocks * steps)
+        print(f'  fit, test and predict: {steps} steps, {forwards} eval '
+              f'forwards; launches {launches} (the fit alone '
+              f'{fit_launches})')
+        if steps < 1 or forwards < 1 or launches != want:
+            fail(f'regression: expected {n_blocks} B3a and {n_blocks} B3b '
+                 f'calls a step, {n_blocks} B1 and one B2 launches a '
+                 f'forward and no other kernel, got {launches}')
+        print(f'  ParamControl: the TCNs unmoved at the start of epochs '
+              f'{REG_MILESTONE} and {REG_MILESTONE + 1}: {unmoved}; '
+              f'released {a.param_control.released}')
+        if unmoved != {REG_MILESTONE: True, REG_MILESTONE + 1: False} \
+                or a.param_control.released != 1:
+            fail('regression: the ParamControl release did not freeze and '
+                 'release the TCNs')
+        train_frames = sum(b * t for b, t in rec.fusion_train)
+        for epoch in range(REG_EPOCHS):
+            tr_wall = sum(w for e, m, w in walls if e == epoch and m)
+            va_wall = sum(w for e, m, w in walls if e == epoch and not m)
+            print(f'  epoch {epoch}: train loop {tr_wall:.3f} s '
+                  f'({train_frames / REG_EPOCHS / tr_wall:.1f} trained '
+                  f'frames/s), validation loop {va_wall:.3f} s')
+        print(f'  fit wall {wall:.3f} s; best epoch {best["epoch"]}, '
+              f'validation CCC {best["ccc"]:.6f}; test and predict '
+              f'{test_wall:.3f} s, test {json.dumps(test_perf)}, loss '
+              f'{test_loss:.6f}; peak device memory {peak:.2f} GiB')
+        if not all(np.isfinite([best['ccc'], test_loss,
+                                *test_perf.values()])):
+            fail('regression: non-finite metrics')
+
+        # the artifacts
+        outd = a.args.outd
+        with open(os.path.join(outd, 'training_logs.csv')) as f:
+            rows = list(csv.reader(f))
+        txts = sorted(os.listdir(os.path.join(outd, 'predict', 'test',
+                                              'valence')))
+        expected = [os.path.join(outd, n) for n in (
+            'model_state_dict.msgpack', 'checkpoint.pt', 'checkpoint.pkl',
+            os.path.join('dict', 'valence', 'test.pkl'))]
+        if len(rows) != REG_EPOCHS + 2 or rows[-1][0] != 'Test results:' \
+                or txts != sorted(f'{t}.txt' for t in test) \
+                or not all(os.path.isfile(p) for p in expected):
+            fail(f'regression: artifacts missing: {len(rows)} CSV rows, '
+                 f'txts {txts}')
+        for trial, preds in written.items():
+            with open(os.path.join(outd, 'predict', 'test', 'valence',
+                                   f'{trial}.txt')) as f:
+                lines = f.read().splitlines()
+            if lines[0] != 'valence' or len(lines) != 1 + len(test[trial][2]) \
+                    or not np.isfinite(preds).all():
+                fail(f'regression: predict/{trial}.txt malformed')
+        if plots and sorted(os.listdir(os.path.join(outd, 'plot', 'test'))) \
+                != sorted(f'{t}.jpg' for t in test):
+            fail('regression: the test plots are missing')
+        print(f'  artifacts: training_logs.csv ({len(rows)} rows), '
+              f'{len(txts)} predict txts, dict/valence pickles, '
+              f'model_state_dict.msgpack, checkpoint.pt + checkpoint.pkl'
+              + (', plots' if plots else ''))
+
+        # stopped after the milestone epoch and resumed: bit for bit
+        b = make(os.path.join(root, 'b'), REG_MILESTONE + 1)
+        fit(b)
+        b = make(os.path.join(root, 'b'), REG_EPOCHS)
+        b.load_checkpoint()
+        b.fit_finished = False
+        best_b, _ = fit(b)
+        same = (best_b['epoch'] == best['epoch']
+                and best_b['ccc'] == best['ccc']
+                and all(torch.equal(v.cpu(), b.model.state_dict()[k].cpu())
+                        for k, v in a.model.state_dict().items()))
+        with open(os.path.join(root, 'b', 'training_logs.csv')) as f:
+            same = same and [r[1:] for r in list(csv.reader(f))[1:]] == \
+                [r[1:] for r in rows[1:-1]]
+        print(f'  stopped after epoch {REG_MILESTONE} and resumed from its '
+              f'checkpoint: {"bit for bit" if same else "DIFFERENT"} '
+              f'against the uninterrupted fit (state, best, CSV rows)')
+        if not same:
+            fail('regression: the resumed fit differs from the '
+                 'uninterrupted one')
+
+        # the kernels at every shape the fit gave them; a step timed
+        check_at_shapes(a.model, sorted(set(rec.fusion),
+                                        key=lambda bt: (bt[1], bt[0])),
+                        device, modality=TRAIN_MODALITY)
+        blocks = model_blocks(a.model, TRAIN_MODALITY)
+        for bt in sorted(set(rec.fusion_train) | {(TRAIN_BATCH, WINDOW)}):
+            err = check_train_at_shape(*bt, device, blocks=blocks)
+            print(f'  B3a and B3b at the {len(blocks)} blocks at {bt}: max '
+                  f'error {err:.3e}')
+        batch = next(regression_loader(train, TRAIN_BATCH))[0]
+        calls = iter(range(10 ** 6))
+        ms = median_ms(lambda: a.train_step(batch, torch.Generator(
+            device=device).manual_seed(next(calls))), runs=FAMILY_STEP_RUNS,
+            warmup=1)
+        print(f'  a regression step at ({TRAIN_BATCH},{WINDOW}) {ms:.2f} ms '
+              f'(median of {FAMILY_STEP_RUNS}, CUDA events, the upload '
+              f'included)')
+        del a, b
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on a GPU',
@@ -3883,6 +4496,19 @@ def main() -> int:
           f'fvt_tpu_torch.inference_challenge (phase 6\'s store)')
     for name, n in fusion_families(device).items():
         by_name[name]['launches_families'] = n
+
+    print(f'phase 10: the logmel modality (the frozen VGGish) trained '
+          f'through fvt_tpu_torch.main (LFAN fp32 with a resume and --amp, '
+          f'CAN) and served through fvt_tpu_torch.inference_challenge')
+    for name, n in logmel_training(device).items():
+        by_name[name]['launches_logmel'] = n
+
+    print(f'phase 11: the regression task: RegressionTrainer.fit of a '
+          f'{"+".join(TRAIN_MODALITY)} LFAN, {REG_EPOCHS} epochs with a '
+          f'ParamControl release and a resume, then test and predict')
+    launches = regression_training(device)
+    for name in ('tcn_block', 'fusion', 'tcn_block_train', 'tcn_block_bwd'):
+        by_name[name]['launches_regression'] = launches[name]
 
     print(card)
     print(json.dumps({'kernels': kernels}))

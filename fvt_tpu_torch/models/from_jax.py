@@ -21,7 +21,10 @@ kernel (in, out) -> Linear weight (out, in); weight-norm v (K, in, out)
 ``mean``/``var``; LayerNorm ``scale``/``bias``.  ``models/to_jax.py``
 reads the same table the other way.  The ArcFace of a ``video`` model:
 HWIO conv kernels -> OIHW, the ``output_linear`` columns from
-fvt_tpu's NHWC flatten to PyTorch's NCHW flatten.
+fvt_tpu's NHWC flatten to PyTorch's NCHW flatten.  The VGGish of a
+``logmel`` model (``spatial_audio``, parameters only): HWIO conv kernels
+-> OIHW and Dense kernels transposed, nothing permuted, since the port's
+VGGish flattens NHWC as ``fvt_tpu``'s does (``models/vggish.py``).
 
 Every value is carried as float32, which is what flax keeps under
 ``--amp`` too: bfloat16 there is a compute type and no parameter type,
@@ -38,6 +41,7 @@ import torch
 
 from fvt_tpu_torch import constants
 from fvt_tpu_torch.models.arcface import get_blocks_50
+from fvt_tpu_torch.models.vggish import feature_indices
 
 # keys of the upstream models that no forward reads: of every family, and
 # of one family only (JMT reads its reduce_feats_dim, MT does not)
@@ -117,6 +121,9 @@ _LEAVES = {
     'mha': (('in_proj_weight', 'params', ('in_proj_kernel',), _t_, _t_),
             ('in_proj_bias', 'params', ('in_proj_bias',), None, None)),
 }
+# the frozen backbones' flax subtrees, and where the VGGish's keys go
+SPATIAL = ('spatial_video', 'spatial_audio')
+AUDIO_PREFIX = 'spatial.audio.backbone'
 # BatchNorm's step count, which flax keeps nowhere
 NO_FLAX = 'num_batches_tracked'
 
@@ -284,6 +291,31 @@ def _arcface(params: dict, stats: dict, prefix: str, out: dict) -> None:
         f'{prefix}.output_layer.4', out)
 
 
+# the VGGish's Linear layers: fvt_tpu's Dense fc<j> is embeddings.<i>
+VGGISH_EMBEDDINGS = (0, 2, 4)
+
+
+def vggish_state_from_flax(params: dict, prefix: str = ''
+                           ) -> Dict[str, torch.Tensor]:
+    """state_dict of the port's ``VGGish`` from ``fvt_tpu``'s VGGish
+    params (``conv0``-``conv5``, ``fc0``-``fc2``), keys under ``prefix``
+    (``fvt_tpu``'s ``vggish_from_torch`` the other way)."""
+    p = f'{prefix}.' if prefix else ''
+    out: Dict[str, torch.Tensor] = {}
+    for i, idx in enumerate(feature_indices()):
+        conv = params[f'conv{i}']
+        _conv2d(conv, f'{p}features.{idx}', out)
+        out[f'{p}features.{idx}.bias'] = _t(conv['bias'])
+    for j, idx in enumerate(VGGISH_EMBEDDINGS):
+        out[f'{p}embeddings.{idx}.weight'] = _t(
+            np.asarray(params[f'fc{j}']['kernel']).T)
+        out[f'{p}embeddings.{idx}.bias'] = _t(params[f'fc{j}']['bias'])
+    if len(params) != len(out) // 2:
+        raise KeyError(f'{sorted(params)}: not the VGGish\'s six convs and '
+                       f'three Dense layers')
+    return out
+
+
 def visual_backbone_state_from_flax(params: dict, batch_stats: dict
                                     ) -> Dict[str, torch.Tensor]:
     """state_dict of the port's ``VisualBackbone`` from an ``fvt_tpu``
@@ -298,12 +330,10 @@ def state_from_flax(params: dict, batch_stats: dict,
                     ) -> Dict[str, torch.Tensor]:
     """state_dict of the port's model from an ``fvt_tpu`` LFAN's, CAN's,
     JMT's or MT's variables.  A ``video`` model's
-    ``spatial_video/backbone`` goes to ``spatial.visual.backbone.*``.
+    ``spatial_video/backbone`` goes to ``spatial.visual.backbone.*``, a
+    ``logmel`` model's ``spatial_audio`` to ``spatial.audio.backbone.*``.
     Raises on a leaf it does not map, and where ``modality`` is given, on
     TCNs of other modalities."""
-    if 'spatial_audio' in params:
-        raise NotImplementedError('the VGGish (logmel) encoder is not '
-                                  'ported yet')
     found = {k[len('temporal_'):] for k in params
              if k.startswith('temporal_')}
     if modality is not None and found != set(modality):
@@ -313,7 +343,7 @@ def state_from_flax(params: dict, batch_stats: dict,
     for collection, tree in (('params', params),
                              ('batch_stats', batch_stats)):
         for path, value in _leaves({k: v for k, v in tree.items()
-                                    if k != 'spatial_video'}):
+                                    if k not in SPATIAL}):
             key, to_port = _port_place(collection, path)
             value = np.asarray(value)
             out[key] = _t(to_port(value) if to_port else value)
@@ -324,5 +354,8 @@ def state_from_flax(params: dict, batch_stats: dict,
         _arcface(params['spatial_video']['backbone'],
                  batch_stats['spatial_video']['backbone'],
                  'spatial.visual.backbone', out)
+    if 'spatial_audio' in params:
+        out.update(vggish_state_from_flax(params['spatial_audio'],
+                                          AUDIO_PREFIX))
     return out
 

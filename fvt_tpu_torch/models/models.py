@@ -16,10 +16,13 @@ whose convolution path is the constructor's ``conv_impl`` and
 bfloat16 and returns float32 embeddings; everything after it stays
 float32, as there) (or a ready ``spatial_video`` module, as ``fvt_tpu``'s
 ``init_model(spatial_video=...)`` takes one; it is initialised from
-``generator`` with the rest).  The eval backbone is a function of each
-frame (its BatchNorms folded), so an eval forward runs it over
-``eval_frames`` frames at a time: a bucket of whole videos gives the same
-embeddings at a bounded memory.
+``generator`` with the rest).  A ``logmel`` modality takes raw log-mel
+patches ``(B, T, 96, 64)`` through the frozen VGGish at
+``spatial.audio.backbone`` (``models/vggish.py``; ``backbone_dtype`` too,
+or a ready ``spatial_audio``).  The eval backbones are functions of each
+frame (the ArcFace's BatchNorms folded), so an eval forward runs them
+over ``eval_frames`` frames at a time: a bucket of whole videos gives the
+same embeddings at a bounded memory.
 
 - LFAN: the leader is ``modality[0]``; the follower is the multimodal
   fusion over all modalities; the output is ``concat(feats[leader],
@@ -67,6 +70,7 @@ from fvt_tpu_torch.models.fusion import (AttentionFusion, JointFusion,
                                          MultimodalTransformerEncoder)
 from fvt_tpu_torch.models.layers import fold_batchnorm, init_linear_
 from fvt_tpu_torch.models.tcn import TemporalConvNet
+from fvt_tpu_torch.models.vggish import VGGish
 
 # the TCN of a modality: (input width, channel stack, kernel size)
 TCNSpec = Tuple[int, Sequence[int], int]
@@ -102,17 +106,24 @@ class FusionModel(nn.Module):
                  conv_impl: str, fused_blocks: bool,
                  backbone_dtype: torch.dtype,
                  spatial_video: Optional[VisualBackbone], frozen_eval: bool,
-                 eval_frames: Optional[int]):
+                 eval_frames: Optional[int],
+                 spatial_audio: Optional[VGGish] = None):
         super().__init__()
         self.modality = tuple(modality)
         self.output_dim = output_dim
         self.task = task
         self.frozen_eval = frozen_eval
         self.eval_frames = eval_frames
-        if constants.VIDEO in self.modality:
+        if constants.VIDEO in self.modality \
+                or constants.LOGMEL in self.modality:
             self.spatial = nn.Module()
+        if constants.VIDEO in self.modality:
             self.spatial.visual = spatial_video or VisualBackbone(
                 conv_impl, fused_blocks, backbone_dtype)
+        if constants.LOGMEL in self.modality:
+            self.spatial.audio = nn.Module()
+            self.spatial.audio.backbone = spatial_audio or VGGish(
+                backbone_dtype)
         self.temporal = nn.ModuleDict({
             m: TemporalConvNet(tcn[m][0], tcn[m][1], tcn[m][2],
                                dropout=tcn_dropout)
@@ -123,8 +134,10 @@ class FusionModel(nn.Module):
     def reset_temporal(self, generator: torch.Generator) -> None:
         """Random init of the backbone and the TCNs from ``generator``;
         BatchNorms at ones and zeros."""
-        if hasattr(self, 'spatial'):
+        if constants.VIDEO in self.modality:
             self.spatial.visual.reset_parameters(generator)
+        if constants.LOGMEL in self.modality:
+            self.spatial.audio.backbone.reset_parameters(generator)
         for m in self.modality:
             self.temporal[m].reset_parameters(generator)
             self.bn[m].reset_parameters()
@@ -155,6 +168,42 @@ class FusionModel(nn.Module):
             feats = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
         x[constants.VIDEO] = feats.reshape(b, t, -1)
         return x
+
+    def encode_logmel(self, x: Dict[str, torch.Tensor], train: bool
+                      ) -> Dict[str, torch.Tensor]:
+        """``x`` with raw log-mel patches (B, T, 96, 64) replaced by their
+        (B, T, 128) VGGish embeddings.  The VGGish has no batch statistics
+        and no dropout: train mode runs the eval function under
+        ``torch.no_grad`` over the whole batch in one pass, as
+        ``fvt_tpu`` does; eval runs it over ``eval_frames`` patches at a
+        time."""
+        logmel = x.get(constants.LOGMEL)
+        if logmel is None or logmel.dim() != 4:
+            return x
+        x = dict(x)
+        b, t = logmel.shape[:2]
+        patches = logmel.reshape((b * t,) + logmel.shape[2:])
+        vggish = self.spatial.audio.backbone
+        if train:
+            with torch.no_grad():
+                feats = vggish(patches)
+        else:
+            n = self.eval_frames or len(patches)
+            chunks = [vggish(patches[s:s + n])
+                      for s in range(0, len(patches), n)]
+            feats = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+        x[constants.LOGMEL] = feats.reshape(b, t, -1)
+        return x
+
+    def encode_spatial(self, x: Dict[str, torch.Tensor], train: bool,
+                       generator: Optional[torch.Generator],
+                       reference: bool) -> Dict[str, torch.Tensor]:
+        """The frozen backbones of ``fvt_tpu``'s ``_maybe_encode_spatial``
+        (``models.py:28-70``): raw video through the ArcFace
+        (:meth:`encode_video`), raw log-mel patches through the VGGish
+        (:meth:`encode_logmel`)."""
+        return self.encode_logmel(
+            self.encode_video(x, train, generator, reference), train)
 
     def temporal_features(self, x: Dict[str, torch.Tensor],
                           modalities: Sequence[str], train: bool,
@@ -188,7 +237,8 @@ class LFAN(FusionModel):
                  backbone_dtype: torch.dtype = torch.float32,
                  spatial_video: Optional[VisualBackbone] = None,
                  frozen_eval: bool = False,
-                 eval_frames: Optional[int] = None):
+                 eval_frames: Optional[int] = None,
+                 spatial_audio: Optional[VGGish] = None):
         tcn_channel = tcn_channel or MC.TCN_CHANNELS
         embedding_dim = embedding_dim or MC.EMBEDDING_DIM
         encoder_dim = encoder_dim or MC.ENCODER_DIM
@@ -200,7 +250,8 @@ class LFAN(FusionModel):
             modality, output_dim, task,
             {m: (embedding_dim[m], tcn_channel[m], kernel_size)
              for m in modality}, tcn_dropout, conv_impl, fused_blocks,
-            backbone_dtype, spatial_video, frozen_eval, eval_frames)
+            backbone_dtype, spatial_video, frozen_eval, eval_frames,
+            spatial_audio)
         self.fusion = MultimodalTransformerEncoder(
             self.modality, {m: encoder_dim[m] for m in self.modality},
             modal_dim, num_heads, dropout=fusion_dropout)
@@ -229,7 +280,7 @@ class LFAN(FusionModel):
         unless ``frozen_eval``; ``tcn_fused`` picks the fused train kernel
         over the conv-by-conv blocks.  ``reference=True`` runs the plain
         versions of the kernels."""
-        x = self.encode_video(x, train, generator, reference)
+        x = self.encode_spatial(x, train, generator, reference)
         feats = self.temporal_features(x, self.modality, train, generator,
                                        tcn_fused, reference)
         follower = self.fusion(feats, train, generator, reference=reference)
@@ -247,14 +298,15 @@ class _HeadModel(FusionModel):
                  tcn_dropout: float, conv_impl: str, fused_blocks: bool,
                  backbone_dtype: torch.dtype,
                  spatial_video: Optional[VisualBackbone], frozen_eval: bool,
-                 eval_frames: Optional[int]):
+                 eval_frames: Optional[int],
+                 spatial_audio: Optional[VGGish]):
         settings = tcn_settings or MC.TCN_SETTINGS
         super().__init__(
             modality, output_dim, task,
             {m: (settings[m]['input_dim'], settings[m]['channel'],
                  settings[m]['kernel_size']) for m in modality},
             tcn_dropout, conv_impl, fused_blocks, backbone_dtype,
-            spatial_video, frozen_eval, eval_frames)
+            spatial_video, frozen_eval, eval_frames, spatial_audio)
 
     def build_head(self, width: int,
                    generator: Optional[torch.Generator]) -> None:
@@ -290,11 +342,12 @@ class CAN(_HeadModel):
                  backbone_dtype: torch.dtype = torch.float32,
                  spatial_video: Optional[VisualBackbone] = None,
                  frozen_eval: bool = False,
-                 eval_frames: Optional[int] = None):
+                 eval_frames: Optional[int] = None,
+                 spatial_audio: Optional[VGGish] = None):
         super().__init__(modality, output_dim, task, tcn_settings,
                          tcn_dropout, conv_impl, fused_blocks,
                          backbone_dtype, spatial_video, frozen_eval,
-                         eval_frames)
+                         eval_frames, spatial_audio)
         self.fuse = AttentionFusion(
             [self.bn[m].num_features for m in self.modality], 128)
         self.build_head(self.fuse.weights.out_features, generator)
@@ -304,7 +357,7 @@ class CAN(_HeadModel):
                 tcn_fused: bool = True,
                 reference: bool = False) -> torch.Tensor:
         """As :meth:`LFAN.forward`."""
-        x = self.encode_video(x, train, generator, reference)
+        x = self.encode_spatial(x, train, generator, reference)
         feats = self.temporal_features(x, self.modality, train, generator,
                                        tcn_fused, reference)
         return self.head(self.fuse([feats[m] for m in self.modality]),
@@ -328,7 +381,8 @@ class JMT(_HeadModel):
                  backbone_dtype: torch.dtype = torch.float32,
                  spatial_video: Optional[VisualBackbone] = None,
                  frozen_eval: bool = False,
-                 eval_frames: Optional[int] = None):
+                 eval_frames: Optional[int] = None,
+                 spatial_audio: Optional[VGGish] = None):
         if model_name not in (constants.JMT, constants.MT):
             raise ValueError(f'{model_name} is neither JMT nor MT')
         missing = set(self.FUSED) - set(modality)
@@ -338,7 +392,7 @@ class JMT(_HeadModel):
         super().__init__(modality, output_dim, task, tcn_settings,
                          tcn_dropout, conv_impl, fused_blocks,
                          backbone_dtype, spatial_video, frozen_eval,
-                         eval_frames)
+                         eval_frames, spatial_audio)
         self.model_name = model_name
         self.fuse = JointFusion(self.bn[constants.VGGISH].num_features,
                                 joint=model_name == constants.JMT)
@@ -350,7 +404,7 @@ class JMT(_HeadModel):
                 time_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """As :meth:`LFAN.forward`; ``time_mask`` (B, T) bool marks the
         valid frames (``fvt_tpu``'s eval passes it, its training not)."""
-        x = self.encode_video(x, train, generator, reference)
+        x = self.encode_spatial(x, train, generator, reference)
         feats = self.temporal_features(
             x, self.modality if train else self.FUSED, train, generator,
             tcn_fused, reference)

@@ -2,14 +2,16 @@
 ``experiment.py:166-188``): the model a run's config names, LFAN, CAN,
 JMT or MT.
 
-Not ported yet: the VGGish encoder of ``logmel`` (A3) and int8 serving
-(``--serve_quant``, A5).  ``--amp`` builds the ArcFace backbone in
+Not ported yet: int8 serving (``--serve_quant``, A5).  A ``video``
+modality gets the frozen ArcFace, a ``logmel`` one the frozen VGGish
+(``experiment.py:166-188``).  ``--amp`` builds both backbones in
 bfloat16, as ``fvt_tpu`` does; the convolutions run on cuDNN, as
 ``fvt_tpu``'s CLI runs XLA's.  ``--frozen_eval_backbones`` runs the
-frozen backbone in eval mode during training (``frozen_eval=True``).  An
-eval forward runs the backbone over ``eval_window_batch *
-window_length`` frames at a time, the most an LFAN window batch gives it,
-so a bucket of whole videos (CAN, JMT, MT) fits the card too.
+frozen ArcFace in eval mode during training (``frozen_eval=True``; the
+VGGish has one mode).  An eval forward runs a backbone over
+``eval_window_batch * window_length`` frames at a time, the most an LFAN
+window batch gives it, so a bucket of whole videos (CAN, JMT, MT) fits
+the card too.
 ``--pallas_train`` is accepted and changes nothing: the port trains
 through its fused TCN train kernel on every modality
 (``Trainer(tcn_fused=True)``), where ``fvt_tpu`` turns its Pallas train
@@ -48,9 +50,6 @@ def init_model(args, generator: Optional[torch.Generator] = None
         raise NotImplementedError(f'--serve_quant {quant} is not ported '
                                   f'yet (queue A5)')
     modality = tuple(split_modality(args.modality))
-    if 'logmel' in modality:
-        raise NotImplementedError('the VGGish encoder of logmel is not '
-                                  'ported yet (queue A3)')
     num_classes = args.num_classes
     if args.dataset_name == constants.C_EXPR_DB and args.use_other_class:
         num_classes += 1

@@ -13,7 +13,10 @@ frozen ArcFace of a ``video`` model goes to ``spatial_video/backbone``
 (:func:`arcface_flax_from_state`, the inverse of ``from_jax._arcface``):
 conv kernels OIHW -> HWIO, PReLU slopes to ``alpha``, ``output_linear``
 from PyTorch's NCHW flatten back to ``fvt_tpu``'s NHWC one, and its 54
-BatchNorms' parameters and statistics.  Every dict is keyed in sorted
+BatchNorms' parameters and statistics.  The frozen VGGish of a
+``logmel`` model goes to ``spatial_audio`` (:func:`vggish_flax_from_state`,
+the inverse of ``from_jax.vggish_state_from_flax``): conv kernels OIHW ->
+HWIO, Linear weights transposed, no statistics.  Every dict is keyed in sorted
 order, as ``jax.tree.map`` leaves it, so the trees serialise to the bytes
 ``fvt_tpu`` writes.
 """
@@ -25,7 +28,9 @@ import numpy as np
 import torch
 
 from fvt_tpu_torch.models.arcface import get_blocks_50
-from fvt_tpu_torch.models.from_jax import NO_FLAX, flax_place
+from fvt_tpu_torch.models.from_jax import (AUDIO_PREFIX, NO_FLAX,
+                                           VGGISH_EMBEDDINGS, flax_place)
+from fvt_tpu_torch.models.vggish import feature_indices
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -100,12 +105,42 @@ def arcface_flax_from_state(state: Mapping[str, torch.Tensor],
     return _sorted(params), _sorted(stats)
 
 
+def vggish_flax_from_state(state: Mapping[str, torch.Tensor],
+                           prefix: str) -> dict:
+    """Params of ``fvt_tpu``'s ``VGGish`` from the keys ``<prefix>.*``
+    of ``state`` (the port's ``VGGish``).  Raises on a key under
+    ``prefix`` it does not map."""
+    params: Dict[str, dict] = {}
+    seen = set()
+
+    def take(key):
+        seen.add(f'{prefix}.{key}')
+        return _np(state[f'{prefix}.{key}'])
+
+    for i, idx in enumerate(feature_indices()):
+        params[f'conv{i}'] = {
+            'bias': take(f'features.{idx}.bias'),
+            'kernel': np.ascontiguousarray(
+                take(f'features.{idx}.weight').transpose(2, 3, 1, 0))}
+    for j, idx in enumerate(VGGISH_EMBEDDINGS):
+        params[f'fc{j}'] = {
+            'bias': take(f'embeddings.{idx}.bias'),
+            'kernel': np.ascontiguousarray(
+                take(f'embeddings.{idx}.weight').T)}
+    left = [k for k in state if k.startswith(prefix + '.') and k not in seen]
+    if left:
+        raise KeyError(f'{left[:3]}: no counterpart in fvt_tpu\'s VGGish '
+                       f'tree')
+    return _sorted(params)
+
+
 def flax_from_state(state: Mapping[str, torch.Tensor],
                     modality: Optional[Sequence[str]] = None
                     ) -> Tuple[dict, dict]:
     """(params, batch_stats) of ``fvt_tpu``'s model from the port's LFAN,
     CAN, JMT or MT state_dict ``state``.  A ``video`` model's
-    ``spatial.visual.backbone.*`` goes to ``spatial_video/backbone``.
+    ``spatial.visual.backbone.*`` goes to ``spatial_video/backbone``, a
+    ``logmel`` model's ``spatial.audio.backbone.*`` to ``spatial_audio``.
     Raises on a key it does not map, so nothing of the model is left out
     silently, and where ``modality`` is given, on a TCN of another
     modality."""
@@ -115,8 +150,12 @@ def flax_from_state(state: Mapping[str, torch.Tensor],
         p, st = arcface_flax_from_state(state, visual)
         trees['params']['spatial_video'] = {'backbone': p}
         trees['batch_stats']['spatial_video'] = {'backbone': st}
+    if any(k.startswith(AUDIO_PREFIX + '.') for k in state):
+        trees['params']['spatial_audio'] = vggish_flax_from_state(
+            state, AUDIO_PREFIX)
     for key, tensor in state.items():
-        if key.startswith(visual + '.') or key.endswith(NO_FLAX):
+        if key.startswith((visual + '.', AUDIO_PREFIX + '.')) \
+                or key.endswith(NO_FLAX):
             continue
         collection, path, to_flax = flax_place(key)
         if modality is not None and path[0].startswith('temporal_') \

@@ -8,14 +8,18 @@ splits; test is val) to run ``fvt_tpu_torch.main`` on.
 Writes ``features/compacted_48/<split>/vid<i>/{video,vggish,bert,
 EXPR_continuous_label}.npy`` (video as 48^2 uint8 face crops, the size a
 recompacted store keeps, or with ``--video_hw 256`` at the disk
-contract's 256^2, which the loaders resize on the host),
+contract's 256^2, which the loaders resize on the host) and with
+``--logmel`` ``logmel.npy``, the raw-audio modality the VGGish takes in
+the model: ``(T, 96, 64)`` float16 log-mel patches (``tests/
+synth_store.py``'s ``add_logmel_features``; vggish and bert stay, since
+the fold's mean/std reads them whatever the modality),
 ``features/dataset_info_<ds>_<split>.pkl`` with the extractor version
 stamp, and ``folds/<ds>/split-0/`` with the split lists and
 ``class_id.yaml``.  Every array is drawn from ``seed``.
 
     python -m fvt_tpu_torch.tools.synth_store <root> 60 90 150 ...
     python -m fvt_tpu_torch.tools.synth_store <root> 300 900 1800 \
-        --ds C-EXPR-DB --val_lengths 400 1200 [--video_hw 256]
+        --ds C-EXPR-DB --val_lengths 400 1200 [--video_hw 256] [--logmel]
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ COMPOUND_CLASSES = [
 def make_cexpr_store(root: str, lengths: Sequence[int],
                      ds: str = constants.C_EXPR_DB_CHALLENGE,
                      val_lengths: Sequence[int] = (), seed: int = 0,
-                     video_hw: int = 48, separation: float = 3.0) -> dict:
+                     video_hw: int = 48, separation: float = 3.0,
+                     logmel: bool = False) -> dict:
     """One video a length of ``lengths`` in the train split (the challenge
     store's only split) and of ``val_lengths`` in C-EXPR-DB's val split.
     Each video has one label of the 8 compound classes; its features are
@@ -75,6 +80,10 @@ def make_cexpr_store(root: str, lengths: Sequence[int],
                 np.save(join(tdir, f'{m}.npy'), feats.astype(np.float32))
             np.save(join(tdir, f'{constants.EXPR}.npy'),
                     np.full((length,), label, dtype=np.int64))
+            if logmel:
+                np.save(join(tdir, f'{constants.LOGMEL}.npy'),
+                        rng.standard_normal((length, 96, 64), np.float32)
+                        .astype(np.float16))
             trials.append(trial)
             lines.append(f'{trial},{label},compound transcript {i}')
         save_pickle(stamp({'data_folder': 'compacted_48', 'trial': trials,
@@ -112,12 +121,14 @@ def main(argv=None) -> None:
     p.add_argument('--video_hw', type=int, default=48, choices=(48, 256),
                    help='the face crops\' side: 48 (a recompacted store) '
                         'or 256 (the disk contract, resized on the host)')
+    p.add_argument('--logmel', action='store_true',
+                   help='also write logmel.npy, (T, 96, 64) float16')
     args = p.parse_args(argv)
     if (args.ds == constants.C_EXPR_DB) != bool(args.val_lengths):
         p.error('--val_lengths goes with --ds C-EXPR-DB, and it needs them')
     print(make_cexpr_store(args.root, args.lengths, ds=args.ds,
                            val_lengths=args.val_lengths, seed=args.seed,
-                           video_hw=args.video_hw))
+                           video_hw=args.video_hw, logmel=args.logmel))
 
 
 if __name__ == '__main__':

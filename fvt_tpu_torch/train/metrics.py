@@ -1,7 +1,7 @@
 """Frame- and video-level classification metrics + best-model tracking:
 a copy of ``fvt_tpu/train/metrics.py`` (numpy only), held equal to it by
-``tests/test_torch_copies.py``.  The regression metrics are not ported
-yet (queue A3).
+``tests/test_torch_copies.py``, with the regression task's
+``compute_regression_perf`` (``tests/test_torch_regression.py``).
 
 Pure-numpy re-implementation of the upstream metric engine
 (its metrics.py:43-462).  Behavioral contract:
@@ -429,10 +429,23 @@ class PerfTracker:
 
 
 def compute_regression_perf(data: dict) -> dict:
-    """rmse / pcc / ccc of the regression task: not ported yet (queue A3,
-    with ``train/losses.py``'s CCC)."""
-    raise NotImplementedError('the regression metrics (rmse, pcc, ccc) are '
-                              'not ported yet: queue A3')
+    """rmse / pcc / ccc over the concatenated per-video continuous outputs,
+    the regression task's metrics (``fvt_tpu/train/metrics.py:427-446``).
+
+    data: {video_id: {'labels': (T,), 'preds': (T,)}}.
+    """
+    from fvt_tpu_torch.train.losses import ccc_score
+
+    golds = np.concatenate([np.asarray(v['labels'], np.float64).ravel()
+                            for v in data.values()])
+    preds = np.concatenate([np.asarray(v['preds'], np.float64).ravel()
+                            for v in data.values()])
+    rmse = float(np.sqrt(np.mean((golds - preds) ** 2)))
+    if golds.std() > 0 and preds.std() > 0:
+        pcc = float(np.corrcoef(golds, preds)[0, 1])
+    else:
+        pcc = 0.0
+    return {'rmse': rmse, 'pcc': pcc, 'ccc': ccc_score(golds, preds)}
 
 
 def build_trackers(dataset_name: str, use_other_class: bool,

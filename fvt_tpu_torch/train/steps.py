@@ -3,11 +3,13 @@
 :class:`TrainStep` is one optimizer step on one device: the train-time
 input transform on the device (:func:`train_inputs`), forward in train
 mode (dropout from the step's generator, BatchNorm on batch statistics
-with the running ones updated, the frozen backbone's too), mean
-cross-entropy over all B*T frames, backward, optimizer update.  The
-frozen backbone subtrees (prefix ``spatial``) get no gradient and are
-kept out of the optimizer, so weight decay cannot move them.  A trainable
-parameter that the loss does not reach (the TCN and BatchNorm of a
+with the running ones updated, the frozen backbone's too), the task's
+loss (mean cross-entropy over all B*T frames; for ``REGRESSION`` the CCC
+loss of the first output against the continuous label,
+``train/losses.py``), backward, optimizer update.  The frozen backbone
+subtrees (prefix ``spatial``: the ArcFace, the VGGish) get no gradient
+and are kept out of the optimizer, so weight decay cannot move them.  A
+trainable parameter that the loss does not reach (the TCN and BatchNorm of a
 modality that JMT and MT do not fuse) takes a zero gradient, so weight
 decay and momentum move it as ``fvt_tpu``'s optax chain does
 (``add_decayed_weights`` before the trace or Adam); ``torch.optim`` would
@@ -26,6 +28,7 @@ from fvt_tpu_torch import constants
 from fvt_tpu_torch.data.transforms import (draw_crop_flip,
                                            train_video_transform)
 from fvt_tpu_torch.train import optim
+from fvt_tpu_torch.train.losses import ccc_loss
 
 FROZEN_PREFIX = 'spatial'
 
@@ -96,15 +99,19 @@ class TrainStep:
     """One optimizer step of ``model`` on ``device``.  ``hp`` are the
     standardized optimizer hyperparameters
     (:func:`fvt_tpu_torch.train.optim.standardize_opt_params`);
-    ``tcn_fused`` routes the TCN blocks through the fused train kernel,
-    ``reference`` through its plain version."""
+    ``task`` picks the loss; ``with_outputs`` makes a step return the
+    train-mode forward's outputs beside the loss (the regression trainer
+    records them); ``tcn_fused`` routes the TCN blocks through the fused
+    train kernel, ``reference`` through its plain version."""
 
     def __init__(self, model: nn.Module, hp, device=None, *,
                  task: str = constants.CLASSIFICATION,
+                 with_outputs: bool = False,
                  tcn_fused: bool = True, reference: bool = False):
-        if task != constants.CLASSIFICATION:
-            raise NotImplementedError('the regression task is not ported '
-                                      'yet')
+        if task not in (constants.CLASSIFICATION, constants.REGRESSION):
+            raise ValueError(f'unknown task {task!r}')
+        self.task = task
+        self.with_outputs = with_outputs
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.tcn_fused = tcn_fused
@@ -115,31 +122,43 @@ class TrainStep:
         self.optimizer = optim.build_optimizer(hp, self.trainable.values())
         self.step = 0
 
-    def loss(self, batch: Dict[str, torch.Tensor],
-             generator: torch.Generator) -> torch.Tensor:
-        """The train-mode forward and its loss (updates the BatchNorm
-        running statistics), for tensors already on the device."""
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: torch.Generator
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The train-mode forward (updates the BatchNorm running
+        statistics) and its loss, for tensors already on the device:
+        (loss, outputs)."""
         labels = batch[label_key(batch)]
         inputs = train_inputs({k: v for k, v in batch.items()
                                if 'continuous_label' not in k}, generator)
-        logits = self.model(inputs, True, generator,
-                            tcn_fused=self.tcn_fused,
-                            reference=self.reference)
-        return cross_entropy_frames(logits, labels)
+        out = self.model(inputs, True, generator, tcn_fused=self.tcn_fused,
+                         reference=self.reference)
+        if self.task == constants.REGRESSION:
+            # in the outputs' type, as fvt_tpu casts: float64 in the
+            # float64 lockstep tests
+            return ccc_loss(labels.to(out.dtype), out[..., 0]), out
+        return cross_entropy_frames(out, labels), out
 
-    def __call__(self, batch: Dict[str, Any],
-                 generator: torch.Generator) -> torch.Tensor:
+    def loss(self, batch: Dict[str, torch.Tensor],
+             generator: torch.Generator) -> torch.Tensor:
+        """The loss of :meth:`forward`."""
+        return self.forward(batch, generator)[0]
+
+    def __call__(self, batch: Dict[str, Any], generator: torch.Generator):
         """Takes the step; returns the loss as a 0-d tensor on the device
-        (no synchronisation)."""
+        (no synchronisation), and with ``with_outputs`` the (B, T, C)
+        outputs of the step's forward too, detached."""
         batch = to_device(batch, self.device)
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(batch, generator)
+        loss, out = self.forward(batch, generator)
         loss.backward()
         for p in self.trainable.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         self.optimizer.step()
         self.step += 1
+        if self.with_outputs:
+            return loss.detach(), out.detach()
         return loss.detach()
 
 

@@ -44,6 +44,23 @@ from fvt_tpu_torch.utils import rng
 from fvt_tpu_torch.utils.logger import fmsg, log
 
 
+def note_ignored_lr(hp, scheduler) -> None:
+    """Logs the NOTE that ``opt__lr`` is ignored where it is
+    (``fvt_tpu/train/trainer.py:99-113``): unless ``opt__honor_lr``, the
+    optimizer trains at PyTorch's default lr, as upstream builds it, and
+    only MYWARMUP carries ``opt__lr``."""
+    lr = getattr(hp, 'lr', optim.TORCH_DEFAULT_LR)
+    if (not getattr(hp, 'honor_lr', False)
+            and not isinstance(scheduler, optim.MyWarmupSchedule)
+            and abs(lr - optim.TORCH_DEFAULT_LR) > 1e-12):
+        # keyed on the built scheduler: MYWARMUP carries opt__lr
+        log(fmsg(
+            f"NOTE: opt__lr={lr} is IGNORED — reproducing the upstream "
+            f"optimizer wiring (its SGD/Adam are built without lr; "
+            f"effective lr = {optim.TORCH_DEFAULT_LR}). Pass "
+            f"--opt__honor_lr true to actually train at opt__lr."))
+
+
 class EarlyStopper:
     """Early stopping with the upstream legacy semantics: once past
     ``min_epochs``, a countdown from ``budget`` that resets to ``budget``
@@ -91,16 +108,7 @@ class Trainer:
         self.device = self.train_step.device
         self.scheduler = optim.build_scheduler(
             self.hp, config['num_epochs'], config['min_num_epochs'])
-        lr = getattr(self.hp, 'lr', optim.TORCH_DEFAULT_LR)
-        if (not getattr(self.hp, 'honor_lr', False)
-                and not isinstance(self.scheduler, optim.MyWarmupSchedule)
-                and abs(lr - optim.TORCH_DEFAULT_LR) > 1e-12):
-            # keyed on the built scheduler: MYWARMUP carries opt__lr
-            log(fmsg(
-                f"NOTE: opt__lr={lr} is IGNORED — reproducing the upstream "
-                f"optimizer wiring (its SGD/Adam are built without lr; "
-                f"effective lr = {optim.TORCH_DEFAULT_LR}). Pass "
-                f"--opt__honor_lr true to actually train at opt__lr."))
+        note_ignored_lr(self.hp, self.scheduler)
         self.step_losses: list = []  # of the last epoch, one a step
         self.last_epoch_timing: Optional[dict] = None
         self.last_inference_timing: Optional[dict] = None

@@ -270,8 +270,10 @@ def test_metrics_copy_computes_as_the_original():
         jax_metrics.compute_class_acc(t, p)
     np.testing.assert_array_equal(metrics.compute_confusion_matrix(t, p),
                                   jax_metrics.compute_confusion_matrix(t, p))
-    with pytest.raises(NotImplementedError, match='A3'):
-        metrics.compute_regression_perf({})
+    data = {f'v{i}': {'labels': r.uniform(-1, 1, 30),
+                      'preds': r.uniform(-1, 1, 30)} for i in range(3)}
+    assert metrics.compute_regression_perf(data) == \
+        jax_metrics.compute_regression_perf(data)
 
 
 def test_fvt_store_cpp_is_the_original_but_its_header_comment():

@@ -3,9 +3,10 @@ of fvt_tpu (its serving and training paths, a video model's train step
 and its ArcFace in fvt_tpu's tree, a CAN's and an MT's train step and
 their trees, every conv path of the ArcFace
 backbone, its tools, the training CLI with checkpoints and resume
-and the challenge inference CLI on stores of its own synthetic writer run
-with all six blocked), and chip_smoke.py refuses to run without a CUDA
-card."""
+and the challenge inference CLI on stores of its own synthetic writer,
+a logmel model with its VGGish and the regression trainer with a
+ParamControl release run with all six blocked), and chip_smoke.py
+refuses to run without a CUDA card."""
 import os
 import re
 import subprocess
@@ -46,6 +47,7 @@ NO_JAX = textwrap.dedent('''
     from fvt_tpu_torch.train.trainer import Trainer
 
     tcn = {'vggish': [8, 8, 4, 4], 'bert': [8, 8, 4, 4]}
+    tcn_logmel = {'logmel': [8, 4], 'bert': [8, 4]}
     model = LFAN(('vggish', 'bert'), 7, tcn_channel=tcn,
                  encoder_dim={'vggish': 4, 'bert': 4},
                  generator=torch.Generator().manual_seed(0))
@@ -182,6 +184,49 @@ NO_JAX = textwrap.dedent('''
         assert os.path.isfile(os.path.join(
             root, 'trained', 'best-models', 'None', 'model.msgpack'))
 
+    # a logmel model (the frozen VGGish) serves, and its VGGish goes to
+    # fvt_tpu's tree; the regression trainer fits an epoch and tests
+    from fvt_tpu_torch.models.vggish import VGGish
+    logmel = LFAN(('logmel', 'bert'), 7, tcn_channel=tcn_logmel,
+                  encoder_dim={'logmel': 4, 'bert': 4},
+                  generator=torch.Generator().manual_seed(0))
+    assert isinstance(logmel.spatial.audio.backbone, VGGish)
+    with torch.inference_mode():
+        logits = logmel({'logmel': torch.randn(1, 2, 96, 64),
+                         'bert': torch.randn(1, 2, 768)})
+    assert logits.shape == (1, 2, 7) and torch.isfinite(logits).all()
+    params, _ = flax_from_state(logmel.state_dict(), ('logmel', 'bert'))
+    assert 'fc0' in params['spatial_audio'], list(params)
+
+    from types import SimpleNamespace
+    from fvt_tpu_torch.train.param_control import ParamControl
+    from fvt_tpu_torch.train.regression_trainer import RegressionTrainer
+    import fvt_tpu_torch.train.losses
+    import fvt_tpu_torch.train.regression_viz
+    reg = LFAN(('vggish', 'bert'), 1, task='REGRESSION', tcn_channel=tcn,
+               encoder_dim={'vggish': 4, 'bert': 4},
+               generator=torch.Generator().manual_seed(0))
+    reg_batch = ({'vggish': rng.normal(size=(2, 6, 128)).astype(np.float32),
+                  'bert': rng.normal(size=(2, 6, 768)).astype(np.float32),
+                  'VA_continuous_label': rng.uniform(-1, 1, (2, 6))
+                  .astype(np.float32)},
+                 ['t0', 't0'], [8, 8], np.array([np.arange(6),
+                                                 np.arange(2, 8)]))
+    with tempfile.TemporaryDirectory() as outd:
+        reg_args = SimpleNamespace(**get_config('MELD'))
+        reg_args.__dict__.update(num_epochs=2, min_num_epochs=1,
+                                 early_stopping=0, outd=outd,
+                                 milestone=(1,), save_plot=False)
+        trainer = RegressionTrainer(
+            reg, reg_args, ParamControl([['temporal']], 1, ['regressor']),
+            device='cpu')
+        trainer.init_state(reg_batch[0])
+        best = trainer.fit(lambda epoch: [reg_batch], lambda: [reg_batch])
+        assert np.isfinite(best['ccc']), best
+        assert np.isfinite(trainer.test(lambda: [reg_batch])[0])
+        assert os.path.isfile(os.path.join(outd,
+                                           'model_state_dict.msgpack'))
+
     import chip_smoke
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
     assert not leaked, leaked
@@ -231,6 +276,11 @@ def test_no_port_source_imports_jax_or_fvt_tpu():
             'fvt_tpu_torch/models/models.py',
             'fvt_tpu_torch/models/fusion.py',
             'fvt_tpu_torch/models/layers.py',
+            'fvt_tpu_torch/models/vggish.py',
+            'fvt_tpu_torch/train/losses.py',
+            'fvt_tpu_torch/train/param_control.py',
+            'fvt_tpu_torch/train/regression_trainer.py',
+            'fvt_tpu_torch/train/regression_viz.py',
             'fvt_tpu_torch/serve.py'} <= names
     for path in paths:
         with open(path) as f:

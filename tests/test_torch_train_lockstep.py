@@ -226,3 +226,97 @@ def test_training_a_video_modality_is_refused_for_now():
                for p in model.spatial.parameters())
     assert all(p.grad is not None
                for p in model.regressor.parameters())
+
+
+# the REGRESSION leg (fvt_tpu's LFAN_REG, ``tests/test_lockstep.py``): the
+# tanh head under the CCC loss.  SGD in float32 (losses rtol 1e-5,
+# parameters 1e-4 / 1e-5); ADAM in float64 in both frameworks, at the
+# bounds ``tests/test_torch_families_train.py`` holds CAN and JMT to
+REG_ADAM_LOSS_RTOL = 1e-9
+REG_ADAM_PARAM_RTOL, REG_ADAM_PARAM_ATOL = 1.2e-7, 2e-8
+
+
+def _regression_batches(dtype):
+    rng = np.random.default_rng(12)
+    return [{'vggish': rng.normal(size=(B, T, 128)).astype(dtype),
+             'bert': rng.normal(size=(B, T, 768)).astype(dtype),
+             'VA_continuous_label': rng.uniform(-1, 1, (B, T)).astype(dtype)}
+            for _ in range(STEPS)]
+
+
+def _regression_model():
+    return LFAN(MODS, 1, task='REGRESSION', tcn_channel=TCN,
+                encoder_dim=ENC, tcn_dropout=0.0, fusion_dropout=0.0,
+                generator=torch.Generator().manual_seed(4))
+
+
+def _jax_regression_run(optimizer_name: str, start: dict, dtype):
+    """(per-step losses, final variables) of fvt_tpu's REGRESSION train
+    step from the port's ``start`` state, in ``dtype``."""
+    from fvt_tpu.train.steps import TrainState, split_frozen
+    from fvt_tpu_torch.models.to_jax import flax_from_state
+
+    hp = jax_optim.standardize_opt_params(
+        {**get_config(jax_constants.MELD),
+         'opt__name_optimizer': optimizer_name})
+    optimizer = jax_optim.build_optimizer(hp)
+    model = FlaxLFAN(modality=MODS, output_dim=1,
+                     task=jax_constants.REGRESSION, tcn_channel=TCN,
+                     encoder_dim=ENC, tcn_dropout=0.0, fusion_dropout=0.0)
+    was_x64 = bool(jax.config.jax_enable_x64)
+    jax.config.update('jax_enable_x64', dtype == np.float64)
+    try:
+        params, stats = jax.tree.map(lambda a: jnp.asarray(a.astype(dtype)),
+                                     flax_from_state(start, MODS))
+        state = TrainState(
+            params=params, batch_stats=stats,
+            opt_state=optimizer.init(split_frozen(params)[0]),
+            step=jnp.zeros((), jnp.int32))
+        step = make_train_step(model, optimizer,
+                               task=jax_constants.REGRESSION)
+        losses = []
+        for batch in _regression_batches(dtype):
+            state, loss = step(state, {k: jnp.asarray(v)
+                                       for k, v in batch.items()},
+                               jax.random.key(1))
+            losses.append(float(loss))
+        return losses, (_numpy_tree(state.params),
+                        _numpy_tree(state.batch_stats))
+    finally:
+        jax.config.update('jax_enable_x64', was_x64)
+
+
+@pytest.mark.parametrize('optimizer_name', ['SGD', 'ADAM'])
+def test_three_regression_steps_in_lockstep(optimizer_name):
+    adam = optimizer_name == 'ADAM'
+    dtype = np.float64 if adam else np.float32
+    model = _regression_model()
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    want_losses, (end_params, end_stats) = _jax_regression_run(
+        optimizer_name, start, dtype)
+    model.to(torch.float64 if adam else torch.float32)
+    step = TrainStep(model, _port_hp(optimizer_name), 'cpu',
+                     task='REGRESSION')
+    gen = torch.Generator().manual_seed(0)
+    losses = [float(step(batch, gen))
+              for batch in _regression_batches(dtype)]
+    assert all(0 < l < 2 for l in losses)
+    np.testing.assert_allclose(losses, want_losses,
+                               rtol=REG_ADAM_LOSS_RTOL if adam else 1e-5)
+    want = state_from_flax(end_params, end_stats, MODS)
+    got = model.state_dict()
+    assert set(got) == set(want)
+    for name, w in want.items():
+        if name.endswith('num_batches_tracked'):
+            assert int(got[name]) == STEPS
+            continue
+        g, w = got[name].float().numpy(), w.numpy()
+        if adam:
+            np.testing.assert_allclose(g, w, rtol=REG_ADAM_PARAM_RTOL,
+                                       atol=REG_ADAM_PARAM_ATOL,
+                                       err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5,
+                                       err_msg=name)
+        if 'running_' not in name and start[name].any():
+            assert not np.array_equal(g, start[name].numpy()), name
