@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port's LFAN serving and training paths, the
 ArcFace backbone's conv paths, the training and serving of CAN, JMT and
-MT, the ``logmel`` modality and the regression task once on one CUDA
-card.
+MT, the ``logmel`` modality, the regression task and serving from frozen
+artifacts over HTTP once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -199,7 +199,26 @@ Phases, each of which raises on failure (exit code 1):
    and per-trial txts (plots where matplotlib imports); the same fit
    stopped after epoch 1 and resumed from its checkpoint ends bit for bit
    like it; B1, B2 and B3 at the fit's shapes against their plain
-   versions; the epoch walls and a step's time.
+   versions; the epoch walls and a step's time;
+12. serving from frozen artifacts: a seed-0 full-width tri-modal LFAN,
+   CAN on ``video+vggish+bert`` and JMT on ``video+vggish`` (their
+   BatchNorm statistics drawn from the seed), each a run directory's best
+   model exported by ``fvt_tpu_torch/tools/export_serving.py`` at (8,
+   300), loaded, and served by ``fvt_tpu_torch/tools/serve_http.py`` on
+   127.0.0.1 through ``fvt_tpu_torch/client.py``: five ``/logits`` on one
+   (8, 300) batch (JMT with a length vector), phase 3's three streams in
+   chunks (dynamic batching for LFAN and CAN, a batcher a session with
+   lengths for JMT), ``/healthz``; the served logits within 1e-6 relative
+   of the artifact's in-process offline stitch and within 1e-4 (relative
+   to the largest logit) of the plain composition; 12 B1 and 1 B2 (LFAN),
+   13 B1 (CAN) or 9 B1 (JMT) launches a forward and nothing else; artifact
+   bytes, write and load seconds, ``/logits`` p50 / p99, served frames/s
+   beside ``ServingModel.call``'s, peak memory; then
+   ``TemporalConvNet(attention=1)`` at the LFAN's vggish widths (128 ->
+   64, 64, 32, 32, K = 5) at T = max_length = 300, batch 8: eval through
+   B1 block by block within 1e-4 of its plain version, one train step
+   through B3a and B3b with its loss and gradients within 1e-4 of the
+   plain version's.
 
 Everything runs in float32 with TF32 off for matmuls and cuDNN, except the
 bfloat16 backbone and its kernel and phases 8, 9 and 10's ``--amp`` runs,
@@ -359,6 +378,19 @@ REG_TRIALS = (8, 3, 3)
 REG_TRIAL_LENGTHS = (700, 1500)
 REG_EPOCHS = 3
 REG_MILESTONE = 1
+
+
+# phase 12: serving from a frozen artifact: each family's best model
+# (seed 0, statistics drawn from the seed too) exported by
+# tools/export_serving.py at (WINDOW_BATCH, WINDOW), loaded and served over
+# HTTP on 127.0.0.1 through tools/serve_http.py and client.py
+ARTIFACT_FAMILIES = (('LFAN', MODALITY), ('CAN', MODALITY),
+                     ('JMT', ('video', 'vggish')))
+ARTIFACT_LOGITS_CALLS = 5
+# served logits vs the artifact's own in-process offline stitch
+ARTIFACT_RTOL = 1e-6
+# TemporalConvNet(attention=1) at the LFAN's vggish widths, T = max_length
+ATTN_TCN = (128, (64, 64, 32, 32), 5)
 
 
 def fail(msg: str) -> None:
@@ -4283,6 +4315,345 @@ def regression_training(device) -> dict:
     return launches
 
 
+def draw_statistics(model, seed: int) -> None:
+    """The BatchNorms' running statistics drawn from ``seed`` (init leaves
+    them at 0 and 1, which would hide a statistic read from the wrong
+    place)."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith('running_mean'):
+                buf.copy_(torch.from_numpy(rng.normal(
+                    0, 0.1, buf.shape).astype(np.float32)))
+            elif name.endswith('running_var'):
+                buf.copy_(torch.from_numpy(rng.uniform(
+                    0.5, 1.5, buf.shape).astype(np.float32)))
+
+
+def window_stitch(call, frames: dict, needs_mask: bool) -> np.ndarray:
+    """The offline stitch of one stream through ``call(batch, length)``:
+    its windows in batches of WINDOW_BATCH, the last repeat-padded, as a
+    stream's own batcher groups them (the grouping matters to JMT, whose
+    final attention mixes a batch's rows); a stream shorter than the
+    window is the first rows of its pad-by-repeat window."""
+    from fvt_tpu_torch.data import windowing as W
+
+    n = len(next(iter(frames.values())))
+    if n < WINDOW:
+        idx = W.pad_short_window_indices(n, WINDOW)[None]
+    else:
+        idx = W.window_index_matrix(n, WINDOW, HOP)
+    outs = []
+    for s in range(0, len(idx), WINDOW_BATCH):
+        rows = list(idx[s:s + WINDOW_BATCH])
+        rows += [rows[-1]] * (WINDOW_BATCH - len(rows))
+        length = (np.full(WINDOW_BATCH, min(n, WINDOW), np.int32)
+                  if needs_mask else None)
+        outs.append(call({k: v[np.stack(rows)] for k, v in frames.items()},
+                         length)[:len(idx) - s])
+    logits = np.concatenate(outs)
+    return logits[0, :n] if n < WINDOW else W.stitch_windows_np(
+        logits, idx, n)
+
+
+def relative_error(got: np.ndarray, want: np.ndarray) -> float:
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f'got {got.shape} logits, want {want.shape}, finite='
+             f'{np.isfinite(got).all()}')
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def serve_artifact(name: str, modality, root: str, streams: dict,
+                   device, zero, read) -> dict:
+    """Phase 12, one family: its run directory's best model exported at
+    (WINDOW_BATCH, WINDOW), loaded, served over HTTP; the served logits
+    against the artifact's in-process offline stitch (ARTIFACT_RTOL) and
+    the plain composition (FAMILY_RTOL, relative to the largest logit).
+    Returns the launches over the HTTP traffic."""
+    import os
+    import threading
+    from fvt_tpu_torch.client import ServingClient
+    from fvt_tpu_torch.config import flat_yaml
+    from fvt_tpu_torch.config.defaults import get_config, to_namespace
+    from fvt_tpu_torch.export import load_artifact
+    from fvt_tpu_torch.models.checkpoint import save_best_model
+    from fvt_tpu_torch.models.registry import init_model
+    from fvt_tpu_torch.serve import serving_forward, valid_frames
+    from fvt_tpu_torch.tools import export_serving, serve_http
+
+    cfg = get_config('MELD')
+    cfg.update(model_name=name, seed=SEED, window_length=WINDOW,
+               hop_length=HOP, eval_window_batch=WINDOW_BATCH,
+               modality=f'{"+".join(modality)}+EXPR_continuous_label',
+               verbose=False)
+    run = os.path.join(root, name)
+    os.makedirs(os.path.join(run, 'best-models', 'case'))
+    flat_yaml.dump(cfg, os.path.join(run, 'config.yml'))
+    model = init_model(to_namespace(cfg))
+    draw_statistics(model, SEED + 30)
+    save_best_model(model, os.path.join(run, 'best-models', 'case',
+                                        'model.msgpack'), model.modality)
+    del model
+    t0 = time.perf_counter()
+    path = export_serving.main(['--fd_exp', run, '--window_batch',
+                                str(WINDOW_BATCH), '--seq_len',
+                                str(WINDOW)])['artifact']
+    write_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    art = load_artifact(path, device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    print(f'  {name}: artifact {os.path.getsize(path)} bytes, written in '
+          f'{write_s:.3f} s, loaded onto the card in {load_s:.3f} s')
+
+    t0 = time.perf_counter()
+    srv = serve_http.build_server(path, '127.0.0.1', 0, device=device,
+                                  dynamic_batch=not art.needs_mask,
+                                  batch_delay_s=0.05)
+    start_s = time.perf_counter() - t0
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    client = ServingClient(f'http://127.0.0.1:{srv.server_port}',
+                           timeout=300)
+    spec = art.meta['shapes'][f'b{WINDOW_BATCH}xt{WINDOW}']['inputs']
+    rng = np.random.default_rng(SEED + 31)
+    batch = {k: (rng.integers(0, 256, v['shape'], np.uint8)
+                 if v['dtype'] == 'uint8'
+                 else rng.standard_normal(v['shape'], np.float32))
+             for k, v in spec.items()}
+    length = (np.array([WINDOW] * (WINDOW_BATCH - 2) + [250, 120],
+                       np.int32) if art.needs_mask else None)
+    frames = {n: {k: v for k, v in s.items() if k in spec}
+              for n, s in streams.items()}
+
+    zero()
+    with ShapeRecorder() as rec:
+        t0 = time.perf_counter()
+        served = client.logits(batch, length=length)
+        for _ in range(ARTIFACT_LOGITS_CALLS - 1):
+            client.logits(batch, length=length)
+        logits_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        handles = {n: client.open_stream() for n in frames}
+        for c0 in range(0, max(frames), CHUNK):
+            for n, f in frames.items():
+                if c0 < n:
+                    handles[n].feed({k: v[c0:c0 + CHUNK]
+                                     for k, v in f.items()})
+        for h in handles.values():
+            h.finish()
+        got = {n: h.result(timeout_s=300) for n, h in handles.items()}
+        stream_s = time.perf_counter() - t0
+        health = client.healthz()
+    launches = read()
+    forwards = len(rec.model)
+    serve_http.drain_and_shutdown(srv, timeout_s=5)
+    thread.join(timeout=10)
+    if thread.is_alive():
+        fail(f'{name}: the server thread did not stop')
+
+    model = art.model
+    fused = getattr(model, 'FUSED', None) if art.needs_mask else None
+    per_forward = sum(len(model.temporal[m].network)
+                      for m in (fused or model.modality))
+    want = {k: 0 for k in launches}
+    want['tcn_block'] = per_forward * forwards
+    want['fusion'] = forwards if name == 'LFAN' else 0
+    print(f'  {name}: {forwards} forwards over HTTP ({ARTIFACT_LOGITS_CALLS} '
+          f'/logits, the streams\' dispatches), launches '
+          f'{ {k: n for k, n in launches.items() if n} } and none else')
+    if forwards < ARTIFACT_LOGITS_CALLS + 1 or launches != want:
+        fail(f'{name}: expected {want} over {forwards} forwards, got '
+             f'{launches}')
+    lat = health['latency']['/logits']
+    frames_per_call = WINDOW_BATCH * WINDOW
+    body = sum(a.nbytes for a in batch.values())
+    batching = ('a batcher each, with lengths' if art.needs_mask
+                else 'dynamic batching')
+    print(f'  {name}: server start (load + warm-up) {start_s:.3f} s; '
+          f'/logits (a {body} B body) p50 {lat["p50_ms"]} ms, p99 '
+          f'{lat["p99_ms"]} ms over {lat["count"]} (/healthz), '
+          f'{frames_per_call / lat["p50_ms"] * 1e3:.1f} frames/s at p50; '
+          f'{ARTIFACT_LOGITS_CALLS} in {logits_s:.3f} s; three streams '
+          f'({sum(frames)} frames in chunks of {CHUNK}, {batching}) in '
+          f'{stream_s:.3f} s, {sum(frames) / stream_s:.1f} frames/s; '
+          f'stream dispatches {health["stream_dispatches"]}')
+
+    def in_process(b, n):
+        return art.call(b, length=n)
+
+    def plain(b, n):
+        x = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        mask = (valid_frames(n, WINDOW, device) if art.needs_mask
+                else None)
+        return serving_forward(model, x, time_mask=mask,
+                               reference=True).cpu().numpy()
+
+    call_ms = []
+    for _ in range(ARTIFACT_LOGITS_CALLS):
+        t0 = time.perf_counter()
+        want_logits = art.call(batch, length=length)
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    call_ms = statistics.median(call_ms)
+    print(f'  {name}: ServingModel.call in process, median of '
+          f'{ARTIFACT_LOGITS_CALLS}: {call_ms:.2f} ms, '
+          f'{frames_per_call / call_ms * 1e3:.1f} frames/s')
+    errs = [relative_error(served, want_logits)]
+    ref_errs = [relative_error(served, plain(batch, length))]
+    for n, f in frames.items():
+        errs.append(relative_error(got[n], window_stitch(
+            in_process, f, art.needs_mask)))
+        ref_errs.append(relative_error(got[n], window_stitch(
+            plain, f, art.needs_mask)))
+    print(f'  {name}: served /logits and streams vs the in-process offline '
+          f'stitch: max relative error {max(errs):.3e} (gate '
+          f'{ARTIFACT_RTOL}); vs the plain composition {max(ref_errs):.3e} '
+          f'(gate {FAMILY_RTOL})')
+    if max(errs) > ARTIFACT_RTOL or max(ref_errs) > FAMILY_RTOL:
+        fail(f'{name}: served logits differ from the in-process stitch by '
+             f'{max(errs)} or from the plain composition by '
+             f'{max(ref_errs)} (relative)')
+    del art, model
+    return launches
+
+
+def attention_tcn(device) -> dict:
+    """Phase 12, the TCN with ``attention=1`` at the LFAN's vggish widths
+    at T = max_length = WINDOW, batch WINDOW_BATCH: eval through B1 block
+    by block against its plain version, then one train step through B3a
+    and B3b against autograd of the plain version.  Returns the launches
+    of each."""
+    from fvt_tpu_torch.models.tcn import TemporalConvNet
+    from fvt_tpu_torch.ops import tcn as tcn_ops
+    from fvt_tpu_torch.ops.tcn import (fused_temporal_block,
+                                       fused_temporal_block_train)
+
+    cin, channels, k = ATTN_TCN
+    tcn = TemporalConvNet(cin, channels, k, dropout=0.0, attention=1,
+                          max_length=WINDOW)
+    tcn.reset_parameters(torch.Generator().manual_seed(SEED + 32))
+    tcn.to(device)
+    g = torch.Generator(device=device).manual_seed(SEED + 33)
+    x = torch.randn(WINDOW_BATCH, WINDOW, cin, device=device, generator=g)
+    fused_temporal_block.launches = 0
+    with torch.inference_mode():
+        got = tcn(x)
+        n_eval = fused_temporal_block.launches
+        want = tcn(x, reference=True)
+    compare(f'TemporalConvNet(attention=1) eval {cin}->{list(channels)} '
+            f'K={k} at ({WINDOW_BATCH},{WINDOW})', got, want)
+
+    # the train step at the model's own parameters: first through
+    # TemporalConvNet.forward, for its launches and its loss (continuous
+    # at leaky's kink); then its gradients, through the same blocks and
+    # attention as forward runs them, with each block's masks (ones at
+    # dropout 0) and residual changed by away_from_kink where the plain
+    # version's pre-activation lies near the kink, where the kernel and
+    # the plain version may round to different sides and take different
+    # slopes
+    r = torch.randn(WINDOW_BATCH, WINDOW, channels[-1], device=device,
+                    generator=g)
+    params = [p for _, p in tcn.named_parameters()]
+    names = [n for n, _ in tcn.named_parameters()]
+    fused_temporal_block_train.launches_fwd = 0
+    fused_temporal_block_train.launches_bwd = 0
+    loss = (tcn(x, True, g) * r).mean()
+    torch.autograd.grad(loss, params)
+    n_train = (fused_temporal_block_train.launches_fwd,
+               fused_temporal_block_train.launches_bwd)
+    want_loss = (tcn(x, True, g, reference=True) * r).mean()
+    loss_err = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+
+    def block(blk, h, kink, reference: bool) -> torch.Tensor:
+        w = blk.kernel_weights()
+        res = h if w['wd'] is None else h @ w['wd'] + w['bd']
+        if kink is None:  # (m1, m2, the residual's shift) drawn here
+            ones = torch.ones(res.shape, device=res.device)
+            m1, m2, moved = away_from_kink(h, w['w1'], w['b1'], w['w2'],
+                                           w['b2'], ones, ones, res,
+                                           blk.dilation)
+            # contiguous, as the kernel takes them: res may be a view of
+            # the attention's transposed output
+            kinks.append(tuple(t.contiguous() for t in
+                               (m1, m2, moved - res)))
+            kink = kinks[-1]
+        fn = (tcn_ops.fused_temporal_block_train_ref if reference
+              else fused_temporal_block_train)
+        return fn(h, w['w1'], w['b1'], w['w2'], w['b2'], kink[0], kink[1],
+                  res + kink[2], kernel_size=k, dilation=blk.dilation)
+
+    kinks = []
+    with torch.no_grad():
+        h = x
+        for i, blk in enumerate(tcn.network):
+            h = tcn._attend(i, block(blk, h, None, True))
+    cleared = sum(int((t != (1 if j < 2 else 0)).sum())
+                  for kink in kinks for j, t in enumerate(kink))
+
+    def step_grads(reference: bool) -> tuple:
+        h = x
+        for i, blk in enumerate(tcn.network):
+            h = tcn._attend(i, block(blk, h, kinks[i], reference))
+        return torch.autograd.grad((h * r).mean(), params)
+
+    grads, want_grads = step_grads(False), step_grads(True)
+    largest = max(w.abs().max().item() for w in want_grads)
+    worst = 0.0
+    for name, got_g, want_g in zip(names, grads, want_grads):
+        scale = want_g.abs().max().item()
+        # a query bias adds one logit to every query of a key and the
+        # softmax runs over the queries: its gradient is zero, rounding
+        # noise on both sides, held against the largest gradient
+        if name.endswith('query_layer.bias'):
+            if scale > 1e-6 * largest:
+                fail(f'TemporalConvNet(attention=1) train: d{name} of the '
+                     f'plain version is {scale}, not about 0 (largest '
+                     f'gradient {largest})')
+            scale = largest
+        err = (got_g - want_g).abs().max().item()
+        worst = max(worst, err / scale)
+        if not torch.isfinite(got_g).all() or err > WGRAD_TOL * scale:
+            fail(f'TemporalConvNet(attention=1) train: d{name} differs '
+                 f'from the plain version by {err} (max|want| {scale})')
+    print(f'  TemporalConvNet(attention=1) train step: loss relative error '
+          f'{loss_err:.3e}, gradients within {worst:.3e} of their largest '
+          f'value (gate {WGRAD_TOL}; {cleared} of '
+          f'{sum(t.numel() for kink in kinks for t in kink)} pre-activations '
+          f'moved off the kink); launches: B1 {n_eval} (eval), B3a '
+          f'{n_train[0]}, B3b {n_train[1]}')
+    if loss_err > KERNEL_RTOL or n_eval != len(channels) \
+            or n_train != (len(channels), len(channels)):
+        fail(f'TemporalConvNet(attention=1): loss error {loss_err}, '
+             f'launches {n_eval}, {n_train}; expected '
+             f'{len(channels)} each')
+    return {'tcn_block': n_eval, 'tcn_block_train': n_train[0],
+            'tcn_block_bwd': n_train[1]}
+
+
+def artifact_serving(device) -> tuple:
+    """Phase 12.  Returns (the launches of every kernel over the three
+    families' HTTP traffic, those of the attention TCN)."""
+    import tempfile
+
+    zero, read = run_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    streams = make_streams()
+    total = None
+    with tempfile.TemporaryDirectory() as root:
+        for name, modality in ARTIFACT_FAMILIES:
+            launches = serve_artifact(name, modality, root, streams, device,
+                                      zero, read)
+            total = launches if total is None else {
+                k: total[k] + n for k, n in launches.items()}
+            torch.cuda.empty_cache()
+    attn = attention_tcn(device)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'  peak device memory {peak:.2f} GiB')
+    return total, attn
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on a GPU',
@@ -4509,6 +4880,18 @@ def main() -> int:
     launches = regression_training(device)
     for name in ('tcn_block', 'fusion', 'tcn_block_train', 'tcn_block_bwd'):
         by_name[name]['launches_regression'] = launches[name]
+
+    print('phase 12: LFAN, CAN and JMT served from frozen .fvtserve '
+          'artifacts over HTTP (tools/export_serving.py, '
+          'tools/serve_http.py, client.py), and TemporalConvNet('
+          'attention=1)')
+    t0 = time.perf_counter()
+    launches, attn = artifact_serving(device)
+    for name in ('tcn_block', 'fusion'):
+        by_name[name]['launches_artifact'] = launches[name]
+    for name, n in attn.items():
+        by_name[name]['launches_attention'] = n
+    print(f'  phase 12 in {time.perf_counter() - t0:.1f} s')
 
     print(card)
     print(json.dumps({'kernels': kernels}))

@@ -52,8 +52,14 @@ def main(argv=None, device=None) -> Experiment:
     perf, per_video = exp.run_eval(
         best_model_path(args.fd_exp, args.case_best_model))
 
-    # the evaluation persisted for every target: the nested perf dict,
-    # per-frame logits and a readable report
+    write_eval_outputs(args, perf, per_video, exp.data_arranger.int_to_cl)
+    return exp
+
+
+def write_eval_outputs(args, perf: dict, per_video: dict,
+                       int_to_cl: dict) -> None:
+    """The evaluation persisted for every target under ``args.outd``: the
+    nested perf dict, per-frame logits and a readable report."""
     eval_set = getattr(args, 'eval_set', constants.TESTSET)
     with open(join(args.outd, f'eval-{eval_set}-perf.pkl'), 'wb') as f:
         pkl.dump(perf, f, protocol=pkl.HIGHEST_PROTOCOL)
@@ -64,8 +70,7 @@ def main(argv=None, device=None) -> Experiment:
                                 getattr(args, 'use_other_class', False))
     reporter = next(iter(trackers.values()))
     with open(join(args.outd, f'eval-{eval_set}-perf.txt'), 'w') as f:
-        f.write(reporter.report(perf, exp.data_arranger.int_to_cl))
-    return exp
+        f.write(reporter.report(perf, int_to_cl))
 
 
 if __name__ == '__main__':

@@ -63,6 +63,8 @@ LAYOUT = (
     ('temporal.{m}.network.{i}.{c}', 'temporal_{m}/block{i}/{c}', 'wn'),
     ('temporal.{m}.network.{i}.downsample',
      'temporal_{m}/block{i}/downsample/proj', 'linear1x1'),
+    # TemporalConvNet(attention=1)'s attention blocks
+    ('temporal.{m}.attn.{i}.{l}', 'temporal_{m}/attn{i}/{l}', 'linear'),
     ('bn.{m}', 'bn_{m}/bn', 'bn'),
     # LFAN
     ('fusion.layers.self_attn.qkv_proj.{m}', 'fusion/self_attn/qkv_{m}',
@@ -90,9 +92,23 @@ LAYOUT = (
     ('{f}', '{f}', 'linear'),
     ('bn1', 'bn1/bn', 'bn'),
 )
+# the modules of models/fusion_extra.py on their own, keys from the
+# module's root: the intra-modal stack's layers.<i> is flax's layer<i>;
+# self_attn.{l} before self_attn.qkv_{m}, which would take qkv_proj too
+MODULE_LAYOUT = (
+    ('{l}', '{l}', 'linear'),
+    ('self_attn.{l}', 'self_attn/{l}', 'linear'),
+    ('self_attn.qkv_proj.{m}', 'self_attn/qkv_{m}', 'linear'),
+    ('layers.{i}.self_attn.{l}', 'layer{i}/self_attn/{l}', 'linear'),
+    ('layers.{i}.{l}', 'layer{i}/{l}', 'linear'),
+    ('{o}', '{o}', 'layernorm'),
+    ('layers.{i}.{o}', 'layer{i}/{o}', 'layernorm'),
+)
 _FIELDS = {'m': r'[A-Za-z0-9_]+', 'i': r'\d+', 'c': r'conv[12]',
            'e': r'[a-z]+_encoder', 'n': r'layer_norm[12]',
-           'a': r'CA_[a-z]+|final_self_attention', 'f': r'fc[12]'}
+           'a': r'CA_[a-z]+|final_self_attention', 'f': r'fc[12]',
+           'l': r'(?:key|query|value)_layer|qkv_proj|o_proj|ff[12]',
+           'o': r'norm[12]'}
 
 
 def _t_(a: np.ndarray) -> np.ndarray:
@@ -135,23 +151,25 @@ def _pattern(template: str) -> str:
                                                      template)))
 
 
-def _rules(side: int) -> Iterator[tuple]:
+def _rules(side: int, layout: tuple = LAYOUT) -> Tuple[tuple, ...]:
     """(compiled module pattern of ``side`` (0 the port's, 1 fvt_tpu's),
-    the other side's template, leaves) of every LAYOUT entry."""
-    for entry in LAYOUT:
-        yield (re.compile(_pattern(entry[side])), entry[1 - side],
-               _LEAVES[entry[2]])
+    the other side's template, leaves) of every entry of ``layout``."""
+    return tuple((re.compile(_pattern(entry[side])), entry[1 - side],
+                  _LEAVES[entry[2]]) for entry in layout)
 
 
-_PORT_RULES = tuple(_rules(0))
-_FLAX_RULES = tuple(_rules(1))
+_PORT_RULES = _rules(0)
+_FLAX_RULES = _rules(1)
+MODULE_PORT_RULES = _rules(0, MODULE_LAYOUT)
+_MODULE_FLAX_RULES = _rules(1, MODULE_LAYOUT)
 
 
-def flax_place(key: str) -> Tuple[str, Tuple[str, ...], Callable]:
+def flax_place(key: str, rules: Tuple[tuple, ...] = _PORT_RULES
+               ) -> Tuple[str, Tuple[str, ...], Callable]:
     """(collection, flax path, conversion or None) of a port key that
-    LAYOUT maps, else KeyError."""
+    LAYOUT (or the layout of ``rules``) maps, else KeyError."""
     module, _, leaf = key.rpartition('.')
-    for pattern, template, leaves in _PORT_RULES:
+    for pattern, template, leaves in rules:
         m = pattern.fullmatch(module)
         if m is None:
             continue
@@ -163,11 +181,12 @@ def flax_place(key: str) -> Tuple[str, Tuple[str, ...], Callable]:
     raise KeyError(f'{key}: no counterpart in fvt_tpu\'s tree')
 
 
-def _port_place(collection: str, path: Tuple[str, ...]
+def _port_place(collection: str, path: Tuple[str, ...],
+                rules: Tuple[tuple, ...] = _FLAX_RULES
                 ) -> Tuple[str, Callable]:
     """(port key, conversion or None) of a flax leaf, else KeyError."""
     joined = '/'.join(path)
-    for pattern, template, leaves in _FLAX_RULES:
+    for pattern, template, leaves in rules:
         for name, coll, leaf_path, _, to_port in leaves:
             n = len(leaf_path)
             if coll != collection or tuple(path[-n:]) != leaf_path:
@@ -205,6 +224,17 @@ def tcn_state_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
     TemporalConvNet param tree (``block<i>`` subtrees)."""
     return {k[len('temporal.m.'):]: v for k, v in
             state_from_flax({'temporal_m': tree}, {}).items()}
+
+
+def module_state_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """state_dict of one of the port's ``models/fusion_extra.py`` modules
+    from its flax counterpart's param tree (MODULE_LAYOUT)."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(params):
+        key, to_port = _port_place('params', path, _MODULE_FLAX_RULES)
+        value = np.asarray(value)
+        out[key] = _t(to_port(value) if to_port else value)
+    return out
 
 
 def fusion_state_from_flax(tree: dict, modality: Sequence[str]

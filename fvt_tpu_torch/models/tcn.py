@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fvt_tpu_torch.models.fusion_extra import TCNAttentionBlock
 from fvt_tpu_torch.models.layers import (init_linear_, stamp, uniform_,
                                          weight_norm)
 from fvt_tpu_torch.ops.tcn import (NEG_SLOPE, _causal_conv,
@@ -145,12 +146,22 @@ class TemporalBlock(nn.Module):
 
 class TemporalConvNet(nn.Module):
     """Stack of TemporalBlocks with dilation ``2**i``; input and output
-    are feature-last ``(B, T, C)``."""
+    are feature-last ``(B, T, C)``.
+
+    ``attention=1`` runs a :class:`~fvt_tpu_torch.models.fusion_extra.
+    TCNAttentionBlock` ``attn[i]`` after block ``i`` (``fvt_tpu/models/
+    tcn.py:99-108``), on the transposed ``(B, C, T)`` layout: attention
+    over the channels with time as the features, so T must equal
+    ``max_length``.  The upstream ``model.pt`` has no names for these
+    blocks; ``fvt_tpu``'s tree keeps them at ``temporal_<m>/attn<i>``."""
 
     def __init__(self, num_inputs: int, num_channels: Sequence[int],
-                 kernel_size: int = 5, dropout: float = 0.0):
+                 kernel_size: int = 5, dropout: float = 0.0,
+                 attention: int = 0, max_length: int = 200):
         super().__init__()
         self.kernel_size = kernel_size
+        self.attention = attention
+        self.max_length = max_length
         blocks: List[TemporalBlock] = []
         cin = num_inputs
         for i, cout in enumerate(num_channels):
@@ -158,22 +169,35 @@ class TemporalConvNet(nn.Module):
                                         dilation=2 ** i, dropout=dropout))
             cin = cout
         self.network = nn.ModuleList(blocks)
+        if attention == 1:
+            self.attn = nn.ModuleList(
+                TCNAttentionBlock(max_length, max_length, max_length)
+                for _ in num_channels)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        for blk in self.network:
+        for i, blk in enumerate(self.network):
             blk.reset_parameters(generator)
+            if self.attention == 1:
+                self.attn[i].reset_parameters(generator)
+
+    def _attend(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        if self.attention != 1:
+            return x
+        return self.attn[i](x.transpose(1, 2)).transpose(1, 2)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None, *,
                 fused: bool = True, reference: bool = False) -> torch.Tensor:
         """Eval (``train=False``): the fused eval kernel block by block,
-        no gradient.  Train: the differentiable blocks, with dropout masks
+        no gradient (with ``attention=1``, ``attn[i]`` between the
+        blocks).  Train: the differentiable blocks, with dropout masks
         drawn from ``generator`` in block order."""
         if not train:
             blocks = [blk.kernel_weights() if reference
                       else blk.eval_weights() for blk in self.network]
             return tcn_forward(x, blocks, self.kernel_size,
-                               reference=reference)
-        for blk in self.network:
-            x = blk(x, True, generator, fused=fused, reference=reference)
+                               reference=reference, after=self._attend)
+        for i, blk in enumerate(self.network):
+            x = self._attend(i, blk(x, True, generator, fused=fused,
+                                    reference=reference))
         return x

@@ -28,8 +28,9 @@ import numpy as np
 import torch
 
 from fvt_tpu_torch.models.arcface import get_blocks_50
-from fvt_tpu_torch.models.from_jax import (AUDIO_PREFIX, NO_FLAX,
-                                           VGGISH_EMBEDDINGS, flax_place)
+from fvt_tpu_torch.models.from_jax import (AUDIO_PREFIX, MODULE_PORT_RULES,
+                                           NO_FLAX, VGGISH_EMBEDDINGS,
+                                           flax_place)
 from fvt_tpu_torch.models.vggish import feature_indices
 
 
@@ -166,3 +167,16 @@ def flax_from_state(state: Mapping[str, torch.Tensor],
             to_flax(value) if to_flax else value))
     return _sorted(trees['params']), _sorted(trees['batch_stats'])
 
+
+
+def module_flax_from_state(state: Mapping[str, torch.Tensor]) -> dict:
+    """Params of the ``fvt_tpu`` counterpart of one of the port's
+    ``models/fusion_extra.py`` modules from its state_dict (the inverse
+    of ``from_jax.module_state_from_flax``)."""
+    params: Dict[str, dict] = {}
+    for key, tensor in state.items():
+        _, path, to_flax = flax_place(key, MODULE_PORT_RULES)
+        value = _np(tensor)
+        _put(params, path, np.ascontiguousarray(
+            to_flax(value) if to_flax else value))
+    return _sorted(params)

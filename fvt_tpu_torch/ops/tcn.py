@@ -43,7 +43,7 @@ from __future__ import annotations
 import functools
 import math
 import types
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -390,19 +390,24 @@ fused_temporal_block_simt.launches = 0
 
 
 def tcn_forward(x: torch.Tensor, blocks: Sequence[dict], kernel_size: int,
-                *, reference: bool = False) -> torch.Tensor:
+                *, reference: bool = False,
+                after: Optional[Callable[[int, torch.Tensor], torch.Tensor]]
+                = None) -> torch.Tensor:
     """A whole TemporalConvNet in eval mode, as ``tcn_forward_pallas``:
     block ``i`` has dilation ``2**i``.  ``blocks`` holds per block the
     materialised kernel weights ``w1, b1, w2, b2`` and ``wd, bd`` (None
     without a downsample), and optionally ``packed``
     (:func:`pack_block_weights`).  ``reference=True`` runs the plain
-    version."""
+    version.  ``after(i, x)``, where given, runs on block ``i``'s output
+    before block ``i + 1`` (the TCN's ``attention=1``)."""
     for i, blk in enumerate(blocks):
         args = (x, blk['w1'], blk['b1'], blk['w2'], blk['b2'], blk['wd'],
                 blk['bd'])
         kw = dict(kernel_size=kernel_size, dilation=2 ** i)
         x = (fused_temporal_block_ref(*args, **kw) if reference else
              fused_temporal_block(*args, **kw, packed=blk.get('packed')))
+        if after is not None:
+            x = after(i, x)
     return x
 
 

@@ -6,15 +6,16 @@ transform, the frozen ArcFace backbone, one TemporalConvNet per modality
 through the fused TCN-block kernel, the folded eval BatchNorm, then the
 family's fusion and head (LFAN's fusion through the fused fusion
 kernel); JMT and MT take the valid frames' ``time_mask``.
-:func:`lfan_serving_forward` is the LFAN's, which :class:`ServingModel`
-serves.
+:func:`lfan_serving_forward` is the LFAN's.
 
-:class:`ServingModel` wraps a model at one ``(window_batch,
-window_length)`` shape behind the interface of an ``fvt_tpu`` serving
-artifact: ``.meta`` with ``fvt_tpu/export.py``'s keys and
-``.call(inputs, length=None)`` on numpy arrays.  So the server core of
+:class:`ServingModel` wraps a model of any family at fixed ``(window_batch,
+seq_len)`` shapes behind the interface of an ``fvt_tpu`` serving
+artifact: ``.meta`` with ``fvt_tpu/export.py``'s keys, the inputs of
+:func:`serving_input_specs` and ``.call(inputs, length=None)`` on numpy
+arrays, routed by (B, T).  So the server core of
 ``fvt_tpu_torch.streaming`` (``StreamingSession``, ``StreamingRegistry``,
-``WindowBatcher``), a copy of ``fvt_tpu.streaming``, serves it.
+``WindowBatcher``), a copy of ``fvt_tpu.streaming``, serves it, and
+``fvt_tpu_torch.export.ServingArtifact`` is one loaded from a file.
 
 A model built with ``backbone_dtype=torch.bfloat16`` (``--amp`` in
 ``fvt_tpu``) is served as it is: its parameters stay float32 on the device,
@@ -23,14 +24,16 @@ change (uint8 crops and float32 features in, float32 logits out).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from fvt_tpu_torch import constants
 from fvt_tpu_torch.config import model_config as MC
-from fvt_tpu_torch.data.transforms import CROP_SIZE, eval_video_transform
+from fvt_tpu_torch.data.transforms import (CROP_SIZE, SCALE_SIZE,
+                                           eval_video_transform)
 from fvt_tpu_torch.models.models import LFAN, FusionModel
 
 
@@ -62,52 +65,111 @@ def lfan_serving_forward(model: LFAN, batch: Dict[str, torch.Tensor], *,
     return serving_forward(model, batch, reference=reference)
 
 
-class ServingModel:
-    """An LFAN on ``device`` served at one ``(window_batch,
-    window_length)`` shape.  ``call`` takes numpy inputs of exactly the
-    shapes and dtypes in ``meta['shapes']`` and returns (wb, T, C) numpy
-    logits."""
+def shape_key(window_batch: int, seq_len: int) -> str:
+    """``fvt_tpu/export.py``'s key of a served ``(B, T)`` shape."""
+    return f'b{int(window_batch)}xt{int(seq_len)}'
 
-    def __init__(self, model: LFAN, window_batch: int, window_length: int,
-                 hop_length: int, device):
+
+def serving_input_specs(modality: Sequence[str], window_batch: int,
+                        seq_len: int, precrop_video: bool = True) -> dict:
+    """One served batch's inputs as ``fvt_tpu/export.py:75-97``'s
+    ``serving_input_specs`` gives them: video as uint8 crops of
+    ``CROP_SIZE`` (``h2d_precrop_video``, the default) or frames of
+    ``SCALE_SIZE`` (the eval transform crops them), raw (96, 64) log-mel
+    patches and the other features as float32.  {modality: {'shape',
+    'dtype'}}, as ``meta['shapes'][key]['inputs']`` holds them."""
+    wb, t = int(window_batch), int(seq_len)
+    specs = {}
+    for m in modality:
+        if m == constants.VIDEO:
+            s = CROP_SIZE if precrop_video else SCALE_SIZE
+            shape, dtype = (wb, t, s, s, 3), 'uint8'
+        else:
+            shape, dtype = (wb, t) + tuple(MC.FEATURE_DIMENSION[m]), 'float32'
+        specs[m] = {'shape': list(shape), 'dtype': dtype}
+    return specs
+
+
+class ServingModel:
+    """A model of any family on ``device`` served at fixed ``(window_batch,
+    seq_len)`` shapes, behind the interface of an ``fvt_tpu`` serving
+    artifact: ``meta`` (``model_name``, ``modality``, ``num_classes``,
+    ``needs_mask``, ``window_length``, ``hop_length``, ``shapes``),
+    ``shape_keys`` and ``call(inputs, length=None)`` on numpy arrays, routed
+    by their (B, T).  ``shapes`` defaults to the one ``(window_batch,
+    window_length)``.  JMT and MT (``needs_mask``) take a (B,) ``length``
+    of valid frames, the full T when it is None; LFAN and CAN refuse
+    one."""
+
+    def __init__(self, model: FusionModel, window_batch: Optional[int],
+                 window_length: int, hop_length: int, device, *,
+                 shapes: Optional[Sequence[Tuple[int, int]]] = None,
+                 precrop_video: bool = True):
         self.model = model.to(device).eval()
         self.device = torch.device(device)
-        wb, t = int(window_batch), int(window_length)
-        # one batch's inputs as fvt_tpu.export.serving_input_specs gives
-        # them: video as uint8 40^2 crops, features as float32
-        self.specs = {}
-        for m in model.modality:
-            if m == constants.VIDEO:
-                shape, dtype = (wb, t, CROP_SIZE, CROP_SIZE, 3), 'uint8'
-            else:
-                shape = (wb, t) + tuple(MC.FEATURE_DIMENSION[m])
-                dtype = 'float32'
-            self.specs[m] = {'shape': list(shape), 'dtype': dtype}
+        self.needs_mask = bool(model.needs_time_mask)
+        # one forward at a time: a server's request threads share the card
+        self._lock = threading.Lock()
+        shapes = shapes or [(window_batch, window_length)]
+        self.shape_specs = {
+            shape_key(wb, t): serving_input_specs(model.modality, wb, t,
+                                                  precrop_video)
+            for wb, t in shapes}
+        # the first shape's, which a single-shape server is served at
+        self.specs = self.shape_specs[shape_key(*shapes[0])]
         self.meta = {
-            'model_name': constants.LFAN,
+            'model_name': model.model_name,
             'modality': '+'.join(model.modality),
             'num_classes': model.output_dim,
-            'needs_mask': False,
-            'window_length': t,
+            'needs_mask': self.needs_mask,
+            'window_length': int(window_length),
             'hop_length': int(hop_length),
-            'shapes': {f'b{wb}xt{t}': {'window_batch': wb, 'seq_len': t,
-                                       'inputs': self.specs}},
+            'shapes': {shape_key(wb, t): {
+                'window_batch': int(wb), 'seq_len': int(t),
+                'inputs': self.shape_specs[shape_key(wb, t)]}
+                for wb, t in shapes},
         }
+
+    @property
+    def shape_keys(self) -> List[str]:
+        return sorted(self.shape_specs)
+
+    def route(self, inputs: Dict[str, np.ndarray]) -> str:
+        """The key of the shape that ``inputs``' (B, T) is served at, else
+        KeyError naming the shapes there are."""
+        b, t = np.shape(next(iter(inputs.values())))[:2]
+        key = shape_key(b, t)
+        if key not in self.shape_specs:
+            raise KeyError(f'no served shape for batch shape ({b}, {t}); '
+                           f'served: {self.shape_keys} - export this shape '
+                           f'or pad the batch to one of them')
+        return key
 
     def call(self, inputs: Dict[str, np.ndarray],
              length: Optional[np.ndarray] = None) -> np.ndarray:
-        if length is not None:
-            raise ValueError('LFAN takes no time mask (needs_mask=False)')
-        if set(inputs) != set(self.specs):
-            raise ValueError(f'expected inputs {sorted(self.specs)}, got '
+        """(B, T, C) float32 numpy logits of one batch of exactly the
+        shapes and dtypes of ``meta['shapes'][key]['inputs']``."""
+        if length is not None and not self.needs_mask:
+            raise ValueError(f'{self.meta["model_name"]} takes no time mask '
+                             f'(needs_mask=False)')
+        specs = self.shape_specs[self.route(inputs)]
+        if set(inputs) != set(specs):
+            raise ValueError(f'expected inputs {sorted(specs)}, got '
                              f'{sorted(inputs)}')
         batch = {}
-        for k, spec in self.specs.items():
+        for k, spec in specs.items():
             a = np.asarray(inputs[k])
             if list(a.shape) != spec['shape'] or a.dtype != spec['dtype']:
                 raise ValueError(f'{k}: expected {spec["dtype"]} '
                                  f'{spec["shape"]}, got {a.dtype} '
                                  f'{list(a.shape)}')
             batch[k] = torch.from_numpy(a).to(self.device)
-        out = lfan_serving_forward(self.model, batch)
-        return out.cpu().numpy()
+        time_mask = None
+        if self.needs_mask:
+            b, t = specs[next(iter(specs))]['shape'][:2]
+            lengths = np.array(np.broadcast_to(np.asarray(
+                t if length is None else length, np.int64), (b,)))
+            time_mask = valid_frames(lengths, t, self.device)
+        with self._lock:
+            out = serving_forward(self.model, batch, time_mask=time_mask)
+            return out.cpu().numpy()

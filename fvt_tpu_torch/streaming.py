@@ -78,10 +78,12 @@ class CapacityError(RuntimeError):
 
 def _conform(arr: np.ndarray, dtype_name: str) -> np.ndarray:
     if dtype_name == 'bfloat16':
-        import ml_dtypes
-        want = np.dtype(ml_dtypes.bfloat16)
-    else:
-        want = np.dtype(dtype_name)
+        # fvt_tpu reads such a spec through ml_dtypes, which the card's
+        # machine does not have
+        raise ValueError('a bfloat16 input spec (h2d_bf16_features) is not '
+                         'served by the port (ROADMAP.md A5, bf16-feature '
+                         'serving)')
+    want = np.dtype(dtype_name)
     return arr if arr.dtype == want else arr.astype(want)
 
 

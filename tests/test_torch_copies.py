@@ -1,8 +1,9 @@
 """The port's own copies of fvt_tpu's jax-free modules, held against their
 originals: constants and model/train configs equal name by name, the
-numpy resize and windowing functions equal on seeded inputs (exact), and
-the streaming server core giving the same dispatches, padded rows and
-output bits on the same multi-stream feed.
+numpy resize and windowing functions equal on seeded inputs (exact), the
+streaming server core giving the same dispatches, padded rows and
+output bits on the same multi-stream feed, and the serving client the
+same source but its docstring's package name.
 """
 import numpy as np
 import pytest
@@ -299,3 +300,27 @@ def test_fvt_store_cpp_is_the_original_but_its_header_comment():
     assert all(ln.startswith('//') for ln in removed + added)
     assert added[0] == ('// (the disk contract of the upstream '
                         'base/dataset.py:603-619).  The')
+
+
+def test_client_is_the_original_but_its_package_name():
+    """fvt_tpu_torch/client.py is fvt_tpu/client.py, its docstring's
+    package name and the upstream file it cites by path aside: numpy and
+    the standard library, the same wire protocol."""
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, 'fvt_tpu', 'client.py')) as f:
+        original = f.read()
+    with open(os.path.join(repo, 'fvt_tpu_torch', 'client.py')) as f:
+        copy = f.read()
+    doc_end = copy.index('"""', 3) + 3
+    assert copy[doc_end:] == original[original.index('"""', 3) + 3:]
+    doc = copy[:doc_end].replace('fvt_tpu_torch', 'fvt_tpu').splitlines()
+    want = original[:original.index('"""', 3) + 3].splitlines()
+    assert len(doc) == len(want)
+    differ = [(got, line) for got, line in zip(doc, want) if got != line]
+    assert len(differ) == 1
+    assert differ[0][0].startswith('the upstream inference_challenge.py')
+    assert differ[0][1].endswith('inference_challenge.py); this is the '
+                                 'thin edge of the')
+    assert copy != original

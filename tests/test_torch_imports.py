@@ -1,11 +1,13 @@
-"""The port needs neither JAX, flax, PyYAML, msgpack, orbax nor anything
-of fvt_tpu (its serving and training paths, a video model's train step
-and its ArcFace in fvt_tpu's tree, a CAN's and an MT's train step and
-their trees, every conv path of the ArcFace
+"""The port needs neither JAX, flax, PyYAML, msgpack, orbax, ml_dtypes nor
+anything of fvt_tpu (its serving and training paths, a video model's
+train step and its ArcFace in fvt_tpu's tree, a CAN's and an MT's train
+step and their trees, every conv path of the ArcFace
 backbone, its tools, the training CLI with checkpoints and resume
 and the challenge inference CLI on stores of its own synthetic writer,
 a logmel model with its VGGish and the regression trainer with a
-ParamControl release run with all six blocked), and chip_smoke.py
+ParamControl release run, a TemporalConvNet with attention=1, and a best
+model exported as an artifact, served over HTTP through the client and
+by artifact inference, with all of them blocked), and chip_smoke.py
 refuses to run without a CUDA card."""
 import os
 import re
@@ -20,7 +22,7 @@ NO_JAX = textwrap.dedent('''
     import sys
 
     BLOCKED = ('jax', 'jaxlib', 'flax', 'yaml', 'msgpack', 'orbax',
-               'fvt_tpu')
+               'ml_dtypes', 'fvt_tpu')
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -184,8 +186,40 @@ NO_JAX = textwrap.dedent('''
         assert os.path.isfile(os.path.join(
             root, 'trained', 'best-models', 'None', 'model.msgpack'))
 
+        # the challenge run's best model exported, loaded, served over
+        # HTTP through the numpy-only client and by artifact inference
+        import threading
+        from fvt_tpu_torch.client import ServingClient
+        from fvt_tpu_torch.export import load_artifact
+        from fvt_tpu_torch.tools import (export_serving, infer_artifact,
+                                         serve_http)
+        path = export_serving.main(['--fd_exp', run, '--window_batch', '2'])[
+            'artifact']
+        art = load_artifact(path, device='cpu')
+        srv = serve_http.build_server(path, device='cpu')
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        feats = {'vggish': rng.normal(size=(2, 8, 128)).astype(np.float32),
+                 'bert': rng.normal(size=(2, 8, 768)).astype(np.float32)}
+        got = ServingClient(f'http://127.0.0.1:{srv.server_port}').logits(
+            feats)
+        assert (got == art.call(feats)).all()
+        serve_http.drain_and_shutdown(srv, timeout_s=1)
+        store = make_cexpr_store(os.path.join(root, 'store2'), [5, 13])
+        infer_artifact.main(['--mode', 'EVALUATION', '--fd_exp', run,
+                             '--dataset_path', store['dataset_path'],
+                             '--folds_dir', store['folds_dir'],
+                             '--artifact', path], device='cpu')
+
     # a logmel model (the frozen VGGish) serves, and its VGGish goes to
     # fvt_tpu's tree; the regression trainer fits an epoch and tests
+    from fvt_tpu_torch.models.fusion_extra import TCNAttentionBlock
+    from fvt_tpu_torch.models.tcn import TemporalConvNet
+    tcn_attn = TemporalConvNet(4, [8, 8], 3, attention=1, max_length=6)
+    tcn_attn.reset_parameters(torch.Generator().manual_seed(0))
+    assert isinstance(tcn_attn.attn[1], TCNAttentionBlock)
+    with torch.inference_mode():
+        assert tcn_attn(torch.randn(2, 6, 4)).shape == (2, 6, 8)
+
     from fvt_tpu_torch.models.vggish import VGGish
     logmel = LFAN(('logmel', 'bert'), 7, tcn_channel=tcn_logmel,
                   encoder_dim={'logmel': 4, 'bert': 4},
@@ -233,11 +267,11 @@ NO_JAX = textwrap.dedent('''
     print('served', out.shape, 'trained', len(variants), 'backbones')
 ''')
 
-# an import of jax, flax, yaml, msgpack, orbax or fvt_tpu (not
+# an import of jax, flax, yaml, msgpack, orbax, ml_dtypes or fvt_tpu (not
 # fvt_tpu_torch), at any depth
 FORBIDDEN_IMPORT = re.compile(
-    r'^\s*(?:import|from)\s+(?:jax|jaxlib|flax|yaml|msgpack|orbax|fvt_tpu)'
-    r'(?![\w])',
+    r'^\s*(?:import|from)\s+'
+    r'(?:jax|jaxlib|flax|yaml|msgpack|orbax|ml_dtypes|fvt_tpu)(?![\w])',
     re.MULTILINE)
 
 
@@ -281,7 +315,14 @@ def test_no_port_source_imports_jax_or_fvt_tpu():
             'fvt_tpu_torch/train/param_control.py',
             'fvt_tpu_torch/train/regression_trainer.py',
             'fvt_tpu_torch/train/regression_viz.py',
-            'fvt_tpu_torch/serve.py'} <= names
+            'fvt_tpu_torch/serve.py',
+            'fvt_tpu_torch/export.py',
+            'fvt_tpu_torch/client.py',
+            'fvt_tpu_torch/streaming.py',
+            'fvt_tpu_torch/models/fusion_extra.py',
+            'fvt_tpu_torch/tools/export_serving.py',
+            'fvt_tpu_torch/tools/serve_http.py',
+            'fvt_tpu_torch/tools/infer_artifact.py'} <= names
     for path in paths:
         with open(path) as f:
             found = FORBIDDEN_IMPORT.findall(f.read())
@@ -290,6 +331,7 @@ def test_no_port_source_imports_jax_or_fvt_tpu():
     assert FORBIDDEN_IMPORT.search('import jax.numpy as jnp')
     assert FORBIDDEN_IMPORT.search('import msgpack')
     assert FORBIDDEN_IMPORT.search('import orbax.checkpoint as ocp')
+    assert FORBIDDEN_IMPORT.search('        import ml_dtypes')
     assert not FORBIDDEN_IMPORT.search('from fvt_tpu_torch import constants')
 
 
