@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port's LFAN serving and training paths, the
 ArcFace backbone's conv paths, the training and serving of CAN, JMT and
-MT, the ``logmel`` modality, the regression task and serving from frozen
-artifacts over HTTP once on one CUDA card.
+MT, the ``logmel`` modality, the regression task, serving from frozen
+artifacts over HTTP and int8 serving once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -218,11 +218,37 @@ Phases, each of which raises on failure (exit code 1):
    64, 64, 32, 32, K = 5) at T = max_length = 300, batch 8: eval through
    B1 block by block within 1e-4 of its plain version, one train step
    through B3a and B3b with its loss and gradients within 1e-4 of the
-   plain version's.
+   plain version's;
+13. int8 serving (``--serve_quant int8 | int8_static``) on the two int8
+   kernels of ``csrc/conv3x3_int8.cu``, which replace no Pallas kernel
+   (``fvt_tpu``'s int8 conv is one XLA convolution): the quantise pass
+   (the per-tensor amax and the quantisation) and the s8 conv
+   (``mma.sync`` s8 tiles, int32 sums, the scaling in its epilogue)
+   against their plain versions bit for bit at the eight int8 shapes of
+   the IR-50 at N = 2400 (the stride-2 convs, the stage entries' conv1,
+   the stride-1 convs), float32 and bfloat16 in and out, dynamic and with
+   a calibrated scale, and at edge shapes, each timed beside ``F.conv2d``
+   and ``torch._int_mm`` over an im2col, and its refusals; the int8
+   backbone alone on 2400 frames, dynamic and static, float32 and bf16,
+   bit for bit its plain versions, 41 s8 convs and 41 quantise launches a
+   forward, the embeddings' cosine to float32, the peak memory a frame
+   against ``arcface.INT8_FRAME_BYTES``, ms beside cuDNN;
+   ``inference_challenge --serve_quant int8`` and ``int8_static`` of a
+   tri-modal LFAN under ``--amp`` over phase 6's store beside the float32
+   run: every video's logits within 1e-4 (relative to the largest) of the
+   same pass on the plain versions, 12 B1 and 1 B2 launches a forward, the
+   int8 kernels' launches, dynamic int8's backbone calls whole, argmax
+   agreement and logit delta against float32, wall, frames/s, peak
+   memory; an ``int8_static`` artifact exported with ``--calib_store`` and
+   served over HTTP, ``/logits`` bit for bit the in-process call; an
+   ``h2d_bf16_features`` artifact (bfloat16 feature specs) served over
+   HTTP, ``/logits`` and three streams within 1e-6 of the in-process call
+   and stitch; one epoch of ``main --profile_epochs 1``, its trace and its
+   device kernels.
 
 Everything runs in float32 with TF32 off for matmuls and cuDNN, except the
-bfloat16 backbone and its kernel and phases 8, 9 and 10's ``--amp`` runs,
-which say so.  The last
+bfloat16 backbone and its kernel and phases 8, 9, 10 and 13's ``--amp``
+runs, which say so.  The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line
 before it lists the kernels.  Without a CUDA card the script exits with
 code 1 and prints no result.
@@ -4654,6 +4680,668 @@ def artifact_serving(device) -> tuple:
     return total, attn
 
 
+# ---------------------------------------------------------------- phase 13
+# the int8 convs of the IR-50 at N = 2400: (H, Cin, Cout, stride, convs of
+# that shape a forward), 41 in all
+INT8_SHAPES = ((40, 128, 128, 2, 1), (20, 128, 128, 1, 6),
+               (20, 128, 256, 1, 1), (20, 256, 256, 2, 1),
+               (10, 256, 256, 1, 26), (10, 256, 512, 1, 1),
+               (10, 512, 512, 2, 1), (5, 512, 512, 1, 4))
+INT8_FRAMES = 2400
+# (N, H, W, Cin, Cout, stride) the kernels take at their edges: odd sizes,
+# a partial channel slice (C = 80), few output channels (Co = 24), a pixel
+# count no multiple of the 128-pixel tile
+INT8_EDGE_SHAPES = ((3, 7, 9, 80, 24, 2), (3, 7, 9, 80, 24, 1),
+                    (1, 5, 5, 16, 8, 2), (5, 11, 3, 128, 136, 1))
+# the dense int8 tensor-core peak of one H100 SXM
+PEAK_OPS_INT8 = 1979e12
+# served int8 logits vs the plain composition, relative to the largest
+INT8_RTOL = 1e-4
+# a bfloat16-feature artifact over HTTP vs its in-process stitch
+BF16_FEATURES_RTOL = 1e-6
+
+
+def int8_inputs(n, h, w, c, co, dtype, device, seed):
+    """x (N, H, W, C) in ``dtype`` and a float32 HWIO kernel, drawn on the
+    card from ``seed``; one value of x scaled up, as a post-PReLU tail."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, h, w, c, device=device, generator=g)
+    x.view(-1)[7] = 9.0
+    k = torch.randn(3, 3, c, co, device=device, generator=g) * (9 * c) ** -0.5
+    return x.to(dtype), k
+
+
+def check_int8_pair(name, x, k, stride, out_dtype, static, timed):
+    """The quantise kernel and the s8 conv against their plain versions on
+    x, bit for bit (q, the scale, the amax, y), dynamic or with a
+    calibrated scale.  Returns the largest |y - plain| (0), the largest
+    |q - plain q| (0, an int) and, with ``timed``, the ms of the quantise
+    kernel, the conv kernel and their plain versions (median of CONV_RUNS
+    calls)."""
+    from fvt_tpu_torch.ops import quant
+
+    wq, wscale = quant.quantize_weights(k)
+    scale_in = None
+    if static:
+        # a calibrated amax below the batch's own: the tail clips at 127
+        scale_in = quant.act_scale(x.float().abs().amax().reshape(1) * 0.9)
+    q, scale, amax = quant.quantize_int8(x, scale_in)
+    q_ref, scale_ref, amax_ref = quant.quantize_int8_ref(x, scale_in)
+    y = quant.conv3x3_s8(q, scale, wq, wscale, stride, out_dtype)
+    y_ref = quant.conv3x3_s8_ref(q_ref, scale_ref, wq, wscale, stride,
+                                 out_dtype)
+    torch.cuda.synchronize()
+    same = (torch.equal(q, q_ref)
+            and torch.equal(scale.reshape(1), scale_ref.reshape(1))
+            and (amax is None) == (amax_ref is None)
+            and (amax is None or torch.equal(amax.reshape(1),
+                                             amax_ref.reshape(1))))
+    equal = torch.equal(y, y_ref)
+    err = float((y.float() - y_ref.float()).abs().max())
+    q_err = int((q.int() - q_ref.int()).abs().max())
+    clipped = int((q_ref.abs() == 127).sum())
+    if not same or not equal or not bool(torch.isfinite(y).all()):
+        fail(f'{name}: the int8 kernels differ from their plain versions '
+             f'(q, scale and amax equal: {same}, y equal: {equal}, max '
+             f'|y - plain| {err:.3e}, max |q - plain| {q_err})')
+    if not timed:
+        print(f'  {name}: q, scale and y bit for bit ({clipped} values '
+              f'at +-127)')
+        return err, q_err, None
+    times = (
+        median_ms(lambda: quant.quantize_int8(x, scale_in), CONV_RUNS),
+        median_ms(lambda: quant.conv3x3_s8(q, scale, wq, wscale, stride,
+                                           out_dtype), CONV_RUNS),
+        median_ms(lambda: quant.quantize_int8_ref(x, scale_in), 3,
+                  warmup=1),
+        median_ms(lambda: quant.conv3x3_s8_ref(q_ref, scale_ref, wq, wscale,
+                                               stride, out_dtype), 3,
+                  warmup=1))
+    print(f'  {name}: q, scale and y bit for bit ({clipped} values at '
+          f'+-127); quantise {times[0]:.4f} ms (plain {times[2]:.4f}), s8 '
+          f'conv {times[1]:.4f} ms (plain {times[3]:.4f})')
+    return err, q_err, times
+
+
+def int_mm_ms(x, k, stride):
+    """``torch._int_mm`` over the im2col of the quantised x (``tap_rows``,
+    not timed) by the (9C, Co) s8 weights: the library's int8 product as
+    a yardstick, or None where it refuses the shape."""
+    from fvt_tpu_torch.ops import quant
+
+    wq, _ = quant.quantize_weights(k)
+    a = quant.tap_rows(quant.quantize_int8(x)[0], stride)
+    a = a.reshape(a.shape[0], -1)
+    b = wq.reshape(wq.shape[0], -1).t()
+    try:
+        ms = median_ms(lambda: torch._int_mm(a, b), CONV_RUNS)
+    except RuntimeError as e:
+        print(f'    torch._int_mm refused {tuple(a.shape)} x '
+              f'{tuple(b.shape)}: {e}')
+        ms = None
+    del a
+    return ms
+
+
+def check_int8_kernels(device) -> list:
+    """Phase 13, step 1: the quantise kernel and the s8 conv against their
+    plain versions, bit for bit, at the eight int8 shapes of the IR-50 at
+    N = 2400 (float32 in and out, and bfloat16 in and out as under --amp;
+    dynamic and static) and at edge shapes, and the conv's refusals; each
+    dynamic pair timed beside ``F.conv2d`` on bfloat16 and
+    ``torch._int_mm`` over an im2col.  Returns the two kernels' entries:
+    totals over the 41 convs of a forward, bfloat16 as under --amp (the
+    float32 totals beside them)."""
+    from fvt_tpu_torch.kernels import build
+    from fvt_tpu_torch.ops import quant
+
+    tot = {f'{key}{dt}': 0.0 for key in ('quant', 'conv', 'quant_plain',
+                                         'conv_plain', 'conv2d')
+           for dt in ('', '_bf16')}
+    tot.update(int_mm=0.0, ops=0.0, conv_bytes=0.0, quant_bytes=0.0)
+    int_mm_ok, worst, worst_q = True, 0.0, 0
+    with torch.inference_mode():
+        for h, c, co, stride, count in INT8_SHAPES:
+            ho = quant.out_size(h, stride)
+            for dtype in (torch.float32, torch.bfloat16):
+                x, k = int8_inputs(INT8_FRAMES, h, h, c, co, dtype, device,
+                                   SEED + 40 + h + c)
+                tag = (f'{INT8_FRAMES}x{h}x{h}x{c}->{co} s{stride} '
+                       f'{str(dtype)[6:]}')
+                err, q_err, _ = check_int8_pair(
+                    f'int8 {tag} static', x, k, stride, dtype, True, False)
+                worst, worst_q = max(worst, err), max(worst_q, q_err)
+                err, q_err, times = check_int8_pair(
+                    f'int8 {tag} dynamic', x, k, stride, dtype, False, True)
+                worst, worst_q = max(worst, err), max(worst_q, q_err)
+                dt = '' if dtype == torch.float32 else '_bf16'
+                for key, ms in zip(('quant', 'conv', 'quant_plain',
+                                    'conv_plain'), times):
+                    tot[key + dt] += count * ms
+                w = k.to(dtype).permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                x_cl = x.permute(0, 3, 1, 2)
+                lib = median_ms(lambda: F.conv2d(x_cl, w, None, stride, 1),
+                                CONV_RUNS)
+                tot['conv2d' + dt] += count * lib
+                line = f'    F.conv2d {str(dtype)[6:]} {lib:.4f} ms'
+                if dtype == torch.bfloat16:
+                    mm = int_mm_ms(x, k, stride)
+                    int_mm_ok &= mm is not None
+                    tot['int_mm'] += count * (mm or 0.0)
+                    line += f'; torch._int_mm over the im2col {mm} ms'
+                    m = INT8_FRAMES * ho * ho
+                    tot['ops'] += count * quant.s8_conv_ops(
+                        INT8_FRAMES, h, h, c, co, stride)
+                    # the s8 conv reads q and wq once and writes y (bf16);
+                    # the quantise pass reads x (bf16) and writes q
+                    tot['conv_bytes'] += count * (INT8_FRAMES * h * h * c
+                                                  + 9 * c * co + 2 * m * co)
+                    tot['quant_bytes'] += count * 3 * INT8_FRAMES * h * h * c
+                print(line)
+                del x, k, w, x_cl
+                torch.cuda.empty_cache()
+        for n, h, w, c, co, stride in INT8_EDGE_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                x, k = int8_inputs(n, h, w, c, co, dtype, device, SEED + 50)
+                for out_dtype in (torch.float32, torch.bfloat16):
+                    for static in (False, True):
+                        err, q_err, _ = check_int8_pair(
+                            f'int8 edge {n}x{h}x{w}x{c}->{co} s{stride} '
+                            f'{str(dtype)[6:]} in, {str(out_dtype)[6:]} out'
+                            f'{" static" if static else ""}', x, k, stride,
+                            out_dtype, static, False)
+                        worst = max(worst, err)
+                        worst_q = max(worst_q, q_err)
+        # refused: C not a multiple of 16, Co of 8, stride 3; the C entry
+        # refuses them too, and nothing counts a launch
+        before = quant.conv3x3_s8.launches
+        for c, co, stride in ((24, 16, 1), (32, 12, 1), (32, 16, 3)):
+            xq = torch.zeros(2, 5, 5, c, dtype=torch.int8, device=device)
+            wq = torch.zeros(co, 9, c, dtype=torch.int8, device=device)
+            ws = torch.ones(co, device=device)
+            one = torch.ones(1, device=device)
+            try:
+                quant.conv3x3_s8(xq, one, wq, ws, stride)
+            except ValueError as e:
+                print(f'  conv3x3_s8 C={c} Co={co} stride {stride} '
+                      f'refused: {e}')
+            else:
+                fail(f'conv3x3_s8 took C={c}, Co={co}, stride {stride}')
+            code = build.library().fvt_conv3x3_s8_forward(
+                xq.data_ptr(), wq.data_ptr(), ws.data_ptr(), one.data_ptr(),
+                torch.empty(2, 5, 5, co, device=device).data_ptr(), 0, 2, 5,
+                5, c, co, stride,
+                torch.cuda.current_stream(device).cuda_stream)
+            if code == 0:
+                fail(f'the s8 conv entry took C={c}, Co={co}, stride '
+                     f'{stride}')
+        if quant.conv3x3_s8.launches != before:
+            fail('a refused s8 conv counted a launch')
+    ops_ms = tot['ops'] / PEAK_OPS_INT8 * 1e3
+    conv_bytes_ms = tot['conv_bytes'] / PEAK_BYTES * 1e3
+    quant_bytes_ms = tot['quant_bytes'] / PEAK_BYTES * 1e3
+    conv_bound = max(ops_ms, conv_bytes_ms)
+    print(f'  over the 41 int8 convs of a {INT8_FRAMES}-frame forward: '
+          f'{tot["ops"] / 1e12:.3f} T int8 operations, {ops_ms:.4f} ms at '
+          f'{PEAK_OPS_INT8 / 1e12:.0f} TOPS (their bytes '
+          f'{conv_bytes_ms:.4f} ms at {PEAK_BYTES / 1e12} TB/s)')
+    for dt, label in (('_bf16', 'bfloat16 (--amp)'), ('', 'float32')):
+        print(f'  {label}: s8 conv {tot["conv" + dt]:.4f} ms '
+              f'({conv_bound / tot["conv" + dt]:.1%} of its bound), plain '
+              f'{tot["conv_plain" + dt]:.4f} ms, F.conv2d '
+              f'{tot["conv2d" + dt]:.4f} ms; quantise '
+              f'{tot["quant" + dt]:.4f} ms, plain '
+              f'{tot["quant_plain" + dt]:.4f} ms')
+    print(f'  torch._int_mm over the im2col (bf16 shapes, im2col not '
+          f'timed): {tot["int_mm"]:.4f} ms; quantise bytes bound (bf16) '
+          f'{quant_bytes_ms:.4f} ms')
+    return [{'name': 'conv3x3_int8', 'route': 'cuda',
+             'source': 'fvt_tpu_torch/csrc/conv3x3_int8.cu',
+             'replaces': 'fvt_tpu/ops/quant.py:102 (an XLA s8 convolution, '
+                         'no Pallas kernel)',
+             'max_abs_err': worst, 'ms': tot['conv_bf16'],
+             'plain_ms': tot['conv_plain_bf16'],
+             'library_ms': tot['conv2d_bf16'],
+             'bound_ms': conv_bound,
+             'bound_by': 'operations' if ops_ms >= conv_bytes_ms
+             else 'bytes',
+             'fp32_out': {'ms': tot['conv'], 'plain_ms': tot['conv_plain'],
+                          'conv2d_fp32_ms': tot['conv2d']},
+             'int_mm_im2col_ms': tot['int_mm'] if int_mm_ok else None},
+            {'name': 'quantize_int8', 'route': 'cuda',
+             'source': 'fvt_tpu_torch/csrc/conv3x3_int8.cu',
+             'replaces': 'fvt_tpu/ops/quant.py:62 (XLA elementwise and '
+                         'reduction, no Pallas kernel)',
+             'max_abs_err': worst_q, 'ms': tot['quant_bf16'],
+             'plain_ms': tot['quant_plain_bf16'], 'library_ms': None,
+             'bound_ms': quant_bytes_ms, 'bound_by': 'bytes',
+             'fp32_in': {'ms': tot['quant'],
+                         'plain_ms': tot['quant_plain']}}]
+
+
+def int8_counters() -> dict:
+    from fvt_tpu_torch.ops import quant
+    return {'conv3x3_int8': quant.conv3x3_s8,
+            'quantize_int8': quant.quantize_int8}
+
+
+def read_int8() -> dict:
+    c = int8_counters()
+    return {'conv3x3_int8': c['conv3x3_int8'].launches,
+            'quantize_int8': c['quantize_int8'].launches,
+            'quantize_int8_amax': c['quantize_int8'].launches_amax}
+
+
+def zero_int8() -> None:
+    c = int8_counters()
+    c['conv3x3_int8'].launches = 0
+    c['quantize_int8'].launches = c['quantize_int8'].launches_amax = 0
+
+
+def int8_backbone(device) -> None:
+    """Phase 13, step 2: the int8 ArcFace alone on INT8_FRAMES frames,
+    dynamic and static, float32 and bfloat16 (--amp), beside cuDNN in the
+    same type: bit for bit its plain versions (the int8 convs' kernels
+    equal theirs, every other op is the same call), static on its own
+    calibration batch bit for bit dynamic, 41 s8 convs and 41 quantise
+    launches a forward (41 amax launches dynamic, none static), the
+    embeddings' cosine to the float32 cuDNN path's above 0.97 (fvt_tpu's
+    criterion), the peak device memory a frame of a dynamic call within
+    ``arcface.INT8_FRAME_BYTES``, ms per forward."""
+    from fvt_tpu_torch.data.transforms import eval_video_transform
+    from fvt_tpu_torch.models.arcface import INT8_FRAME_BYTES, VisualBackbone
+
+    base = VisualBackbone()
+    base.reset_parameters(torch.Generator().manual_seed(SEED))
+    draw_statistics(base, SEED + 41)
+    base.to(device)
+    rng = np.random.default_rng(SEED + 42)
+    video = torch.from_numpy(rng.integers(0, 256, (1, INT8_FRAMES, 40, 40, 3),
+                                          np.uint8)).to(device)
+    x = eval_video_transform(video)[0]
+    times = {}
+    with torch.inference_mode():
+        ref = base(x)
+        for dtype in (torch.float32, torch.bfloat16):
+            label = str(dtype)[6:]
+            cudnn = VisualBackbone(dtype=dtype)
+            cudnn.load_state_dict(base.state_dict())
+            cudnn.to(device)
+            times[f'cudnn {label}'] = median_ms(lambda: cudnn(x), CONV_RUNS)
+            del cudnn
+            q = VisualBackbone(conv_impl='int8', dtype=dtype)
+            q.load_state_dict(base.state_dict())
+            q.to(device)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            zero_int8()
+            dyn = q(x)
+            launches = read_int8()
+            torch.cuda.synchronize()
+            per_frame = (torch.cuda.max_memory_allocated() - before) \
+                / INT8_FRAMES
+            plain = q(x, reference=True)
+            cos = float((dyn * ref).sum(1).min())
+            print(f'  int8 {label} dynamic: launches {launches}; bit for bit '
+                  f'its plain versions: {torch.equal(dyn, plain)}; least '
+                  f'cosine to float32 cudnn {cos:.6f}; peak '
+                  f'{per_frame / 2 ** 20:.3f} MiB a frame (bound '
+                  f'{INT8_FRAME_BYTES[dtype] / 2 ** 20:.3f})')
+            if launches != {'conv3x3_int8': 41, 'quantize_int8': 41,
+                            'quantize_int8_amax': 41}:
+                fail(f'int8 {label} dynamic: launches {launches}')
+            if not torch.equal(dyn, plain) or cos <= 0.97:
+                fail(f'int8 {label} dynamic: not its plain versions bit for '
+                     f'bit, or cosine {cos} to float32')
+            if per_frame > INT8_FRAME_BYTES[dtype]:
+                fail(f'int8 {label}: a frame took {per_frame} bytes of '
+                     f'device memory, above INT8_FRAME_BYTES '
+                     f'{INT8_FRAME_BYTES[dtype]}')
+            times[f'int8 {label}'] = median_ms(lambda: q(x), CONV_RUNS)
+            q.begin_calibration()
+            q(x)
+            q.end_calibration()
+            zero_int8()
+            sta = q(x)
+            launches = read_int8()
+            if launches != {'conv3x3_int8': 41, 'quantize_int8': 41,
+                            'quantize_int8_amax': 0} \
+                    or not torch.equal(sta, dyn):
+                fail(f'int8 {label} static on its calibration batch: '
+                     f'launches {launches}, equal to dynamic '
+                     f'{torch.equal(sta, dyn)}')
+            times[f'int8_static {label}'] = median_ms(lambda: q(x),
+                                                      CONV_RUNS)
+            print(f'  int8_static {label}: on its calibration batch bit for '
+                  f'bit dynamic; launches {launches}')
+            del q, dyn, plain, sta
+            torch.cuda.empty_cache()
+    print(f'  ms per {INT8_FRAMES}-frame forward: ' + ', '.join(
+        f'{k} {v:.3f}' for k, v in times.items()))
+
+
+def challenge_run_dir(root: str, name: str, model, **cfg_kw) -> str:
+    """A run directory ``root/name`` of phase 6's shape: ``config.yml``
+    (``cfg_kw`` over phase 6's config) and ``model``'s state_dict as
+    ``best-models/FRAMES_AVG_LOGITS/model.pt``."""
+    import os
+    from fvt_tpu_torch.config import flat_yaml
+    from fvt_tpu_torch.config.defaults import get_config
+
+    run = os.path.join(root, name)
+    best = os.path.join(run, 'best-models', 'FRAMES_AVG_LOGITS')
+    os.makedirs(best)
+    cfg = get_config('MELD')
+    cfg.update(modality='video+vggish+bert+EXPR_continuous_label',
+               model_name='LFAN', window_length=WINDOW, hop_length=HOP,
+               eval_bucket_quantum=CHALLENGE_QUANTUM,
+               eval_window_batch=WINDOW_BATCH, outd=run, seed=SEED,
+               verbose=False, **cfg_kw)
+    flat_yaml.dump(cfg, os.path.join(run, 'config.yml'))
+    torch.save(model.state_dict(), os.path.join(best, 'model.pt'))
+    return run
+
+
+def plain_challenge(argv: list, device, static: bool) -> dict:
+    """The eval pass of ``inference_challenge`` on ``argv`` with every
+    kernel on its plain version (``Trainer(reference=True)``): the same
+    calls, so the same call boundaries and quantisation; calibrated on the
+    plain versions under int8_static.  Returns the per-video logits."""
+    from fvt_tpu_torch.config.parse import parse_input
+    from fvt_tpu_torch.experiment import Experiment
+    from fvt_tpu_torch.inference_challenge import best_model_path
+    from fvt_tpu_torch.models.registry import init_model
+    from fvt_tpu_torch.train.trainer import Trainer
+
+    args = parse_input(argv)
+    exp = Experiment(args, device)
+    exp.prepare()
+    loaders = exp.init_loaders()
+    trainer = Trainer(init_model(args), vars(args), device, reference=True,
+                      int_to_cl=exp.data_arranger.int_to_cl)
+    exp.load_weights(trainer, best_model_path(args.fd_exp))
+    if static:
+        trainer.calibrate_quant(exp.sample_batch(loaders))
+    return trainer.inference(loaders['test'])[1]
+
+
+def int8_challenge(device) -> dict:
+    """Phase 13, step 3: ``inference_challenge --serve_quant int8`` and
+    ``int8_static`` of a tri-modal LFAN under --amp over phase 6's store,
+    beside the same model's float32 run: every video's logits within
+    INT8_RTOL (relative to their largest) of the same pass on the plain
+    versions, 12 B1 and 1 B2 launches a forward and no other float
+    kernel, 41 s8 convs and 41 quantise launches a backbone call, amax
+    launches only while calibrating under int8_static, the calibration in
+    one backbone call, and under dynamic int8 each backbone call the whole
+    of its forward's frames; argmax
+    agreement and logit delta against the float32 run; wall, frames/s,
+    peak memory.  Returns the int8 kernels' launches over the int8 run."""
+    import os
+    import pickle
+    import tempfile
+    from fvt_tpu_torch import inference_challenge
+    from fvt_tpu_torch.models.models import LFAN
+    from fvt_tpu_torch.tools.synth_store import make_cexpr_store
+
+    frames = sum(CHALLENGE_LENGTHS)
+    model = LFAN(MODALITY, output_dim=7,
+                 generator=torch.Generator().manual_seed(SEED))
+    draw_statistics(model, SEED + 43)
+    zero, read = run_counters()
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        store = make_cexpr_store(os.path.join(root, 'store'),
+                                 CHALLENGE_LENGTHS, seed=SEED)
+        runs = {'fp32': challenge_run_dir(root, 'fp32', model),
+                'amp': challenge_run_dir(root, 'amp', model, amp=True)}
+        preds = {}
+        for mode, run, quant_flag in (('fp32', runs['fp32'], 'none'),
+                                      ('int8', runs['amp'], 'int8'),
+                                      ('int8_static', runs['amp'],
+                                       'int8_static')):
+            argv = ['--mode', 'EVALUATION', '--fd_exp', run,
+                    '--target_ds_name', 'C-EXPR-DB-CHALLENGE',
+                    '--dataset_path', store['dataset_path'], '--folds_dir',
+                    store['folds_dir'], '--serve_quant', quant_flag,
+                    '--outd', os.path.join(root, f'out_{mode}')]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero()
+            zero_int8()
+            with ShapeRecorder() as rec:
+                t0 = time.perf_counter()
+                inference_challenge.main(argv)
+                wall = time.perf_counter() - t0
+            launches = {**read(), **read_int8()}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            with open(os.path.join(root, f'out_{mode}',
+                                   'pred-C-EXPR-DB-CHALLENGE',
+                                   'prediction.pkl'), 'rb') as f:
+                preds[mode] = pickle.load(f)
+            forwards, calls = len(rec.fusion), len(rec.backbone)
+            print(f'  {mode}: CLI wall {wall:.3f} s for {frames} frames, '
+                  f'{frames / wall:.1f} served frames/s, peak device memory '
+                  f'{peak:.2f} GiB; {forwards} forwards, {calls} backbone '
+                  f'calls; launches '
+                  f'{ {k: n for k, n in launches.items() if n} }')
+            want = {k: 0 for k in launches}
+            want.update(tcn_block=12 * forwards, fusion=forwards)
+            if mode != 'fp32':
+                # under int8_static the calibration forward (a train-loader
+                # batch) comes first, in one backbone call, and is the only
+                # one to take the amax
+                calib = (0 if mode == 'int8' else
+                         calls_of(rec.backbone, np.prod(rec.model[0])))
+                if mode == 'int8_static' and calib != 1:
+                    fail(f'the calibration split its backbone call: calls '
+                         f'{rec.backbone[:calib]} for {rec.model[0]}')
+                want.update(conv3x3_int8=41 * calls,
+                            quantize_int8=41 * calls,
+                            quantize_int8_amax=41 * (calls if mode == 'int8'
+                                                     else calib))
+            if forwards < 1 or launches != want:
+                fail(f'{mode}: expected launches {want}, got {launches}')
+            if mode == 'int8' and rec.backbone != [
+                    int(np.prod(bt)) for bt in rec.model]:
+                fail(f'dynamic int8 split a forward\'s backbone call: '
+                     f'calls {rec.backbone}, forwards {rec.model}')
+            if mode == 'int8':
+                out = {k: launches[k] for k in ('conv3x3_int8',
+                                                'quantize_int8')}
+            if mode == 'fp32':
+                continue
+            plain = plain_challenge(argv[:-1] + [os.path.join(
+                root, f'plain_{mode}')], device, mode == 'int8_static')
+            errs = [relative_error(preds[mode][v]['logits'],
+                                   plain[v]['logits']) for v in plain]
+            fp = np.concatenate([preds['fp32'][v]['logits'] for v in plain])
+            got = np.concatenate([preds[mode][v]['logits'] for v in plain])
+            agree = float((fp.argmax(-1) == got.argmax(-1)).mean())
+            delta = np.abs(fp - got)
+            print(f'  {mode}: every video within {max(errs):.3e} of the '
+                  f'same pass on the plain versions, relative to the '
+                  f'largest logit (gate {INT8_RTOL}); against the float32 '
+                  f'run: frame argmax agreement {agree:.4f}, logit delta '
+                  f'max {delta.max():.4e} mean {delta.mean():.4e} (mean '
+                  f'|logit| {np.abs(fp).mean():.4e})')
+            if max(errs) > INT8_RTOL:
+                fail(f'{mode}: served logits differ from the plain versions '
+                     f'by {max(errs)} relative')
+    torch.cuda.empty_cache()
+    return out
+
+
+def calls_of(calls: list, frames: int) -> int:
+    """How many of the first backbone calls cover ``frames`` frames."""
+    total = 0
+    for i, n in enumerate(calls):
+        total += n
+        if total >= frames:
+            return i + 1
+    fail(f'backbone calls {calls} do not cover {frames} frames')
+
+
+def serve_over_http(path: str, device, streams: Optional[dict] = None):
+    """The artifact at ``path`` loaded and served on 127.0.0.1: (the
+    in-process artifact, /logits of a seeded (WINDOW_BATCH, WINDOW) batch
+    in float32, the same through ``art.call``, the streams' served logits
+    or None, the /healthz latency of /logits)."""
+    import threading
+    from fvt_tpu_torch.client import ServingClient
+    from fvt_tpu_torch.export import load_artifact
+    from fvt_tpu_torch.tools import serve_http
+
+    art = load_artifact(path, device=device)
+    srv = serve_http.build_server(path, '127.0.0.1', 0, device=device,
+                                  dynamic_batch=True, batch_delay_s=0.05)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    client = ServingClient(f'http://127.0.0.1:{srv.server_port}',
+                           timeout=300)
+    spec = art.meta['shapes'][f'b{WINDOW_BATCH}xt{WINDOW}']['inputs']
+    rng = np.random.default_rng(SEED + 44)
+    batch = {k: (rng.integers(0, 256, v['shape'], np.uint8)
+                 if v['dtype'] == 'uint8'
+                 else rng.standard_normal(v['shape'], np.float32))
+             for k, v in spec.items()}
+    served = [client.logits(batch) for _ in range(ARTIFACT_LOGITS_CALLS)]
+    got = None
+    if streams is not None:
+        handles = {n: client.open_stream() for n in streams}
+        for c0 in range(0, max(streams), CHUNK):
+            for n, f in streams.items():
+                if c0 < n:
+                    handles[n].feed({k: v[c0:c0 + CHUNK]
+                                     for k, v in f.items()})
+        for h in handles.values():
+            h.finish()
+        got = {n: h.result(timeout_s=300) for n, h in handles.items()}
+    lat = client.healthz()['latency']['/logits']
+    serve_http.drain_and_shutdown(srv, timeout_s=5)
+    thread.join(timeout=10)
+    if thread.is_alive():
+        fail(f'{path}: the server thread did not stop')
+    return art, served, art.call(batch), got, lat
+
+
+def int8_artifacts(device) -> None:
+    """Phase 13, steps 4 and 5: an int8_static artifact exported from a
+    run directory with --calib_store (the scales calibrated on the card)
+    and served over HTTP, /logits bit for bit its in-process call; a
+    float32 LFAN artifact of --h2d_bf16_features (bfloat16 feature specs)
+    served over HTTP, /logits and three streams within BF16_FEATURES_RTOL
+    of the in-process call and stitch; latency p50 / p99."""
+    import os
+    import tempfile
+    from fvt_tpu_torch.models.models import LFAN
+    from fvt_tpu_torch.tools import export_serving
+    from fvt_tpu_torch.tools.synth_store import make_cexpr_store
+
+    model = LFAN(MODALITY, output_dim=7,
+                 generator=torch.Generator().manual_seed(SEED))
+    draw_statistics(model, SEED + 45)
+    streams = make_streams()
+    with tempfile.TemporaryDirectory() as root:
+        store = make_cexpr_store(os.path.join(root, 'store'),
+                                 CHALLENGE_LENGTHS[:6], seed=SEED)
+        for name, kw in (('int8_static', {'amp': True,
+                                          'serve_quant': 'int8_static'}),
+                         ('h2d_bf16_features', {'h2d_bf16_features': True})):
+            # the calibration reads the store as the run's dataset
+            run = challenge_run_dir(root, name, model,
+                                    dataset_name='C-EXPR-DB-CHALLENGE', **kw)
+            t0 = time.perf_counter()
+            path = export_serving.main(
+                ['--fd_exp', run, '--calib_store', store['dataset_path'],
+                 '--calib_folds_dir', store['folds_dir']])['artifact']
+            write_s = time.perf_counter() - t0
+            bf16 = name == 'h2d_bf16_features'
+            art, served, want, got, lat = serve_over_http(
+                path, device, streams if bf16 else None)
+            mode = art.model.spatial.visual.int8_mode()
+            specs = {k: v['dtype'] for k, v in
+                     art.meta['shapes'][f'b{WINDOW_BATCH}xt{WINDOW}']
+                     ['inputs'].items()}
+            print(f'  {name}: artifact {os.path.getsize(path)} bytes, '
+                  f'exported in {write_s:.3f} s; backbone int8 mode {mode}; '
+                  f'input dtypes {specs}; /logits p50 {lat["p50_ms"]} ms, '
+                  f'p99 {lat["p99_ms"]} ms over {lat["count"]}')
+            if not bf16:
+                same = all(np.array_equal(s, want) for s in served)
+                print(f'  {name}: /logits bit for bit the in-process call: '
+                      f'{same}')
+                if mode != 'static' or not same:
+                    fail(f'{name}: mode {mode}, /logits bit for bit the '
+                         f'in-process call: {same}')
+                continue
+            if set(specs.values()) != {'uint8', 'bfloat16'}:
+                fail(f'{name}: input dtypes {specs}')
+            errs = [relative_error(s, want) for s in served]
+            errs += [relative_error(got[n], window_stitch(
+                lambda b, _: art.call(b), {k: v for k, v in f.items()
+                                           if k in specs}, False))
+                     for n, f in streams.items()]
+            print(f'  {name}: /logits and three streams within '
+                  f'{max(errs):.3e} of the in-process call and stitch '
+                  f'(gate {BF16_FEATURES_RTOL})')
+            if max(errs) > BF16_FEATURES_RTOL:
+                fail(f'{name}: served logits differ from in-process by '
+                     f'{max(errs)} relative')
+            del art
+    torch.cuda.empty_cache()
+
+
+def profile_epoch(device) -> None:
+    """Phase 13, step 6: one epoch of ``fvt_tpu_torch.main
+    --profile_epochs 1`` on a small C-EXPR-DB store: the trace written
+    under ``<outd>/profile``, with device kernels in it."""
+    import os
+    import tempfile
+    from fvt_tpu_torch import main as train_cli
+    from fvt_tpu_torch.tools.synth_store import make_cexpr_store
+
+    with tempfile.TemporaryDirectory() as root:
+        store = make_cexpr_store(os.path.join(root, 'store'),
+                                 (320, 450, 600, 700), ds='C-EXPR-DB',
+                                 val_lengths=(400,), seed=SEED)
+        outd = os.path.join(root, 'run')
+        t0 = time.perf_counter()
+        train_cli.main(['--dataset_name', 'C-EXPR-DB',
+                        '--dataset_path', store['dataset_path'],
+                        '--folds_dir', store['folds_dir'],
+                        '--modality', 'vggish+bert+EXPR_continuous_label',
+                        '--model_name', 'LFAN', '--window_length',
+                        str(WINDOW), '--hop_length', str(HOP),
+                        '--train_batch_size', '4', '--num_epochs', '1',
+                        '--profile_epochs', '1', '--seed', str(SEED),
+                        '--outd', outd], device=device)
+        wall = time.perf_counter() - t0
+        path = os.path.join(outd, 'profile', 'epoch0.pt.trace.json')
+        if not os.path.isfile(path):
+            fail(f'--profile_epochs 1 wrote no trace at {path}')
+        with open(path) as f:
+            events = json.load(f).get('traceEvents', [])
+        kernels = sum(1 for e in events if e.get('cat') == 'kernel')
+        print(f'  one epoch under --profile_epochs 1 in {wall:.2f} s: '
+              f'{os.path.relpath(path, outd)} {os.path.getsize(path)} bytes, '
+              f'{len(events)} events, {kernels} device kernels')
+        if kernels < 1:
+            fail('the trace holds no device kernel')
+
+
+def int8_serving(device) -> dict:
+    """Phase 13.  Returns the int8 kernels' launches over step 3's
+    dynamic int8 run."""
+    int8_backbone(device)
+    launches = int8_challenge(device)
+    int8_artifacts(device)
+    profile_epoch(device)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on a GPU',
@@ -4892,6 +5580,17 @@ def main() -> int:
     for name, n in attn.items():
         by_name[name]['launches_attention'] = n
     print(f'  phase 12 in {time.perf_counter() - t0:.1f} s')
+
+    print('phase 13: int8 serving (--serve_quant int8 | int8_static) on the '
+          'quantise and s8 conv kernels, bfloat16-feature serving and '
+          '--profile_epochs')
+    t0 = time.perf_counter()
+    int8 = check_int8_kernels(device)
+    kernels += int8
+    by_name.update((kernel['name'], kernel) for kernel in int8)
+    for name, n in int8_serving(device).items():
+        by_name[name]['launches'] = n
+    print(f'  phase 13 in {time.perf_counter() - t0:.1f} s')
 
     print(card)
     print(json.dumps({'kernels': kernels}))

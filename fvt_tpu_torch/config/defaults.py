@@ -6,8 +6,8 @@ a run's merged config is written to ``<outd>/config.yml`` (tier 3), which
 EVALUATION mode reads back.
 
 Some keys steer ``fvt_tpu``'s XLA programs and mean nothing to the port
-(``data_parallel``, ``profile_epochs``, ``multihost_digest_check``,
-``pallas_train``); they are kept so that a ``config.yml`` of either
+(``data_parallel``, ``multihost_digest_check``, ``pallas_train``); they
+are kept so that a ``config.yml`` of either
 package loads in the other.  ``pallas_serving`` is accepted: on the card
 the port's eval always runs the fused TCN and fusion kernels.
 """
@@ -136,10 +136,11 @@ def get_config(ds: str) -> dict:
         # the host
         'data_parallel': False,
         'checkpoint_every': 0,
-        'profile_epochs': 0,
+        'profile_epochs': 0,          # epochs traced by torch.profiler
         'nan_guard': False,           # per-step finite-loss assertion
         'multihost_digest_check': False,
-        'serve_quant': 'none',        # 'int8' / 'int8_static': not ported
+        'serve_quant': 'none',        # 'int8' / 'int8_static': the frozen
+        # ArcFace's convs of >= 128 channels in int8 (ops/quant.py)
         'pallas_serving': False,
         'pallas_train': False,
     }

@@ -7,8 +7,9 @@ DataArranger, computes or reads the fold's mean/std, the model, the
 loaders and the Trainer; then trains (``run``: the run loop, from an
 upstream ``model.pt`` with ``--pretrained_torch_ckpt``, with checkpoints
 every ``--checkpoint_every`` epochs and ``--resume``) or loads a best
-model and runs the eval pass (``run_eval``).  Everything runs on the card
-unless ``device='cpu'`` is passed.
+model and runs the eval pass (``run_eval``; under ``--serve_quant
+int8_static`` after calibrating on the loaded weights).  Everything runs
+on the card unless ``device='cpu'`` is passed.
 """
 from __future__ import annotations
 
@@ -165,6 +166,15 @@ class Experiment:
                                            2 * cpu)))
         return loaders
 
+    @staticmethod
+    def sample_batch(loaders: Dict[str, object]) -> dict:
+        """One representative batch, built synchronously: the train
+        loader's first, or the first loader's (``fvt_tpu``'s
+        ``_sample_batch``)."""
+        loader = loaders.get(constants.TRAINSET) \
+            or next(iter(loaders.values()))
+        return loader.sample_batch()
+
     def init_trainer(self) -> Trainer:
         return Trainer(init_model(self.args), vars(self.args), self.device,
                        int_to_cl=self.data_arranger.int_to_cl)
@@ -207,6 +217,10 @@ class Experiment:
         trainer = self.init_trainer()
         assert os.path.isfile(path_model), path_model
         self.load_weights(trainer, path_model)
+        if getattr(self.args, 'serve_quant', 'none') == 'int8_static':
+            # after the real weights are loaded: the scales describe the
+            # served checkpoint's activations
+            trainer.calibrate_quant(self.sample_batch(loaders))
 
         # on the challenge dataset every split is the whole store; on the
         # others the flag picks the split

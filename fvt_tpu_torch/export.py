@@ -3,7 +3,8 @@ file, suggested suffix ``.fvtserve``, that a serving host loads with the
 model code of this package and nothing of a training run.
 
     meta.json         fvt_tpu/export.py:189-205's keys, and model_args
-    weights.msgpack   {'params', 'batch_stats'} in fvt_tpu's byte format
+    weights.msgpack   {'params', 'batch_stats'[, 'extra_vars']} in
+                      fvt_tpu's byte format
 
 ``fvt_tpu`` also stores a StableHLO program per shape (``exports/``) and
 optionally a compiled XLA executable (``aot/``).  Neither carries over to
@@ -13,16 +14,19 @@ and serves the shapes of ``meta['shapes']``.  ``jax_version`` and
 ``aot_backend`` are null; ``torch_version`` stands beside them.
 ``weights.msgpack`` is ``to_jax.flax_from_state`` written by
 ``models.checkpoint.msgpack_dumps``: the bytes ``fvt_tpu``'s
-``save_artifact`` writes for the same weights.
+``save_artifact`` writes for the same weights.  An ``int8_static``
+artifact also holds ``extra_vars``, ``{'act_scales': ...}``: the
+calibrated amaxes of the int8 ArcFace under ``fvt_tpu``'s paths
+(``to_jax.act_scales_to_flax``), which the loader serves with
+(``from_jax.load_act_scales``); ``flags.serve_quant`` must agree with the
+model's and with their presence.  ``flags.h2d_bf16_features`` serves the
+feature streams in bfloat16 (``serve.py``).
 
 :func:`load_artifact` also reads an artifact that ``fvt_tpu`` exported: its
 ``meta.json`` and ``weights.msgpack``, ignoring ``exports/`` and
 ``aot/``.  Without ``model_args`` the model is built from the run's
 config, which the caller passes (``config=``, ``--fd_exp``): no weight's
-shape fixes ``task`` or ``num_heads``.  It refuses, naming ROADMAP.md's item, what the port does not
-serve: int8 (``flags.serve_quant``, an ``extra_vars`` tree; A5) and
-bfloat16 feature inputs (``flags.h2d_bf16_features``: the card's machine
-has no ``ml_dtypes`` to read them; A5).
+shape fixes ``task`` or ``num_heads``.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ import json
 import os
 import zipfile
 from types import SimpleNamespace
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -38,9 +42,9 @@ from fvt_tpu_torch import constants
 from fvt_tpu_torch.config import flat_yaml
 from fvt_tpu_torch.config.defaults import get_config
 from fvt_tpu_torch.models.checkpoint import msgpack_dumps, msgpack_restore
-from fvt_tpu_torch.models.from_jax import state_from_flax
+from fvt_tpu_torch.models.from_jax import load_act_scales, state_from_flax
 from fvt_tpu_torch.models.registry import init_model, split_modality
-from fvt_tpu_torch.models.to_jax import flax_from_state
+from fvt_tpu_torch.models.to_jax import flax_from_state, sorted_tree
 from fvt_tpu_torch.serve import ServingModel, serving_input_specs, shape_key
 from fvt_tpu_torch.train.steps import resolve_device
 
@@ -59,21 +63,6 @@ FLAGS = ('amp', 'serve_quant', 'pallas_serving', 'h2d_bf16_features',
 
 class NotServedError(NotImplementedError):
     """An artifact or a request the port does not serve (ROADMAP.md A5)."""
-
-
-def refuse_unserved(flags: dict) -> None:
-    """Raises :class:`NotServedError` for int8 or bfloat16-feature
-    serving."""
-    quant = flags.get('serve_quant') or 'none'
-    if quant != 'none':
-        raise NotServedError(
-            f'serve_quant={quant!r}: int8 serving is not ported (ROADMAP.md '
-            f'A5, int8 serving: it needs a kernel of its own)')
-    if flags.get('h2d_bf16_features'):
-        raise NotServedError(
-            'h2d_bf16_features: bfloat16 feature inputs are not served '
-            '(ROADMAP.md A5, bf16-feature serving: the card\'s machine has '
-            'no ml_dtypes to read them)')
 
 
 def check_platforms(platforms: Sequence[str], aot: bool = False) -> list:
@@ -97,7 +86,6 @@ def build_meta(args, shapes: Sequence[Tuple[int, int]],
     namespace) names, served at ``shapes``: ``fvt_tpu/export.py``'s keys,
     ``torch_version`` and ``model_args``."""
     flags = {k: getattr(args, k, None) for k in FLAGS}
-    refuse_unserved(flags)
     modality = split_modality(args.modality)
     precrop = getattr(args, 'h2d_precrop_video', True)
     num_classes = getattr(args, 'num_classes', None)
@@ -116,29 +104,37 @@ def build_meta(args, shapes: Sequence[Tuple[int, int]],
         'flags': flags,
         'shapes': {shape_key(wb, t): {
             'window_batch': int(wb), 'seq_len': int(t),
-            'inputs': serving_input_specs(modality, wb, t, precrop)}
+            'inputs': serving_input_specs(
+                modality, wb, t, precrop,
+                bool(getattr(args, 'h2d_bf16_features', False)))}
             for wb, t in shapes},
         'model_args': {k: getattr(args, k) for k in MODEL_ARGS
                        if hasattr(args, k)},
     }
 
 
-def save_artifact(path: str, meta: dict, model) -> None:
+def save_artifact(path: str, meta: dict, model,
+                  extra_vars: Optional[dict] = None) -> None:
     """Writes the artifact of ``model`` (the port's model or its
-    state_dict) with ``meta`` at ``path``."""
+    state_dict) with ``meta`` at ``path``; ``extra_vars`` (``{'act_scales':
+    ...}`` of an ``int8_static`` model) beside its weights, as ``fvt_tpu``
+    stores them."""
     state = model.state_dict() if isinstance(model, torch.nn.Module) \
         else model
     params, stats = flax_from_state(
         state, split_modality(meta['modality']))
+    weights = {'batch_stats': stats, 'params': params}
+    if extra_vars:
+        weights['extra_vars'] = extra_vars
+    weights = sorted_tree(weights)
     tmp = f'{path}.tmp'
     with zipfile.ZipFile(tmp, 'w', zipfile.ZIP_DEFLATED) as z:
         z.writestr('meta.json', json.dumps(meta, indent=2, default=str))
         # keys in sorted order, as flax's to_state_dict leaves them;
         # stored: random or trained float32 weights barely deflate, and
         # deflating hundreds of MB is most of a write
-        z.writestr('weights.msgpack', msgpack_dumps(
-            {'batch_stats': stats, 'params': params}),
-            compress_type=zipfile.ZIP_STORED)
+        z.writestr('weights.msgpack', msgpack_dumps(weights),
+                   compress_type=zipfile.ZIP_STORED)
     os.replace(tmp, path)
 
 
@@ -181,22 +177,23 @@ class ServingArtifact(ServingModel):
         with zipfile.ZipFile(path) as z:
             meta = json.loads(z.read('meta.json'))
             weights = msgpack_restore(z.read('weights.msgpack'))
-        refuse_unserved(meta.get('flags') or {})
-        if weights.get('extra_vars') is not None:
-            raise NotServedError('the artifact carries extra_vars (int8 '
-                                 'activation scales): ROADMAP.md A5')
         params, stats = weights['params'], weights.get('batch_stats', {})
         args = model_args(meta, config)
         model = init_model(args)
         model.load_state_dict(state_from_flax(params, stats,
                                               model.modality), strict=True)
+        flags = meta.get('flags') or {}
+        load_extra_vars(model, weights.get('extra_vars'),
+                        flags.get('serve_quant') or 'none',
+                        getattr(args, 'serve_quant', 'none') or 'none')
         shapes = [(v['window_batch'], v['seq_len'])
                   for _, v in sorted(meta['shapes'].items())]
         # a config without the flag is served precropped, as in fvt_tpu
-        precrop = meta['flags'].get('h2d_precrop_video') is not False
+        precrop = flags.get('h2d_precrop_video') is not False
         super().__init__(model, None, meta['window_length'],
                          meta['hop_length'], resolve_device(device),
-                         shapes=shapes, precrop_video=precrop)
+                         shapes=shapes, precrop_video=precrop,
+                         bf16_features=bool(flags.get('h2d_bf16_features')))
         for key, spec in meta['shapes'].items():
             if spec['inputs'] != self.shape_specs[key]:
                 raise ValueError(f'{path}: {key} takes {spec["inputs"]}, '
@@ -205,6 +202,30 @@ class ServingArtifact(ServingModel):
             raise ValueError(f'{path}: needs_mask {meta.get("needs_mask")} '
                              f'for a {meta["model_name"]}')
         self.meta = meta
+
+
+def load_extra_vars(model, extra_vars: Optional[dict], flag: str,
+                    built: str) -> None:
+    """Serves ``model`` with an artifact's ``extra_vars``: the
+    ``act_scales`` of an ``int8_static`` artifact.  Raises where the
+    artifact's ``flags.serve_quant`` (``flag``), the model it builds
+    (``built``) and the presence of the scales disagree, or on another
+    collection."""
+    if flag != built:
+        raise ValueError(f'flags.serve_quant={flag!r}, but the model is '
+                         f'built with serve_quant={built!r}')
+    extra = dict(extra_vars or {})
+    scales = extra.pop('act_scales', None)
+    if extra:
+        raise NotServedError(f'extra_vars {sorted(extra)}: the port serves '
+                             f'act_scales only')
+    if (scales is not None) != (flag == 'int8_static'):
+        raise ValueError(f'serve_quant={flag!r} with'
+                         f'{"" if scales is not None else "out"} '
+                         f'act_scales: int8_static artifacts, and they '
+                         f'only, carry them')
+    if scales is not None:
+        load_act_scales(model, scales)
 
 
 def load_artifact(path: str, device=None, config=None) -> ServingArtifact:

@@ -66,8 +66,9 @@ products and output transform, one rounding of y).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -75,6 +76,7 @@ from torch import nn
 from fvt_tpu_torch.models.layers import init_linear_, stamp as _stamp
 from fvt_tpu_torch.ops import bottleneck as bottleneck_ops
 from fvt_tpu_torch.ops import conv as conv_ops
+from fvt_tpu_torch.ops import quant as quant_ops
 from fvt_tpu_torch.ops import winograd as winograd_ops
 
 # 'cudnn': PyTorch's conv2d (default).  'winograd': the plain PyTorch
@@ -82,8 +84,11 @@ from fvt_tpu_torch.ops import winograd as winograd_ops
 # 'winograd_kernel': the Winograd CUDA kernels (float32: input transform,
 # split-TF32 product on the tensor cores, output transform; bfloat16: input
 # transform, then the product with the output transform in its epilogue).
-# 'shifted_kernel': the nine-shifted-products CUDA kernel.
-CONV_IMPLS = ('cudnn', 'winograd', 'winograd_kernel', 'shifted_kernel')
+# 'shifted_kernel': the nine-shifted-products CUDA kernel.  'int8': the
+# convs with at least 128 input channels, at any stride, quantised to int8
+# (ops/quant.py: the quantise and s8 conv kernels), the others on conv2d.
+CONV_IMPLS = ('cudnn', 'winograd', 'winograd_kernel', 'shifted_kernel',
+              'int8')
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -226,6 +231,19 @@ class Conv3x3(nn.Module):
     ``F.conv2d`` in bfloat16, HWIO for the plain version, packed for the
     ``'shifted_kernel'`` path's CUDA kernel; in bfloat16 the Winograd U is
     derived from the bfloat16 HWIO kernel); ``weight`` stays float32.
+
+    ``'int8'`` is ``fvt_tpu``'s int8 conv (``arcface.py:51-73``): with at
+    least ``quant_ops.MIN_CIN`` input channels, at any stride, the conv
+    quantises ``weight`` per output channel (:meth:`int8_weights`, kept as
+    the other derived weights) and its input per tensor, and sums in int32
+    (``quant_ops.quantize_int8`` and ``conv3x3_s8``), the output in
+    ``dtype``; with fewer it runs ``F.conv2d``.  The input's scale is the
+    call's own ``max|x|`` (dynamic), or ``act_scale(act_amax)`` once
+    ``act_amax`` holds a calibrated amax (static).  While ``calibrating``
+    the module records the running ``max|x|`` of its inputs into
+    ``act_amax`` and its output still takes the dynamic scale, as flax's
+    ``sow('act_scales', 'amax', ...)`` does.  ``act_amax`` is no buffer:
+    the state_dict is that of every other path.
     """
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
@@ -241,6 +259,56 @@ class Conv3x3(nn.Module):
             torch.empty(out_channels, in_channels, 3, 3))
         self._derived = None
         self._cast = None
+        self._int8 = None
+        self.calibrating = False
+        self.act_amax: Optional[torch.Tensor] = None
+        self._static = None
+
+    @property
+    def quantised(self) -> bool:
+        """True where the ``'int8'`` path quantises this conv."""
+        return (self.impl == 'int8'
+                and self.weight.shape[1] >= quant_ops.MIN_CIN)
+
+    def int8_weights(self) -> tuple:
+        """(wq (Co, 9, C) int8, wscale (Co,) float32):
+        ``quant_ops.quantize_weights`` of the float32 HWIO kernel, as
+        ``fvt_tpu`` quantises its float32 parameter; cached as the class
+        docstring says."""
+        stamp = _stamp(self.weight)
+        if self._int8 is None or self._int8[0] != stamp:
+            with torch.no_grad():
+                self._int8 = (stamp, quant_ops.quantize_weights(
+                    self.weight.detach().permute(2, 3, 1, 0)))
+        return self._int8[1]
+
+    def static_scale(self, device) -> Optional[torch.Tensor]:
+        """``act_scale(act_amax)`` on ``device`` (kept), or None while
+        calibrating or without a calibrated amax."""
+        if self.calibrating or self.act_amax is None:
+            return None
+        amax = self.act_amax
+        if (self._static is None or self._static[0] is not amax
+                or self._static[1] != device):
+            self._static = (amax, device,
+                            quant_ops.act_scale(amax.to(device)))
+        return self._static[2]
+
+    def _int8_forward(self, x: torch.Tensor, reference: bool
+                      ) -> torch.Tensor:
+        conv_ops.refuse_grad('Conv3x3(impl=\'int8\')', x, self.weight)
+        wq, wscale = self.int8_weights()
+        quantize = (quant_ops.quantize_int8_ref if reference
+                    else quant_ops.quantize_int8)
+        xq, scale, amax = quantize(_nhwc(x), self.static_scale(x.device))
+        if self.calibrating:
+            amax = amax.detach()
+            self.act_amax = (amax if self.act_amax is None else
+                             torch.maximum(self.act_amax.to(amax.device),
+                                           amax))
+        conv = quant_ops.conv3x3_s8_ref if reference else quant_ops.conv3x3_s8
+        return conv(xq, scale, wq, wscale, self.stride, self.dtype).permute(
+            0, 3, 1, 2)
 
     def kernel_weights(self) -> tuple:
         """(HWIO kernel (3, 3, Cin, Cout), its Winograd transform U (16,
@@ -302,7 +370,9 @@ class Conv3x3(nn.Module):
         """x NCHW, cast to ``dtype`` (``fvt_tpu`` ``arcface.py:75``).
         ``reference=True`` runs a kernel's plain version."""
         x = x.to(self.dtype)
-        if self.stride != 1 or self.impl == 'cudnn':
+        if self.quantised:
+            return self._int8_forward(x, reference)
+        if self.stride != 1 or self.impl in ('cudnn', 'int8'):
             weight = (self.weight if self.dtype == self.weight.dtype
                       else self.cast_weights()[0])
             return F.conv2d(x, weight, None, self.stride, 1)
@@ -429,6 +499,7 @@ class Backbone(nn.Module):
         super().__init__()
         check_dtype(dtype)
         self.dtype = dtype
+        self.conv_impl = conv_impl
         # Cin = 3 makes a poor product: the input conv stays on conv2d
         self.input_layer = nn.Sequential(
             nn.Conv2d(3, 64, 3, 1, 1, bias=False), nn.BatchNorm2d(64),
@@ -464,6 +535,8 @@ class Backbone(nn.Module):
                                  generator)
 
     def _forward(self, x, fused_blocks, reference, train, generator):
+        if fused_blocks and self.conv_impl == 'int8':
+            raise ValueError(INT8_FUSED)
         x = self.stem(x, train)
         for blk in self.body:
             x = blk(x, fused=fused_blocks, reference=reference, train=train)
@@ -494,20 +567,158 @@ class Backbone(nn.Module):
         return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
 
 
+# fvt_tpu's only fused forward, arcface_forward_eval(fused_blocks=True),
+# reads no conv_impl and runs every conv in float, and its
+# VisualBackbone(conv_impl='int8') has no fused blocks: no int8 fused block
+# exists to port
+INT8_FUSED = ("conv_impl='int8' with fused_blocks: fvt_tpu has no int8 "
+              "fused block (arcface_forward_eval runs its convs in float)")
+# device memory an eval forward of the int8 backbone holds a frame, at its
+# peak (cuDNN's workspace for stage 1 included), by compute type: an upper
+# bound of what chip_smoke.py's phase 13 measures on the card (bytes a
+# frame of torch.cuda.max_memory_allocated over a 2400-frame forward:
+# 7.06 MiB in float32, 1.08 MiB in bfloat16 on an H100), which fails on a
+# bound below it
+INT8_FRAME_BYTES = {torch.float32: 8 << 20, torch.bfloat16: 3 << 19}
+
+
+def free_device_bytes(device) -> Optional[int]:
+    """The bytes a call may take on ``device``: on the card its free memory
+    plus what PyTorch's cache holds free; None (no bound) elsewhere."""
+    if torch.device(device).type != 'cuda':
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + (torch.cuda.memory_reserved(device)
+                   - torch.cuda.memory_allocated(device))
+
+
 class VisualBackbone(nn.Module):
     """Wrapper holding ``backbone`` (upstream ``backbone.py:69-130``).
     ``conv_impl`` (one of :data:`CONV_IMPLS`) and ``fused_blocks`` (eval
     mode only) pick the path of the body's 3x3 convolutions, ``dtype`` the
     compute type (``torch.bfloat16`` is ``--amp``; the module docstring
-    says what runs in it)."""
+    says what runs in it).
+
+    ``conv_impl='int8'`` (``--serve_quant int8 | int8_static``) quantises
+    the 41 convs with at least 128 input channels (:meth:`int8_convs`).
+    Their calibrated amaxes are ``fvt_tpu``'s ``act_scales`` collection:
+    :meth:`act_scales` and :meth:`load_act_scales` carry it under flax's
+    paths (``backbone/body<i>/conv<j>/amax``), :meth:`begin_calibration`
+    and :meth:`end_calibration` bracket a calibration pass, and
+    :meth:`int8_mode` says which of dynamic, static or calibrating the
+    convs are in.  Under dynamic int8 the output of a frame depends on the
+    whole call (the scale is the call's ``max|x|``), and so do the amaxes a
+    calibration records after the first conv: the caller keeps
+    ``fvt_tpu``'s call boundaries and asks :meth:`check_whole_call` first.
+    ``fused_blocks`` with int8 raises (:data:`INT8_FUSED`)."""
 
     def __init__(self, conv_impl: str = 'cudnn', fused_blocks: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         check_dtype(dtype)
+        if fused_blocks and conv_impl == 'int8':
+            raise ValueError(INT8_FUSED)
         self.fused_blocks = fused_blocks
         self.dtype = dtype
         self.backbone = Backbone(conv_impl=conv_impl, dtype=dtype)
+
+    def int8_convs(self) -> List[Tuple[Tuple[str, ...], Conv3x3]]:
+        """((flax path), module) of each quantised conv, in body order:
+        ``('backbone', 'body<i>', 'conv1' | 'conv2')``."""
+        out = []
+        for i, blk in enumerate(self.backbone.body):
+            for name, conv in (('conv1', blk.res_layer[1]),
+                               ('conv2', blk.res_layer[3])):
+                if conv.quantised:
+                    out.append((('backbone', f'body{i}', name), conv))
+        return out
+
+    def int8_mode(self) -> str:
+        """'none' (no int8 conv), 'calibrating', 'static' (calibrated
+        amaxes) or 'dynamic'."""
+        convs = self.int8_convs()
+        if not convs:
+            return 'none'
+        conv = convs[0][1]
+        if conv.calibrating:
+            return 'calibrating'
+        return 'dynamic' if conv.act_amax is None else 'static'
+
+    def begin_calibration(self) -> None:
+        """Drops the amaxes and records new ones from the next forwards."""
+        for _, conv in self.int8_convs():
+            conv.act_amax, conv.calibrating = None, True
+
+    def end_calibration(self) -> None:
+        """Ends recording: the convs serve with the amaxes recorded."""
+        for _, conv in self.int8_convs():
+            conv.calibrating = False
+
+    def act_scales(self) -> Dict[str, dict]:
+        """The recorded amaxes as ``fvt_tpu``'s ``act_scales`` tree of a
+        ``VisualBackbone``: ``{'backbone': {'body<i>': {'conv<j>':
+        {'amax': 0-d float32 array}}}}``.  Raises if a conv has none."""
+        tree: Dict[str, dict] = {}
+        for path, conv in self.int8_convs():
+            if conv.act_amax is None:
+                raise ValueError(f'{"/".join(path)} has no amax: calibrate '
+                                 f'first')
+            node = tree
+            for k in path:
+                node = node.setdefault(k, {})
+            node['amax'] = np.asarray(
+                conv.act_amax.detach().to('cpu', torch.float32)
+                .reshape(()).numpy())
+        return tree
+
+    def load_act_scales(self, tree: dict) -> None:
+        """Serves with the amaxes of an ``act_scales`` tree of a
+        ``VisualBackbone`` (static int8).  Raises unless the tree holds an
+        amax for exactly the quantised convs."""
+        convs = self.int8_convs()
+        found = set()
+
+        def walk(node, path):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v, path + (k,))
+                elif k == 'amax':
+                    found.add(path)
+                else:
+                    raise KeyError(f'{"/".join(path + (k,))}: not an amax')
+
+        walk(tree, ())
+        want = {path for path, _ in convs}
+        if found != want:
+            raise KeyError(f'act_scales: {len(found)} amaxes for {len(want)} '
+                           f'quantised convs; missing '
+                           f'{sorted(want - found)[:3]}, extra '
+                           f'{sorted(found - want)[:3]}')
+        for path, conv in convs:
+            node = tree
+            for k in path:
+                node = node[k]
+            conv.act_amax = torch.tensor(
+                np.asarray(node['amax'], np.float32).reshape(1),
+                device=conv.weight.device)
+            conv.calibrating = False
+
+    def check_whole_call(self, frames: int, device) -> None:
+        """Raises if an eval forward over ``frames`` frames in one call may
+        not fit: ``frames * INT8_FRAME_BYTES[dtype]`` against
+        :func:`free_device_bytes`."""
+        need = frames * INT8_FRAME_BYTES[self.dtype]
+        budget = free_device_bytes(device)
+        if budget is not None and need > budget:
+            raise MemoryError(
+                f'{self.int8_mode()} int8 (--serve_quant int8, or the '
+                f'calibration of int8_static): one backbone call over '
+                f'{frames} frames, fvt_tpu\'s call boundary (the scale is '
+                f'the max over every frame of the call), needs about '
+                f'{need} bytes ({need / 2 ** 30:.2f} GiB) and {budget} '
+                f'bytes ({budget / 2 ** 30:.2f} GiB) are free; it is not '
+                f'split, since that would change the result: give it fewer '
+                f'frames a call, or serve with int8_static')
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.backbone.reset_parameters(generator)

@@ -26,6 +26,9 @@ fvt_tpu's NHWC flatten to PyTorch's NCHW flatten.  The VGGish of a
 -> OIHW and Dense kernels transposed, nothing permuted, since the port's
 VGGish flattens NHWC as ``fvt_tpu``'s does (``models/vggish.py``).
 
+:func:`load_act_scales` takes an ``act_scales`` collection (the
+``extra_vars`` of an ``int8_static`` artifact) into an int8 ArcFace.
+
 Every value is carried as float32, which is what flax keeps under
 ``--amp`` too: bfloat16 there is a compute type and no parameter type,
 so a model with ``backbone_dtype=torch.bfloat16`` loads the same
@@ -389,3 +392,13 @@ def state_from_flax(params: dict, batch_stats: dict,
                                           AUDIO_PREFIX))
     return out
 
+
+def load_act_scales(model, act_scales: dict) -> None:
+    """Serves ``model``'s int8 ArcFace with the amaxes of ``fvt_tpu``'s
+    ``act_scales`` collection of the whole model (``{'spatial_video':
+    <VisualBackbone's tree>}``, ``calibrate_act_scales``' result).  Raises
+    on any other tree."""
+    if set(act_scales) != {'spatial_video'}:
+        raise KeyError(f'act_scales holds {sorted(act_scales)}: fvt_tpu '
+                       f'quantises spatial_video only')
+    model.spatial.visual.load_act_scales(act_scales['spatial_video'])

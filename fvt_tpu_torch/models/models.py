@@ -11,7 +11,8 @@ TemporalConvNet and a BatchNorm1d; a ``video`` modality takes normalised
 face crops ``(B, T, 40, 40, 3)`` through the frozen ArcFace backbone at
 ``spatial.visual`` first (``_maybe_encode_spatial``, ``models.py:28-70``),
 whose convolution path is the constructor's ``conv_impl`` and
-``fused_blocks`` and whose compute type is ``backbone_dtype``
+``fused_blocks`` (``conv_impl='int8'`` is ``--serve_quant int8 |
+int8_static``) and whose compute type is ``backbone_dtype``
 (``torch.bfloat16`` is ``fvt_tpu``'s ``--amp``: the backbone computes in
 bfloat16 and returns float32 embeddings; everything after it stays
 float32, as there) (or a ready ``spatial_video`` module, as ``fvt_tpu``'s
@@ -22,7 +23,15 @@ patches ``(B, T, 96, 64)`` through the frozen VGGish at
 or a ready ``spatial_audio``).  The eval backbones are functions of each
 frame (the ArcFace's BatchNorms folded), so an eval forward runs them
 over ``eval_frames`` frames at a time: a bucket of whole videos gives the
-same embeddings at a bounded memory.
+same embeddings at a bounded memory.  Dynamic int8 and its calibration
+are the exception: the per-tensor scale of each conv is the max over
+every frame of the call (while calibrating, the outputs still take it, so
+every amax after the first conv's depends on the call), so the ArcFace
+then runs over all of the forward's frames at once, ``fvt_tpu``'s call
+boundary, and a call that may not fit on the card raises
+(``VisualBackbone.check_whole_call``); ``whole_calls`` tells the eval pass
+to keep its own calls whole too.  Static int8 is a function of each frame
+again.
 
 - LFAN: the leader is ``modality[0]``; the follower is the multimodal
   fusion over all modalities; the output is ``concat(feats[leader],
@@ -163,11 +172,23 @@ class FusionModel(nn.Module):
                                generator=generator)
         else:
             n = self.eval_frames or len(frames)
+            if self.whole_calls:
+                visual.check_whole_call(len(frames), frames.device)
+                n = len(frames)
             chunks = [visual(frames[s:s + n], reference=reference)
                       for s in range(0, len(frames), n)]
             feats = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
         x[constants.VIDEO] = feats.reshape(b, t, -1)
         return x
+
+    @property
+    def whole_calls(self) -> bool:
+        """True where an eval forward's output (or the amaxes it records)
+        depends on which frames share its call: a ``video`` model under
+        dynamic int8 or calibrating."""
+        return (constants.VIDEO in self.modality
+                and self.spatial.visual.int8_mode() in ('dynamic',
+                                                        'calibrating'))
 
     def encode_logmel(self, x: Dict[str, torch.Tensor], train: bool
                       ) -> Dict[str, torch.Tensor]:

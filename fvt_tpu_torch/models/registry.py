@@ -2,11 +2,13 @@
 ``experiment.py:166-188``): the model a run's config names, LFAN, CAN,
 JMT or MT.
 
-Not ported yet: int8 serving (``--serve_quant``, A5).  A ``video``
-modality gets the frozen ArcFace, a ``logmel`` one the frozen VGGish
-(``experiment.py:166-188``).  ``--amp`` builds both backbones in
+A ``video`` modality gets the frozen ArcFace, a ``logmel`` one the frozen
+VGGish (``experiment.py:166-188``).  ``--amp`` builds both backbones in
 bfloat16, as ``fvt_tpu`` does; the convolutions run on cuDNN, as
-``fvt_tpu``'s CLI runs XLA's.  ``--frozen_eval_backbones`` runs the
+``fvt_tpu``'s CLI runs XLA's, except under ``--serve_quant int8`` or
+``int8_static``, which build the ArcFace with ``conv_impl='int8'``
+(``experiment.py:174-182``): its convs of 128 input channels or more on
+the int8 kernels (``ops/quant.py``).  ``--frozen_eval_backbones`` runs the
 frozen ArcFace in eval mode during training (``frozen_eval=True``; the
 VGGish has one mode).  An eval forward runs a backbone over
 ``eval_window_batch * window_length`` frames at a time, the most an LFAN
@@ -31,6 +33,9 @@ from fvt_tpu_torch.config import model_config as MC
 from fvt_tpu_torch.models.models import CAN, JMT, LFAN, FusionModel
 
 
+QUANT_MODES = ('none', 'int8', 'int8_static')
+
+
 def split_modality(modality_str: str) -> list:
     """'video+vggish+bert+EXPR_continuous_label' -> the model's modality
     list (the label stream removed)."""
@@ -45,10 +50,9 @@ def init_model(args, generator: Optional[torch.Generator] = None
     name = args.model_name
     if name not in constants.FUSION_METHODS:
         raise NotImplementedError(name)
-    quant = getattr(args, 'serve_quant', 'none')
-    if quant != 'none':
-        raise NotImplementedError(f'--serve_quant {quant} is not ported '
-                                  f'yet (queue A5)')
+    quant = getattr(args, 'serve_quant', 'none') or 'none'
+    if quant not in QUANT_MODES:
+        raise ValueError(f'--serve_quant {quant}: one of {QUANT_MODES}')
     modality = tuple(split_modality(args.modality))
     num_classes = args.num_classes
     if args.dataset_name == constants.C_EXPR_DB and args.use_other_class:
@@ -56,6 +60,7 @@ def init_model(args, generator: Optional[torch.Generator] = None
     if generator is None:
         generator = torch.Generator().manual_seed(int(args.seed))
     kw = dict(output_dim=num_classes, task=args.task, generator=generator,
+              conv_impl='int8' if quant != 'none' else 'cudnn',
               backbone_dtype=(torch.bfloat16 if getattr(args, 'amp', False)
                               else torch.float32),
               frozen_eval=getattr(args, 'frozen_eval_backbones', False),

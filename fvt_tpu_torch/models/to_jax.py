@@ -18,7 +18,8 @@ BatchNorms' parameters and statistics.  The frozen VGGish of a
 the inverse of ``from_jax.vggish_state_from_flax``): conv kernels OIHW ->
 HWIO, Linear weights transposed, no statistics.  Every dict is keyed in sorted
 order, as ``jax.tree.map`` leaves it, so the trees serialise to the bytes
-``fvt_tpu`` writes.
+``fvt_tpu`` writes.  :func:`act_scales_to_flax` gives the calibrated
+amaxes of an int8 ArcFace as ``fvt_tpu``'s ``act_scales`` collection.
 """
 from __future__ import annotations
 
@@ -38,9 +39,9 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(t.detach().to('cpu', torch.float32).numpy())
 
 
-def _sorted(tree):
+def sorted_tree(tree):
     if isinstance(tree, dict):
-        return {k: _sorted(tree[k]) for k in sorted(tree)}
+        return {k: sorted_tree(tree[k]) for k in sorted(tree)}
     return tree
 
 
@@ -103,7 +104,7 @@ def arcface_flax_from_state(state: Mapping[str, torch.Tensor],
     if left:
         raise KeyError(f'{left[:3]}: no counterpart in fvt_tpu\'s '
                        f'ArcFaceBackbone tree')
-    return _sorted(params), _sorted(stats)
+    return sorted_tree(params), sorted_tree(stats)
 
 
 def vggish_flax_from_state(state: Mapping[str, torch.Tensor],
@@ -132,7 +133,7 @@ def vggish_flax_from_state(state: Mapping[str, torch.Tensor],
     if left:
         raise KeyError(f'{left[:3]}: no counterpart in fvt_tpu\'s VGGish '
                        f'tree')
-    return _sorted(params)
+    return sorted_tree(params)
 
 
 def flax_from_state(state: Mapping[str, torch.Tensor],
@@ -165,7 +166,7 @@ def flax_from_state(state: Mapping[str, torch.Tensor],
         value = _np(tensor)
         _put(trees[collection], path, np.ascontiguousarray(
             to_flax(value) if to_flax else value))
-    return _sorted(trees['params']), _sorted(trees['batch_stats'])
+    return sorted_tree(trees['params']), sorted_tree(trees['batch_stats'])
 
 
 
@@ -179,4 +180,12 @@ def module_flax_from_state(state: Mapping[str, torch.Tensor]) -> dict:
         value = _np(tensor)
         _put(params, path, np.ascontiguousarray(
             to_flax(value) if to_flax else value))
-    return _sorted(params)
+    return sorted_tree(params)
+
+
+def act_scales_to_flax(model) -> dict:
+    """``fvt_tpu``'s ``act_scales`` collection of a ``video`` model whose
+    ArcFace serves static int8: ``{'spatial_video': {'backbone':
+    {'body<i>': {'conv<j>': {'amax': 0-d float32}}}}}``, keyed in sorted
+    order (``from_jax.load_act_scales`` the other way)."""
+    return sorted_tree({'spatial_video': model.spatial.visual.act_scales()})

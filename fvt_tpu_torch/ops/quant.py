@@ -1,0 +1,339 @@
+"""int8 serving of the frozen ArcFace (``--serve_quant int8 | int8_static``):
+the quantisation arithmetic, the s8 3x3 convolution, its CUDA kernels and
+plain versions.  Counterpart of ``fvt_tpu/ops/quant.py``.
+
+The scheme is ``fvt_tpu``'s.  Weights: symmetric int8 per output channel,
+``scale = max(max|w|, 1e-12) / 127`` over (kh, kw, Cin).  Activations:
+symmetric int8 per tensor, the scale from the call's own ``max|x|``
+(dynamic, ``int8``) or from a calibrated amax (static, ``int8_static``).
+``q = clip(round(x / scale), -127, 127)``, rounded half to even, so
+``q(0) == 0`` and zero padding commutes with the quantisation.  The conv
+sums s8 x s8 products in int32; the output is ``float(acc) * (x_scale *
+w_scale[co])``, stored in ``out_dtype``.  A bfloat16 input (``--amp``) is
+widened to float32, exactly, before it is quantised.
+
+``fvt_tpu`` runs that conv as one XLA convolution on the TPU's int8 path,
+not as a Pallas kernel.  PyTorch has no int8 convolution on CUDA, so the
+port brings two kernels of its own (``csrc/conv3x3_int8.cu``):
+:func:`quantize_int8` (the per-tensor amax and the quantisation, two
+launches, or one with a calibrated scale) and :func:`conv3x3_s8` (the
+convolution on the s8 tensor cores, the scaling in its epilogue).  Each
+routes a CPU tensor to its plain version and a CUDA tensor to its kernel,
+or raises; each counts its launches (``quantize_int8.launches`` and
+``.launches_amax``, ``conv3x3_s8.launches``).  The kernels equal the plain
+versions bit for bit: the divisions are IEEE divisions, the sums exact,
+the accumulator rounded to float32 once (the plain version sums in
+float64, exact below 2^53).  :func:`conv3x3_int8` is the composition
+``fvt_tpu`` calls by that name, :func:`conv3x3_int8_ref` its plain
+version, :func:`conv3x3_int8_9mm` the nine-matmul form ``fvt_tpu`` keeps
+for the record.  Activations are NHWC, kernels HWIO, as in ``fvt_tpu``;
+the quantised weights are ``(Co, 9, C)``, K-major, as the s8 ``mma``
+takes B.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from fvt_tpu_torch.kernels import build
+from fvt_tpu_torch.ops.conv import refuse_grad
+
+# the convs with at least this many input channels are quantised; stage 1
+# (64 channels) stays on the float path, as in fvt_tpu (arcface.py:58)
+MIN_CIN = 128
+# the kernels' tiles (csrc/conv3x3_int8.cu): pixels and output channels a
+# block, channels a K step
+TILE_M, TILE_N, TILE_K = 128, 128, 64
+STAGES = 3
+SMEM_PITCH = TILE_K + 16
+OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def act_scale(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax, 1e-12) / 127`` in float32.  The divisor is a tensor: a
+    Python scalar divisor would be a multiplication by its reciprocal on
+    CUDA."""
+    amax = amax.float()
+    return torch.clamp_min(amax, 1e-12) / torch.full_like(amax, 127.0)
+
+
+def quantize_with(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x / scale), -127, 127)`` as int8, x widened to float32
+    first; ``round`` is half to even, as ``jnp.round``."""
+    return torch.clamp(torch.round(x.float() / scale), -127, 127).to(
+        torch.int8)
+
+
+def quantize_symmetric(x: torch.Tensor, dims=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int8 values, float32 scale), ``fvt_tpu``'s ``quantize_symmetric``:
+    ``dims`` are the reduced dimensions (None: per tensor); the scale keeps
+    them as size 1."""
+    a = x.float().abs()
+    if dims is None:
+        amax = a.amax().reshape((1,) * x.dim())
+    else:
+        amax = a.amax(dim=dims, keepdim=True)
+    scale = act_scale(amax)
+    return quantize_with(x, scale), scale
+
+
+def quantize_weights(kernel: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A float HWIO kernel (3, 3, C, Co) quantised per output channel, in
+    the kernel's layout: ``wq`` (Co, 9, C) int8 with ``wq[co, 3*ky + kx,
+    c] = q[ky, kx, c, co]`` and ``wscale`` (Co,) float32, the values of
+    ``quantize_symmetric(kernel, dims=(0, 1, 2))``."""
+    q, scale = quantize_symmetric(kernel, dims=(0, 1, 2))
+    c, co = kernel.shape[2:]
+    wq = q.reshape(9, c, co).permute(2, 0, 1).contiguous()
+    return wq, scale.reshape(co).contiguous()
+
+
+def out_size(h: int, stride: int) -> int:
+    """Output rows of a 3x3 conv with padding 1."""
+    return (h - 1) // stride + 1
+
+
+def check_shape(c: int, co: int, stride: int) -> None:
+    """Raises for what the s8 kernel does not take."""
+    if c % 16 or co % 8:
+        raise ValueError(f'C {c}, Co {co}: the s8 conv kernel takes C in '
+                         f'multiples of 16 and Co in multiples of 8')
+    if stride not in (1, 2):
+        raise ValueError(f'stride {stride}: the s8 conv kernel takes 1 or 2')
+
+
+def conv_plan(n: int, h: int, w: int, c: int, co: int, stride: int) -> dict:
+    """The s8 kernel's launch for these sizes, as its C entry computes it:
+    the output rows and columns, the M = N*Ho*Wo pixels of the implicit
+    GEMM, the grid of TILE_M x TILE_N blocks, the K steps (nine taps by
+    TILE_K channels) and the dynamic shared memory of the ring."""
+    check_shape(c, co, stride)
+    ho, wo = out_size(h, stride), out_size(w, stride)
+    m = n * ho * wo
+    return {'ho': ho, 'wo': wo, 'm': m,
+            'grid': (-(-m // TILE_M), -(-co // TILE_N)),
+            'k_steps': 9 * -(-c // TILE_K),
+            'smem_bytes': STAGES * (TILE_M + TILE_N) * SMEM_PITCH}
+
+
+def tap_rows(xq: torch.Tensor, stride: int) -> torch.Tensor:
+    """The kernel's A operand made explicit: (M, 9, C) with row m = (n, ho,
+    wo) and tap t = 3*ky + kx holding ``xq[n, ho*stride + ky - 1, wo*stride
+    + kx - 1, :]``, zeros where that falls in the padding: the addresses
+    the kernel's copies compute.  ``tap_rows(xq).reshape(M, 9*C) @
+    wq.reshape(Co, 9*C).T`` is the conv's int32 sum (the im2col that
+    ``torch._int_mm`` is timed on as a yardstick)."""
+    n, h, w, c = xq.shape
+    ho, wo = out_size(h, stride), out_size(w, stride)
+    xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+    taps = [xp[:, ky:ky + (ho - 1) * stride + 1:stride,
+               kx:kx + (wo - 1) * stride + 1:stride, :]
+            for ky in range(3) for kx in range(3)]
+    return torch.stack(taps, dim=3).reshape(n * ho * wo, 9, c)
+
+
+def tap_sum(xq: torch.Tensor, wq: torch.Tensor, stride: int
+            ) -> torch.Tensor:
+    """The conv's sum of s8 x s8 products as nine shifted ``(M, C) @ (C,
+    Co)`` products in float64, summed in tap order: every partial sum is
+    an integer below 9*C*127^2 < 2^53, so exact in any order (and on any
+    device, where a float64 convolution might take an inexact FFT
+    algorithm).  xq (N, H, W, C) int8, wq (Co, 9, C) int8; returns (M,
+    Co) float64, M = N*Ho*Wo."""
+    n, h, w, c = xq.shape
+    ho, wo = out_size(h, stride), out_size(w, stride)
+    xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(n * ho * wo, wq.shape[0], dtype=torch.float64,
+                      device=xq.device)
+    for t in range(9):
+        ky, kx = divmod(t, 3)
+        xs = xp[:, ky:ky + (ho - 1) * stride + 1:stride,
+                kx:kx + (wo - 1) * stride + 1:stride, :]
+        acc.addmm_(xs.reshape(-1, c).double(), wq[:, t].double().T)
+    return acc
+
+
+def dequantize(acc: torch.Tensor, x_scale: torch.Tensor,
+               wscale: torch.Tensor, shape: tuple,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """``float32(acc) * (x_scale * wscale)`` in ``out_dtype``, (M, Co) ->
+    ``shape``: the accumulator rounded to float32 once (it is an exact
+    integer), the scales' product formed first."""
+    scale = x_scale.reshape(()) * wscale.reshape(-1)
+    return (acc.float() * scale).to(out_dtype).reshape(shape)
+
+
+def conv3x3_s8_ref(xq: torch.Tensor, x_scale: torch.Tensor,
+                   wq: torch.Tensor, wscale: torch.Tensor, stride: int,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the s8 conv on any device: :func:`tap_sum`, then
+    :func:`dequantize`.  xq (N, H, W, C) int8, wq (Co, 9, C) int8;
+    returns (N, Ho, Wo, Co)."""
+    n, h, w, _ = xq.shape
+    shape = (n, out_size(h, stride), out_size(w, stride), wq.shape[0])
+    return dequantize(tap_sum(xq, wq, stride), x_scale, wscale, shape,
+                      out_dtype)
+
+
+def _check_x(name: str, x: torch.Tensor) -> None:
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'x is {x.dtype}: {name} takes float32 or bfloat16')
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'no kernel for device {x.device}')
+
+
+def quantize_int8_ref(x: torch.Tensor,
+                      x_scale: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor,
+                                 Optional[torch.Tensor]]:
+    """Plain version of :func:`quantize_int8` on any device."""
+    amax = None
+    if x_scale is None:
+        amax = x.float().abs().amax().reshape(1)
+        x_scale = act_scale(amax)
+    return quantize_with(x, x_scale.reshape(())), x_scale, amax
+
+
+def quantize_int8(x: torch.Tensor, x_scale: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                             Optional[torch.Tensor]]:
+    """x (any shape, float32 or bfloat16) -> (q int8 of x's shape, the
+    scale (a float32 tensor of one value), the amax or None).  Dynamic
+    (``x_scale`` None): the scale is ``act_scale(max|x|)`` and the amax is
+    returned; static: ``x_scale`` (one float32 value on x's device) is the
+    scale.  On the CPU the plain version; on the card the quantise kernel
+    (``csrc/conv3x3_int8.cu``), two launches dynamic, one static."""
+    _check_x('quantize_int8', x)
+    if x.device.type == 'cpu':
+        return quantize_int8_ref(x, x_scale)
+    n = x.numel()
+    if n % 16:
+        raise ValueError(f'{n} values: the quantise kernel takes multiples '
+                         f'of 16')
+    build.check_tensor('x', x, tuple(x.shape), x.device, x.dtype)
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = build.library()
+    bf16 = int(x.dtype == torch.bfloat16)
+    if x_scale is None:
+        # word 0: the amax's bits (atomicMax), word 1: the scale
+        words = torch.empty(2, dtype=torch.float32, device=x.device)
+        err = lib.fvt_quantize_int8(x.data_ptr(), bf16, n, words.data_ptr(),
+                                    None, words[1:].data_ptr(),
+                                    q.data_ptr(), stream)
+        build.check(err, f'quantize_int8 kernel (n={n}, dynamic)')
+        quantize_int8.launches += 1
+        quantize_int8.launches_amax += 1
+        return q, words[1:], words[:1]
+    if (x_scale.device != x.device or x_scale.dtype != torch.float32
+            or x_scale.numel() != 1):
+        raise ValueError('x_scale: one float32 value on x\'s device')
+    err = lib.fvt_quantize_int8(x.data_ptr(), bf16, n, None,
+                                x_scale.data_ptr(), None, q.data_ptr(),
+                                stream)
+    build.check(err, f'quantize_int8 kernel (n={n}, static)')
+    quantize_int8.launches += 1
+    return q, x_scale, None
+
+
+quantize_int8.launches = 0
+quantize_int8.launches_amax = 0
+
+
+def conv3x3_s8(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor,
+               wscale: torch.Tensor, stride: int = 1,
+               out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The s8 conv: xq (N, H, W, C) int8, x_scale one float32 value, wq
+    (Co, 9, C) int8, wscale (Co,) float32 -> (N, Ho, Wo, Co) in
+    ``out_dtype`` (float32 or bfloat16).  On the CPU
+    :func:`conv3x3_s8_ref`; on the card the kernel of
+    ``csrc/conv3x3_int8.cu`` (C a multiple of 16, Co of 8) or raises."""
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f'out_dtype {out_dtype}: float32 or bfloat16')
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise ValueError('conv3x3_s8 takes int8 xq and wq')
+    if xq.device.type == 'cpu':
+        return conv3x3_s8_ref(xq, x_scale, wq, wscale, stride, out_dtype)
+    if xq.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {xq.device}')
+    n, h, w, c = xq.shape
+    co = wq.shape[0]
+    plan = conv_plan(n, h, w, c, co, stride)
+    build.check_tensor('xq', xq, (n, h, w, c), xq.device, torch.int8)
+    build.check_tensor('wq', wq, (co, 9, c), xq.device, torch.int8)
+    build.check_tensor('wscale', wscale, (co,), xq.device)
+    if (x_scale.device != xq.device or x_scale.dtype != torch.float32
+            or x_scale.numel() != 1):
+        raise ValueError('x_scale: one float32 value on xq\'s device')
+    y = torch.empty((n, plan['ho'], plan['wo'], co), dtype=out_dtype,
+                    device=xq.device)
+    err = build.library().fvt_conv3x3_s8_forward(
+        xq.data_ptr(), wq.data_ptr(), wscale.data_ptr(), x_scale.data_ptr(),
+        y.data_ptr(), int(out_dtype == torch.bfloat16), n, h, w, c, co,
+        stride, torch.cuda.current_stream(xq.device).cuda_stream)
+    build.check(err, f'conv3x3_s8 kernel (N={n}, H={h}, W={w}, C={c}, '
+                     f'Co={co}, stride={stride})')
+    conv3x3_s8.launches += 1
+    return y
+
+
+conv3x3_s8.launches = 0
+
+
+def conv3x3_int8(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
+                 out_dtype: torch.dtype = torch.bfloat16,
+                 x_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``fvt_tpu``'s ``conv3x3_int8``: x (N, H, W, C) float32 or bfloat16,
+    kernel HWIO (3, 3, C, Co) float; 'same' padding, ``stride`` 1 or 2.
+    ``x_scale``: a calibrated per-tensor scale (one float32 value on x's
+    device), else the call's own.  :func:`quantize_int8` then
+    :func:`conv3x3_s8`: kernels on the card, plain versions on the CPU."""
+    _check_x('conv3x3_int8', x)
+    if tuple(kernel.shape[:2]) != (3, 3):
+        raise ValueError(f'kernel {tuple(kernel.shape)}: a 3x3 HWIO kernel')
+    refuse_grad('conv3x3_int8', x, kernel)
+    wq, wscale = quantize_weights(kernel)
+    xq, scale, _ = quantize_int8(x, x_scale)
+    return conv3x3_s8(xq, scale, wq, wscale, stride, out_dtype)
+
+
+def conv3x3_int8_ref(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
+                     out_dtype: torch.dtype = torch.bfloat16,
+                     x_scale: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Plain version of :func:`conv3x3_int8` on any device: the weights and
+    x quantised in PyTorch (:func:`quantize_symmetric`), the sum in
+    float64, one rounding to float32, the scaling, then ``out_dtype``."""
+    wq, wscale = quantize_weights(kernel)
+    if x_scale is None:
+        xq, x_scale = quantize_symmetric(x)
+    else:
+        xq = quantize_with(x, x_scale.reshape(()))
+    return conv3x3_s8_ref(xq, x_scale, wq, wscale, stride, out_dtype)
+
+
+def conv3x3_int8_9mm(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
+                     out_dtype: torch.dtype = torch.bfloat16
+                     ) -> torch.Tensor:
+    """``fvt_tpu``'s record of the conv as nine shifted int8 matmuls, in
+    plain PyTorch: both operands quantised by :func:`quantize_symmetric`
+    (x per tensor, dynamic), the nine products summed by
+    :func:`tap_sum`, then :func:`dequantize`."""
+    n, h, w, _ = x.shape
+    co = kernel.shape[3]
+    wq, wscale = quantize_weights(kernel)
+    xq, xscale = quantize_symmetric(x)
+    shape = (n, out_size(h, stride), out_size(w, stride), co)
+    return dequantize(tap_sum(xq, wq, stride), xscale, wscale, shape,
+                      out_dtype)
+
+
+def s8_conv_ops(n: int, h: int, w: int, c: int, co: int,
+                stride: int) -> float:
+    """int8 operations (a multiply and an add each) of the conv."""
+    return 2.0 * n * out_size(h, stride) * out_size(w, stride) * co * 9 * c
+

@@ -6,7 +6,9 @@ transform, the frozen ArcFace backbone, one TemporalConvNet per modality
 through the fused TCN-block kernel, the folded eval BatchNorm, then the
 family's fusion and head (LFAN's fusion through the fused fusion
 kernel); JMT and MT take the valid frames' ``time_mask``.
-:func:`lfan_serving_forward` is the LFAN's.
+:func:`lfan_serving_forward` is the LFAN's.  :func:`calibrate_act_scales`
+records the int8 ArcFace's activation scales (``--serve_quant
+int8_static``) through it.
 
 :class:`ServingModel` wraps a model of any family at fixed ``(window_batch,
 seq_len)`` shapes behind the interface of an ``fvt_tpu`` serving
@@ -21,6 +23,12 @@ A model built with ``backbone_dtype=torch.bfloat16`` (``--amp`` in
 ``fvt_tpu``) is served as it is: its parameters stay float32 on the device,
 only its backbone computes in bfloat16, and the specs and outputs do not
 change (uint8 crops and float32 features in, float32 logits out).
+``bf16_features`` (``--h2d_bf16_features``) takes the feature streams in
+bfloat16, as ``fvt_tpu``'s specs say: a float32 array is rounded on the
+host as ``ml_dtypes`` rounds, raw bits (uint16) or an ``ml_dtypes`` array
+are taken as they are (``utils/bf16.py``), two bytes a value cross to the
+device and :func:`serving_forward` widens them to float32 there, as
+``fvt_tpu``'s ``_device_transform`` does.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from fvt_tpu_torch.config import model_config as MC
 from fvt_tpu_torch.data.transforms import (CROP_SIZE, SCALE_SIZE,
                                            eval_video_transform)
 from fvt_tpu_torch.models.models import LFAN, FusionModel
+from fvt_tpu_torch.utils import bf16
 
 
 def valid_frames(lengths, t: int, device) -> torch.Tensor:
@@ -49,8 +58,10 @@ def serving_forward(model: FusionModel, batch: Dict[str, torch.Tensor], *,
     """batch: {modality: (B, T, ...)} on the model's device, video as
     uint8 crops.  Returns (B, T, C) float32 logits.  ``time_mask`` (B, T)
     goes to a JMT or MT.  ``reference=True`` runs the plain versions of
-    the kernels (for checks and tests)."""
-    x = dict(batch)
+    the kernels (for checks and tests).  bfloat16 feature streams are
+    widened to float32."""
+    x = {k: v.float() if v.dtype == torch.bfloat16 else v
+         for k, v in batch.items()}
     video = x.get(constants.VIDEO)
     if video is not None and video.dtype == torch.uint8:
         x[constants.VIDEO] = eval_video_transform(video)
@@ -65,19 +76,53 @@ def lfan_serving_forward(model: LFAN, batch: Dict[str, torch.Tensor], *,
     return serving_forward(model, batch, reference=reference)
 
 
+def calibrate_act_scales(model: FusionModel, sample_batch: dict,
+                         device=None, reference: bool = False) -> dict:
+    """``fvt_tpu``'s ``calibrate_act_scales`` (``fvt_tpu/ops/quant.py:
+    161-172``): the model's eval forward over one representative batch
+    (numpy, its label streams dropped) with every quantised conv recording
+    its running ``max|x|``; returns the ``act_scales`` tree under
+    ``fvt_tpu``'s paths (``{'spatial_video': {'backbone': {'body<i>':
+    {'conv<j>': {'amax': ...}}}}}``, numpy float32 scalars) and leaves the
+    model serving with them (static).  While recording, each conv's output
+    takes the call's own scale, so the backbone runs over all of the
+    batch's frames in one call, as ``fvt_tpu``'s one apply does
+    (``FusionModel.whole_calls``).  Raises if no conv recorded one (a
+    backbone without ``conv_impl='int8'``).  Shared by
+    ``Trainer.calibrate_quant`` and the export tool, as in ``fvt_tpu``.
+    ``reference=True`` runs the plain versions of the kernels."""
+    visual = getattr(getattr(model, 'spatial', None), 'visual', None)
+    if visual is None or not visual.int8_convs():
+        raise ValueError(
+            'calibration recorded no activation scales — is the backbone '
+            'running with conv_impl=int8 (serve_quant int8/int8_static)?')
+    dev = device or next(model.parameters()).device
+    inputs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+              for k, v in sample_batch.items()
+              if 'continuous_label' not in k}
+    visual.begin_calibration()
+    try:
+        serving_forward(model, inputs, reference=reference)
+    finally:
+        visual.end_calibration()
+    return {'spatial_video': visual.act_scales()}
+
+
 def shape_key(window_batch: int, seq_len: int) -> str:
     """``fvt_tpu/export.py``'s key of a served ``(B, T)`` shape."""
     return f'b{int(window_batch)}xt{int(seq_len)}'
 
 
 def serving_input_specs(modality: Sequence[str], window_batch: int,
-                        seq_len: int, precrop_video: bool = True) -> dict:
+                        seq_len: int, precrop_video: bool = True,
+                        bf16_features: bool = False) -> dict:
     """One served batch's inputs as ``fvt_tpu/export.py:75-97``'s
     ``serving_input_specs`` gives them: video as uint8 crops of
     ``CROP_SIZE`` (``h2d_precrop_video``, the default) or frames of
     ``SCALE_SIZE`` (the eval transform crops them), raw (96, 64) log-mel
-    patches and the other features as float32.  {modality: {'shape',
-    'dtype'}}, as ``meta['shapes'][key]['inputs']`` holds them."""
+    patches and the other features as float32, or bfloat16 with
+    ``bf16_features``.  {modality: {'shape', 'dtype'}}, as
+    ``meta['shapes'][key]['inputs']`` holds them."""
     wb, t = int(window_batch), int(seq_len)
     specs = {}
     for m in modality:
@@ -85,7 +130,8 @@ def serving_input_specs(modality: Sequence[str], window_batch: int,
             s = CROP_SIZE if precrop_video else SCALE_SIZE
             shape, dtype = (wb, t, s, s, 3), 'uint8'
         else:
-            shape, dtype = (wb, t) + tuple(MC.FEATURE_DIMENSION[m]), 'float32'
+            shape = (wb, t) + tuple(MC.FEATURE_DIMENSION[m])
+            dtype = bf16.BF16 if bf16_features else 'float32'
         specs[m] = {'shape': list(shape), 'dtype': dtype}
     return specs
 
@@ -99,12 +145,12 @@ class ServingModel:
     by their (B, T).  ``shapes`` defaults to the one ``(window_batch,
     window_length)``.  JMT and MT (``needs_mask``) take a (B,) ``length``
     of valid frames, the full T when it is None; LFAN and CAN refuse
-    one."""
+    one.  ``bf16_features``: the module docstring."""
 
     def __init__(self, model: FusionModel, window_batch: Optional[int],
                  window_length: int, hop_length: int, device, *,
                  shapes: Optional[Sequence[Tuple[int, int]]] = None,
-                 precrop_video: bool = True):
+                 precrop_video: bool = True, bf16_features: bool = False):
         self.model = model.to(device).eval()
         self.device = torch.device(device)
         self.needs_mask = bool(model.needs_time_mask)
@@ -113,7 +159,8 @@ class ServingModel:
         shapes = shapes or [(window_batch, window_length)]
         self.shape_specs = {
             shape_key(wb, t): serving_input_specs(model.modality, wb, t,
-                                                  precrop_video)
+                                                  precrop_video,
+                                                  bf16_features)
             for wb, t in shapes}
         # the first shape's, which a single-shape server is served at
         self.specs = self.shape_specs[shape_key(*shapes[0])]
@@ -148,7 +195,8 @@ class ServingModel:
     def call(self, inputs: Dict[str, np.ndarray],
              length: Optional[np.ndarray] = None) -> np.ndarray:
         """(B, T, C) float32 numpy logits of one batch of exactly the
-        shapes and dtypes of ``meta['shapes'][key]['inputs']``."""
+        shapes and dtypes of ``meta['shapes'][key]['inputs']`` (a
+        bfloat16 input as the module docstring says)."""
         if length is not None and not self.needs_mask:
             raise ValueError(f'{self.meta["model_name"]} takes no time mask '
                              f'(needs_mask=False)')
@@ -159,11 +207,16 @@ class ServingModel:
         batch = {}
         for k, spec in specs.items():
             a = np.asarray(inputs[k])
-            if list(a.shape) != spec['shape'] or a.dtype != spec['dtype']:
+            half = spec['dtype'] == bf16.BF16 and (
+                a.dtype in (np.float32, np.uint16)
+                or a.dtype.name == bf16.BF16)
+            if list(a.shape) != spec['shape'] or not (
+                    half or a.dtype == spec['dtype']):
                 raise ValueError(f'{k}: expected {spec["dtype"]} '
                                  f'{spec["shape"]}, got {a.dtype} '
                                  f'{list(a.shape)}')
-            batch[k] = torch.from_numpy(a).to(self.device)
+            batch[k] = (bf16.to_device(bf16.as_bits(a), self.device) if half
+                        else torch.from_numpy(a).to(self.device))
         time_mask = None
         if self.needs_mask:
             b, t = specs[next(iter(specs))]['shape'][:2]

@@ -68,6 +68,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from fvt_tpu_torch.data import windowing as W
+from fvt_tpu_torch.utils import bf16
 
 
 class CapacityError(RuntimeError):
@@ -78,11 +79,10 @@ class CapacityError(RuntimeError):
 
 def _conform(arr: np.ndarray, dtype_name: str) -> np.ndarray:
     if dtype_name == 'bfloat16':
-        # fvt_tpu reads such a spec through ml_dtypes, which the card's
-        # machine does not have
-        raise ValueError('a bfloat16 input spec (h2d_bf16_features) is not '
-                         'served by the port (ROADMAP.md A5, bf16-feature '
-                         'serving)')
+        # fvt_tpu casts through ml_dtypes, which the card's machine does
+        # not have: the port carries bfloat16 as its raw bits, rounded as
+        # ml_dtypes rounds
+        return bf16.as_bits(arr)
     want = np.dtype(dtype_name)
     return arr if arr.dtype == want else arr.astype(want)
 

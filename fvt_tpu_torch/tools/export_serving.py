@@ -4,17 +4,24 @@
 
     python -m fvt_tpu_torch.tools.export_serving --fd_exp <run-dir> \\
         [--case_best_model <item>] [--out artifact.fvtserve] \\
-        [--window_batch 8 [--window_batch 16 ...]] [--seq_len 300 ...]
+        [--window_batch 8 [--window_batch 16 ...]] [--seq_len 300 ...] \\
+        [--calib_store <dataset_path>] [--calib_folds_dir <folds>] \\
+        [--device cpu]
 
 Needs the run directory only: its ``config.yml`` (read by
 ``config/flat_yaml.py``) and ``best-models/<case>/model.msgpack`` (or an
 upstream ``model.pt``).  The model is built from the config, the weights
 loaded strictly, and the artifact written to ``<fd_exp>/serving.fvtserve``
-by default, one shape per ``--window_batch`` x ``--seq_len``.  Nothing is
-computed, so no device is used.  Prints one JSON line.  ``--aot`` and
-``--platforms`` other than ``cuda`` raise: an XLA executable and StableHLO
-for cpu or tpu do not carry over.  A run with ``--serve_quant`` or
-``--h2d_bf16_features`` raises too (ROADMAP.md A5).
+by default, one shape per ``--window_batch`` x ``--seq_len``.  Prints one
+JSON line.  ``--aot`` and ``--platforms`` other than ``cuda`` raise: an
+XLA executable and StableHLO for cpu or tpu do not carry over.
+
+A ``--serve_quant int8_static`` run also needs a feature store: its
+activation scales describe live data, so the export calibrates the loaded
+weights on one representative batch of the run's ``dataset_path`` (or
+``--calib_store`` / ``--calib_folds_dir``) on the card (or ``--device``)
+and writes the scales into the artifact's ``extra_vars``; without a store
+it raises.  Every other export computes nothing and uses no device.
 """
 from __future__ import annotations
 
@@ -29,9 +36,32 @@ from fvt_tpu_torch.export import (PLATFORM, build_meta, check_platforms,
 from fvt_tpu_torch.inference_challenge import best_model_path
 from fvt_tpu_torch.models.checkpoint import load_best_model
 from fvt_tpu_torch.models.registry import init_model
+from fvt_tpu_torch.utils.logger import log
 
 
-def main(argv=None) -> dict:
+def calibrate(args, model, device) -> dict:
+    """``extra_vars`` of an ``int8_static`` export: ``{'act_scales':
+    ...}`` from one representative batch of the run's store, on the
+    loaded weights (``fvt_tpu``'s ``Experiment.run_eval`` ->
+    ``Trainer.calibrate_quant``, the same path)."""
+    from fvt_tpu_torch.experiment import Experiment
+    from fvt_tpu_torch.models.to_jax import act_scales_to_flax
+    from fvt_tpu_torch.serve import calibrate_act_scales
+
+    exp = Experiment(args, device)
+    exp.prepare()
+    sample = exp.sample_batch(exp.init_loaders())
+    model.to(exp.device)
+    calibrate_act_scales(model, sample, exp.device)
+    log(f'int8_static: calibrated '
+        f'{len(model.spatial.visual.int8_convs())} activation scales from '
+        f'{args.dataset_path}')
+    return {'act_scales': act_scales_to_flax(model)}
+
+
+def main(argv=None, device=None) -> dict:
+    """Runs the CLI on ``argv``; an ``int8_static`` run calibrates on
+    ``device`` (or ``--device``; None is the card)."""
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument('--fd_exp', required=True,
                    help='finished training run dir (config.yml + '
@@ -49,11 +79,33 @@ def main(argv=None) -> dict:
     p.add_argument('--platforms', default=PLATFORM)
     p.add_argument('--aot', action='store_true',
                    help='refused: an XLA executable does not carry over')
+    p.add_argument('--calib_store', default=None,
+                   help="int8_static only: dataset_path holding the "
+                        "calibration store (default: the run's "
+                        "dataset_path)")
+    p.add_argument('--calib_folds_dir', default=None,
+                   help="int8_static only: folds_dir for the calibration "
+                        "store (default: the run's)")
+    p.add_argument('--device', default=None,
+                   help='int8_static only: where to calibrate (default: '
+                        'the card)')
     a = p.parse_args(argv)
     platforms = check_platforms(
         [s.strip() for s in a.platforms.split(',') if s.strip()], a.aot)
 
     args = load_run_config(a.fd_exp)
+    int8_static = getattr(args, 'serve_quant', 'none') == 'int8_static'
+    if int8_static:
+        if a.calib_store:
+            args.dataset_path = a.calib_store
+        if a.calib_folds_dir:
+            args.folds_dir = a.calib_folds_dir
+        if not os.path.isdir(str(args.dataset_path)):
+            raise SystemExit(
+                f'int8_static export needs a calibration store: the '
+                f'activation scales describe live data '
+                f'(experiment.py:243-246) and {args.dataset_path!r} '
+                f'does not exist — pass --calib_store/--calib_folds_dir')
     path_model = best_model_path(a.fd_exp, a.case_best_model)
     wbs = a.window_batch or [int(getattr(args, 'eval_window_batch', 8))]
     tls = a.seq_len or [int(args.window_length)]
@@ -63,8 +115,10 @@ def main(argv=None) -> dict:
 
     model = init_model(args)
     load_best_model(model, path_model, model.modality)
+    extra_vars = (calibrate(args, model, a.device or device) if int8_static
+                  else None)
     out = a.out or join(a.fd_exp, 'serving.fvtserve')
-    save_artifact(out, meta, model)
+    save_artifact(out, meta, model, extra_vars=extra_vars)
     line = {'artifact': out, 'shapes': sorted(meta['shapes']),
             'platforms': platforms, 'aot': []}
     print(json.dumps(line))

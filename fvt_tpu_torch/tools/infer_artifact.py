@@ -17,7 +17,10 @@ logits stitched back with ``stitch_windows_np``.  Writes what
 ``inference_challenge`` writes: ``pred-C-EXPR-DB-CHALLENGE/
 prediction.pkl`` on the challenge dataset, and ``eval-<set>-perf.pkl``,
 ``pred-per-frame-eval-<set>.pkl`` and ``eval-<set>-perf.txt``.
-``--mesh`` above 1 raises (ROADMAP.md A5).
+An artifact of ``--h2d_bf16_features`` takes its feature streams as
+bfloat16, rounded on the host (``utils/bf16.py``); an int8 artifact
+serves through the int8 ArcFace, with its calibrated scales if
+``int8_static``.  ``--mesh`` above 1 raises (ROADMAP.md A5).
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from fvt_tpu_torch.export import (NotServedError, load_artifact,
                                   load_run_config)
 from fvt_tpu_torch.inference_challenge import write_eval_outputs
 from fvt_tpu_torch.train import metrics as M
+from fvt_tpu_torch.utils import bf16
 from fvt_tpu_torch.utils.logger import log
 
 
@@ -103,7 +107,10 @@ def run(args, artifact_path: str, device=None):
         n_win = mat.shape[0]
         arrs = {}
         for k, arr in batch.items():
-            arr = arr[0].astype(spec[k]['dtype'], copy=False)
+            # a bfloat16 spec (--h2d_bf16_features): its bits, rounded on
+            # the host as fvt_tpu's ml_dtypes cast rounds
+            arr = (bf16.as_bits(arr[0]) if spec[k]['dtype'] == bf16.BF16
+                   else arr[0].astype(spec[k]['dtype'], copy=False))
             arrs[k] = arr[mat.reshape(-1)].reshape(
                 (n_win, window) + arr.shape[1:])
         wstate[trial] = dict(

@@ -10,10 +10,14 @@ the card's name and power limit and then one JSON line:
 * default: the whole frozen backbone on ``--frames`` 40x40 crops (random
   weights from seed 0) for each path: ``cudnn`` (PyTorch's conv2d),
   ``winograd`` (plain PyTorch Winograd), ``winograd_kernel``,
-  ``shifted_kernel``, ``fused_blocks`` and ``fused_blocks`` with
-  ``shifted_kernel`` or ``winograd_kernel``; ms, frames/s, the share of the
-  fp32 peak the model's operations reach, and the largest difference of
-  the embeddings from ``cudnn``'s; with ``--kernels`` also where a
+  ``shifted_kernel``, ``fused_blocks``, ``fused_blocks`` with
+  ``shifted_kernel`` or ``winograd_kernel``, ``int8`` (the 41 convs of 128
+  input channels or more on the quantise and s8 conv kernels, dynamic
+  scales) and ``int8_static`` (calibrated, untimed, on the first 256
+  frames, as ``fvt_tpu``'s ``tools/profile_backbone.py:69-81``); ms,
+  frames/s, the share of the fp32 peak the model's operations reach, the
+  largest difference of the embeddings from ``cudnn``'s and their least
+  cosine to it; with ``--kernels`` also where a
   forward's device time goes on each path (``torch.profiler`` over three
   forwards: the sum and the largest kernels by name, ms and launches a
   forward);
@@ -164,7 +168,9 @@ def bench_backbone(frames: int, iters: int, device: torch.device,
                 ('fused_blocks+shifted_kernel',
                  {'fused_blocks': True, 'conv_impl': 'shifted_kernel'}),
                 ('fused_blocks+winograd_kernel',
-                 {'fused_blocks': True, 'conv_impl': 'winograd_kernel'})]
+                 {'fused_blocks': True, 'conv_impl': 'winograd_kernel'}),
+                ('int8', {'conv_impl': 'int8'}),
+                ('int8_static', {'conv_impl': 'int8'})]
     results, ref = {}, None
     with torch.inference_mode():
         if dtype != 'float32':
@@ -175,6 +181,10 @@ def bench_backbone(frames: int, iters: int, device: torch.device,
             model = VisualBackbone(**kw).eval()
             model.load_state_dict(base.state_dict())
             model.to(device)
+            if name == 'int8_static':
+                model.begin_calibration()
+                model(x[:256])
+                model.end_calibration()
             out = model(x)
             ms = median_ms(lambda: model(x), iters, device)
             if ref is None:
@@ -182,7 +192,8 @@ def bench_backbone(frames: int, iters: int, device: torch.device,
             results[name] = {
                 **_rate(flops, ms, device, dtype),
                 'frames_per_s': round(frames / ms * 1e3, 1),
-                'max_abs_err_vs_cudnn': float((out - ref).abs().max())}
+                'max_abs_err_vs_cudnn': float((out - ref).abs().max()),
+                'min_cosine_vs_cudnn': float((out * ref).sum(1).min())}
             if kernels and device.type == 'cuda':
                 results[name].update(device_kernels(lambda: model(x)))
             del model

@@ -11,8 +11,11 @@ Stdlib HTTP (``http.server``), one process, one card.
 The model runs on the card unless ``--device cpu`` is given (``fvt_tpu``'s
 ``--force_cpu``).  An artifact that ``fvt_tpu`` exported carries no
 ``model_args``: ``--fd_exp`` names the run whose ``config.yml`` builds its
-model.  ``--mesh N`` with N > 1 raises: data-parallel serving
-is not ported (ROADMAP.md A5).  ``fvt_tpu_torch/client.py`` speaks this
+model.  An int8 or ``int8_static`` artifact serves through the int8
+ArcFace; one of ``--h2d_bf16_features`` takes its feature streams as
+float32 (rounded to bfloat16 here) or as bfloat16 bits (uint16).
+``--mesh N`` with N > 1 raises: data-parallel serving is not ported
+(ROADMAP.md A5).  ``fvt_tpu_torch/client.py`` speaks this
 protocol.
 
 Protocol:
@@ -73,6 +76,7 @@ import numpy as np
 from fvt_tpu_torch.export import (NotServedError, load_artifact,
                                   load_run_config)
 from fvt_tpu_torch.streaming import CapacityError, StreamingRegistry
+from fvt_tpu_torch.utils import bf16
 
 
 class LatencyStats:
@@ -296,7 +300,7 @@ def build_server(artifact: str, host: str = '127.0.0.1', port: int = 0,
                          f'only)')
     for key in art.shape_keys:
         spec = art.meta['shapes'][key]['inputs']
-        art.call({k: np.zeros(v['shape'], v['dtype'])
+        art.call({k: np.zeros(v['shape'], bf16.numpy_dtype(v['dtype']))
                   for k, v in spec.items()})
     handler = make_handler(art, dynamic_batch=dynamic_batch,
                            batch_delay_s=batch_delay_s,

@@ -11,11 +11,19 @@ and the run directory's artifacts
 ``best-models/<case>/{model.msgpack,config.yml}``, ``config.yml``,
 ``passed.txt``), as ``fvt_tpu`` writes them.
 
-One device only: ``fvt_tpu``'s data-parallel and multi-host epochs and
-its ``profile_epochs`` trace are not ported (queue A5).
+``--profile_epochs N`` traces the epochs below N with ``torch.profiler``
+(host and, on the card, device activity) into
+``<outd>/profile/epoch<e>.pt.trace.json``, a Chrome trace, closed on
+every exit from the epoch (``fvt_tpu`` writes a ``jax.profiler`` trace
+there, ``trainer.py:186-195``).  ``--serve_quant int8_static`` calibrates
+the int8 ArcFace on one batch (:meth:`Trainer.calibrate_quant`).
+
+One device only: ``fvt_tpu``'s data-parallel and multi-host epochs are
+not ported (queue A5).
 """
 from __future__ import annotations
 
+import contextlib
 import datetime as dt
 import math
 import os
@@ -36,11 +44,12 @@ from fvt_tpu_torch.data.transforms import (CROP_SIZE, SCALE_SIZE,
                                            center_crop_offset)
 from fvt_tpu_torch.models.checkpoint import save_best_model
 from fvt_tpu_torch.models.registry import split_modality
-from fvt_tpu_torch.serve import serving_forward, valid_frames
+from fvt_tpu_torch.serve import (calibrate_act_scales, serving_forward,
+                                 valid_frames)
 from fvt_tpu_torch.train import metrics as M
 from fvt_tpu_torch.train import optim
 from fvt_tpu_torch.train.steps import FROZEN_PREFIX, TrainStep
-from fvt_tpu_torch.utils import rng
+from fvt_tpu_torch.utils import bf16, rng
 from fvt_tpu_torch.utils.logger import fmsg, log
 
 
@@ -138,33 +147,36 @@ class Trainer:
         mean loss and logs it.  The losses stay on the device until the
         epoch ends.  ``last_epoch_timing`` holds the epoch's wall time by
         phase: loader_s (waiting for the next batch), step_s (the steps'
-        uploads and queued kernels), sync_s (waiting for the losses)."""
+        uploads and queued kernels), sync_s (waiting for the losses).
+        Below ``profile_epochs`` the epoch runs under ``torch.profiler``
+        (module docstring)."""
         t0 = dt.datetime.now()
         _pc = time.perf_counter
         tm = {'loader_s': 0.0, 'step_s': 0.0, 'sync_s': 0.0}
         self.last_epoch_timing = tm
-        batches = iter(loader.epoch(epoch) if hasattr(loader, 'epoch')
-                       else loader)
-        losses = []
-        while True:
+        with self.profiled(epoch):
+            batches = iter(loader.epoch(epoch) if hasattr(loader, 'epoch')
+                           else loader)
+            losses = []
+            while True:
+                t = _pc()
+                batch = next(batches, None)
+                tm['loader_s'] += _pc() - t
+                if batch is None:
+                    break
+                t = _pc()
+                losses.append(self.train_step(
+                    batch, self.step_generator(epoch, len(losses))))
+                tm['step_s'] += _pc() - t
             t = _pc()
-            batch = next(batches, None)
-            tm['loader_s'] += _pc() - t
-            if batch is None:
-                break
-            t = _pc()
-            losses.append(self.train_step(
-                batch, self.step_generator(epoch, len(losses))))
-            tm['step_s'] += _pc() - t
-        t = _pc()
-        self.step_losses = losses = [float(l) for l in losses]
-        tm['sync_s'] = _pc() - t
-        if self.config.get('nan_guard', False):
-            for i, l in enumerate(losses):
-                if not math.isfinite(l):
-                    raise FloatingPointError(
-                        f'non-finite loss {l} at epoch {epoch} step {i} '
-                        f'(lr={optim.get_lr(self.optimizer):.3e})')
+            self.step_losses = losses = [float(l) for l in losses]
+            tm['sync_s'] = _pc() - t
+            if self.config.get('nan_guard', False):
+                for i, l in enumerate(losses):
+                    if not math.isfinite(l):
+                        raise FloatingPointError(
+                            f'non-finite loss {l} at epoch {epoch} step '
+                            f'{i} (lr={optim.get_lr(self.optimizer):.3e})')
         if self.scheduler is not None:
             optim.set_lr(self.optimizer, self.scheduler.lr(epoch + 1))
         epoch_loss = sum(losses) / max(len(losses), 1)
@@ -173,6 +185,44 @@ class Trainer:
                  f"runtime: {dt.datetime.now() - t0}"))
         return epoch_loss
 
+    @contextlib.contextmanager
+    def profiled(self, epoch: int):
+        """Runs its body under ``torch.profiler`` if ``epoch`` is below
+        ``profile_epochs`` and writes the trace on every exit, the
+        finite-loss guard's raise included: a trace left open loses the
+        epoch one wants to see."""
+        if epoch >= int(self.config.get('profile_epochs', 0) or 0):
+            yield
+            return
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == 'cuda':
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        path = join(self.config['outd'], 'profile',
+                    f'epoch{epoch}.pt.trace.json')
+        log(f"torch.profiler tracing epoch {epoch} -> {path}")
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        try:
+            yield
+        finally:
+            prof.stop()
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            prof.export_chrome_trace(path)
+
+    def calibrate_quant(self, sample_batch: Dict[str, np.ndarray]) -> dict:
+        """``--serve_quant int8_static`` (``fvt_tpu``'s
+        ``Trainer.calibrate_quant``, ``trainer.py:153-179``): the running
+        ``max|x|`` of each int8 conv over one representative batch, through
+        the eval forward; the ArcFace then serves with those scales.  They
+        live on its convs, so both eval paths (the bucketed forward and the
+        device-windowed stitch) read them with nothing to rebuild.  Returns
+        the ``act_scales`` tree (``serve.calibrate_act_scales``)."""
+        scales = calibrate_act_scales(self.model, sample_batch, self.device,
+                                      reference=self.reference)
+        n = len(self.model.spatial.visual.int8_convs())
+        log(fmsg(f'int8_static: calibrated {n} activation scales'))
+        return scales
+
     # ------------------------------------------------------------ inference
     def forward(self, inputs: Dict[str, torch.Tensor],
                 lengths: Optional[Sequence[int]] = None) -> torch.Tensor:
@@ -180,8 +230,7 @@ class Trainer:
         video, float32 or bfloat16 features).  A JMT or MT attends over
         the first ``lengths[b]`` frames of row b (all T by default), as
         ``fvt_tpu``'s ``make_eval_step(needs_time_mask=True)``."""
-        x = {k: v.float() if v.dtype == torch.bfloat16 else v
-             for k, v in inputs.items()}
+        x = inputs
         mask = None
         if self.model.needs_time_mask:
             b, t = next(iter(x.values())).shape[:2]
@@ -202,7 +251,10 @@ class Trainer:
         uploaded once and its windows gathered on the device, otherwise
         the windows of all long videos are pooled on the host; either way
         ``eval_window_batch`` windows go through one forward.  Windows are
-        independent at eval, so the chunking changes no output.
+        independent at eval, so the chunking changes no output, except
+        under dynamic int8 (``model.whole_calls``), whose scale spans the
+        call: a device-windowed video then goes through one forward of all
+        its windows, as ``fvt_tpu``'s one jit over them.
         ``last_inference_timing`` holds the pass's wall time by phase:
         loader_s (waiting on the loader), wingather_s (window index
         matrices and host gathers), dispatch_s (uploads and forwards as
@@ -232,11 +284,13 @@ class Trainer:
         wqueue: list = []  # (trial, window row)
 
         def upload(arr: np.ndarray) -> torch.Tensor:
+            if cast_feats and arr.dtype == np.float32:
+                # rounded to bfloat16 on the host as ml_dtypes rounds,
+                # widened to float32 on the device by serving_forward
+                bits = bf16.bf16_bits(arr)
+                tm['h2d_bytes'] += bits.nbytes
+                return bf16.to_device(bits, device)
             t = torch.from_numpy(np.ascontiguousarray(arr))
-            if cast_feats and t.dtype == torch.float32:
-                # rounded to bfloat16 (nearest even) on the host, widened
-                # to float32 on the device by forward()
-                t = t.to(torch.bfloat16)
             tm['h2d_bytes'] += t.numel() * t.element_size()
             return t.to(device, non_blocking=True)
 
@@ -259,9 +313,10 @@ class Trainer:
             t0 = _pc()
             arrays = {k: upload(v[0, :true_len]) for k, v in batch.items()}
             idx = torch.from_numpy(mat.astype(np.int64)).to(device)
-            outs = [self.forward({k: v[idx[s:s + wb]]
+            step = len(mat) if self.model.whole_calls else wb
+            outs = [self.forward({k: v[idx[s:s + step]]
                                   for k, v in arrays.items()})
-                    for s in range(0, len(mat), wb)]
+                    for s in range(0, len(mat), step)]
             pending.append(('vwin', outs, trial, mat, true_len,
                             np.asarray(labels[0, :true_len]).flatten()))
             tm['dispatch_s'] += _pc() - t0

@@ -89,10 +89,12 @@ def _port(arcface, **kw):
     return model
 
 
-@pytest.mark.parametrize('conv_impl', CONV_IMPLS)
+# 'int8' quantises, so it is held against fvt_tpu's int8 backbone
+# (tests/test_torch_arcface_int8.py), not against the float paths
+@pytest.mark.parametrize('conv_impl', [i for i in CONV_IMPLS if i != 'int8'])
 def test_backbone_conv_impl_matches_flax_winograd_pallas(arcface, conv_impl):
-    """Each conv path of the port against fvt_tpu's fused Winograd path
-    (Pallas, interpret mode) and its direct path."""
+    """Each float conv path of the port against fvt_tpu's fused Winograd
+    path (Pallas, interpret mode) and its direct path."""
     want = arcface['winograd_pallas']
     model = _port(arcface, conv_impl=conv_impl)
     with torch.inference_mode():
@@ -148,14 +150,16 @@ def test_derived_weights_follow_the_parameters(arcface):
 
 
 def test_conv_paths_are_eval_only_and_checked():
+    # 'int8' is a path since int8 serving was ported; 'int4' is none
     with pytest.raises(ValueError, match='unknown conv impl'):
-        VisualBackbone(conv_impl='int8')
-    conv = Conv3x3(4, 4, impl='shifted_kernel')
-    torch.nn.init.normal_(conv.weight)
-    with pytest.raises(RuntimeError, match='no backward'):
-        conv(torch.zeros(1, 4, 2, 2))
-    with torch.no_grad():
-        assert conv(torch.zeros(1, 4, 2, 2)).shape == (1, 4, 2, 2)
+        VisualBackbone(conv_impl='int4')
+    for impl, c in (('shifted_kernel', 4), ('int8', 128)):
+        conv = Conv3x3(c, 4, impl=impl)
+        torch.nn.init.normal_(conv.weight)
+        with pytest.raises(RuntimeError, match='no backward'):
+            conv(torch.zeros(1, c, 2, 2))
+        with torch.no_grad():
+            assert conv(torch.zeros(1, c, 2, 2)).shape == (1, 4, 2, 2)
 
 
 @pytest.mark.parametrize('kw', [{'conv_impl': 'winograd_kernel'},

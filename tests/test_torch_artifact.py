@@ -22,8 +22,9 @@ CPU.
   on the same weights (the video as the port's ArcFace embeddings of the
   same crops: the backbone's parity is held elsewhere), without a length
   against the full length;
-* the refusals: ``serve_quant``, ``h2d_bf16_features`` (also a bfloat16
-  spec in ``streaming``), a batch shape the artifact lacks, ``--mesh 2``
+* the refusals: ``serve_quant`` and ``h2d_bf16_features`` flags that
+  contradict the model or its specs (a bfloat16 spec in ``streaming`` is
+  served as raw bits), a batch shape the artifact lacks, ``--mesh 2``
   (server and artifact inference), ``--aot`` and ``--platforms cpu``, a
   length for an LFAN, a weight of the wrong shape.
 """
@@ -273,19 +274,29 @@ def _rewrite(path, out, meta_update=None, weights=None):
     return out
 
 
-@pytest.mark.parametrize('flags,what', [({'serve_quant': 'int8'}, 'A5'),
-                                        ({'h2d_bf16_features': True},
-                                         'h2d_bf16_features')])
+@pytest.mark.parametrize('flags,what', [
+    ({'serve_quant': 'int8'}, "flags.serve_quant='int8', but the model is "
+                              "built with serve_quant='none'"),
+    ({'h2d_bf16_features': True}, 'takes .*float32.*the model .*bfloat16')])
 def test_unserved_flags_are_refused(tmp_path, lfan_artifact, flags, what):
+    """int8 and bfloat16-feature serving are ported: the loader now
+    refuses flags that contradict the artifact's model or its specs."""
     path = _rewrite(lfan_artifact[1], str(tmp_path / 'x.fvtserve'),
                     {'flags': flags})
-    with pytest.raises(export.NotServedError, match=what):
+    with pytest.raises(ValueError, match=what):
         export.load_artifact(path, device='cpu')
 
 
 def test_bfloat16_spec_is_refused_by_the_server_core():
-    with pytest.raises(ValueError, match='h2d_bf16_features.*A5'):
-        streaming._conform(np.zeros(3, np.float32), 'bfloat16')
+    """A bfloat16 spec is served: the server core conforms a chunk to
+    bfloat16 bits (uint16), rounded as fvt_tpu's ml_dtypes cast; a dtype
+    that numpy does not know is still refused."""
+    got = streaming._conform(np.array([1.0, 1 + 2 ** -8, 3.0], np.float32),
+                             'bfloat16')
+    assert got.dtype == np.uint16
+    assert got.tolist() == [0x3f80, 0x3f80, 0x4040]
+    with pytest.raises(TypeError):
+        streaming._conform(np.zeros(3, np.float32), 'float8')
 
 
 def test_unknown_shape_and_length_for_lfan_are_refused(lfan_artifact):

@@ -102,10 +102,12 @@ def test_numpy_streams_equal():
 
 class _StubModel:
     """A serving model over numpy: per-frame logits that depend on the
-    frame and on its place in the window, so a wrong window or row shows."""
+    frame and on its place in the window, so a wrong window or row shows.
+    A ``bfloat16`` spec takes ``ml_dtypes`` arrays (``fvt_tpu``'s server
+    core) or their raw bits (the port's), widened to float32."""
     WB, T, C, D = 4, 12, 3, 5
 
-    def __init__(self):
+    def __init__(self, dtype='float32'):
         self.calls = 0
         self.meta = {
             'model_name': 'LFAN', 'modality': 'feat', 'num_classes': self.C,
@@ -113,23 +115,27 @@ class _StubModel:
             'shapes': {'b4xt12': {
                 'window_batch': self.WB, 'seq_len': self.T,
                 'inputs': {'feat': {'shape': [self.WB, self.T, self.D],
-                                    'dtype': 'float32'}}}}}
+                                    'dtype': dtype}}}}}
         self.w = np.random.default_rng(9).normal(
             size=(self.D, self.C)).astype(np.float32)
 
     def call(self, inputs, length=None):
         assert length is None
         x = inputs['feat']
+        if x.dtype == np.uint16:
+            x = (x.astype(np.uint32) << 16).view(np.float32)
+        elif x.dtype.name == 'bfloat16':
+            x = x.astype(np.float32)
         assert x.shape == (self.WB, self.T, self.D) and x.dtype == np.float32
         self.calls += 1
         pos = np.arange(self.T, dtype=np.float32)[None, :, None]
         return (x @ self.w + 0.01 * pos).astype(np.float32)
 
 
-def _feed_streams(mod):
+def _feed_streams(mod, dtype='float32'):
     """3 streams of 40, 7 (shorter than a window) and 29 frames in ragged
     chunks, round-robin, through one dynamic-batching registry."""
-    model = _StubModel()
+    model = _StubModel(dtype)
     registry = mod.StreamingRegistry(model, dynamic_batch=True)
     rng_ = np.random.default_rng(4)
     lengths = (40, 7, 29)
@@ -167,6 +173,24 @@ def test_streaming_copy_behaves_as_the_original():
             np.testing.assert_array_equal(gl, wl)
     for parts, n in zip(got, (40, 7, 29)):
         assert sum(len(p[1]) for p in parts) == n
+
+
+def test_streaming_copy_serves_bfloat16_specs_as_the_original():
+    """``--h2d_bf16_features``: the port's server core carries a bfloat16
+    input as raw bits, rounded as ``fvt_tpu``'s ``ml_dtypes`` cast
+    rounds, so the model sees the same values and the streams the same
+    logits."""
+    want, want_dispatches, want_padded, _ = _feed_streams(jax_streaming,
+                                                          'bfloat16')
+    got, dispatches, padded, _ = _feed_streams(streaming, 'bfloat16')
+    assert (dispatches, padded) == (want_dispatches, want_padded)
+    plain, _, _, _ = _feed_streams(streaming)
+    for got_parts, want_parts, plain_parts in zip(got, want, plain):
+        for (gs, gl), (ws, wl), (_, pl) in zip(got_parts, want_parts,
+                                               plain_parts):
+            assert gs == ws
+            np.testing.assert_array_equal(gl, wl)
+            assert len(gl) == 0 or not np.array_equal(gl, pl)
 
 
 # ------------------------------------------------ copies of this slice

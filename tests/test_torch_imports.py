@@ -7,8 +7,9 @@ and the challenge inference CLI on stores of its own synthetic writer,
 a logmel model with its VGGish and the regression trainer with a
 ParamControl release run, a TemporalConvNet with attention=1, and a best
 model exported as an artifact, served over HTTP through the client and
-by artifact inference, with all of them blocked), and chip_smoke.py
-refuses to run without a CUDA card."""
+by artifact inference, the int8 backbone calibrated and its scales
+carried, the bfloat16 host rounding, with all of them blocked), and
+chip_smoke.py refuses to run without a CUDA card."""
 import os
 import re
 import subprocess
@@ -122,7 +123,8 @@ NO_JAX = textwrap.dedent('''
     crops = torch.from_numpy(rng.uniform(-1, 1, (1, 40, 40, 3))
                              .astype(np.float32))
     want = arcface_forward_eval(base, crops)
-    variants = [VisualBackbone(conv_impl=impl) for impl in CONV_IMPLS]
+    variants = [VisualBackbone(conv_impl=impl) for impl in CONV_IMPLS
+                if impl != 'int8']
     variants.append(VisualBackbone(fused_blocks=True))
     for variant in variants:
         variant.eval().load_state_dict(base.state_dict())
@@ -130,6 +132,26 @@ NO_JAX = textwrap.dedent('''
             got = variant(crops)
         assert got.shape == (1, 512) and torch.isfinite(got).all()
         assert (got - want).abs().max() < 1e-4, (got - want).abs().max()
+
+    # int8 serving: calibrated, its scales in fvt_tpu's tree and back, the
+    # bfloat16 host rounding without ml_dtypes
+    import fvt_tpu_torch.tools.quant_delta
+    from fvt_tpu_torch.utils import bf16
+    q = VisualBackbone(conv_impl='int8')
+    q.load_state_dict(base.state_dict())
+    q.begin_calibration()
+    with torch.inference_mode():
+        emb = q(crops)
+    q.end_calibration()
+    assert q.int8_mode() == 'static' and len(q.int8_convs()) == 41
+    assert float((emb * want).sum()) > 0.97
+    fresh = VisualBackbone(conv_impl='int8')
+    fresh.load_state_dict(base.state_dict())
+    fresh.load_act_scales(q.act_scales())
+    with torch.inference_mode():
+        assert torch.equal(fresh(crops), emb)
+    bits = bf16.bf16_bits(np.array([1.0, np.nan, 1 + 2 ** -8], np.float32))
+    assert bits.tolist() == [0x3f80, 0x7fc0, 0x3f80], bits
 
     amp = VisualBackbone('shifted_kernel', dtype=torch.bfloat16).eval()
     amp.load_state_dict(base.state_dict())
@@ -322,7 +344,10 @@ def test_no_port_source_imports_jax_or_fvt_tpu():
             'fvt_tpu_torch/models/fusion_extra.py',
             'fvt_tpu_torch/tools/export_serving.py',
             'fvt_tpu_torch/tools/serve_http.py',
-            'fvt_tpu_torch/tools/infer_artifact.py'} <= names
+            'fvt_tpu_torch/tools/infer_artifact.py',
+            'fvt_tpu_torch/ops/quant.py',
+            'fvt_tpu_torch/tools/quant_delta.py',
+            'fvt_tpu_torch/utils/bf16.py'} <= names
     for path in paths:
         with open(path) as f:
             found = FORBIDDEN_IMPORT.findall(f.read())
