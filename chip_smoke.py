@@ -2,7 +2,8 @@
 """Drives the PyTorch port's LFAN serving and training paths, the
 ArcFace backbone's conv paths, the training and serving of CAN, JMT and
 MT, the ``logmel`` modality, the regression task, serving from frozen
-artifacts over HTTP and int8 serving once on one CUDA card.
+artifacts over HTTP, int8 serving and the offline audio features once on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -244,7 +245,21 @@ Phases, each of which raises on failure (exit code 1):
    ``h2d_bf16_features`` artifact (bfloat16 feature specs) served over
    HTTP, ``/logits`` and three streams within 1e-6 of the in-process call
    and stitch; one epoch of ``main --profile_epochs 1``, its trace and its
-   device kernels.
+   device kernels;
+14. the offline audio features (``fvt_tpu_torch/preprocess``), which
+   launch no kernel of the port's (the STFT is cuFFT and cuBLAS, the
+   VGGish cuDNN, as ``fvt_tpu``'s are XLA's): six 16-bit wavs written from
+   the seed (0.5 s, 3 s at 30 and 29.97 fps, 60 s at 25, 300 s at 30,
+   and 10 s at 44.1 kHz stereo), each through ``extract_logmel`` on the
+   card (its float32 patches within 1e-5 of ``device='cpu'``'s, its
+   float16 file within one unit in the last place),
+   ``extract_vggish_embeddings`` with a full-width VGGish loaded from a
+   seeded upstream-named ``vggish.pth`` in chunks of 500 (patches - 1
+   rows, the annotated gather, indices past the end on one clip; the 60 s
+   clip within 1e-4 of the largest magnitude of the VGGish in float64)
+   and ``extract_mfcc`` on the host, ``extract_egemaps`` on the 60 s clip;
+   each stage's wall, video frames/s, device time and peak memory beside
+   the card's name and power limit.
 
 Everything runs in float32 with TF32 off for matmuls and cuDNN, except the
 bfloat16 backbone and its kernel and phases 8, 9, 10 and 13's ``--amp``
@@ -5342,6 +5357,269 @@ def int8_serving(device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 14
+# the audio chain's clips: (name, seconds, video fps, sample rate,
+# channels); 0.5 s is shorter than the example window (the edge pad decides
+# it), 3 s a MELD-sized utterance, 300 s a long C-EXPR-DB video, the
+# 44.1 kHz stereo clip drives resample and the mono mix
+AUDIO_CLIPS = (('0.5s', 0.5, 30.0, 16000, 1), ('3s@30', 3.0, 30.0, 16000, 1),
+               ('3s@29.97', 3.0, 29.97, 16000, 1),
+               ('60s@25', 60.0, 25.0, 16000, 1),
+               ('300s@30', 300.0, 30.0, 16000, 1),
+               ('10s@30-44.1k-stereo', 10.0, 30.0, 44100, 2))
+# the clip whose annotated indices run AUDIO_PAST_END past its patches
+AUDIO_PAST_END_CLIP, AUDIO_PAST_END = '3s@30', 45
+# the clip held against the float64 VGGish and put through eGeMAPS
+AUDIO_LONG_CLIP = '60s@25'
+# the card's log-mel against the CPU's (both transform in float64)
+AUDIO_LOGMEL_ATOL = 1e-5
+# logmel.npy: every element within one float16 unit in the last place of
+# the CPU's file, at most this share of them apart at all
+AUDIO_HALF_FLIPS = 2e-3
+# embeddings against the float64 VGGish, relative to the largest magnitude
+AUDIO_EMBED_RTOL = 1e-4
+AUDIO_INPUT_SIZE = 500
+
+
+def audio_clip(seconds: float, sample_rate: int, channels: int,
+               rng: np.random.Generator) -> np.ndarray:
+    """int16 samples, (n,) or (n, channels): stretches of 0.15 to 1.5 s of
+    a tone, noise, a tone over noise or silence, drawn from ``rng``."""
+    n = int(round(seconds * sample_rate))
+    out = np.zeros((n, channels))
+    pos = 0
+    while pos < n:
+        length = min(n - pos, int(rng.uniform(0.15, 1.5) * sample_rate))
+        t = np.arange(length) / sample_rate
+        kind = rng.integers(4)
+        tone = (rng.uniform(0.1, 0.5)
+                * np.sin(2 * np.pi * rng.uniform(100, 4000) * t
+                         + rng.uniform(0, 2 * np.pi)))[:, None]
+        noise = rng.uniform(0.02, 0.2) * rng.standard_normal((length,
+                                                              channels))
+        out[pos:pos + length] = (tone if kind == 0 else noise if kind == 1
+                                 else 0.5 * tone + noise if kind == 2
+                                 else 0.0)
+        pos += length
+    data = np.clip(out * 32767, -32768, 32767).astype(np.int16)
+    return data[:, 0] if channels == 1 else data
+
+
+def traced_device_ms(fn, tries: int = 3) -> Optional[float]:
+    """Device time (kernels and copies) of one call of ``fn``, from
+    ``torch.profiler``.  The profiler now and then records no device
+    activity for a window (``tools/timing.py``): the call is traced
+    again, up to ``tries`` times, and None ("not measured") is returned
+    if it never does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.device_time_total > 0)
+        if total > 0:
+            return total / 1e3
+    return None
+
+
+def audio_stage(name: str, clip: str, frames: int, fn, traced=None,
+                host: bool = False) -> tuple:
+    """One stage on one clip: ``fn()`` timed on the host clock with the
+    device's peak memory around it, then, unless the stage runs on the
+    ``host`` alone, ``traced()`` (``fn`` where None; it may be called more
+    than once) under the profiler for the device time.  Prints the row;
+    returns it and ``fn()``'s result."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    device = None if host else traced_device_ms(traced or fn)
+    row = {'stage': name, 'clip': clip, 'frames': frames,
+           'wall_s': wall, 'frames_per_s': frames / wall,
+           'device_ms': device, 'peak_mib': peak}
+    print(f'  {name} {clip}: {frames} video frames, wall {wall:.4f} s, '
+          f'{frames / wall:.1f} frames/s, device '
+          + ('none (host)' if host else 'not measured' if device is None
+             else f'{device:.3f} ms')
+          + f', peak device memory {peak:.1f} MiB')
+    return row, out
+
+
+def compare_half(name: str, got: np.ndarray, want: np.ndarray) -> None:
+    """float16 files: the same shape, every element within one unit in the
+    last place, at most AUDIO_HALF_FLIPS of them apart."""
+    if got.dtype != np.float16 or got.shape != want.shape:
+        fail(f'{name}: {got.dtype} {got.shape} against {want.dtype} '
+             f'{want.shape}')
+    ulp = np.spacing(np.maximum(np.abs(want), np.abs(got)))
+    diff = np.abs(got.astype(np.float32) - want.astype(np.float32))
+    share = np.count_nonzero(diff) / max(diff.size, 1)
+    print(f'  {name}: logmel.npy {got.shape} float16, {share:.2e} of the '
+          f'elements one unit apart from the CPU\'s')
+    if (diff > ulp).any() or share > AUDIO_HALF_FLIPS:
+        fail(f'{name}: the card\'s logmel.npy is more than one float16 ulp '
+             f'from the CPU\'s, or in more than {AUDIO_HALF_FLIPS} of its '
+             f'elements')
+
+
+def audio_chain(device, card: str) -> None:
+    """Phase 14: the offline audio extractors on the card over
+    AUDIO_CLIPS, written from the seed as 16-bit PCM wavs: ``extract_logmel``
+    (checked against ``device='cpu'``), ``extract_vggish_embeddings`` with
+    a full-width VGGish loaded from a seeded upstream-named ``vggish.pth``
+    (shapes; the long clip against the VGGish in float64), ``extract_mfcc``
+    on every clip and ``extract_egemaps`` on the long one (on the host:
+    shapes, finite).  No kernel of the port's may launch."""
+    import os
+    import tempfile
+
+    from fvt_tpu_torch.models.vggish import VGGish
+    from fvt_tpu_torch.preprocess import audio, melspec, mfcc
+    from fvt_tpu_torch.preprocess.sharding import annotated_index
+
+    t_phase = time.perf_counter()
+    zero, read = run_counters()
+    zero()
+    rng = np.random.default_rng(SEED + 14)
+    rows = []
+    with tempfile.TemporaryDirectory() as root:
+        seeded = VGGish()
+        seeded.reset_parameters(torch.Generator().manual_seed(SEED))
+        with torch.no_grad():  # He's gain over PyTorch's uniform init
+            for p in seeded.parameters():
+                if p.dim() > 1:
+                    p.mul_(6 ** 0.5)
+        pth = f'{root}/vggish.pth'
+        torch.save(seeded.state_dict(), pth)
+        n_params = sum(p.numel() for p in seeded.parameters())
+        vggish = audio.vggish_from_pth(pth)
+        print(f'  VGGish of {n_params / 1e6:.1f} M parameters from a seeded '
+              f'upstream-named vggish.pth on {device}; {card}')
+        for clip, seconds, fps, sr, channels in AUDIO_CLIPS:
+            wav = f'{root}/{clip}.wav'
+            melspec.write_wav(wav, audio_clip(seconds, sr, channels, rng), sr)
+            frames = int(round(seconds * fps))
+            idx = annotated_index(frames, fps)
+            if clip == AUDIO_PAST_END_CLIP:
+                idx = np.arange(frames + AUDIO_PAST_END)
+            hop = 1.0 / fps
+
+            # log-mel patches, float16 on disk
+            def traced_logmel():
+                out = f'{root}/{clip}.traced.npy'
+                audio.extract_logmel(wav, out, hop_sec=hop, annotated_idx=idx)
+                os.remove(out)
+
+            row, _ = audio_stage(
+                'logmel', clip, frames,
+                lambda: audio.extract_logmel(wav, f'{root}/{clip}.card.npy',
+                                             hop_sec=hop, annotated_idx=idx),
+                traced_logmel)
+            rows.append(row)
+            audio.extract_logmel(wav, f'{root}/{clip}.cpu.npy', hop_sec=hop,
+                                 annotated_idx=idx, device='cpu')
+            written = np.load(f'{root}/{clip}.card.npy')
+            if len(written) != len(idx):
+                fail(f'{clip}: logmel.npy has {len(written)} rows for '
+                     f'{len(idx)} annotated frames')
+            compare_half(clip, written, np.load(f'{root}/{clip}.cpu.npy'))
+            patches = melspec.wavfile_to_examples(wav, 0.96, hop,
+                                                  device=device)
+            want = melspec.wavfile_to_examples(wav, 0.96, hop, device='cpu')
+            err = float(np.abs(patches - want).max())
+            print(f'  {clip}: {patches.shape} float32 patches, max |card - '
+                  f'cpu| = {err:.3e} (atol {AUDIO_LOGMEL_ATOL})')
+            if patches.shape != want.shape or err > AUDIO_LOGMEL_ATOL:
+                fail(f'{clip}: the card\'s log-mel patches differ from the '
+                     f'CPU\'s by {err}')
+
+            # VGGish embeddings: patches - 1 rows, then the annotated gather
+            row, emb = audio_stage(
+                'vggish', clip, frames,
+                lambda: audio.extract_vggish_embeddings(
+                    wav, vggish, 0.96, hop, AUDIO_INPUT_SIZE))
+            rows.append(row)
+            gathered = audio.extract_vggish_embeddings(
+                wav, vggish, 0.96, hop, AUDIO_INPUT_SIZE, idx)
+            if (emb.shape != (max(len(patches) - 1, 0), 128)
+                    or gathered.shape != (len(idx), 128)
+                    or not np.isfinite(gathered).all()):
+                fail(f'{clip}: embeddings {emb.shape} and {gathered.shape} '
+                     f'for {len(patches)} patches and {len(idx)} frames')
+            regathered = audio._pad_to_annotated(emb, idx)[idx]
+            if np.abs(gathered - regathered).max() > (
+                    AUDIO_EMBED_RTOL * np.abs(regathered).max()):
+                fail(f'{clip}: the annotated gather is not the rows\' own')
+            if clip == AUDIO_LONG_CLIP:
+                check_vggish_float64(vggish, patches, idx, gathered, device)
+
+            # MFCC on every clip and eGeMAPS on the long one, on the host
+            row, _ = audio_stage(
+                'mfcc', clip, frames,
+                lambda: mfcc.extract_mfcc(wav, f'{root}/{clip}.mfcc.npy',
+                                          idx, hop), host=True)
+            rows.append(row)
+            check_host_feature(clip, np.load(f'{root}/{clip}.mfcc.npy'),
+                               (len(idx), 39))
+            if clip == AUDIO_LONG_CLIP:
+                row, _ = audio_stage(
+                    'egemaps', clip, frames,
+                    lambda: mfcc.extract_egemaps(
+                        wav, f'{root}/{clip}.egemaps.npy', frames, fps,
+                        annotated_idx=idx), host=True)
+                rows.append(row)
+                check_host_feature(clip, np.load(
+                    f'{root}/{clip}.egemaps.npy'), (len(idx), 88))
+    launched = {k: n for k, n in read().items() if n}
+    if launched:
+        fail(f'the audio chain launched kernels of the port: {launched}')
+    wall = time.perf_counter() - t_phase
+    print(f'  audio chain rows: {json.dumps(rows)}')
+    print(f'  phase 14 in {wall:.1f} s on {card}; no kernel of the port '
+          f'launched')
+
+
+def check_vggish_float64(vggish, patches: np.ndarray, idx: np.ndarray,
+                         got: np.ndarray, device) -> None:
+    """The extractor's embeddings against the same VGGish cast to float64
+    on the card, on the same float32 patches, row-shifted and gathered."""
+    from fvt_tpu_torch.models.vggish import VGGish
+    from fvt_tpu_torch.preprocess import audio
+
+    wide = VGGish(dtype=torch.float64)
+    wide.load_state_dict(vggish.state_dict())
+    wide = wide.double().to(device).eval()
+    x = torch.from_numpy(patches).to(device)
+    with torch.inference_mode():
+        want = torch.cat([wide(x[s:s + AUDIO_INPUT_SIZE])
+                          for s in range(0, len(x), AUDIO_INPUT_SIZE)])
+    want = audio._pad_to_annotated(want.cpu().numpy()[1:], idx)[idx]
+    scale = np.abs(want).max()
+    err = np.abs(got - want).max()
+    print(f'  {AUDIO_LONG_CLIP}: embeddings vs the float64 VGGish: max abs '
+          f'{err:.3e}, {err / scale:.3e} of the largest {scale:.3e} (rtol '
+          f'{AUDIO_EMBED_RTOL})')
+    if not scale > 0 or err > AUDIO_EMBED_RTOL * scale:
+        fail(f'{AUDIO_LONG_CLIP}: embeddings differ from the float64 '
+             f'VGGish\'s by {err / scale:.3e} of their largest magnitude')
+    del wide, x
+    torch.cuda.empty_cache()
+
+
+def check_host_feature(clip: str, feats: np.ndarray, shape: tuple) -> None:
+    if feats.shape != shape or not np.isfinite(feats).all():
+        fail(f'{clip}: host feature {feats.shape} (want {shape}), finite='
+             f'{np.isfinite(feats).all()}')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on a GPU',
@@ -5591,6 +5869,11 @@ def main() -> int:
     for name, n in int8_serving(device).items():
         by_name[name]['launches'] = n
     print(f'  phase 13 in {time.perf_counter() - t0:.1f} s')
+
+    print('phase 14: the offline audio features on the card: log-mel '
+          'patches and VGGish embeddings through fvt_tpu_torch.preprocess, '
+          'MFCC and eGeMAPS on the host')
+    audio_chain(device, card)
 
     print(card)
     print(json.dumps({'kernels': kernels}))

@@ -1,7 +1,7 @@
 """Feature-extractor generation stamp: a copy of
-``fvt_tpu/preprocess/version.py`` (the port reads the stamp; the
-extractors stay in the JAX package), held equal to it by
-``tests/test_torch_copies.py``.
+``fvt_tpu/preprocess/version.py`` (the port reads the stamp, and its
+audio extractors, ``preprocess/{melspec,audio,mfcc,egemaps}.py``, are of
+this generation), held equal to it by ``tests/test_torch_copies.py``.
 
 Per-frame feature definitions are refined over time (e.g. the eGeMAPS
 sma3/sma3nz smoothing moved from per-window to LLD-track level, changing

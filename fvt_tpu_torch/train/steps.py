@@ -66,7 +66,7 @@ def resolve_device(device) -> torch.device:
     caller names it."""
     if device is None:
         if not torch.cuda.is_available():
-            raise RuntimeError('no CUDA device: training runs on the card '
+            raise RuntimeError('no CUDA device: the port runs on the card '
                                "unless the caller passes device='cpu'")
         return torch.device('cuda', torch.cuda.current_device())
     return torch.device(device)

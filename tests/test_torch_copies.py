@@ -2,8 +2,13 @@
 originals: constants and model/train configs equal name by name, the
 numpy resize and windowing functions equal on seeded inputs (exact), the
 streaming server core giving the same dispatches, padded rows and
-output bits on the same multi-stream feed, and the serving client the
-same source but its docstring's package name.
+output bits on the same multi-stream feed, the serving client the
+same source but its docstring's package name, and the host side of the
+audio preprocessing (``preprocess/{sharding,mfcc,egemaps}.py``) the same
+code below its docstrings, with ``divide``, ``annotated_index``, ``mfcc``,
+``extract_mfcc``, ``egemaps_lld``, ``functionals_rows``,
+``egemaps_per_frame``, ``extract_egemaps`` and ``COLUMNS`` exactly
+equal on seeded signals.
 """
 import numpy as np
 import pytest
@@ -348,3 +353,115 @@ def test_client_is_the_original_but_its_package_name():
     assert differ[0][1].endswith('inference_challenge.py); this is the '
                                  'thin edge of the')
     assert copy != original
+
+
+def _speech_like(seconds: float, seed: int) -> np.ndarray:
+    """Voiced tone bursts over noise with a stretch of silence: voiced
+    and unvoiced frames for the pitch tracker, zeros for the floors."""
+    r = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    x = (0.3 * np.sin(2 * np.pi * (150 + 40 * t) * t)
+         * (np.sin(2 * np.pi * 0.7 * t) > 0)
+         + 0.02 * r.standard_normal(len(t)))
+    x[len(t) // 3:len(t) // 2] = 0
+    return x
+
+
+def test_sharding_copy_divides_as_the_original():
+    from fvt_tpu.preprocess import sharding as jax_sharding
+    from fvt_tpu_torch.preprocess import sharding
+
+    seq = list(range(23))
+    for n in (1, 2, 5, 23, 30):
+        assert sharding.divide(n, seq) == jax_sharding.divide(n, seq)
+        assert list(sharding.chunks_into_n(seq, n)) == \
+            list(jax_sharding.chunks_into_n(seq, n))
+        assert sharding.better_chunks_into_n(seq, n) == \
+            jax_sharding.better_chunks_into_n(seq, n)
+    for args in ((301, 30.0), (301, 29.97), (250, 25.0, 10.0), (0, 30.0),
+                 (97, 30.0, 44.1)):
+        got, want = (sharding.annotated_index(*args),
+                     jax_sharding.annotated_index(*args))
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize('hop', [0.010, 1 / 29.97])
+@pytest.mark.parametrize('stereo', [False, True], ids=['mono', 'stereo'])
+def test_mfcc_copy_is_the_original(hop, stereo):
+    from fvt_tpu.preprocess import mfcc as jax_mfcc
+    from fvt_tpu_torch.preprocess import mfcc
+
+    x = _speech_like(1.5, 5)
+    if stereo:
+        x = np.stack([x, 0.5 * x[::-1]], axis=1)
+    got, want = mfcc.mfcc(x, hop_sec=hop), jax_mfcc.mfcc(x, hop_sec=hop)
+    assert got.shape == want.shape and got.shape[1] == 39
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize('extract', ['mfcc', 'egemaps'])
+def test_extract_copy_writes_the_original_file(tmp_path, extract):
+    from fvt_tpu.preprocess import mfcc as jax_mfcc
+    from fvt_tpu_torch.preprocess import melspec, mfcc
+
+    wav = str(tmp_path / 'clip.wav')
+    melspec.write_wav(wav, (_speech_like(2.0, 6) * 32767).astype(np.int16),
+                      16000)
+    idx = np.arange(0, 70, 3)  # past the end of both
+    kw = ({'annotated_idx': idx, 'hop_sec': 1 / 30} if extract == 'mfcc'
+          else {'length': 60, 'target_frequency': 30.0,
+                'annotated_idx': idx})
+    files = []
+    for module, name in ((jax_mfcc, 'want'), (mfcc, 'got')):
+        out = str(tmp_path / f'{name}.npy')
+        getattr(module, f'extract_{extract}')(wav, out, **kw)
+        files.append(np.load(out))
+    want, got = files
+    assert got.shape == (len(idx), 39 if extract == 'mfcc' else 88)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_egemaps_copy_is_the_original():
+    from fvt_tpu.preprocess import egemaps as jax_egemaps
+    from fvt_tpu_torch.preprocess import egemaps
+
+    assert egemaps.COLUMNS == jax_egemaps.COLUMNS
+    assert len(egemaps.COLUMNS) == 88
+    x = _speech_like(2.5, 7)
+    lld, want_lld = egemaps.egemaps_lld(x, 16000), \
+        jax_egemaps.egemaps_lld(x, 16000)
+    assert lld.keys() == want_lld.keys()
+    for key, value in want_lld.items():
+        assert np.array_equal(lld[key], value), key
+    sm = egemaps.smooth_tracks(lld)
+    n = len(sm['voiced'])
+    starts = np.array([0, 7, 50, n - 100, n - 30, n - 1])
+    ends = np.minimum(starts + 100, n)
+    level = np.random.default_rng(8).normal(size=len(starts))
+    assert np.array_equal(
+        egemaps.functionals_rows(sm, starts, ends, level),
+        jax_egemaps.functionals_rows(jax_egemaps.smooth_tracks(want_lld),
+                                     starts, ends, level))
+    got = egemaps.egemaps_per_frame(x, 16000, 40, 25.0)
+    want = jax_egemaps.egemaps_per_frame(x, 16000, 40, 25.0)
+    assert got.shape == (40, 88) and np.isfinite(got).all()
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert np.array_equal(egemaps.egemaps_functionals(x, 16000),
+                          jax_egemaps.egemaps_functionals(x, 16000))
+
+
+@pytest.mark.parametrize('name', ['sharding', 'mfcc', 'egemaps'])
+def test_preprocess_copy_is_the_original_source(name):
+    """Below their docstrings the copies are the originals' code, the
+    package name in their imports and its line breaks aside."""
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = []
+    for package in ('fvt_tpu', 'fvt_tpu_torch'):
+        with open(os.path.join(repo, package, 'preprocess',
+                               f'{name}.py')) as f:
+            text = f.read()
+        code.append(' '.join(text[text.index('"""', 3) + 3:].replace(
+            'fvt_tpu_torch', 'fvt_tpu').split()))
+    assert code[1] == code[0]

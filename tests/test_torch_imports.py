@@ -8,8 +8,10 @@ a logmel model with its VGGish and the regression trainer with a
 ParamControl release run, a TemporalConvNet with attention=1, and a best
 model exported as an artifact, served over HTTP through the client and
 by artifact inference, the int8 backbone calibrated and its scales
-carried, the bfloat16 host rounding, with all of them blocked), and
-chip_smoke.py refuses to run without a CUDA card."""
+carried, the bfloat16 host rounding, the audio extractors (log-mel
+patches, VGGish embeddings from a vggish.pth, MFCC) on a wav it writes,
+with all of them, cv2 and opensmile blocked), and chip_smoke.py refuses
+to run without a CUDA card."""
 import os
 import re
 import subprocess
@@ -23,7 +25,7 @@ NO_JAX = textwrap.dedent('''
     import sys
 
     BLOCKED = ('jax', 'jaxlib', 'flax', 'yaml', 'msgpack', 'orbax',
-               'ml_dtypes', 'fvt_tpu')
+               'ml_dtypes', 'fvt_tpu', 'cv2', 'opensmile')
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -283,17 +285,41 @@ NO_JAX = textwrap.dedent('''
         assert os.path.isfile(os.path.join(outd,
                                            'model_state_dict.msgpack'))
 
+    # the audio extractors on a wav of their own: log-mel patches and a
+    # VGGish loaded from an upstream-named vggish.pth, MFCC on the host
+    from fvt_tpu_torch.preprocess import audio, melspec, mfcc
+    from fvt_tpu_torch.preprocess.sharding import annotated_index
+    with tempfile.TemporaryDirectory() as root:
+        wav = os.path.join(root, 'clip.wav')
+        melspec.write_wav(wav, rng.integers(-3000, 3000, 4000, np.int16),
+                          16000)
+        idx = annotated_index(12, 25.0)
+        audio.extract_logmel(wav, os.path.join(root, 'logmel.npy'),
+                             hop_sec=1 / 25, annotated_idx=idx,
+                             device='cpu')
+        logmel_npy = np.load(os.path.join(root, 'logmel.npy'))
+        assert logmel_npy.shape == (12, 96, 64), logmel_npy.shape
+        assert logmel_npy.dtype == np.float16
+        pth = os.path.join(root, 'vggish.pth')
+        torch.save(VGGish().state_dict(), pth)
+        emb = audio.extract_vggish_embeddings(
+            wav, audio.vggish_from_pth(pth, device='cpu'), 0.96, 1 / 25,
+            annotated_idx=idx, device='cpu')
+        assert emb.shape == (12, 128) and np.isfinite(emb).all()
+        mfcc.extract_mfcc(wav, os.path.join(root, 'mfcc.npy'), idx, 1 / 25)
+        assert np.load(os.path.join(root, 'mfcc.npy')).shape == (12, 39)
+
     import chip_smoke
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
     assert not leaked, leaked
     print('served', out.shape, 'trained', len(variants), 'backbones')
 ''')
 
-# an import of jax, flax, yaml, msgpack, orbax, ml_dtypes or fvt_tpu (not
-# fvt_tpu_torch), at any depth
+# an import of jax, flax, yaml, msgpack, orbax, ml_dtypes, cv2 or fvt_tpu
+# (not fvt_tpu_torch), at any depth
 FORBIDDEN_IMPORT = re.compile(
     r'^\s*(?:import|from)\s+'
-    r'(?:jax|jaxlib|flax|yaml|msgpack|orbax|ml_dtypes|fvt_tpu)(?![\w])',
+    r'(?:jax|jaxlib|flax|yaml|msgpack|orbax|ml_dtypes|cv2|fvt_tpu)(?![\w])',
     re.MULTILINE)
 
 
@@ -347,7 +373,12 @@ def test_no_port_source_imports_jax_or_fvt_tpu():
             'fvt_tpu_torch/tools/infer_artifact.py',
             'fvt_tpu_torch/ops/quant.py',
             'fvt_tpu_torch/tools/quant_delta.py',
-            'fvt_tpu_torch/utils/bf16.py'} <= names
+            'fvt_tpu_torch/utils/bf16.py',
+            'fvt_tpu_torch/preprocess/sharding.py',
+            'fvt_tpu_torch/preprocess/melspec.py',
+            'fvt_tpu_torch/preprocess/audio.py',
+            'fvt_tpu_torch/preprocess/mfcc.py',
+            'fvt_tpu_torch/preprocess/egemaps.py'} <= names
     for path in paths:
         with open(path) as f:
             found = FORBIDDEN_IMPORT.findall(f.read())
@@ -357,6 +388,7 @@ def test_no_port_source_imports_jax_or_fvt_tpu():
     assert FORBIDDEN_IMPORT.search('import msgpack')
     assert FORBIDDEN_IMPORT.search('import orbax.checkpoint as ocp')
     assert FORBIDDEN_IMPORT.search('        import ml_dtypes')
+    assert FORBIDDEN_IMPORT.search('import cv2')
     assert not FORBIDDEN_IMPORT.search('from fvt_tpu_torch import constants')
 
 
