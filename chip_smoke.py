@@ -2,8 +2,8 @@
 """Drives the PyTorch port's LFAN serving and training paths, the
 ArcFace backbone's conv paths, the training and serving of CAN, JMT and
 MT, the ``logmel`` modality, the regression task, serving from frozen
-artifacts over HTTP, int8 serving and the offline audio features once on
-one CUDA card.
+artifacts over HTTP, int8 serving and the offline audio and visual
+features with the feature driver once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -259,7 +259,26 @@ Phases, each of which raises on failure (exit code 1):
    clip within 1e-4 of the largest magnitude of the VGGish in float64)
    and ``extract_mfcc`` on the host, ``extract_egemaps`` on the 60 s clip;
    each stage's wall, video frames/s, device time and peak memory beside
-   the card's name and power limit.
+   the card's name and power limit;
+15. the offline visual preprocessing and the feature driver
+   (``fvt_tpu_torch/preprocess``), which launch no kernel of the port's
+   either (cuDNN convolutions, gathers and elementwise ops, as
+   ``fvt_tpu``'s are XLA's): full-width RetinaFace-R50, FAN-4, ArcFace
+   IR-50 and VGGish drawn from the seed and loaded from files under the
+   upstream names; two seeded trials (40 frames at 1280x720, 24 at
+   640x480) as lossless video files with their audio where ffmpeg is on
+   the machine (else frames, placed wavs and an injected probe); driver
+   pass 1 over two shards, the faces (RetinaFace at 2048^2 with a
+   threshold from frame 0's scores, the warp, frames 0-1 and a middle one
+   dropped for the fallback and the carry), ``compact`` and
+   ``recompact``, driver pass 2 (``cnn.npy``, ``--landmarks``), the
+   merge; the card against ``device='cpu'``: RetinaFace's outputs at
+   512^2 within 1e-4 of their largest magnitude and the same detections,
+   the warp within one level, ``cnn.npy`` and FAN's heatmaps within 1e-4
+   relative, landmarks equal but at counted ties, AU maps within 1e-5;
+   every file's shape, dtype and length against ``video.npy``; each
+   stage's wall, frames/s, device time, peak memory and idle share, and
+   RetinaFace's ms a frame and share of the fp32 peak.
 
 Everything runs in float32 with TF32 off for matmuls and cuDNN, except the
 bfloat16 backbone and its kernel and phases 8, 9, 10 and 13's ``--amp``
@@ -5410,19 +5429,23 @@ def traced_device_ms(fn, tries: int = 3) -> Optional[float]:
     ``torch.profiler``.  The profiler now and then records no device
     activity for a window (``tools/timing.py``): the call is traced
     again, up to ``tries`` times, and None ("not measured") is returned
-    if it never does."""
+    if it never does.  The device events' durations are summed from the
+    raw trace: building the profiler's event tree (``key_averages``) over
+    a long trace (phase 15's forty FAN forwards) took tens of seconds."""
     from torch.profiler import ProfilerActivity, profile
 
+    cuda = torch.autograd.DeviceType.CUDA
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        total = sum(e.device_time_total for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and e.device_time_total > 0)
+        total = sum(e.duration_ns() for e in
+                    prof.profiler.kineto_results.events()
+                    if e.device_type() == cuda
+                    and not e.is_user_annotation())
         if total > 0:
-            return total / 1e3
+            return total / 1e6
     return None
 
 
@@ -5618,6 +5641,570 @@ def check_host_feature(clip: str, feats: np.ndarray, shape: tuple) -> None:
     if feats.shape != shape or not np.isfinite(feats).all():
         fail(f'{clip}: host feature {feats.shape} (want {shape}), finite='
              f'{np.isfinite(feats).all()}')
+
+
+# ---------------------------------------------------------------- phase 15
+# the visual chain's trials: (name, label, frames, height, width), both at
+# VISUAL_FPS; a 720p and a VGA clip, their face crops warped at 256^2
+VISUAL_TRIALS = (('trial_a', 0, 40, 720, 1280), ('trial_b', 3, 24, 480, 640))
+VISUAL_FPS = 25.0
+# the detector's longest side as the upstream runs it, and the smaller one
+# at which the card is held against the CPU
+DETECT_MAX_SIZE = 2048
+DETECT_GATE_SIZE = 512
+# the threshold is drawn from frame 0's scores so that this many anchors
+# pass it (random weights score no face; the NMS then has work)
+DETECT_ANCHORS = 300
+# card against CPU on the same inputs and weights: the detector's outputs,
+# FAN's heatmaps and the embeddings within this of their largest
+# magnitude; AU maps (values in [0, 1]) absolute
+VISUAL_RTOL = 1e-4
+VISUAL_AU_ATOL = 1e-5
+# crops of trial_a held against the CPU through FAN, and the AU maps' size
+FAN_GATE_CROPS = 4
+AU_GATE_SIZE = 128
+
+
+def seeded_state(model: torch.nn.Module, rng: np.random.Generator,
+                 gain: float = 2.0) -> dict:
+    """``model``'s state_dict drawn from ``rng``: convolutions N(0, gain /
+    fan_in) (a detector head's at a ninth of that), conv biases and
+    BatchNorm shifts and means N(0, 0.1^2), BatchNorm scales U(0.6, 1),
+    variances U(0.5, 1.5); what PyTorch counts stays."""
+    out = {}
+    for k, v in model.state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith('num_batches_tracked'):
+            out[k] = v
+            continue
+        if len(shape) == 4:
+            std = np.sqrt(gain / np.prod(shape[1:]))
+            if 'Head' in k:
+                std /= 3
+            a = rng.standard_normal(shape) * std
+        elif k.endswith('running_var'):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif k.endswith('.weight'):  # a BatchNorm's scale
+            a = rng.uniform(0.6, 1.0, shape)
+        else:
+            a = rng.standard_normal(shape) * 0.1
+        out[k] = torch.from_numpy(a.astype(np.float32))
+    return out
+
+
+def visual_frames(n: int, h: int, w: int,
+                  rng: np.random.Generator) -> np.ndarray:
+    """(n, h, w, 3) uint8: a smooth background and a lit ellipse, a face's
+    size and place, drifting a few pixels a frame, with light noise."""
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = np.stack([60 + 40 * np.sin(xs * rng.uniform(0.005, 0.02)
+                                      + ys * rng.uniform(0.005, 0.02)
+                                      + rng.uniform(0, 6))
+                     for _ in range(3)], axis=-1).astype(np.float32)
+    tone = np.array([150, 110, 90], np.float32)
+    out = np.empty((n, h, w, 3), np.uint8)
+    for i in range(n):
+        cx, cy = w * 0.5 + 2 * i, h * 0.45 + i
+        r = ((xs - cx) / (0.12 * w)) ** 2 + ((ys - cy) / (0.25 * h)) ** 2
+        frame = base + np.clip(1.5 - r, 0, 1)[..., None] * tone
+        frame += rng.integers(-4, 5, (h, w, 3), dtype=np.int8)
+        out[i] = np.clip(np.rint(frame), 0, 255)
+    return out
+
+
+class DroppingDetector:
+    """``detector`` but that the frames in ``drop`` (counted from 0 at
+    this object's first call) find no face: the faces chain's leading
+    fallback and its carry run."""
+
+    def __init__(self, detector, drop):
+        self.detector, self.drop, self.calls = detector, set(drop), 0
+
+    def detect(self, img_rgb):
+        i, self.calls = self.calls, self.calls + 1
+        return [] if i in self.drop else self.detector.detect(img_rgb)
+
+
+def conv_flops(model: torch.nn.Module, fn) -> float:
+    """Operations of the convolutions of one call of ``fn()`` (which runs
+    ``model``): 2 x output elements x input channels per group x kernel
+    area, each counted from the shapes it ran at."""
+    total = [0.0]
+
+    def hook(mod, inputs, output):
+        k = mod.kernel_size[0] * mod.kernel_size[1]
+        total[0] += 2.0 * output.numel() * mod.in_channels // mod.groups * k
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def visual_stage(name: str, trial: str, frames: int, fn, traced=None,
+                 host: bool = False) -> tuple:
+    """:func:`audio_stage`'s row with the device's idle share: 1 - device
+    time / wall."""
+    t0 = time.perf_counter()
+    row, out = audio_stage(name, trial, frames, fn, traced, host)
+    if row['device_ms'] is not None:
+        row['idle_share'] = 1 - row['device_ms'] / (row['wall_s'] * 1e3)
+        print(f'    idle share {row["idle_share"]:.3f}; traced in '
+              f'{time.perf_counter() - t0 - row["wall_s"]:.1f} s')
+    return row, out
+
+
+def encode_lossless(path: str, frames: np.ndarray, wav: str) -> None:
+    """frames and the wav into one file: FFV1 (lossless) video at
+    VISUAL_FPS, 16-bit PCM audio."""
+    n, h, w, _ = frames.shape
+    subprocess.run(['ffmpeg', '-v', 'error', '-nostdin', '-y', '-f',
+                    'rawvideo', '-pix_fmt', 'rgb24', '-s', f'{w}x{h}', '-r',
+                    str(VISUAL_FPS), '-i', '-', '-i', wav, '-c:v', 'ffv1',
+                    '-c:a', 'pcm_s16le', path], input=frames.tobytes(),
+                   check=True)
+
+
+def compare_rel(name: str, got: np.ndarray, want: np.ndarray,
+                rtol: float = VISUAL_RTOL) -> float:
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    print(f'  {name}: max |card - cpu| = {err:.3e}, {err / scale:.3e} of the '
+          f'largest {scale:.3e} (rtol {rtol})')
+    if got.shape != want.shape or not scale > 0 or err > rtol * scale:
+        fail(f'{name}: the card is {err / scale:.3e} of the largest '
+             f'magnitude from the CPU')
+    return err / scale
+
+
+def compare_levels(name: str, got: np.ndarray, want: np.ndarray) -> int:
+    """uint8 images: within one level; returns how many values differ."""
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    flips = int(np.count_nonzero(diff))
+    print(f'  {name}: {flips} of {diff.size} values one level apart from '
+          f'the CPU\'s ({flips / diff.size:.2e})')
+    if got.shape != want.shape or diff.max(initial=0) > 1:
+        fail(f'{name}: the card is more than one level from the CPU')
+    return flips
+
+
+def check_detector(det, det_cpu, frame: np.ndarray, threshold: float,
+                   device) -> None:
+    """The detector at DETECT_GATE_SIZE, card against CPU: ``_prepare``
+    within one level; on the CPU's prepared frame the network's outputs
+    within VISUAL_RTOL of their largest magnitude and the same detections
+    (the same count and scores within 1e-5; boxes and landmarks within one
+    pixel, the coordinates that the integer truncation moves counted)."""
+    from fvt_tpu_torch.preprocess import retinaface as rf
+
+    h, w = frame.shape[:2]
+    x_cpu, top, left = det_cpu._prepare(frame)
+    x_card, _, _ = det._prepare(frame)
+    level = 1 / (255 * torch.from_numpy(rf.NORM_STD))
+    compare_levels('RetinaFace _prepare (levels)',
+                   torch.round(x_card.cpu() / level).numpy(),
+                   torch.round(x_cpu / level).numpy())
+    got = det.forward(x_cpu.to(device))
+    want = det_cpu.forward(x_cpu)
+    for name, g, w_ in zip(('loc', 'conf', 'ldm'), got, want):
+        compare_rel(f'RetinaFace {name} at {DETECT_GATE_SIZE}^2',
+                    g.cpu().numpy(), w_.numpy())
+    det.threshold = det_cpu.threshold = threshold
+    got = det.detect_prepared(x_cpu, top, left, h, w)
+    want = det_cpu.detect_prepared(x_cpu, top, left, h, w)
+    if len(got) != len(want) or not got:
+        fail(f'detections: {len(got)} on the card, {len(want)} on the CPU')
+    moved = 0
+    for g, w_ in zip(got, want):
+        d = np.abs(np.concatenate([g['bbox'] - w_['bbox'], (
+            g['landmarks'] - w_['landmarks']).ravel()]))
+        moved += int(np.count_nonzero(d))
+        if d.max() > 1 or abs(g['score'] - w_['score']) > 1e-5:
+            fail(f'detections differ: {g} against {w_}')
+    print(f'  detections at {DETECT_GATE_SIZE}^2, threshold '
+          f'{threshold:.6f}: {len(got)} on both, {moved} of '
+          f'{14 * len(got)} integer coordinates one pixel apart')
+
+
+def landmark_ties(hm_card: np.ndarray, hm_cpu: np.ndarray, got: np.ndarray,
+                  want: np.ndarray) -> int:
+    """Landmarks equal but where the CPU's heatmap ties: the card's argmax
+    within VISUAL_RTOL of the largest magnitude of the CPU's maximum, or a
+    sub-pixel step's neighbour difference within it.  Returns the ties."""
+    tol = VISUAL_RTOL * np.abs(hm_cpu).max()
+    ties = 0
+    for j in np.nonzero((got != want).any(axis=1))[0]:
+        a, b = hm_card[:, :, j], hm_cpu[:, :, j]
+        iy, ix = np.unravel_index(a.argmax(), a.shape)
+        tie = b.max() - b[iy, ix] <= tol
+        if not tie and 0 < ix < a.shape[1] - 1 and 0 < iy < a.shape[0] - 1:
+            tie = min(abs(b[iy, ix + 1] - b[iy, ix - 1]),
+                      abs(b[iy + 1, ix] - b[iy - 1, ix])) <= tol
+        if not tie:
+            fail(f'landmark {j}: {got[j]} on the card, {want[j]} on the CPU, '
+                 f'and no tie in the heatmap')
+        ties += 1
+    return ties
+
+
+def visual_chain(device, card: str) -> None:
+    """Phase 15: the offline visual preprocessing and the feature driver on
+    the card, on two seeded trials (VISUAL_TRIALS) with full-width
+    RetinaFace-R50, FAN-4, ArcFace IR-50 and VGGish drawn from the seed
+    and loaded from files under the upstream names.  Where ffmpeg is on
+    the machine the trials are lossless video files with their audio and
+    the chain runs from them; else from the frames, the wavs placed and
+    the probe injected.  Driver pass 1 (labels, log-mel, VGGish, BERT
+    zeros; two shards), then the faces (RetinaFace at DETECT_MAX_SIZE, the
+    warp; frames 0-1 and a middle one dropped), compaction and
+    recompaction, driver pass 2 (``cnn.npy``, ``landmark.npy``), the
+    merge; the card held against the CPU; no kernel of the port's may
+    launch."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+
+    from fvt_tpu_torch.models.arcface import VisualBackbone
+    from fvt_tpu_torch.models.vggish import VGGish
+    from fvt_tpu_torch.preprocess import (action_units, audio, compact,
+                                          driver, facealign, faces, fan,
+                                          melspec, merge, recompact,
+                                          retinaface, visual)
+    from fvt_tpu_torch.preprocess.fan import _resize_bilinear
+    from fvt_tpu_torch.preprocess.sharding import divide
+
+    t_phase = time.perf_counter()
+
+    def mark(what: str) -> None:
+        print(f'  [{time.perf_counter() - t_phase:.1f} s] {what}')
+
+    zero, read = run_counters()
+    zero()
+    rng = np.random.default_rng(SEED + 15)
+    has_ffmpeg = bool(shutil.which('ffmpeg') and shutil.which('ffprobe'))
+    has_pil = importlib.util.find_spec('PIL') is not None
+    print('  ffmpeg ' + ('present: the trials are video files' if has_ffmpeg
+                         else 'absent: frames, placed wavs and an injected '
+                         'probe') + '; PIL ' + (
+        'present: jpgs and compact.main' if has_pil
+        else 'absent: compact_video_npy'))
+    rows = []
+    with tempfile.TemporaryDirectory() as root:
+        # full-width weights from the seed, under the upstream names
+        paths = {'retinaface': f'{root}/retinaface_resnet50_2020-07-20.pth',
+                 'fan': f'{root}/2DFAN4-cd938726ad.zip',
+                 'arcface': f'{root}/res50_ir_0.887.pth',
+                 'vggish': f'{root}/vggish.pth'}
+        torch.save(seeded_state(retinaface.RetinaFaceNet(), rng),
+                   paths['retinaface'])
+        torch.save(seeded_state(fan.FAN(), rng, gain=1.0), paths['fan'])
+        arcface = VisualBackbone()
+        arcface.reset_parameters(torch.Generator().manual_seed(SEED))
+        torch.save(arcface.state_dict(), paths['arcface'])
+        vggish = VGGish()
+        vggish.reset_parameters(torch.Generator().manual_seed(SEED))
+        with torch.no_grad():  # He's gain over PyTorch's uniform init
+            for p in vggish.parameters():
+                if p.dim() > 1:
+                    p.mul_(6 ** 0.5)
+        torch.save(vggish.state_dict(), paths['vggish'])
+
+        mark('weights written')
+
+        # the trials: a fold, videos (or frames), wavs
+        folds, videos = f'{root}/folds', f'{root}/videos'
+        out, faces_root = f'{root}/store', f'{root}/cropped_aligned'
+        feat = f'{out}/features'
+        npy_root = f'{feat}/{driver.NPY_FOLDER}'
+        os.makedirs(f'{folds}/split-0')
+        os.makedirs(videos)
+        os.makedirs(f'{feat}/wav')
+        with open(f'{folds}/split-0/train.txt', 'w') as f:
+            f.writelines(f'{name},{label},\n'
+                         for name, label, *_ in VISUAL_TRIALS)
+        clips = {}
+        for name, _, n, h, w in VISUAL_TRIALS:
+            frames = visual_frames(n, h, w, rng)
+            wav = f'{root}/{name}.wav'
+            melspec.write_wav(wav, audio_clip(n / VISUAL_FPS, 16000, 1, rng),
+                              16000)
+            if has_ffmpeg:
+                path = f'{videos}/{name}.mkv'
+                encode_lossless(path, frames, wav)
+                decoded = np.stack(list(faces.read_video_frames(path)))
+                if not np.array_equal(decoded, frames):
+                    fail(f'{name}: the lossless video does not decode to '
+                         f'its frames')
+                if driver.probe_video(path) != (VISUAL_FPS, n):
+                    fail(f'{name}: probe_video gives '
+                         f'{driver.probe_video(path)}')
+            else:
+                open(f'{videos}/{name}.mp4', 'w').close()
+                shutil.copy(wav, f'{feat}/wav/{name}.wav')
+            clips[name] = frames
+        lengths = {name: n for name, _, n, *_ in VISUAL_TRIALS}
+
+        def probe(path):
+            return VISUAL_FPS, lengths[os.path.basename(path).split('.')[0]]
+
+        def run_driver(part: int, flags: list, models):
+            """Shard ``part`` of 2 through ``driver.main`` with ``flags``
+            (the video files probed by ffprobe), else through
+            PreprocessingDriver with ``models()``' extractors and the
+            injected probe."""
+            argv = ['--dataset_name', 'C-EXPR-DB', '--split', 'train',
+                    '--part', str(part), '--nparts', '2', '--video_root',
+                    videos, '--output_root', out, '--folds_dir', folds]
+            if has_ffmpeg:
+                return driver.main(argv + flags)
+            return driver.PreprocessingDriver(
+                'C-EXPR-DB', 'train', part, 2, videos, out, folds,
+                probe=probe, **models()).run()
+
+        def check_records(records):
+            for r in records:
+                if r['processing_record']['issues']:
+                    fail(f'driver: {r["processing_record"]}')
+
+        mark('trials written')
+
+        # driver pass 1: labels, log-mel, VGGish, BERT zeros, two shards
+        total = sum(lengths.values())
+        shards = [sum(lengths[t] for t in shard)
+                  for shard in divide(2, list(lengths))]
+        for part in range(2):
+            row, records = visual_stage(
+                f'driver pass 1, part {part}/2', 'shard', shards[part],
+                lambda: run_driver(part, ['--vggish_pth', paths['vggish']],
+                                   lambda: {'vggish': audio.vggish_from_pth(
+                                       paths['vggish'])}), host=True)
+            check_records(records)
+            rows.append(row)
+
+        mark('driver pass 1 done')
+
+        # the detector at DETECT_MAX_SIZE and its threshold
+        det = retinaface.RetinaFaceR50(weights_path=paths['retinaface'],
+                                       max_size=DETECT_MAX_SIZE)
+        first = clips[VISUAL_TRIALS[0][0]][0]
+        x0, _, _ = det._prepare(first)
+        scores = det.forward(x0)[1][0, :, 1]
+        threshold = float(torch.sort(scores).values[-DETECT_ANCHORS - 1])
+        det.threshold = threshold
+        kept = det.detect(first)
+        print(f'  RetinaFace-R50 at {DETECT_MAX_SIZE}^2: {scores.numel()} '
+              f'anchors, threshold {threshold:.6f} from frame 0\'s scores: '
+              f'{DETECT_ANCHORS} pass, {len(kept)} kept by the NMS')
+        if not kept:
+            fail('the detector kept no box on frame 0')
+        flops = conv_flops(det.model, lambda: det.forward(x0))
+        ms = median_ms(lambda: det.forward(x0), runs=5, warmup=2)
+        print(f'  RetinaFace forward at {DETECT_MAX_SIZE}^2: {ms:.3f} ms a '
+              f'frame (CUDA events), {flops / 1e9:.1f} GFLOP of '
+              f'convolutions, {flops / ms / 1e9:.2f} TFLOP/s, '
+              f'{flops / PEAK_FLOPS * 1e3 / ms:.1%} of the fp32 peak (bound '
+              f'{flops / PEAK_FLOPS * 1e3:.3f} ms)')
+        rows.append({'stage': 'retinaface forward', 'clip': 'frame 0',
+                     'frames': 1, 'ms': ms, 'gflop': flops / 1e9,
+                     'bound_ms': flops / PEAK_FLOPS * 1e3,
+                     'share_of_fp32_peak': flops / PEAK_FLOPS * 1e3 / ms})
+        del x0
+
+        mark('detector timed')
+
+        # the faces: detect, warp at 256^2, carry and fallback
+        crops = {}
+        for name, _, n, h, w in VISUAL_TRIALS:
+            drop = {0, 1, n // 2}
+            frames = clips[name]
+
+            def run_faces():
+                detector = DroppingDetector(det, drop)
+                if has_ffmpeg:
+                    return faces.process_one_video(
+                        f'{videos}/{name}.mkv', f'{faces_root}/{name}',
+                        detector, store_jpgs=has_pil)
+                return faces.process_frames(
+                    iter(frames), f'{faces_root}/{name}', detector,
+                    store_jpgs=has_pil)
+
+            def traced_faces():
+                faces.process_frames(iter(frames), f'{root}/traced',
+                                     DroppingDetector(det, drop),
+                                     store_jpgs=False)
+
+            row, got = visual_stage('faces (detect + warp)', name, n,
+                                    run_faces, traced_faces)
+            rows.append(row)
+            if got.shape != (n, 256, 256, 3) or got.dtype != np.uint8:
+                fail(f'{name}: faces {got.shape} {got.dtype}')
+            for i in (0, 1):
+                want = np.clip(np.rint(_resize_bilinear(
+                    frames[i].astype(np.float32), 256, 256)), 0, 255)
+                if not np.array_equal(got[i], want.astype(np.uint8)):
+                    fail(f'{name}: frame {i} is not the resized frame')
+            if not np.array_equal(got[n // 2], got[n // 2 - 1]):
+                fail(f'{name}: frame {n // 2} did not carry the crop before')
+            crops[name] = got
+
+        mark('faces done')
+
+        # the warp, card against CPU, on detections of trial_a
+        name = VISUAL_TRIALS[0][0]
+        sample = clips[name][2:6]
+        dets = [det.detect(f) for f in sample]
+        if not all(dets):
+            fail(f'{name}: no detection on frames 2-5 at the threshold')
+        lms = np.stack([d[0]['landmarks'] for d in dets])
+        compare_levels('batched_warp_faces', facealign.batched_warp_faces(
+            sample, lms), facealign.batched_warp_faces(sample, lms,
+                                                       device='cpu'))
+
+        mark('warp held against the CPU')
+
+        # compaction (jpgs -> video.npy) and recompaction (video_48.npy)
+        def run_compact():
+            if has_pil:
+                compact.main(['--faces_root', faces_root, '--features_root',
+                              npy_root, '--ds', 'C-EXPR-DB'])
+            else:
+                for trial, c in crops.items():
+                    faces.compact_video_npy(f'{npy_root}/{trial}', c)
+
+        row, _ = visual_stage('compact', 'both', total, run_compact,
+                              host=True)
+        rows.append(row)
+        row, _ = visual_stage('recompact', 'both', total, lambda:
+                              recompact.main(['--features_path', npy_root]),
+                              host=True)
+        rows.append(row)
+
+        mark('compacted')
+
+        # driver pass 2: cnn.npy and landmark.npy
+        was = os.environ.get('FVT_FAN_WEIGHTS')
+        os.environ['FVT_FAN_WEIGHTS'] = paths['fan']
+        try:
+            for part in range(2):
+                row, records = visual_stage(
+                    f'driver pass 2, part {part}/2', 'shard', shards[part],
+                    lambda: run_driver(
+                        part, ['--arcface_pth', paths['arcface'],
+                               '--landmarks'],
+                        lambda: {'arcface': visual.backbone_from_pth(
+                            paths['arcface']), 'landmarker':
+                            fan.make_full_frame_landmarker()}),
+                    host=True)
+                check_records(records)
+                rows.append(row)
+        finally:
+            if was is None:
+                del os.environ['FVT_FAN_WEIGHTS']
+            else:
+                os.environ['FVT_FAN_WEIGHTS'] = was
+
+        mark('driver pass 2 done')
+
+        # the merge: each trial once
+        info = merge.merge_results(feat, 'C-EXPR-DB', 'train')
+        if sorted(info['trial']) != sorted(lengths) or \
+                info['length'] != [lengths[t] for t in info['trial']]:
+            fail(f'merged dataset_info: {info["trial"]} {info["length"]}')
+
+        # every file's shape, dtype and length against video.npy
+        want_files = {'video': ((256, 256, 3), np.uint8),
+                      'video_48': ((48, 48, 3), np.uint8),
+                      'cnn': ((512,), np.float32),
+                      'landmark': ((136,), np.float32),
+                      'logmel': ((96, 64), np.float16),
+                      'vggish': ((128,), np.float32),
+                      'bert': ((768,), np.float32),
+                      'EXPR_continuous_label': ((), np.int64)}
+        for trial, n in lengths.items():
+            for f, (shape, dtype) in want_files.items():
+                a = np.load(f'{npy_root}/{trial}/{f}.npy', mmap_mode='r')
+                if a.shape != (n,) + shape or a.dtype != dtype:
+                    fail(f'{trial}/{f}.npy: {a.shape} {a.dtype}, want '
+                         f'{(n,) + shape} {np.dtype(dtype)}')
+        print(f'  files of {sorted(lengths)}: {sorted(want_files)} of '
+              f'{[lengths[t] for t in sorted(lengths)]} rows, as video.npy')
+
+        # the extractors, timed on trial_a and held against the CPU
+        name, n = VISUAL_TRIALS[0][0], VISUAL_TRIALS[0][2]
+        video = np.load(f'{npy_root}/{name}/video.npy')
+        backbone = visual.backbone_from_pth(paths['arcface'])
+        row, cnn = visual_stage('cnn (ArcFace IR-50)', name, n,
+                                lambda: visual.extract_cnn_features(
+                                    video, backbone))
+        rows.append(row)
+        written = np.load(f'{npy_root}/{name}/cnn.npy')
+        compare_rel('cnn.npy (driver, card) against the extractor', written,
+                    cnn)
+        compare_rel('cnn.npy', written, visual.extract_cnn_features(
+            video, visual.backbone_from_pth(paths['arcface'], 'cpu'),
+            device='cpu'))
+
+        mark('cnn held against the CPU')
+        fan_card = fan.FANLandmarks(paths['fan'])
+        fan_cpu = fan.FANLandmarks(paths['fan'], device='cpu')
+        landmarker = fan.make_full_frame_landmarker(paths['fan'])
+        row, lm = visual_stage('landmarks (FAN-4)', name, n, lambda: np.stack(
+            [landmarker(f) for f in video]))
+        rows.append(row)
+        written = np.load(f'{npy_root}/{name}/landmark.npy')
+        if not (np.isfinite(written).all() and np.isfinite(lm).all()
+                and np.abs(lm).max() < 1024):
+            fail('landmarks: not finite, or far out of the crop')
+        crops_in = []
+        for f in video[:FAN_GATE_CROPS]:
+            center, scale = fan.bbox_to_center_scale((0, 0, 256, 256))
+            c = fan.crop_face(f.astype(np.float32), center, scale)
+            crops_in.append(np.clip(np.rint(c), 0, 255) / 255.0)
+        hm_card = fan_card.heatmaps(np.stack(crops_in))
+        hm_cpu = fan_cpu.heatmaps(np.stack(crops_in))
+        compare_rel(f'FAN heatmaps ({FAN_GATE_CROPS} crops)', hm_card, hm_cpu)
+        ties = sum(landmark_ties(
+            hm_card[i], hm_cpu[i],
+            fan.decode_heatmaps(hm_card[i], center, scale),
+            fan.decode_heatmaps(hm_cpu[i], center, scale))
+            for i in range(FAN_GATE_CROPS))
+        print(f'  landmarks of {FAN_GATE_CROPS} crops: card and CPU equal '
+              f'but at {ties} argmax or sub-pixel ties')
+        au_lms = lm[:FAN_GATE_CROPS]
+        got = action_units.batched_au_heatmaps(au_lms, AU_GATE_SIZE)
+        want = action_units.batched_au_heatmaps(au_lms, AU_GATE_SIZE,
+                                                device='cpu')
+        err = float(np.abs(got - want).max())
+        print(f'  AU heatmaps {got.shape}: max |card - cpu| = {err:.3e} (atol '
+              f'{VISUAL_AU_ATOL})')
+        if got.shape != want.shape or err > VISUAL_AU_ATOL:
+            fail(f'AU heatmaps differ from the CPU\'s by {err}')
+
+        mark('FAN and AU maps held against the CPU')
+
+        # the detector at DETECT_GATE_SIZE, card against CPU
+        det_gate = retinaface.RetinaFaceR50(model=det.model,
+                                            max_size=DETECT_GATE_SIZE)
+        det_cpu = retinaface.RetinaFaceR50(weights_path=paths['retinaface'],
+                                           max_size=DETECT_GATE_SIZE,
+                                           device='cpu')
+        gate_scores = det_gate.forward(det_gate._prepare(first)[0])[1][0, :, 1]
+        check_detector(det_gate, det_cpu, first, float(torch.sort(
+            gate_scores).values[-DETECT_ANCHORS - 1]), device)
+        del det, det_gate, det_cpu, fan_card, fan_cpu, backbone
+    torch.cuda.empty_cache()
+    launched = {k: n for k, n in read().items() if n}
+    if launched:
+        fail(f'the visual chain launched kernels of the port: {launched}')
+    wall = time.perf_counter() - t_phase
+    print(f'  visual chain rows: {json.dumps(rows)}')
+    print(f'  phase 15 in {wall:.1f} s on {card}; no kernel of the port '
+          f'launched')
 
 
 def main() -> int:
@@ -5874,6 +6461,12 @@ def main() -> int:
           'patches and VGGish embeddings through fvt_tpu_torch.preprocess, '
           'MFCC and eGeMAPS on the host')
     audio_chain(device, card)
+
+    print('phase 15: the offline visual preprocessing and the feature '
+          'driver on the card: RetinaFace-R50, the 5-point warp, FAN-4 '
+          'landmarks, ArcFace cnn.npy, compaction and the sharded driver '
+          'with its merge')
+    visual_chain(device, card)
 
     print(card)
     print(json.dumps({'kernels': kernels}))

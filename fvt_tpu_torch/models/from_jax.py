@@ -29,6 +29,13 @@ VGGish flattens NHWC as ``fvt_tpu``'s does (``models/vggish.py``).
 :func:`load_act_scales` takes an ``act_scales`` collection (the
 ``extra_vars`` of an ``int8_static`` artifact) into an int8 ArcFace.
 
+:func:`retinaface_state_from_flax` and :func:`fan_state_from_flax` turn
+``fvt_tpu``'s detector and landmark variables back into the published
+files' upstream-named state dicts (``fvt_tpu``'s
+``port_torch_state_dict`` the other way), which the port's
+``preprocess.retinaface.RetinaFaceNet`` and ``preprocess.fan.FAN`` load as
+they are.
+
 Every value is carried as float32, which is what flax keeps under
 ``--amp`` too: bfloat16 there is a compute type and no parameter type,
 so a model with ``backbone_dtype=torch.bfloat16`` loads the same
@@ -322,6 +329,97 @@ def _arcface(params: dict, stats: dict, prefix: str, out: dict) -> None:
         params['output_linear']['bias'])
     _bn(params['output_bn1d'], stats['output_bn1d'],
         f'{prefix}.output_layer.4', out)
+
+
+def _detector_bn(params: dict, stats: dict, prefix: str, out: dict) -> None:
+    """A BatchNorm under the published detectors' keys: no
+    ``num_batches_tracked`` (their files have none; PyTorch fills it)."""
+    _bn(params, stats, prefix, out)
+    del out[f'{prefix}.num_batches_tracked']
+
+
+def retinaface_state_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """The upstream-named state_dict (``retinaface_resnet50_2020-07-20.pth``'s
+    keys) of the port's ``preprocess.retinaface.RetinaFaceNet`` from
+    ``fvt_tpu``'s RetinaFaceNet variables (``port_torch_state_dict`` the
+    other way)."""
+    params, stats = variables['params'], variables['batch_stats']
+    out: Dict[str, torch.Tensor] = {}
+    bp, bs = params['body'], stats['body']
+    _conv2d(bp['conv1'], 'body.conv1', out)
+    _detector_bn(bp['bn1'], bs['bn1'], 'body.bn1', out)
+    for li, blocks in enumerate((3, 4, 6, 3)):
+        for b in range(blocks):
+            blk, bst = bp[f'layer{li + 1}_{b}'], bs[f'layer{li + 1}_{b}']
+            base = f'body.layer{li + 1}.{b}'
+            for ci in (1, 2, 3):
+                _conv2d(blk[f'conv{ci}'], f'{base}.conv{ci}', out)
+                _detector_bn(blk[f'bn{ci}'], bst[f'bn{ci}'],
+                             f'{base}.bn{ci}', out)
+            if 'down_conv' in blk:
+                _conv2d(blk['down_conv'], f'{base}.downsample.0', out)
+                _detector_bn(blk['down_bn'], bst['down_bn'],
+                             f'{base}.downsample.1', out)
+    convbns = [(f'fpn_{n}', f'fpn.{n}') for n in
+               ('output1', 'output2', 'output3', 'merge1', 'merge2')]
+    for i in (1, 2, 3):
+        convbns += [((f'ssh{i}', sub), f'ssh{i}.{sub}') for sub in
+                    ('conv3X3', 'conv5X5_1', 'conv5X5_2', 'conv7X7_2',
+                     'conv7x7_3')]
+    for path, prefix in convbns:
+        p, st = params, stats
+        for k in (path if isinstance(path, tuple) else (path,)):
+            p, st = p[k], st[k]
+        _conv2d(p['conv'], f'{prefix}.0', out)
+        _detector_bn(p['bn'], st['bn'], f'{prefix}.1', out)
+    for tname, fname in (('BboxHead', 'bbox_head'),
+                         ('ClassHead', 'class_head'),
+                         ('LandmarkHead', 'landmark_head')):
+        for i in range(3):
+            head = params[f'{fname}{i}']
+            _conv2d(head, f'{tname}.{i}.conv1x1', out)
+            out[f'{tname}.{i}.conv1x1.bias'] = _t(head['bias'])
+    return out
+
+
+def fan_state_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """The upstream-named state_dict (``2DFAN4``'s keys) of the port's
+    ``preprocess.fan.FAN`` from ``fvt_tpu``'s FAN variables
+    (``port_torch_state_dict`` the other way)."""
+    params, stats = variables['params'], variables['batch_stats']
+    out: Dict[str, torch.Tensor] = {}
+
+    def conv(tree, prefix):
+        _conv2d(tree, prefix, out)
+        if 'bias' in tree:
+            out[f'{prefix}.bias'] = _t(tree['bias'])
+
+    def convblock(p, st, prefix):
+        for i in (1, 2, 3):
+            _detector_bn(p[f'bn{i}'], st[f'bn{i}'], f'{prefix}.bn{i}', out)
+            conv(p[f'conv{i}'], f'{prefix}.conv{i}')
+        if 'down_conv' in p:
+            _detector_bn(p['down_bn'], st['down_bn'],
+                         f'{prefix}.downsample.0', out)
+            conv(p['down_conv'], f'{prefix}.downsample.2')
+
+    conv(params['conv1'], 'conv1')
+    _detector_bn(params['bn1'], stats['bn1'], 'bn1', out)
+    for name in ('conv2', 'conv3', 'conv4'):
+        convblock(params[name], stats[name], name)
+    stacks = sum(1 for k in params if k.startswith('top_m_'))
+    for i in range(stacks):
+        for name, sub in params[f'm{i}'].items():
+            convblock(sub, stats[f'm{i}'][name], f'm{i}.{name}')
+        convblock(params[f'top_m_{i}'], stats[f'top_m_{i}'], f'top_m_{i}')
+        conv(params[f'conv_last{i}'], f'conv_last{i}')
+        _detector_bn(params[f'bn_end{i}'], stats[f'bn_end{i}'],
+                     f'bn_end{i}', out)
+        conv(params[f'l{i}'], f'l{i}')
+        if f'bl{i}' in params:
+            conv(params[f'bl{i}'], f'bl{i}')
+            conv(params[f'al{i}'], f'al{i}')
+    return out
 
 
 # the VGGish's Linear layers: fvt_tpu's Dense fc<j> is embeddings.<i>

@@ -120,7 +120,8 @@ def extract_vggish_embeddings(input_path: str,
     (:func:`vggish_from_pth`) or from ``fvt_tpu``'s params through
     ``models.from_jax.vggish_state_from_flax``.  Its input is the float32
     patches on the device, not the float16 copy on disk; the last chunk
-    is not padded (there is no jit, and the rows are independent).
+    is not padded (there is no jit, and the rows are independent).  Its
+    convolutions and products run with TF32 off whatever the caller set.
     """
     device = melspec.resolve_device(device)
     where = {p.device for p in vggish.parameters()}
@@ -129,7 +130,7 @@ def extract_vggish_embeddings(input_path: str,
                          f'{device}: put it there once, before the trials')
     examples = melspec._wavfile_examples(input_path, window_sec, hop_sec,
                                          device).float()
-    with torch.inference_mode():
+    with torch.inference_mode(), melspec.no_tf32():
         outs = [vggish(examples[start:start + input_size])
                 for start in range(0, len(examples), input_size)]
         embeddings = (torch.cat(outs).float().cpu().numpy() if outs

@@ -93,16 +93,20 @@ def spectrogram_to_mel_matrix(num_mel_bins=20, num_spectrogram_bins=129,
 
 
 @contextlib.contextmanager
-def _no_tf32():
-    """Full float32 products in the mel projection whatever the caller
-    set: fvt_tpu's matmul is float32 (TF32 would move the log-mel by
-    ~1e-3)."""
-    was = torch.backends.cuda.matmul.allow_tf32
+def no_tf32():
+    """Full float32 products and convolutions whatever the caller set,
+    the caller's settings restored on the way out: fvt_tpu's are float32
+    (TF32 would move the log-mel by ~1e-3, and the extractors' features
+    as much)."""
+    was = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = was
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = was
 
 
 def _log_mel(data: np.ndarray, device: torch.device,
@@ -143,7 +147,7 @@ def _log_mel(data: np.ndarray, device: torch.device,
     # there by up to ~2e-4.  In float64 the card's and the host's agree
     # to the float32 matmul's and log's rounding.
     mag = torch.fft.rfft(windowed.double(), n=fft_length).abs().float()
-    with _no_tf32():
+    with no_tf32():
         mel = mag @ mel_matrix.to(device)
     return torch.log(mel + log_offset)
 

@@ -4,8 +4,10 @@ numpy resize and windowing functions equal on seeded inputs (exact), the
 streaming server core giving the same dispatches, padded rows and
 output bits on the same multi-stream feed, the serving client the
 same source but its docstring's package name, and the host side of the
-audio preprocessing (``preprocess/{sharding,mfcc,egemaps}.py``) the same
-code below its docstrings, with ``divide``, ``annotated_index``, ``mfcc``,
+audio preprocessing (``preprocess/{sharding,mfcc,egemaps}.py``) and of the
+visual one (``preprocess/{compact,recompact,merge,au_ellipsoids}.py``;
+``splits.py`` but its YAML writer) the same code below its docstrings,
+with ``build_all_action_units``, ``divide``, ``annotated_index``, ``mfcc``,
 ``extract_mfcc``, ``egemaps_lld``, ``functionals_rows``,
 ``egemaps_per_frame``, ``extract_egemaps`` and ``COLUMNS`` exactly
 equal on seeded signals.
@@ -450,10 +452,9 @@ def test_egemaps_copy_is_the_original():
                           jax_egemaps.egemaps_functionals(x, 16000))
 
 
-@pytest.mark.parametrize('name', ['sharding', 'mfcc', 'egemaps'])
-def test_preprocess_copy_is_the_original_source(name):
-    """Below their docstrings the copies are the originals' code, the
-    package name in their imports and its line breaks aside."""
+def _code_below_docstring(name: str) -> list:
+    """(fvt_tpu's, the port's) source of ``preprocess/<name>.py`` below its
+    docstring, the package name and the line breaks aside."""
     import os
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -464,4 +465,50 @@ def test_preprocess_copy_is_the_original_source(name):
             text = f.read()
         code.append(' '.join(text[text.index('"""', 3) + 3:].replace(
             'fvt_tpu_torch', 'fvt_tpu').split()))
-    assert code[1] == code[0]
+    return code
+
+
+@pytest.mark.parametrize('name', ['sharding', 'mfcc', 'egemaps', 'compact',
+                                  'recompact', 'merge', 'au_ellipsoids'])
+def test_preprocess_copy_is_the_original_source(name):
+    """Below their docstrings the copies are the originals' code, the
+    package name in their imports and its line breaks aside."""
+    original, copy = _code_below_docstring(name)
+    assert copy == original
+
+
+def test_splits_copy_is_the_original_but_its_yaml_writer():
+    """``preprocess/splits.py`` is the original below its docstring, but
+    that ``class_id.yaml`` is written by ``config/flat_yaml`` (no PyYAML):
+    one import out, one in, the dump in one call."""
+    original, copy = _code_below_docstring('splits')
+    original = original.replace(' import yaml ', ' ').replace(
+        'from fvt_tpu import constants ',
+        'from fvt_tpu import constants from fvt_tpu.config import '
+        'flat_yaml ').replace(
+        "with open(join(d, 'class_id.yaml'), 'w') as f: "
+        "yaml.dump(class_id, f)",
+        "flat_yaml.dump(class_id, join(d, 'class_id.yaml'))")
+    assert copy == original
+
+
+def test_au_ellipsoids_copy_builds_the_original_maps():
+    """``build_all_action_units`` (no dlib) equal on seeded landmarks, in
+    both modes, for every basic expression and neutral, on a face, an
+    out-of-image face and invalid landmarks."""
+    from fvt_tpu.preprocess import au_ellipsoids as jax_aue
+    from fvt_tpu_torch.preprocess import au_ellipsoids as aue
+
+    rng = np.random.default_rng(11)
+    faces = [rng.uniform(20, 100, (68, 2)), rng.uniform(-400, -200, (68, 2)),
+             np.full((68, 2), np.inf)]
+    for lms in faces:
+        lms = [tuple(p) for p in lms]
+        for cl in list(aue.EXP2AU) + [constants.NEUTRAL]:
+            for kind in (aue.HEATMAP_AUNITS_LNMKS,
+                         aue.HEATMAP_GENERIC_AUNITS_LNMKS):
+                got = aue.build_all_action_units(lms, 120, 110, cl, kind)
+                want = jax_aue.build_all_action_units(lms, 120, 110, cl,
+                                                      kind)
+                assert got.dtype == want.dtype
+                np.testing.assert_array_equal(got, want)

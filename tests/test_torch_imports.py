@@ -10,8 +10,10 @@ model exported as an artifact, served over HTTP through the client and
 by artifact inference, the int8 backbone calibrated and its scales
 carried, the bfloat16 host rounding, the audio extractors (log-mel
 patches, VGGish embeddings from a vggish.pth, MFCC) on a wav it writes,
-with all of them, cv2 and opensmile blocked), and chip_smoke.py refuses
-to run without a CUDA card."""
+the visual preprocessing (RetinaFace, the warp, FAN, AU maps) and a
+feature-driver shard with cnn.npy and landmarks, merged, with all of
+them, cv2 and opensmile blocked), and chip_smoke.py refuses to run
+without a CUDA card."""
 import os
 import re
 import subprocess
@@ -309,6 +311,57 @@ NO_JAX = textwrap.dedent('''
         mfcc.extract_mfcc(wav, os.path.join(root, 'mfcc.npy'), idx, 1 / 25)
         assert np.load(os.path.join(root, 'mfcc.npy')).shape == (12, 39)
 
+    # the visual preprocessing and the feature driver: every module, the
+    # detector, the warp and the FAN on the CPU, then a shard (cnn.npy,
+    # landmarks, log-mel patches) on a wav with an injected probe, merged
+    from fvt_tpu_torch.models.from_jax import (fan_state_from_flax,
+                                               retinaface_state_from_flax)
+    from fvt_tpu_torch.preprocess import (action_units, au_ellipsoids,
+                                          compact, driver, facealign, faces,
+                                          fan, merge, recompact, retinaface,
+                                          splits, textalign, visual)
+    det = retinaface.RetinaFaceR50(model=retinaface.RetinaFaceNet(),
+                                   confidence_threshold=0.0, max_size=64,
+                                   device='cpu')
+    assert det.detect(rng.integers(0, 256, (48, 64, 3), np.uint8))
+    with torch.inference_mode():
+        assert fan.FAN().eval()(torch.zeros(1, 64, 64, 3)).shape == (
+            1, 16, 16, 68)
+    assert action_units.batched_au_heatmaps(
+        rng.uniform(20, 40, (2, 68, 2)), 16, device='cpu').shape == (
+        2, 8, 16, 16)
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, 'folds', 'split-0'))
+        with open(os.path.join(root, 'folds', 'split-0', 'train.txt'),
+                  'w') as f:
+            f.write('t0,2,hello\\n')
+        os.makedirs(os.path.join(root, 'videos'))
+        open(os.path.join(root, 'videos', 't0.mp4'), 'w').close()
+        shard = os.path.join(root, 'shard')
+        os.makedirs(os.path.join(shard, 'features', 'wav'))
+        melspec.write_wav(os.path.join(shard, 'features', 'wav', 't0.wav'),
+                          rng.integers(-3000, 3000, 16000, np.int16), 16000)
+        frames = rng.integers(0, 256, (5, 72, 96, 3), np.uint8)
+        crops = faces.process_frames(iter(frames), os.path.join(root, 'c'),
+                                     faces.CenterBoxDetector(),
+                                     store_jpgs=False, device='cpu')
+        tdir = os.path.join(shard, 'features', 'compacted_48', 't0')
+        os.makedirs(tdir)
+        faces.compact_video_npy(tdir, crops)
+        records = driver.PreprocessingDriver(
+            'MELD', 'train', 0, 1, os.path.join(root, 'videos'), shard,
+            os.path.join(root, 'folds'), arcface=base,
+            landmarker=lambda img: np.ones((68, 2), np.float32),
+            probe=lambda path: (5.0, 5), device='cpu').run()
+        assert records[0]['processing_record']['issues'] == [], records
+        for feature, shape in (('cnn', (5, 512)), ('landmark', (5, 136)),
+                               ('logmel', (5, 96, 64)), ('bert', (5, 768))):
+            got = np.load(os.path.join(tdir, feature + '.npy')).shape
+            assert got == shape, (feature, got)
+        info = merge.merge_results(os.path.join(shard, 'features'), 'MELD',
+                                   'train')
+        assert info['trial'] == ['t0'] and info['length'] == [5]
+
     import chip_smoke
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
     assert not leaked, leaked
@@ -378,7 +431,20 @@ def test_no_port_source_imports_jax_or_fvt_tpu():
             'fvt_tpu_torch/preprocess/melspec.py',
             'fvt_tpu_torch/preprocess/audio.py',
             'fvt_tpu_torch/preprocess/mfcc.py',
-            'fvt_tpu_torch/preprocess/egemaps.py'} <= names
+            'fvt_tpu_torch/preprocess/egemaps.py',
+            'fvt_tpu_torch/preprocess/facealign.py',
+            'fvt_tpu_torch/preprocess/retinaface.py',
+            'fvt_tpu_torch/preprocess/fan.py',
+            'fvt_tpu_torch/preprocess/action_units.py',
+            'fvt_tpu_torch/preprocess/au_ellipsoids.py',
+            'fvt_tpu_torch/preprocess/faces.py',
+            'fvt_tpu_torch/preprocess/visual.py',
+            'fvt_tpu_torch/preprocess/compact.py',
+            'fvt_tpu_torch/preprocess/recompact.py',
+            'fvt_tpu_torch/preprocess/textalign.py',
+            'fvt_tpu_torch/preprocess/driver.py',
+            'fvt_tpu_torch/preprocess/merge.py',
+            'fvt_tpu_torch/preprocess/splits.py'} <= names
     for path in paths:
         with open(path) as f:
             found = FORBIDDEN_IMPORT.findall(f.read())
