@@ -2,8 +2,9 @@
 """Drives the PyTorch port's LFAN serving and training paths, the
 ArcFace backbone's conv paths, the training and serving of CAN, JMT and
 MT, the ``logmel`` modality, the regression task, serving from frozen
-artifacts over HTTP, int8 serving and the offline audio and visual
-features with the feature driver once on one CUDA card.
+artifacts over HTTP, int8 serving, the offline audio and visual
+features with the feature driver, and the run tools with data-parallel
+training once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -278,7 +279,18 @@ Phases, each of which raises on failure (exit code 1):
    relative, landmarks equal but at counted ties, AU maps within 1e-5;
    every file's shape, dtype and length against ``video.npy``; each
    stage's wall, frames/s, device time, peak memory and idle share, and
-   RetinaFace's ms a frame and share of the fp32 peak.
+   RetinaFace's ms a frame and share of the fp32 peak;
+16. the run tools and data-parallel training: ``fvt_tpu_torch.tools.
+   quickstart``'s seven stages on the card (each CLI a process; each
+   stage's wall), ``cv_campaign`` at 2 folds x 1 seed x 2 epochs (its
+   table); ``fvt_tpu_torch.main --data_parallel true`` on phase 7's store
+   (the full-width ``vggish+bert`` LFAN at (16, 300), one epoch) at world
+   1 over ``nccl`` against the run without the flag (parameters expected
+   bit for bit equal; the distance printed, failed above 1e-4) and at
+   world 2 over ``gloo`` on the one card (two processes; losses within
+   1e-4 relative, parameters within 1e-4), B3a/B3b launches counted per
+   rank; CAN's step at world 2 (the cross-rank BatchNorm, ``bn1``) against
+   one process.
 
 Everything runs in float32 with TF32 off for matmuls and cuDNN, except the
 bfloat16 backbone and its kernel and phases 8, 9, 10 and 13's ``--amp``
@@ -6207,6 +6219,247 @@ def visual_chain(device, card: str) -> None:
           f'launched')
 
 
+# ---------------------------------------------------------------- phase 16
+# the run tools on the card: quickstart's seven stages, then cv_campaign at
+# CV_FOLDS folds x CV_SEEDS x CV_EPOCHS epochs
+CV_FOLDS, CV_SEEDS, CV_EPOCHS = 2, (0,), 2
+# data-parallel training through main on phase 7's store (the full-width
+# vggish+bert LFAN, (TRAIN_BATCH, WINDOW) windows, 11 steps an epoch, the
+# last of 11 rows) for DP_EPOCHS: at world 1 over nccl, expected equal bit
+# for bit to the run without the flag; at world 2 over gloo on the one card
+# (NCCL takes one rank a GPU), within DP_LOSS_RTOL and DP_PARAM_ATOL of it:
+# the two ranks' halves of each batch's moments and gradients summed by
+# the all-reduces, fp32, in another order than one process sums them
+DP_EPOCHS = 1
+DP_LOSS_RTOL = 1e-4
+DP_PARAM_ATOL = 1e-4
+# CAN's step at world 2 (cross-rank BatchNorm, bn1 included) against one
+# process, DP_STEPS steps at (TRAIN_BATCH, WINDOW) with dropout on; its
+# parameters within DP_PARAM_ATOL
+DP_STEPS = 2
+
+
+def dp_state(model) -> dict:
+    """A host copy of ``model``'s state less the frozen backbones'
+    parameters."""
+    frozen = {k for k, _ in model.named_parameters()
+              if k.startswith('spatial.')}
+    return {k: v.detach().to('cpu', copy=True)
+            for k, v in model.state_dict().items() if k not in frozen}
+
+
+def state_distance(got: dict, want: dict) -> float:
+    if got.keys() != want.keys():
+        fail(f'states differ in keys: {sorted(got.keys() ^ want.keys())[:4]}')
+    return max(float((got[k].double() - v.double()).abs().max())
+               for k, v in want.items() if v.is_floating_point())
+
+
+def dp_can_step(world, device, rows: int, frames: int) -> dict:
+    """CAN on the card: DP_STEPS steps of one process on a (rows, frames)
+    batch and of the DP step on this rank's rows."""
+    from fvt_tpu_torch import constants
+    from fvt_tpu_torch.config.defaults import get_config
+    from fvt_tpu_torch.models.models import CAN
+    from fvt_tpu_torch.parallel.dp import DPTrainStep
+    from fvt_tpu_torch.train import optim
+    from fvt_tpu_torch.train.steps import TrainStep
+    from fvt_tpu_torch.utils import rng as rng_mod
+
+    r = np.random.default_rng(SEED + 16)
+    batch = {'vggish': r.standard_normal((rows, frames, 128), np.float32),
+             'bert': r.standard_normal((rows, frames, 768), np.float32),
+             constants.EXPR: r.integers(0, 7, (rows, frames))}
+    model = CAN(TRAIN_MODALITY, output_dim=7, tcn_dropout=0.2,
+                generator=torch.Generator().manual_seed(SEED))
+    hp = optim.standardize_opt_params(get_config(constants.MELD))
+    single = TrainStep(copy.deepcopy(model), hp, device)
+    step = DPTrainStep(model, hp, world)
+    per = rows // world.size
+    mine = {k: v[world.rank * per:(world.rank + 1) * per]
+            for k, v in batch.items()}
+    losses = {'single': [], 'dp': []}
+    for i in range(DP_STEPS):
+        losses['single'].append(float(single(
+            batch, rng_mod.generator(SEED, 'epoch0', i, device))))
+        losses['dp'].append(float(step(
+            mine, rng_mod.generator(SEED, 'epoch0', i, device), rows)))
+    return dict(losses=losses, distance=state_distance(
+        dp_state(step.model), dp_state(single.model)))
+
+
+def dp_gloo_rank(argv: list, out: str, device, rows: int,
+                 frames: int) -> None:
+    """One rank of the world-2 run on ``device``: a gloo group on its
+    tensors (started here, so main joins it as it is), main's run with its
+    B3a/B3b launches counted, then CAN's step at (rows, frames); written
+    to ``<out>.<rank>``."""
+    import os
+    import pickle
+    import torch.distributed as dist
+    from fvt_tpu_torch import main as train_cli
+    from fvt_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device.type == 'cuda':
+        torch.cuda.set_device(device)
+    dist.init_process_group('gloo', init_method='env://')
+    zero, read = run_counters()
+    zero()
+    t0 = time.perf_counter()
+    exp = train_cli.main(argv, device=device)
+    wall = time.perf_counter() - t0
+    launches = read()
+    world = mesh.join(device)
+    res = dict(losses=list(exp.trainer.loss_tracker),
+               step_losses=list(exp.trainer.step_losses),
+               state=dp_state(exp.trainer.model), wall=wall,
+               launches=launches,
+               can=dp_can_step(world, device, rows, frames))
+    with open(f'{out}.{os.environ["RANK"]}', 'wb') as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
+def tools_and_dp(device) -> dict:
+    """Phase 16.  Returns the launches of B1, B2, B3a and B3b in the
+    world-1 nccl run (``launches_dp``) and in each rank of the world-2 gloo
+    run (``launches_dp_gloo``)."""
+    import os
+    import pickle
+    import tempfile
+    from fvt_tpu_torch import main as train_cli
+    from fvt_tpu_torch.parallel import mesh
+    from fvt_tpu_torch.tools import cv_campaign, quickstart
+    from fvt_tpu_torch.tools.synth_store import make_cexpr_store
+
+    zero, read = run_counters()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        quickstart.main(os.path.join(root, 'quickstart'), device=str(device))
+        print(f'  quickstart\'s seven stages on the card in '
+              f'{time.perf_counter() - t0:.1f} s')
+        t0 = time.perf_counter()
+        cv_campaign.main(os.path.join(root, 'cv'), folds=CV_FOLDS,
+                         seeds=CV_SEEDS, epochs=CV_EPOCHS,
+                         device=str(device))
+        print(f'  cv_campaign at {CV_FOLDS} folds x {len(CV_SEEDS)} seed x '
+              f'{CV_EPOCHS} epochs on the card in '
+              f'{time.perf_counter() - t0:.1f} s')
+
+        # phase 7's store
+        rng = np.random.default_rng(SEED + 8)
+        lo, hi = TRAIN_STORE_LENGTHS
+        lengths = [int(n) for n in rng.integers(lo, hi + 1,
+                                                TRAIN_STORE_VIDEOS)]
+        val_lengths = [int(n) for n in rng.integers(lo, hi + 1,
+                                                    VAL_STORE_VIDEOS)]
+        store = make_cexpr_store(os.path.join(root, 'store'), lengths,
+                                 ds='C-EXPR-DB', val_lengths=val_lengths,
+                                 seed=SEED)
+        argv = ['--dataset_name', 'C-EXPR-DB',
+                '--dataset_path', store['dataset_path'],
+                '--folds_dir', store['folds_dir'],
+                '--modality', f'{"+".join(TRAIN_MODALITY)}'
+                              f'+EXPR_continuous_label',
+                '--model_name', 'LFAN', '--window_length', str(WINDOW),
+                '--hop_length', str(HOP), '--train_batch_size',
+                str(TRAIN_BATCH), '--seed', str(SEED),
+                '--num_epochs', str(DP_EPOCHS)]
+        runs = {}
+        for name in ('plain', 'nccl'):
+            extra = ['--outd', os.path.join(root, name)]
+            if name == 'nccl':
+                extra += ['--data_parallel', 'true']
+                os.environ.update(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
+                                  MASTER_ADDR='localhost',
+                                  MASTER_PORT=str(mesh.free_port()))
+            try:
+                zero()
+                t0 = time.perf_counter()
+                exp = train_cli.main(argv + extra, device=device)
+                if device.type == 'cuda':
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = read()
+            finally:
+                for k in mesh.ENV:
+                    os.environ.pop(k, None)
+            t = exp.trainer
+            if name == 'nccl' and (t.world is None or t.world.size != 1
+                                   or t.world.backend != mesh.backend_for(
+                                       device)):
+                fail(f'--data_parallel under a one-rank environment ran '
+                     f'without its nccl group: {t.world}')
+            runs[name] = dict(losses=list(t.loss_tracker),
+                              step_losses=list(t.step_losses),
+                              state=dp_state(t.model), wall=wall,
+                              launches=launches)
+            print(f'  {name}: {wall:.1f} s, epoch losses {t.loss_tracker}, '
+                  f'B3a/B3b launches {launches["tcn_block_train"]}/'
+                  f'{launches["tcn_block_bwd"]}')
+        plain, nccl = runs['plain'], runs['nccl']
+        same = plain['state'].keys() == nccl['state'].keys() and all(
+            torch.equal(v, nccl['state'][k])
+            for k, v in plain['state'].items())
+        dist_ = state_distance(nccl['state'], plain['state'])
+        print(f'  world 1 over nccl against the run without the flag: '
+              f'parameters {"bit for bit equal" if same else "not equal"}'
+              f', largest distance {dist_:.3e}; step losses equal: '
+              f'{nccl["step_losses"] == plain["step_losses"]}')
+        if dist_ > DP_PARAM_ATOL:
+            fail(f'world 1 over nccl: parameters {dist_:.3e} from the '
+                 f'plain run (> {DP_PARAM_ATOL})')
+
+        out = os.path.join(root, 'gloo.pkl')
+        t0 = time.perf_counter()
+        mesh.spawn(dp_gloo_rank, 2, argv + [
+            '--outd', os.path.join(root, 'gloo'), '--data_parallel',
+            'true'], out, device, TRAIN_BATCH, WINDOW)
+        print(f'  world 2 over gloo on the card: two processes in '
+              f'{time.perf_counter() - t0:.1f} s')
+        ranks = []
+        for r in range(2):
+            with open(f'{out}.{r}', 'rb') as f:
+                ranks.append(pickle.load(f))
+        for r, res in enumerate(ranks):
+            lerr = float(np.max(np.abs(np.subtract(
+                res['step_losses'], plain['step_losses']))
+                / np.abs(plain['step_losses'])))
+            perr = state_distance(res['state'], plain['state'])
+            la = res['launches']
+            can = res['can']
+            cerr = can['distance']
+            print(f'  rank {r}: main {res["wall"]:.1f} s, step losses '
+                  f'within {lerr:.3e} relative (tolerance {DP_LOSS_RTOL}), '
+                  f'parameters within {perr:.3e} (tolerance '
+                  f'{DP_PARAM_ATOL}) of one process; B3a/B3b launches '
+                  f'{la["tcn_block_train"]}/{la["tcn_block_bwd"]}, B1/B2 '
+                  f'{la["tcn_block"]}/{la["fusion"]}; CAN step losses '
+                  f'{can["losses"]["dp"]} vs {can["losses"]["single"]}, '
+                  f'parameters within {cerr:.3e}')
+            if lerr > DP_LOSS_RTOL or perr > DP_PARAM_ATOL:
+                fail(f'world 2 over gloo, rank {r}: losses {lerr:.3e}, '
+                     f'parameters {perr:.3e} from one process')
+            if cerr > DP_PARAM_ATOL or not np.allclose(
+                    can['losses']['dp'], can['losses']['single'],
+                    rtol=DP_LOSS_RTOL, atol=0):
+                fail(f'CAN at world 2, rank {r}: {can}')
+            if la['tcn_block_train'] == 0 or la['tcn_block_bwd'] == 0:
+                fail(f'rank {r} launched no B3a/B3b under DDP: {la}')
+        if state_distance(ranks[0]['state'], ranks[1]['state']) != 0.0:
+            fail('the two ranks\' parameters differ')
+    for name in ('plain', 'nccl'):
+        la = runs[name]['launches']
+        if la['tcn_block_train'] == 0 or la['tcn_block_bwd'] == 0:
+            fail(f'the {name} run launched no B3a/B3b: {la}')
+    keys = ('tcn_block', 'fusion', 'tcn_block_train', 'tcn_block_bwd')
+    return {k: dict(launches_dp=nccl['launches'][k],
+                    launches_dp_gloo=[r['launches'][k] for r in ranks])
+            for k in keys}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on a GPU',
@@ -6467,6 +6720,15 @@ def main() -> int:
           'landmarks, ArcFace cnn.npy, compaction and the sharded driver '
           'with its merge')
     visual_chain(device, card)
+
+    print('phase 16: the run tools on the card (quickstart, cv_campaign) '
+          'and data-parallel training through fvt_tpu_torch.main '
+          '--data_parallel true: world 1 over nccl, world 2 over gloo on '
+          'the one card, CAN\'s step at world 2')
+    t0 = time.perf_counter()
+    for name, launches in tools_and_dp(device).items():
+        by_name[name].update(launches)
+    print(f'  phase 16 in {time.perf_counter() - t0:.1f} s')
 
     print(card)
     print(json.dumps({'kernels': kernels}))

@@ -13,7 +13,11 @@ multimodal fusion block (``ops/fusion.py``, ``csrc/fusion_tf32x3.cu``).
 Training (``python -m fvt_tpu_torch.main``, ``fvt_tpu_torch.train``):
 LFAN, CAN, JMT or MT, on features or on video through the frozen
 ArcFace, through the fused train-mode TCN block, forward and backward
-(``ops/tcn.py``, ``csrc/tcn_block_train_tf32x3.cu``).  Every kernel is hand-written CUDA
+(``ops/tcn.py``, ``csrc/tcn_block_train_tf32x3.cu``), on one GPU or
+data-parallel over several (``--data_parallel``, ``parallel/``).  The
+run tools (``tools/``: ``quickstart``, ``cv_campaign``,
+``validate_store``, ``summarize_runs``, ``port_checkpoint``) drive these
+paths from the command line.  Every kernel is hand-written CUDA
 C++ for Hopper and has a plain PyTorch version beside it, which its
 wrapper runs for tensors on the CPU.  The package imports neither JAX,
 flax, PyYAML, msgpack nor anything of ``fvt_tpu``: it keeps its own

@@ -5,9 +5,11 @@ every dataset).  Every key is a CLI flag (``config/parse.py``, tier 2), and
 a run's merged config is written to ``<outd>/config.yml`` (tier 3), which
 EVALUATION mode reads back.
 
-Some keys steer ``fvt_tpu``'s XLA programs and mean nothing to the port
-(``data_parallel``, ``multihost_digest_check``, ``pallas_train``); they
-are kept so that a ``config.yml`` of either
+``data_parallel`` and ``multihost_digest_check`` mean what they mean in
+``fvt_tpu``: data-parallel training over the visible GPUs, one process
+each (``main.py``, ``parallel/``), and the all-gathered digest of every
+replicated batch.  ``pallas_train`` steers ``fvt_tpu``'s XLA programs and
+means nothing to the port; it is kept so that a ``config.yml`` of either
 package loads in the other.  ``pallas_serving`` is accepted: on the card
 the port's eval always runs the fused TCN and fusion kernels.
 """

@@ -4,7 +4,9 @@ read by :mod:`fvt_tpu_torch.config.flat_yaml` (no PyYAML):
 
 * every config key is a flag; None keeps the default;
 * ``sanity_check`` asserts what ``fvt_tpu`` asserts;
-* TRAINING derives a fresh ``outd`` and writes ``config.yml``;
+* TRAINING derives a fresh ``outd`` and writes ``config.yml`` (in a
+  data-parallel run, rank 0 alone, its ``outd`` broadcast to the others,
+  whose logger writes nothing);
 * EVALUATION reads a finished run's ``config.yml`` and retargets it to
   the evaluated dataset (fold 0, no subsampling, no workers, the folds
   and the explicit CLI overrides), as ``_parse_eval`` there does.
@@ -21,6 +23,7 @@ from types import SimpleNamespace
 from fvt_tpu_torch import constants
 from fvt_tpu_torch.config import flat_yaml
 from fvt_tpu_torch.config.defaults import get_config
+from fvt_tpu_torch.parallel import mesh
 from fvt_tpu_torch.utils.logger import fmsg, init_logger, log
 
 SERVE_QUANT = ('none', 'int8', 'int8_static')
@@ -52,6 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help='EVALUATION: split to evaluate')
     parser.add_argument('--case_best_model', type=str, default=None,
                         help='EVALUATION: which best-model criterion')
+    parser.add_argument('--device', type=str, default=None,
+                        help="the run's device (no config key): the card "
+                             "by default, 'cpu' for the CPU")
 
     # every default key becomes an override flag
     for k, v in get_config(constants.MELD).items():
@@ -125,7 +131,9 @@ def save_config(config: dict, path: str) -> None:
                     for k, v in config.items()}, path)
 
 
-def parse_input(argv=None) -> SimpleNamespace:
+def parse_input(argv=None, world=None) -> SimpleNamespace:
+    """The run's config from ``argv``; ``world`` (``parallel/mesh.py``)
+    for a rank of a data-parallel run."""
     parser = build_parser()
     args = parser.parse_args(argv)
 
@@ -143,8 +151,10 @@ def parse_input(argv=None) -> SimpleNamespace:
     config['mode'] = constants.TRAINING
     sanity_check(config)
 
+    writer = world is None or world.writer
     if not config['outd']:
-        config['outd'] = make_outd(config)
+        config['outd'] = mesh.broadcast(world, make_outd(config) if writer
+                                        else None)
     os.makedirs(config['outd'], exist_ok=True)
 
     if os.path.isfile(join(config['outd'], 'passed.txt')):
@@ -152,6 +162,9 @@ def parse_input(argv=None) -> SimpleNamespace:
         sys.exit(0)
 
     config['t0'] = dt.datetime.now()
+    if not writer:
+        init_logger(None, verbose=False)
+        return SimpleNamespace(**config)
     init_logger(config['outd'], verbose=config['verbose'])
     log(fmsg(f"Starting experiment: {config['outd']}"))
     save_config(config, join(config['outd'], 'config.yml'))

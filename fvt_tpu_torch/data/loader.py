@@ -1,6 +1,6 @@
 """Host-side batch loaders with threaded prefetch: a copy of
-``fvt_tpu/data/loader.py`` on the port's modules, less ``epoch_local``
-(the multi-host row slices; queue A5).
+``fvt_tpu/data/loader.py`` on the port's modules (``epoch_local`` gives a
+data-parallel rank its row slice of each batch, ``parallel/multihost.py``).
 
 A thread-pool prefetch pipeline feeds numpy batches; the device upload
 happens in the train or eval step.
@@ -130,6 +130,33 @@ class TrainLoader:
         prefetch pump (which would build and then discard up to
         ``prefetch`` full batches; init_state only needs shapes)."""
         return self._build_batch(self._plan(0)[0])
+
+    def epoch_local(self, epoch_idx: int, divisor: Optional[int] = None,
+                    process_index: Optional[int] = None,
+                    process_count: Optional[int] = None):
+        """Multi-host variant: yields (local_batch, global_rows) where
+        local_batch is THIS process's contiguous row-slice of each
+        global batch — only those examples are read/built here.  Batches
+        whose size is not divisible by ``divisor`` (the global device
+        count) or by the process count are built in FULL on every host
+        (global_rows == local rows) for the replicated ragged path.
+        process_count == 1 degenerates to epoch() + sizes."""
+        from fvt_tpu_torch.parallel.multihost import host_slice
+
+        def build(job):
+            bucket, idxs = job
+            rows = len(idxs)
+            sl = None
+            if divisor is None or rows % divisor == 0:
+                sl = host_slice(rows, process_index, process_count)
+            local = idxs if sl is None else idxs[sl[0]:sl[1]]
+            batch = _stack([self.builder.build(self.work_list[i],
+                                               pad_to=bucket)
+                            for i in local])
+            return batch, rows
+
+        return _pump(self._plan(epoch_idx), build,
+                     self.num_threads, self.prefetch)
 
 
 def round_up(n: int, quantum: int) -> int:

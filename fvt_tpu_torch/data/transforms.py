@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from fvt_tpu_torch.data.host_resize import resize_weights
+from fvt_tpu_torch.parallel import collectives
 
 SCALE_SIZE = 48
 CROP_SIZE = 40
@@ -50,12 +51,13 @@ def draw_crop_flip(batch: int, generator: torch.Generator) -> tuple:
     in that order."""
     device = generator.device
     hi = SCALE_SIZE - CROP_SIZE + 1
-    offs_h = torch.randint(0, hi, (batch,), generator=generator,
-                           device=device)
-    offs_w = torch.randint(0, hi, (batch,), generator=generator,
-                           device=device)
-    flip = torch.rand(batch, generator=generator, device=device) < 0.5
-    return offs_h, offs_w, flip
+    # in a sharded data-parallel step: the global batch's draws, this
+    # rank's rows of them
+    n, lo, top = collectives.rows(batch)
+    offs_h = torch.randint(0, hi, (n,), generator=generator, device=device)
+    offs_w = torch.randint(0, hi, (n,), generator=generator, device=device)
+    flip = torch.rand(n, generator=generator, device=device) < 0.5
+    return offs_h[lo:top], offs_w[lo:top], flip[lo:top]
 
 
 def train_video_transform(video: torch.Tensor, offs_h: torch.Tensor,

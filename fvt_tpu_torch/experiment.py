@@ -9,7 +9,10 @@ upstream ``model.pt`` with ``--pretrained_torch_ckpt``, with checkpoints
 every ``--checkpoint_every`` epochs and ``--resume``) or loads a best
 model and runs the eval pass (``run_eval``; under ``--serve_quant
 int8_static`` after calibrating on the loaded weights).  Everything runs
-on the card unless ``device='cpu'`` is passed.
+on the card unless ``device='cpu'`` is passed.  Given a ``world``
+(``parallel/mesh.py``), every rank runs it data-parallel: rank 0 computes
+the fold's mean/std cache while the others wait at a barrier, and only
+rank 0 writes the run's files (``train/trainer.py``).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from fvt_tpu_torch.data.dataset import ExampleBuilder
 from fvt_tpu_torch.data.loader import EvalLoader, TrainLoader
 from fvt_tpu_torch.models.checkpoint import load_best_model
 from fvt_tpu_torch.models.registry import init_model, split_modality
+from fvt_tpu_torch.parallel import mesh
 from fvt_tpu_torch.preprocess.version import check
 from fvt_tpu_torch.train.checkpoint import Checkpointer
 from fvt_tpu_torch.train.steps import resolve_device
@@ -35,9 +39,11 @@ from fvt_tpu_torch.utils.logger import log
 
 
 class Experiment:
-    def __init__(self, args, device=None):
+    def __init__(self, args, device=None, world=None):
         self.args = args
-        self.device = resolve_device(device)
+        self.world = world
+        self.device = world.device if world is not None \
+            else resolve_device(device)
         self.dataset_name = args.dataset_name
         self.dataset_path = args.dataset_path
         self.fold_to_run = args.fold_to_run
@@ -109,8 +115,10 @@ class Experiment:
         self.data_arranger = DataArranger(
             self.args, self.dataset_info, self.dataset_path,
             self.fold_to_run, self.folds_dir)
-        if self.args.calc_mean_std:
+        if self.args.calc_mean_std and (self.world is None
+                                        or self.world.writer):
             self.calc_mean_std()
+        mesh.barrier(self.world)  # rank 0's cache written
         self.mean_std_dict = load_pickle(self.get_mean_std_path())
 
     # -------------------------------------------------------------- loaders
@@ -177,7 +185,8 @@ class Experiment:
 
     def init_trainer(self) -> Trainer:
         return Trainer(init_model(self.args), vars(self.args), self.device,
-                       int_to_cl=self.data_arranger.int_to_cl)
+                       int_to_cl=self.data_arranger.int_to_cl,
+                       world=self.world)
 
     # ------------------------------------------------------------------ run
     def run(self) -> Trainer:

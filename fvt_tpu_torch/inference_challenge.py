@@ -12,7 +12,8 @@ Usage:
   python -m fvt_tpu_torch.inference_challenge --mode EVALUATION \\
       --fd_exp <training-run-dir> --target_ds_name C-EXPR-DB-CHALLENGE \\
       --dataset_path <challenge-root> --folds_dir <folds> \\
-      [--case_best_model <item>] [--eval_set test] [--outd <dir>]
+      [--case_best_model <item>] [--eval_set test] [--outd <dir>] \
+      [--device cpu]
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import pickle as pkl
 from os.path import join
 
 from fvt_tpu_torch import constants
-from fvt_tpu_torch.config.parse import parse_input
+from fvt_tpu_torch.config.parse import build_parser, parse_input
 from fvt_tpu_torch.experiment import Experiment
 from fvt_tpu_torch.train import metrics as M
 
@@ -41,9 +42,11 @@ def best_model_path(fd_exp: str, case=None) -> str:
 
 
 def main(argv=None, device=None) -> Experiment:
-    """Runs the CLI on ``argv``; ``device`` None is the card (and raises
-    without one).  Returns the experiment, whose ``trainer`` holds the
+    """Runs the CLI on ``argv``; ``device`` None is ``--device``, whose
+    default is the card (and raises without one).  Returns the experiment, whose ``trainer`` holds the
     pass's ``last_inference_timing``."""
+    if device is None:
+        device = build_parser().parse_args(argv).device
     args = parse_input(argv)
     assert args.mode == constants.EVALUATION, args.mode
 

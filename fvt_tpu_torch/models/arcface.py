@@ -78,6 +78,7 @@ from fvt_tpu_torch.ops import bottleneck as bottleneck_ops
 from fvt_tpu_torch.ops import conv as conv_ops
 from fvt_tpu_torch.ops import quant as quant_ops
 from fvt_tpu_torch.ops import winograd as winograd_ops
+from fvt_tpu_torch.parallel import collectives
 
 # 'cudnn': PyTorch's conv2d (default).  'winograd': the plain PyTorch
 # Winograd F(2x2, 3x3), transform-domain tensors in device memory.
@@ -163,8 +164,13 @@ def batchnorm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor
     red = [0] + list(range(2, x.dim()))
     n = x.numel() // x.shape[1]
     xf = x.float()
-    mean = xf.mean(red)
-    var = xf.square().mean(red) - mean.square()
+    if collectives.current() is None:
+        mean = xf.mean(red)
+        var = xf.square().mean(red) - mean.square()
+    else:  # a sharded data-parallel step: the moments of every rank's frames
+        s1, s2, n = collectives.moments(xf, red)
+        mean = s1 / n
+        var = s2 / n - mean.square()
     del xf
     m = bn.momentum
     with torch.no_grad():
@@ -191,8 +197,12 @@ def dropout_mask(x: torch.Tensor, p: float,
     if generator is None:
         raise ValueError('dropout in train mode draws from an explicit '
                          'torch.Generator')
-    return torch.rand(x.shape, generator=generator,
+    # in a sharded data-parallel step: the global batch's mask, this
+    # rank's frames of it
+    n, lo, hi = collectives.rows(x.shape[0])
+    keep = torch.rand((n,) + tuple(x.shape[1:]), generator=generator,
                       device=x.device) < 1.0 - p
+    return keep if n == x.shape[0] else keep[lo:hi]
 
 
 def dropout_train(x: torch.Tensor, p: float,

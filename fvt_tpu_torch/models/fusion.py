@@ -30,6 +30,7 @@ from fvt_tpu_torch.ops.fusion import (LN_EPS, fused_multimodal_fusion,
                                       fused_multimodal_fusion_ref,
                                       multimodal_attention_ref,
                                       pack_fusion_weights)
+from fvt_tpu_torch.parallel import collectives
 
 
 class MultimodalMultiheadAttention(nn.Module):
@@ -255,9 +256,12 @@ class JointFusion(nn.Module):
         stack = [getattr(self, name)(enc[q], enc[kv], enc[kv], time_mask)
                  for name, q, kv in self.cross]
         n = len(stack)
-        s = torch.stack(stack).reshape(n, b * t, d)
+        # in a sharded data-parallel step the final attention spans the
+        # global batch's timeline: every rank's rows gathered, its own kept
+        s = collectives.gather_rows(torch.stack(stack).reshape(n, b * t, d),
+                                    1)
         flat_mask = (None if time_mask is None
                      else time_mask.reshape(1, b * t).expand(n, -1))
         s = self.final_encoder(s, flat_mask)
         s = self.final_self_attention(s, s, s, flat_mask)
-        return s.reshape(n, b, t, d)[-1]
+        return collectives.own_rows(s.reshape(n, -1, t, d)[-1])

@@ -80,6 +80,7 @@ from fvt_tpu_torch.models.fusion import (AttentionFusion, JointFusion,
 from fvt_tpu_torch.models.layers import fold_batchnorm, init_linear_
 from fvt_tpu_torch.models.tcn import TemporalConvNet
 from fvt_tpu_torch.models.vggish import VGGish
+from fvt_tpu_torch.parallel import collectives
 
 # the TCN of a modality: (input width, channel stack, kernel size)
 TCNSpec = Tuple[int, Sequence[int], int]
@@ -96,6 +97,9 @@ def batchnorm_frames(bn: nn.BatchNorm1d, h: torch.Tensor,
         return h * scale + shift
     b, t, c = h.shape
     bn.num_batches_tracked += 1
+    if collectives.current() is not None:  # the moments of every rank's rows
+        return collectives.batchnorm_frames(bn, h.reshape(b * t, c)
+                                            ).reshape(b, t, c)
     return F.batch_norm(h.reshape(b * t, c), bn.running_mean,
                         bn.running_var, bn.weight, bn.bias, True,
                         bn.momentum, bn.eps).reshape(b, t, c)

@@ -30,6 +30,7 @@ from fvt_tpu_torch.ops.tcn import (NEG_SLOPE, _causal_conv,
                                    fused_temporal_block_train,
                                    fused_temporal_block_train_ref,
                                    pack_block_weights, tcn_forward)
+from fvt_tpu_torch.parallel import collectives
 
 
 class WeightNormConv1d(nn.Module):
@@ -61,8 +62,13 @@ def dropout_mask(shape, p: float, train: bool, like: torch.Tensor,
     if generator is None:
         raise ValueError('dropout in train mode draws from an explicit '
                          'torch.Generator')
-    keep = torch.full(shape, 1.0 - p, device=like.device, dtype=like.dtype)
-    return torch.bernoulli(keep, generator=generator) / (1.0 - p)
+    # in a sharded data-parallel step: the global batch's mask, this
+    # rank's rows of it
+    n, lo, hi = collectives.rows(shape[0])
+    keep = torch.full((n,) + tuple(shape[1:]), 1.0 - p, device=like.device,
+                      dtype=like.dtype)
+    mask = torch.bernoulli(keep, generator=generator) / (1.0 - p)
+    return mask if n == shape[0] else mask[lo:hi]
 
 
 class TemporalBlock(nn.Module):

@@ -1,0 +1,135 @@
+"""The process group of the port's data-parallel training (the counterpart
+of ``fvt_tpu/parallel/mesh.py``, whose one ``data`` axis over the local
+devices becomes one process per GPU over ``torch.distributed``).
+
+A rank's device is ``cuda:LOCAL_RANK`` unless the caller names one, and the
+backend follows the device: ``nccl`` on the card, ``gloo`` on the CPU.
+Nothing falls back: if ``nccl`` fails to start, the run fails.  The group
+comes from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), from :func:`spawn`, which
+sets that environment for each process it starts, or from a group the
+caller started before (:func:`join` takes it as it is, whatever its
+backend).
+
+``fvt_tpu``'s ``replicated`` and ``batch_sharded`` shardings have no
+counterpart here: parameters are replicated by DDP, and a rank holds its
+rows of a batch as plain tensors (:func:`shard_batch`).
+"""
+from __future__ import annotations
+
+import os
+import socket
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from fvt_tpu_torch.parallel.multihost import host_slice
+
+ENV = ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR', 'MASTER_PORT')
+
+
+@dataclass(frozen=True)
+class World:
+    """This process's place in the group: its rank, the world's size, its
+    local rank and device, the group's backend, and whether :func:`join`
+    started the group (and :func:`leave` ends it)."""
+    rank: int
+    size: int
+    local_rank: int
+    device: torch.device
+    backend: str
+    owned: bool = False
+
+    @property
+    def writer(self) -> bool:
+        """Only rank 0 writes the run's files."""
+        return self.rank == 0
+
+
+def backend_for(device) -> str:
+    return 'nccl' if torch.device(device).type == 'cuda' else 'gloo'
+
+
+def in_env() -> bool:
+    """True inside ``torchrun`` or a :func:`spawn`: the group's
+    environment is set."""
+    return all(k in os.environ for k in ('RANK', 'WORLD_SIZE'))
+
+
+def join(device=None) -> Optional[World]:
+    """This process's :class:`World`: of the group already started, or of
+    the one the environment describes, started here with ``device``'s
+    backend (``device`` None: ``cuda:LOCAL_RANK``).  None without
+    either."""
+    owned = False
+    if not dist.is_initialized():
+        if not in_env():
+            return None
+        local = int(os.environ.get('LOCAL_RANK', 0))
+        device = torch.device('cuda', local) if device is None \
+            else torch.device(device)
+        if device.type == 'cuda':
+            torch.cuda.set_device(device)
+        dist.init_process_group(backend_for(device), init_method='env://')
+        owned = True
+    local = int(os.environ.get('LOCAL_RANK', dist.get_rank()))
+    if device is None:
+        device = torch.device('cuda', local)
+    return World(dist.get_rank(), dist.get_world_size(), local,
+                 torch.device(device), dist.get_backend(), owned)
+
+
+def leave(world: Optional[World]) -> None:
+    """Ends the group if :func:`join` started it."""
+    if world is not None and world.owned and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def barrier(world: Optional[World]) -> None:
+    if world is not None and world.size > 1:
+        dist.barrier()
+
+
+def broadcast(world: Optional[World], obj):
+    """Rank 0's ``obj`` on every rank."""
+    if world is None or world.size == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def shard_batch(batch: Dict[str, np.ndarray], world: World
+                ) -> Dict[str, np.ndarray]:
+    """This rank's rows of a host batch (all of them where the world size
+    does not divide its rows: the batch then runs replicated)."""
+    rows = next(iter(batch.values())).shape[0]
+    sl = host_slice(rows, world.rank, world.size)
+    if sl is None:
+        return batch
+    return {k: v[sl[0]:sl[1]] for k, v in batch.items()}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _spawned(rank: int, fn: Callable, nprocs: int, port: int,
+             args: tuple) -> None:
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(nprocs), MASTER_ADDR='localhost',
+                      MASTER_PORT=str(port))
+    fn(*args)
+
+
+def spawn(fn: Callable, nprocs: int, *args) -> None:
+    """Runs ``fn(*args)`` in ``nprocs`` new processes with the group's
+    environment set (rank i on ``cuda:i`` once it calls :func:`join`);
+    returns when all have ended, and raises if one failed."""
+    torch.multiprocessing.spawn(_spawned, args=(fn, nprocs, free_port(), args),
+                                nprocs=nprocs, join=True)

@@ -20,7 +20,7 @@ prediction.pkl`` on the challenge dataset, and ``eval-<set>-perf.pkl``,
 An artifact of ``--h2d_bf16_features`` takes its feature streams as
 bfloat16, rounded on the host (``utils/bf16.py``); an int8 artifact
 serves through the int8 ArcFace, with its calibrated scales if
-``int8_static``.  ``--mesh`` above 1 raises (ROADMAP.md A5).
+``int8_static``.  ``--mesh`` above 1 raises (ROADMAP.md A5g, its serving half).
 """
 from __future__ import annotations
 
@@ -164,7 +164,7 @@ def main(argv=None, device=None):
     mesh = int(_take(argv, '--mesh') or 0)
     if mesh > 1:
         raise NotServedError(f'--mesh {mesh}: data-parallel serving is not '
-                             f'ported (ROADMAP.md A5, parallel)')
+                             f'ported (ROADMAP.md A5g, its serving half)')
     args = parse_input(argv)
     if args.mode != constants.EVALUATION:
         raise SystemExit(f'--mode {args.mode}: EVALUATION only')

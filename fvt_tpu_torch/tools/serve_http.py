@@ -15,7 +15,7 @@ model.  An int8 or ``int8_static`` artifact serves through the int8
 ArcFace; one of ``--h2d_bf16_features`` takes its feature streams as
 float32 (rounded to bfloat16 here) or as bfloat16 bits (uint16).
 ``--mesh N`` with N > 1 raises: data-parallel serving is not ported
-(ROADMAP.md A5).  ``fvt_tpu_torch/client.py`` speaks this
+(ROADMAP.md A5g, its serving half).  ``fvt_tpu_torch/client.py`` speaks this
 protocol.
 
 Protocol:
@@ -291,7 +291,8 @@ def build_server(artifact: str, host: str = '127.0.0.1', port: int = 0,
     ``model_args`` (``export.model_args``)."""
     if mesh_devices > 1:
         raise NotServedError(f'--mesh {mesh_devices}: data-parallel serving '
-                             f'is not ported (ROADMAP.md A5, parallel)')
+                             f'is not ported (ROADMAP.md A5g, its serving '
+                             f'half)')
     art = load_artifact(artifact, device=device, config=config)
     if dynamic_batch and art.needs_mask:
         raise ValueError(f'--dynamic_batch: {art.meta["model_name"]}\'s '

@@ -114,6 +114,9 @@ class TrainStep:
         self.with_outputs = with_outputs
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        # what the forward calls: the model, or its DDP wrapper
+        # (parallel/dp.py's DPTrainStep)
+        self.net = self.model
         self.tcn_fused = tcn_fused
         self.reference = reference
         self.trainable, frozen = split_frozen(self.model)
@@ -131,8 +134,8 @@ class TrainStep:
         labels = batch[label_key(batch)]
         inputs = train_inputs({k: v for k, v in batch.items()
                                if 'continuous_label' not in k}, generator)
-        out = self.model(inputs, True, generator, tcn_fused=self.tcn_fused,
-                         reference=self.reference)
+        out = self.net(inputs, True, generator, tcn_fused=self.tcn_fused,
+                       reference=self.reference)
         if self.task == constants.REGRESSION:
             # in the outputs' type, as fvt_tpu casts: float64 in the
             # float64 lockstep tests

@@ -18,8 +18,17 @@ every exit from the epoch (``fvt_tpu`` writes a ``jax.profiler`` trace
 there, ``trainer.py:186-195``).  ``--serve_quant int8_static`` calibrates
 the int8 ArcFace on one batch (:meth:`Trainer.calibrate_quant`).
 
-One device only: ``fvt_tpu``'s data-parallel and multi-host epochs are
-not ported (queue A5).
+Data parallel (``fvt_tpu``'s ``--data_parallel`` branches,
+``trainer.py:116-123, 196-304, 317-402``): given a ``world``
+(``parallel/mesh.py``), the step is ``parallel/dp.py``'s, each rank builds
+its row slice of every batch (``TrainLoader.epoch_local``), a batch the
+world size does not divide runs replicated (counted and logged,
+``--multihost_digest_check`` all-gathers its digest first), and the eval
+pass spreads the window batches of a long LFAN video over the ranks and
+all-gathers their logits (each padded to a multiple of the world size, as
+``fvt_tpu`` pads to its device count); the rest of the eval pass, JMT's
+and MT's whole, runs replicated on every rank.  Only rank 0 writes the
+run's files.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from fvt_tpu_torch.data.transforms import (CROP_SIZE, SCALE_SIZE,
                                            center_crop_offset)
 from fvt_tpu_torch.models.checkpoint import save_best_model
 from fvt_tpu_torch.models.registry import split_modality
+from fvt_tpu_torch.parallel import dp
 from fvt_tpu_torch.serve import (calibrate_act_scales, serving_forward,
                                  valid_frames)
 from fvt_tpu_torch.train import metrics as M
@@ -98,21 +108,29 @@ class Trainer:
     ``use_other_class``; ``optimize`` also ``modality``,
     ``early_stopping`` and ``save_plot``, and writes ``tend`` into it).
     ``int_to_cl`` names the classes in the test reports.  Runs on the
-    card unless ``device='cpu'`` is passed."""
+    card unless ``device='cpu'`` is passed.  With ``world`` (a
+    ``parallel.mesh.World``) it trains data-parallel on ``world.device``
+    (module docstring)."""
 
     def __init__(self, model: nn.Module, config: Dict[str, Any],
                  device=None, *, tcn_fused: bool = True,
                  reference: bool = False,
-                 int_to_cl: Optional[Dict[int, str]] = None):
+                 int_to_cl: Optional[Dict[int, str]] = None, world=None):
         self.config = config
         self.int_to_cl = int_to_cl
         self.model_name = model.model_name  # the family's, not config's
         self.reference = reference
+        self.world = world
         self.hp = optim.standardize_opt_params(config)
-        self.train_step = TrainStep(
-            model, self.hp, device,
-            task=config.get('task', constants.CLASSIFICATION),
-            tcn_fused=tcn_fused, reference=reference)
+        kw = dict(task=config.get('task', constants.CLASSIFICATION),
+                  tcn_fused=tcn_fused, reference=reference)
+        if world is None:
+            self.train_step = TrainStep(model, self.hp, device, **kw)
+        else:
+            self.train_step = dp.DPTrainStep(model, self.hp, world, **kw)
+            log(fmsg(f'data-parallel over {world.size} ranks '
+                     f'({world.backend}), this one rank {world.rank} on '
+                     f'{world.device}'))
         self.model = self.train_step.model
         self.device = self.train_step.device
         self.scheduler = optim.build_scheduler(
@@ -131,6 +149,11 @@ class Trainer:
     @property
     def optimizer(self) -> torch.optim.Optimizer:
         return self.train_step.optimizer
+
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes the run's files: rank 0 only."""
+        return self.world is None or self.world.writer
 
     def step_generator(self, epoch: int, step: int) -> torch.Generator:
         """A generator on the trainer's device for the stream
@@ -154,9 +177,18 @@ class Trainer:
         _pc = time.perf_counter
         tm = {'loader_s': 0.0, 'step_s': 0.0, 'sync_s': 0.0}
         self.last_epoch_timing = tm
+        world = self.world
+        ragged = sharded = 0
         with self.profiled(epoch):
-            batches = iter(loader.epoch(epoch) if hasattr(loader, 'epoch')
-                           else loader)
+            if world is not None:
+                # each rank builds its row slice of every batch; the plan
+                # is the seed's, so every rank cuts the same batches
+                batches = iter(loader.epoch_local(
+                    epoch, divisor=world.size, process_index=world.rank,
+                    process_count=world.size))
+            else:
+                batches = iter(loader.epoch(epoch) if hasattr(loader, 'epoch')
+                               else loader)
             losses = []
             while True:
                 t = _pc()
@@ -165,8 +197,19 @@ class Trainer:
                 if batch is None:
                     break
                 t = _pc()
-                losses.append(self.train_step(
-                    batch, self.step_generator(epoch, len(losses))))
+                gen = self.step_generator(epoch, len(losses))
+                if world is None:
+                    losses.append(self.train_step(batch, gen))
+                else:
+                    batch, rows = batch
+                    if len(next(iter(batch.values()))) == rows \
+                            and world.size > 1:
+                        ragged += 1
+                        if self.config.get('multihost_digest_check', False):
+                            dp.assert_ranks_agree(batch, self.device)
+                    else:
+                        sharded += 1
+                    losses.append(self.train_step(batch, gen, rows))
                 tm['step_s'] += _pc() - t
             t = _pc()
             self.step_losses = losses = [float(l) for l in losses]
@@ -179,6 +222,12 @@ class Trainer:
                             f'{i} (lr={optim.get_lr(self.optimizer):.3e})')
         if self.scheduler is not None:
             optim.set_lr(self.optimizer, self.scheduler.lr(epoch + 1))
+        if ragged:
+            # every rank builds and computes such a batch whole
+            log(fmsg(f'data-parallel: {ragged}/{ragged + sharded} batches '
+                     f'ran replicated (size not divisible by '
+                     f'{world.size} ranks); each replicates its IO+build '
+                     f'on every rank'))
         epoch_loss = sum(losses) / max(len(losses), 1)
         log(fmsg(f"Train epoch ({epoch}/{self.config['num_epochs']}) "
                  f"loss: {epoch_loss:.6f} "
@@ -274,6 +323,13 @@ class Trainer:
             batch_videos = 1  # their final attention spans the batch
         window, hop = cfg['window_length'], cfg['hop_length']
         wb = int(cfg.get('eval_window_batch', 8) or 8)
+        # data parallel: each window batch spread over the ranks (never a
+        # dynamic-int8 one, whose scales span the call)
+        world = self.world
+        spread = (world is not None and world.size > 1
+                  and not self.model.whole_calls)
+        if spread:
+            wb = -(-max(wb, world.size) // world.size) * world.size
         cast_feats = cfg.get('h2d_bf16_features', False)
         precrop = cfg.get('h2d_precrop_video', True)
         device_windows = cfg.get('eval_device_windows', True)
@@ -293,6 +349,15 @@ class Trainer:
             t = torch.from_numpy(np.ascontiguousarray(arr))
             tm['h2d_bytes'] += t.numel() * t.element_size()
             return t.to(device, non_blocking=True)
+
+        def spread_forward(inputs_of, n):
+            """The logits of ``n`` windows, ``inputs_of(lo, hi)`` giving
+            the inputs of windows [lo, hi) (past n: the last one again):
+            this rank's share of them forwarded, every rank's gathered."""
+            if not spread:
+                return self.forward(inputs_of(0, n))
+            return dp.gather_eval(self.forward(inputs_of(
+                *dp.shard_rows(n, world))), n)
 
         def maybe_precrop(batch):
             v = batch.get(constants.VIDEO)
@@ -314,9 +379,13 @@ class Trainer:
             arrays = {k: upload(v[0, :true_len]) for k, v in batch.items()}
             idx = torch.from_numpy(mat.astype(np.int64)).to(device)
             step = len(mat) if self.model.whole_calls else wb
-            outs = [self.forward({k: v[idx[s:s + step]]
-                                  for k, v in arrays.items()})
-                    for s in range(0, len(mat), step)]
+            outs = []
+            for s in range(0, len(mat), step):
+                chunk = idx[s:s + step]
+                outs.append(spread_forward(
+                    lambda lo, hi, c=chunk: {
+                        k: v[dp.pad_rows(c, hi)[lo:hi]]
+                        for k, v in arrays.items()}, len(chunk)))
             pending.append(('vwin', outs, trial, mat, true_len,
                             np.asarray(labels[0, :true_len]).flatten()))
             tm['dispatch_s'] += _pc() - t0
@@ -339,10 +408,15 @@ class Trainer:
                 t0 = _pc()
                 rows = wqueue[:wb]
                 del wqueue[:wb]
-                inputs = {k: upload(np.stack(
-                    [wstate[t]['arrs'][k][r] for (t, r) in rows]))
-                    for k in wstate[rows[0][0]]['arrs']}
-                pending.append(('win', self.forward(inputs), rows))
+
+                def inputs_of(lo, hi, rows=rows):
+                    take = [rows[min(i, len(rows) - 1)]
+                            for i in range(lo, hi)]
+                    return {k: upload(np.stack(
+                        [wstate[t]['arrs'][k][r] for (t, r) in take]))
+                        for k in wstate[rows[0][0]]['arrs']}
+                pending.append(('win', spread_forward(inputs_of, len(rows)),
+                                rows))
                 tm['dispatch_s'] += _pc() - t0
 
         def finish_windowed(trial):
@@ -448,7 +522,8 @@ class Trainer:
         perf = M.compute_perf(per_video, cfg['dataset_name'],
                               cfg['use_other_class'])
 
-        if cfg['dataset_name'] == constants.C_EXPR_DB_CHALLENGE:
+        if cfg['dataset_name'] == constants.C_EXPR_DB_CHALLENGE \
+                and self.writer:
             out_inf = join(cfg['outd'],
                            f'pred-{constants.C_EXPR_DB_CHALLENGE}')
             os.makedirs(out_inf, exist_ok=True)
@@ -555,7 +630,8 @@ class Trainer:
             # the countdown moves before the checkpoint, which saves the
             # post-epoch counter a resumed run continues from
             stop = stopper.should_stop(epoch, improved)
-            if checkpointer is not None and checkpointer.should_save(epoch):
+            if checkpointer is not None and checkpointer.should_save(epoch) \
+                    and self.writer:
                 checkpointer.save(epoch, self, valid_tracker, best,
                                   loss_tracker, scheduler=self.scheduler,
                                   stopper_counter=stopper.counter)
@@ -575,6 +651,8 @@ class Trainer:
             test_tracker[item].append(current_perf)
             log(f"{constants.TESTSET}: "
                 f"{test_tracker[item].current_status_str}")
+            if not self.writer:
+                continue
             with open(join(outd, f"{constants.TESTSET}-{item}-perf.txt"),
                       'w') as f:
                 f.write(test_tracker[item].report(current_perf,
@@ -592,19 +670,21 @@ class Trainer:
             save_config(cfg, join(best_dir, 'config.yml'))
         self.load_copy(live)
 
-        if cfg.get('save_plot', False):
+        if cfg.get('save_plot', False) and self.writer:
             for item, tracker in valid_tracker.items():
                 tracker.plot(join(outd, f'tracker-{item}.png'), loss_tracker)
 
         self.valid_tracker, self.test_tracker = valid_tracker, test_tracker
         self.loss_tracker = loss_tracker
         cfg['tend'] = dt.datetime.now()
-        save_config(cfg, join(outd, 'config.yml'))
+        if self.writer:
+            save_config(cfg, join(outd, 'config.yml'))
         self.bye(t_start)
         return valid_tracker, test_tracker
 
     def bye(self, t_start: float) -> None:
         log(fmsg(f"Total time: {time.time() - t_start:.1f}s"))
-        with open(join(self.config['outd'], 'passed.txt'), 'w') as f:
-            f.write('Passed.')
+        if self.writer:
+            with open(join(self.config['outd'], 'passed.txt'), 'w') as f:
+                f.write('Passed.')
         log(fmsg('bye.'))

@@ -11,9 +11,11 @@ by artifact inference, the int8 backbone calibrated and its scales
 carried, the bfloat16 host rounding, the audio extractors (log-mel
 patches, VGGish embeddings from a vggish.pth, MFCC) on a wav it writes,
 the visual preprocessing (RetinaFace, the warp, FAN, AU maps) and a
-feature-driver shard with cnn.npy and landmarks, merged, with all of
-them, cv2 and opensmile blocked), and chip_smoke.py refuses to run
-without a CUDA card."""
+feature-driver shard with cnn.npy and landmarks, merged, the run tools
+(a synthetic MELD store validated, a checkpoint ported both ways, a
+data-parallel training CLI run in a one-rank gloo group, summarised) and
+a DP train step, with all of them, cv2 and opensmile blocked), and
+chip_smoke.py refuses to run without a CUDA card."""
 import os
 import re
 import subprocess
@@ -362,6 +364,57 @@ NO_JAX = textwrap.dedent('''
                                    'train')
         assert info['trial'] == ['t0'] and info['length'] == [5]
 
+    # the run tools and data-parallel training, a one-rank gloo group
+    import fvt_tpu_torch.tools.cv_campaign
+    import fvt_tpu_torch.tools.quickstart
+    from fvt_tpu_torch import main as train_cli
+    from fvt_tpu_torch.models.checkpoint import msgpack_restore
+    from fvt_tpu_torch.parallel import dp, mesh, multihost
+    from fvt_tpu_torch.tools import (port_checkpoint, summarize_runs,
+                                     validate_store)
+    from fvt_tpu_torch.tools.synth_store import make_meld_store
+    from fvt_tpu_torch.train import optim
+    from fvt_tpu_torch.utils import rng as rng_mod
+    assert mesh.join('cpu') is None
+    assert multihost.host_slice(6, 1, 2) == (3, 6)
+    assert multihost.host_slice(5, 1, 2) is None
+    blob = port_checkpoint.family_msgpack(model.state_dict(), 'LFAN',
+                                          ['vggish', 'bert'])
+    back = port_checkpoint.upstream_state_dict(msgpack_restore(blob),
+                                               'LFAN', ['vggish', 'bert'])
+    # flax keeps no num_batches_tracked: the way back writes 0
+    assert all(torch.equal(back[k], v)
+               for k, v in model.state_dict().items()
+               if not k.endswith('num_batches_tracked'))
+    with tempfile.TemporaryDirectory() as root:
+        store = make_meld_store(os.path.join(root, 'store'), n_train=3,
+                                n_val=1, n_test=1, min_len=4, max_len=9)
+        rep = validate_store.validate(store['dataset_path'], 'MELD',
+                                      folds_dir=store['folds_dir'],
+                                      deep=True).as_dict()
+        assert rep['ok'], rep
+        os.environ.update(MASTER_ADDR='localhost', RANK='0', WORLD_SIZE='1',
+                          MASTER_PORT=str(mesh.free_port()))
+        world = mesh.join('cpu')
+        step = dp.DPTrainStep(model, optim.standardize_opt_params(
+            get_train_config()), world)
+        rows = {'vggish': rng.normal(size=(2, 6, 128)).astype(np.float32),
+                'bert': rng.normal(size=(2, 6, 768)).astype(np.float32),
+                'EXPR_continuous_label': rng.integers(0, 7, (2, 6))}
+        assert np.isfinite(float(step(rows, rng_mod.generator(0), 2)))
+        exp = train_cli.main([
+            '--dataset_name', 'MELD', '--dataset_path',
+            store['dataset_path'], '--folds_dir', store['folds_dir'],
+            '--modality', 'vggish+bert+EXPR_continuous_label',
+            '--num_epochs', '1', '--window_length', '8', '--hop_length',
+            '4', '--eval_bucket_quantum', '8', '--num_workers', '1',
+            '--data_parallel', 'true', '--outd', os.path.join(root, 'run'),
+            '--device', 'cpu'])
+        assert exp.trainer.world.size == 1
+        mesh.leave(world)
+        summary = summarize_runs.summarize([root])
+        assert len(summary['runs']) == 3, summary
+
     import chip_smoke
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
     assert not leaked, leaked
@@ -444,7 +497,17 @@ def test_no_port_source_imports_jax_or_fvt_tpu():
             'fvt_tpu_torch/preprocess/textalign.py',
             'fvt_tpu_torch/preprocess/driver.py',
             'fvt_tpu_torch/preprocess/merge.py',
-            'fvt_tpu_torch/preprocess/splits.py'} <= names
+            'fvt_tpu_torch/preprocess/splits.py',
+            'fvt_tpu_torch/parallel/mesh.py',
+            'fvt_tpu_torch/parallel/multihost.py',
+            'fvt_tpu_torch/parallel/dp.py',
+            'fvt_tpu_torch/parallel/collectives.py',
+            'fvt_tpu_torch/tools/synth_store.py',
+            'fvt_tpu_torch/tools/validate_store.py',
+            'fvt_tpu_torch/tools/summarize_runs.py',
+            'fvt_tpu_torch/tools/port_checkpoint.py',
+            'fvt_tpu_torch/tools/quickstart.py',
+            'fvt_tpu_torch/tools/cv_campaign.py'} <= names
     for path in paths:
         with open(path) as f:
             found = FORBIDDEN_IMPORT.findall(f.read())
