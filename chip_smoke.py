@@ -3,8 +3,9 @@
 ArcFace backbone's conv paths, the training and serving of CAN, JMT and
 MT, the ``logmel`` modality, the regression task, serving from frozen
 artifacts over HTTP, int8 serving, the offline audio and visual
-features with the feature driver, and the run tools with data-parallel
-training once on one CUDA card.
+features with the feature driver, the run tools with data-parallel
+training, and data-parallel serving from one artifact once on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -290,7 +291,25 @@ Phases, each of which raises on failure (exit code 1):
    world 2 over ``gloo`` on the one card (two processes; losses within
    1e-4 relative, parameters within 1e-4), B3a/B3b launches counted per
    rank; CAN's step at world 2 (the cross-rank BatchNorm, ``bn1``) against
-   one process.
+   one process;
+17. data-parallel serving from one artifact (``ServingArtifact.
+   call_sharded``, ``fvt_tpu_torch/parallel/serving.py``): LFAN and CAN on
+   ``video+vggish+bert``, JMT on ``video+vggish`` and a dynamic int8 LFAN,
+   seeded as phase 12's, exported at (8, 300); ``serve_http --mesh 1``
+   over ``nccl``, ``/logits`` bit for bit the in-process call, ``/healthz``
+   mesh 1, a world-1 call timed against a plain call, the quantise pass's
+   sharded route (amax launch, max over the ranks, static launch) bit for
+   bit its plain version, and ``infer_artifact --mesh 1`` over phase 6's
+   store bit for bit the run without it; then two processes on the one
+   card over ``gloo``: each family's ``call_sharded`` within fvt_tpu's
+   2e-5 / 1e-5 of the single call with equal argmaxes (JMT with lengths
+   300, 180, 300, 75, 300, 300, 1, 300), int8's 41 conv scales on both
+   ranks bit for bit the single call's, B1, B2, the s8 conv and the
+   quantise pass launched on each rank as a forward launches them, the
+   world-2 server's ``/logits`` bit for bit ``call_sharded``, each call
+   timed against the single one (the group's overhead on one card); B1,
+   B2, the s8 conv and the quantise pass against their plain versions at
+   a rank's rows, (4, 300).
 
 Everything runs in float32 with TF32 off for matmuls and cuDNN, except the
 bfloat16 backbone and its kernel and phases 8, 9, 10 and 13's ``--amp``
@@ -5084,7 +5103,8 @@ def challenge_run_dir(root: str, name: str, model, **cfg_kw) -> str:
                model_name='LFAN', window_length=WINDOW, hop_length=HOP,
                eval_bucket_quantum=CHALLENGE_QUANTUM,
                eval_window_batch=WINDOW_BATCH, outd=run, seed=SEED,
-               verbose=False, **cfg_kw)
+               verbose=False)
+    cfg.update(cfg_kw)
     flat_yaml.dump(cfg, os.path.join(run, 'config.yml'))
     torch.save(model.state_dict(), os.path.join(best, 'model.pt'))
     return run
@@ -6460,6 +6480,413 @@ def tools_and_dp(device) -> dict:
             for k in keys}
 
 
+# ---------------------------------------------------------------- phase 17
+# data-parallel serving from one artifact (fvt_tpu_torch/parallel/serving.py):
+# LFAN and CAN on MODALITY and JMT on video+vggish as phase 12 builds them
+# (seeded weights, statistics drawn from the seed) and a dynamic int8 LFAN
+# (--serve_quant int8, the LFAN's weights), each a run directory of phase
+# 6's shape exported at (WINDOW_BATCH, WINDOW)
+SHARDED_FAMILIES = (('LFAN', MODALITY, {}), ('CAN', MODALITY, {}),
+                    ('JMT', ('video', 'vggish'), {}),
+                    ('int8', MODALITY, {'serve_quant': 'int8'}))
+# JMT's valid frames a row: full, cut, one frame
+SHARDED_LENGTHS = (300, 180, 300, 75, 300, 300, 1, 300)
+# a sharded call against the single one: fvt_tpu's own tolerance for its
+# call_sharded (tests/test_export_serving.py:218-222; float32 sums of 4
+# rows against 8 in another order), argmaxes equal
+SHARDED_ATOL, SHARDED_RTOL = 2e-5, 1e-5
+SHARDED_RANKS = 2
+SHARDED_CALLS = 5
+# per family: B1 launches a forward, B2 launches a forward
+SHARDED_LAUNCHES = {'LFAN': (12, 1), 'CAN': (13, 0), 'JMT': (9, 0),
+                    'int8': (12, 1)}
+
+
+def sharded_artifacts(root: str) -> tuple:
+    """Phase 17's run directories and artifacts: ({name: artifact path},
+    {name: run dir}, {name: model}, {name: (batch, length)})."""
+    import os
+    from fvt_tpu_torch.config.defaults import get_config, to_namespace
+    from fvt_tpu_torch.models.registry import init_model
+    from fvt_tpu_torch.serve import serving_input_specs
+    from fvt_tpu_torch.tools import export_serving
+
+    paths, runs, models, batches = {}, {}, {}, {}
+    for i, (name, modality, kw) in enumerate(SHARDED_FAMILIES):
+        family = 'LFAN' if name == 'int8' else name
+        cfg = dict(model_name=family, modality='+'.join(modality)
+                   + '+EXPR_continuous_label', **kw)
+        if name == 'int8':
+            model = models['LFAN']
+        else:
+            full = get_config('MELD')
+            full.update(window_length=WINDOW, hop_length=HOP,
+                        eval_window_batch=WINDOW_BATCH, seed=SEED, **cfg)
+            model = init_model(to_namespace(full))
+            draw_statistics(model, SEED + 170 + i)
+        models[name] = model
+        runs[name] = challenge_run_dir(root, name, model, **cfg)
+        paths[name] = export_serving.main(['--fd_exp', runs[name]])[
+            'artifact']
+        specs = serving_input_specs(modality, WINDOW_BATCH, WINDOW)
+        rng = np.random.default_rng(SEED + 180 + i)
+        batches[name] = (
+            {k: (rng.integers(0, 256, v['shape'], np.uint8)
+                 if v['dtype'] == 'uint8'
+                 else rng.standard_normal(v['shape'], np.float32))
+             for k, v in specs.items()},
+            np.array(SHARDED_LENGTHS, np.int32) if family == 'JMT'
+            else None)
+    return paths, runs, models, batches
+
+
+def recording_scales(scales: list) -> None:
+    """From here on, ``quant.conv3x3_s8`` appends each call's activation
+    scale to ``scales``; its launches are counted on the wrapper, which the
+    kernel's own count and ``read_int8`` both name."""
+    from fvt_tpu_torch.ops import quant
+
+    conv = quant.conv3x3_s8
+
+    def recording(xq, x_scale, *args, **kw):
+        scales.append(x_scale.detach().to('cpu', copy=True))
+        return conv(xq, x_scale, *args, **kw)
+
+    recording.launches = 0
+    quant.conv3x3_s8 = recording
+
+
+def sharded_lead(name: str, art, path: str, batch: dict, length, world,
+                 device, zero, read, scales: list) -> dict:
+    """Rank 0's side of one family of phase 17's world-2 group: the single
+    call, one counted ``call_sharded``, both timed in turns, and for LFAN
+    the world-2 server's ``/logits``; then the followers are stopped."""
+    import threading
+    from fvt_tpu_torch.client import ServingClient
+    from fvt_tpu_torch.tools import serve_http
+
+    single = art.call(batch, length=length)
+    single_scales = list(scales)
+    del scales[:]
+    zero()
+    zero_int8()
+    sharded = art.call_sharded(batch, mesh=world, length=length)
+    launches = {**read(), **read_int8()}
+    sharded_scales = list(scales)
+    times = {'single': [], 'sharded': []}
+    for i in range(SHARDED_CALLS):
+        order = ('single', 'sharded') if i % 2 else ('sharded', 'single')
+        for kind in order:
+            t0 = time.perf_counter()
+            if kind == 'single':
+                art.call(batch, length=length)
+            else:
+                art.call_sharded(batch, mesh=world, length=length)
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+    res = dict(single=single, sharded=sharded, launches=launches,
+               single_scales=single_scales, sharded_scales=sharded_scales,
+               single_ms=statistics.median(times['single']),
+               sharded_ms=statistics.median(times['sharded']))
+    if name != 'LFAN':
+        art.stop_followers(world)
+        return res
+    srv = serve_http.build_server(path, '127.0.0.1', 0, device=device,
+                                  world=world)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = ServingClient(f'http://127.0.0.1:{srv.server_port}',
+                               timeout=300)
+        res['served'] = client.logits(batch)
+        res['health'] = client.healthz()
+    finally:
+        serve_http.drain_and_shutdown(srv, timeout_s=5)  # stops rank 1
+        thread.join(timeout=10)
+    return res
+
+
+def sharded_rank(cases: dict, out: str, device) -> None:
+    """One rank of phase 17's world-2 group: both ranks on ``device`` over
+    ``gloo`` (``nccl`` takes one rank a GPU), each family's artifact
+    loaded; rank 0 leads (:func:`sharded_lead`), rank 1 follows with its
+    launches counted over every call it served.  Written to
+    ``<out>.<rank>``."""
+    import os
+    import pickle
+    import torch.distributed as dist
+    from fvt_tpu_torch.export import load_artifact
+    from fvt_tpu_torch.parallel import mesh, serving
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device.type == 'cuda':
+        torch.cuda.set_device(device)
+    dist.init_process_group('gloo', init_method='env://')
+    world = mesh.join(device)
+    zero, read = run_counters()
+    scales = []
+    recording_scales(scales)
+    res = {}
+    for name, (path, batch, length) in cases.items():
+        art = load_artifact(path, device=device)
+        del scales[:]
+        if world.rank == 0:
+            res[name] = sharded_lead(name, art, path, batch, length, world,
+                                     device, zero, read, scales)
+        else:
+            zero()
+            zero_int8()
+            calls = serving.follow(art, world)
+            res[name] = dict(calls=calls, launches={**read(), **read_int8()},
+                             scales=list(scales))
+        del art
+        torch.cuda.empty_cache()
+    with open(f'{out}.{os.environ["RANK"]}', 'wb') as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
+def want_launches(name: str, launches: dict, calls: int) -> dict:
+    b1, b2 = SHARDED_LAUNCHES[name]
+    want = {k: 0 for k in launches}
+    want.update(tcn_block=b1 * calls, fusion=b2 * calls)
+    if name == 'int8':
+        want.update(conv3x3_int8=41 * calls, quantize_int8=41 * calls,
+                    quantize_int8_amax=41 * calls)
+    return want
+
+
+def check_sharded_quantise(device) -> None:
+    """Inside a sharded call of the one-rank group this process is in: the
+    quantise pass's sharded route (the amax launch alone, the max over the
+    ranks, the static launch) against the plain version, q, the scale and
+    the amax bit for bit, at the eight int8 shapes of a rank's rows."""
+    from fvt_tpu_torch.ops import quant
+    from fvt_tpu_torch.parallel import collectives
+
+    n = WINDOW_BATCH // SHARDED_RANKS * WINDOW
+    with torch.inference_mode():
+        for i, (h, c, co, _, _) in enumerate(INT8_SHAPES):
+            x, _ = int8_inputs(n, h, h, c, co, torch.float32, device,
+                               SEED + 190 + i)
+            want = quant.quantize_int8_ref(x)
+            before = quant.quantize_int8.launches_amax
+            with collectives.sharded(collectives.Rows(n, 0, n)):
+                got = quant.quantize_int8(x)
+            torch.cuda.synchronize()
+            if quant.quantize_int8.launches_amax != before + 1 or not all(
+                    torch.equal(a.reshape(-1), b.reshape(-1))
+                    for a, b in zip(got, want)):
+                fail(f'sharded quantise at {n}x{h}x{h}x{c}: not its plain '
+                     f'version bit for bit')
+            del x
+    print(f'  quantise pass, sharded route (amax launch, max over the '
+          f'ranks, static launch): q, scale and amax bit for bit at the '
+          f'eight int8 shapes of {n} frames')
+
+
+def mesh_one(paths: dict, runs: dict, batch: dict, store: dict, device,
+             card: str) -> dict:
+    """Phase 17, world 1 over nccl: ``serve_http --mesh 1`` on the LFAN
+    artifact, ``/logits`` bit for bit the in-process ``call`` and
+    ``/healthz`` mesh 1, a world-1 call timed against a plain call; the
+    sharded quantise route checked in that group; ``infer_artifact --mesh
+    1`` on phase 6's store, per-video logits bit for bit the run without
+    it.  Returns the B1 and B2 launches of one /logits."""
+    import os
+    import tempfile
+    import threading
+    from fvt_tpu_torch.client import ServingClient
+    from fvt_tpu_torch.parallel import mesh
+    from fvt_tpu_torch.tools import infer_artifact, serve_http
+
+    zero, read = run_counters()
+    srv = serve_http.build_server(paths['LFAN'], '127.0.0.1', 0,
+                                  device=device, mesh_devices=1)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        art, world = srv.artifact, srv.world
+        if world.size != 1 or world.backend != mesh.backend_for(device):
+            fail(f'serve_http --mesh 1 ran in {world}')
+        client = ServingClient(f'http://127.0.0.1:{srv.server_port}',
+                               timeout=300)
+        want = art.call(batch)
+        zero()
+        served = client.logits(batch)
+        launches = read()
+        health = client.healthz()
+        same = np.array_equal(served, want)
+        print(f'  world 1 over nccl: /healthz mesh {health["mesh"]}; '
+              f'/logits bit for bit the in-process call: {same}; launches '
+              f'{ {k: n for k, n in launches.items() if n} }')
+        if health['mesh'] != 1 or not same or launches != want_launches(
+                'LFAN', launches, 1):
+            fail(f'serve_http --mesh 1: mesh {health["mesh"]}, bit for bit '
+                 f'{same}, launches {launches}')
+        times = {'call': [], 'call_sharded': []}
+        for i in range(SHARDED_CALLS):
+            for kind in (('call', 'call_sharded') if i % 2
+                         else ('call_sharded', 'call')):
+                t0 = time.perf_counter()
+                if kind == 'call':
+                    art.call(batch)
+                else:
+                    art.call_sharded(batch, mesh=world)
+                times[kind].append((time.perf_counter() - t0) * 1e3)
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        print(f'  {card}: an ({WINDOW_BATCH}, {WINDOW}) tri-modal LFAN call '
+              f'at world 1 over nccl {ms["call_sharded"]:.2f} ms against a '
+              f'plain call {ms["call"]:.2f} ms (host clock, medians of '
+              f'{SHARDED_CALLS} in turns): the group\'s own cost '
+              f'{ms["call_sharded"] - ms["call"]:.2f} ms a call')
+        check_sharded_quantise(device)
+    finally:
+        serve_http.drain_and_shutdown(srv, timeout_s=5)
+        thread.join(timeout=10)
+
+    with tempfile.TemporaryDirectory() as root:
+        argv = ['--mode', 'EVALUATION', '--fd_exp', runs['LFAN'],
+                '--target_ds_name', 'C-EXPR-DB-CHALLENGE', '--dataset_path',
+                store['dataset_path'], '--folds_dir', store['folds_dir'],
+                '--artifact', paths['LFAN']]
+        per_video, walls = {}, {}
+        for mesh_n in (0, 1):
+            extra = ['--mesh', '1'] if mesh_n else []
+            t0 = time.perf_counter()
+            per_video[mesh_n] = infer_artifact.main(
+                argv + ['--outd', os.path.join(root, str(mesh_n))] + extra,
+                device=device)[1]
+            walls[mesh_n] = time.perf_counter() - t0
+    same = list(per_video[0]) == list(per_video[1]) and all(
+        np.array_equal(per_video[1][t]['logits'], v['logits'])
+        for t, v in per_video[0].items())
+    frames = sum(CHALLENGE_LENGTHS)
+    print(f'  {card}: infer_artifact over phase 6\'s store ({frames} '
+          f'frames): {walls[0]:.2f} s, --mesh 1 {walls[1]:.2f} s (the '
+          f'group\'s start included); per-video logits bit for bit: {same}')
+    if not same:
+        fail('infer_artifact --mesh 1 differs from the run without it')
+    return launches
+
+
+def sharded_serving(device, card: str) -> dict:
+    """Phase 17.  Returns the launches of B1, B2, the s8 conv and the
+    quantise pass at world 1 and on each rank of world 2."""
+    import os
+    import pickle
+    import tempfile
+    from fvt_tpu_torch.parallel import mesh
+    from fvt_tpu_torch.tools.synth_store import make_cexpr_store
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        paths, runs, models, batches = sharded_artifacts(root)
+        store = make_cexpr_store(os.path.join(root, 'store'),
+                                 CHALLENGE_LENGTHS, seed=SEED)
+        print(f'  four artifacts exported and phase 6\'s store written in '
+              f'{time.perf_counter() - t0:.1f} s')
+        world1 = mesh_one(paths, runs, batches['LFAN'][0], store, device,
+                          card)
+
+        out = os.path.join(root, 'ranks.pkl')
+        cases = {name: (paths[name],) + batches[name] for name in paths}
+        t0 = time.perf_counter()
+        mesh.spawn(sharded_rank, SHARDED_RANKS, cases, out, device,
+                   timeout_s=600)
+        print(f'  world {SHARDED_RANKS} over gloo on the one card: two '
+              f'processes in {time.perf_counter() - t0:.1f} s')
+        ranks = []
+        for r in range(SHARDED_RANKS):
+            with open(f'{out}.{r}', 'rb') as f:
+                ranks.append(pickle.load(f))
+    lead, follower = ranks
+    per_rank = {}
+    for name, _, _ in SHARDED_FAMILIES:
+        res, fol = lead[name], follower[name]
+        got, want = res['sharded'], res['single']
+        err = float(np.abs(got - want).max())
+        ok = (got.shape == want.shape and np.isfinite(got).all()
+              and np.allclose(got, want, atol=SHARDED_ATOL,
+                              rtol=SHARDED_RTOL)
+              and np.array_equal(got.argmax(-1), want.argmax(-1)))
+        calls = fol['calls']
+        per_call = {k: n / calls for k, n in fol['launches'].items()}
+        print(f'  {name}: call_sharded at world 2 within {err:.3e} of the '
+              f'single call (atol {SHARDED_ATOL}, rtol {SHARDED_RTOL}), '
+              f'argmaxes equal: {ok}; launches rank 0 (one call) '
+              f'{ {k: n for k, n in res["launches"].items() if n} }, rank 1 '
+              f'({calls} calls) '
+              f'{ {k: n for k, n in per_call.items() if n} } a call')
+        print(f'  {card}: {name} ({WINDOW_BATCH}, {WINDOW}) at world 2 over '
+              f'gloo, two processes sharing the card: call_sharded '
+              f'{res["sharded_ms"]:.2f} ms, the single call '
+              f'{res["single_ms"]:.2f} ms (host clock, medians of '
+              f'{SHARDED_CALLS} in turns): the group\'s overhead on one '
+              f'card, not a speed-up')
+        if not ok:
+            fail(f'{name}: call_sharded at world 2 differs from the single '
+                 f'call by {err}')
+        if (res['launches'] != want_launches(name, res['launches'], 1)
+                or fol['launches'] != want_launches(name, fol['launches'],
+                                                    calls)):
+            fail(f'{name}: launches rank 0 {res["launches"]}, rank 1 '
+                 f'{fol["launches"]} over {calls} calls')
+        if name == 'int8':
+            single = res['single_scales']
+            for label, scales in (('rank 0', res['sharded_scales']),
+                                  ('rank 1', fol['scales'])):
+                same = len(scales) == 41 * (1 if label == 'rank 0'
+                                            else calls) and all(
+                    torch.equal(a, single[i % 41])
+                    for i, a in enumerate(scales))
+                print(f'  int8: {label}\'s {len(scales)} conv scales bit for '
+                      f'bit the single call\'s 41: {same}')
+                if len(single) != 41 or not same:
+                    fail(f'int8 at world 2: {label}\'s scales differ from '
+                         f'the single call\'s')
+        if name == 'LFAN':
+            same = np.array_equal(res['served'], got)
+            print(f'  LFAN: the world-2 server\'s /healthz mesh '
+                  f'{res["health"]["mesh"]}, /logits bit for bit the '
+                  f'in-process call_sharded: {same}')
+            if res['health']['mesh'] != SHARDED_RANKS or not same:
+                fail('the world-2 server\'s /logits differ from '
+                     'call_sharded, or /healthz does not say mesh 2')
+        per_rank[name] = [res['launches'], fol['launches'], calls]
+
+    print(f'  the kernels at a rank\'s rows, ({WINDOW_BATCH // SHARDED_RANKS}'
+          f', {WINDOW}), against their plain versions:')
+    shape = [(WINDOW_BATCH // SHARDED_RANKS, WINDOW)]
+    for name, modality, _ in SHARDED_FAMILIES[:3]:
+        check_at_shapes(models[name].to(device).eval(), shape, device,
+                        modality=modality)
+    n = WINDOW_BATCH // SHARDED_RANKS * WINDOW
+    with torch.inference_mode():
+        for i, (h, c, co, stride, _) in enumerate(INT8_SHAPES):
+            x, k = int8_inputs(n, h, h, c, co, torch.float32, device,
+                               SEED + 200 + i)
+            check_int8_pair(f'int8 {n}x{h}x{h}x{c}->{co} s{stride} float32 '
+                            f'dynamic', x, k, stride, torch.float32, False,
+                            False)
+            del x, k
+    del models
+    torch.cuda.empty_cache()
+    lfan, int8 = per_rank['LFAN'], per_rank['int8']
+    return {'tcn_block': dict(launches_mesh1=world1['tcn_block'],
+                              launches_mesh2=[lfan[0]['tcn_block'],
+                                              lfan[1]['tcn_block']
+                                              // lfan[2]]),
+            'fusion': dict(launches_mesh1=world1['fusion'],
+                           launches_mesh2=[lfan[0]['fusion'],
+                                           lfan[1]['fusion'] // lfan[2]]),
+            'conv3x3_int8': dict(launches_mesh2=[
+                int8[0]['conv3x3_int8'], int8[1]['conv3x3_int8'] // int8[2]]),
+            'quantize_int8': dict(launches_mesh2=[
+                int8[0]['quantize_int8'],
+                int8[1]['quantize_int8'] // int8[2]])}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script runs on a GPU',
@@ -6729,6 +7156,15 @@ def main() -> int:
     for name, launches in tools_and_dp(device).items():
         by_name[name].update(launches)
     print(f'  phase 16 in {time.perf_counter() - t0:.1f} s')
+
+    print('phase 17: data-parallel serving from one artifact '
+          '(call_sharded): serve_http --mesh 1 and infer_artifact --mesh 1 '
+          'over nccl, world 2 over gloo on the one card (LFAN, CAN, JMT '
+          'with lengths, dynamic int8, the world-2 server)')
+    t0 = time.perf_counter()
+    for name, launches in sharded_serving(device, card).items():
+        by_name[name].update(launches)
+    print(f'  phase 17 in {time.perf_counter() - t0:.1f} s')
 
     print(card)
     print(json.dumps({'kernels': kernels}))

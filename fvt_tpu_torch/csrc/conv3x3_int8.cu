@@ -24,7 +24,9 @@
 //    word, zeroed by a memset), the second divides by the scale it derives
 //    and writes that scale for the conv's epilogue.  Static (--serve_quant
 //    int8_static): the calibrated scale is given and the amax launch is
-//    skipped.  Bound by bytes: x read twice (dynamic) and q written once.
+//    skipped.  A data-parallel serving call runs the two launches apart,
+//    the ranks' amaxes reduced between them, so that the scale spans the
+//    call.  Bound by bytes: x read twice (dynamic) and q written once.
 //
 // 2. fvt_conv3x3_s8_forward: y (N, Ho, Wo, Co) = conv3x3(q, wq), padding 1,
 //    stride 1 or 2, an implicit GEMM of M = N*Ho*Wo pixels by Co by K =
@@ -351,6 +353,8 @@ extern "C" {
 // dynamic, amax (one uint32 word of device memory) takes the bits of
 // max|x| and scale_out (one float) the scale; else scale_in (one float of
 // device memory) is the scale and amax and scale_out are not touched.
+// q null, dynamic: the amax launch alone (a sharded call reduces the
+// ranks' amaxes before its quantise launch, which then takes scale_in).
 // Returns the CUDA error of the memset or of a launch, or
 // cudaErrorInvalidValue for a size the kernels do not take.
 int fvt_quantize_int8(const void* x, int bf16, long long n, void* amax,
@@ -372,6 +376,7 @@ int fvt_quantize_int8(const void* x, int bf16, long long n, void* amax,
     const cudaError_t l = cudaGetLastError();
     if (l != cudaSuccess) return l;
   }
+  if (q == nullptr) return sin == nullptr ? cudaSuccess : cudaErrorInvalidValue;
   if (bf16)
     quantize_kernel<true><<<blocks, kThreads, 0, s>>>(
         x, n16, sin, am, static_cast<float*>(scale_out),

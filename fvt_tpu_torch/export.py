@@ -34,8 +34,9 @@ import json
 import os
 import zipfile
 from types import SimpleNamespace
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from fvt_tpu_torch import constants
@@ -45,6 +46,8 @@ from fvt_tpu_torch.models.checkpoint import msgpack_dumps, msgpack_restore
 from fvt_tpu_torch.models.from_jax import load_act_scales, state_from_flax
 from fvt_tpu_torch.models.registry import init_model, split_modality
 from fvt_tpu_torch.models.to_jax import flax_from_state, sorted_tree
+from fvt_tpu_torch.parallel import serving
+from fvt_tpu_torch.parallel.mesh import World, join
 from fvt_tpu_torch.serve import ServingModel, serving_input_specs, shape_key
 from fvt_tpu_torch.train.steps import resolve_device
 
@@ -169,8 +172,8 @@ def model_args(meta: dict, config=None) -> SimpleNamespace:
 class ServingArtifact(ServingModel):
     """A loaded ``.fvtserve``: the model built from its meta, its weights
     on ``device`` from load, one ``call`` routed by the batch's (B, T) to
-    the artifact's shapes (:class:`~fvt_tpu_torch.serve.ServingModel`);
-    ``meta`` is the file's."""
+    the artifact's shapes (:class:`~fvt_tpu_torch.serve.ServingModel`), or
+    ``call_sharded`` over a serving group; ``meta`` is the file's."""
 
     def __init__(self, path: str, device=None, config=None):
         self.path = path
@@ -202,6 +205,40 @@ class ServingArtifact(ServingModel):
             raise ValueError(f'{path}: needs_mask {meta.get("needs_mask")} '
                              f'for a {meta["model_name"]}')
         self.meta = meta
+
+    def call_sharded(self, batch: Dict[str, np.ndarray], mesh=None,
+                     length: Optional[np.ndarray] = None) -> np.ndarray:
+        """Data-parallel serving from the same artifact, ``fvt_tpu``'s
+        ``call_sharded`` (``fvt_tpu/export.py:345-398``): the batch's rows
+        split over the ranks of ``mesh``, the serving group's
+        :class:`~fvt_tpu_torch.parallel.mesh.World` (None: the group this
+        process is in), each holding the weights; this process is rank 0
+        and every other rank follows (``parallel/serving.py``).  Routed by
+        (B, T) as :meth:`call`; the world's size must divide B
+        (AssertionError).  JMT's and MT's ``length`` is split with the
+        rows and their final attention spans the call, as dynamic int8's
+        scale does, so the result is the single call's up to float32
+        summation order: (B, T, C) float32 numpy logits."""
+        world = join(self.device) if mesh is None else mesh
+        if world is None:
+            raise RuntimeError(
+                'call_sharded: this process is in no process group; start '
+                'a serving group (parallel.serving.start) or join one '
+                '(parallel.mesh.join) first')
+        key, arrays, lengths = self.host_inputs(batch, length)
+        b = len(next(iter(arrays.values())))
+        if b % world.size:
+            raise AssertionError(
+                f"window_batch {b} must divide by the mesh's {world.size} "
+                f"devices — export a divisible shape or pass a smaller mesh")
+        with self._lock:
+            return serving.lead(self, world, key, arrays, lengths)
+
+    def stop_followers(self, mesh: World) -> None:
+        """Ends the loop of every follower of ``mesh``, once no call is
+        running."""
+        with self._lock:
+            serving.stop(mesh)
 
 
 def load_extra_vars(model, extra_vars: Optional[dict], flag: str,

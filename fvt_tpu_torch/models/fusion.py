@@ -256,12 +256,16 @@ class JointFusion(nn.Module):
         stack = [getattr(self, name)(enc[q], enc[kv], enc[kv], time_mask)
                  for name, q, kv in self.cross]
         n = len(stack)
-        # in a sharded data-parallel step the final attention spans the
-        # global batch's timeline: every rank's rows gathered, its own kept
+        # in a sharded data-parallel step or serving call the final
+        # attention spans the global batch's timeline: every rank's rows
+        # gathered, its own kept, and their masks gathered in the same order
         s = collectives.gather_rows(torch.stack(stack).reshape(n, b * t, d),
                                     1)
+        if time_mask is not None and collectives.current() is not None:
+            time_mask = collectives.gather_rows(
+                time_mask.to(torch.uint8), 0).to(time_mask.dtype)
         flat_mask = (None if time_mask is None
-                     else time_mask.reshape(1, b * t).expand(n, -1))
+                     else time_mask.reshape(1, -1).expand(n, -1))
         s = self.final_encoder(s, flat_mask)
         s = self.final_self_attention(s, s, s, flat_mask)
         return collectives.own_rows(s.reshape(n, -1, t, d)[-1])

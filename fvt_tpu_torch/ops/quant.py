@@ -20,7 +20,11 @@ launches, or one with a calibrated scale) and :func:`conv3x3_s8` (the
 convolution on the s8 tensor cores, the scaling in its epilogue).  Each
 routes a CPU tensor to its plain version and a CUDA tensor to its kernel,
 or raises; each counts its launches (``quantize_int8.launches`` and
-``.launches_amax``, ``conv3x3_s8.launches``).  The kernels equal the plain
+``.launches_amax``, ``conv3x3_s8.launches``).  Inside a sharded serving
+call (``parallel/collectives.py``, ``parallel/serving.py``) a dynamic
+scale spans the call, as ``fvt_tpu``'s one GSPMD program's does: this
+rank's amax (the amax launch alone on the card), the max over the ranks
+(``all_reduce_max``), then the quantise launch with that scale.  The kernels equal the plain
 versions bit for bit: the divisions are IEEE divisions, the sums exact,
 the accumulator rounded to float32 once (the plain version sums in
 float64, exact below 2^53).  :func:`conv3x3_int8` is the composition
@@ -39,6 +43,7 @@ import torch.nn.functional as F
 
 from fvt_tpu_torch.kernels import build
 from fvt_tpu_torch.ops.conv import refuse_grad
+from fvt_tpu_torch.parallel import collectives
 
 # the convs with at least this many input channels are quantised; stage 1
 # (64 channels) stays on the float path, as in fvt_tpu (arcface.py:58)
@@ -194,6 +199,8 @@ def quantize_int8_ref(x: torch.Tensor,
     amax = None
     if x_scale is None:
         amax = x.float().abs().amax().reshape(1)
+        if collectives.current() is not None:  # the scale spans the call
+            amax = collectives.all_reduce_max(amax)
         x_scale = act_scale(amax)
     return quantize_with(x, x_scale.reshape(())), x_scale, amax
 
@@ -206,7 +213,9 @@ def quantize_int8(x: torch.Tensor, x_scale: Optional[torch.Tensor] = None
     (``x_scale`` None): the scale is ``act_scale(max|x|)`` and the amax is
     returned; static: ``x_scale`` (one float32 value on x's device) is the
     scale.  On the CPU the plain version; on the card the quantise kernel
-    (``csrc/conv3x3_int8.cu``), two launches dynamic, one static."""
+    (``csrc/conv3x3_int8.cu``), two launches dynamic, one static.  Dynamic
+    inside a sharded call: the amax and the scale span every rank's rows
+    (module docstring)."""
     _check_x('quantize_int8', x)
     if x.device.type == 'cpu':
         return quantize_int8_ref(x, x_scale)
@@ -219,6 +228,17 @@ def quantize_int8(x: torch.Tensor, x_scale: Optional[torch.Tensor] = None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = build.library()
     bf16 = int(x.dtype == torch.bfloat16)
+    if x_scale is None and collectives.current() is not None:
+        # the amax launch alone (q null), the max over the ranks, then the
+        # static route's launch with the call's scale
+        amax = torch.empty(1, dtype=torch.float32, device=x.device)
+        err = lib.fvt_quantize_int8(x.data_ptr(), bf16, n, amax.data_ptr(),
+                                    None, None, None, stream)
+        build.check(err, f'quantize_int8 kernel (n={n}, amax)')
+        quantize_int8.launches_amax += 1
+        amax = collectives.all_reduce_max(amax)
+        q, scale, _ = quantize_int8(x, act_scale(amax))
+        return q, scale, amax
     if x_scale is None:
         # word 0: the amax's bits (atomicMax), word 1: the scale
         words = torch.empty(2, dtype=torch.float32, device=x.device)

@@ -1,11 +1,13 @@
-"""The collectives of a sharded data-parallel step, which the models and
-the train transform call (``parallel/dp.py`` says why): the rows of the
+"""The collectives of a sharded data-parallel step or serving call, which
+the models, the int8 quantise pass and the train transform call
+(``parallel/dp.py`` and ``parallel/serving.py`` say why): the rows of the
 global batch a rank computes (:func:`sharded`, :func:`rows`), the
-differentiable sum over the ranks (:func:`all_reduce_sum`), the gathered
-rows of JMT's and MT's final attention (:func:`gather_rows`,
-:func:`own_rows`) and BatchNorm's global moments (:func:`moments`,
-:func:`batchnorm_frames`).  Outside a sharded step each is the identity
-of the single device (or, for the BatchNorms, not called).
+differentiable sum over the ranks (:func:`all_reduce_sum`), the max over
+them (:func:`all_reduce_max`), the gathered rows of JMT's and MT's final
+attention (:func:`gather_rows`, :func:`own_rows`) and BatchNorm's global
+moments (:func:`moments`, :func:`batchnorm_frames`).  Outside a sharded
+step each is the identity of the single device (or, for the BatchNorms
+and the max, not called).
 """
 from __future__ import annotations
 
@@ -78,6 +80,15 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     """The sum of ``x`` over the ranks, differentiable: the gradient of a
     rank's copy is the sum of every rank's gradient of the result."""
     return _AllReduceSum.apply(x)
+
+
+def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks, without a gradient
+    (dynamic int8's per-tensor amax of a sharded call, ``ops/quant.py``):
+    a max of floats is exact, so the result is the single call's."""
+    x = x.clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX)
+    return x
 
 
 class _GatherRows(torch.autograd.Function):

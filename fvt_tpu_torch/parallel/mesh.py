@@ -7,9 +7,10 @@ backend follows the device: ``nccl`` on the card, ``gloo`` on the CPU.
 Nothing falls back: if ``nccl`` fails to start, the run fails.  The group
 comes from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), from :func:`spawn`, which
-sets that environment for each process it starts, or from a group the
-caller started before (:func:`join` takes it as it is, whatever its
-backend).
+sets that environment for each process it starts, from a group the caller
+started before (:func:`join` takes it as it is, whatever its backend), or
+from :func:`join_at`'s address and timeout (the serving group,
+``parallel/serving.py``).
 
 ``fvt_tpu``'s ``replicated`` and ``batch_sharded`` shardings have no
 counterpart here: parameters are replicated by DDP, and a rank holds its
@@ -19,7 +20,9 @@ from __future__ import annotations
 
 import os
 import socket
+import time
 from dataclasses import dataclass
+from datetime import timedelta
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -82,6 +85,23 @@ def join(device=None) -> Optional[World]:
                  torch.device(device), dist.get_backend(), owned)
 
 
+def join_at(rank: int, size: int, port: int, device,
+            timeout_s: Optional[float] = None) -> World:
+    """Starts the group of ``size`` ranks that meets at
+    ``tcp://localhost:<port>``, as ``rank`` on ``device`` with its backend
+    (a serving group, ``parallel/serving.py``); a collective that waits
+    longer than ``timeout_s`` fails.  The :class:`World` owns the group."""
+    device = torch.device(device)
+    if device.type == 'cuda':
+        torch.cuda.set_device(device)
+    kw = {} if timeout_s is None else {'timeout': timedelta(
+        seconds=timeout_s)}
+    dist.init_process_group(backend_for(device),
+                            init_method=f'tcp://localhost:{port}',
+                            rank=rank, world_size=size, **kw)
+    return World(rank, size, rank, device, dist.get_backend(), owned=True)
+
+
 def leave(world: Optional[World]) -> None:
     """Ends the group if :func:`join` started it."""
     if world is not None and world.owned and dist.is_initialized():
@@ -127,9 +147,21 @@ def _spawned(rank: int, fn: Callable, nprocs: int, port: int,
     fn(*args)
 
 
-def spawn(fn: Callable, nprocs: int, *args) -> None:
+def spawn(fn: Callable, nprocs: int, *args,
+          timeout_s: Optional[float] = None) -> None:
     """Runs ``fn(*args)`` in ``nprocs`` new processes with the group's
     environment set (rank i on ``cuda:i`` once it calls :func:`join`);
-    returns when all have ended, and raises if one failed."""
-    torch.multiprocessing.spawn(_spawned, args=(fn, nprocs, free_port(), args),
-                                nprocs=nprocs, join=True)
+    returns when all have ended, and raises if one failed, or, past
+    ``timeout_s``, ends them all and raises TimeoutError."""
+    ctx = torch.multiprocessing.spawn(
+        _spawned, args=(fn, nprocs, free_port(), args), nprocs=nprocs,
+        join=False)
+    deadline = None if timeout_s is None else time.monotonic() + timeout_s
+    while not ctx.join(timeout=1.0):
+        if deadline is not None and time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.terminate()
+            for p in ctx.processes:
+                p.join(10)
+            raise TimeoutError(f'{nprocs} ranks of {fn.__name__} still ran '
+                               f'after {timeout_s} s: ended')

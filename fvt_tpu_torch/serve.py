@@ -154,7 +154,9 @@ class ServingModel:
         self.model = model.to(device).eval()
         self.device = torch.device(device)
         self.needs_mask = bool(model.needs_time_mask)
-        # one forward at a time: a server's request threads share the card
+        # one forward at a time: a server's request threads share the
+        # card, and a sharded call's collectives run in one order on every
+        # rank (parallel/serving.py)
         self._lock = threading.Lock()
         shapes = shapes or [(window_batch, window_length)]
         self.shape_specs = {
@@ -192,19 +194,24 @@ class ServingModel:
                            f'or pad the batch to one of them')
         return key
 
-    def call(self, inputs: Dict[str, np.ndarray],
-             length: Optional[np.ndarray] = None) -> np.ndarray:
-        """(B, T, C) float32 numpy logits of one batch of exactly the
-        shapes and dtypes of ``meta['shapes'][key]['inputs']`` (a
-        bfloat16 input as the module docstring says)."""
+    def host_inputs(self, inputs: Dict[str, np.ndarray],
+                    length: Optional[np.ndarray] = None
+                    ) -> Tuple[str, Dict[str, np.ndarray],
+                               Optional[np.ndarray]]:
+        """(the key of the shape ``inputs`` is served at, the arrays as
+        they cross to the device (a bfloat16 input as its bits, uint16),
+        the (B,) int64 valid frames of a JMT or MT, the full T where
+        ``length`` is None, else None); raises, naming the input, where
+        :meth:`call` refuses it."""
         if length is not None and not self.needs_mask:
             raise ValueError(f'{self.meta["model_name"]} takes no time mask '
                              f'(needs_mask=False)')
-        specs = self.shape_specs[self.route(inputs)]
+        key = self.route(inputs)
+        specs = self.shape_specs[key]
         if set(inputs) != set(specs):
             raise ValueError(f'expected inputs {sorted(specs)}, got '
                              f'{sorted(inputs)}')
-        batch = {}
+        arrays = {}
         for k, spec in specs.items():
             a = np.asarray(inputs[k])
             half = spec['dtype'] == bf16.BF16 and (
@@ -215,14 +222,29 @@ class ServingModel:
                 raise ValueError(f'{k}: expected {spec["dtype"]} '
                                  f'{spec["shape"]}, got {a.dtype} '
                                  f'{list(a.shape)}')
-            batch[k] = (bf16.to_device(bf16.as_bits(a), self.device) if half
-                        else torch.from_numpy(a).to(self.device))
-        time_mask = None
+            arrays[k] = bf16.as_bits(a) if half else a
+        lengths = None
         if self.needs_mask:
             b, t = specs[next(iter(specs))]['shape'][:2]
             lengths = np.array(np.broadcast_to(np.asarray(
                 t if length is None else length, np.int64), (b,)))
-            time_mask = valid_frames(lengths, t, self.device)
+        return key, arrays, lengths
+
+    def call(self, inputs: Dict[str, np.ndarray],
+             length: Optional[np.ndarray] = None) -> np.ndarray:
+        """(B, T, C) float32 numpy logits of one batch of exactly the
+        shapes and dtypes of ``meta['shapes'][key]['inputs']`` (a
+        bfloat16 input as the module docstring says)."""
+        key, arrays, lengths = self.host_inputs(inputs, length)
+        specs = self.shape_specs[key]
+        batch = {k: (bf16.to_device(a, self.device)
+                     if specs[k]['dtype'] == bf16.BF16
+                     else torch.from_numpy(a).to(self.device))
+                 for k, a in arrays.items()}
+        time_mask = None
+        if lengths is not None:
+            time_mask = valid_frames(lengths, specs[next(iter(specs))]
+                                     ['shape'][1], self.device)
         with self._lock:
             out = serving_forward(self.model, batch, time_mask=time_mask)
             return out.cpu().numpy()

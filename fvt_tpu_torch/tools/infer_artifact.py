@@ -5,10 +5,10 @@ infer_artifact.py`` of ``fvt_tpu``): the feature store, the run's
     python -m fvt_tpu_torch.tools.infer_artifact --mode EVALUATION \\
         --fd_exp <training-run-dir> --artifact <path.fvtserve> \\
         --dataset_path <challenge-root> [--folds_dir <folds>] \\
-        [--target_ds_name ...] [--device cpu]
+        [--target_ds_name ...] [--device cpu] [--mesh N]
 
-The flags are ``fvt_tpu_torch.inference_challenge``'s, plus ``--artifact``
-and ``--device`` (default: the card).  LFAN only, as in ``fvt_tpu``: its
+The flags are ``fvt_tpu_torch.inference_challenge``'s, plus ``--artifact``,
+``--device`` (default: the card) and ``--mesh N``.  LFAN only, as in ``fvt_tpu``: its
 eval contract (every built video is at least a window long, a longer one
 is windowed and stitched) lets every video ride the artifact's one
 ``(window_batch, window)`` shape.  The window rows of all videos are
@@ -20,7 +20,11 @@ prediction.pkl`` on the challenge dataset, and ``eval-<set>-perf.pkl``,
 An artifact of ``--h2d_bf16_features`` takes its feature streams as
 bfloat16, rounded on the host (``utils/bf16.py``); an int8 artifact
 serves through the int8 ArcFace, with its calibrated scales if
-``int8_static``.  ``--mesh`` above 1 raises (ROADMAP.md A5g, its serving half).
+``int8_static``.  ``--mesh N`` (N >= 1) sends each pooled window batch
+through ``call_sharded`` over N ranks (``parallel/serving.py``): this
+process is rank 0, reads the store, stitches and writes, and N - 1
+follower processes hold the artifact on the next cards (or on the CPU);
+N must divide the artifact's window_batch.
 """
 from __future__ import annotations
 
@@ -36,24 +40,35 @@ from fvt_tpu_torch.config.parse import parse_input
 from fvt_tpu_torch.data import windowing as W
 from fvt_tpu_torch.data.transforms import SCALE_SIZE, center_crop_offset
 from fvt_tpu_torch.experiment import Experiment
-from fvt_tpu_torch.export import (NotServedError, load_artifact,
-                                  load_run_config)
+from fvt_tpu_torch.export import load_artifact, load_run_config
 from fvt_tpu_torch.inference_challenge import write_eval_outputs
+from fvt_tpu_torch.parallel import serving
 from fvt_tpu_torch.train import metrics as M
 from fvt_tpu_torch.utils import bf16
 from fvt_tpu_torch.utils.logger import log
 
 
-def run(args, artifact_path: str, device=None):
+def run(args, artifact_path: str, device=None, mesh_devices: int = 0):
     """(perf, per_video, experiment); the first two as
-    ``Trainer.inference`` returns them."""
+    ``Trainer.inference`` returns them.  ``mesh_devices`` N >= 1 serves
+    over N ranks (module docstring), ended before this returns."""
     if args.model_name != constants.LFAN:
         raise ValueError(f'artifact inference serves the LFAN window '
                          f'contract; a {args.model_name} evaluates whole '
                          f'videos: use inference_challenge')
     # the run's own config.yml builds an artifact without model_args
-    art = load_artifact(artifact_path, device=device,
-                        config=load_run_config(args.fd_exp))
+    config = load_run_config(args.fd_exp)
+    if not mesh_devices:
+        return _run(args, load_artifact(artifact_path, device=device,
+                                        config=config), device, None)
+    group = serving.start(artifact_path, mesh_devices, device, config)
+    try:
+        return _run(args, group.art, device, group.world)
+    finally:
+        group.close()
+
+
+def _run(args, art, device, world):
     window, hop = int(args.window_length), int(args.hop_length)
     key = next((k for k, v in art.meta['shapes'].items()
                 if v['seq_len'] == window), None)
@@ -62,6 +77,9 @@ def run(args, artifact_path: str, device=None):
                        f'window_length ({window}): {art.shape_keys}')
     spec = art.meta['shapes'][key]['inputs']
     wb = art.meta['shapes'][key]['window_batch']
+    if world is not None and wb % world.size:
+        raise AssertionError(f'artifact window_batch {wb} must divide by '
+                             f'--mesh {world.size}')
 
     exp = Experiment(args, device)
     exp.prepare()
@@ -77,9 +95,10 @@ def run(args, artifact_path: str, device=None):
             take = wqueue[:wb]
             del wqueue[:wb]
             rows = take + [take[-1]] * (wb - len(take))
-            out = art.call({k: np.stack([wstate[t]['arrs'][k][r]
-                                         for t, r in rows])
-                            for k in wstate[rows[0][0]]['arrs']})
+            inputs = {k: np.stack([wstate[t]['arrs'][k][r] for t, r in rows])
+                      for k in wstate[rows[0][0]]['arrs']}
+            out = (art.call(inputs) if world is None
+                   else art.call_sharded(inputs, mesh=world))
             for i, (trial, r) in enumerate(rows):
                 st = wstate.get(trial)
                 if st is None or st['done'][r]:
@@ -162,13 +181,12 @@ def main(argv=None, device=None):
         raise SystemExit('--artifact <path.fvtserve> is required')
     device = _take(argv, '--device') or device
     mesh = int(_take(argv, '--mesh') or 0)
-    if mesh > 1:
-        raise NotServedError(f'--mesh {mesh}: data-parallel serving is not '
-                             f'ported (ROADMAP.md A5g, its serving half)')
+    if mesh:
+        serving.devices(device, mesh)  # refused before anything is read
     args = parse_input(argv)
     if args.mode != constants.EVALUATION:
         raise SystemExit(f'--mode {args.mode}: EVALUATION only')
-    perf, per_video, exp = run(args, artifact_path, device)
+    perf, per_video, exp = run(args, artifact_path, device, mesh)
     write_eval_outputs(args, perf, per_video, exp.data_arranger.int_to_cl)
     return perf, per_video, exp
 

@@ -4,9 +4,9 @@ load_artifact`` and the server core of ``fvt_tpu_torch.streaming``.
 Stdlib HTTP (``http.server``), one process, one card.
 
     python -m fvt_tpu_torch.tools.serve_http --artifact run/serving.fvtserve \\
-        [--host 127.0.0.1] [--port 8700] [--device cpu] [--dynamic_batch] \\
-        [--batch_delay_ms 50] [--session_ttl_s 3600] [--max_sessions 0] \\
-        [--drain_timeout_s 30] [--fd_exp <training-run-dir>]
+        [--host 127.0.0.1] [--port 8700] [--device cpu] [--mesh N] \\
+        [--dynamic_batch] [--batch_delay_ms 50] [--session_ttl_s 3600] \\
+        [--max_sessions 0] [--drain_timeout_s 30] [--fd_exp <training-run-dir>]
 
 The model runs on the card unless ``--device cpu`` is given (``fvt_tpu``'s
 ``--force_cpu``).  An artifact that ``fvt_tpu`` exported carries no
@@ -14,13 +14,17 @@ The model runs on the card unless ``--device cpu`` is given (``fvt_tpu``'s
 model.  An int8 or ``int8_static`` artifact serves through the int8
 ArcFace; one of ``--h2d_bf16_features`` takes its feature streams as
 float32 (rounded to bfloat16 here) or as bfloat16 bits (uint16).
-``--mesh N`` with N > 1 raises: data-parallel serving is not ported
-(ROADMAP.md A5g, its serving half).  ``fvt_tpu_torch/client.py`` speaks this
-protocol.
+``--mesh N`` (N >= 1) serves data-parallel over N ranks, ``fvt_tpu``'s
+``call_sharded``: this process is rank 0 on ``cuda:0`` and N - 1 follower
+processes hold the same artifact on ``cuda:1`` ... (``--device cpu``: N
+``gloo`` ranks on the CPU; N above the visible cards is refused); each
+batch's rows are split over them (``parallel/serving.py``), a batch whose
+rows N does not divide is answered 400, and drain or shutdown stops the
+followers.  ``fvt_tpu_torch/client.py`` speaks this protocol.
 
 Protocol:
   GET  /healthz       -> {"ok": true, "shapes": [...], "aot": false,
-                          "mesh": 0, session/batching counters, drain
+                          "mesh": N, session/batching counters, drain
                           state, per-endpoint latency percentiles}
   GET  /metrics       -> the same counters in Prometheus text format
   GET  /meta          -> the artifact's meta.json
@@ -28,7 +32,8 @@ Protocol:
                          modality [+ optional 'length' (B,) int32 for
                          JMT and MT]; response: npz {'logits': (B,T,C)}.
                          The batch shape must be one of the artifact's
-                         (a miss comes back as 400 with its shapes;
+                         (a miss, or rows that --mesh N does not
+                         divide, comes back as 400 with its shapes;
                          a failed forward, a CUDA or kernel error, as
                          500).
 
@@ -61,6 +66,7 @@ live streams finish, bounded by ``--drain_timeout_s``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -73,8 +79,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from fvt_tpu_torch.export import (NotServedError, load_artifact,
-                                  load_run_config)
+from fvt_tpu_torch.export import load_artifact, load_run_config
+from fvt_tpu_torch.parallel import serving
 from fvt_tpu_torch.streaming import CapacityError, StreamingRegistry
 from fvt_tpu_torch.utils import bf16
 
@@ -124,13 +130,20 @@ def _npz(body: bytes) -> dict:
                          f'{e}') from e
 
 
-def make_handler(art, dynamic_batch=False, batch_delay_s=0.05,
+def make_handler(art, world=None, dynamic_batch=False, batch_delay_s=0.05,
                  session_ttl_s=3600.0, max_sessions=0):
-    streams = StreamingRegistry(art, dynamic_batch=dynamic_batch,
+    """The request handler of ``art``, served data-parallel over ``world``
+    (``call_sharded``) where one is given."""
+    streams = StreamingRegistry(art, mesh=world, dynamic_batch=dynamic_batch,
                                 max_delay_s=batch_delay_s,
                                 session_ttl_s=session_ttl_s,
                                 max_sessions=max_sessions)
     latency = LatencyStats()
+
+    def dispatch(arrays, length=None):
+        if world is not None:
+            return art.call_sharded(arrays, mesh=world, length=length)
+        return art.call(arrays, length=length)
 
     class Handler(BaseHTTPRequestHandler):
         def _send(self, code, payload, ctype='application/json'):
@@ -174,7 +187,8 @@ def make_handler(art, dynamic_batch=False, batch_delay_s=0.05,
             elif self.path == '/healthz':
                 b = streams.batcher
                 self._send(200, {'ok': True, 'shapes': art.shape_keys,
-                                 'aot': False, 'mesh': 0,
+                                 'aot': False,
+                                 'mesh': 0 if world is None else world.size,
                                  'dynamic_batch': b is not None,
                                  'stream_dispatches':
                                      b.dispatches if b else None,
@@ -227,7 +241,7 @@ def make_handler(art, dynamic_batch=False, batch_delay_s=0.05,
                 if self.path == '/logits':
                     arrays = _npz(body)
                     length = arrays.pop('length', None)
-                    out = art.call(arrays, length=length)
+                    out = dispatch(arrays, length=length)
                     buf = io.BytesIO()
                     np.savez(buf, logits=out)
                     self._send(200, buf.getvalue(),
@@ -260,9 +274,9 @@ def make_handler(art, dynamic_batch=False, batch_delay_s=0.05,
                     self._send(404,
                                {'error': f'unknown path {self.path}'})
             except (KeyError, AssertionError, ValueError) as e:
-                # a malformed body, a shape the artifact does not serve, a
-                # length given to a model without a mask, or a malformed
-                # stream chunk
+                # a malformed body, a shape the artifact does not serve,
+                # rows the mesh does not divide, a length given to a model
+                # without a mask, or a malformed stream chunk
                 self._send(400, {'error': str(e),
                                  'shapes': art.shape_keys})
             except Exception as e:
@@ -284,32 +298,48 @@ def build_server(artifact: str, host: str = '127.0.0.1', port: int = 0,
                  dynamic_batch: bool = False, batch_delay_s: float = 0.05,
                  session_ttl_s: float = 3600.0,
                  max_sessions: int = 0,
-                 config=None) -> ThreadingHTTPServer:
+                 config=None, world=None) -> ThreadingHTTPServer:
     """The server of ``artifact`` on ``device`` (None: the card), every
     shape warmed by one call, not yet serving (``serve_forever``);
     ``config``, the run's config, builds an artifact without
-    ``model_args`` (``export.model_args``)."""
-    if mesh_devices > 1:
-        raise NotServedError(f'--mesh {mesh_devices}: data-parallel serving '
-                             f'is not ported (ROADMAP.md A5g, its serving '
-                             f'half)')
-    art = load_artifact(artifact, device=device, config=config)
-    if dynamic_batch and art.needs_mask:
-        raise ValueError(f'--dynamic_batch: {art.meta["model_name"]}\'s '
-                         f'final attention mixes the batch\'s rows, so its '
-                         f'streams cannot share a dispatch (LFAN and CAN '
-                         f'only)')
-    for key in art.shape_keys:
-        spec = art.meta['shapes'][key]['inputs']
-        art.call({k: np.zeros(v['shape'], bf16.numpy_dtype(v['dtype']))
-                  for k, v in spec.items()})
-    handler = make_handler(art, dynamic_batch=dynamic_batch,
-                           batch_delay_s=batch_delay_s,
-                           session_ttl_s=session_ttl_s,
-                           max_sessions=max_sessions)
-    srv = ThreadingHTTPServer((host, port), handler)
+    ``model_args`` (``export.model_args``).  ``mesh_devices`` N >= 1 serves
+    over N ranks that this call starts (``serving.start``), ``world`` over
+    a group the caller joined as its rank 0 (the other ranks follow:
+    ``serving.follow``); :func:`drain_and_shutdown` stops the followers
+    and ends a group it started."""
+    group = None
+    if world is None and mesh_devices:
+        group = serving.start(artifact, mesh_devices, device, config)
+        art, world = group.art, group.world
+    else:
+        art = load_artifact(artifact, device=device, config=config)
+    try:
+        if dynamic_batch and art.needs_mask:
+            raise ValueError(f'--dynamic_batch: {art.meta["model_name"]}\'s '
+                             f'final attention mixes the batch\'s rows, so '
+                             f'its streams cannot share a dispatch (LFAN and '
+                             f'CAN only)')
+        for key in art.shape_keys:
+            shape = art.meta['shapes'][key]
+            batch = {k: np.zeros(v['shape'], bf16.numpy_dtype(v['dtype']))
+                     for k, v in shape['inputs'].items()}
+            if world is None:
+                art.call(batch)
+            elif shape['window_batch'] % world.size == 0:
+                art.call_sharded(batch, mesh=world)
+        handler = make_handler(art, world, dynamic_batch=dynamic_batch,
+                               batch_delay_s=batch_delay_s,
+                               session_ttl_s=session_ttl_s,
+                               max_sessions=max_sessions)
+        srv = ThreadingHTTPServer((host, port), handler)
+    except BaseException:
+        if group is not None:
+            with contextlib.suppress(Exception):
+                group.close()
+        raise
     srv.streams = handler.streams
     srv.artifact = art
+    srv.world, srv.group = world, group
     return srv
 
 
@@ -317,7 +347,8 @@ def drain_and_shutdown(srv, timeout_s: float = 30.0,
                        poll_s: float = 0.1) -> int:
     """Refuses new stream opens (503) while live streams keep feeding,
     finishing and polling, waits until none remain or ``timeout_s``, then
-    stops the server.  Returns the sessions abandoned at the deadline."""
+    stops the server and the serving group's followers.  Returns the
+    sessions abandoned at the deadline."""
     live = srv.streams.drain()
     print(f'draining: {live} live sessions, opens now refused',
           flush=True)
@@ -328,6 +359,10 @@ def drain_and_shutdown(srv, timeout_s: float = 30.0,
     srv.shutdown()
     srv.server_close()
     srv.streams.stop()
+    if srv.group is not None:
+        srv.group.close()
+    elif srv.world is not None:
+        srv.artifact.stop_followers(srv.world)
     if left:
         print(f'drain deadline hit: {left} sessions abandoned',
               flush=True)
@@ -346,8 +381,8 @@ def main(argv=None):
                    help="the training run dir whose config.yml builds an "
                         "artifact without model_args (fvt_tpu's)")
     p.add_argument('--mesh', type=int, default=0,
-                   help='refused above 1: data-parallel serving is not '
-                        'ported')
+                   help='serve data-parallel over N ranks, one a card '
+                        '(0 = in process, no group)')
     p.add_argument('--dynamic_batch', action='store_true',
                    help='pack windows from all live streams into shared '
                         'full window_batch dispatches (LFAN, CAN)')

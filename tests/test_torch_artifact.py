@@ -24,9 +24,10 @@ CPU.
   against the full length;
 * the refusals: ``serve_quant`` and ``h2d_bf16_features`` flags that
   contradict the model or its specs (a bfloat16 spec in ``streaming`` is
-  served as raw bits), a batch shape the artifact lacks, ``--mesh 2``
-  (server and artifact inference), ``--aot`` and ``--platforms cpu``, a
-  length for an LFAN, a weight of the wrong shape.
+  served as raw bits), a batch shape the artifact lacks, ``--mesh`` above
+  the visible cards (server and artifact inference), ``--aot`` and
+  ``--platforms cpu``, a length for an LFAN, a weight of the wrong
+  shape.
 """
 import json
 import os
@@ -316,13 +317,17 @@ def test_a_weight_of_the_wrong_shape_is_refused(tmp_path, lfan_artifact):
         export.load_artifact(path, device='cpu')
 
 
-def test_mesh_aot_and_platforms_are_refused(lfan_artifact):
+def test_mesh_aot_and_platforms_are_refused(lfan_artifact, monkeypatch):
+    """``--mesh`` above the visible cards is refused, naming both counts,
+    before anything is loaded (one card stubbed); AOT and other platforms
+    are not served."""
     run, path = lfan_artifact
-    with pytest.raises(export.NotServedError, match='--mesh 2.*A5'):
-        serve_http.build_server(path, device='cpu', mesh_devices=2)
-    with pytest.raises(export.NotServedError, match='--mesh 2.*A5'):
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
+    with pytest.raises(ValueError, match='--mesh 2: need 2 devices, have 1'):
+        serve_http.build_server(path, device='cuda', mesh_devices=2)
+    with pytest.raises(ValueError, match='--mesh 2: need 2 devices, have 1'):
         infer_artifact.main(['--artifact', path, '--mesh', '2', '--mode',
-                             'EVALUATION', '--fd_exp', run], device='cpu')
+                             'EVALUATION', '--fd_exp', run], device='cuda')
     with pytest.raises(export.NotServedError, match='--aot'):
         export_serving.main(['--fd_exp', run, '--aot'])
     with pytest.raises(export.NotServedError, match='--platforms cpu'):

@@ -13,8 +13,9 @@ patches, VGGish embeddings from a vggish.pth, MFCC) on a wav it writes,
 the visual preprocessing (RetinaFace, the warp, FAN, AU maps) and a
 feature-driver shard with cnn.npy and landmarks, merged, the run tools
 (a synthetic MELD store validated, a checkpoint ported both ways, a
-data-parallel training CLI run in a one-rank gloo group, summarised) and
-a DP train step, with all of them, cv2 and opensmile blocked), and
+data-parallel training CLI run in a one-rank gloo group, summarised), a
+DP train step and the artifact served by call_sharded in that group,
+with all of them, cv2 and opensmile blocked), and
 chip_smoke.py refuses to run without a CUDA card."""
 import os
 import re
@@ -411,6 +412,9 @@ NO_JAX = textwrap.dedent('''
             '--data_parallel', 'true', '--outd', os.path.join(root, 'run'),
             '--device', 'cpu'])
         assert exp.trainer.world.size == 1
+        # the served artifact data-parallel over the same one-rank group
+        assert (art.call_sharded(feats, mesh=world) == art.call(feats)).all()
+        art.stop_followers(world)
         mesh.leave(world)
         summary = summarize_runs.summarize([root])
         assert len(summary['runs']) == 3, summary
@@ -502,6 +506,7 @@ def test_no_port_source_imports_jax_or_fvt_tpu():
             'fvt_tpu_torch/parallel/multihost.py',
             'fvt_tpu_torch/parallel/dp.py',
             'fvt_tpu_torch/parallel/collectives.py',
+            'fvt_tpu_torch/parallel/serving.py',
             'fvt_tpu_torch/tools/synth_store.py',
             'fvt_tpu_torch/tools/validate_store.py',
             'fvt_tpu_torch/tools/summarize_runs.py',
