@@ -6394,7 +6394,7 @@ def tools_and_dp(device) -> dict:
                 extra += ['--data_parallel', 'true']
                 os.environ.update(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
                                   MASTER_ADDR='localhost',
-                                  MASTER_PORT=str(mesh.free_port()))
+                                  MASTER_PORT='0')  # one rank: it binds
             try:
                 zero()
                 t0 = time.perf_counter()

@@ -9,8 +9,15 @@ comes from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), from :func:`spawn`, which
 sets that environment for each process it starts, from a group the caller
 started before (:func:`join` takes it as it is, whatever its backend), or
-from :func:`join_at`'s address and timeout (the serving group,
+from :func:`join_at`'s port and timeout (the serving group,
 ``parallel/serving.py``).
+
+No port is chosen first and bound later by another process: another
+process's socket could take it in between.  The process that starts the
+others hosts the group's store on a port the system picks as it binds
+(:func:`host_store`) and hands its number on: :func:`spawn` as
+``MASTER_PORT``, every spawned rank a client of it (``torchrun``'s agent
+store), and ``serving.start`` as :func:`join_at`'s port.
 
 ``fvt_tpu``'s ``replicated`` and ``batch_sharded`` shardings have no
 counterpart here: parameters are replicated by DDP, and a rank holds its
@@ -19,7 +26,6 @@ rows of a batch as plain tensors (:func:`shard_batch`).
 from __future__ import annotations
 
 import os
-import socket
 import time
 from dataclasses import dataclass
 from datetime import timedelta
@@ -85,20 +91,34 @@ def join(device=None) -> Optional[World]:
                  torch.device(device), dist.get_backend(), owned)
 
 
+def host_store(timeout_s: Optional[float] = None) -> dist.TCPStore:
+    """A group's store, hosted by this process on a port the system picks
+    as it binds (``.port``), so that no other socket can take it first;
+    a wait on it longer than ``timeout_s`` (default 300 s) fails."""
+    return dist.TCPStore('localhost', 0, None, True,
+                         timeout=timedelta(seconds=timeout_s or 300.0),
+                         wait_for_workers=False)
+
+
 def join_at(rank: int, size: int, port: int, device,
-            timeout_s: Optional[float] = None) -> World:
-    """Starts the group of ``size`` ranks that meets at
-    ``tcp://localhost:<port>``, as ``rank`` on ``device`` with its backend
-    (a serving group, ``parallel/serving.py``); a collective that waits
-    longer than ``timeout_s`` fails.  The :class:`World` owns the group."""
+            timeout_s: Optional[float] = None,
+            store: Optional[dist.TCPStore] = None) -> World:
+    """Starts the group of ``size`` ranks whose store is ``store``, which
+    this process hosts (:func:`host_store`), or else the one at
+    ``localhost:<port>``, as ``rank`` on ``device`` with its backend (a
+    serving group, ``parallel/serving.py``); a collective or a wait on
+    the store longer than ``timeout_s`` fails.  The :class:`World` owns
+    the group."""
     device = torch.device(device)
     if device.type == 'cuda':
         torch.cuda.set_device(device)
-    kw = {} if timeout_s is None else {'timeout': timedelta(
-        seconds=timeout_s)}
-    dist.init_process_group(backend_for(device),
-                            init_method=f'tcp://localhost:{port}',
-                            rank=rank, world_size=size, **kw)
+    timeout = timedelta(seconds=timeout_s or 300.0)
+    if store is None:
+        store = dist.TCPStore('localhost', port, size, False,
+                              timeout=timeout)
+    kw = {} if timeout_s is None else {'timeout': timeout}
+    dist.init_process_group(backend_for(device), store=store, rank=rank,
+                            world_size=size, **kw)
     return World(rank, size, rank, device, dist.get_backend(), owned=True)
 
 
@@ -133,17 +153,13 @@ def shard_batch(batch: Dict[str, np.ndarray], world: World
     return {k: v[sl[0]:sl[1]] for k, v in batch.items()}
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(('127.0.0.1', 0))
-        return s.getsockname()[1]
-
-
 def _spawned(rank: int, fn: Callable, nprocs: int, port: int,
              args: tuple) -> None:
+    # every rank, rank 0 too, a client of the store that spawn hosts
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
                       WORLD_SIZE=str(nprocs), MASTER_ADDR='localhost',
-                      MASTER_PORT=str(port))
+                      MASTER_PORT=str(port),
+                      TORCHELASTIC_USE_AGENT_STORE='True')
     fn(*args)
 
 
@@ -152,9 +168,11 @@ def spawn(fn: Callable, nprocs: int, *args,
     """Runs ``fn(*args)`` in ``nprocs`` new processes with the group's
     environment set (rank i on ``cuda:i`` once it calls :func:`join`);
     returns when all have ended, and raises if one failed, or, past
-    ``timeout_s``, ends them all and raises TimeoutError."""
+    ``timeout_s``, ends them all and raises TimeoutError.  This process
+    hosts the group's store (:func:`host_store`) until then."""
+    store = host_store(timeout_s)
     ctx = torch.multiprocessing.spawn(
-        _spawned, args=(fn, nprocs, free_port(), args), nprocs=nprocs,
+        _spawned, args=(fn, nprocs, store.port, args), nprocs=nprocs,
         join=False)
     deadline = None if timeout_s is None else time.monotonic() + timeout_s
     while not ctx.join(timeout=1.0):

@@ -244,10 +244,10 @@ def start(path: str, n: int, device=None, config=None) -> Group:
     devs = devices(device, n)
     if devs[0].type == 'cuda':
         build.build()  # once, before the followers look for the library
-    port = mesh.free_port()
+    store = mesh.host_store(TIMEOUT_S)  # bound before a follower looks
     ctx = multiprocessing.get_context('spawn')
     procs = [ctx.Process(target=_follower, name=f'fvt-serving-rank{r}',
-                         args=(r, n, port, str(devs[r]), path, config,
+                         args=(r, n, store.port, str(devs[r]), path, config,
                                torch.get_num_threads()),
                          daemon=True)
              for r in range(1, n)]
@@ -255,7 +255,7 @@ def start(path: str, n: int, device=None, config=None) -> Group:
         p.start()
     world = None
     try:
-        world = mesh.join_at(0, n, port, devs[0], TIMEOUT_S)
+        world = mesh.join_at(0, n, store.port, devs[0], TIMEOUT_S, store)
         try:
             art = load_artifact(path, device=devs[0], config=config)
         except BaseException:

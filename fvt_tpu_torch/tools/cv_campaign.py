@@ -6,7 +6,8 @@ summaries it leaves to hand-work.  This tool runs the real pipeline end
 to end: ``folds x seeds`` trainings through ``python -m
 fvt_tpu_torch.main`` on one synthetic non-separable C-EXPR-DB store
 (``tools/synth_store.make_cexpr_store``'s hardness knobs, seed 300),
-each gated on its run's ``passed.txt``, then aggregated by
+each gated on its run's ``passed.txt`` (its output kept in
+``<run dir>.log``, whose end a failed run prints), then aggregated by
 ``tools/summarize_runs.py`` into the per-fold rows and the mean +/- std
 table, printed and optionally written as markdown.  Every run is on the
 card unless ``--device cpu`` is given::
@@ -65,11 +66,18 @@ def main(workdir: Optional[str] = None, folds: int = 2,
                    '--eval_window_batch', '4', '--outd', outd]
             if device:
                 cmd += ['--device', device]
-            r = subprocess.run(cmd, cwd=REPO, capture_output=True,
-                               text=True, timeout=1800)
+            # the run's whole output, kept beside its run directory
+            log_path = f'{outd}.log'
+            os.makedirs(exps, exist_ok=True)
+            with open(log_path, 'w') as log:
+                r = subprocess.run(cmd, cwd=REPO, stdout=log,
+                                   stderr=subprocess.STDOUT, timeout=1800)
             if r.returncode != 0:
-                print(r.stdout[-2000:], r.stderr[-2000:])
-                raise SystemExit(f'fold {fold} seed {seed} failed')
+                with open(log_path, errors='replace') as log:
+                    print(log.read()[-6000:])
+                raise SystemExit(f'fold {fold} seed {seed} failed: exit '
+                                 f'{r.returncode} (a negative code is the '
+                                 f'signal that ended it); {log_path}')
             assert os.path.isfile(join(outd, 'passed.txt')), outd
 
     summary = sr.summarize([exps])

@@ -14,7 +14,9 @@ artifact the contract promises:
      store (``python -m fvt_tpu_torch.inference_challenge``) ->
      prediction.pkl
   5. export the frozen serving artifact (``tools/export_serving.py``)
-  6. serve it over HTTP (``tools/serve_http.py``): /healthz, one /logits
+  6. serve it over HTTP (``tools/serve_http.py --port 0``, which binds a
+     port the system picks and names it in its log, ``serve_http.log``
+     in the workdir): /healthz, one /logits
      call, and one streamed session through ``fvt_tpu_torch.client``,
      whose logits must equal the offline stitch of /logits calls on the
      same frames
@@ -33,6 +35,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -44,13 +47,13 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from fvt_tpu_torch.parallel import mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 WINDOW, HOP, WINDOW_BATCH = 8, 4, 4
 # streamed against offline logits: the same kernels on the same windows
 STREAM_ATOL = 1e-5
+SERVING_LINE = re.compile(r'^serving .* on (http://[^:\s]+:\d+) ', re.M)
 
 
 def run_cli(module: str, args: list, stage: str, timeout: float = 900):
@@ -64,6 +67,19 @@ def run_cli(module: str, args: list, stage: str, timeout: float = 900):
         raise SystemExit(f'quickstart FAILED at {stage}: {module} exit '
                          f'{r.returncode}')
     return r
+
+
+def served_at(log_path: str) -> Optional[str]:
+    """``http://host:port`` from serve_http's ``serving ... on
+    http://host:port`` line in its log, None before the line is there."""
+    with open(log_path, errors='replace') as f:
+        m = SERVING_LINE.search(f.read())
+    return m.group(1) if m else None
+
+
+def log_tail(log_path: str, chars: int = 3000) -> str:
+    with open(log_path, errors='replace') as f:
+        return f.read()[-chars:]
 
 
 def offline_stitch(client, clip: Dict[str, np.ndarray]) -> np.ndarray:
@@ -163,23 +179,32 @@ def main(workdir: Optional[str] = None, keep: bool = False,
 
     # 6. HTTP serving: one logits call + one streamed session ------------
     s = stage('serve over HTTP (logits + streamed session)')
-    port = mesh.free_port()
-    srv = subprocess.Popen(
-        [sys.executable, '-m', 'fvt_tpu_torch.tools.serve_http',
-         '--artifact', art, '--port', str(port), *dev], cwd=REPO,
-        stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+    # the server binds a port the system picks and names it in its log
+    log_path = join(workdir, 'serve_http.log')
+    with open(log_path, 'w') as log:
+        srv = subprocess.Popen(
+            [sys.executable, '-m', 'fvt_tpu_torch.tools.serve_http',
+             '--artifact', art, '--port', '0', *dev], cwd=REPO,
+            stdout=log, stderr=subprocess.STDOUT)
     try:
-        base = f'http://127.0.0.1:{port}'
+        base = None
         for _ in range(240):
-            try:
-                urllib.request.urlopen(base + '/healthz', timeout=2)
-                break
-            except OSError:
-                if srv.poll() is not None:
-                    raise SystemExit('serve_http died during startup')
-                time.sleep(0.5)
+            if base is None:
+                base = served_at(log_path)
+            if base is not None:
+                try:
+                    urllib.request.urlopen(base + '/healthz', timeout=2)
+                    break
+                except OSError:
+                    pass
+            if srv.poll() is not None:
+                raise SystemExit(f'serve_http died during startup (exit '
+                                 f'{srv.returncode}); its log ends:\n'
+                                 f'{log_tail(log_path)}')
+            time.sleep(0.5)
         else:
-            raise SystemExit('serve_http never became healthy')
+            raise SystemExit(f'serve_http never became healthy; its log '
+                             f'ends:\n{log_tail(log_path)}')
 
         from fvt_tpu_torch.client import ServingClient
         c = ServingClient(base)

@@ -373,7 +373,10 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument('--artifact', required=True)
     p.add_argument('--host', default='127.0.0.1')
-    p.add_argument('--port', type=int, default=8700)
+    p.add_argument('--port', type=int, default=8700,
+                   help='0: a port the system picks as the server binds '
+                        'it, named in the "serving ... on '
+                        'http://host:port" line')
     p.add_argument('--device', default=None,
                    help='torch device (default: the card; cpu to serve on '
                         'the CPU)')

@@ -22,7 +22,10 @@ artifact (``fvt_tpu_torch/tools/infer_artifact.py``), on the CPU.
 """
 import os
 import pickle
+import subprocess
+import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -38,9 +41,11 @@ from fvt_tpu_torch.export import build_meta, save_artifact
 from fvt_tpu_torch.inference_challenge import main as challenge_main
 from fvt_tpu_torch.models.checkpoint import save_best_model
 from fvt_tpu_torch.models.registry import init_model
-from fvt_tpu_torch.tools import export_serving, infer_artifact, serve_http
+from fvt_tpu_torch.tools import export_serving, infer_artifact, quickstart, \
+    serve_http
 from fvt_tpu_torch.tools.synth_store import make_cexpr_store
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WINDOW, HOP, WB = 8, 4, 2
 STREAM_LENGTHS = (23, 5, 8)
 
@@ -276,3 +281,38 @@ def test_infer_artifact_matches_inference_challenge(tmp_path):
         np.testing.assert_array_equal(got[trial]['labels'], rec['labels'])
         err = np.abs(got[trial]['logits'] - rec['logits']).max()
         assert err <= 1e-5 * np.abs(rec['logits']).max(), (trial, err)
+
+
+def test_port_0_is_bound_by_the_server_and_named_in_its_log(tmp_path):
+    """``serve_http --port 0`` as ``quickstart`` runs it: the server binds
+    a port the system picks (no port is chosen first and bound later, when
+    another socket may hold it), names it in its ``serving ... on
+    http://127.0.0.1:<port>`` line, which ``quickstart.served_at`` reads
+    from the log, and answers /healthz there."""
+    path = _artifact(str(tmp_path / 'a.fvtserve'), 'LFAN', 'vggish+bert')
+    log_path = str(tmp_path / 'serve_http.log')
+    with open(log_path, 'w') as log:
+        srv = subprocess.Popen(
+            [sys.executable, '-m', 'fvt_tpu_torch.tools.serve_http',
+             '--artifact', path, '--port', '0', '--device', 'cpu'],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, 'OMP_NUM_THREADS': '1'})
+    try:
+        base = None
+        for _ in range(240):
+            base = quickstart.served_at(log_path)
+            if base is not None or srv.poll() is not None:
+                break
+            time.sleep(0.5)
+        assert base is not None, quickstart.log_tail(log_path)
+        assert base.startswith('http://127.0.0.1:')
+        assert int(base.rsplit(':', 1)[1]) > 0
+        health = ServingClient(base, timeout=60).healthz()
+        assert health['ok'] and health['shapes'] == ['b2xt8']
+    finally:
+        srv.terminate()
+        try:
+            srv.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            srv.kill()
+            srv.wait()
