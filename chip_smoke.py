@@ -55,13 +55,15 @@ Phases, each of which raises on failure (exit code 1):
    launches of that kernel, each also timed alone) against its plain
    version at the four stage shapes and edge shapes, beside the unfused
    bfloat16 block on cuDNN; the Winograd kernel's bfloat16 route (the
-   input transform, then one bfloat16 ``wgmma`` product with the output
-   transform in its epilogue; V of the first launch bit-equal to its plain
-   version, the product on the plain V and the whole call within one unit
-   in the last place, each launch also timed alone) at the seven conv
-   shapes and edge shapes, beside the bfloat16 conv kernel and
-   ``F.conv2d`` bf16, and its refusal of widths it does not take; print
-   errors and median times (CUDA events);
+   fused kernel: one launch a call and no workspace, V formed in
+   registers bit-equal to its plain version at all 16 positions through a
+   one-hot U, y within one unit in the last place) and the earlier design
+   in two launches (V of the first launch bit-equal to its plain version,
+   the product on the plain V and the whole call within one unit in the
+   last place, each launch also timed alone) at the seven conv shapes and
+   edge shapes, beside the bfloat16 conv kernel and ``F.conv2d`` bf16, and
+   their refusal of widths and frames they do not take; print errors and
+   median times (CUDA events);
 3. serve three streams of 250, 700 and 1000 frames through the
    ``fvt_tpu_torch.streaming`` server core over a full-width tri-modal
    LFAN (``video+vggish+bert``, random init from seed 0); check every
@@ -1913,20 +1915,31 @@ def check_bottleneck_bf16_kernel(device) -> dict:
 def check_winograd_bf16_kernel(device) -> dict:
     """Phase 2, bfloat16: the Winograd kernel's bfloat16 route
     (``conv3x3_winograd`` on bfloat16 tensors, the ``winograd_kernel``
-    path under ``--amp``: the input transform, then one bfloat16 ``wgmma``
-    product with the output transform in its epilogue) at the seven conv
-    shapes on FRAMES frames and at edge shapes.  Gates: V of the first
-    launch alone bit-equal to ``input_transform`` on the bfloat16 x; the
-    second launch alone, on that plain V, and the whole call within
-    compare_bf16's gate (one unit in the last place) of the plain
+    path under ``--amp``: the fused kernel, one launch that forms V from
+    x in registers and sums the products on ``wgmma`` straight into the
+    output phases) and the earlier design in two launches (the input
+    transform, then one bfloat16 ``wgmma`` product with the output
+    transform in its epilogue; ``launch_bf16``, on no path), at the seven
+    conv shapes on FRAMES frames and at edge shapes.  Gates: a call is one
+    ``launches_bf16`` and allocates nothing beyond y (no V workspace); V's
+    bits through the fused kernel, at all 16 positions, by a packed U that
+    is the identity at one position and zero at the others (Co = C): y's
+    phase (i, j) is then A^T[i][a] A^T[j][b] V_ab, exact in bfloat16,
+    against ``input_transform``'s V; V of the two-launch design's first
+    launch alone bit-equal to ``input_transform`` on the bfloat16 x; its
+    second launch alone, on that plain V, and each design's whole call
+    within compare_bf16's gate (one unit in the last place) of the plain
     version, ``conv3x3_winograd_bf16_ref`` (the same exact products, fp32
     sums in another order); the distance from ``F.conv2d`` bf16 printed,
     not gated (V's roundings make it another bfloat16 function).  Widths
-    the kernel does not take must raise.  Times per shape: the call, each
-    launch alone, the plain version, bf16 B4 (``conv3x3``) and
-    ``F.conv2d`` bf16; the bound: the products' operations at the bf16
-    peak against x, the packed U and y, with the bytes of its two launches
-    (V written and read besides) printed beside it."""
+    and frames the kernels do not take must raise and count nothing.
+    Times per shape: the fused call, the two-launch call and each of its
+    launches alone, the plain version, bf16 B4 (``conv3x3``) and
+    ``F.conv2d`` bf16; the bound: Winograd's products' operations at the
+    bf16 peak against x, the packed U and y, with the fused kernel's own
+    product count (36 products of 64 x 64 x 16 a k16 step where Winograd
+    needs 16) and the two-launch design's bytes (V written and read)
+    printed beside it."""
     from fvt_tpu_torch.kernels import build
     from fvt_tpu_torch.ops import conv as conv_ops
     from fvt_tpu_torch.ops import winograd as winograd_ops
@@ -1934,49 +1947,94 @@ def check_winograd_bf16_kernel(device) -> dict:
     g = torch.Generator(device=device).manual_seed(SEED + 8)
     frames = WINDOW_BATCH * WINDOW
     tot = {key: 0.0 for key in (
-        'err', 'ms', 'plain', 'library', 'b4', 'ops_ms', 'bytes_ms',
-        'design_ms', 'input_transform', 'product')}
+        'err', 'ms', 'two_launch', 'plain', 'library', 'b4', 'ops_ms',
+        'fused_ops_ms', 'bytes_ms', 'design_ms', 'input_transform',
+        'product')}
     workspace_gb = 0.0
+    wino = winograd_ops.conv3x3_winograd
 
     def inputs(n, h, w, cin, cout):
         x = torch.randn(n, h, w, cin, device=device, generator=g)
         k = torch.randn(3, 3, cin, cout, device=device, generator=g)
         return x.bfloat16(), (k * (9 * cin) ** -0.5).bfloat16()
 
+    def fused_call(x, k, u, packed):
+        """The wrapper's call on the card: one launch, and no allocation
+        but y's (the peak during the call is what y holds after it)."""
+        torch.cuda.synchronize()
+        before = wino.launches_bf16
+        torch.cuda.reset_peak_memory_stats()
+        got = wino(x, k, u, packed)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - \
+            torch.cuda.memory_allocated()
+        if wino.launches_bf16 - before != 1:
+            fail(f'conv3x3_winograd counted {wino.launches_bf16 - before} '
+                 f'bfloat16 launches for one call')
+        if extra:
+            fail(f'conv3x3_winograd held {extra} bytes more during a call '
+                 f'than its y after it: a workspace')
+        return got
+
     def check(shape, x, k):
         """The gates at x's shape; returns (y, max error, U, packed U)."""
         n, h, w, _ = x.shape
         u = winograd_ops.transform_weights_bf16(k)
         packed = winograd_ops.pack_winograd_weights_bf16(u)
+        want = winograd_ops.conv3x3_winograd_bf16_ref(x, k, u)
+        got = fused_call(x, k, u, packed)
+        err = compare_bf16(shape, got, want)
+        # the two-launch design: each launch alone, then the whole call
         v = winograd_ops.workspace_bf16(x)
-        out = torch.empty(n, h, w, k.shape[3], device=device,
-                          dtype=torch.bfloat16)
+        out = torch.empty_like(got)
         winograd_ops.launch_bf16(x, packed, v, out,
                                  winograd_ops.INPUT_TRANSFORM)
         v_plain = winograd_ops.v_chunks(winograd_ops.input_transform(x))
         torch.cuda.synchronize()
         flips = (v != v_plain).sum().item()
-        print(f'  {shape} V: {flips} of {v.numel()} values differ from '
-              f'input_transform\'s')
+        print(f'  {shape} two-launch V: {flips} of {v.numel()} values '
+              f'differ from input_transform\'s')
         if flips:
             fail(f'{shape}: the input transform is not bit-equal to its '
                  f'plain version')
-        del v
         winograd_ops.launch_bf16(x, packed, v_plain, out,
                                  winograd_ops.PRODUCT)
         p = n * ((h + 1) // 2) * ((w + 1) // 2)
-        want = winograd_ops.output_transform(torch.bmm(
+        product = winograd_ops.output_transform(torch.bmm(
             v_plain[:, :, :p].transpose(1, 2).reshape(16, p, -1).float(),
             u.float()), n, h, w).bfloat16()
         del v_plain
-        compare_bf16(f'{shape} product on the plain V', out, want)
-        del out, want
-        got = winograd_ops.conv3x3_winograd(x, k, u, packed)
-        err = compare_bf16(shape, got,
-                           winograd_ops.conv3x3_winograd_bf16_ref(x, k, u))
+        compare_bf16(f'{shape} two-launch product on the plain V', out,
+                     product)
+        del product
+        winograd_ops.launch_bf16(x, packed, v, out)
+        compare_bf16(f'{shape} two-launch call', out, want)
+        del v, out, want
         return got, err, u, packed
 
+    def check_v_bits(n, h, w, c):
+        """V through the fused kernel at all 16 positions, exactly."""
+        x, _ = inputs(n, h, w, c, c)
+        v = winograd_ops.input_transform(x)
+        k = torch.empty(3, 3, c, c, device=device, dtype=torch.bfloat16)
+        flips = 0
+        for pos in range(16):
+            u = torch.zeros(16, c, c, device=device, dtype=torch.bfloat16)
+            u[pos] = torch.eye(c, device=device, dtype=torch.bfloat16)
+            got = fused_call(x, k, u,
+                             winograd_ops.pack_winograd_weights_bf16(u))
+            m = torch.zeros(16, v.shape[1], c, device=device)
+            m[pos] = v[pos].float()
+            want = winograd_ops.output_transform(m, n, h, w).bfloat16()
+            flips += (got.float() != want.float()).sum().item()
+        print(f'  winograd_bf16 fused V at ({n},{h},{w},{c}), one-hot U at '
+              f'each of the 16 positions: {flips} of {16 * x.numel()} '
+              f'values differ from input_transform\'s')
+        if flips:
+            fail('the fused kernel\'s V is not bit-equal to input_transform')
+
     with torch.inference_mode():
+        check_v_bits(3, 9, 11, 32)
         for h, cin, cout, count in CONV_SHAPES:
             x, k = inputs(frames, h, h, cin, cout)
             shape = f'winograd_bf16 ({frames},{h},{h},{cin})->{cout}'
@@ -1987,9 +2045,10 @@ def check_winograd_bf16_kernel(device) -> dict:
                   f'{apart.max().item():.3e}, mean {apart.mean().item():.3e} '
                   f'of mean|y| {cudnn.float().abs().mean().item():.3e}')
             del cudnn, apart
-            ms = median_ms(lambda: winograd_ops.conv3x3_winograd(
-                x, k, u, packed), CONV_RUNS)
+            ms = median_ms(lambda: wino(x, k, u, packed), CONV_RUNS)
             v = winograd_ops.workspace_bf16(x)
+            two = median_ms(lambda: winograd_ops.launch_bf16(
+                x, packed, v, got), CONV_RUNS)
             alone = {}
             for key, stage in (('input_transform',
                                 winograd_ops.INPUT_TRANSFORM),
@@ -2006,70 +2065,86 @@ def check_winograd_bf16_kernel(device) -> dict:
             flops = 2.0 * 16 * p * cin * cout
             moved = nbytes(x, packed, got)
             lower = bound(flops, moved, PEAK_FLOPS_BF16)
+            fused_ops = 36 / 16 * flops / PEAK_FLOPS_BF16 * 1e3
             design = (moved + 2 * nbytes(v)) / PEAK_BYTES * 1e3
             workspace_gb = max(workspace_gb, nbytes(v) / 1e9)
-            print(f'    x{count} a forward: kernel {ms:.4f} ms (input '
-                  f'transform {alone["input_transform"]:.4f}, product '
+            print(f'    x{count} a forward: fused kernel {ms:.4f} ms, '
+                  f'two-launch {two:.4f} ms (input transform '
+                  f'{alone["input_transform"]:.4f}, product '
                   f'{alone["product"]:.4f} alone), plain {plain:.4f} ms, '
                   f'bf16 B4 {b4:.4f} ms, F.conv2d bf16 ({layout}) '
                   f'{library_ms:.4f} ms, bound {lower["bound_ms"]:.4f} ms by '
                   f'{lower["bound_by"]} ({flops / 1e9:.1f} GFLOP, '
-                  f'{moved / 1e6:.1f} MB), its launches\' bytes (V written '
-                  f'and read) {design:.4f} ms, V {nbytes(v) / 1e9:.3f} GB')
+                  f'{moved / 1e6:.1f} MB), the fused kernel\'s products '
+                  f'{fused_ops:.4f} ms, the two-launch bytes (V written and '
+                  f'read) {design:.4f} ms, V {nbytes(v) / 1e9:.3f} GB')
             tot['err'] = max(tot['err'], err)
             tot['ms'] += count * ms
+            tot['two_launch'] += count * two
             tot['plain'] += count * plain
             tot['library'] += count * library_ms
             tot['b4'] += count * b4
             tot['ops_ms'] += count * flops / PEAK_FLOPS_BF16 * 1e3
+            tot['fused_ops_ms'] += count * fused_ops
             tot['bytes_ms'] += count * moved / PEAK_BYTES * 1e3
             tot['design_ms'] += count * design
             del x, k, got, u, packed, v, b4_packed
 
-        # odd extents (7x9; 5x5 as the last stage), single pixels, Cin !=
-        # Cout, a ragged column tile (Co = 200, 136), the smallest C (one
-        # k16 step), P over several row tiles with a ragged end (828
-        # tiles), and several tiles of wide channels
+        # odd extents (7x9; 5x5 as the last stage; 13x6: H odd, W even),
+        # single pixels, Cin != Cout, a ragged column tile (Co = 200, 136),
+        # the smallest C (one k16 step), P over several row tiles with a
+        # ragged end (828 tiles), row tiles across frames, several tiles of
+        # wide channels, and the fused kernel's other stagings: 1x1 frames
+        # (four loads a pixel), 2x2 frames, a wide frame (three loads, a
+        # ring of two slots), H = 2 across frames
         for n, h, w, cin, cout in [(3, 7, 9, 32, 16), (1, 1, 1, 16, 8),
                                    (1, 2, 2, 16, 8), (5, 5, 5, 64, 200),
                                    (2, 13, 6, 16, 40), (3, 23, 45, 48, 136),
-                                   (7, 10, 10, 256, 256)]:
+                                   (7, 10, 10, 256, 256), (300, 1, 1, 32, 16),
+                                   (130, 2, 2, 16, 24), (1, 6, 400, 16, 8),
+                                   (9, 2, 90, 16, 8)]:
             x, k = inputs(n, h, w, cin, cout)
             check(f'winograd_bf16 edge ({n},{h},{w},{cin})->{cout}', x, k)
 
-        # C = 20 is no multiple of wgmma's k16 step and Co = 12 none of 8:
-        # the wrapper raises, and the C entry itself refuses C = 20;
-        # neither goes to another kernel
-        before = (winograd_ops.conv3x3_winograd.launches,
-                  conv_ops.conv3x3.launches)
-        for cin, cout in ((20, 40), (16, 12)):
-            x, k = inputs(2, 5, 5, cin, cout)
+        # C = 20 is no multiple of wgmma's k16 step and Co = 12 none of 8,
+        # and a row tile across frames 800 wide stages more than four
+        # loads: the wrapper raises, and the C entries themselves refuse
+        # C = 20; neither goes to another kernel
+        before = (wino.launches, conv_ops.conv3x3.launches)
+        for n, w, cin, cout in ((2, 5, 20, 40), (2, 5, 16, 12),
+                                (2, 800, 16, 8)):
+            x, k = inputs(n, 5 if w == 5 else 2, w, cin, cout)
             try:
-                winograd_ops.conv3x3_winograd(x, k)
+                wino(x, k)
             except ValueError as e:
-                print(f'  winograd_bf16 C={cin} Co={cout} refused: {e}')
+                print(f'  winograd_bf16 ({n},{x.shape[1]},{w},{cin})->'
+                      f'{cout} refused: {e}')
             else:
-                fail(f'conv3x3_winograd took bfloat16 C = {cin}, Co = '
-                     f'{cout}')
+                fail(f'conv3x3_winograd took bfloat16 N={n}, W={w}, '
+                     f'C={cin}, Co={cout}')
         x = torch.zeros(2, 5, 5, 20, device=device, dtype=torch.bfloat16)
+        stream = torch.cuda.current_stream(device).cuda_stream
         code = build.library().fvt_winograd_bf16_forward(
             *([x.data_ptr()] * 4), 2, 5, 5, 20, 40,
-            winograd_ops.BF16_STAGES,
-            torch.cuda.current_stream(device).cuda_stream)
-        if code == 0:
-            fail('the bfloat16 Winograd entry took C = 20')
-        if (winograd_ops.conv3x3_winograd.launches,
-                conv_ops.conv3x3.launches) != before:
+            winograd_ops.BF16_STAGES, stream)
+        fused_code = build.library().fvt_winograd_bf16_fused_forward(
+            *([x.data_ptr()] * 3), 2, 5, 5, 20, 40, stream)
+        if code == 0 or fused_code == 0:
+            fail('a bfloat16 Winograd entry took C = 20')
+        if (wino.launches, conv_ops.conv3x3.launches) != before:
             fail('a refused bfloat16 Winograd conv counted a launch')
     lower = max(tot['ops_ms'], tot['bytes_ms'])
-    print(f'  winograd_bf16 total over the 45 convs of a forward: kernel '
-          f'{tot["ms"]:.4f} ms (input transform {tot["input_transform"]:.4f}'
-          f', product {tot["product"]:.4f} alone), plain {tot["plain"]:.4f} '
+    print(f'  winograd_bf16 total over the 45 convs of a forward: fused '
+          f'kernel {tot["ms"]:.4f} ms, two-launch {tot["two_launch"]:.4f} ms '
+          f'(input transform {tot["input_transform"]:.4f}, product '
+          f'{tot["product"]:.4f} alone), plain {tot["plain"]:.4f} '
           f'ms, bf16 B4 {tot["b4"]:.4f} ms, F.conv2d bf16 '
           f'{tot["library"]:.4f} ms, bound {lower:.4f} ms '
-          f'({lower / tot["ms"]:.1%} of it; operations {tot["ops_ms"]:.4f}, '
-          f'x, U and y {tot["bytes_ms"]:.4f}), its launches\' bytes '
-          f'{tot["design_ms"]:.4f} ms; largest V {workspace_gb:.3f} GB')
+          f'({lower / tot["ms"]:.1%} of the fused kernel; operations '
+          f'{tot["ops_ms"]:.4f}, x, U and y {tot["bytes_ms"]:.4f}), the '
+          f'fused kernel\'s products {tot["fused_ops_ms"]:.4f} ms, the '
+          f'two-launch bytes {tot["design_ms"]:.4f} ms; largest V '
+          f'{workspace_gb:.3f} GB')
     return {'name': 'winograd_bf16', 'route': 'cuda',
             'source': 'fvt_tpu_torch/csrc/winograd_bf16.cu',
             'replaces': 'fvt_tpu/ops/winograd.py:148',
@@ -2078,6 +2153,8 @@ def check_winograd_bf16_kernel(device) -> dict:
             'bound_ms': lower,
             'bound_by': ('operations' if tot['ops_ms'] >= tot['bytes_ms']
                          else 'bytes'),
+            'fused_products_ms': tot['fused_ops_ms'],
+            'two_launch_ms': tot['two_launch'],
             'launch_ms': {'input_transform': tot['input_transform'],
                           'product': tot['product']},
             'launches_bytes_bound_ms': tot['design_ms'],

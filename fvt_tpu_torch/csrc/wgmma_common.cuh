@@ -4,8 +4,9 @@
 // mbarriers (and a wait and an arrive without branches), the copy
 // engine's bulk, im2col and tiled copies, shared-memory
 // matrix descriptors, the wgmma fences, the split-TF32 rounding, the TF32
-// and bf16 wgmma of 64 x 64 and 64 x 128 tiles, the im2col tensor map of an
-// NHWC activation and a 3-d tiled tensor map, all for sm_90a.  Each
+// and bf16 wgmma of 64 x 64 and 64 x 128 tiles (and the bf16 one of 64 x 64
+// with A in registers), the im2col tensor map of an NHWC activation and a
+// 3-d tiled tensor map, all for sm_90a.  Each
 // includer gets its own copies (everything lies in an anonymous namespace).
 #pragma once
 
@@ -72,16 +73,18 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
 // kLoad consecutive padded coordinates by one 16-byte channel chunk, from
 // the coordinate (w, h, n) on (the im2col walk of the tensor map: columns,
 // then rows, then frames, zeros outside the image), global -> shared as
-// [coordinate][16 bytes]
+// [coordinate][16 bytes]; each coordinate's pixel is read (ow, oh) further
+// (the im2col offsets along W and H)
 __device__ __forceinline__ void tma_im2col(uint32_t dst, const CUtensorMap* map,
                                            int c, int w, int h, int n,
-                                           uint32_t bar) {
+                                           uint32_t bar, int ow = 0,
+                                           int oh = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.im2col"
       ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], "
       "{%7, %8};\n" ::"r"(dst),
-      "l"(map), "r"(bar), "r"(c), "r"(w), "r"(h), "r"(n), "h"((uint16_t)0),
-      "h"((uint16_t)0)
+      "l"(map), "r"(bar), "r"(c), "r"(w), "r"(h), "r"(n), "h"((uint16_t)ow),
+      "h"((uint16_t)oh)
       : "memory");
 }
 
@@ -315,6 +318,38 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64 x 64, fp32) += kScaleA * A (64 x 16 bf16, in registers: each
+// warp's 16 rows as mma.m16n8k16's A fragment, a[0] (row lane/4, columns
+// 2*(lane%4) + {0, 1}), a[1] 8 rows below, a[2] and a[3] 8 columns right)
+// @ B (16 x 64, N-major in shared memory behind its descriptor); kScaleA
+// is 1 or -1 (the instruction's operand negation, exact)
+template <int kScaleA>
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, %38, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(kScaleA));
+}
+
 template <int BN>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2],
                                            uint64_t desc_a, uint64_t desc_b,
@@ -335,10 +370,14 @@ void* libcuda_entry(const char* name) {
 // The im2col tensor map of x (N, H, W, C), elements of `elem` bytes: kLoad
 // consecutive coordinates by `chunk` channels (16 bytes) a load, walking the
 // columns -1 .. W-1, then the rows -1 .. H-1, then the frames: the padded
-// line of the kernels' header notes, zeros outside the image.
+// line of the kernels' header notes, zeros outside the image.  With
+// `stride` 2 and upper corners (upper_w, upper_h) the walk takes every
+// other column from -1 to W-1 + upper_w and every other row from -1 to
+// H-1 + upper_h (winograd_bf16.cu's extended tile grid).
 cudaError_t make_x_map(const void* x, int N, int H, int W, int C,
                        CUtensorMapDataType type, int elem, int chunk,
-                       CUtensorMap* map) {
+                       CUtensorMap* map, int stride = 1, int upper_w = 0,
+                       int upper_h = 0) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
       const cuuint64_t*, const int*, const int*, cuuint32_t, cuuint32_t,
@@ -351,11 +390,11 @@ cudaError_t make_x_map(const void* x, int N, int H, int W, int C,
   const cuuint64_t strides[3] = {(cuuint64_t)C * elem,
                                  (cuuint64_t)W * C * elem,
                                  (cuuint64_t)H * W * C * elem};
-  const int lower[2] = {-1, -1}, upper[2] = {0, 0};
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const int lower[2] = {-1, -1}, upper[2] = {upper_w, upper_h};
+  const cuuint32_t steps[4] = {1, (cuuint32_t)stride, (cuuint32_t)stride, 1};
   const CUresult res = encode(
       map, type, 4, (void*)x, dims, strides, lower, upper, chunk, kLoad,
-      ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -68,6 +68,8 @@ _SIGNATURES = {
     'fvt_winograd_tf32x3_forward': [_P] * 6 + [_I] * 7 + [_P],
     # x up v y (bf16), N H W C Co stages, stream
     'fvt_winograd_bf16_forward': [_P] * 4 + [_I] * 6 + [_P],
+    # x up y (bf16), N H W C Co, stream
+    'fvt_winograd_bf16_fused_forward': [_P] * 3 + [_I] * 5 + [_P],
     # x w1 w2 a1 b1 alpha a2 b2 y, N H W C, tf th tw rg, stream
     'fvt_bottleneck_forward': [_P] * 9 + [_I] * 8 + [_P],
     # x w1_hi w1_lo w2_hi w2_lo a1 b1 alpha a2 b2 v y (fp32), N H W C bn

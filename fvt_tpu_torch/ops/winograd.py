@@ -31,15 +31,19 @@ points (:func:`conv3x3_winograd_bf16_ref`, its plain version, which
 the bfloat16 kernel in float32, rounded to bfloat16 once; V in bfloat16,
 every add and subtract rounded (the transform is not exact there); the
 products summed in float32; ``A^T M A`` in float32 and one rounding of y.
-For a bfloat16 CUDA tensor :func:`conv3x3_winograd` launches the two
-kernels of ``csrc/winograd_bf16.cu`` or raises: the input transform, then
-one bfloat16 ``wgmma`` product with the output transform in its epilogue,
-so that only V lies in device memory (bfloat16, 8 channels a chunk,
-:func:`v_chunks`) and M nowhere.  Neither type goes to the other's kernel
-or to a library.
+For a bfloat16 CUDA tensor :func:`conv3x3_winograd` launches the fused
+kernel of ``csrc/winograd_bf16.cu`` or raises: one launch that stages x
+by the copy engine (:func:`fused_plan`), forms V in registers and sums the
+products on ``wgmma`` straight into the output phases, so that neither V
+nor M lies in device memory.  :func:`launch_bf16`, the earlier design in
+two launches (the input transform writes V, 8 channels a chunk,
+:func:`v_chunks`; one ``wgmma`` product with the output transform in its
+epilogue), stays to be timed: no model path calls it.  Neither type goes
+to the other's kernel or to a library.
 
 ``conv3x3_winograd.launches`` counts its calls on the card (one for the
-three or two launches of a call), ``conv3x3_winograd.launches_fp32`` and
+three launches of a float32 call, one for the bfloat16 launch),
+``conv3x3_winograd.launches_fp32`` and
 ``conv3x3_winograd.launches_bf16`` those of each type.
 :func:`conv3x3_winograd_simt`, the earlier float32 kernel on the CUDA
 cores (``csrc/winograd.cu``, V and M kept on chip), stays for
@@ -298,9 +302,9 @@ def v_chunks(v: torch.Tensor) -> torch.Tensor:
 
 
 def workspace_bf16(x: torch.Tensor) -> torch.Tensor:
-    """V, bfloat16 on x's device, in the bfloat16 kernel's layout
-    (:func:`v_chunks`: (16, C/8, P8, 8)), for :func:`launch_bf16`: the
-    bfloat16 route's only workspace."""
+    """V, bfloat16 on x's device, in the two-launch design's layout
+    (:func:`v_chunks`: (16, C/8, P8, 8)), for :func:`launch_bf16`: that
+    design's only workspace (the fused kernel takes none)."""
     n, h, w, c = x.shape
     p = n * -(-h // 2) * -(-w // 2)
     return torch.empty((16, c // 8, p + -p % 8, 8), device=x.device,
@@ -309,12 +313,13 @@ def workspace_bf16(x: torch.Tensor) -> torch.Tensor:
 
 def launch_bf16(x: torch.Tensor, packed: torch.Tensor, v: torch.Tensor,
                 out: torch.Tensor, stages: int = BF16_STAGES) -> None:
-    """Launches the ``stages`` of the bfloat16 Winograd kernel on the
-    current stream: the input transform x -> v (``INPUT_TRANSFORM``; v in
-    :func:`v_chunks`' layout), the product v -> out with the output
-    transform in its epilogue (``PRODUCT``).  Checks every tensor and
-    raises on a CUDA error; counts nothing (a measurement may launch one
-    stage alone)."""
+    """Launches the ``stages`` of the two-launch bfloat16 Winograd design
+    on the current stream: the input transform x -> v
+    (``INPUT_TRANSFORM``; v in :func:`v_chunks`' layout), the product v ->
+    out with the output transform in its epilogue (``PRODUCT``).  Timed
+    beside the fused kernel; no model path calls it.  Checks every tensor
+    and raises on a CUDA error; counts nothing (a measurement may launch
+    one stage alone)."""
     n, h, w, c = x.shape
     co = out.shape[3]
     p = n * -(-h // 2) * -(-w // 2)
@@ -331,6 +336,70 @@ def launch_bf16(x: torch.Tensor, packed: torch.Tensor, v: torch.Tensor,
                      f'C={c}, Co={co}, stages={stages})')
 
 
+# the fused kernel's row tile (tiles a block stages x for), the positions
+# a copy-engine load brings, and the most loads a pixel and chunk
+FUSED_ROWS, FUSED_LOAD, FUSED_MAX_LOADS = 128, 128, 4
+
+
+def fused_plan(n: int, h: int, w: int) -> dict:
+    """The fused kernel's staging plan for x (N, H, W, C), as
+    ``fused_plan`` of ``csrc/winograd_bf16.cu`` computes it: ``th``,
+    ``tw`` the tiles a frame, ``P`` the tiles, ``ext`` the positions a
+    frame of the extended grid ((th+1) x (tw+1): position (f, ey, ex)
+    holds the 2x2 pixels (2ey-1 + {0, 1}, 2ex-1 + {0, 1}), so that tile
+    (f, ty, tx) reads its tap (r, c) at position (f, ty + r//2, tx +
+    c//2), pixel (r%2, c%2)), ``E`` the positions in all, and ``loads``
+    and ``e_pad`` = ``loads * FUSED_LOAD``: the positions a row tile of
+    FUSED_ROWS tiles stages a pixel and 8-channel chunk, a bound of its
+    span e(p_last) + tw + 3 - e(p0) from the tile rows and frames its 127
+    steps cross.  Raises where that needs more than FUSED_MAX_LOADS loads:
+    a row tile that crosses a frame of W above about 380 (no ArcFace
+    shape; 1x1 frames take all four)."""
+    th, tw = -(-h // 2), -(-w // 2)
+    plan = dict(th=th, tw=tw, P=n * th * tw, ext=(th + 1) * (tw + 1),
+                E=n * (th + 1) * (tw + 1))
+    steps = FUSED_ROWS - 1
+    rows = min(-(-steps // tw), n * th - 1)        # tile rows crossed
+    frames = min(-(-steps // (th * tw)), n - 1)   # frames crossed
+    span = steps + rows + frames * (tw + 1) + tw + 3
+    span = min(span, fused_position(plan, plan['P'] - 1) + tw + 3)
+    loads = -(-span // FUSED_LOAD)
+    if loads > FUSED_MAX_LOADS:
+        raise ValueError(f'N={n}, H={h}, W={w}: a row tile stages {span} '
+                         f'positions, more than {FUSED_MAX_LOADS} loads')
+    plan.update(loads=loads, e_pad=loads * FUSED_LOAD)
+    return plan
+
+
+def fused_position(plan: dict, p: int) -> int:
+    """The extended grid's position of tile p (:func:`fused_plan`)."""
+    f, r = divmod(p, plan['th'] * plan['tw'])
+    ty, tx = divmod(r, plan['tw'])
+    return f * plan['ext'] + ty * (plan['tw'] + 1) + tx
+
+
+def launch_bf16_fused(x: torch.Tensor, packed: torch.Tensor,
+                      out: torch.Tensor) -> None:
+    """Launches the fused bfloat16 Winograd kernel on the current stream:
+    x -> out in one launch, V formed in registers from x staged by the
+    copy engine (:func:`fused_plan`), no workspace.  ``packed`` is
+    :func:`pack_winograd_weights_bf16`'s layout.  Checks every tensor and
+    raises on a CUDA error; counts nothing."""
+    n, h, w, c = x.shape
+    co = out.shape[3]
+    fused_plan(n, h, w)  # raises for a frame the staging does not take
+    shape = (16, -(-co // BF16_BN), c // 16, 2, BF16_BN // 8, 8, 8)
+    for name, t, want in (('x', x, (n, h, w, c)),
+                          ('out', out, (n, h, w, co)),
+                          ('packed', packed, shape)):
+        build.check_tensor(name, t, want, x.device, torch.bfloat16)
+    err = build.library().fvt_winograd_bf16_fused_forward(
+        x.data_ptr(), packed.data_ptr(), out.data_ptr(), n, h, w, c, co,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f'fused winograd bfloat16 kernel (N={n}, H={h}, W={w}, '
+                     f'C={c}, Co={co})')
+
+
 def conv3x3_winograd(x: torch.Tensor, kernel: torch.Tensor,
                      u: Optional[torch.Tensor] = None,
                      packed=None) -> torch.Tensor:
@@ -341,9 +410,9 @@ def conv3x3_winograd(x: torch.Tensor, kernel: torch.Tensor,
     kernel)``), and ``packed``: ``pack_winograd_weights_tf32(u)`` (a pair)
     or ``pack_winograd_weights_bf16(u)``, when the caller keeps them (they
     are derived outside the kernel, once per weight); derived here
-    otherwise.  On the card the workspace (float32: V and M, 16 * P * (C +
-    Co) floats, :func:`workspace`; bfloat16: V alone,
-    :func:`workspace_bf16`) comes from the caching allocator."""
+    otherwise.  On the card a float32 call's workspace (V and M, 16 * P *
+    (C + Co) floats, :func:`workspace`) comes from the caching allocator;
+    a bfloat16 call is one launch of the fused kernel and takes none."""
     _check_call('conv3x3_winograd', x, kernel)
     bf16 = x.dtype == torch.bfloat16
     if x.device.type == 'cpu':
@@ -363,7 +432,7 @@ def conv3x3_winograd(x: torch.Tensor, kernel: torch.Tensor,
     if out.numel() == 0:
         return out
     if bf16:
-        launch_bf16(x, packed, workspace_bf16(x), out)
+        launch_bf16_fused(x, packed, out)
         conv3x3_winograd.launches_bf16 += 1
     else:
         v, m = workspace(x, co)

@@ -2,7 +2,8 @@
 products, on the card.
 
     python3 -m fvt_tpu_torch.tools.profile_conv_bf16 [--frames 2400]
-        [--iters 20] [--dtype bfloat16|float32|winograd|winograd_bf16]
+        [--iters 20]
+        [--dtype bfloat16|float32|winograd|winograd_bf16|winograd_bf16_fused]
 
 Builds the kernel's source alone into ``build/``, once as it is and once
 per diagnostic switch: ``-DFVT_DIAG_PRODUCTS_ONLY`` (no copy into shared
@@ -17,12 +18,19 @@ split into its TF32 parts where it is staged: what the split costs).
 kernel, ``csrc/winograd_tf32x3.cu``, and a fifth, ``-DFVT_DIAG_NO_STORE``
 (M is not written: what its stores cost), and times its product launch
 alone (stage 2, V -> M, on a V the first build's input transform wrote).
-``--dtype winograd_bf16`` takes the bfloat16 Winograd kernel,
+``--dtype winograd_bf16`` takes the two-launch bfloat16 Winograd design,
 ``csrc/winograd_bf16.cu``, in the three builds and ``-DFVT_DIAG_NO_STORE``
 (y is not written), and times its product launch alone (stage 2, V -> y
 with the output transform in its epilogue, on a V the first build's input
-transform wrote).  The diagnostic builds give wrong sums; only the first
-is checked against the plain version (bfloat16, both kernels: one unit in
+transform wrote).  ``--dtype winograd_bf16_fused`` takes the fused kernel
+of the same file (one launch, x -> y) as it is and in four diagnostic
+builds: ``-DFVT_DIAG_PRODUCTS_ONLY`` (no copy started or waited for),
+``-DFVT_DIAG_NO_FRAGMENTS`` (V formed from no shared-memory read),
+``-DFVT_DIAG_NO_PRODUCTS`` (no ``wgmma``), ``-DFVT_DIAG_NO_STORE`` and
+``-DFVT_DIAG_NO_GLOBAL_STORE`` (y staged in shared memory, not
+written).  The diagnostic builds give wrong sums; every other build
+(any that ``KERNELS`` lists without a ``-DFVT_DIAG`` switch) is checked
+against the plain version (bfloat16, both kernels: one unit in
 the last place; float32: rtol = atol = 1e-4; Winograd, all three
 launches: 2e-4).  Each is timed at the seven stride-1 conv shapes of the
 ArcFace body (median of ``--iters`` launches between CUDA events,
@@ -60,6 +68,13 @@ KERNELS = {
                  dict(SPLIT_DIAG, no_store=('-DFVT_DIAG_NO_STORE',))),
     'winograd_bf16': ('winograd_bf16.cu', 'fvt_winograd_bf16_forward', 4, 6,
                       dict(DIAG, no_store=('-DFVT_DIAG_NO_STORE',))),
+    'winograd_bf16_fused': (
+        'winograd_bf16.cu', 'fvt_winograd_bf16_fused_forward', 3, 5,
+        {'kernel': (), 'products_only': ('-DFVT_DIAG_PRODUCTS_ONLY',),
+         'no_fragments': ('-DFVT_DIAG_NO_FRAGMENTS',),
+         'no_products': ('-DFVT_DIAG_NO_PRODUCTS',),
+         'no_store': ('-DFVT_DIAG_NO_STORE',),
+         'no_global_store': ('-DFVT_DIAG_NO_GLOBAL_STORE',)}),
 }
 
 
@@ -130,7 +145,8 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     print(card)
     fns = build_variants(*KERNELS[args.dtype])
-    bf16 = args.dtype in ('bfloat16', 'winograd_bf16')
+    fused = args.dtype == 'winograd_bf16_fused'
+    bf16 = args.dtype in ('bfloat16', 'winograd_bf16', 'winograd_bf16_fused')
     winograd = args.dtype in ('winograd', 'winograd_bf16')
     device = torch.device('cuda', 0)
     g = torch.Generator(device=device).manual_seed(0)
@@ -145,6 +161,9 @@ def main(argv=None) -> int:
                 x, k = x.bfloat16(), k.bfloat16()
             if args.dtype == 'bfloat16':
                 weights = [conv_ops.pack_weights(k)]
+            elif fused:  # packed U, no workspace
+                weights = [winograd_ops.pack_winograd_weights_bf16(
+                    winograd_ops.transform_weights_bf16(k))]
             elif args.dtype == 'winograd_bf16':  # packed U, workspace V
                 weights = [winograd_ops.pack_winograd_weights_bf16(
                     winograd_ops.transform_weights_bf16(k)),
@@ -162,7 +181,7 @@ def main(argv=None) -> int:
             stages = [[winograd_ops.BF16_STAGES if bf16
                        else winograd_ops.ALL_STAGES],
                       [winograd_ops.PRODUCT]] if winograd else [[], []]
-            bn = [] if args.dtype == 'winograd_bf16' else [
+            bn = [] if args.dtype.startswith('winograd_bf16') else [
                 conv_ops.column_tile(co)]
 
             def launch(fn, stage):
@@ -172,19 +191,23 @@ def main(argv=None) -> int:
                 if err:
                     raise RuntimeError(f'launch returned CUDA error {err}')
 
-            launch(fns['kernel'], stages[0])
             ref = (winograd_ops.conv3x3_winograd_bf16_ref
-                   if args.dtype == 'winograd_bf16'
+                   if args.dtype.startswith('winograd_bf16')
                    else winograd_ops.conv3x3_winograd_ref if winograd
                    else conv_ops.conv3x3_ref)
             want = ref(x, k).float()
-            apart = (out.float() - want).abs()
             rtol, atol = ((2.0 ** -7, 2.0 ** -9) if bf16 else
                           (2e-4, 2e-4) if winograd else (1e-4, 1e-4))
-            if (apart > want.abs() * rtol + atol).any():
-                raise RuntimeError(f'{h}x{h}x{c}->{co}: the kernel disagrees '
-                                   f'with its plain version')
-            del want, apart
+            for name, flags in KERNELS[args.dtype][4].items():
+                if any(f.startswith('-DFVT_DIAG') for f in flags):
+                    continue  # wrong sums by design
+                launch(fns[name], stages[0])
+                apart = (out.float() - want).abs()
+                if (apart > want.abs() * rtol + atol).any():
+                    raise RuntimeError(f'{h}x{h}x{c}->{co}: the {name} build '
+                                       f'disagrees with its plain version')
+                del apart
+            del want
             flops = 2.0 * 9 * n * h * h * c * co
             row = {}
             for name, fn in fns.items():
@@ -207,7 +230,7 @@ def main(argv=None) -> int:
             total['conv2d'] += count * ms
             # the share of the multiplies that lands on real pixels
             row['real_rows'] = round(
-                h * h / (2 * ((h + 1) // 2)) ** 2 if winograd
+                h * h / (2 * ((h + 1) // 2)) ** 2 if winograd or fused
                 else h * h / (h + 1) ** 2, 4)
             shapes[f'{h}x{h}x{c}->{co} x{count}'] = row
             del x, k, weights, out, x_cl, w_cl, w_oihw
