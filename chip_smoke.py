@@ -225,15 +225,18 @@ Phases, each of which raises on failure (exit code 1):
    through B3a and B3b with its loss and gradients within 1e-4 of the
    plain version's;
 13. int8 serving (``--serve_quant int8 | int8_static``) on the two int8
-   kernels of ``csrc/conv3x3_int8.cu``, which replace no Pallas kernel
-   (``fvt_tpu``'s int8 conv is one XLA convolution): the quantise pass
-   (the per-tensor amax and the quantisation) and the s8 conv
-   (``mma.sync`` s8 tiles, int32 sums, the scaling in its epilogue)
-   against their plain versions bit for bit at the eight int8 shapes of
-   the IR-50 at N = 2400 (the stride-2 convs, the stage entries' conv1,
-   the stride-1 convs), float32 and bfloat16 in and out, dynamic and with
-   a calibrated scale, and at edge shapes, each timed beside ``F.conv2d``
-   and ``torch._int_mm`` over an im2col, and its refusals; the int8
+   kernels, which replace no Pallas kernel (``fvt_tpu``'s int8 conv is
+   one XLA convolution): the quantise pass (the per-tensor amax and the
+   quantisation, ``csrc/conv3x3_int8.cu``) and the s8 conv (8-bit
+   ``wgmma``, int32 sums, the scaling in its epilogue,
+   ``csrc/conv3x3_s8_wgmma.cu``) against their plain versions bit for
+   bit at the eight int8 shapes of the IR-50 at N = 2400 (the stride-2
+   convs, the stage entries' conv1, the stride-1 convs), float32 and
+   bfloat16 in and out, dynamic and with a calibrated scale, and at edge
+   shapes, each timed beside the conv's earlier ``mma.sync`` design (on
+   no path), ``F.conv2d`` and ``torch._int_mm`` over an im2col, the
+   conv's one launch and no allocation beyond y a call, and the
+   refusals; the int8
    backbone alone on 2400 frames, dynamic and static, float32 and bf16,
    bit for bit its plain versions, 41 s8 convs and 41 quantise launches a
    forward, the embeddings' cosine to float32, the peak memory a frame
@@ -4831,10 +4834,15 @@ INT8_SHAPES = ((40, 128, 128, 2, 1), (20, 128, 128, 1, 6),
                (10, 512, 512, 2, 1), (5, 512, 512, 1, 4))
 INT8_FRAMES = 2400
 # (N, H, W, Cin, Cout, stride) the kernels take at their edges: odd sizes,
-# a partial channel slice (C = 80), few output channels (Co = 24), a pixel
-# count no multiple of the 128-pixel tile
+# a partial channel slice (C = 80, 48: half a k32 step), few output
+# channels (Co = 24, 8) or a partial column tile (Co = 136), a pixel count
+# and a padded line no multiple of the tiles, and frames too wide for the
+# padded line (W = 600, 530), which take the per-tap walk at stride 1
 INT8_EDGE_SHAPES = ((3, 7, 9, 80, 24, 2), (3, 7, 9, 80, 24, 1),
-                    (1, 5, 5, 16, 8, 2), (5, 11, 3, 128, 136, 1))
+                    (1, 5, 5, 16, 8, 2), (5, 11, 3, 128, 136, 1),
+                    (2, 6, 7, 48, 16, 1), (2, 6, 7, 48, 136, 2),
+                    (7, 13, 13, 128, 136, 1), (1, 3, 600, 16, 8, 1),
+                    (2, 4, 530, 48, 24, 1))
 # the dense int8 tensor-core peak of one H100 SXM
 PEAK_OPS_INT8 = 1979e12
 # served int8 logits vs the plain composition, relative to the largest
@@ -4854,31 +4862,36 @@ def int8_inputs(n, h, w, c, co, dtype, device, seed):
 
 
 def check_int8_pair(name, x, k, stride, out_dtype, static, timed):
-    """The quantise kernel and the s8 conv against their plain versions on
-    x, bit for bit (q, the scale, the amax, y), dynamic or with a
-    calibrated scale.  Returns the largest |y - plain| (0), the largest
-    |q - plain q| (0, an int) and, with ``timed``, the ms of the quantise
-    kernel, the conv kernel and their plain versions (median of CONV_RUNS
-    calls)."""
+    """The quantise kernel and the s8 conv (the wgmma kernel, on weights
+    packed once) against their plain versions on x, bit for bit (q, the
+    scale, the amax, y), dynamic or with a calibrated scale; with
+    ``timed`` the mma.sync design too.  Returns the largest |y - plain|
+    (0), the largest |q - plain q| (0, an int) and, with ``timed``, the ms
+    of the quantise kernel, the conv kernel, their plain versions and the
+    mma.sync design (median of CONV_RUNS calls)."""
     from fvt_tpu_torch.ops import quant
 
     wq, wscale = quant.quantize_weights(k)
+    wp = quant.pack_weights_s8(wq)
     scale_in = None
     if static:
         # a calibrated amax below the batch's own: the tail clips at 127
         scale_in = quant.act_scale(x.float().abs().amax().reshape(1) * 0.9)
     q, scale, amax = quant.quantize_int8(x, scale_in)
     q_ref, scale_ref, amax_ref = quant.quantize_int8_ref(x, scale_in)
-    y = quant.conv3x3_s8(q, scale, wq, wscale, stride, out_dtype)
+    y = quant.conv3x3_s8(q, scale, wq, wscale, stride, out_dtype, packed=wp)
     y_ref = quant.conv3x3_s8_ref(q_ref, scale_ref, wq, wscale, stride,
                                  out_dtype)
+    if timed:
+        y_mma = quant.conv3x3_s8_mma(q, scale, wq, wscale, stride, out_dtype)
     torch.cuda.synchronize()
     same = (torch.equal(q, q_ref)
             and torch.equal(scale.reshape(1), scale_ref.reshape(1))
             and (amax is None) == (amax_ref is None)
             and (amax is None or torch.equal(amax.reshape(1),
                                              amax_ref.reshape(1))))
-    equal = torch.equal(y, y_ref)
+    equal = torch.equal(y, y_ref) and (not timed or torch.equal(y_mma,
+                                                                  y_ref))
     err = float((y.float() - y_ref.float()).abs().max())
     q_err = int((q.int() - q_ref.int()).abs().max())
     clipped = int((q_ref.abs() == 127).sum())
@@ -4893,15 +4906,19 @@ def check_int8_pair(name, x, k, stride, out_dtype, static, timed):
     times = (
         median_ms(lambda: quant.quantize_int8(x, scale_in), CONV_RUNS),
         median_ms(lambda: quant.conv3x3_s8(q, scale, wq, wscale, stride,
-                                           out_dtype), CONV_RUNS),
+                                           out_dtype, packed=wp), CONV_RUNS),
         median_ms(lambda: quant.quantize_int8_ref(x, scale_in), 3,
                   warmup=1),
         median_ms(lambda: quant.conv3x3_s8_ref(q_ref, scale_ref, wq, wscale,
                                                stride, out_dtype), 3,
-                  warmup=1))
+                  warmup=1),
+        median_ms(lambda: quant.conv3x3_s8_mma(q, scale, wq, wscale, stride,
+                                               out_dtype), CONV_RUNS))
     print(f'  {name}: q, scale and y bit for bit ({clipped} values at '
-          f'+-127); quantise {times[0]:.4f} ms (plain {times[2]:.4f}), s8 '
-          f'conv {times[1]:.4f} ms (plain {times[3]:.4f})')
+          f'+-127; the mma.sync design too); quantise {times[0]:.4f} ms '
+          f'(plain {times[2]:.4f}), s8 conv {times[1]:.4f} ms '
+          f'({quant.s8_plan(*q.shape, wq.shape[0], stride)["route"]}; '
+          f'mma.sync {times[4]:.4f}, plain {times[3]:.4f})')
     return err, q_err, times
 
 
@@ -4926,19 +4943,21 @@ def int_mm_ms(x, k, stride):
 
 
 def check_int8_kernels(device) -> list:
-    """Phase 13, step 1: the quantise kernel and the s8 conv against their
-    plain versions, bit for bit, at the eight int8 shapes of the IR-50 at
-    N = 2400 (float32 in and out, and bfloat16 in and out as under --amp;
-    dynamic and static) and at edge shapes, and the conv's refusals; each
-    dynamic pair timed beside ``F.conv2d`` on bfloat16 and
-    ``torch._int_mm`` over an im2col.  Returns the two kernels' entries:
-    totals over the 41 convs of a forward, bfloat16 as under --amp (the
-    float32 totals beside them)."""
+    """Phase 13, step 1: the quantise kernel and the s8 conv (the wgmma
+    kernel) against their plain versions, bit for bit, at the eight int8
+    shapes of the IR-50 at N = 2400 (float32 in and out, and bfloat16 in
+    and out as under --amp; dynamic and static) and at edge shapes, the
+    conv's one launch and no allocation beyond y a call, and its refusals
+    (and the mma.sync design's); each dynamic pair timed beside the
+    mma.sync design, ``F.conv2d`` on bfloat16 and ``torch._int_mm`` over
+    an im2col.  Returns the two kernels' entries: totals over the 41 convs
+    of a forward, bfloat16 as under --amp (the float32 totals beside them),
+    the conv's with the mma.sync design's numbers beside its own."""
     from fvt_tpu_torch.kernels import build
     from fvt_tpu_torch.ops import quant
 
     tot = {f'{key}{dt}': 0.0 for key in ('quant', 'conv', 'quant_plain',
-                                         'conv_plain', 'conv2d')
+                                         'conv_plain', 'conv2d', 'mma')
            for dt in ('', '_bf16')}
     tot.update(int_mm=0.0, ops=0.0, conv_bytes=0.0, quant_bytes=0.0)
     int_mm_ok, worst, worst_q = True, 0.0, 0
@@ -4958,7 +4977,7 @@ def check_int8_kernels(device) -> list:
                 worst, worst_q = max(worst, err), max(worst_q, q_err)
                 dt = '' if dtype == torch.float32 else '_bf16'
                 for key, ms in zip(('quant', 'conv', 'quant_plain',
-                                    'conv_plain'), times):
+                                    'conv_plain', 'mma'), times):
                     tot[key + dt] += count * ms
                 w = k.to(dtype).permute(3, 2, 0, 1).contiguous(
                     memory_format=torch.channels_last)
@@ -4995,30 +5014,58 @@ def check_int8_kernels(device) -> list:
                             out_dtype, static, False)
                         worst = max(worst, err)
                         worst_q = max(worst_q, q_err)
-        # refused: C not a multiple of 16, Co of 8, stride 3; the C entry
-        # refuses them too, and nothing counts a launch
-        before = quant.conv3x3_s8.launches
+        # one launch a call, and no allocation beyond y (weights packed)
+        x, k = int8_inputs(INT8_FRAMES, 10, 10, 256, 256, torch.bfloat16,
+                           device, SEED + 51)
+        wq, wscale = quant.quantize_weights(k)
+        wp = quant.pack_weights_s8(wq)
+        q, scale, _ = quant.quantize_int8(x)
+        torch.cuda.synchronize()
+        base, before = torch.cuda.memory_allocated(), quant.conv3x3_s8.launches
+        torch.cuda.reset_peak_memory_stats()
+        y = quant.conv3x3_s8(q, scale, wq, wscale, 1, torch.bfloat16,
+                             packed=wp)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        y_bytes = -(-y.numel() * y.element_size() // 512) * 512
+        print(f'  conv3x3_s8 at {INT8_FRAMES}x10x10x256->256: '
+              f'{quant.conv3x3_s8.launches - before} launch, {extra} bytes '
+              f'allocated (y {y_bytes})')
+        if quant.conv3x3_s8.launches - before != 1 or extra > y_bytes:
+            fail('conv3x3_s8 took more than one launch or allocated beside '
+                 'y')
+        del x, k, q, y
+        # refused: C not a multiple of 16, Co of 8, stride 3; the C entries
+        # refuse them too, and nothing counts a launch
+        before = (quant.conv3x3_s8.launches, quant.conv3x3_s8_mma.launches)
         for c, co, stride in ((24, 16, 1), (32, 12, 1), (32, 16, 3)):
             xq = torch.zeros(2, 5, 5, c, dtype=torch.int8, device=device)
             wq = torch.zeros(co, 9, c, dtype=torch.int8, device=device)
             ws = torch.ones(co, device=device)
             one = torch.ones(1, device=device)
-            try:
-                quant.conv3x3_s8(xq, one, wq, ws, stride)
-            except ValueError as e:
-                print(f'  conv3x3_s8 C={c} Co={co} stride {stride} '
-                      f'refused: {e}')
-            else:
-                fail(f'conv3x3_s8 took C={c}, Co={co}, stride {stride}')
-            code = build.library().fvt_conv3x3_s8_forward(
-                xq.data_ptr(), wq.data_ptr(), ws.data_ptr(), one.data_ptr(),
-                torch.empty(2, 5, 5, co, device=device).data_ptr(), 0, 2, 5,
-                5, c, co, stride,
-                torch.cuda.current_stream(device).cuda_stream)
-            if code == 0:
-                fail(f'the s8 conv entry took C={c}, Co={co}, stride '
-                     f'{stride}')
-        if quant.conv3x3_s8.launches != before:
+            for conv in (quant.conv3x3_s8, quant.conv3x3_s8_mma):
+                try:
+                    conv(xq, one, wq, ws, stride)
+                except ValueError as e:
+                    print(f'  {conv.__name__} C={c} Co={co} stride {stride} '
+                          f'refused: {e}')
+                else:
+                    fail(f'{conv.__name__} took C={c}, Co={co}, stride '
+                         f'{stride}')
+            # the entries take wq (or, the wgmma kernel's, a buffer of the
+            # packed size): either refuses before it reads
+            for entry in ('fvt_conv3x3_s8_forward',
+                          'fvt_conv3x3_s8_mma_forward'):
+                code = getattr(build.library(), entry)(
+                    xq.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+                    one.data_ptr(),
+                    torch.empty(2, 5, 5, co, device=device).data_ptr(), 0,
+                    2, 5, 5, c, co, stride,
+                    torch.cuda.current_stream(device).cuda_stream)
+                if code == 0:
+                    fail(f'{entry} took C={c}, Co={co}, stride {stride}')
+        if (quant.conv3x3_s8.launches,
+                quant.conv3x3_s8_mma.launches) != before:
             fail('a refused s8 conv counted a launch')
     ops_ms = tot['ops'] / PEAK_OPS_INT8 * 1e3
     conv_bytes_ms = tot['conv_bytes'] / PEAK_BYTES * 1e3
@@ -5030,7 +5077,9 @@ def check_int8_kernels(device) -> list:
           f'{conv_bytes_ms:.4f} ms at {PEAK_BYTES / 1e12} TB/s)')
     for dt, label in (('_bf16', 'bfloat16 (--amp)'), ('', 'float32')):
         print(f'  {label}: s8 conv {tot["conv" + dt]:.4f} ms '
-              f'({conv_bound / tot["conv" + dt]:.1%} of its bound), plain '
+              f'({conv_bound / tot["conv" + dt]:.1%} of its bound), the '
+              f'mma.sync design {tot["mma" + dt]:.4f} ms '
+              f'({conv_bound / tot["mma" + dt]:.1%}), plain '
               f'{tot["conv_plain" + dt]:.4f} ms, F.conv2d '
               f'{tot["conv2d" + dt]:.4f} ms; quantise '
               f'{tot["quant" + dt]:.4f} ms, plain '
@@ -5039,7 +5088,7 @@ def check_int8_kernels(device) -> list:
           f'timed): {tot["int_mm"]:.4f} ms; quantise bytes bound (bf16) '
           f'{quant_bytes_ms:.4f} ms')
     return [{'name': 'conv3x3_int8', 'route': 'cuda',
-             'source': 'fvt_tpu_torch/csrc/conv3x3_int8.cu',
+             'source': 'fvt_tpu_torch/csrc/conv3x3_s8_wgmma.cu',
              'replaces': 'fvt_tpu/ops/quant.py:102 (an XLA s8 convolution, '
                          'no Pallas kernel)',
              'max_abs_err': worst, 'ms': tot['conv_bf16'],
@@ -5050,7 +5099,12 @@ def check_int8_kernels(device) -> list:
              else 'bytes',
              'fp32_out': {'ms': tot['conv'], 'plain_ms': tot['conv_plain'],
                           'conv2d_fp32_ms': tot['conv2d']},
-             'int_mm_im2col_ms': tot['int_mm'] if int_mm_ok else None},
+             'int_mm_im2col_ms': tot['int_mm'] if int_mm_ok else None,
+             # the earlier route of the same conv, on no path, timed here
+             'mma_sync_route': {
+                 'source': 'fvt_tpu_torch/csrc/conv3x3_int8.cu',
+                 'wrapper': 'ops.quant.conv3x3_s8_mma', 'launches': 0,
+                 'ms': tot['mma_bf16'], 'fp32_out_ms': tot['mma']}},
             {'name': 'quantize_int8', 'route': 'cuda',
              'source': 'fvt_tpu_torch/csrc/conv3x3_int8.cu',
              'replaces': 'fvt_tpu/ops/quant.py:62 (XLA elementwise and '
@@ -5065,19 +5119,23 @@ def check_int8_kernels(device) -> list:
 def int8_counters() -> dict:
     from fvt_tpu_torch.ops import quant
     return {'conv3x3_int8': quant.conv3x3_s8,
+            'conv3x3_int8_mma': quant.conv3x3_s8_mma,
             'quantize_int8': quant.quantize_int8}
 
 
 def read_int8() -> dict:
+    """The int8 kernels' launches; the mma.sync design's, on no path, stay
+    0 wherever they are held."""
     c = int8_counters()
     return {'conv3x3_int8': c['conv3x3_int8'].launches,
+            'conv3x3_int8_mma': c['conv3x3_int8_mma'].launches,
             'quantize_int8': c['quantize_int8'].launches,
             'quantize_int8_amax': c['quantize_int8'].launches_amax}
 
 
 def zero_int8() -> None:
     c = int8_counters()
-    c['conv3x3_int8'].launches = 0
+    c['conv3x3_int8'].launches = c['conv3x3_int8_mma'].launches = 0
     c['quantize_int8'].launches = c['quantize_int8'].launches_amax = 0
 
 
@@ -5131,8 +5189,8 @@ def int8_backbone(device) -> None:
                   f'cosine to float32 cudnn {cos:.6f}; peak '
                   f'{per_frame / 2 ** 20:.3f} MiB a frame (bound '
                   f'{INT8_FRAME_BYTES[dtype] / 2 ** 20:.3f})')
-            if launches != {'conv3x3_int8': 41, 'quantize_int8': 41,
-                            'quantize_int8_amax': 41}:
+            if launches != {'conv3x3_int8': 41, 'conv3x3_int8_mma': 0,
+                            'quantize_int8': 41, 'quantize_int8_amax': 41}:
                 fail(f'int8 {label} dynamic: launches {launches}')
             if not torch.equal(dyn, plain) or cos <= 0.97:
                 fail(f'int8 {label} dynamic: not its plain versions bit for '
@@ -5148,8 +5206,8 @@ def int8_backbone(device) -> None:
             zero_int8()
             sta = q(x)
             launches = read_int8()
-            if launches != {'conv3x3_int8': 41, 'quantize_int8': 41,
-                            'quantize_int8_amax': 0} \
+            if launches != {'conv3x3_int8': 41, 'conv3x3_int8_mma': 0,
+                            'quantize_int8': 41, 'quantize_int8_amax': 0} \
                     or not torch.equal(sta, dyn):
                 fail(f'int8 {label} static on its calibration batch: '
                      f'launches {launches}, equal to dynamic '

@@ -1,5 +1,6 @@
 // int8 serving (--serve_quant int8 | int8_static): the activations'
-// quantisation and the s8 3x3 convolution.
+// quantisation, and the earlier design of the s8 3x3 convolution (timed,
+// on no path; conv3x3_s8_wgmma.cu is the conv's kernel).
 //
 // These replace no Pallas kernel.  fvt_tpu computes its int8 conv
 // (fvt_tpu/ops/quant.py:75-108, conv3x3_int8) as one XLA convolution with s8
@@ -28,25 +29,26 @@
 //    the ranks' amaxes reduced between them, so that the scale spans the
 //    call.  Bound by bytes: x read twice (dynamic) and q written once.
 //
-// 2. fvt_conv3x3_s8_forward: y (N, Ho, Wo, Co) = conv3x3(q, wq), padding 1,
-//    stride 1 or 2, an implicit GEMM of M = N*Ho*Wo pixels by Co by K =
-//    9*C on mma.sync.m16n8k32 s8 tensor-core tiles.  A block takes 128
-//    pixels by 128 output channels; its K loop walks the nine taps and, in
-//    each, the channels 64 at a time.  Each step copies the 128 pixels' s8
-//    rows of the tap (16-byte cp.async, zero-filled where the tap falls in
-//    the padding or past C: q(0) = 0, so zero padding commutes with the
-//    quantisation) and the 128 channels' weight rows (wq is (Co, 9, C):
-//    K-major, as the s8 mma takes B) into a three-stage ring in shared
-//    memory.  The stride is the address step between neighbouring pixels'
-//    rows, so stride 2 costs nothing more.  Rows are padded to 80 bytes so
-//    that the fragments' 32-bit loads hit 32 banks.  Eight warps, 2 x 4,
-//    each 64 pixels by 32 channels: 4 x 4 mma tiles of int32 sums in
-//    registers.  The epilogue scales and stores float32 or bfloat16
-//    (rounded to nearest even) straight from the registers: the dynamic
-//    path's scale is read from device memory, so no pass over y is added.
-//    Bound by operations at the backbone's shapes (2*M*Co*9*C int8
-//    operations over 1979 TOPS dense); a wgmma/TMA design is later work
-//    (8-bit wgmma takes K-major A and B only).
+// 2. fvt_conv3x3_s8_mma_forward (ops/quant.py conv3x3_s8_mma; on no path
+//    since the wgmma design of conv3x3_s8_wgmma.cu, kept to be timed beside
+//    it): y (N, Ho, Wo, Co) = conv3x3(q, wq), padding 1, stride 1 or 2, an
+//    implicit GEMM of M = N*Ho*Wo pixels by Co by K = 9*C on
+//    mma.sync.m16n8k32 s8 tensor-core tiles.  A block takes 128 pixels by
+//    128 output channels; its K loop walks the nine taps and, in each, the
+//    channels 64 at a time.  Each step copies the 128 pixels' s8 rows of the
+//    tap (16-byte cp.async, zero-filled where the tap falls in the padding
+//    or past C: q(0) = 0, so zero padding commutes with the quantisation)
+//    and the 128 channels' weight rows (wq is (Co, 9, C): K-major, as the
+//    s8 mma takes B) into a three-stage ring in shared memory.  The stride
+//    is the address step between neighbouring pixels' rows, so stride 2
+//    costs nothing more.  Rows are padded to 80 bytes so that the
+//    fragments' 32-bit loads hit 32 banks.  Eight warps, 2 x 4, each 64
+//    pixels by 32 channels: 4 x 4 mma tiles of int32 sums in registers.
+//    The epilogue scales and stores float32 or bfloat16 (rounded to nearest
+//    even) straight from the registers.  It ran at ~20% of its bound (2*M*
+//    Co*9*C int8 operations over 1979 TOPS dense): every operand fragment
+//    through a 32-bit ld.shared, the copies made by the threads, x copied
+//    once a tap, no persistent grid (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -388,17 +390,18 @@ int fvt_quantize_int8(const void* x, int bf16, long long n, void* amax,
   return cudaGetLastError();
 }
 
-// y = conv3x3(xq, wq) * (xscale * wscale[co]) on `stream`: xq (N, H, W, C)
+// The mma.sync design (on no path): y = conv3x3(xq, wq) * (xscale *
+// wscale[co]) on `stream`: xq (N, H, W, C)
 // s8, wq (Co, 9, C) s8 (tap = 3*ky + kx), wscale (Co,) float32, xscale one
 // float32 of device memory, y (N, Ho, Wo, Co) float32 (bf16_out = 0) or
 // bfloat16, Ho = (H - 1) / stride + 1 (padding 1); contiguous and 16-byte
 // aligned.  C a multiple of 16, Co of 8, stride 1 or 2.  Returns the error
 // of the attribute call or of the launch, or cudaErrorInvalidValue for a
 // shape the kernel does not take.
-int fvt_conv3x3_s8_forward(const void* xq, const void* wq, const void* wscale,
-                           const void* xscale, void* y, int bf16_out, int N,
-                           int H, int W, int C, int Co, int stride,
-                           void* stream) {
+int fvt_conv3x3_s8_mma_forward(const void* xq, const void* wq,
+                               const void* wscale, const void* xscale,
+                               void* y, int bf16_out, int N, int H, int W,
+                               int C, int Co, int stride, void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || Co <= 0 || C % 16 || Co % 8 ||
       (stride != 1 && stride != 2))
     return cudaErrorInvalidValue;

@@ -1,12 +1,13 @@
 // PTX helpers of the wgmma kernels (conv3x3_wgmma.cu and winograd_bf16.cu in
 // bf16, conv3x3_tf32x3.cu, winograd_tf32x3.cu, tcn_block_tf32x3.cu,
-// tcn_block_train_tf32x3.cu and fusion_tf32x3.cu in fp32):
+// tcn_block_train_tf32x3.cu and fusion_tf32x3.cu in fp32,
+// conv3x3_s8_wgmma.cu in s8):
 // mbarriers (and a wait and an arrive without branches), the copy
 // engine's bulk, im2col and tiled copies, shared-memory
 // matrix descriptors, the wgmma fences, the split-TF32 rounding, the TF32
 // and bf16 wgmma of 64 x 64 and 64 x 128 tiles (and the bf16 one of 64 x 64
-// with A in registers), the im2col tensor map of an NHWC activation and a
-// 3-d tiled tensor map, all for sm_90a.  Each
+// with A in registers), the s8 one of 64 x 128, the im2col tensor map of an
+// NHWC activation and a 3-d tiled tensor map, all for sm_90a.  Each
 // includer gets its own copies (everything lies in an anonymous namespace).
 #pragma once
 
@@ -160,6 +161,18 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, int k_stride,
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((k_stride >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((mn_stride >> 4) & 0x3FFF) << 32);
+}
+
+// The same for K-major rows of 32 bytes that the copy engine wrote under
+// CU_TENSOR_MAP_SWIZZLE_32B (the 16-byte halves of row r swapped where bit 7
+// of its address is set): 8-row groups 256 bytes apart.  The swizzle is a
+// function of the absolute shared-memory address, for the copy engine and
+// wgmma alike: a start address shifted by any number of rows reads them
+// right with the base offset left 0 (measured: the base offset (addr >> 7)
+// & 7 of the PTX manual read shifted rows wrong).
+__device__ __forceinline__ uint64_t make_desc_sw32(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -318,6 +331,46 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64 x 128, s32, in the warpgroup's registers) = d * scale_d + A (64 x
+// 32, K-major) @ B (32 x 128, K-major), both s8 in shared memory behind
+// descriptors (8-bit wgmma takes no other layout); scale_d is 0 (d need
+// not be initialised) or 1.  The sums wrap, no saturation.
+__device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d (64 x 64, fp32) += kScaleA * A (64 x 16 bf16, in registers: each
 // warp's 16 rows as mma.m16n8k16's A fragment, a[0] (row lane/4, columns
 // 2*(lane%4) + {0, 1}), a[1] 8 rows below, a[2] and a[3] 8 columns right)
@@ -368,16 +421,20 @@ void* libcuda_entry(const char* name) {
 }
 
 // The im2col tensor map of x (N, H, W, C), elements of `elem` bytes: kLoad
-// consecutive coordinates by `chunk` channels (16 bytes) a load, walking the
+// consecutive coordinates by `chunk` channels (16 bytes, or 32 under
+// `swizzle` CU_TENSOR_MAP_SWIZZLE_32B) a load, walking the
 // columns -1 .. W-1, then the rows -1 .. H-1, then the frames: the padded
 // line of the kernels' header notes, zeros outside the image.  With
 // `stride` 2 and upper corners (upper_w, upper_h) the walk takes every
 // other column from -1 to W-1 + upper_w and every other row from -1 to
-// H-1 + upper_h (winograd_bf16.cu's extended tile grid).
-cudaError_t make_x_map(const void* x, int N, int H, int W, int C,
-                       CUtensorMapDataType type, int elem, int chunk,
-                       CUtensorMap* map, int stride = 1, int upper_w = 0,
-                       int upper_h = 0) {
+// H-1 + upper_h (winograd_bf16.cu's extended tile grid); with upper
+// corners -1 it takes the columns -1 .. W-2 (stride 1) or every other one
+// from -1 (stride 2), the output pixels' filter origins
+// (conv3x3_s8_wgmma.cu's per-tap walk).
+cudaError_t make_x_map(
+    const void* x, int N, int H, int W, int C, CUtensorMapDataType type,
+    int elem, int chunk, CUtensorMap* map, int stride = 1, int upper_w = 0,
+    int upper_h = 0, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
       const cuuint64_t*, const int*, const int*, cuuint32_t, cuuint32_t,
@@ -394,7 +451,7 @@ cudaError_t make_x_map(const void* x, int N, int H, int W, int C,
   const cuuint32_t steps[4] = {1, (cuuint32_t)stride, (cuuint32_t)stride, 1};
   const CUresult res = encode(
       map, type, 4, (void*)x, dims, strides, lower, upper, chunk, kLoad,
-      steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -80,8 +80,10 @@ _SIGNATURES = {
     'fvt_bottleneck_bf16_forward': [_P] * 10 + [_I] * 6 + [_P],
     # x, bf16, n, amax scale_in scale_out q, stream
     'fvt_quantize_int8': [_P, _I, ctypes.c_longlong] + [_P] * 5,
-    # xq wq wscale xscale y, bf16_out N H W C Co stride, stream
+    # xq wp (packed) wscale xscale y, bf16_out N H W C Co stride, stream
     'fvt_conv3x3_s8_forward': [_P] * 5 + [_I] * 7 + [_P],
+    # xq wq wscale xscale y, bf16_out N H W C Co stride, stream
+    'fvt_conv3x3_s8_mma_forward': [_P] * 5 + [_I] * 7 + [_P],
 }
 
 

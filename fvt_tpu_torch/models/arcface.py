@@ -245,7 +245,8 @@ class Conv3x3(nn.Module):
     ``'int8'`` is ``fvt_tpu``'s int8 conv (``arcface.py:51-73``): with at
     least ``quant_ops.MIN_CIN`` input channels, at any stride, the conv
     quantises ``weight`` per output channel (:meth:`int8_weights`, kept as
-    the other derived weights) and its input per tensor, and sums in int32
+    the other derived weights, with their packing for the s8 kernel) and
+    its input per tensor, and sums in int32
     (``quant_ops.quantize_int8`` and ``conv3x3_s8``), the output in
     ``dtype``; with fewer it runs ``F.conv2d``.  The input's scale is the
     call's own ``max|x|`` (dynamic), or ``act_scale(act_amax)`` once
@@ -281,15 +282,18 @@ class Conv3x3(nn.Module):
                 and self.weight.shape[1] >= quant_ops.MIN_CIN)
 
     def int8_weights(self) -> tuple:
-        """(wq (Co, 9, C) int8, wscale (Co,) float32):
-        ``quant_ops.quantize_weights`` of the float32 HWIO kernel, as
-        ``fvt_tpu`` quantises its float32 parameter; cached as the class
-        docstring says."""
+        """(wq (Co, 9, C) int8, wscale (Co,) float32, wq packed for the s8
+        conv kernel): ``quant_ops.quantize_weights`` of the float32 HWIO
+        kernel, as ``fvt_tpu`` quantises its float32 parameter, and
+        ``quant_ops.pack_weights_s8`` of wq; cached as the class docstring
+        says."""
         stamp = _stamp(self.weight)
         if self._int8 is None or self._int8[0] != stamp:
             with torch.no_grad():
-                self._int8 = (stamp, quant_ops.quantize_weights(
-                    self.weight.detach().permute(2, 3, 1, 0)))
+                wq, wscale = quant_ops.quantize_weights(
+                    self.weight.detach().permute(2, 3, 1, 0))
+                self._int8 = (stamp, (wq, wscale,
+                                      quant_ops.pack_weights_s8(wq)))
         return self._int8[1]
 
     def static_scale(self, device) -> Optional[torch.Tensor]:
@@ -307,7 +311,7 @@ class Conv3x3(nn.Module):
     def _int8_forward(self, x: torch.Tensor, reference: bool
                       ) -> torch.Tensor:
         conv_ops.refuse_grad('Conv3x3(impl=\'int8\')', x, self.weight)
-        wq, wscale = self.int8_weights()
+        wq, wscale, packed = self.int8_weights()
         quantize = (quant_ops.quantize_int8_ref if reference
                     else quant_ops.quantize_int8)
         xq, scale, amax = quantize(_nhwc(x), self.static_scale(x.device))
@@ -316,9 +320,13 @@ class Conv3x3(nn.Module):
             self.act_amax = (amax if self.act_amax is None else
                              torch.maximum(self.act_amax.to(amax.device),
                                            amax))
-        conv = quant_ops.conv3x3_s8_ref if reference else quant_ops.conv3x3_s8
-        return conv(xq, scale, wq, wscale, self.stride, self.dtype).permute(
-            0, 3, 1, 2)
+        if reference:
+            y = quant_ops.conv3x3_s8_ref(xq, scale, wq, wscale, self.stride,
+                                         self.dtype)
+        else:
+            y = quant_ops.conv3x3_s8(xq, scale, wq, wscale, self.stride,
+                                     self.dtype, packed=packed)
+        return y.permute(0, 3, 1, 2)
 
     def kernel_weights(self) -> tuple:
         """(HWIO kernel (3, 3, Cin, Cout), its Winograd transform U (16,

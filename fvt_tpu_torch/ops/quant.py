@@ -14,25 +14,34 @@ widened to float32, exactly, before it is quantised.
 
 ``fvt_tpu`` runs that conv as one XLA convolution on the TPU's int8 path,
 not as a Pallas kernel.  PyTorch has no int8 convolution on CUDA, so the
-port brings two kernels of its own (``csrc/conv3x3_int8.cu``):
-:func:`quantize_int8` (the per-tensor amax and the quantisation, two
-launches, or one with a calibrated scale) and :func:`conv3x3_s8` (the
-convolution on the s8 tensor cores, the scaling in its epilogue).  Each
-routes a CPU tensor to its plain version and a CUDA tensor to its kernel,
-or raises; each counts its launches (``quantize_int8.launches`` and
-``.launches_amax``, ``conv3x3_s8.launches``).  Inside a sharded serving
-call (``parallel/collectives.py``, ``parallel/serving.py``) a dynamic
-scale spans the call, as ``fvt_tpu``'s one GSPMD program's does: this
-rank's amax (the amax launch alone on the card), the max over the ranks
-(``all_reduce_max``), then the quantise launch with that scale.  The kernels equal the plain
-versions bit for bit: the divisions are IEEE divisions, the sums exact,
-the accumulator rounded to float32 once (the plain version sums in
-float64, exact below 2^53).  :func:`conv3x3_int8` is the composition
-``fvt_tpu`` calls by that name, :func:`conv3x3_int8_ref` its plain
-version, :func:`conv3x3_int8_9mm` the nine-matmul form ``fvt_tpu`` keeps
-for the record.  Activations are NHWC, kernels HWIO, as in ``fvt_tpu``;
-the quantised weights are ``(Co, 9, C)``, K-major, as the s8 ``mma``
-takes B.
+port brings kernels of its own: :func:`quantize_int8` (the per-tensor amax
+and the quantisation, two launches, or one with a calibrated scale;
+``csrc/conv3x3_int8.cu``) and :func:`conv3x3_s8` (the convolution on 8-bit
+``wgmma`` with TMA-staged operands and a persistent grid, the scaling in
+its epilogue, one launch a call; ``csrc/conv3x3_s8_wgmma.cu``).  Its route
+and ring are :func:`s8_plan`'s: stride 1 on the bf16 conv kernel's padded
+line (each tile's patch staged once a 32-channel slice, the nine taps as
+descriptor offsets), stride 2, and stride 1 on frames too wide for that
+staging, on a per-tap walk of the im2col map (one load a tap, no pad
+rows).  Its weights are :func:`pack_weights_s8` of ``wq``, which a module
+derives once and keeps; the call packs them otherwise.  The earlier
+``mma.sync`` design, :func:`conv3x3_s8_mma` (:func:`conv_plan`), is on no
+path and kept to be timed.  Each wrapper routes a CPU tensor to its plain
+version and a CUDA tensor to its kernel, or raises; each counts its
+launches (``quantize_int8.launches`` and ``.launches_amax``,
+``conv3x3_s8.launches``, ``conv3x3_s8_mma.launches``).  Inside a sharded
+serving call (``parallel/collectives.py``, ``parallel/serving.py``) a
+dynamic scale spans the call, as ``fvt_tpu``'s one GSPMD program's does:
+this rank's amax (the amax launch alone on the card), the max over the
+ranks (``all_reduce_max``), then the quantise launch with that scale.  The
+kernels equal the plain versions bit for bit: the divisions are IEEE
+divisions, the sums exact, the accumulator rounded to float32 once (the
+plain version sums in float64, exact below 2^53).  :func:`conv3x3_int8`
+is the composition ``fvt_tpu`` calls by that name,
+:func:`conv3x3_int8_ref` its plain version, :func:`conv3x3_int8_9mm` the
+nine-matmul form ``fvt_tpu`` keeps for the record.  Activations are NHWC,
+kernels HWIO, as in ``fvt_tpu``; the quantised weights are ``(Co, 9, C)``,
+K-major, the only layout 8-bit ``wgmma`` (and the s8 ``mma``) takes B in.
 """
 from __future__ import annotations
 
@@ -48,11 +57,17 @@ from fvt_tpu_torch.parallel import collectives
 # the convs with at least this many input channels are quantised; stage 1
 # (64 channels) stays on the float path, as in fvt_tpu (arcface.py:58)
 MIN_CIN = 128
-# the kernels' tiles (csrc/conv3x3_int8.cu): pixels and output channels a
-# block, channels a K step
+# the mma.sync design's tiles (csrc/conv3x3_int8.cu): pixels and output
+# channels a block, channels a K step
 TILE_M, TILE_N, TILE_K = 128, 128, 64
 STAGES = 3
 SMEM_PITCH = TILE_K + 16
+# the wgmma kernel's (csrc/conv3x3_s8_wgmma.cu, wgmma_common.cuh): rows and
+# output channels a tile, channels a slice (one k32 step), coordinates a TMA
+# load, consumer warpgroups, the shared memory a block may take
+S8_BM, S8_BN, S8_KC, S8_LOAD, S8_WG = 256, 128, 32, 128, 4
+MAX_SMEM = 227 * 1024
+S8_OUT_BYTES = S8_WG * 4 * 16 * (2 * S8_BN + 16)  # the staged output rows
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -112,7 +127,8 @@ def check_shape(c: int, co: int, stride: int) -> None:
 
 
 def conv_plan(n: int, h: int, w: int, c: int, co: int, stride: int) -> dict:
-    """The s8 kernel's launch for these sizes, as its C entry computes it:
+    """The ``mma.sync`` design's launch (:func:`conv3x3_s8_mma`, on no
+    path) for these sizes, as its C entry computes it:
     the output rows and columns, the M = N*Ho*Wo pixels of the implicit
     GEMM, the grid of TILE_M x TILE_N blocks, the K steps (nine taps by
     TILE_K channels) and the dynamic shared memory of the ring."""
@@ -123,6 +139,72 @@ def conv_plan(n: int, h: int, w: int, c: int, co: int, stride: int) -> dict:
             'grid': (-(-m // TILE_M), -(-co // TILE_N)),
             'k_steps': 9 * -(-c // TILE_K),
             'smem_bytes': STAGES * (TILE_M + TILE_N) * SMEM_PITCH}
+
+
+def s8_slot_bytes(walk: bool, p: int) -> int:
+    """A ring slot of the wgmma kernel: the staged A (padded line: one
+    patch of ``p`` coordinates; walk: three taps of ``p`` rows), 32 bytes a
+    coordinate, then its taps' packed weights (nine or three, ``S8_KC *
+    S8_BN`` bytes each)."""
+    return (3 if walk else 1) * p * S8_KC + (3 if walk else 9) * S8_KC * S8_BN
+
+
+def s8_smem_bytes(walk: bool, p: int, slots: int) -> int:
+    """The wgmma kernel's dynamic shared memory: the ring's barriers, up to
+    1023 bytes to align the ring, its slots and the staged output rows."""
+    return 128 + 1024 + slots * s8_slot_bytes(walk, p) + S8_OUT_BYTES
+
+
+def s8_plan(n: int, h: int, w: int, c: int, co: int, stride: int) -> dict:
+    """The wgmma kernel's launch for these sizes, as its C entry computes
+    it (``csrc/conv3x3_s8_wgmma.cu`` s8_plan): ``route`` ``'padded'``
+    (stride 1 while the padded line's staging, ``p = S8_BM + 2*(W+1) + 2``
+    coordinates rounded up to ``S8_LOAD``, fits a ring of 3 or 2 slots and
+    the producer's 32 lanes, i.e. W <= 510) or ``'walk'`` (stride 2, and
+    wider frames: ``p = S8_BM`` pixels a tap, a ring of 4); ``p``, the
+    ``loads`` a slice (and tap) of a slot, the ``slots``, the ring
+    ``steps`` a tile (slices, times the three tap rows on the walk), the
+    taps a step, ``q`` (the padded coordinates or pixels the walk runs
+    over), the ``rows`` the tiles cover (from the first pixel, W + 2 into
+    the padded line), the ``tiles`` (row tiles times column tiles) and the
+    ``smem_bytes``."""
+    check_shape(c, co, stride)
+    ho, wo = out_size(h, stride), out_size(w, stride)
+    m = n * ho * wo
+    walk, slots = True, 4
+    p = -(-(S8_BM + 2 * (w + 1) + 2) // S8_LOAD) * S8_LOAD
+    if stride == 1 and p // S8_LOAD <= 32:  # a producer lane a load
+        for depth in (3, 2):
+            if s8_smem_bytes(False, p, depth) <= MAX_SMEM:
+                walk, slots = False, depth
+                break
+    if walk:
+        p = S8_BM
+    q = m if walk else n * (h + 1) * (w + 1)
+    rows = m if walk else q - (w + 2)
+    slices = -(-c // S8_KC)
+    return {'route': 'walk' if walk else 'padded', 'ho': ho, 'wo': wo,
+            'm': m, 'p': p, 'loads': p // S8_LOAD, 'slots': slots,
+            'steps': slices * (3 if walk else 1), 'slices': slices,
+            'taps_a_step': 3 if walk else 9, 'q': q, 'rows': rows,
+            'tiles': -(-rows // S8_BM) * -(-co // S8_BN),
+            'smem_bytes': s8_smem_bytes(walk, p, slots)}
+
+
+def pack_weights_s8(wq: torch.Tensor) -> torch.Tensor:
+    """``wq`` (Co, 9, C) int8 in the layout the wgmma kernel copies into
+    shared memory: per column tile of ``S8_BN`` output channels and
+    32-channel slice, the nine taps' two 16-channel chunks as ``S8_BN``
+    K-major rows of 16 bytes.  Returns ``(tiles, ceil(C/32), 9, 2, S8_BN,
+    16)`` int8 with ``packed[t, s, tap, h, n, k] = wq[S8_BN*t + n, tap,
+    32*s + 16*h + k]`` and zeros where the channel is beyond C or the output
+    channel beyond Co.  ``Conv3x3.int8_weights`` keeps it beside ``wq``;
+    :func:`conv3x3_s8` packs per call otherwise."""
+    co, taps, c = wq.shape
+    tiles, slices = -(-co // S8_BN), -(-c // S8_KC)
+    w = F.pad(wq, (0, slices * S8_KC - c, 0, 0, 0, tiles * S8_BN - co))
+    w = w.reshape(tiles, S8_BN, taps, slices, 2, 16)
+    return w.permute(0, 3, 2, 4, 1, 5).contiguous()
 
 
 def tap_rows(xq: torch.Tensor, stride: int) -> torch.Tensor:
@@ -264,37 +346,65 @@ quantize_int8.launches = 0
 quantize_int8.launches_amax = 0
 
 
-def conv3x3_s8(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor,
-               wscale: torch.Tensor, stride: int = 1,
-               out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """The s8 conv: xq (N, H, W, C) int8, x_scale one float32 value, wq
-    (Co, 9, C) int8, wscale (Co,) float32 -> (N, Ho, Wo, Co) in
-    ``out_dtype`` (float32 or bfloat16).  On the CPU
-    :func:`conv3x3_s8_ref`; on the card the kernel of
-    ``csrc/conv3x3_int8.cu`` (C a multiple of 16, Co of 8) or raises."""
-    if out_dtype not in OUT_DTYPES:
-        raise ValueError(f'out_dtype {out_dtype}: float32 or bfloat16')
-    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
-        raise ValueError('conv3x3_s8 takes int8 xq and wq')
-    if xq.device.type == 'cpu':
-        return conv3x3_s8_ref(xq, x_scale, wq, wscale, stride, out_dtype)
-    if xq.device.type != 'cuda':
-        raise ValueError(f'no kernel for device {xq.device}')
+def _check_s8(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor,
+              wscale: torch.Tensor, stride: int, out_dtype: torch.dtype
+              ) -> Tuple[int, int, int, int, int, torch.Tensor]:
+    """Raises for what the s8 kernels do not take; returns N, H, W, C, Co
+    and an empty y."""
     n, h, w, c = xq.shape
     co = wq.shape[0]
-    plan = conv_plan(n, h, w, c, co, stride)
+    check_shape(c, co, stride)
     build.check_tensor('xq', xq, (n, h, w, c), xq.device, torch.int8)
     build.check_tensor('wq', wq, (co, 9, c), xq.device, torch.int8)
     build.check_tensor('wscale', wscale, (co,), xq.device)
     if (x_scale.device != xq.device or x_scale.dtype != torch.float32
             or x_scale.numel() != 1):
         raise ValueError('x_scale: one float32 value on xq\'s device')
-    y = torch.empty((n, plan['ho'], plan['wo'], co), dtype=out_dtype,
-                    device=xq.device)
+    y = torch.empty((n, out_size(h, stride), out_size(w, stride), co),
+                    dtype=out_dtype, device=xq.device)
+    return n, h, w, c, co, y
+
+
+def _s8_route(name: str, xq: torch.Tensor, wq: torch.Tensor,
+              out_dtype: torch.dtype) -> bool:
+    """True where an s8 conv wrapper runs its plain version (a CPU tensor);
+    raises for another type or device."""
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f'out_dtype {out_dtype}: float32 or bfloat16')
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise ValueError(f'{name} takes int8 xq and wq')
+    if xq.device.type == 'cpu':
+        return True
+    if xq.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {xq.device}')
+    return False
+
+
+def conv3x3_s8(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor,
+               wscale: torch.Tensor, stride: int = 1,
+               out_dtype: torch.dtype = torch.bfloat16,
+               packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The s8 conv: xq (N, H, W, C) int8, x_scale one float32 value, wq
+    (Co, 9, C) int8, wscale (Co,) float32 -> (N, Ho, Wo, Co) in
+    ``out_dtype`` (float32 or bfloat16).  On the CPU
+    :func:`conv3x3_s8_ref`; on the card one launch of the wgmma kernel of
+    ``csrc/conv3x3_s8_wgmma.cu`` (C a multiple of 16, Co of 8, stride 1
+    or 2, any H and W) or raises.  ``packed``: :func:`pack_weights_s8` of
+    ``wq``, kept by the caller; packed here otherwise."""
+    if _s8_route('conv3x3_s8', xq, wq, out_dtype):
+        return conv3x3_s8_ref(xq, x_scale, wq, wscale, stride, out_dtype)
+    n, h, w, c, co, y = _check_s8(xq, x_scale, wq, wscale, stride,
+                                  out_dtype)
+    if packed is None:
+        packed = pack_weights_s8(wq)
+    build.check_tensor('packed', packed,
+                       (-(-co // S8_BN), -(-c // S8_KC), 9, 2, S8_BN, 16),
+                       xq.device, torch.int8)
     err = build.library().fvt_conv3x3_s8_forward(
-        xq.data_ptr(), wq.data_ptr(), wscale.data_ptr(), x_scale.data_ptr(),
-        y.data_ptr(), int(out_dtype == torch.bfloat16), n, h, w, c, co,
-        stride, torch.cuda.current_stream(xq.device).cuda_stream)
+        xq.data_ptr(), packed.data_ptr(), wscale.data_ptr(),
+        x_scale.data_ptr(), y.data_ptr(), int(out_dtype == torch.bfloat16),
+        n, h, w, c, co, stride,
+        torch.cuda.current_stream(xq.device).cuda_stream)
     build.check(err, f'conv3x3_s8 kernel (N={n}, H={h}, W={w}, C={c}, '
                      f'Co={co}, stride={stride})')
     conv3x3_s8.launches += 1
@@ -302,6 +412,30 @@ def conv3x3_s8(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor,
 
 
 conv3x3_s8.launches = 0
+
+
+def conv3x3_s8_mma(xq: torch.Tensor, x_scale: torch.Tensor,
+                   wq: torch.Tensor, wscale: torch.Tensor, stride: int = 1,
+                   out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The earlier design of :func:`conv3x3_s8` on ``mma.sync``
+    (``csrc/conv3x3_int8.cu``, :func:`conv_plan`), on no path, kept to be
+    timed beside it: the same arguments (``wq`` as it is, no packing) and
+    result; its own launch count."""
+    if _s8_route('conv3x3_s8_mma', xq, wq, out_dtype):
+        return conv3x3_s8_ref(xq, x_scale, wq, wscale, stride, out_dtype)
+    n, h, w, c, co, y = _check_s8(xq, x_scale, wq, wscale, stride,
+                                  out_dtype)
+    err = build.library().fvt_conv3x3_s8_mma_forward(
+        xq.data_ptr(), wq.data_ptr(), wscale.data_ptr(), x_scale.data_ptr(),
+        y.data_ptr(), int(out_dtype == torch.bfloat16), n, h, w, c, co,
+        stride, torch.cuda.current_stream(xq.device).cuda_stream)
+    build.check(err, f'conv3x3_s8_mma kernel (N={n}, H={h}, W={w}, C={c}, '
+                     f'Co={co}, stride={stride})')
+    conv3x3_s8_mma.launches += 1
+    return y
+
+
+conv3x3_s8_mma.launches = 0
 
 
 def conv3x3_int8(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,

@@ -3,7 +3,8 @@ products, on the card.
 
     python3 -m fvt_tpu_torch.tools.profile_conv_bf16 [--frames 2400]
         [--iters 20]
-        [--dtype bfloat16|float32|winograd|winograd_bf16|winograd_bf16_fused]
+        [--dtype bfloat16|float32|winograd|winograd_bf16|winograd_bf16_fused
+                 |s8] [--also NAME=SOURCE[:FLAG,...] ...]
 
 Builds the kernel's source alone into ``build/``, once as it is and once
 per diagnostic switch: ``-DFVT_DIAG_PRODUCTS_ONLY`` (no copy into shared
@@ -28,7 +29,15 @@ builds: ``-DFVT_DIAG_PRODUCTS_ONLY`` (no copy started or waited for),
 ``-DFVT_DIAG_NO_FRAGMENTS`` (V formed from no shared-memory read),
 ``-DFVT_DIAG_NO_PRODUCTS`` (no ``wgmma``), ``-DFVT_DIAG_NO_STORE`` and
 ``-DFVT_DIAG_NO_GLOBAL_STORE`` (y staged in shared memory, not
-written).  The diagnostic builds give wrong sums; every other build
+written).  ``--dtype s8`` takes the s8 conv of int8 serving,
+``csrc/conv3x3_s8_wgmma.cu``, in the three builds, at the eight int8 conv
+shapes of the IR-50 (strides 1 and 2, bfloat16 out, weights packed once,
+a dynamic scale), checked bit for bit against ``ops.quant.conv3x3_s8_ref``
+and summed over the 41 int8 convs of a forward, beside ``F.conv2d`` on
+bfloat16; every build is timed in turns (in order, then reversed, the two
+medians averaged), and ``--also`` adds builds of other sources of the same
+C entry (a variant under study, beside the kernel in one call).  The
+diagnostic builds give wrong sums; every other build
 (any that ``KERNELS`` lists without a ``-DFVT_DIAG`` switch) is checked
 against the plain version (bfloat16, both kernels: one unit in
 the last place; float32: rtol = atol = 1e-4; Winograd, all three
@@ -68,6 +77,7 @@ KERNELS = {
                  dict(SPLIT_DIAG, no_store=('-DFVT_DIAG_NO_STORE',))),
     'winograd_bf16': ('winograd_bf16.cu', 'fvt_winograd_bf16_forward', 4, 6,
                       dict(DIAG, no_store=('-DFVT_DIAG_NO_STORE',))),
+    's8': ('conv3x3_s8_wgmma.cu', 'fvt_conv3x3_s8_forward', 5, 7, DIAG),
     'winograd_bf16_fused': (
         'winograd_bf16.cu', 'fvt_winograd_bf16_fused_forward', 3, 5,
         {'kernel': (), 'products_only': ('-DFVT_DIAG_PRODUCTS_ONLY',),
@@ -79,21 +89,24 @@ KERNELS = {
 
 
 def build_variants(source: str, entry: str, pointers: int, ints: int,
-                   variants: dict) -> dict:
+                   variants: dict, others: dict = None) -> dict:
     """{variant: C entry}: ``csrc/<source>`` built once a variant (its
-    nvcc flags), one nvcc process a variant, all at once, and the entry
-    bound with its pointer and int arguments before the stream."""
+    nvcc flags), and each of ``others`` ({name: (source path, flags)}),
+    one nvcc process a build, all at once, and the entry bound with its
+    pointer and int arguments before the stream."""
     from fvt_tpu_torch.kernels import build
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = build.CSRC_DIR / source
+    builds = {name: (src, flags) for name, flags in variants.items()}
+    builds.update(others or {})
     paths = {name: build.BUILD_DIR / f'{src.stem}-{name}.so'
-             for name in variants}
+             for name in builds}
     procs = {name: subprocess.Popen(
-        [build.nvcc(), *build.NVCC_FLAGS, *flags, '-shared', '-o',
-         str(paths[name]), str(src)],
+        [build.nvcc(), *build.NVCC_FLAGS, *flags, '-I', str(build.CSRC_DIR),
+         '-shared', '-o', str(paths[name]), str(path)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name, flags in variants.items()}
+        for name, (path, flags) in builds.items()}
     fns = {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
@@ -126,6 +139,91 @@ def median_ms(fn, iters: int) -> float:
     return statistics.median(times)
 
 
+# the int8 convs of the IR-50: (H = W, Cin, Cout, stride, convs a forward)
+S8_SHAPES = ((40, 128, 128, 2, 1), (20, 128, 128, 1, 6), (20, 128, 256, 1, 1),
+             (20, 256, 256, 2, 1), (10, 256, 256, 1, 26),
+             (10, 256, 512, 1, 1), (10, 512, 512, 2, 1), (5, 512, 512, 1, 4))
+
+
+def profile_s8(fns: dict, checked: list, n: int, iters: int) -> dict:
+    """The s8 conv's builds at S8_SHAPES on n frames: bit for bit the plain
+    version (the builds named in ``checked``; a build of another source that
+    differs is reported and left out), each timed in turns, beside
+    ``F.conv2d`` on bfloat16; the shapes' rows and the totals over the 41
+    convs."""
+    from fvt_tpu_torch.ops import quant
+
+    device = torch.device('cuda', 0)
+    g = torch.Generator(device=device).manual_seed(0)
+    shapes, total = {}, {name: 0.0 for name in (*fns, 'conv2d')}
+    stream = torch.cuda.current_stream(device).cuda_stream
+    wrong = {}
+    with torch.inference_mode():
+        for h, c, co, stride, count in S8_SHAPES:
+            x = torch.randn(n, h, h, c, device=device,
+                            generator=g).bfloat16()
+            k = (torch.randn(3, 3, c, co, device=device, generator=g)
+                 * (9 * c) ** -0.5)
+            wq, wscale = quant.quantize_weights(k)
+            wp = quant.pack_weights_s8(wq)
+            xq, scale, _ = quant.quantize_int8(x)
+            ho = quant.out_size(h, stride)
+            out = torch.empty(n, ho, ho, co, device=device,
+                              dtype=torch.bfloat16)
+
+            def launch(fn):
+                err = fn(xq.data_ptr(), wp.data_ptr(), wscale.data_ptr(),
+                         scale.data_ptr(), out.data_ptr(), 1, n, h, h, c, co,
+                         stride, stream)
+                if err:
+                    raise RuntimeError(f'launch returned CUDA error {err}')
+
+            want = quant.conv3x3_s8_ref(xq, scale, wq, wscale, stride,
+                                        torch.bfloat16)
+            for name in checked:
+                if name in wrong:
+                    continue
+                out.zero_()
+                launch(fns[name])
+                if torch.equal(out, want):
+                    continue
+                what = (f'{h}x{h}x{c}->{co} s{stride}: the {name} build '
+                        f'differs from its plain version')
+                if name in DIAG:
+                    raise RuntimeError(what)
+                wrong[name] = what
+                print(f'  {what}: left out', flush=True)
+            del want
+            ops = quant.s8_conv_ops(n, h, h, c, co, stride)
+            timed = [name for name in fns if name not in wrong]
+            row, turns = {}, {name: [] for name in timed}
+            for order in (timed, timed[::-1]):
+                for name in order:
+                    turns[name].append(median_ms(lambda: launch(fns[name]),
+                                                 iters))
+            for name, times in turns.items():
+                ms = statistics.mean(times)
+                row[name] = {'ms': round(ms, 4),
+                             'tops': round(ops / ms / 1e9, 1)}
+                total[name] += count * ms
+            x_cl = x.permute(0, 3, 1, 2)
+            w_cl = k.bfloat16().permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            ms = median_ms(lambda: F.conv2d(x_cl, w_cl, None, stride, 1),
+                           iters)
+            row['conv2d'] = {'ms': round(ms, 4)}
+            total['conv2d'] += count * ms
+            row['route'] = quant.s8_plan(n, h, h, c, co, stride)['route']
+            # the share of the multiplies that lands on real pixels
+            row['real_rows'] = round(
+                h * h / (h + 1) ** 2 if row['route'] == 'padded' else 1.0, 4)
+            shapes[f'{h}x{h}x{c}->{co} s{stride} x{count}'] = row
+            del x, k, wq, wp, xq, out, x_cl, w_cl
+    return {'shapes': shapes, 'wrong': wrong,
+            'ms_over_41_convs': {k: round(v, 4) for k, v in total.items()
+                                 if k not in wrong}}
+
+
 def main(argv=None) -> int:
     from fvt_tpu_torch.ops import conv as conv_ops
     from fvt_tpu_torch.ops import winograd as winograd_ops
@@ -134,7 +232,17 @@ def main(argv=None) -> int:
     ap.add_argument('--frames', type=int, default=2400)
     ap.add_argument('--iters', type=int, default=20)
     ap.add_argument('--dtype', default='bfloat16', choices=sorted(KERNELS))
+    ap.add_argument('--also', action='append', default=[],
+                    metavar='NAME=SOURCE[:FLAG,...]',
+                    help='s8: a build of another source, timed beside')
     args = ap.parse_args(argv)
+    others = {}
+    for spec in args.also:
+        name, _, rest = spec.partition('=')
+        path, _, flags = rest.partition(':')
+        others[name] = (path, tuple(f for f in flags.split(',') if f))
+    if others and args.dtype != 's8':
+        ap.error('--also is for --dtype s8')
     if not torch.cuda.is_available():
         print('profile_conv_bf16: no CUDA device', file=sys.stderr)
         return 1
@@ -144,7 +252,18 @@ def main(argv=None) -> int:
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card)
-    fns = build_variants(*KERNELS[args.dtype])
+    fns = build_variants(*KERNELS[args.dtype], others)
+    if args.dtype == 's8':
+        checked = [name for name, flags in (
+            *DIAG.items(), *((k, v[1]) for k, v in others.items()))
+            if not any(f.startswith('-DFVT_DIAG') for f in flags)]
+        print(json.dumps({
+            'platform': 'cuda', 'card': card,
+            'kind': torch.cuda.get_device_name(0), 'dtype': args.dtype,
+            'frames': args.frames, 'iters': args.iters,
+            'also': {k: [v[0], *v[1]] for k, v in others.items()},
+            **profile_s8(fns, checked, args.frames, args.iters)}))
+        return 0
     fused = args.dtype == 'winograd_bf16_fused'
     bf16 = args.dtype in ('bfloat16', 'winograd_bf16', 'winograd_bf16_fused')
     winograd = args.dtype in ('winograd', 'winograd_bf16')
