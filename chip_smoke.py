@@ -52,9 +52,12 @@ Phases, each of which raises on failure (exit code 1):
    kernel against its plain version and ``F.conv2d`` on bfloat16 tensors
    at the same seven shapes and at edge shapes, and its refusal of a
    channel count it does not take; the fused block's bfloat16 route (two
-   launches of that kernel, each also timed alone) against its plain
-   version at the four stage shapes and edge shapes, beside the unfused
-   bfloat16 block on cuDNN; the Winograd kernel's bfloat16 route (the
+   launches of a ``wgmma`` kernel of its own, each also timed alone)
+   against its plain version at the four stage shapes and edge shapes,
+   its v and y bit for bit its earlier design's (two launches of the
+   bfloat16 conv kernel, timed beside it, on no path), beside the unfused
+   bfloat16 block on cuDNN, and its refusals; the Winograd kernel's
+   bfloat16 route (the
    fused kernel: one launch a call and no workspace, V formed in
    registers bit-equal to its plain version at all 16 positions through a
    one-hot U, y within one unit in the last place) and the earlier design
@@ -558,9 +561,11 @@ def compare_bf16(name: str, got: torch.Tensor, want: torch.Tensor,
 
 
 def compare_block_bf16(name: str, got: torch.Tensor, x: torch.Tensor,
-                       args: tuple, packed: tuple) -> float:
+                       args: tuple, packed: tuple, launch=None) -> float:
     """The bfloat16 block ``got`` (the wrapper's output on ``x``) against
-    its plain version.  Each launch alone is one float32 sum rounded once,
+    its plain version, each launch alone through ``launch``
+    (``ops.bottleneck.launch_bf16``, the kernel on the path, unless
+    given).  Each launch alone is one float32 sum rounded once,
     so each is held to compare_bf16's gate: conv1 against
     ``bottleneck_bf16_conv1_ref`` (v), conv2 run on that plain v against
     ``bottleneck_bf16_conv2_ref``.  The whole block rounds twice: v flips
@@ -573,13 +578,14 @@ def compare_block_bf16(name: str, got: torch.Tensor, x: torch.Tensor,
     from fvt_tpu_torch.ops import bottleneck as block_ops
     from fvt_tpu_torch.ops import conv as conv_ops
 
+    launch = launch or block_ops.launch_bf16
     w1, w2, a1, b1, alpha, a2, b2 = args
     vecs = (a1, b1, alpha, a2, b2)
     v_plain = block_ops.bottleneck_bf16_conv1_ref(x, w1, a1, b1, alpha)
     v, y2 = torch.empty_like(x), torch.empty_like(x)
-    block_ops.launch_bf16(x, packed, vecs, v, y2, block_ops.CONV1)
+    launch(x, packed, vecs, v, y2, block_ops.CONV1)
     compare_bf16(f'{name} conv1 (v)', v, v_plain)
-    block_ops.launch_bf16(x, packed, vecs, v_plain, y2, block_ops.CONV2)
+    launch(x, packed, vecs, v_plain, y2, block_ops.CONV2)
     want = block_ops.bottleneck_bf16_conv2_ref(v_plain, x, w2, a2, b2)
     compare_bf16(f'{name} conv2 on the plain v', y2, want)
     del y2
@@ -1766,23 +1772,31 @@ def check_bottleneck_kernel(device) -> list:
     return out
 
 
-def check_bottleneck_bf16_kernel(device) -> dict:
+def check_bottleneck_bf16_kernel(device) -> list:
     """Phase 2, bfloat16: the fused BottleneckIR block's bfloat16 route
     (``bottleneck_ir_fused`` on bfloat16 tensors, the ``fused_blocks``
-    path under ``--amp``: two launches of the bfloat16 ``wgmma`` conv, bn1
-    in a pass over conv1's staged slice, PReLU in conv1's store, bn2 and
-    the residual in conv2's, v a bfloat16 workspace) against its plain
-    version (``bottleneck_ir_fused_bf16_ref``, the Pallas kernel's
-    rounding points) at the four stage shapes on FRAMES frames and at edge
-    shapes (bn1's shift at 20 in three), on the weights a bfloat16
-    ``BottleneckIR`` derives from random parameters, under
-    compare_block_bf16's gate (each launch alone within one unit in the
-    last place, the block within that plus v's flips carried through
-    conv2).  Times
-    of the kernel (each launch also alone), the plain version and the
-    unfused bfloat16 block on cuDNN (BatchNorm2d, PReLU and the add as
-    passes of their own); the bound: both convs' operations at the bf16
-    peak against x, the kept weights, the five vectors and y."""
+    path under ``--amp``: two launches of the block's own ``wgmma`` kernel,
+    ``csrc/bottleneck_bf16_wgmma.cu``, bn1 over each staged slice while
+    the slice before is multiplied, PReLU in conv1's store, bn2 and the
+    residual (staged by the copy engine) in conv2's, v a bfloat16
+    workspace, each tile's v or y written under the next tile's products)
+    and its earlier design (``bottleneck_ir_fused_bf16_conv``: two
+    launches of the bfloat16 conv kernel, ``csrc/conv3x3_wgmma.cu``, on no
+    path) against their plain version (``bottleneck_ir_fused_bf16_ref``,
+    the Pallas kernel's rounding points) at the four stage shapes on
+    FRAMES frames, on the weights a bfloat16 ``BottleneckIR`` derives from
+    random parameters, under compare_block_bf16's gate (each launch alone
+    within one unit in the last place, the block within that plus v's
+    flips carried through conv2); whether the two designs' v, and their y
+    on one v, are bit for bit equal (printed, not gated: the same sums in
+    the same order); the route at edge shapes (bn1's shift at 20 in
+    three, both column tiles); its refusals (C = 20, frames of 127 and
+    1200) raising with no launch counted, and the C entry's.  Times of
+    both designs in turns (each launch also alone), the plain version and
+    the unfused bfloat16 block on cuDNN (BatchNorm2d, PReLU and the add
+    as passes of their own); the bound: both convs' operations at the
+    bf16 peak against x, the kept weights, the five vectors and y.
+    Returns the kernels line's entries of both designs."""
     from fvt_tpu_torch.kernels import build
     from fvt_tpu_torch.models.arcface import BottleneckIR
     from fvt_tpu_torch.ops import bottleneck as block_ops
@@ -1790,8 +1804,18 @@ def check_bottleneck_bf16_kernel(device) -> dict:
     bf16 = torch.bfloat16
     g = torch.Generator(device=device).manual_seed(SEED + 7)
     frames = WINDOW_BATCH * WINDOW
-    tot = {key: 0.0 for key in ('err', 'ms', 'plain', 'cudnn', 'ops_ms',
-                                'bytes_ms', 'conv1', 'conv2')}
+    designs = {  # name: (wrapper, launch, source)
+        'bottleneck_bf16': (block_ops.bottleneck_ir_fused,
+                            block_ops.launch_bf16,
+                            'bottleneck_bf16_wgmma.cu'),
+        'bottleneck_bf16_conv': (block_ops.bottleneck_ir_fused_bf16_conv,
+                                 block_ops.launch_bf16_conv,
+                                 'conv3x3_wgmma.cu')}
+    tot = {name: {key: 0.0 for key in ('err', 'ms', 'conv1', 'conv2')}
+           for name in designs}
+    shared = {key: 0.0 for key in ('plain', 'cudnn', 'ops_ms', 'bytes_ms',
+                                   'v_trip')}
+    bit_equal = True
 
     def block(c, b1_shift=0.0):
         """A bfloat16 identity block on the card, every parameter and
@@ -1817,47 +1841,81 @@ def check_bottleneck_bf16_kernel(device) -> dict:
         for h, c, count in BLOCK_SHAPES:
             blk = block(c)
             *args, packed = blk.fused_weights()
+            vecs = tuple(args[2:])
             x = torch.randn(frames, h, h, c, device=device,
                             generator=g).to(bf16)
             x_nchw = x.permute(0, 3, 1, 2)  # channels_last, as the backbone
-            shape = f'bottleneck_bf16 ({frames},{h},{h},{c})'
-            got = block_ops.bottleneck_ir_fused(x, *args, packed=packed)
-            err = compare_block_bf16(shape, got, x, args, packed)
-            unfused = blk(x_nchw).permute(0, 2, 3, 1)
-            own = (unfused.float() - got.float()).abs().max().item()
-            print(f'    max |fused - unfused bf16 block on cuDNN| = '
-                  f'{own:.3e} (other rounding points: bf16 BatchNorm, '
-                  f'PReLU and add passes)')
-            del got, unfused
-            ms = median_ms(lambda: block_ops.bottleneck_ir_fused(
-                x, *args, packed=packed), CONV_RUNS)
+            shape = f'({frames},{h},{h},{c})'
+            for name, (fn, launch, _) in designs.items():
+                got = fn(x, *args, packed=packed)
+                err = compare_block_bf16(f'{name} {shape}', got, x, args,
+                                         packed, launch)
+                tot[name]['err'] = max(tot[name]['err'], err)
+                if name == 'bottleneck_bf16':
+                    unfused = blk(x_nchw).permute(0, 2, 3, 1)
+                    own = (unfused.float() - got.float()).abs().max().item()
+                    print(f'    max |fused - unfused bf16 block on cuDNN| = '
+                          f'{own:.3e} (other rounding points: bf16 '
+                          f'BatchNorm, PReLU and add passes)')
+                    del unfused
+                del got
+            # the two designs' v on x, and their y on one v
+            v, w_, y, z = (torch.empty_like(x) for _ in range(4))
+            block_ops.launch_bf16(x, packed, vecs, v, y, block_ops.CONV1)
+            block_ops.launch_bf16_conv(x, packed, vecs, w_, z,
+                                       block_ops.CONV1)
+            same_v = torch.equal(v, w_)
+            block_ops.launch_bf16(x, packed, vecs, w_, y, block_ops.CONV2)
+            block_ops.launch_bf16_conv(x, packed, vecs, w_, z,
+                                       block_ops.CONV2)
+            same_y = torch.equal(y, z)
+            bit_equal = bit_equal and same_v and same_y
+            print(f'    v and y bit for bit the conv3x3_wgmma.cu design\'s: '
+                  f'v {same_v}, y (on one v) {same_y}')
+            # both designs in turns, each launch also alone
+            times = {name: {key: [] for key in ('ms', 'conv1', 'conv2')}
+                     for name in designs}
+            for order in (list(designs), list(designs)[::-1]):
+                for name in order:
+                    fn, launch, _ = designs[name]
+                    times[name]['ms'].append(median_ms(
+                        lambda: fn(x, *args, packed=packed), CONV_RUNS))
+                    for key, stage in (('conv1', block_ops.CONV1),
+                                       ('conv2', block_ops.CONV2)):
+                        times[name][key].append(median_ms(
+                            lambda: launch(x, packed, vecs, w_, z, stage),
+                            CONV_RUNS))
             plain = median_ms(lambda: block_ops.bottleneck_ir_fused_bf16_ref(
                 x, *args), 3, warmup=1)
             cudnn = median_ms(lambda: blk(x_nchw), CONV_RUNS)
+            # v's round trip through device memory, alone: one read and
+            # one write of its bytes (what keeping v on chip would save)
+            trip = median_ms(lambda: z.copy_(w_), CONV_RUNS)
+            shared['v_trip'] += count * trip
             flops = 2 * 2.0 * 9 * frames * h * h * c * c
-            moved = nbytes(x, *packed, *args[2:], x)  # x in, y out
+            moved = nbytes(x, *packed, *vecs, x)  # x in, y out
             lower = bound(flops, moved, PEAK_FLOPS_BF16)
-            v, out = torch.empty_like(x), torch.empty_like(x)
-            alone = {}
-            for key, stage in (('conv1', block_ops.CONV1),
-                               ('conv2', block_ops.CONV2)):
-                alone[key] = median_ms(lambda: block_ops.launch_bf16(
-                    x, packed, tuple(args[2:]), v, out, stage), CONV_RUNS)
-                tot[key] += count * alone[key]
-            print(f'    x{count} a forward: kernel {ms:.4f} ms (conv1 '
-                  f'{alone["conv1"]:.4f}, conv2 {alone["conv2"]:.4f} alone), '
-                  f'plain {plain:.4f} ms, unfused bf16 block on cuDNN '
-                  f'{cudnn:.4f} ms, bound {lower["bound_ms"]:.4f} ms by '
+            ms = {name: {key: sum(t) / len(t) for key, t in row.items()}
+                  for name, row in times.items()}
+            new, old = ms['bottleneck_bf16'], ms['bottleneck_bf16_conv']
+            print(f'    x{count} a forward: kernel {new["ms"]:.4f} ms (conv1 '
+                  f'{new["conv1"]:.4f}, conv2 {new["conv2"]:.4f} alone); the '
+                  f'conv3x3_wgmma.cu design {old["ms"]:.4f} ms (conv1 '
+                  f'{old["conv1"]:.4f}, conv2 {old["conv2"]:.4f}); plain '
+                  f'{plain:.4f} ms, unfused bf16 block on cuDNN {cudnn:.4f} '
+                  f'ms, v\'s round trip alone {trip:.4f} ms, bound '
+                  f'{lower["bound_ms"]:.4f} ms by '
                   f'{lower["bound_by"]} ({flops / 1e9:.1f} GFLOP at '
                   f'{PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s, {moved / 1e6:.1f} '
-                  f'MB), {lower["bound_ms"] / ms:.1%} of it')
-            tot['err'] = max(tot['err'], err)
-            tot['ms'] += count * ms
-            tot['plain'] += count * plain
-            tot['cudnn'] += count * cudnn
-            tot['ops_ms'] += count * flops / PEAK_FLOPS_BF16 * 1e3
-            tot['bytes_ms'] += count * moved / PEAK_BYTES * 1e3
-            del blk, args, packed, x, x_nchw, v, out
+                  f'MB), {lower["bound_ms"] / new["ms"]:.1%} of it')
+            for name, row in ms.items():
+                for key, value in row.items():
+                    tot[name][key] += count * value
+            shared['plain'] += count * plain
+            shared['cudnn'] += count * cudnn
+            shared['ops_ms'] += count * flops / PEAK_FLOPS_BF16 * 1e3
+            shared['bytes_ms'] += count * moved / PEAK_BYTES * 1e3
+            del blk, args, packed, vecs, x, x_nchw, v, w_, y, z
 
         # odd extents, single pixels, several frames a row tile, the
         # narrowest C (one k16 step), bn = 128 at 5x5x512, and bn1's shift
@@ -1874,45 +1932,59 @@ def check_bottleneck_bf16_kernel(device) -> dict:
                                block_ops.bottleneck_ir_fused(x, *args), x,
                                args, packed)
 
-        # C = 20 is no multiple of 16: the wrapper raises and the C entry
-        # refuses; W = 1200 leaves the shared memory: the C entry refuses
-        # and the wrapper raises
-        before = block_ops.bottleneck_ir_fused.launches
-        for (n, h, w, c), error in (((2, 5, 5, 20), ValueError),
-                                    ((1, 2, 1200, 16), RuntimeError)):
+        # C = 20 is no multiple of 16; frames of 127 stage 640 coordinates
+        # a slice, past the kernel's 512; 1200 far past: the wrapper raises
+        # before any launch, and the C entry refuses on its own
+        counters = (block_ops.bottleneck_ir_fused,
+                    block_ops.bottleneck_ir_fused_bf16_conv)
+        before = [(f.launches, getattr(f, 'launches_bf16', 0))
+                  for f in counters]
+        for n, h, w, c in ((2, 5, 5, 20), (1, 2, 127, 64), (1, 2, 1200, 16)):
             blk = block(c)
             *args, _ = blk.fused_weights()
             x = torch.randn(n, h, w, c, device=device, generator=g).to(bf16)
             try:
                 block_ops.bottleneck_ir_fused(x, *args)
-            except error as e:
+            except ValueError as e:
                 print(f'  bottleneck_bf16 ({n},{h},{w},{c}) refused: {e}')
             else:
                 fail(f'bottleneck_ir_fused took bfloat16 ({n},{h},{w},{c})')
-        x = torch.zeros(2, 5, 5, 20, device=device, dtype=bf16)
-        code = build.library().fvt_bottleneck_bf16_forward(
-            *([x.data_ptr()] * 10), 2, 5, 5, 20, 64, block_ops.BOTH,
-            torch.cuda.current_stream(device).cuda_stream)
-        if code == 0:
-            fail('the bfloat16 bottleneck entry took C = 20')
-        if block_ops.bottleneck_ir_fused.launches != before:
+            code = build.library().fvt_bottleneck_bf16_wgmma_forward(
+                *([x.data_ptr()] * 10), n, h, w, c, block_ops.BOTH,
+                torch.cuda.current_stream(device).cuda_stream)
+            if code == 0:
+                fail(f'the bfloat16 bottleneck entry took ({n},{h},{w},{c})')
+        if [(f.launches, getattr(f, 'launches_bf16', 0))
+                for f in counters] != before:
             fail('a refused bfloat16 bottleneck counted a launch')
-    lower = max(tot['ops_ms'], tot['bytes_ms'])
+    lower = max(shared['ops_ms'], shared['bytes_ms'])
+    new, old = tot['bottleneck_bf16'], tot['bottleneck_bf16_conv']
     print(f'  bottleneck_bf16 total over the 21 blocks of a forward: kernel '
-          f'{tot["ms"]:.4f} ms (conv1 {tot["conv1"]:.4f}, conv2 '
-          f'{tot["conv2"]:.4f} alone), plain {tot["plain"]:.4f} ms, unfused '
-          f'bf16 block on cuDNN {tot["cudnn"]:.4f} ms, bound {lower:.4f} ms '
-          f'({lower / tot["ms"]:.1%} of it)')
-    return {'name': 'bottleneck_bf16', 'route': 'cuda',
-            'source': 'fvt_tpu_torch/csrc/conv3x3_wgmma.cu',
-            'replaces': 'fvt_tpu/ops/bottleneck_pallas.py:122',
-            'max_abs_err': tot['err'], 'ms': tot['ms'],
-            'plain_ms': tot['plain'], 'library_ms': None,
-            'bound_ms': lower,
-            'bound_by': ('operations' if tot['ops_ms'] >= tot['bytes_ms']
-                         else 'bytes'),
-            'launch_ms': {'conv1': tot['conv1'], 'conv2': tot['conv2']},
-            'unfused_cudnn_block_ms': tot['cudnn']}
+          f'{new["ms"]:.4f} ms (conv1 {new["conv1"]:.4f}, conv2 '
+          f'{new["conv2"]:.4f} alone); the conv3x3_wgmma.cu design '
+          f'{old["ms"]:.4f} ms (conv1 {old["conv1"]:.4f}, conv2 '
+          f'{old["conv2"]:.4f}); plain {shared["plain"]:.4f} ms, unfused bf16 '
+          f'block on cuDNN {shared["cudnn"]:.4f} ms, v\'s round trip '
+          f'{shared["v_trip"]:.4f} ms, bound {lower:.4f} ms '
+          f'({lower / new["ms"]:.1%} of it); v and y bit for bit the earlier '
+          f'design\'s at every stage shape: {bit_equal}')
+    out = []
+    for name, (_, _, source) in designs.items():
+        t = tot[name]
+        out.append({'name': name, 'route': 'cuda',
+                    'source': f'fvt_tpu_torch/csrc/{source}',
+                    'replaces': 'fvt_tpu/ops/bottleneck_pallas.py:122',
+                    'max_abs_err': t['err'], 'ms': t['ms'],
+                    'plain_ms': shared['plain'], 'library_ms': None,
+                    'bound_ms': lower,
+                    'bound_by': ('operations'
+                                 if shared['ops_ms'] >= shared['bytes_ms']
+                                 else 'bytes'),
+                    'launch_ms': {'conv1': t['conv1'], 'conv2': t['conv2']},
+                    'unfused_cudnn_block_ms': shared['cudnn']})
+    out[0]['bit_equal_conv_design'] = bit_equal
+    out[0]['v_round_trip_ms'] = shared['v_trip']
+    return out
 
 
 def check_winograd_bf16_kernel(device) -> dict:
@@ -2166,6 +2238,7 @@ def check_winograd_bf16_kernel(device) -> dict:
 
 def conv_counters() -> dict:
     from fvt_tpu_torch.ops.bottleneck import (bottleneck_ir_fused,
+                                              bottleneck_ir_fused_bf16_conv,
                                               bottleneck_ir_fused_simt)
     from fvt_tpu_torch.ops.conv import conv3x3, conv3x3_simt
     from fvt_tpu_torch.ops.winograd import (conv3x3_winograd,
@@ -2174,7 +2247,8 @@ def conv_counters() -> dict:
             'winograd': conv3x3_winograd,
             'winograd_simt': conv3x3_winograd_simt,
             'bottleneck': bottleneck_ir_fused,
-            'bottleneck_simt': bottleneck_ir_fused_simt}
+            'bottleneck_simt': bottleneck_ir_fused_simt,
+            'bottleneck_bf16_conv': bottleneck_ir_fused_bf16_conv}
 
 
 def read_launches(counters: dict) -> dict:
@@ -2309,7 +2383,8 @@ def backbone_bf16(model, crops: torch.Tensor, device) -> dict:
     from float32, max |bf16 cudnn - fp32 cudnn| on these weights and
     crops.  Returns the bfloat16 conv kernel's, the bfloat16 block's and
     the bfloat16 Winograd kernel's launches over their own path's one
-    checked forward."""
+    checked forward, and the bfloat16 block's earlier design's over all
+    of them (none)."""
     from fvt_tpu_torch.models.arcface import VisualBackbone
 
     counters = conv_counters()
@@ -2391,6 +2466,8 @@ def backbone_bf16(model, crops: torch.Tensor, device) -> dict:
             out_launches['bf16 shifted_kernel']['conv3x3_bf16'],
             'bottleneck_bf16': out_launches[
                 'bf16 fused_blocks+shifted_kernel']['bottleneck_bf16'],
+            'bottleneck_bf16_conv': sum(
+                n['bottleneck_bf16_conv'] for n in out_launches.values()),
             'winograd_bf16':
             out_launches['bf16 winograd_kernel']['winograd_bf16']}
 
@@ -7073,7 +7150,7 @@ def main() -> int:
           f'{BF16_ATOL}: one unit in the last place; mean |got - want| <= '
           f'{BF16_MEAN_TOL} mean |want|)')
     kernels.append(check_conv_bf16_kernel(device))
-    kernels.append(check_bottleneck_bf16_kernel(device))
+    kernels += check_bottleneck_bf16_kernel(device)
     kernels.append(check_winograd_bf16_kernel(device))
     torch.cuda.empty_cache()
 
@@ -7168,6 +7245,8 @@ def main() -> int:
           'alone and served')
     launches = backbone_bf16(model, crops, device)
     by_name['conv3x3_bf16']['launches'] = launches['conv3x3_bf16']
+    by_name['bottleneck_bf16_conv']['launches'] = \
+        launches['bottleneck_bf16_conv']
     print(f'  bf16 winograd_kernel: {launches["winograd_bf16"]} launches of '
           f'the bfloat16 Winograd kernel a forward')
     del crops

@@ -78,6 +78,9 @@ _SIGNATURES = {
     # x w1p w2p (bf16) a1 b1 alpha a2 b2 (fp32) v y (bf16), N H W C bn
     # stages, stream
     'fvt_bottleneck_bf16_forward': [_P] * 10 + [_I] * 6 + [_P],
+    # x w1p w2p (bf16) a1 b1 alpha a2 b2 (fp32) v y (bf16), N H W C stages,
+    # stream
+    'fvt_bottleneck_bf16_wgmma_forward': [_P] * 10 + [_I] * 5 + [_P],
     # x, bf16, n, amax scale_in scale_out q, stream
     'fvt_quantize_int8': [_P, _I, ctypes.c_longlong] + [_P] * 5,
     # xq wp (packed) wscale xscale y, bf16_out N H W C Co stride, stream

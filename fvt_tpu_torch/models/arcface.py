@@ -49,8 +49,9 @@ and the residual adds run on ``dtype`` activations, and the flatten casts
 back to float32 before ``output_layer``'s Linear and BatchNorm1d, so the
 embeddings are float32.  The ``'shifted_kernel'`` path launches a
 tensor-core kernel in either type (``ops/conv.py``): split TF32 at float32
-accuracy, or bfloat16, and so does ``fused_blocks`` (``ops/bottleneck.py``),
-on the same two conv kernels, and ``'winograd_kernel'``
+accuracy, or bfloat16, and so does ``fused_blocks`` (``ops/bottleneck.py``:
+two launches of the split-TF32 conv kernel, or of a bfloat16 block kernel
+of its own), and ``'winograd_kernel'``
 (``ops/winograd.py``): split TF32, or a bfloat16 product with the output
 transform in its epilogue.  Where the two
 frameworks round differently: flax normalises in ``dtype`` (the

@@ -22,15 +22,23 @@ PReLU in its store, into a workspace v in device memory, then conv2 with
 bn2 and the residual in its store.  :func:`bottleneck_ir_fused_tf32x3_ref`
 emulates what it computes, :func:`bn1_line` what conv1 stages.  For a
 bfloat16 CUDA tensor (``--amp``) it launches
-``fvt_bottleneck_bf16_forward`` (``csrc/conv3x3_wgmma.cu``) or raises: the
-same two launches on the bfloat16 ``wgmma`` conv, bn1 in a pass of its
-own over conv1's staged slice, with the Pallas kernel's rounding points
+``fvt_bottleneck_bf16_wgmma_forward`` (``csrc/bottleneck_bf16_wgmma.cu``)
+or raises (:func:`bf16_block_plan`): two launches of a bfloat16 ``wgmma``
+kernel of the block's own, conv1 with bn1 applied to each staged slice
+while the slice before is multiplied and PReLU in its store, conv2 with
+the residual staged by the copy engine and bn2 + x in its store, each
+tile's v or y written while the next tile's first slice is multiplied,
+with the Pallas kernel's rounding points
 (:func:`bottleneck_ir_fused_bf16_ref`).
 ``bottleneck_ir_fused.launches`` counts its calls on the card, one for
 the two launches, ``.launches_fp32`` and ``.launches_bf16`` those of each
-type.  :func:`bottleneck_ir_fused_simt`, the earlier kernel
+type.  Two earlier kernels stay for measurements, on no model path, each
+counting its own launches: :func:`bottleneck_ir_fused_bf16_conv`, the
+bfloat16 block as two launches of the bfloat16 conv kernel
+(``fvt_bottleneck_bf16_forward``, ``csrc/conv3x3_wgmma.cu``, bn1 in a pass
+of its own over conv1's staged slice), and :func:`bottleneck_ir_fused_simt`
 on the CUDA cores (``csrc/bottleneck.cu``, one launch, v kept in shared
-memory), stays for measurements: no model path calls it.  Eval only.
+memory).  Eval only.
 """
 from __future__ import annotations
 
@@ -194,18 +202,60 @@ def pack_block_weights_bf16(w1: torch.Tensor, w2: torch.Tensor) -> tuple:
     """``(w1_packed, w2_packed)``: both bfloat16 convs' kernels as the
     bfloat16 conv kernel reads them (``ops.conv.pack_weights``, column
     tiles of ``ops.conv.column_tile(C)``), what ``Conv3x3`` keeps for its
-    own launches in bfloat16."""
+    own launches in bfloat16.  Both bfloat16 block kernels read this
+    packing."""
     return conv_ops.pack_weights(w1), conv_ops.pack_weights(w2)
 
 
-def launch_bf16(x: torch.Tensor, packed: tuple, vecs: tuple,
-                v: torch.Tensor, out: torch.Tensor,
-                stages: int = BOTH) -> None:
-    """Launches the ``stages`` of the bfloat16 block on the current
-    stream: conv1 x -> v (bn1, PReLU), conv2 v -> out (bn2, + x), x, v and
-    out bfloat16.  ``packed`` as :func:`pack_block_weights_bf16` returns
-    it, ``vecs`` ``(a1, b1, alpha, a2, b2)`` float32.  Checks every tensor
-    and raises on a CUDA error; counts nothing."""
+# the bfloat16 block kernel's (csrc/bottleneck_bf16_wgmma.cu): staged
+# coordinates a slice at most, the barriers and the staged rows' alignment
+# ahead of the rest of its shared memory
+BF16_MAX_P, BF16_HEAD = 512, 256 + 1024
+MAX_SMEM = 227 * 1024
+
+
+def bf16_block_plan(n: int, h: int, w: int, c: int) -> dict:
+    """The bfloat16 block kernel's launch for x (N, H, W, C), as its C
+    entry computes it (``csrc/bottleneck_bf16_wgmma.cu`` block_plan):
+    ``bn`` the column tile (``ops.conv.column_tile(C)``: 64 up to C = 64,
+    then 128), ``p`` the staged coordinates a slice (``ROW_TILE + 2*(W+1)
+    + 2`` rounded up to ``LOAD``, at most ``BF16_MAX_P``), ``loads`` a
+    chunk, ``slots`` in the ring (4 at bn 64, 3 at 128), ``q`` the padded
+    coordinates, ``rows`` from the first pixel (W + 2 into the line), the
+    column tiles ``n_tiles`` and ``tiles``, ``vec_floats`` (bn1's or bn2's
+    vectors and alpha, padded to the column tiles) and ``smem_bytes`` (the
+    barriers and alignment, the staged output rows ``ROW_TILE x bn``, the
+    ring, the vectors; at most 227 KB).  Raises ValueError where the
+    kernel refuses: C not a multiple of 16, frames wider than 126, or N,
+    H, W past int indices."""
+    if n <= 0 or h <= 0 or w <= 0 or c <= 0 or c % 16:
+        raise ValueError(f'C {c} (N={n}, H={h}, W={w}): the bfloat16 block '
+                         f'takes a multiple of 16')
+    bn = conv_ops.column_tile(c)
+    slots = 4 if bn == 64 else 3
+    p = -(-(ROW_TILE + 2 * (w + 1) + 2) // LOAD) * LOAD
+    q = n * (h + 1) * (w + 1)
+    n_tiles = -(-c // bn)
+    vec = 2 * c + 2 * n_tiles * bn
+    slot = 2 * p * 16 + 9 * 16 * bn * 2
+    smem = BF16_HEAD + ROW_TILE * bn * 2 + slots * slot + 4 * vec
+    if p > BF16_MAX_P or smem > MAX_SMEM:
+        raise ValueError(f'W {w} (C={c}): the bfloat16 block stages {p} '
+                         f'coordinates a slice; it takes up to '
+                         f'{BF16_MAX_P} (W <= 126) within {MAX_SMEM} bytes '
+                         f'of shared memory')
+    if q > 2 ** 31 - 1 - 4096:
+        raise ValueError(f'N*(H+1)*(W+1) = {q}: past the bfloat16 block\'s '
+                         f'int indices')
+    rows = q - (w + 2)
+    return {'bn': bn, 'p': p, 'loads': p // LOAD, 'slots': slots, 'q': q,
+            'rows': rows, 'n_tiles': n_tiles,
+            'tiles': -(-rows // ROW_TILE) * n_tiles, 'vec_floats': vec,
+            'smem_bytes': smem}
+
+
+def _check_bf16(x: torch.Tensor, packed: tuple, vecs: tuple,
+                v: torch.Tensor, out: torch.Tensor) -> None:
     n, h, w, c = x.shape
     bn = conv_ops.column_tile(c)
     bf16 = torch.bfloat16
@@ -218,12 +268,45 @@ def launch_bf16(x: torch.Tensor, packed: tuple, vecs: tuple,
         ('a1', 'b1', 'alpha', 'a2', 'b2'), vecs)]
     for name, t, want, dtype in tensors:
         build.check_tensor(name, t, want, x.device, dtype)
+
+
+def launch_bf16(x: torch.Tensor, packed: tuple, vecs: tuple,
+                v: torch.Tensor, out: torch.Tensor,
+                stages: int = BOTH) -> None:
+    """Launches the ``stages`` of the bfloat16 block kernel
+    (``fvt_bottleneck_bf16_wgmma_forward``) on the current stream: conv1
+    x -> v (bn1, PReLU), conv2 v -> out (bn2, + x), x, v and out
+    bfloat16.  ``packed`` as :func:`pack_block_weights_bf16` returns it,
+    ``vecs`` ``(a1, b1, alpha, a2, b2)`` float32.  Checks every tensor,
+    raises where :func:`bf16_block_plan` refuses and on a CUDA error;
+    counts nothing (a measurement may launch one conv alone)."""
+    n, h, w, c = x.shape
+    bf16_block_plan(n, h, w, c)
+    _check_bf16(x, packed, vecs, v, out)
+    err = build.library().fvt_bottleneck_bf16_wgmma_forward(
+        x.data_ptr(), *(t.data_ptr() for t in packed),
+        *(t.data_ptr() for t in vecs), v.data_ptr(), out.data_ptr(), n, h,
+        w, c, stages, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f'bottleneck bfloat16 kernel (N={n}, H={h}, W={w}, '
+                     f'C={c}, stages={stages})')
+
+
+def launch_bf16_conv(x: torch.Tensor, packed: tuple, vecs: tuple,
+                     v: torch.Tensor, out: torch.Tensor,
+                     stages: int = BOTH) -> None:
+    """:func:`launch_bf16` on the earlier design, two launches of the
+    bfloat16 conv kernel (``fvt_bottleneck_bf16_forward``,
+    ``csrc/conv3x3_wgmma.cu``): the same arguments, tensors and result.
+    Counts nothing."""
+    n, h, w, c = x.shape
+    _check_bf16(x, packed, vecs, v, out)
     err = build.library().fvt_bottleneck_bf16_forward(
         x.data_ptr(), *(t.data_ptr() for t in packed),
         *(t.data_ptr() for t in vecs), v.data_ptr(), out.data_ptr(), n, h,
-        w, c, bn, stages, torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, f'bottleneck bfloat16 kernel (N={n}, H={h}, W={w}, '
-                     f'C={c}, stages={stages})')
+        w, c, conv_ops.column_tile(c), stages,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f'bottleneck bfloat16 conv kernel (N={n}, H={h}, '
+                     f'W={w}, C={c}, stages={stages})')
 
 
 def launch_tf32x3(x: torch.Tensor, packed: tuple, vecs: tuple,
@@ -272,21 +355,13 @@ def bottleneck_ir_fused(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
         ref = bottleneck_ir_fused_bf16_ref if bf16 else bottleneck_ir_fused_ref
         return ref(x, w1, w2, a1, b1, alpha, a2, b2)
     if bf16:
-        c = x.shape[3]
-        if c % 16:
-            raise ValueError(f'C {c}: the bfloat16 block takes a multiple '
-                             f'of 16')
-        if packed is None:
-            for name, k in (('w1', w1), ('w2', w2)):
-                build.check_tensor(name, k, (3, 3, c, c), x.device, x.dtype)
-            packed = pack_block_weights_bf16(w1, w2)
-        out = torch.empty_like(x)
-        if out.numel() == 0:
-            return out
-        launch_bf16(x, packed, (a1, b1, alpha, a2, b2), torch.empty_like(x),
-                    out)
-        bottleneck_ir_fused.launches += 1
-        bottleneck_ir_fused.launches_bf16 += 1
+        if x.numel():  # the shapes the kernel refuses raise here
+            bf16_block_plan(*x.shape)
+        out = _bf16_block(x, w1, w2, (a1, b1, alpha, a2, b2), packed,
+                          launch_bf16)
+        if x.numel():
+            bottleneck_ir_fused.launches += 1
+            bottleneck_ir_fused.launches_bf16 += 1
         return out
     if packed is None:
         c = x.shape[3]
@@ -306,6 +381,53 @@ def bottleneck_ir_fused(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
 bottleneck_ir_fused.launches = 0
 bottleneck_ir_fused.launches_fp32 = 0
 bottleneck_ir_fused.launches_bf16 = 0
+
+
+def _bf16_block(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                vecs: tuple, packed: Optional[tuple],
+                launch) -> torch.Tensor:
+    """A new y: the bfloat16 block on the card through ``launch``
+    (nothing launched for an empty x).  Raises for C not a multiple of 16
+    before packing anything."""
+    c = x.shape[3]
+    if c % 16:
+        raise ValueError(f'C {c}: the bfloat16 block takes a multiple of 16')
+    if packed is None:
+        for name, k in (('w1', w1), ('w2', w2)):
+            build.check_tensor(name, k, (3, 3, c, c), x.device, x.dtype)
+        packed = pack_block_weights_bf16(w1, w2)
+    out = torch.empty_like(x)
+    if x.numel():
+        launch(x, packed, vecs, torch.empty_like(x), out)
+    return out
+
+
+def bottleneck_ir_fused_bf16_conv(x: torch.Tensor, w1: torch.Tensor,
+                                  w2: torch.Tensor, a1: torch.Tensor,
+                                  b1: torch.Tensor, alpha: torch.Tensor,
+                                  a2: torch.Tensor, b2: torch.Tensor,
+                                  packed: Optional[tuple] = None
+                                  ) -> torch.Tensor:
+    """The earlier design of :func:`bottleneck_ir_fused`'s bfloat16 route,
+    two launches of the bfloat16 conv kernel (:func:`launch_bf16_conv`),
+    on no path, kept to be timed beside it: the same arguments (x
+    bfloat16) and result; the plain version on the CPU;
+    ``bottleneck_ir_fused_bf16_conv.launches`` counts its calls."""
+    _check_call('bottleneck_ir_fused_bf16_conv', x, w1, w2, a1, b1, alpha,
+                a2, b2)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f'bottleneck_ir_fused_bf16_conv takes bfloat16, '
+                         f'not {x.dtype}')
+    if x.device.type == 'cpu':
+        return bottleneck_ir_fused_bf16_ref(x, w1, w2, a1, b1, alpha, a2, b2)
+    out = _bf16_block(x, w1, w2, (a1, b1, alpha, a2, b2), packed,
+                      launch_bf16_conv)
+    if x.numel():
+        bottleneck_ir_fused_bf16_conv.launches += 1
+    return out
+
+
+bottleneck_ir_fused_bf16_conv.launches = 0
 
 
 # the CUDA-core kernel (csrc/bottleneck.cu), bottleneck_ir_fused_simt

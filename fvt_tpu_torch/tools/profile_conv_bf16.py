@@ -4,7 +4,7 @@ products, on the card.
     python3 -m fvt_tpu_torch.tools.profile_conv_bf16 [--frames 2400]
         [--iters 20]
         [--dtype bfloat16|float32|winograd|winograd_bf16|winograd_bf16_fused
-                 |s8] [--also NAME=SOURCE[:FLAG,...] ...]
+                 |s8|bottleneck_bf16] [--also NAME=SOURCE[:FLAG,...] ...]
 
 Builds the kernel's source alone into ``build/``, once as it is and once
 per diagnostic switch: ``-DFVT_DIAG_PRODUCTS_ONLY`` (no copy into shared
@@ -36,8 +36,24 @@ a dynamic scale), checked bit for bit against ``ops.quant.conv3x3_s8_ref``
 and summed over the 41 int8 convs of a forward, beside ``F.conv2d`` on
 bfloat16; every build is timed in turns (in order, then reversed, the two
 medians averaged), and ``--also`` adds builds of other sources of the same
-C entry (a variant under study, beside the kernel in one call).  The
-diagnostic builds give wrong sums; every other build
+C entry (a variant under study, beside the kernel in one call).
+``--dtype bottleneck_bf16`` takes the bfloat16 block kernel of the
+fused identity BottleneckIR, ``csrc/bottleneck_bf16_wgmma.cu``, as it is
+and in four diagnostic builds
+(``-DFVT_DIAG_PRODUCTS_ONLY``, ``-DFVT_DIAG_COPIES_ONLY``,
+``-DFVT_DIAG_NO_BN1``: conv1's staged x not rewritten,
+``-DFVT_DIAG_NO_GLOBAL_STORE``: no v or y written), beside the earlier
+design of the block (two launches of the bfloat16 conv kernel with bn1,
+PReLU and bn2 + x fused, ``fvt_bottleneck_bf16_forward``) and that conv
+kernel alone on the block's two convs (``fvt_conv3x3_bf16_forward``, B4
+bfloat16: the same products with no elementwise work), both from
+``csrc/conv3x3_wgmma.cu``, at the IR-50's four identity-block shapes
+(weights packed once), each build's block, conv1 and conv2 timed in
+turns and summed over the 21 blocks (42 convs) of a forward; the builds
+without a diagnostic switch are checked (v within one unit in the last
+place of ``bottleneck_bf16_conv1_ref``, y on the plain v of
+``bottleneck_bf16_conv2_ref``) and compared bit for bit with the earlier
+design's v and y.  The diagnostic builds give wrong sums; every other build
 (any that ``KERNELS`` lists without a ``-DFVT_DIAG`` switch) is checked
 against the plain version (bfloat16, both kernels: one unit in
 the last place; float32: rtol = atol = 1e-4; Winograd, all three
@@ -56,6 +72,7 @@ import json
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -78,6 +95,12 @@ KERNELS = {
     'winograd_bf16': ('winograd_bf16.cu', 'fvt_winograd_bf16_forward', 4, 6,
                       dict(DIAG, no_store=('-DFVT_DIAG_NO_STORE',))),
     's8': ('conv3x3_s8_wgmma.cu', 'fvt_conv3x3_s8_forward', 5, 7, DIAG),
+    'bottleneck_bf16': (
+        'bottleneck_bf16_wgmma.cu', 'fvt_bottleneck_bf16_wgmma_forward', 10,
+        5, {'kernel': (), 'products_only': ('-DFVT_DIAG_PRODUCTS_ONLY',),
+            'copies_only': ('-DFVT_DIAG_COPIES_ONLY',),
+            'no_bn1': ('-DFVT_DIAG_NO_BN1',),
+            'no_global_store': ('-DFVT_DIAG_NO_GLOBAL_STORE',)}),
     'winograd_bf16_fused': (
         'winograd_bf16.cu', 'fvt_winograd_bf16_fused_forward', 3, 5,
         {'kernel': (), 'products_only': ('-DFVT_DIAG_PRODUCTS_ONLY',),
@@ -96,18 +119,38 @@ def build_variants(source: str, entry: str, pointers: int, ints: int,
     pointer and int arguments before the stream."""
     from fvt_tpu_torch.kernels import build
 
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = build.CSRC_DIR / source
     builds = {name: (src, flags) for name, flags in variants.items()}
     builds.update(others or {})
-    paths = {name: build.BUILD_DIR / f'{src.stem}-{name}.so'
-             for name in builds}
+    return {name: bind(lib, entry, pointers, ints)
+            for name, lib in build_libs(builds).items()}
+
+
+def bind(lib: ctypes.CDLL, entry: str, pointers: int, ints: int):
+    """The C entry of ``lib`` with its pointer and int arguments before
+    the stream."""
+    fn = getattr(lib, entry)
+    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build_libs(builds: dict) -> dict:
+    """{name: library}: each of ``builds`` ({name: (source path, nvcc
+    flags)}) built by one nvcc process, all at once, into ``build/``;
+    prints each build's register and spill report."""
+    from fvt_tpu_torch.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: build.BUILD_DIR / f'{Path(path).stem}-{name}.so'
+             for name, (path, _) in builds.items()}
     procs = {name: subprocess.Popen(
         [build.nvcc(), *build.NVCC_FLAGS, *flags, '-I', str(build.CSRC_DIR),
          '-shared', '-o', str(paths[name]), str(path)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, (path, flags) in builds.items()}
-    fns = {}
+    libs = {}
     for name, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
@@ -116,12 +159,8 @@ def build_variants(source: str, entry: str, pointers: int, ints: int,
                             if 'registers' in ln or 'spill' in ln
                             or 'Performance Loss' in ln}):
             print(f'  {name}: {line}')
-        fn = getattr(ctypes.CDLL(str(paths[name])), entry)
-        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+        libs[name] = ctypes.CDLL(str(paths[name]))
+    return libs
 
 
 def median_ms(fn, iters: int) -> float:
@@ -224,6 +263,121 @@ def profile_s8(fns: dict, checked: list, n: int, iters: int) -> dict:
                                  if k not in wrong}}
 
 
+# the IR-50's identity blocks: (H = W, C, blocks a forward)
+BLOCK_SHAPES = ((40, 64, 3), (20, 128, 3), (10, 256, 13), (5, 512, 2))
+
+
+def profile_block(fns: dict, checked: list, conv_design, conv, n: int,
+                  iters: int) -> dict:
+    """The bfloat16 block kernel's builds (``fns``), the earlier design
+    (``conv_design``, ``fvt_bottleneck_bf16_forward``) and the bfloat16
+    conv kernel alone on the block's two convs (``conv``) at BLOCK_SHAPES
+    on n frames: the checks of the module docstring, then each one's
+    block, conv1 and conv2 timed in turns; the shapes' rows and the totals
+    over the 21 blocks.  ``checked`` names the builds held to the plain
+    version."""
+    from fvt_tpu_torch.ops import bottleneck as block_ops
+    from fvt_tpu_torch.ops import conv as conv_ops
+
+    device = torch.device('cuda', 0)
+    g = torch.Generator(device=device).manual_seed(0)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    names = [*fns, 'conv_design', 'b4_convs']
+    parts = ('block', 'conv1', 'conv2')
+    total = {name: dict.fromkeys(parts, 0.0) for name in names}
+    shapes, bit_equal = {}, {}
+    with torch.inference_mode():
+        for h, c, count in BLOCK_SHAPES:
+            def randn(*shape, scale=1.0, shift=0.0):
+                return torch.randn(*shape, device=device,
+                                   generator=g) * scale + shift
+            x = randn(n, h, h, c).bfloat16()
+            w1, w2 = (randn(3, 3, c, c, scale=(9 * c) ** -0.5).bfloat16()
+                      for _ in range(2))
+            vecs = (randn(c, scale=0.2, shift=1.0), randn(c, scale=0.5),
+                    randn(c, scale=0.1, shift=0.25),
+                    randn(c, scale=0.2, shift=1.0), randn(c, scale=0.5))
+            packed = block_ops.pack_block_weights_bf16(w1, w2)
+            v, y = torch.empty_like(x), torch.empty_like(x)
+            bn = conv_ops.column_tile(c)
+
+            def ptrs(v_, y_):
+                return (x.data_ptr(), *(t.data_ptr() for t in packed),
+                        *(t.data_ptr() for t in vecs), v_.data_ptr(),
+                        y_.data_ptr())
+
+            def launch(name, stages, v_=v, y_=y):
+                if name == 'conv_design':
+                    err = conv_design(*ptrs(v_, y_), n, h, h, c, bn, stages,
+                                      stream)
+                elif name == 'b4_convs':  # conv1 x -> v, conv2 v -> y
+                    err = 0
+                    if stages & 1:
+                        err = conv(x.data_ptr(), packed[0].data_ptr(),
+                                   v_.data_ptr(), n, h, h, c, c, bn, stream)
+                    if stages & 2 and not err:
+                        err = conv(v_.data_ptr(), packed[1].data_ptr(),
+                                   y_.data_ptr(), n, h, h, c, c, bn, stream)
+                else:
+                    err = fns[name](*ptrs(v_, y_), n, h, h, c, stages,
+                                    stream)
+                if err:
+                    raise RuntimeError(f'{name}: CUDA error {err}')
+
+            # the checks: v and y (on the plain v) within one unit in the
+            # last place of the plain version, and against the earlier
+            # design's bit for bit
+            v_plain = block_ops.bottleneck_bf16_conv1_ref(x, w1, *vecs[:3])
+            y_plain = block_ops.bottleneck_bf16_conv2_ref(v_plain, x, w2,
+                                                          *vecs[3:])
+            v_old, y_old = torch.empty_like(x), torch.empty_like(x)
+            launch('conv_design', block_ops.CONV1, v_old, y_old)
+            launch('conv_design', block_ops.CONV2, v_plain, y_old)
+            key = f'{h}x{h}x{c} x{count}'
+            for name in checked:
+                launch(name, block_ops.CONV1)
+                launch(name, block_ops.CONV2, v_plain, y)
+                for what, got, want in (('v', v, v_plain), ('y', y, y_plain)):
+                    apart = (got.float() - want.float()).abs()
+                    if (apart > want.float().abs() * 2.0 ** -7
+                            + 2.0 ** -9).any():
+                        raise RuntimeError(f'{key}: the {name} build\'s '
+                                           f'{what} disagrees with its '
+                                           f'plain version')
+                bit_equal[f'{name} {key}'] = [torch.equal(v, v_old),
+                                              torch.equal(y, y_old)]
+            del v_plain, y_plain, v_old, y_old
+            flops = 2 * 2.0 * 9 * n * h * h * c * c
+            turns = {name: {part: [] for part in parts} for name in names}
+            for order in (names, names[::-1]):
+                for name in order:
+                    for part, stages in zip(parts, (block_ops.BOTH,
+                                                    block_ops.CONV1,
+                                                    block_ops.CONV2)):
+                        turns[name][part].append(median_ms(
+                            lambda: launch(name, stages), iters))
+            row = {}
+            for name, times in turns.items():
+                row[name] = {part: round(statistics.mean(t), 4)
+                             for part, t in times.items()}
+                row[name]['tflops'] = round(
+                    flops / statistics.mean(times['block']) / 1e9, 1)
+                for part, t in times.items():
+                    total[name][part] += count * statistics.mean(t)
+            row['bound_ms'] = round(flops / 989e12 * 1e3, 4)
+            # the share of the multiplies that lands on real pixels
+            row['real_rows'] = round(h * h / (h + 1) ** 2, 4)
+            shapes[key] = row
+            del x, w1, w2, vecs, packed, v, y
+    return {'shapes': shapes, 'bit_equal_conv_design': bit_equal,
+            'ms_over_21_blocks': {
+                name: {part: round(ms, 4) for part, ms in parts_.items()}
+                for name, parts_ in total.items()},
+            'bound_ms_over_21_blocks': round(sum(
+                count * 2 * 2.0 * 9 * n * h * h * c * c
+                for h, c, count in BLOCK_SHAPES) / 989e12 * 1e3, 4)}
+
+
 def main(argv=None) -> int:
     from fvt_tpu_torch.ops import conv as conv_ops
     from fvt_tpu_torch.ops import winograd as winograd_ops
@@ -234,15 +388,16 @@ def main(argv=None) -> int:
     ap.add_argument('--dtype', default='bfloat16', choices=sorted(KERNELS))
     ap.add_argument('--also', action='append', default=[],
                     metavar='NAME=SOURCE[:FLAG,...]',
-                    help='s8: a build of another source, timed beside')
+                    help='s8, bottleneck_bf16: a build of another source '
+                         'of the same C entry, timed beside')
     args = ap.parse_args(argv)
     others = {}
     for spec in args.also:
         name, _, rest = spec.partition('=')
         path, _, flags = rest.partition(':')
         others[name] = (path, tuple(f for f in flags.split(',') if f))
-    if others and args.dtype != 's8':
-        ap.error('--also is for --dtype s8')
+    if others and args.dtype not in ('s8', 'bottleneck_bf16'):
+        ap.error('--also is for --dtype s8 and bottleneck_bf16')
     if not torch.cuda.is_available():
         print('profile_conv_bf16: no CUDA device', file=sys.stderr)
         return 1
@@ -252,6 +407,31 @@ def main(argv=None) -> int:
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card)
+    if args.dtype == 'bottleneck_bf16':
+        from fvt_tpu_torch.kernels import build
+
+        source, entry, pointers, ints, variants = KERNELS[args.dtype]
+        builds = {name: (build.CSRC_DIR / source, flags)
+                  for name, flags in variants.items()}
+        builds.update(others)
+        builds['conv_design'] = (build.CSRC_DIR / 'conv3x3_wgmma.cu', ())
+        libs = build_libs(builds)
+        fns = {name: bind(libs[name], entry, pointers, ints)
+               for name in builds if name != 'conv_design'}
+        lib = libs['conv_design']
+        checked = [name for name, (_, flags) in builds.items()
+                   if name != 'conv_design'
+                   and not any(f.startswith('-DFVT_DIAG') for f in flags)]
+        print(json.dumps({
+            'platform': 'cuda', 'card': card,
+            'kind': torch.cuda.get_device_name(0), 'dtype': args.dtype,
+            'frames': args.frames, 'iters': args.iters,
+            'also': {k: [str(v[0]), *v[1]] for k, v in others.items()},
+            **profile_block(
+                fns, checked, bind(lib, 'fvt_bottleneck_bf16_forward', 10, 6),
+                bind(lib, 'fvt_conv3x3_bf16_forward', 3, 6), args.frames,
+                args.iters)}))
+        return 0
     fns = build_variants(*KERNELS[args.dtype], others)
     if args.dtype == 's8':
         checked = [name for name, flags in (

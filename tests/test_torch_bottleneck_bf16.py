@@ -1,10 +1,12 @@
 """The fused BottleneckIR block (B5) on bfloat16 tensors (``--amp``), on
 the CPU.
 
-The CUDA route (``fvt_bottleneck_bf16_forward`` in
-``csrc/conv3x3_wgmma.cu``: two launches of the bfloat16 ``wgmma`` conv,
-bn1 in a pass over conv1's staged slice, PReLU in conv1's store, bn2 and
-the residual in conv2's) runs only on the card; what it computes is held
+The CUDA route (``fvt_bottleneck_bf16_wgmma_forward`` in
+``csrc/bottleneck_bf16_wgmma.cu``: two launches of the block's own
+bfloat16 ``wgmma`` kernel, bn1 over conv1's staged slices, PReLU in
+conv1's store, bn2 and the residual in conv2's; its addressing is
+emulated in ``tests/test_torch_bottleneck_bf16_wgmma.py``) runs only on
+the card; what it computes is held
 here: :func:`bottleneck_ir_fused_bf16_ref`, the Pallas kernel's rounding
 points, against ``fvt_tpu``'s ``bottleneck_ir_fused`` on bfloat16 arrays
 in interpret mode (as ``tests/test_bottleneck_pallas.py`` runs it); the
