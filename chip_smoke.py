@@ -4938,13 +4938,80 @@ def int8_inputs(n, h, w, c, co, dtype, device, seed):
     return x.to(dtype), k
 
 
-def check_int8_pair(name, x, k, stride, out_dtype, static, timed):
-    """The quantise kernel and the s8 conv (the wgmma kernel, on weights
-    packed once) against their plain versions on x, bit for bit (q, the
-    scale, the amax, y), dynamic or with a calibrated scale; with
-    ``timed`` the mma.sync design too.  Returns the largest |y - plain|
-    (0), the largest |q - plain q| (0, an int) and, with ``timed``, the ms
-    of the quantise kernel, the conv kernel, their plain versions and the
+def int8_producers(c: int, device, seed: int) -> tuple:
+    """A BatchNorm2d (eval; weight, bias and running statistics drawn from
+    ``seed``) and PReLU slopes of both signs, c channels on the card: the
+    two producers of a quantised conv's input."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    bn = torch.nn.BatchNorm2d(c).to(device).requires_grad_(False)
+    for t, lo, hi in ((bn.weight, 0.5, 1.5), (bn.bias, -0.5, 0.5),
+                      (bn.running_mean, -0.5, 0.5),
+                      (bn.running_var, 0.2, 2.0)):
+        t.copy_(torch.rand(c, device=device, generator=g) * (hi - lo) + lo)
+    alpha = torch.rand(c, device=device, generator=g) - 0.5
+    return bn, alpha
+
+
+def int8_prologue(kind, bn, alpha, dtype):
+    """The quantise pass's prologue of ``kind`` (None, 'bn1' or 'prelu')
+    in ``dtype``, derived as ``BottleneckIR.int8_prologues`` derives it."""
+    from fvt_tpu_torch.models.arcface import bn_terms
+
+    if kind == 'bn1':
+        return ('bn1', *bn_terms(bn, bn.running_mean, bn.running_var, dtype))
+    return None if kind is None else ('prelu', alpha.to(dtype))
+
+
+def plant_half_integers(x: torch.Tensor) -> torch.Tensor:
+    """A copy of x within +-7.5 with an amax of 127/16, so that the scale
+    is 1/16 exactly (dynamic, where the prologue keeps the amax, and as
+    the calibrated scale), and, at its start, every (k + 1/2)/16 for |k +
+    1/2| < 128 with the two representable values either side (as many
+    as x holds): the quantisation's ties and their neighbours."""
+    y = x.clamp(-7.5, 7.5)
+    k = torch.arange(-128, 128, dtype=torch.float64) + 0.5
+    base = (k / 16).to(x.dtype)
+    bits = base.view(torch.int16 if x.dtype == torch.bfloat16
+                     else torch.int32)
+    vals = torch.cat([torch.tensor([127 / 16], dtype=x.dtype)]
+                     + [(bits + d).view(x.dtype) for d in (0, 1, -1, 2, -2)])
+    m = min(vals.numel(), y.numel())  # as many as a small x holds
+    y.view(-1)[:m] = vals[:m].to(x.device)
+    return y
+
+
+def check_quantise(name, x, prologue, static) -> int:
+    """The fused quantise pass against its plain version on x with the
+    prologue, bit for bit (q, the scale, the amax), dynamic or with a
+    calibrated scale of 1/16 (the tail clips at 127).  Returns the largest
+    |q - plain q| (0)."""
+    from fvt_tpu_torch.ops import quant
+
+    scale_in = (torch.full((1,), 1 / 16, device=x.device) if static
+                else None)
+    got = quant.quantize_int8(x, scale_in, prologue)
+    want = quant.quantize_int8_ref(x, scale_in, prologue)
+    torch.cuda.synchronize()
+    same = torch.equal(got[0], want[0]) and all(
+        (a is None) == (b is None)
+        and (a is None or torch.equal(a.reshape(1), b.reshape(1)))
+        for a, b in zip(got[1:], want[1:]))
+    q_err = int((got[0].int() - want[0].int()).abs().max())
+    if not same:
+        fail(f'{name}: the quantise pass differs from its plain version '
+             f'(max |q - plain| {q_err}, scale {got[1]} vs {want[1]}, amax '
+             f'{got[2]} vs {want[2]})')
+    return q_err
+
+
+def check_int8_pair(name, x, k, stride, out_dtype, static, timed,
+                    prologue=None):
+    """The quantise pass (with ``prologue``) and the s8 conv (the wgmma
+    kernel, on weights packed once) against their plain versions on x, bit
+    for bit (q, the scale, the amax, y), dynamic or with a calibrated
+    scale; with ``timed`` the mma.sync design too.  Returns the largest |y
+    - plain| (0), the largest |q - plain q| (0, an int) and, with
+    ``timed``, the ms of the conv kernel, its plain version and the
     mma.sync design (median of CONV_RUNS calls)."""
     from fvt_tpu_torch.ops import quant
 
@@ -4953,9 +5020,12 @@ def check_int8_pair(name, x, k, stride, out_dtype, static, timed):
     scale_in = None
     if static:
         # a calibrated amax below the batch's own: the tail clips at 127
-        scale_in = quant.act_scale(x.float().abs().amax().reshape(1) * 0.9)
-    q, scale, amax = quant.quantize_int8(x, scale_in)
-    q_ref, scale_ref, amax_ref = quant.quantize_int8_ref(x, scale_in)
+        v = quant.prologue_ref(x, prologue)
+        scale_in = quant.act_scale(v.float().abs().amax().reshape(1) * 0.9)
+        del v
+    q, scale, amax = quant.quantize_int8(x, scale_in, prologue)
+    q_ref, scale_ref, amax_ref = quant.quantize_int8_ref(x, scale_in,
+                                                         prologue)
     y = quant.conv3x3_s8(q, scale, wq, wscale, stride, out_dtype, packed=wp)
     y_ref = quant.conv3x3_s8_ref(q_ref, scale_ref, wq, wscale, stride,
                                  out_dtype)
@@ -4972,31 +5042,92 @@ def check_int8_pair(name, x, k, stride, out_dtype, static, timed):
     err = float((y.float() - y_ref.float()).abs().max())
     q_err = int((q.int() - q_ref.int()).abs().max())
     clipped = int((q_ref.abs() == 127).sum())
+    what = 'no prologue' if prologue is None else prologue[0]
     if not same or not equal or not bool(torch.isfinite(y).all()):
         fail(f'{name}: the int8 kernels differ from their plain versions '
              f'(q, scale and amax equal: {same}, y equal: {equal}, max '
              f'|y - plain| {err:.3e}, max |q - plain| {q_err})')
     if not timed:
-        print(f'  {name}: q, scale and y bit for bit ({clipped} values '
-              f'at +-127)')
+        print(f'  {name} ({what}): q, scale and y bit for bit ({clipped} '
+              f'values at +-127)')
         return err, q_err, None
     times = (
-        median_ms(lambda: quant.quantize_int8(x, scale_in), CONV_RUNS),
         median_ms(lambda: quant.conv3x3_s8(q, scale, wq, wscale, stride,
                                            out_dtype, packed=wp), CONV_RUNS),
-        median_ms(lambda: quant.quantize_int8_ref(x, scale_in), 3,
-                  warmup=1),
         median_ms(lambda: quant.conv3x3_s8_ref(q_ref, scale_ref, wq, wscale,
                                                stride, out_dtype), 3,
                   warmup=1),
         median_ms(lambda: quant.conv3x3_s8_mma(q, scale, wq, wscale, stride,
                                                out_dtype), CONV_RUNS))
-    print(f'  {name}: q, scale and y bit for bit ({clipped} values at '
-          f'+-127; the mma.sync design too); quantise {times[0]:.4f} ms '
-          f'(plain {times[2]:.4f}), s8 conv {times[1]:.4f} ms '
+    print(f'  {name} ({what}): q, scale and y bit for bit ({clipped} values '
+          f'at +-127; the mma.sync design too); s8 conv {times[0]:.4f} ms '
           f'({quant.s8_plan(*q.shape, wq.shape[0], stride)["route"]}; '
-          f'mma.sync {times[4]:.4f}, plain {times[3]:.4f})')
+          f'mma.sync {times[2]:.4f}, plain {times[1]:.4f})')
     return err, q_err, times
+
+
+def burst_ms(fn, calls: int = RUNS) -> float:
+    """ms a call of ``calls`` calls of ``fn`` back to back between two CUDA
+    events, after a warm-up: the launches queue up, so a wrapper's host
+    time shows only where it exceeds the device's."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def quantise_times(x, bn, alpha, kind) -> dict:
+    """ms of the quantise pass of one conv's input x with the prologue of
+    ``kind``, dynamic and static, and of today's composition before it:
+    the producer as an op of its own (``F.batch_norm`` or ``F.prelu`` on
+    the NCHW view, as ``BottleneckIR`` runs it on the float path) and the
+    atomic pass (``quantize_int8_atomic``) on its output, dynamic and
+    static (each ``burst_ms``, wrapper included), and the plain version
+    (dynamic, median of 3 calls)."""
+    from fvt_tpu_torch.models.arcface import batchnorm_eval
+    from fvt_tpu_torch.ops import quant
+
+    prologue = int8_prologue(kind, bn, alpha, x.dtype)
+    scale = quant.quantize_int8(x, None, prologue)[1].clone()
+    nchw = x.permute(0, 3, 1, 2)
+
+    def producer():  # arcface.py batchnorm_eval, prelu_as
+        return (batchnorm_eval(bn, nchw) if kind == 'bn1'
+                else F.prelu(nchw, prologue[1]))
+
+    made = producer().permute(0, 2, 3, 1)
+    out = {
+        'dynamic': burst_ms(lambda: quant.quantize_int8(x, None, prologue)),
+        'static': burst_ms(lambda: quant.quantize_int8(x, scale, prologue)),
+        'plain': median_ms(lambda: quant.quantize_int8_ref(x, None,
+                                                           prologue), 3,
+                           warmup=1),
+        'producer': burst_ms(producer),
+        'atomic': burst_ms(lambda: quant.quantize_int8_atomic(made)),
+        'atomic_static': burst_ms(
+            lambda: quant.quantize_int8_atomic(made, scale))}
+    # F.prelu gives prologue_ref's bits, so the composition is the same
+    # function there (F.batch_norm rounds elsewhere: bn1 is not compared)
+    if kind == 'prelu' and not all(
+            torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(
+                quant.quantize_int8_atomic(made),
+                quant.quantize_int8(x, None, prologue))):
+        fail('the atomic pass on F.prelu\'s output differs from the fused '
+             'pass with the PReLU prologue')
+    del made
+    return out
+
+
+# the producers of the quantised convs' inputs by INT8_SHAPES row:
+# (bn1-fed convs, PReLU-fed convs), 20 and 21 in all
+INT8_PRODUCERS = ((0, 1), (3, 3), (1, 0), (0, 1), (13, 13), (1, 0), (0, 1),
+                  (2, 2))
 
 
 def int_mm_ms(x, k, stride):
@@ -5019,28 +5150,86 @@ def int_mm_ms(x, k, stride):
     return ms
 
 
-def check_int8_kernels(device) -> list:
-    """Phase 13, step 1: the quantise kernel and the s8 conv (the wgmma
-    kernel) against their plain versions, bit for bit, at the eight int8
-    shapes of the IR-50 at N = 2400 (float32 in and out, and bfloat16 in
-    and out as under --amp; dynamic and static) and at edge shapes, the
-    conv's one launch and no allocation beyond y a call, and its refusals
-    (and the mma.sync design's); each dynamic pair timed beside the
-    mma.sync design, ``F.conv2d`` on bfloat16 and ``torch._int_mm`` over
-    an im2col.  Returns the two kernels' entries: totals over the 41 convs
-    of a forward, bfloat16 as under --amp (the float32 totals beside them),
-    the conv's with the mma.sync design's numbers beside its own."""
+def check_quantise_refusals(device) -> None:
+    """What the fused quantise pass refuses raises before any launch (the
+    wrapper) or returns an error (the C entry), and counts nothing."""
     from fvt_tpu_torch.kernels import build
     from fvt_tpu_torch.ops import quant
 
-    tot = {f'{key}{dt}': 0.0 for key in ('quant', 'conv', 'quant_plain',
-                                         'conv_plain', 'conv2d', 'mma')
-           for dt in ('', '_bf16')}
+    before = (quant.quantize_int8.launches, quant.quantize_int8.launches_amax)
+    x = torch.zeros(2, 3, 3, 32, device=device)
+    ones = torch.ones(32, device=device)
+    cases = (
+        ('C = 24', torch.zeros(2, 3, 3, 24, device=device),
+         ('prelu', torch.ones(24, device=device))),
+        ('a prologue of 16 values', x, ('prelu', ones[:16])),
+        ('a bfloat16 prologue on float32 x', x,
+         ('prelu', ones.bfloat16())),
+        ('a prologue on the CPU', x, ('prelu', ones.cpu())),
+        ('bn1 with two tensors', x, ('bn1', ones, ones)),
+        ('an NCHW view', x.permute(0, 3, 1, 2), ('prelu', ones[:3])),
+        ('an unknown prologue', x, ('relu', ones)))
+    for what, xx, prologue in cases:
+        for scale in (None, torch.ones(1, device=device)):
+            try:
+                quant.quantize_int8(xx, scale, prologue)
+            except ValueError as e:
+                last = e
+            else:
+                fail(f'quantize_int8 took {what}')
+        print(f'  quantize_int8 refused {what}: {last}')
+    stream = torch.cuda.current_stream(device).cuda_stream
+    words = torch.empty(2 + quant.MAX_PARTS, device=device)
+    q = torch.empty(2 * 3 * 3 * 32, dtype=torch.int8, device=device)
+    one = torch.ones(1, device=device)
+    for what, n, c, kind, sin, qq in (
+            ('C = 24', 432, 24, 2, None, q),
+            ('n not a multiple of C', 48, 32, 2, None, q),
+            ('prologue 3', 576, 32, 3, None, q),
+            ('static without q', 576, 32, 2, one, None),
+            ('C = 8192', 8192, 8192, 2, None, q)):
+        code = build.library().fvt_quantize_int8_fused(
+            x.data_ptr(), 0, n, c, kind, ones.data_ptr(), ones.data_ptr(),
+            ones.data_ptr(), None if sin is None else sin.data_ptr(),
+            words.data_ptr(), None if qq is None else qq.data_ptr(), stream)
+        if code == 0:
+            fail(f'fvt_quantize_int8_fused took {what}')
+    if (quant.quantize_int8.launches,
+            quant.quantize_int8.launches_amax) != before:
+        fail('a refused quantise pass counted a launch')
+
+
+def check_int8_kernels(device) -> list:
+    """Phase 13, step 1: the quantise pass and the s8 conv (the wgmma
+    kernel) against their plain versions, bit for bit, at the eight int8
+    shapes of the IR-50 at N = 2400 (float32 in and out, and bfloat16 in
+    and out as under --amp; dynamic and static) and at edge shapes; the
+    quantise pass with each prologue (none, bn1, PReLU) in both modes, on
+    the drawn inputs and on inputs planted with the scale's half-integers;
+    two launches dynamic and one static, no allocation beyond q and the
+    words of a dynamic call; the conv's one launch and no allocation
+    beyond y a call; both kernels' refusals (and the mma.sync design's).
+    Timed: each dynamic conv beside the mma.sync design, ``F.conv2d`` on
+    bfloat16 and ``torch._int_mm`` over an im2col; the quantise pass of
+    every conv's input with its own producer as the prologue, dynamic and
+    static, beside today's composition (the producer as an op of its own,
+    then the atomic pass on its output).  Returns the two kernels'
+    entries: totals over the 41 convs of a forward, bfloat16 as under
+    --amp (the float32 totals beside them)."""
+    from fvt_tpu_torch.kernels import build
+    from fvt_tpu_torch.ops import quant
+
+    tot = {f'{key}{dt}': 0.0 for key in (
+        'conv', 'conv_plain', 'conv2d', 'mma', 'dynamic', 'static', 'plain',
+        'producer', 'atomic', 'atomic_static') for dt in ('', '_bf16')}
     tot.update(int_mm=0.0, ops=0.0, conv_bytes=0.0, quant_bytes=0.0)
     int_mm_ok, worst, worst_q = True, 0.0, 0
+    kinds = (None, 'bn1', 'prelu')
     with torch.inference_mode():
-        for h, c, co, stride, count in INT8_SHAPES:
+        for row, (h, c, co, stride, count) in enumerate(INT8_SHAPES):
             ho = quant.out_size(h, stride)
+            n_bn1, n_prelu = INT8_PRODUCERS[row]
+            bn, alpha = int8_producers(c, device, SEED + 60 + row)
             for dtype in (torch.float32, torch.bfloat16):
                 x, k = int8_inputs(INT8_FRAMES, h, h, c, co, dtype, device,
                                    SEED + 40 + h + c)
@@ -5050,12 +5239,34 @@ def check_int8_kernels(device) -> list:
                     f'int8 {tag} static', x, k, stride, dtype, True, False)
                 worst, worst_q = max(worst, err), max(worst_q, q_err)
                 err, q_err, times = check_int8_pair(
-                    f'int8 {tag} dynamic', x, k, stride, dtype, False, True)
+                    f'int8 {tag} dynamic', x, k, stride, dtype, False, True,
+                    int8_prologue('bn1' if n_bn1 else 'prelu', bn, alpha,
+                                  dtype))
                 worst, worst_q = max(worst, err), max(worst_q, q_err)
+                planted = plant_half_integers(x)
+                for kind in kinds:
+                    prologue = int8_prologue(kind, bn, alpha, dtype)
+                    for xx in (x, planted):
+                        for static in (False, True):
+                            worst_q = max(worst_q, check_quantise(
+                                f'quantise {tag}', xx, prologue, static))
+                del planted
                 dt = '' if dtype == torch.float32 else '_bf16'
-                for key, ms in zip(('quant', 'conv', 'quant_plain',
-                                    'conv_plain', 'mma'), times):
+                for key, ms in zip(('conv', 'conv_plain', 'mma'), times):
                     tot[key + dt] += count * ms
+                line = ''
+                for kind, convs in (('bn1', n_bn1), ('prelu', n_prelu)):
+                    if not convs:
+                        continue
+                    qt = quantise_times(x, bn, alpha, kind)
+                    for key, ms in qt.items():
+                        tot[key + dt] += convs * ms
+                    line += (f'; {kind} x{convs}: fused {qt["dynamic"]:.4f} '
+                             f'/ {qt["static"]:.4f} ms, producer '
+                             f'{qt["producer"]:.4f} + atomic '
+                             f'{qt["atomic"]:.4f} / '
+                             f'{qt["atomic_static"]:.4f} ms')
+                print(f'    quantise pass (dynamic / static){line}')
                 w = k.to(dtype).permute(3, 2, 0, 1).contiguous(
                     memory_format=torch.channels_last)
                 x_cl = x.permute(0, 3, 1, 2)
@@ -5072,25 +5283,74 @@ def check_int8_kernels(device) -> list:
                     tot['ops'] += count * quant.s8_conv_ops(
                         INT8_FRAMES, h, h, c, co, stride)
                     # the s8 conv reads q and wq once and writes y (bf16);
-                    # the quantise pass reads x (bf16) and writes q
+                    # the quantise pass reads x (bf16) and its prologue's
+                    # channels once and writes q
                     tot['conv_bytes'] += count * (INT8_FRAMES * h * h * c
                                                   + 9 * c * co + 2 * m * co)
-                    tot['quant_bytes'] += count * 3 * INT8_FRAMES * h * h * c
+                    tot['quant_bytes'] += (
+                        count * 3 * INT8_FRAMES * h * h * c
+                        + (n_bn1 * 3 + n_prelu) * 2 * c)
                 print(line)
                 del x, k, w, x_cl
                 torch.cuda.empty_cache()
-        for n, h, w, c, co, stride in INT8_EDGE_SHAPES:
+        for i, (n, h, w, c, co, stride) in enumerate(INT8_EDGE_SHAPES):
+            bn, alpha = int8_producers(c, device, SEED + 70 + i)
             for dtype in (torch.float32, torch.bfloat16):
                 x, k = int8_inputs(n, h, w, c, co, dtype, device, SEED + 50)
-                for out_dtype in (torch.float32, torch.bfloat16):
-                    for static in (False, True):
-                        err, q_err, _ = check_int8_pair(
-                            f'int8 edge {n}x{h}x{w}x{c}->{co} s{stride} '
-                            f'{str(dtype)[6:]} in, {str(out_dtype)[6:]} out'
-                            f'{" static" if static else ""}', x, k, stride,
-                            out_dtype, static, False)
-                        worst = max(worst, err)
-                        worst_q = max(worst_q, q_err)
+                tag = (f'{n}x{h}x{w}x{c}->{co} s{stride} '
+                       f'{str(dtype)[6:]}')
+                combos = [(o, st) for o in (torch.float32, torch.bfloat16)
+                          for st in (False, True)]
+                for j, (out_dtype, static) in enumerate(combos):
+                    err, q_err, _ = check_int8_pair(
+                        f'int8 edge {tag} in, {str(out_dtype)[6:]} out'
+                        f'{" static" if static else ""}', x, k, stride,
+                        out_dtype, static, False,
+                        int8_prologue(kinds[j % 3], bn, alpha, dtype))
+                    worst = max(worst, err)
+                    worst_q = max(worst_q, q_err)
+                for kind in kinds:
+                    prologue = int8_prologue(kind, bn, alpha, dtype)
+                    for xx in (x, plant_half_integers(x)):
+                        for static in (False, True):
+                            worst_q = max(worst_q, check_quantise(
+                                f'quantise edge {tag}', xx, prologue,
+                                static))
+        print(f'  the quantise pass: q, scale and amax bit for bit at the '
+              f'eight int8 shapes and {len(INT8_EDGE_SHAPES)} edge shapes, '
+              f'float32 and bfloat16, no prologue, bn1 and PReLU, dynamic '
+              f'and static, drawn and planted with the scale\'s '
+              f'half-integers')
+        # two launches dynamic (the amax's, the quantising one), one
+        # static; nothing allocated beside q and a dynamic call's words
+        x, _ = int8_inputs(INT8_FRAMES, 10, 10, 256, 256, torch.bfloat16,
+                           device, SEED + 52)
+        bn, alpha = int8_producers(256, device, SEED + 53)
+        prologue = int8_prologue('bn1', bn, alpha, torch.bfloat16)
+        for static in (False, True):
+            scale = torch.full((1,), 0.05, device=device) if static else None
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            before = (quant.quantize_int8.launches,
+                      quant.quantize_int8.launches_amax)
+            torch.cuda.reset_peak_memory_stats()
+            q = quant.quantize_int8(x, scale, prologue)[0]
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base
+            allowed = -(-q.numel() // 512) * 512 + (
+                0 if static else -(-4 * (2 + quant.MAX_PARTS) // 512) * 512)
+            counted = (quant.quantize_int8.launches - before[0],
+                       quant.quantize_int8.launches_amax - before[1])
+            print(f'  quantize_int8 {"static" if static else "dynamic"} at '
+                  f'{INT8_FRAMES}x10x10x256 bn1: (quantising, amax) '
+                  f'launches {counted}, {extra} bytes allocated (q and '
+                  f'words {allowed})')
+            if counted != ((1, 0) if static else (1, 1)) or extra > allowed:
+                fail('quantize_int8: other launches than its own or an '
+                     'allocation beside q and the words')
+            del q
+        del x
+        check_quantise_refusals(device)
         # one launch a call, and no allocation beyond y (weights packed)
         x, k = int8_inputs(INT8_FRAMES, 10, 10, 256, 256, torch.bfloat16,
                            device, SEED + 51)
@@ -5152,18 +5412,27 @@ def check_int8_kernels(device) -> list:
           f'{tot["ops"] / 1e12:.3f} T int8 operations, {ops_ms:.4f} ms at '
           f'{PEAK_OPS_INT8 / 1e12:.0f} TOPS (their bytes '
           f'{conv_bytes_ms:.4f} ms at {PEAK_BYTES / 1e12} TB/s)')
+    unfused = {dt: {'dynamic': tot['producer' + dt] + tot['atomic' + dt],
+                    'static': tot['producer' + dt]
+                    + tot['atomic_static' + dt]} for dt in ('', '_bf16')}
     for dt, label in (('_bf16', 'bfloat16 (--amp)'), ('', 'float32')):
         print(f'  {label}: s8 conv {tot["conv" + dt]:.4f} ms '
               f'({conv_bound / tot["conv" + dt]:.1%} of its bound), the '
               f'mma.sync design {tot["mma" + dt]:.4f} ms '
               f'({conv_bound / tot["mma" + dt]:.1%}), plain '
               f'{tot["conv_plain" + dt]:.4f} ms, F.conv2d '
-              f'{tot["conv2d" + dt]:.4f} ms; quantise '
-              f'{tot["quant" + dt]:.4f} ms, plain '
-              f'{tot["quant_plain" + dt]:.4f} ms')
+              f'{tot["conv2d" + dt]:.4f} ms')
+        print(f'  {label}: quantise pass with the producer folded in '
+              f'{tot["dynamic" + dt]:.4f} ms dynamic, '
+              f'{tot["static" + dt]:.4f} static (plain '
+              f'{tot["plain" + dt]:.4f}); today\'s composition '
+              f'{unfused[dt]["dynamic"]:.4f} dynamic, '
+              f'{unfused[dt]["static"]:.4f} static (producers '
+              f'{tot["producer" + dt]:.4f}, the atomic pass '
+              f'{tot["atomic" + dt]:.4f} / {tot["atomic_static" + dt]:.4f})')
     print(f'  torch._int_mm over the im2col (bf16 shapes, im2col not '
-          f'timed): {tot["int_mm"]:.4f} ms; quantise bytes bound (bf16) '
-          f'{quant_bytes_ms:.4f} ms')
+          f'timed): {tot["int_mm"]:.4f} ms; quantise bytes bound (bf16: x '
+          f'read once, q written once) {quant_bytes_ms:.4f} ms')
     return [{'name': 'conv3x3_int8', 'route': 'cuda',
              'source': 'fvt_tpu_torch/csrc/conv3x3_s8_wgmma.cu',
              'replaces': 'fvt_tpu/ops/quant.py:102 (an XLA s8 convolution, '
@@ -5183,37 +5452,81 @@ def check_int8_kernels(device) -> list:
                  'wrapper': 'ops.quant.conv3x3_s8_mma', 'launches': 0,
                  'ms': tot['mma_bf16'], 'fp32_out_ms': tot['mma']}},
             {'name': 'quantize_int8', 'route': 'cuda',
-             'source': 'fvt_tpu_torch/csrc/conv3x3_int8.cu',
+             'source': 'fvt_tpu_torch/csrc/quantize_int8_fused.cu',
              'replaces': 'fvt_tpu/ops/quant.py:62 (XLA elementwise and '
-                         'reduction, no Pallas kernel)',
-             'max_abs_err': worst_q, 'ms': tot['quant_bf16'],
-             'plain_ms': tot['quant_plain_bf16'], 'library_ms': None,
+                         'reduction fused into the producer, no Pallas '
+                         'kernel)',
+             'max_abs_err': worst_q, 'ms': tot['dynamic_bf16'],
+             'static_ms': tot['static_bf16'],
+             'plain_ms': tot['plain_bf16'], 'library_ms': None,
              'bound_ms': quant_bytes_ms, 'bound_by': 'bytes',
-             'fp32_in': {'ms': tot['quant'],
-                         'plain_ms': tot['quant_plain']}}]
+             'fp32_in': {'ms': tot['dynamic'], 'static_ms': tot['static'],
+                         'plain_ms': tot['plain']},
+             # today's composition: the producer as an op of its own, then
+             # the earlier design of the pass (on no path, timed here)
+             'unfused': {'producers_ms': tot['producer_bf16'],
+                         'ms': unfused['_bf16']['dynamic'],
+                         'static_ms': unfused['_bf16']['static'],
+                         'fp32_in_ms': unfused['']['dynamic'],
+                         'fp32_in_static_ms': unfused['']['static']},
+             'atomic_route': {
+                 'source': 'fvt_tpu_torch/csrc/conv3x3_int8.cu',
+                 'wrapper': 'ops.quant.quantize_int8_atomic', 'launches': 0,
+                 'ms': tot['atomic_bf16'],
+                 'static_ms': tot['atomic_static_bf16'],
+                 'fp32_in_ms': tot['atomic'],
+                 'fp32_in_static_ms': tot['atomic_static']}}]
 
 
 def int8_counters() -> dict:
     from fvt_tpu_torch.ops import quant
     return {'conv3x3_int8': quant.conv3x3_s8,
             'conv3x3_int8_mma': quant.conv3x3_s8_mma,
-            'quantize_int8': quant.quantize_int8}
+            'quantize_int8': quant.quantize_int8,
+            'quantize_int8_atomic': quant.quantize_int8_atomic}
 
 
 def read_int8() -> dict:
-    """The int8 kernels' launches; the mma.sync design's, on no path, stay
+    """The int8 kernels' launches; the earlier designs', on no path, stay
     0 wherever they are held."""
     c = int8_counters()
     return {'conv3x3_int8': c['conv3x3_int8'].launches,
             'conv3x3_int8_mma': c['conv3x3_int8_mma'].launches,
             'quantize_int8': c['quantize_int8'].launches,
-            'quantize_int8_amax': c['quantize_int8'].launches_amax}
+            'quantize_int8_amax': c['quantize_int8'].launches_amax,
+            'quantize_int8_atomic': c['quantize_int8_atomic'].launches
+            + c['quantize_int8_atomic'].launches_amax}
 
 
 def zero_int8() -> None:
     c = int8_counters()
     c['conv3x3_int8'].launches = c['conv3x3_int8_mma'].launches = 0
-    c['quantize_int8'].launches = c['quantize_int8'].launches_amax = 0
+    for name in ('quantize_int8', 'quantize_int8_atomic'):
+        c[name].launches = c[name].launches_amax = 0
+
+
+def producer_calls(fn) -> tuple:
+    """The BatchNorms and PReLUs of one call of ``fn`` under
+    ``torch.profiler``: ({'batch_norm', 'prelu'}: ``aten::batch_norm`` and
+    ``aten::prelu`` ops, the same: device kernels whose name says so)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = dict.fromkeys(('batch_norm', 'prelu'), 0)
+    kernels = dict(ops)
+    for e in prof.events():
+        if e.name in ('aten::batch_norm', 'aten::prelu'):
+            ops[e.name[6:]] += 1
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.lower()
+            if 'batch_norm' in name or 'bn_fw' in name:
+                kernels['batch_norm'] += 1
+            elif 'prelu' in name:
+                kernels['prelu'] += 1
+    return ops, kernels
 
 
 def int8_backbone(device) -> None:
@@ -5222,7 +5535,9 @@ def int8_backbone(device) -> None:
     same type: bit for bit its plain versions (the int8 convs' kernels
     equal theirs, every other op is the same call), static on its own
     calibration batch bit for bit dynamic, 41 s8 convs and 41 quantise
-    launches a forward (41 amax launches dynamic, none static), the
+    launches a forward (41 amax launches dynamic, none static), 20
+    BatchNorms and 21 PReLUs fewer than the cuDNN forward's under
+    ``torch.profiler`` (bn1 and PReLU folded into the quantise pass), the
     embeddings' cosine to the float32 cuDNN path's above 0.97 (fvt_tpu's
     criterion), the peak device memory a frame of a dynamic call within
     ``arcface.INT8_FRAME_BYTES``, ms per forward."""
@@ -5246,6 +5561,7 @@ def int8_backbone(device) -> None:
             cudnn.load_state_dict(base.state_dict())
             cudnn.to(device)
             times[f'cudnn {label}'] = median_ms(lambda: cudnn(x), CONV_RUNS)
+            cudnn_calls = producer_calls(lambda: cudnn(x))
             del cudnn
             q = VisualBackbone(conv_impl='int8', dtype=dtype)
             q.load_state_dict(base.state_dict())
@@ -5267,7 +5583,8 @@ def int8_backbone(device) -> None:
                   f'{per_frame / 2 ** 20:.3f} MiB a frame (bound '
                   f'{INT8_FRAME_BYTES[dtype] / 2 ** 20:.3f})')
             if launches != {'conv3x3_int8': 41, 'conv3x3_int8_mma': 0,
-                            'quantize_int8': 41, 'quantize_int8_amax': 41}:
+                            'quantize_int8': 41, 'quantize_int8_amax': 41,
+                            'quantize_int8_atomic': 0}:
                 fail(f'int8 {label} dynamic: launches {launches}')
             if not torch.equal(dyn, plain) or cos <= 0.97:
                 fail(f'int8 {label} dynamic: not its plain versions bit for '
@@ -5277,6 +5594,18 @@ def int8_backbone(device) -> None:
                      f'device memory, above INT8_FRAME_BYTES '
                      f'{INT8_FRAME_BYTES[dtype]}')
             times[f'int8 {label}'] = median_ms(lambda: q(x), CONV_RUNS)
+            int8_calls = producer_calls(lambda: q(x))
+            fewer = [{k: a[k] - b[k] for k in a}
+                     for a, b in zip(cudnn_calls, int8_calls)]
+            print(f'  int8 {label} dynamic against cudnn, one forward under '
+                  f'torch.profiler: aten ops {int8_calls[0]} (cudnn '
+                  f'{cudnn_calls[0]}), device kernels by name '
+                  f'{int8_calls[1]} (cudnn {cudnn_calls[1]})')
+            # an op may launch more than one kernel (bf16 BatchNorm: two)
+            if fewer[0] != {'batch_norm': 20, 'prelu': 21} or any(
+                    fewer[1][k] < n for k, n in fewer[0].items()):
+                fail(f'int8 {label}: {fewer} fewer BatchNorms and PReLUs '
+                     f'(ops, kernels) than cudnn\'s forward, not 20 and 21')
             q.begin_calibration()
             q(x)
             q.end_calibration()
@@ -5284,7 +5613,8 @@ def int8_backbone(device) -> None:
             sta = q(x)
             launches = read_int8()
             if launches != {'conv3x3_int8': 41, 'conv3x3_int8_mma': 0,
-                            'quantize_int8': 41, 'quantize_int8_amax': 0} \
+                            'quantize_int8': 41, 'quantize_int8_amax': 0,
+                            'quantize_int8_atomic': 0} \
                     or not torch.equal(sta, dyn):
                 fail(f'int8 {label} static on its calibration batch: '
                      f'launches {launches}, equal to dynamic '
@@ -6870,9 +7200,10 @@ def want_launches(name: str, launches: dict, calls: int) -> dict:
 
 def check_sharded_quantise(device) -> None:
     """Inside a sharded call of the one-rank group this process is in: the
-    quantise pass's sharded route (the amax launch alone, the max over the
-    ranks, the static launch) against the plain version, q, the scale and
-    the amax bit for bit, at the eight int8 shapes of a rank's rows."""
+    quantise pass's sharded route (the amax launches alone, the max over
+    the ranks, the static launch; the prologue in both) against the plain
+    version, q, the scale and the amax bit for bit, at the eight int8
+    shapes of a rank's rows, no prologue, bn1 and PReLU in turns."""
     from fvt_tpu_torch.ops import quant
     from fvt_tpu_torch.parallel import collectives
 
@@ -6881,10 +7212,13 @@ def check_sharded_quantise(device) -> None:
         for i, (h, c, co, _, _) in enumerate(INT8_SHAPES):
             x, _ = int8_inputs(n, h, h, c, co, torch.float32, device,
                                SEED + 190 + i)
-            want = quant.quantize_int8_ref(x)
+            bn, alpha = int8_producers(c, device, SEED + 210 + i)
+            prologue = int8_prologue((None, 'bn1', 'prelu')[i % 3], bn,
+                                     alpha, torch.float32)
+            want = quant.quantize_int8_ref(x, None, prologue)
             before = quant.quantize_int8.launches_amax
             with collectives.sharded(collectives.Rows(n, 0, n)):
-                got = quant.quantize_int8(x)
+                got = quant.quantize_int8(x, None, prologue)
             torch.cuda.synchronize()
             if quant.quantize_int8.launches_amax != before + 1 or not all(
                     torch.equal(a.reshape(-1), b.reshape(-1))
@@ -6894,7 +7228,7 @@ def check_sharded_quantise(device) -> None:
             del x
     print(f'  quantise pass, sharded route (amax launch, max over the '
           f'ranks, static launch): q, scale and amax bit for bit at the '
-          f'eight int8 shapes of {n} frames')
+          f'eight int8 shapes of {n} frames, no prologue, bn1 and PReLU')
 
 
 def mesh_one(paths: dict, runs: dict, batch: dict, store: dict, device,

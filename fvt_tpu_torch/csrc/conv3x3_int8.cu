@@ -1,6 +1,7 @@
-// int8 serving (--serve_quant int8 | int8_static): the activations'
-// quantisation, and the earlier design of the s8 3x3 convolution (timed,
-// on no path; conv3x3_s8_wgmma.cu is the conv's kernel).
+// int8 serving (--serve_quant int8 | int8_static): the earlier designs of
+// the activations' quantisation and of the s8 3x3 convolution, both timed
+// and on no path (quantize_int8_fused.cu is the quantisation's kernel,
+// conv3x3_s8_wgmma.cu the conv's).
 //
 // These replace no Pallas kernel.  fvt_tpu computes its int8 conv
 // (fvt_tpu/ops/quant.py:75-108, conv3x3_int8) as one XLA convolution with s8
@@ -19,7 +20,10 @@
 //     multiplied by (x_scale * w_scale[co]), that product formed first,
 //     both with __fmul_rn so that nothing is contracted.
 //
-// 1. fvt_quantize_int8: x (float32 or bfloat16, widened exactly) -> q (s8),
+// 1. fvt_quantize_int8 (ops/quant.py quantize_int8_atomic; on no path since
+//    quantize_int8_fused.cu, which also applies the conv's producer as it
+//    loads x, kept to be timed beside it on the producer's output):
+//    x (float32 or bfloat16, widened exactly) -> q (s8),
 //    the same element order (NHWC as the conv reads it).  Dynamic: a first
 //    launch takes the per-tensor amax (atomicMax of each block's max into one
 //    word, zeroed by a memset), the second divides by the scale it derives

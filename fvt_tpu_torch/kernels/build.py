@@ -83,6 +83,9 @@ _SIGNATURES = {
     'fvt_bottleneck_bf16_wgmma_forward': [_P] * 10 + [_I] * 5 + [_P],
     # x, bf16, n, amax scale_in scale_out q, stream
     'fvt_quantize_int8': [_P, _I, ctypes.c_longlong] + [_P] * 5,
+    # x, bf16, n, C prologue, p0 p1 p2 scale_in words q, stream
+    'fvt_quantize_int8_fused': [_P, _I, ctypes.c_longlong, _I, _I]
+    + [_P] * 7,
     # xq wp (packed) wscale xscale y, bf16_out N H W C Co stride, stream
     'fvt_conv3x3_s8_forward': [_P] * 5 + [_I] * 7 + [_P],
     # xq wq wscale xscale y, bf16_out N H W C Co stride, stream

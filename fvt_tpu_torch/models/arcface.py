@@ -57,7 +57,9 @@ transform in its epilogue.  Where the two
 frameworks round differently: flax normalises in ``dtype`` (the
 subtraction, the product and the sum each round to bfloat16), while
 ``F.batch_norm`` on a bfloat16 tensor with float32 statistics computes
-in float32 and rounds once; ``F.conv2d`` and the kernel sum in float32
+in float32 and rounds once (the int8 path's bn1 before a quantised conv
+is the exception: its quantisation pass normalises as flax does,
+:func:`bn_terms`); ``F.conv2d`` and the kernel sum in float32
 and round once, as XLA's convolution and the Pallas kernel do; the fused
 block rounds where the Pallas block does (``ops.bottleneck.
 bottleneck_ir_fused_bf16_ref``), and both Winograd paths where
@@ -179,16 +181,26 @@ def batchnorm_train(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor
         bn.running_var.copy_((1.0 - m) * bn.running_var
                              + m * (var * (n / max(n - 1, 1))))
         bn.num_batches_tracked += 1
-    d = x.dtype
-    # a tensor in x's type, not a Python float: PyTorch would add a
-    # scalar in float32 before rounding, flax adds eps in bfloat16
-    eps = torch.tensor(bn.eps, dtype=d, device=x.device)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mean, inv, bias = (t.view(shape) for t in bn_terms(bn, mean, var,
+                                                        x.dtype))
+    return (x - mean) * inv + bias
+
+
+def bn_terms(bn: nn.modules.batchnorm._BatchNorm, mean: torch.Tensor,
+             var: torch.Tensor, d: torch.dtype) -> tuple:
+    """(mean, inv, bias) per channel in type ``d``, ``fvt_tpu``'s
+    ``TorchEMABatchNorm`` normalising with these statistics
+    (``layers.py:180-182``): ``inv = rsqrt(var + eps) * weight`` with
+    var, eps and weight in ``d`` first; the BatchNorm is then ``((x -
+    mean) * inv) + bias``, each step in ``d``."""
+    # a tensor in d, not a Python float: PyTorch would add a scalar in
+    # float32 before rounding, flax adds eps in bfloat16
+    eps = torch.tensor(bn.eps, dtype=d, device=mean.device)
     # rsqrt in float32, rounded once: XLA's bfloat16 rsqrt is that, and
     # PyTorch's on the CPU misses the nearest bfloat16 by a unit
     inv = torch.rsqrt((var.to(d) + eps).float()).to(d) * bn.weight.to(d)
-    shape = (1, -1) + (1,) * (x.dim() - 2)
-    return (x - mean.to(d).view(shape)) * inv.view(shape) \
-        + bn.bias.to(d).view(shape)
+    return mean.to(d), inv, bn.bias.to(d)
 
 
 def dropout_mask(x: torch.Tensor, p: float,
@@ -249,7 +261,10 @@ class Conv3x3(nn.Module):
     the other derived weights, with their packing for the s8 kernel) and
     its input per tensor, and sums in int32
     (``quant_ops.quantize_int8`` and ``conv3x3_s8``), the output in
-    ``dtype``; with fewer it runs ``F.conv2d``.  The input's scale is the
+    ``dtype``; with fewer it runs ``F.conv2d``.  In eval mode
+    ``BottleneckIR`` hands a quantised conv its producer's input and the
+    producer as a ``prologue`` (bn1 or PReLU), which the quantisation pass
+    applies as it loads x.  The input's scale is the
     call's own ``max|x|`` (dynamic), or ``act_scale(act_amax)`` once
     ``act_amax`` holds a calibrated amax (static).  While ``calibrating``
     the module records the running ``max|x|`` of its inputs into
@@ -309,13 +324,14 @@ class Conv3x3(nn.Module):
                             quant_ops.act_scale(amax.to(device)))
         return self._static[2]
 
-    def _int8_forward(self, x: torch.Tensor, reference: bool
-                      ) -> torch.Tensor:
+    def _int8_forward(self, x: torch.Tensor, reference: bool,
+                      prologue: Optional[tuple]) -> torch.Tensor:
         conv_ops.refuse_grad('Conv3x3(impl=\'int8\')', x, self.weight)
         wq, wscale, packed = self.int8_weights()
         quantize = (quant_ops.quantize_int8_ref if reference
                     else quant_ops.quantize_int8)
-        xq, scale, amax = quantize(_nhwc(x), self.static_scale(x.device))
+        xq, scale, amax = quantize(_nhwc(x), self.static_scale(x.device),
+                                   prologue)
         if self.calibrating:
             amax = amax.detach()
             self.act_amax = (amax if self.act_amax is None else
@@ -384,13 +400,18 @@ class Conv3x3(nn.Module):
             self._cast = (stamp, oihw, hwio, packed)
         return self._cast[1:]
 
-    def forward(self, x: torch.Tensor, reference: bool = False
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, reference: bool = False,
+                prologue: Optional[tuple] = None) -> torch.Tensor:
         """x NCHW, cast to ``dtype`` (``fvt_tpu`` ``arcface.py:75``).
-        ``reference=True`` runs a kernel's plain version."""
+        ``reference=True`` runs a kernel's plain version.  ``prologue``
+        (a quantised conv only, ``quant_ops.prologue_ref``): the producer
+        of the conv's input, applied as the quantisation pass loads x."""
         x = x.to(self.dtype)
         if self.quantised:
-            return self._int8_forward(x, reference)
+            return self._int8_forward(x, reference, prologue)
+        if prologue is not None:
+            raise ValueError('a prologue is applied by the quantisation '
+                             'pass: this conv is not quantised')
         if self.stride != 1 or self.impl in ('cudnn', 'int8'):
             weight = (self.weight if self.dtype == self.weight.dtype
                       else self.cast_weights()[0])
@@ -441,6 +462,26 @@ class BottleneckIR(nn.Module):
             Conv3x3(depth, depth, stride, conv_impl, dtype),
             nn.BatchNorm2d(depth))
         self._fused = None
+        self._prologues = None
+
+    def int8_prologues(self) -> tuple:
+        """(bn1's prologue, PReLU's) for the quantisation pass of a
+        quantised conv1 and conv2 (``quant_ops.prologue_ref``), in the
+        block's ``dtype``: ``('bn1', mean, inv, bias)`` of the running
+        statistics (:func:`bn_terms`, ``fvt_tpu``'s eval arithmetic) and
+        ``('prelu', alpha)``.  Derived once and kept; dropped and derived
+        again when a tensor of bn1 or the PReLU weight is replaced or
+        written in place."""
+        bn1, _, prelu, _, _ = self.res_layer
+        stamp = _stamp(prelu.weight, bn1.weight, bn1.bias, bn1.running_mean,
+                       bn1.running_var)
+        if self._prologues is None or self._prologues[0] != stamp:
+            with torch.no_grad():
+                d = self.dtype
+                bn = bn_terms(bn1, bn1.running_mean, bn1.running_var, d)
+                self._prologues = (stamp, (('bn1', *bn), (
+                    'prelu', prelu.weight.detach().to(d))))
+        return self._prologues[1]
 
     def fused_weights(self) -> tuple:
         """(w1, w2, a1, b1, alpha, a2, b2, packed) for the fused block:
@@ -508,8 +549,19 @@ class BottleneckIR(nn.Module):
             conv, bn = self.shortcut_layer
             shortcut = bn_fn(bn, conv2d_as(conv, x))
         bn1, conv1, prelu, conv2, bn2 = self.res_layer
-        res = prelu_as(prelu, conv1(bn_fn(bn1, x), reference))
-        return bn_fn(bn2, conv2(res, reference)) + shortcut
+        # in eval mode a quantised conv applies its producer (bn1, PReLU)
+        # as its quantisation pass loads the producer's input
+        fold = not train and (conv1.quantised or conv2.quantised)
+        p1, p2 = self.int8_prologues() if fold else (None, None)
+        if fold and conv1.quantised:
+            h = conv1(x, reference, prologue=p1)
+        else:
+            h = conv1(bn_fn(bn1, x), reference)
+        if fold and conv2.quantised:
+            res = conv2(h, reference, prologue=p2)
+        else:
+            res = conv2(prelu_as(prelu, h), reference)
+        return bn_fn(bn2, res) + shortcut
 
 
 class Backbone(nn.Module):

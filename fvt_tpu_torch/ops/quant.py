@@ -13,35 +13,49 @@ w_scale[co])``, stored in ``out_dtype``.  A bfloat16 input (``--amp``) is
 widened to float32, exactly, before it is quantised.
 
 ``fvt_tpu`` runs that conv as one XLA convolution on the TPU's int8 path,
-not as a Pallas kernel.  PyTorch has no int8 convolution on CUDA, so the
-port brings kernels of its own: :func:`quantize_int8` (the per-tensor amax
-and the quantisation, two launches, or one with a calibrated scale;
-``csrc/conv3x3_int8.cu``) and :func:`conv3x3_s8` (the convolution on 8-bit
-``wgmma`` with TMA-staged operands and a persistent grid, the scaling in
-its epilogue, one launch a call; ``csrc/conv3x3_s8_wgmma.cu``).  Its route
-and ring are :func:`s8_plan`'s: stride 1 on the bf16 conv kernel's padded
-line (each tile's patch staged once a 32-channel slice, the nine taps as
-descriptor offsets), stride 2, and stride 1 on frames too wide for that
-staging, on a per-tap walk of the im2col map (one load a tap, no pad
-rows).  Its weights are :func:`pack_weights_s8` of ``wq``, which a module
-derives once and keeps; the call packs them otherwise.  The earlier
-``mma.sync`` design, :func:`conv3x3_s8_mma` (:func:`conv_plan`), is on no
-path and kept to be timed.  Each wrapper routes a CPU tensor to its plain
-version and a CUDA tensor to its kernel, or raises; each counts its
-launches (``quantize_int8.launches`` and ``.launches_amax``,
-``conv3x3_s8.launches``, ``conv3x3_s8_mma.launches``).  Inside a sharded
-serving call (``parallel/collectives.py``, ``parallel/serving.py``) a
-dynamic scale spans the call, as ``fvt_tpu``'s one GSPMD program's does:
-this rank's amax (the amax launch alone on the card), the max over the
-ranks (``all_reduce_max``), then the quantise launch with that scale.  The
-kernels equal the plain versions bit for bit: the divisions are IEEE
-divisions, the sums exact, the accumulator rounded to float32 once (the
-plain version sums in float64, exact below 2^53).  :func:`conv3x3_int8`
-is the composition ``fvt_tpu`` calls by that name,
-:func:`conv3x3_int8_ref` its plain version, :func:`conv3x3_int8_9mm` the
-nine-matmul form ``fvt_tpu`` keeps for the record.  Activations are NHWC,
-kernels HWIO, as in ``fvt_tpu``; the quantised weights are ``(Co, 9, C)``,
-K-major, the only layout 8-bit ``wgmma`` (and the s8 ``mma``) takes B in.
+not as a Pallas kernel, and XLA fuses the input's quantisation into the
+epilogue of the op that produces the input.  PyTorch has no int8
+convolution on CUDA, so the port brings kernels of its own.
+:func:`quantize_int8` is the quantisation pass (``csrc/
+quantize_int8_fused.cu``): the producer of a quantised conv's input, the
+block's eval bn1 or its PReLU, is applied as the pass loads its input (a
+``prologue``, :func:`prologue_ref`), so the producer runs no pass of its
+own; dynamic, a persistent amax launch that leaves one max a block and a
+quantise launch that reduces those first; static, the quantise launch
+alone; the division by a reciprocal, with an exact division where that
+could round otherwise (:func:`reciprocal_rint`).  :func:`conv3x3_s8` is the
+convolution on 8-bit ``wgmma`` with TMA-staged operands and a persistent
+grid, the scaling in its epilogue, one launch a call
+(``csrc/conv3x3_s8_wgmma.cu``).  Its route and ring are :func:`s8_plan`'s:
+stride 1 on the bf16 conv kernel's padded line (each tile's patch staged
+once a 32-channel slice, the nine taps as descriptor offsets), stride 2,
+and stride 1 on frames too wide for that staging, on a per-tap walk of the
+im2col map (one load a tap, no pad rows).  Its weights are
+:func:`pack_weights_s8` of ``wq``, which a module derives once and keeps;
+the call packs them otherwise.  The earlier designs, on no path and kept to
+be timed, are in ``csrc/conv3x3_int8.cu``: the quantisation pass
+:func:`quantize_int8_atomic` (a memset, an amax launch with an atomic a
+block and a quantise launch, on the producer's output) and the conv
+:func:`conv3x3_s8_mma` on ``mma.sync`` (:func:`conv_plan`).  Each wrapper
+routes a CPU tensor to its plain version and a CUDA tensor to its kernel,
+or raises; each counts its launches (``quantize_int8.launches`` (the
+quantising launches) and ``.launches_amax``, the same two on
+``quantize_int8_atomic``, ``conv3x3_s8.launches``,
+``conv3x3_s8_mma.launches``).  Inside a sharded serving call
+(``parallel/collectives.py``, ``parallel/serving.py``) a dynamic scale
+spans the call, as ``fvt_tpu``'s one GSPMD program's does: this rank's
+amax (the amax launches alone on the card), the max over the ranks
+(``all_reduce_max``), then the quantise launch with that scale, the
+prologue in both.  The kernels equal the plain versions bit for bit: the
+prologue's steps round where PyTorch's ops on x's type round, the scale is
+an IEEE division and the quantisation equals one, the sums are exact, the
+accumulator rounded to float32 once (the plain version sums in float64,
+exact below 2^53).  :func:`conv3x3_int8` is the composition ``fvt_tpu``
+calls by that name, :func:`conv3x3_int8_ref` its plain version,
+:func:`conv3x3_int8_9mm` the nine-matmul form ``fvt_tpu`` keeps for the
+record.  Activations are NHWC, kernels HWIO, as in ``fvt_tpu``; the
+quantised weights are ``(Co, 9, C)``, K-major, the only layout 8-bit
+``wgmma`` (and the s8 ``mma``) takes B in.
 """
 from __future__ import annotations
 
@@ -273,11 +287,70 @@ def _check_x(name: str, x: torch.Tensor) -> None:
         raise ValueError(f'no kernel for device {x.device}')
 
 
+# the fused pass (csrc/quantize_int8_fused.cu): the partials a dynamic call's
+# words hold room for (kMaxParts), the most channels a prologue may have
+# (kMaxC), the C entry's code of each prologue and its per-channel tensors
+MAX_PARTS = 4096
+MAX_C = 4096
+PROLOGUES = {'bn1': (1, ('mean', 'inv', 'bias')), 'prelu': (2, ('alpha',))}
+# t = v * RN(1/s) lies more than 2^-12 from every half-integer where
+# |t - rint(t)| is below this (the kernel's kFast)
+RECIPROCAL_MARGIN = 0.5 - 2.0 ** -12
+
+
+def prologue_ref(x: torch.Tensor, prologue: Optional[tuple]) -> torch.Tensor:
+    """The producer of a quantised conv's input applied to x (..., C), in
+    x's type, each step rounded to it (``fvt_tpu``'s arithmetic,
+    ``layers.py:180-182`` and ``:214``): None, x itself; ``('bn1', mean,
+    inv, bias)``, the eval BatchNorm ``((x - mean) * inv) + bias``;
+    ``('prelu', alpha)``, ``where(x >= 0, x, x * alpha)``.  The tensors are
+    per channel, in x's type."""
+    if prologue is None:
+        return x
+    kind, *params = prologue
+    if kind not in PROLOGUES or len(params) != len(PROLOGUES[kind][1]):
+        raise ValueError(f'prologue {kind!r} with {len(params)} tensors: '
+                         f'None, (\'bn1\', mean, inv, bias) or (\'prelu\', '
+                         f'alpha)')
+    if kind == 'bn1':
+        mean, inv, bias = params
+        return (x - mean) * inv + bias
+    alpha, = params
+    return torch.where(x >= 0, x, x * alpha)
+
+
+# 1.5 * 2^23: t + RINT_MAGIC - RINT_MAGIC is t rounded half to even for |t|
+# < 2^22, and beyond +-127 past that (the kernel's kMagic)
+RINT_MAGIC = 12582912.0
+
+
+def reciprocal_rint(v: torch.Tensor, scale: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's ``rint(v / scale)`` emulated in float32 ops: ``t = v *
+    RN(1 / scale)`` rounded by adding and subtracting ``RINT_MAGIC``,
+    except where ``t`` lies within 2^-12 of a half-integer or is not
+    finite, or ``RN(1 / scale)`` is not a normal number, where ``rint(v /
+    scale)`` itself.  Equal to ``rint(v / scale)`` once both are clipped
+    to +-127.  Returns (the rounded values, where the exact division was
+    taken)."""
+    v, scale = v.float(), scale.float()
+    r = torch.ones_like(scale) / scale
+    t = v * r
+    rt = (t + RINT_MAGIC) - RINT_MAGIC
+    tiny = torch.finfo(torch.float32).tiny
+    normal = (r >= tiny) & (r <= torch.finfo(torch.float32).max)
+    exact = ~((t - rt).abs() < RECIPROCAL_MARGIN) | ~normal
+    return torch.where(exact, torch.round(v / scale), rt), exact
+
+
 def quantize_int8_ref(x: torch.Tensor,
-                      x_scale: Optional[torch.Tensor] = None
+                      x_scale: Optional[torch.Tensor] = None,
+                      prologue: Optional[tuple] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor,
                                  Optional[torch.Tensor]]:
-    """Plain version of :func:`quantize_int8` on any device."""
+    """Plain version of :func:`quantize_int8` on any device: the prologue
+    (:func:`prologue_ref`), then the amax and the quantisation."""
+    x = prologue_ref(x, prologue)
     amax = None
     if x_scale is None:
         amax = x.float().abs().amax().reshape(1)
@@ -287,18 +360,107 @@ def quantize_int8_ref(x: torch.Tensor,
     return quantize_with(x, x_scale.reshape(())), x_scale, amax
 
 
-def quantize_int8(x: torch.Tensor, x_scale: Optional[torch.Tensor] = None
+def fused_args(x: torch.Tensor, prologue: Optional[tuple]) -> tuple:
+    """Raises for what the fused pass does not take (an x that is not
+    NHWC-contiguous or not of 16-value chunks, a prologue with C not a
+    multiple of 16 or above ``MAX_C``, prologue tensors of another length,
+    type or device); returns the C entry's C, prologue code and three
+    pointers (None where unused)."""
+    build.check_tensor('x', x, tuple(x.shape), x.device, x.dtype)
+    if x.numel() % 16:
+        raise ValueError(f'{x.numel()} values: the quantise kernel takes '
+                         f'multiples of 16')
+    if prologue is None:
+        return 16, 0, None, None, None
+    kind, *params = prologue
+    if kind not in PROLOGUES:
+        raise ValueError(f'prologue {kind!r}: bn1 or prelu')
+    code, names = PROLOGUES[kind]
+    c = x.shape[-1]
+    if c % 16 or c > MAX_C:
+        raise ValueError(f'C {c}: a prologue takes C in multiples of 16 up '
+                         f'to {MAX_C}')
+    if len(params) != len(names):
+        raise ValueError(f'prologue {kind!r} takes {names}')
+    for name, t in zip(names, params):
+        build.check_tensor(f'{kind} {name}', t, (c,), x.device, x.dtype)
+    ptrs = [t.data_ptr() for t in params]
+    return (c, code, *ptrs, *[None] * (3 - len(ptrs)))
+
+
+def quantize_int8(x: torch.Tensor, x_scale: Optional[torch.Tensor] = None,
+                  prologue: Optional[tuple] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor,
                              Optional[torch.Tensor]]:
-    """x (any shape, float32 or bfloat16) -> (q int8 of x's shape, the
-    scale (a float32 tensor of one value), the amax or None).  Dynamic
-    (``x_scale`` None): the scale is ``act_scale(max|x|)`` and the amax is
+    """x (NHWC-contiguous, float32 or bfloat16) -> (q int8 of x's shape,
+    the scale (a float32 tensor of one value), the amax or None) of
+    ``prologue_ref(x, prologue)``, as :func:`quantize_int8_ref`.  Dynamic
+    (``x_scale`` None): the scale is ``act_scale(max|v|)`` and the amax is
     returned; static: ``x_scale`` (one float32 value on x's device) is the
-    scale.  On the CPU the plain version; on the card the quantise kernel
-    (``csrc/conv3x3_int8.cu``), two launches dynamic, one static.  Dynamic
-    inside a sharded call: the amax and the scale span every rank's rows
-    (module docstring)."""
+    scale.  On the CPU the plain version; on the card the fused pass
+    (``csrc/quantize_int8_fused.cu``), two launches dynamic (the amax
+    launch and the quantising one), one static, or raises
+    (:func:`fused_args`).  Dynamic inside a sharded call: the amax and the
+    scale span every rank's rows (module docstring)."""
     _check_x('quantize_int8', x)
+    if x.device.type == 'cpu':
+        return quantize_int8_ref(x, x_scale, prologue)
+    args = fused_args(x, prologue)
+    if x_scale is not None and (x_scale.device != x.device
+                                or x_scale.dtype != torch.float32
+                                or x_scale.numel() != 1):
+        raise ValueError('x_scale: one float32 value on x\'s device')
+    n = x.numel()
+    lib = build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    bf16 = int(x.dtype == torch.bfloat16)
+    q = None
+    words = None
+    sharded = x_scale is None and collectives.current() is not None
+    if x_scale is None:
+        # the amax, the scale, then the partials (one a block of the amax
+        # launch)
+        words = torch.empty(2 + MAX_PARTS, dtype=torch.float32,
+                            device=x.device)
+    if not sharded:
+        q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    err = lib.fvt_quantize_int8_fused(
+        x.data_ptr(), bf16, n, *args,
+        None if x_scale is None else x_scale.data_ptr(),
+        None if words is None else words.data_ptr(),
+        None if q is None else q.data_ptr(), stream)
+    build.check(err, f'quantize_int8 kernel (n={n}, C={args[0]}, '
+                     f'prologue {args[1]}, '
+                     f'{"static" if x_scale is not None else "dynamic"})')
+    if x_scale is None:
+        quantize_int8.launches_amax += 1
+    if sharded:
+        # the max over the ranks, then the static launch with the call's
+        # scale
+        amax = collectives.all_reduce_max(words[:1])
+        q, scale, _ = quantize_int8(x, act_scale(amax), prologue)
+        return q, scale, amax
+    quantize_int8.launches += 1
+    if x_scale is None:
+        return q, words[1:2], words[:1]
+    return q, x_scale, None
+
+
+quantize_int8.launches = 0
+quantize_int8.launches_amax = 0
+
+
+def quantize_int8_atomic(x: torch.Tensor,
+                         x_scale: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    Optional[torch.Tensor]]:
+    """The earlier design of :func:`quantize_int8` without a prologue, on
+    no path, kept to be timed beside it (``csrc/conv3x3_int8.cu``
+    ``fvt_quantize_int8``: a memset of the amax word and an amax launch
+    with one ``atomicMax`` a block, then the quantise launch; static, the
+    quantise launch alone): x of any shape, the same result as
+    ``quantize_int8(x, x_scale)``, its own launch counts."""
+    _check_x('quantize_int8_atomic', x)
     if x.device.type == 'cpu':
         return quantize_int8_ref(x, x_scale)
     n = x.numel()
@@ -316,10 +478,10 @@ def quantize_int8(x: torch.Tensor, x_scale: Optional[torch.Tensor] = None
         amax = torch.empty(1, dtype=torch.float32, device=x.device)
         err = lib.fvt_quantize_int8(x.data_ptr(), bf16, n, amax.data_ptr(),
                                     None, None, None, stream)
-        build.check(err, f'quantize_int8 kernel (n={n}, amax)')
-        quantize_int8.launches_amax += 1
+        build.check(err, f'quantize_int8_atomic kernel (n={n}, amax)')
+        quantize_int8_atomic.launches_amax += 1
         amax = collectives.all_reduce_max(amax)
-        q, scale, _ = quantize_int8(x, act_scale(amax))
+        q, scale, _ = quantize_int8_atomic(x, act_scale(amax))
         return q, scale, amax
     if x_scale is None:
         # word 0: the amax's bits (atomicMax), word 1: the scale
@@ -327,9 +489,9 @@ def quantize_int8(x: torch.Tensor, x_scale: Optional[torch.Tensor] = None
         err = lib.fvt_quantize_int8(x.data_ptr(), bf16, n, words.data_ptr(),
                                     None, words[1:].data_ptr(),
                                     q.data_ptr(), stream)
-        build.check(err, f'quantize_int8 kernel (n={n}, dynamic)')
-        quantize_int8.launches += 1
-        quantize_int8.launches_amax += 1
+        build.check(err, f'quantize_int8_atomic kernel (n={n}, dynamic)')
+        quantize_int8_atomic.launches += 1
+        quantize_int8_atomic.launches_amax += 1
         return q, words[1:], words[:1]
     if (x_scale.device != x.device or x_scale.dtype != torch.float32
             or x_scale.numel() != 1):
@@ -337,13 +499,13 @@ def quantize_int8(x: torch.Tensor, x_scale: Optional[torch.Tensor] = None
     err = lib.fvt_quantize_int8(x.data_ptr(), bf16, n, None,
                                 x_scale.data_ptr(), None, q.data_ptr(),
                                 stream)
-    build.check(err, f'quantize_int8 kernel (n={n}, static)')
-    quantize_int8.launches += 1
+    build.check(err, f'quantize_int8_atomic kernel (n={n}, static)')
+    quantize_int8_atomic.launches += 1
     return q, x_scale, None
 
 
-quantize_int8.launches = 0
-quantize_int8.launches_amax = 0
+quantize_int8_atomic.launches = 0
+quantize_int8_atomic.launches_amax = 0
 
 
 def _check_s8(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor,

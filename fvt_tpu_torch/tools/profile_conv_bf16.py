@@ -4,7 +4,8 @@ products, on the card.
     python3 -m fvt_tpu_torch.tools.profile_conv_bf16 [--frames 2400]
         [--iters 20]
         [--dtype bfloat16|float32|winograd|winograd_bf16|winograd_bf16_fused
-                 |s8|bottleneck_bf16] [--also NAME=SOURCE[:FLAG,...] ...]
+                 |s8|bottleneck_bf16|quantise]
+        [--also NAME=SOURCE[:FLAG,...] ...]
 
 Builds the kernel's source alone into ``build/``, once as it is and once
 per diagnostic switch: ``-DFVT_DIAG_PRODUCTS_ONLY`` (no copy into shared
@@ -53,7 +54,25 @@ turns and summed over the 21 blocks (42 convs) of a forward; the builds
 without a diagnostic switch are checked (v within one unit in the last
 place of ``bottleneck_bf16_conv1_ref``, y on the plain v of
 ``bottleneck_bf16_conv2_ref``) and compared bit for bit with the earlier
-design's v and y.  The diagnostic builds give wrong sums; every other build
+design's v and y.  ``--dtype quantise`` takes int8 serving's quantisation
+pass, ``csrc/quantize_int8_fused.cu``, as it is and in the builds
+``-DFVT_DIAG_LOADS_ONLY`` (x read and q written, nothing computed),
+``-DFVT_DIAG_NO_PROLOGUE``, ``-DFVT_DIAG_EXACT_DIV`` (the IEEE division
+for every value) and ``-DFVT_DIAG_FORWARD_WALK`` (the quantising launch
+walks x from its start), beside the earlier design (``fvt_quantize_int8`` of
+``csrc/conv3x3_int8.cu``, a memset, an atomic amax launch and a quantise
+launch) on the output of the producer run as an op of its own
+(``F.batch_norm`` or ``F.prelu`` on the NCHW view, as the float path runs
+them), and that producer alone: at the eight int8 conv shapes, each input
+with its own producers (bn1 for 20 convs, PReLU for 21), bfloat16 and
+float32, dynamic and static (the call's own scale given), every build
+timed in turns (``--iters`` calls back to back between CUDA events, the
+median of three such bursts) and summed over the 41 convs; the builds whose
+switches keep the result (none, ``EXACT_DIV``, ``FORWARD_WALK``, and
+``--also`` sources without a ``-DFVT_DIAG`` switch) are checked bit for
+bit against
+``ops.quant.quantize_int8_ref`` (q, the scale, the amax).  The diagnostic
+builds give wrong sums; every other build
 (any that ``KERNELS`` lists without a ``-DFVT_DIAG`` switch) is checked
 against the plain version (bfloat16, both kernels: one unit in
 the last place; float32: rtol = atol = 1e-4; Winograd, all three
@@ -108,7 +127,16 @@ KERNELS = {
          'no_products': ('-DFVT_DIAG_NO_PRODUCTS',),
          'no_store': ('-DFVT_DIAG_NO_STORE',),
          'no_global_store': ('-DFVT_DIAG_NO_GLOBAL_STORE',)}),
+    'quantise': (
+        'quantize_int8_fused.cu', 'fvt_quantize_int8_fused', 0, 0,
+        {'kernel': (), 'loads_only': ('-DFVT_DIAG_LOADS_ONLY',),
+         'no_prologue': ('-DFVT_DIAG_NO_PROLOGUE',),
+         'exact_div': ('-DFVT_DIAG_EXACT_DIV',),
+         'forward_walk': ('-DFVT_DIAG_FORWARD_WALK',)}),
 }
+# the quantise pass's diagnostic switches that keep the result: checked,
+# as every build without a -DFVT_DIAG switch is
+QUANTISE_EXACT = ('-DFVT_DIAG_EXACT_DIV', '-DFVT_DIAG_FORWARD_WALK')
 
 
 def build_variants(source: str, entry: str, pointers: int, ints: int,
@@ -175,6 +203,25 @@ def median_ms(fn, iters: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def burst_ms(fn, calls: int, repeats: int = 3) -> float:
+    """ms a call of ``calls`` calls back to back between two CUDA events
+    (the launches queue up, so the host's time a call hides behind the
+    device's), the median of ``repeats`` bursts."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -378,6 +425,170 @@ def profile_block(fns: dict, checked: list, conv_design, conv, n: int,
                 for h, c, count in BLOCK_SHAPES) / 989e12 * 1e3, 4)}
 
 
+# the producers of the int8 convs' inputs by S8_SHAPES row: (bn1-fed,
+# PReLU-fed) convs, 20 and 21 in all
+PRODUCERS = ((0, 1), (3, 3), (1, 0), (0, 1), (13, 13), (1, 0), (0, 1),
+             (2, 2))
+
+
+def bind_quantise(lib: ctypes.CDLL, entry: str):
+    """The fused pass's C entry (x, bf16, n, C, prologue, p0, p1, p2,
+    scale_in, words, q, stream) or the earlier one's (x, bf16, n, amax,
+    scale_in, scale_out, q, stream)."""
+    fn = getattr(lib, entry)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = ([p, i, ll, i, i] + [p] * 7
+                   if entry == 'fvt_quantize_int8_fused'
+                   else [p, i, ll] + [p] * 5)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def profile_quantise(fns: dict, atomic, checked: list, n: int,
+                     iters: int) -> dict:
+    """The fused quantise pass's builds (``fns``), the earlier design
+    (``atomic``) on the producer's output and the producer alone at
+    S8_SHAPES on n frames, bfloat16 and float32: the checks and the timings
+    of the module docstring; the shapes' rows, the totals over the 41
+    convs and the bound (x read once, q written once)."""
+    from fvt_tpu_torch.models.arcface import bn_terms
+    from fvt_tpu_torch.ops import quant
+
+    device = torch.device('cuda', 0)
+    g = torch.Generator(device=device).manual_seed(0)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    names = [*fns, 'atomic', 'producer']
+    shapes, wrong = {}, {}
+    total = {dt: {name: {'dynamic': 0.0, 'static': 0.0} for name in names}
+             for dt in ('bfloat16', 'float32')}
+    bound = dict.fromkeys(total, 0.0)
+    with torch.inference_mode():
+        for (h, c, _, stride, _), counts in zip(S8_SHAPES, PRODUCERS):
+            bn = torch.nn.BatchNorm2d(c).to(device).requires_grad_(False)
+            for t, lo, hi in ((bn.weight, 0.5, 1.5), (bn.bias, -0.5, 0.5),
+                              (bn.running_mean, -0.5, 0.5),
+                              (bn.running_var, 0.2, 2.0)):
+                t.copy_(torch.rand(c, device=device, generator=g)
+                        * (hi - lo) + lo)
+            alpha = torch.rand(c, device=device, generator=g) - 0.5
+            for dtype in (torch.bfloat16, torch.float32):
+                dt = str(dtype)[6:]
+                x = torch.randn(n, h, h, c, device=device, generator=g
+                                ).to(dtype)
+                x.view(-1)[7] = 9.0
+                nchw = x.permute(0, 3, 1, 2)
+                q = torch.empty(x.shape, dtype=torch.int8, device=device)
+                words = torch.empty(2 + quant.MAX_PARTS, device=device)
+                bf16 = int(dtype == torch.bfloat16)
+                for kind, convs in zip(('bn1', 'prelu'), counts):
+                    if not convs:
+                        continue
+                    prologue = (('bn1', *bn_terms(bn, bn.running_mean,
+                                                  bn.running_var, dtype))
+                                if kind == 'bn1'
+                                else ('prelu', alpha.to(dtype)))
+                    ptrs = [t.data_ptr() for t in prologue[1:]]
+                    ptrs += [None] * (3 - len(ptrs))
+
+                    def producer():
+                        # the op the float path runs (arcface.py
+                        # batchnorm_eval, prelu_as)
+                        if kind == 'bn1':
+                            return F.batch_norm(
+                                nchw, bn.running_mean, bn.running_var,
+                                bn.weight, bn.bias, False, 0.0, bn.eps)
+                        return F.prelu(nchw, prologue[1])
+
+                    want_q, scale, amax = quant.quantize_int8_ref(
+                        x, None, prologue)
+                    made = producer().permute(0, 2, 3, 1)
+
+                    def launch(name, static):
+                        sin = scale.data_ptr() if static else None
+                        if name == 'producer':
+                            producer()
+                            return
+                        if name == 'atomic':
+                            err = atomic(made.data_ptr(), bf16, made.numel(),
+                                         None if static
+                                         else words.data_ptr(), sin,
+                                         None if static
+                                         else words[1:].data_ptr(),
+                                         q.data_ptr(), stream)
+                        else:
+                            err = fns[name](x.data_ptr(), bf16, x.numel(), c,
+                                            quant.PROLOGUES[kind][0], *ptrs,
+                                            sin, words.data_ptr(),
+                                            q.data_ptr(), stream)
+                        if err:
+                            raise RuntimeError(f'{name}: CUDA error {err}')
+
+                    key = f'{h}x{h}x{c} s{stride} {kind} x{convs} {dt}'
+                    for name in checked:
+                        if (name, dt) in wrong:
+                            continue
+                        apart = []
+                        for static in (False, True):
+                            q.zero_()
+                            launch(name, static)
+                            torch.cuda.synchronize()
+                            bad = int((q != want_q).sum())
+                            if bad:
+                                apart.append(f'{"static" if static else "dynamic"}'
+                                             f' {bad} q apart')
+                            if not static and not (
+                                    torch.equal(words[:1], amax)
+                                    and torch.equal(words[1:2], scale)):
+                                apart.append(f'amax {words[0].item()} '
+                                             f'(plain {amax.item()})')
+                        if not apart:
+                            continue
+                        what = (f'{key}: the {name} build differs from its '
+                                f'plain version ({", ".join(apart)})')
+                        if name == 'kernel':
+                            raise RuntimeError(what)
+                        # another design or source: reported, left out of
+                        # this type's timings
+                        wrong[name, dt] = what
+                        print(f'  {what}: left out', flush=True)
+                    runs = [(name, mode) for name in names
+                            if (name, dt) not in wrong
+                            for mode in ('dynamic', 'static')
+                            if name != 'producer' or mode == 'dynamic']
+                    turns = {run: [] for run in runs}
+                    for order in (runs, runs[::-1]):
+                        for name, mode in order:
+                            turns[name, mode].append(burst_ms(
+                                lambda: launch(name, mode == 'static'),
+                                iters))
+                    row = {}
+                    for (name, mode), times in turns.items():
+                        ms = statistics.mean(times)
+                        row.setdefault(name, {})[mode] = round(ms, 4)
+                        total[dt][name][mode] += convs * ms
+                    # x read once, q written once
+                    row['bound_ms'] = round(x.numel() * (x.element_size() + 1)
+                                            / 3.35e12 * 1e3, 4)
+                    bound[dt] += convs * row['bound_ms']
+                    shapes[key] = row
+                    del made, want_q
+                del x, nchw, q
+    out = {}
+    for dt, builds in total.items():
+        rows = {name: {mode: round(ms, 4) for mode, ms in modes.items()
+                       if name != 'producer' or mode == 'dynamic'}
+                for name, modes in builds.items() if (name, dt) not in wrong}
+        # today's composition: the producer, then the atomic pass
+        rows['unfused'] = {
+            mode: round(builds['atomic'][mode]
+                        + builds['producer']['dynamic'], 4)
+            for mode in ('dynamic', 'static')}
+        rows['bound'] = round(bound[dt], 4)
+        out[dt] = rows
+    return {'shapes': shapes, 'wrong': list(wrong.values()),
+            'ms_over_41_convs': out}
+
+
 def main(argv=None) -> int:
     from fvt_tpu_torch.ops import conv as conv_ops
     from fvt_tpu_torch.ops import winograd as winograd_ops
@@ -388,16 +599,16 @@ def main(argv=None) -> int:
     ap.add_argument('--dtype', default='bfloat16', choices=sorted(KERNELS))
     ap.add_argument('--also', action='append', default=[],
                     metavar='NAME=SOURCE[:FLAG,...]',
-                    help='s8, bottleneck_bf16: a build of another source '
-                         'of the same C entry, timed beside')
+                    help='s8, bottleneck_bf16, quantise: a build of another '
+                         'source of the same C entry, timed beside')
     args = ap.parse_args(argv)
     others = {}
     for spec in args.also:
         name, _, rest = spec.partition('=')
         path, _, flags = rest.partition(':')
         others[name] = (path, tuple(f for f in flags.split(',') if f))
-    if others and args.dtype not in ('s8', 'bottleneck_bf16'):
-        ap.error('--also is for --dtype s8 and bottleneck_bf16')
+    if others and args.dtype not in ('s8', 'bottleneck_bf16', 'quantise'):
+        ap.error('--also is for --dtype s8, bottleneck_bf16 and quantise')
     if not torch.cuda.is_available():
         print('profile_conv_bf16: no CUDA device', file=sys.stderr)
         return 1
@@ -431,6 +642,30 @@ def main(argv=None) -> int:
                 fns, checked, bind(lib, 'fvt_bottleneck_bf16_forward', 10, 6),
                 bind(lib, 'fvt_conv3x3_bf16_forward', 3, 6), args.frames,
                 args.iters)}))
+        return 0
+    if args.dtype == 'quantise':
+        from fvt_tpu_torch.kernels import build
+
+        source, entry, _, _, variants = KERNELS[args.dtype]
+        builds = {name: (build.CSRC_DIR / source, flags)
+                  for name, flags in variants.items()}
+        builds.update(others)
+        builds['atomic'] = (build.CSRC_DIR / 'conv3x3_int8.cu', ())
+        libs = build_libs(builds)
+        fns = {name: bind_quantise(lib, entry) for name, lib in libs.items()
+               if name != 'atomic'}
+        checked = [name for name, (_, flags) in builds.items()
+                   if name != 'atomic' and all(
+                       f in QUANTISE_EXACT or not f.startswith('-DFVT_DIAG')
+                       for f in flags)]
+        print(json.dumps({
+            'platform': 'cuda', 'card': card,
+            'kind': torch.cuda.get_device_name(0), 'dtype': args.dtype,
+            'frames': args.frames, 'iters': args.iters,
+            'also': {k: [str(v[0]), *v[1]] for k, v in others.items()},
+            **profile_quantise(
+                fns, bind_quantise(libs['atomic'], 'fvt_quantize_int8'),
+                checked, args.frames, args.iters)}))
         return 0
     fns = build_variants(*KERNELS[args.dtype], others)
     if args.dtype == 's8':

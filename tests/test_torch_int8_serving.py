@@ -87,9 +87,9 @@ class Spy:
         self.calls = []
         real = quant.quantize_int8
 
-        def spy(x, x_scale=None):
+        def spy(x, x_scale=None, prologue=None):
             self.calls.append((x.shape[0], x_scale is not None))
-            return real(x, x_scale)
+            return real(x, x_scale, prologue)
 
         monkeypatch.setattr(quant, 'quantize_int8', spy)
 

@@ -25,8 +25,8 @@ def _record_scales() -> list:
     scales = []
     plain = quant.quantize_int8
 
-    def recording(x, x_scale=None):
-        out = plain(x, x_scale)
+    def recording(x, x_scale=None, prologue=None):
+        out = plain(x, x_scale, prologue)
         scales.append(out[1].clone())
         return out
 
